@@ -6,28 +6,55 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc/triton versions;
-2. build the fused-head CUDA kernels from csrc/ and time the build;
-3. each kernel against its plain PyTorch version on the card, at B in
-   {1, 16, 200, 4096} (atol = rtol = 1e-4, f32 with another summation order),
-   plus a bitwise check that the backward gives the same bits twice;
-4. the port's Engine on the card (kernels="cuda", data_parallel, 512 rows,
-   4 workers, 2 epochs) against the float64 numpy oracle in
+2. build every CUDA source of csrc/ (one nvcc each, started together) and
+   time the build;
+3. each fused-head kernel against its plain PyTorch version on the card, at
+   B in {1, 16, 200, 4096} (atol = rtol = 1e-4, f32 with another summation
+   order), plus a bitwise check that the backward gives the same bits twice;
+4. the port's CNN Engine on the card (kernels="cuda", data_parallel, 512
+   rows, 4 workers, 2 epochs) against the float64 numpy oracle in
    tests/oracle_numpy.py, with the engine's own shuffle orders fed to both
    (train loss within 5e-4, params max-rel within 2e-3), and a second run
    that must reproduce the first bit for bit;
-5. the main path at full width through the user's entry point,
+5. the CNN main path at full width through the user's entry point,
    `train.cli.main`: data_parallel, 4 workers, 50,000 synthetic train rows
    and 10,000 test rows, 2 epochs, batch 16, --kernels cuda. The kernels'
    launch counters must equal the steps and eval batches the run made; the
-   train loss must fall and the final validation accuracy reach 50%. Runs
-   with --kernels torch, torch, cuda follow, for an end-to-end comparison
-   of the two heads within one call;
-6. kernel times beside their bound, their plain version and a PyTorch library
-   call, at B in {16, 128, 4096}: per call in an eager loop timed with CUDA
-   events (what the main path pays, host dispatch included), and device time
-   from the same calls captured in a CUDA graph;
-7. a torch.profiler trace of one steady epoch of the engine (4 workers x
-   1024 rows): device busy time, idle share and the top kernels.
+   train loss must fall and the final validation accuracy reach 50%. A run
+   with --kernels torch follows, for an end-to-end comparison of the two
+   heads within one call;
+6. fused-head kernel times beside their bound, their plain version and a
+   PyTorch library call, at B in {16, 128, 4096}: per call in an eager loop
+   timed with CUDA events (what the main path pays, host dispatch
+   included), and device time from the same calls captured in a CUDA graph;
+7. a torch.profiler trace of one steady epoch of the CNN engine (4 workers x
+   1024 rows): device busy time, idle share and the top kernels;
+8. the decode-attention kernels (f32, bf16, int8 K/V with bf16 q) against
+   their plain versions on the card: B in {1, 8}, (H, Dh) in {(8, 64),
+   (4, 128), (4, 8)}, total in {16, 256, 2048}, pos a scalar and vectors
+   holding 0 and total-1, K/V contiguous and as a transposed view;
+   f32 atol = rtol = 1e-5, bf16/int8 1.6e-2 (two bf16 ulps at 1); two calls
+   must give the same bits;
+9. the LM serving main path at full width through `serve.http.build_server`,
+   the stack `python -m distributed_neural_network_tpu_torch.serve` builds:
+   d512/L8/H8/d_ff 2048/vocab 256, bf16, seed 0, max_batch 8, 129 blocks of
+   16, max_seq_len 256, prefill_chunk 16, --warmup, HTTP on 127.0.0.1:0;
+   24 greedy requests over HTTP/SSE (prompts of 16/64/128 tokens, 32 new
+   each) sent open loop at 4 req/s, for --precision bf16 and int8-kv, each
+   with --decode-impl cuda and torch. Gates: 24/24 complete; >= 99%
+   per-token agreement with the port's offline bf16 generate() (each served
+   token against generate's choice after the same served history, where a
+   choice that generate's two routes make differently is a tie: see
+   Oracle.agreement), and for bf16 with cuda also >= 99% with the streams
+   zipped position by position;
+   with cuda the decode kernel launches = (the engine's decode calls +
+   prefill calls) x 8 layers, with torch none; the serving ledger conserves;
+10. decode-kernel times at B = 8, (H, Dh) in {(8, 64), (4, 128)}, live
+   prefix 64 and 256: per call and device time, bound, plain version, and
+   scaled_dot_product_attention with a boolean mask as the library
+   yardstick (int8: dequantize, then SDPA);
+11. a torch.profiler trace of a steady stretch of serving decode ticks
+   (batch 8): idle share and top kernels.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -35,20 +62,32 @@ power limit, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import http.client
 import json
+import math
 import os
 import subprocess
 import sys
+import threading
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, f32 peak outside the tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, f32 peak outside the tensor
+# cores, bf16 dense tensor-core peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 TOL = 1e-4
+DECODE = "distributed_neural_network_tpu/ops/decode_pallas.py"
+SERVE_ARGS = ["--device", "cuda", "--port", "0", "--d-model", "512", "--n-layers", "8",
+              "--n-heads", "8", "--d-ff", "2048", "--vocab", "256", "--dtype", "bfloat16",
+              "--seed", "0", "--max-batch", "8", "--num-blocks", "129", "--block-size", "16",
+              "--max-seq-len", "256", "--prefill-chunk", "16", "--warmup"]
+N_REQUESTS, RATE, MAX_NEW, PROMPT_LENS = 24, 4.0, 32, (16, 64, 128)
 
 
 class SmokeFailure(Exception):
@@ -152,10 +191,33 @@ def ceil(a, b):
     return -(-a // b)
 
 
-def bound_ms(bytes_moved, flops):
+def bound_ms(bytes_moved, flops, peak_flops=PEAK_F32_FLOPS):
     """(least time in ms, what bounds it) on the card's published peaks."""
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def pct(xs, q):
+    """Nearest-rank percentile (None when empty)."""
+    if not xs:
+        return None
+    xs = sorted(xs)
+    return xs[max(0, math.ceil(q * len(xs)) - 1)]
+
+
+def print_ptxas(lib):
+    log = lib[: -len(".so")] + ".log"
+    if os.path.isfile(log):
+        for line in open(log):
+            if "Used" in line or "spill" in line:
+                print("   ptxas:", line.strip())
+
+
+def profile_rows(prof, DeviceType):
+    """(kernel name, device us, count) rows: kernel rows only, since an
+    operator's row repeats its kernels' device time."""
+    return [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
 def head_work(b, fh):
@@ -170,6 +232,137 @@ def head_work(b, fh):
     return {"fwd": fwd, "bwd": bwd, "reduce": red}
 
 
+# ------------------------------------------------------------ serving helpers
+
+
+def decode_inputs(torch, kind, b, h, d, total, strided, dev, g):
+    """q and the K/V cache (a transposed (B, S, H, Dh) slab when `strided`,
+    as the serving engine passes it), plus the int8 kernel's scales."""
+    qdt = torch.float32 if kind == "float32" else torch.bfloat16
+    q = torch.randn(b, h, d, device=dev, generator=g).to(qdt)
+    shape = (b, total, h, d) if strided else (b, h, total, d)
+    k, v = (torch.randn(*shape, device=dev, generator=g) for _ in "kv")
+    if strided:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    if kind != "int8":
+        return q, k.to(qdt), v.to(qdt), {}
+    k, v = ((t * 40).round().clamp(-127, 127).to(torch.int8) for t in (k, v))
+    kw = {name: torch.rand(b, h, total, device=dev, generator=g) * 0.05 + 1e-3
+          for name in ("k_scale", "v_scale")}
+    return q, k, v, kw
+
+
+def sse_request(port, prompt, max_new, out):
+    """One streamed request; fills `out` with the tokens, their arrival
+    times and the done frame."""
+    t0 = time.perf_counter()
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    c.request("POST", "/v1/generate", json.dumps({"prompt": prompt, "max_new_tokens": max_new}),
+              {"Content-Type": "application/json"})
+    r = c.getresponse()
+    toks, stamps, done = [], [], None
+    if r.status == 200:
+        for line in iter(r.readline, b""):
+            if not line.startswith(b"data: "):
+                continue
+            doc = json.loads(line[6:])
+            if "token" in doc:
+                toks.append(doc["token"])
+                stamps.append(time.perf_counter())
+            else:
+                done = doc
+                break
+    else:
+        r.read()
+    c.close()
+    out.update(status=r.status, tokens=toks, stamps=stamps, t0=t0,
+               t_done=time.perf_counter(), done=done)
+
+
+def open_loop(port, prompts, arrivals):
+    """Send every request at its arrival offset (s) from now, each on its
+    own thread; return the per-request results in order."""
+    results = [{} for _ in prompts]
+    start = time.perf_counter()
+
+    def one(i):
+        time.sleep(max(0.0, start + arrivals[i] - time.perf_counter()))
+        sse_request(port, prompts[i], MAX_NEW, results[i])
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return results
+
+
+class Oracle:
+    """The port's offline bf16 generate() (decode-kernel route) on the
+    served model: its streams for the served prompts, and how far the
+    served streams agree with it."""
+
+    def __init__(self, torch, tfm, prompts, dev):
+        self.torch, self.tfm, self.prompts, self.dev = torch, tfm, prompts, dev
+        self.cfg = tfm.TransformerConfig(vocab_size=256, d_model=512, n_heads=8, n_layers=8,
+                                         d_ff=2048, dtype=torch.bfloat16)
+        self.params = tfm.init_params(0, self.cfg, dev)
+        self.streams = [None] * len(prompts)
+        for n in sorted({len(p) for p in prompts}):
+            idx = [i for i, p in enumerate(prompts) if len(p) == n]
+            out = self.generate([prompts[i] for i in idx], MAX_NEW)
+            for row, i in zip(out, idx):
+                self.streams[i] = row
+
+    def generate(self, prompts, n_new, impl="cuda"):
+        out = self.tfm.generate(self.params, self.torch.tensor(prompts, device=self.dev),
+                                self.cfg, max_new_tokens=n_new, decode_impl=impl)
+        return out[:, len(prompts[0]):].tolist()
+
+    def near_ties(self, gap=0.02):
+        """Share of the oracle's own greedy choices whose top-2 logit gap is
+        under `gap`: how often a rounding difference can flip a stream."""
+        torch, n_close, n = self.torch, 0, 0
+        for p, want in zip(self.prompts, self.streams):
+            toks = torch.tensor([p + want], device=self.dev)
+            h = self.tfm.apply_hidden(self.params, toks, self.cfg)[0, len(p) - 1: -1]
+            # f32 logits, as the engine and generate() form them
+            logits = h.float() @ self.params["head"].to(self.cfg.dtype).float()
+            top2 = logits.topk(2, dim=-1).values
+            n_close += int(((top2[:, 0] - top2[:, 1]) < gap).sum())
+            n += len(want)
+        return n_close / n
+
+    def agreement(self, served):
+        """(per-token agreement, the same up to the oracle's own rounding,
+        stream agreement) of the served streams.
+
+        Per token: each served token against generate()'s choice after the
+        same prompt and the same earlier served tokens (generate runs again
+        from the served prefix after each disagreement). Up to rounding: a
+        disagreement counts as agreement when generate's plain route (the
+        same function, summed in another order) picks the served token after
+        that history, i.e. where the bf16 model itself has no single answer.
+        Stream: the two streams zipped position by position, the JAX serving
+        row's form, in which one flipped near-tie makes every later token
+        count as wrong."""
+        agree = ties = zipped = total = 0
+        for p, want, got in zip(self.prompts, self.streams, served):
+            zipped += sum(int(a == b) for a, b in zip(got, want))
+            total += len(got)
+            j, ref = 0, want
+            while j < len(got):
+                if ref[0] == got[j]:
+                    agree, j, ref = agree + 1, j + 1, ref[1:]
+                    continue
+                ties += int(self.generate([p + got[:j]], 1, impl="torch")[0][0] == got[j])
+                j += 1
+                if j < len(got):
+                    ref = self.generate([p + got[:j]], len(got) - j)[0]
+        n = max(total, 1)
+        return agree / n, (agree + ties) / n, zipped / n
+
+
 # -------------------------------------------------------------------- phases
 
 
@@ -181,6 +374,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    from distributed_neural_network_tpu_torch.ops import _nvcc
+    from distributed_neural_network_tpu_torch.ops import decode_attention as da
     from distributed_neural_network_tpu_torch.ops import fused_head as fh
 
     dev = torch.device("cuda")
@@ -195,6 +390,9 @@ def main() -> int:
     }
     for k in kernels.values():
         k["source"] = "distributed_neural_network_tpu_torch/csrc/fused_mlp3.cu"
+    for name, line in (("decode_attention", 95), ("decode_attention_q8", 133)):
+        kernels[name] = {"route": "cuda", "replaces": f"{DECODE}:{line}",
+                         "source": "distributed_neural_network_tpu_torch/csrc/decode_attention.cu"}
 
     with phase("1 environment"):
         print(f"card: {smi}")
@@ -204,21 +402,21 @@ def main() -> int:
             triton_v = triton.__version__
         except ImportError:
             triton_v = "absent"
-        nvcc = run([fh._nvcc(), "--version"]).splitlines()
+        nvcc = run([_nvcc.nvcc(), "--version"]).splitlines()
         print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
               f"CUDA {torch.version.cuda}, nvcc {nvcc[-1] if nvcc else '?'}, triton {triton_v}")
         print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     with phase("2 build"):
         t0 = time.perf_counter()
-        lib = fh.build()
+        with ThreadPoolExecutor(2) as pool:
+            libs = list(pool.map(lambda m: m.build(), (fh, da)))
         fh._lib()
-        print(f"built {os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.2f} s")
-        log = lib[: -len(".so")] + ".log"
-        if os.path.isfile(log):
-            for line in open(log):
-                if "Used" in line or "spill" in line:
-                    print("   ptxas:", line.strip())
+        da._lib()
+        print(f"built {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
+              f"{time.perf_counter() - t0:.2f} s (in parallel)")
+        for lib in libs:
+            print_ptxas(lib)
 
     with phase("3 kernels vs plain"):
         for b in (1, 16, 200, 4096):
@@ -300,9 +498,9 @@ def main() -> int:
     with phase("5 main path, full width"):
         from distributed_neural_network_tpu_torch.train import cli
 
-        # the checked main-path run first, then torch, torch, cuda: the two
-        # heads alternate within this call for an end-to-end comparison
-        for run_i, kern in enumerate(("cuda", "torch", "torch", "cuda")):
+        # the checked main-path run first, then torch, for an end-to-end
+        # comparison of the two heads within this call
+        for run_i, kern in enumerate(("cuda", "torch")):
             lines = []
 
             def log(line, lines=lines):
@@ -361,28 +559,46 @@ def main() -> int:
                 hh2 = torch.addmm(b2, hh1, w2).relu_()
                 return torch.addmm(b3, hh2, w3)
 
-            lh1 = torch.addmm(leaves[2], leaves[0], leaves[1]).relu()
-            lh2 = torch.addmm(leaves[4], lh1, leaves[3]).relu()
-            lib_out = torch.addmm(leaves[6], lh2, leaves[5])
+            def lib_leaves_fwd(ls=leaves):
+                lh1 = torch.addmm(ls[2], ls[0], ls[1]).relu()
+                lh2 = torch.addmm(ls[4], lh1, ls[3]).relu()
+                return torch.addmm(ls[6], lh2, ls[5])
+
+            lib_out = lib_leaves_fwd()
+
+            def lib_fwd_bwd():
+                # fresh leaves and a fresh graph on the capturing stream: the
+                # autograd engine then never waits on another stream
+                ls = [a.detach().requires_grad_() for a in args]
+                return torch.autograd.grad(lib_leaves_fwd(ls), ls, g)
+
+            def lib_bwd_device_ms():
+                # the backward's device time is forward + backward, both
+                # captured, less the forward alone
+                both = graph_ms(torch, lib_fwd_bwd)
+                fwd = graph_ms(torch, lambda: lib_leaves_fwd([a.detach() for a in args]))
+                return None if both is None or fwd is None else both - fwd
+
             work = head_work(b, fh)
             rows = {
                 "fused_mlp3_fwd": (
                     lambda: fh.mlp3_forward(*args, residuals=True),
                     lambda: fh.mlp3_forward_reference(*args),
-                    lib_fwd, work["fwd"]),
+                    lib_fwd, None, work["fwd"]),
                 "fused_mlp3_bwd": (
                     lambda: fh.mlp3_bwd_partials(g, x, h1, h2, w1, w2, w3),
                     lambda: fh.mlp3_bwd_partials_reference(g, x, h1, h2, w1, w2, w3),
                     lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True),
-                    work["bwd"]),
+                    lib_bwd_device_ms, work["bwd"]),
                 "fused_mlp3_bwd_reduce": (
                     lambda: fh.mlp3_bwd_reduce(parts), lambda: parts.sum(0),
-                    lambda: torch.sum(parts, 0), work["reduce"]),
+                    lambda: torch.sum(parts, 0), None, work["reduce"]),
             }
             saved = dict(fh.LAUNCHES)
-            for name, (kern_fn, plain_fn, lib_fn, (nbytes, flops)) in rows.items():
+            for name, (kern_fn, plain_fn, lib_fn, lib_dev, (nbytes, flops)) in rows.items():
                 t_k, t_p, t_l = (time_ms(torch, f) for f in (kern_fn, plain_fn, lib_fn))
-                d_k, d_p, d_l = (graph_ms(torch, f) for f in (kern_fn, plain_fn, lib_fn))
+                d_k, d_p = (graph_ms(torch, f) for f in (kern_fn, plain_fn))
+                d_l = lib_dev() if lib_dev else graph_ms(torch, lib_fn)
                 bms, by = bound_ms(nbytes, flops)
                 print(f"B={b:5d} {name:22s} per call: kernel {t_k:.5f} ms  plain {t_p:.5f} ms  "
                       f"library {t_l:.5f} ms | device (graph): kernel {fmt(d_k)} ms  plain "
@@ -421,9 +637,7 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         fh.LAUNCHES.update(saved)
-        # kernel rows only: an operator's row repeats its kernels' device time
-        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        rows = profile_rows(prof, DeviceType)
         busy = sum(r[1] for r in rows) / 1e6
         steps = 4 * ceil(1024, 16)
         profile = {"wall_s": wall, "device_busy_s": busy, "steps": steps,
@@ -436,6 +650,232 @@ def main() -> int:
         for key, us, count in profile["top"]:
             print(f"   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
 
+    with phase("8 decode kernels vs plain"):
+        g = torch.Generator(dev).manual_seed(0)
+        saved = dict(da.LAUNCHES)
+        n_checks = 0
+        worst = {}
+        for kind in ("float32", "bfloat16", "int8"):
+            tol = 1e-5 if kind == "float32" else 1.6e-2
+            for b in (1, 8):
+                for h, d in ((8, 64), (4, 128), (4, 8)):
+                    for total in (16, 256, 2048):
+                        vec = torch.randint(0, total, (b,), device=dev, generator=g,
+                                            dtype=torch.int32)
+                        vec[0], vec[-1] = 0, total - 1
+                        vecs = [vec] if b > 1 else [vec[:1] * 0, vec[:1] * 0 + total - 1]
+                        for strided in (False, True):
+                            q, k, v, kw = decode_inputs(torch, kind, b, h, d, total, strided,
+                                                        dev, g)
+                            for pos in (0, total - 1, *vecs):
+                                o1 = da.decode_cache_attention(q, k, v, pos, **kw)
+                                o2 = da.decode_cache_attention(q, k, v, pos, **kw)
+                                ref = da.decode_attention_plain(q, k, v, pos, **kw)
+                                where = (f"{kind} B={b} H={h} Dh={d} total={total} "
+                                         f"strided={strided} pos={pos if isinstance(pos, int) else pos.tolist()}")
+                                check(torch.equal(o1, o2), f"not bitwise reproducible: {where}")
+                                err = max_err(torch, o1.float(), ref.float())
+                                check(torch.allclose(o1.float(), ref.float(), atol=tol, rtol=tol),
+                                      f"kernel vs plain max abs err {err}: {where}")
+                                # the sum order may not depend on the cache length
+                                m = int(pos if isinstance(pos, int) else pos.max()) + 1
+                                kw_m = {n: t[:, :, :m] for n, t in kw.items()}
+                                o3 = da.decode_cache_attention(q, k[:, :, :m], v[:, :, :m], pos,
+                                                               **kw_m)
+                                check(torch.equal(o1, o3), f"bits change with the cache length: {where}")
+                                worst[kind] = max(worst.get(kind, 0.0), err)
+                                if (h, d) == (8, 64) and total <= 256:
+                                    worst[kind, "main"] = max(worst.get((kind, "main"), 0.0), err)
+                                n_checks += 1
+        torch.cuda.synchronize()
+        da.LAUNCHES.update(saved)  # comparison launches are not main-path launches
+        kernels["decode_attention"]["max_abs_err"] = worst["bfloat16", "main"]
+        kernels["decode_attention_q8"]["max_abs_err"] = worst["int8", "main"]
+        print(f"{n_checks} cases within tolerance, bitwise reproducible and independent of "
+              f"the cache length; max abs err f32 {worst['float32']:.3g}, bf16 "
+              f"{worst['bfloat16']:.3g}, int8 {worst['int8']:.3g} (at B<=8, H=8, Dh=64, "
+              f"total<=256: bf16 {worst['bfloat16', 'main']:.3g}, int8 "
+              f"{worst['int8', 'main']:.3g})")
+
+    serving = []
+    with phase("9 serving main path, full width"):
+        import numpy as np
+
+        from distributed_neural_network_tpu_torch.models import transformer as tfm
+        from distributed_neural_network_tpu_torch.serve.http import build_server
+
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, 256, size=PROMPT_LENS[i % 3]).tolist()
+                   for i in range(N_REQUESTS)]
+        arrivals = np.cumsum(rng.exponential(1.0 / RATE, size=N_REQUESTS)).tolist()
+        saved = dict(da.LAUNCHES)
+        t0 = time.perf_counter()
+        oracle = Oracle(torch, tfm, prompts, dev)
+        ties = oracle.near_ties()
+        da.LAUNCHES.update(saved)
+        print(f"offline bf16 generate() oracle for {N_REQUESTS} prompts in "
+              f"{time.perf_counter() - t0:.2f} s; {ties:.4f} of its greedy choices have a "
+              f"top-2 logit gap under 0.02")
+        for precision in ("bf16", "int8-kv"):
+            for impl in ("cuda", "torch"):
+                srv, sched, eng = build_server(
+                    SERVE_ARGS + ["--precision", precision, "--decode-impl", impl],
+                    log=lambda line: print("   " + line, flush=True))
+                try:
+                    for name in da.LAUNCHES:
+                        da.LAUNCHES[name] = 0
+                    calls0, pre0, ticks0 = eng.decode_calls, eng.prefill_calls, eng.ticks
+                    torch.cuda.synchronize()
+                    results = open_loop(srv.port, prompts, arrivals)
+                    torch.cuda.synchronize()
+                    launches = dict(da.LAUNCHES)
+                    calls, ticks = eng.decode_calls - calls0, eng.ticks - ticks0
+                    pre_calls = eng.prefill_calls - pre0
+                finally:
+                    rec = sched.close()  # finalize asserts the ledger's conservation
+                    srv.close()
+                done = [r for r in results
+                        if r.get("done") and r["done"].get("status") == "done"
+                        and len(r["tokens"]) == MAX_NEW]
+                saved = dict(da.LAUNCHES)
+                strict, agree, stream_agree = oracle.agreement(
+                    [r.get("tokens", []) for r in results])
+                da.LAUNCHES.update(saved)
+                n_tok = sum(len(r.get("tokens", [])) for r in results)
+                window = max(r["t_done"] for r in results) - min(r["t0"] for r in results)
+                ttft = [r["stamps"][0] - r["t0"] for r in results if r.get("stamps")]
+                gaps = [b - a for r in results for a, b in zip(r["stamps"], r["stamps"][1:])]
+                step_s = rec["goodput_s"] + rec["badput_s"]["prefill"] + rec["badput_s"][
+                    "kv_alloc_stall"]
+                conserved = abs(rec["goodput_s"] + sum(rec["badput_s"].values())
+                                - rec["wall_s"]) <= 1e-5 * max(rec["wall_s"], 1.0)
+                row = {"precision": precision, "decode_impl": impl, "completed": len(done),
+                       "agreement": agree, "strict_agreement": strict,
+                       "stream_agreement": stream_agree, "tokens": n_tok,
+                       "req_per_s": len(done) / window, "tokens_per_s": n_tok / window,
+                       "ttft_p50_s": pct(ttft, 0.5), "ttft_p99_s": pct(ttft, 0.99),
+                       "intertoken_p99_s": pct(gaps, 0.99), "ticks": ticks,
+                       "decode_calls": calls, "prefill_calls": pre_calls, "step_ms_per_tick": 1e3 * step_s / max(ticks, 1),
+                       "goodput_ratio": rec["goodput_ratio"], "launches": launches,
+                       "badput_s": rec["badput_s"], "wall_s": rec["wall_s"]}
+                serving.append(row)
+                print(f"   {precision:7s} {impl:5s}: {len(done)}/{N_REQUESTS} done, agreement "
+                      f"per token {agree:.4f} (strict {strict:.4f}), stream {stream_agree:.4f} "
+                      f"over {n_tok} tokens; "
+                      f"{row['req_per_s']:.3f} req/s, "
+                      f"{row['tokens_per_s']:.1f} tokens/s; TTFT p50 {row['ttft_p50_s']:.4f} s "
+                      f"p99 {row['ttft_p99_s']:.4f} s; inter-token p99 "
+                      f"{row['intertoken_p99_s']:.4f} s; {row['step_ms_per_tick']:.3f} ms per "
+                      f"engine tick ({ticks} ticks, {calls} decode calls, {pre_calls} prefill "
+                      f"calls); goodput ratio "
+                      f"{rec['goodput_ratio']}; launches {launches}")
+                check(len(done) == N_REQUESTS, f"{len(done)}/{N_REQUESTS} requests completed")
+                check(agree >= 0.99,
+                      f"per-token agreement {agree:.4f} < 0.99 vs offline generate")
+                if (precision, impl) == ("bf16", "cuda"):
+                    # generate()'s arithmetic on the card, so the JAX row's
+                    # stream form of the gate holds as well
+                    check(stream_agree >= 0.99,
+                          f"stream agreement {stream_agree:.4f} < 0.99 vs offline generate")
+                check(conserved, f"serving ledger does not conserve: {rec}")
+                name = "decode_attention_q8" if precision == "int8-kv" else "decode_attention"
+                if impl == "cuda":
+                    n = (calls + pre_calls) * 8
+                    want = {k: (n if k == name else 0) for k in launches}
+                    check(calls > 0 and launches == want,
+                          f"decode launches {launches} != (decode calls {calls} + prefill calls "
+                          f"{pre_calls}) x 8 layers")
+                    kernels[name]["launches"] = launches[name]
+                else:
+                    check(not any(launches.values()), f"--decode-impl torch launched {launches}")
+
+    decode_times = []
+    with phase("10 decode kernel times"):
+        import torch.nn.functional as F
+
+        g = torch.Generator(dev).manual_seed(1)
+        saved = dict(da.LAUNCHES)
+        b, total = 8, 256
+        for h, d in ((8, 64), (4, 128)):
+            for prefix in (64, 256):
+                for kind in ("bfloat16", "int8"):
+                    q, k, v, kw = decode_inputs(torch, kind, b, h, d, total, True, dev, g)
+                    pos = torch.full((b,), prefix - 1, dtype=torch.int32, device=dev)
+                    mask = (torch.arange(total, device=dev) < prefix)[None, None, None, :]
+
+                    def lib(q=q, k=k, v=v, kw=kw, mask=mask):
+                        if kw:
+                            k = (k.float() * kw["k_scale"][..., None]).to(q.dtype)
+                            v = (v.float() * kw["v_scale"][..., None]).to(q.dtype)
+                        return F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask)
+
+                    fns = (lambda q=q, k=k, v=v, kw=kw, pos=pos:
+                           da.decode_cache_attention(q, k, v, pos, **kw),
+                           lambda q=q, k=k, v=v, kw=kw, pos=pos:
+                           da.decode_attention_plain(q, k, v, pos, **kw), lib)
+                    t_k, t_p, t_l = (time_ms(torch, f) for f in fns)
+                    d_k, d_p, d_l = (graph_ms(torch, f) for f in fns)
+                    kv_bytes = 2 * b * h * prefix * d * (1 if kw else 2)
+                    nbytes = kv_bytes + 2 * b * h * d * 2 + b * 4 + (
+                        2 * b * h * prefix * 4 if kw else 0)
+                    flops = 4 * b * h * prefix * d
+                    bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+                    name = "decode_attention_q8" if kw else "decode_attention"
+                    decode_times.append({
+                        "name": name, "B": b, "H": h, "Dh": d, "prefix": prefix, "total": total,
+                        "ms": t_k, "graph_ms": d_k, "plain_ms": t_p, "plain_graph_ms": d_p,
+                        "library_ms": t_l, "library_graph_ms": d_l, "bound_ms": bms,
+                        "bound_by": by, "bytes": nbytes, "flops": flops})
+                    print(f"{name:20s} B={b} H={h} Dh={d} prefix {prefix:3d}: per call kernel "
+                          f"{t_k:.5f} ms plain {t_p:.5f} ms library {t_l:.5f} ms | device "
+                          f"(graph): kernel {fmt(d_k)} ms plain {fmt(d_p)} ms library "
+                          f"{fmt(d_l)} ms | bound {bms:.6f} ms ({by}: {nbytes} B, {flops} FLOP)")
+                    if (h, d, prefix) == (8, 64, 256):
+                        kernels[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                             bound_ms=bms, bound_by=by, graph_ms=d_k)
+        da.LAUNCHES.update(saved)
+
+    serve_profile = {}
+    with phase("11 where the serving time goes"):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        from distributed_neural_network_tpu_torch.serve.engine import Sequence
+        from distributed_neural_network_tpu_torch.serve.http import build_server
+
+        srv, sched, eng = build_server(SERVE_ARGS + ["--decode-impl", "cuda"],
+                                       log=lambda line: None)
+        sched.close(finalize=False)  # the engine is driven directly below
+        srv.close()
+        saved = dict(da.LAUNCHES)
+        rng = np.random.default_rng(5)
+        seqs = [Sequence(i, rng.integers(0, 256, size=64).tolist(), 64) for i in range(8)]
+        for s_ in seqs:
+            eng.add(s_)
+        while any(s_.pos < s_.prompt_len for s_ in seqs):
+            eng.step()
+        for _ in range(5):
+            eng.step()
+        torch.cuda.synchronize()
+        n_ticks = 20
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_ticks):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        da.LAUNCHES.update(saved)
+        rows = profile_rows(prof, DeviceType)
+        busy = sum(r[1] for r in rows) / 1e6
+        serve_profile = {"wall_s": wall, "device_busy_s": busy, "ticks": n_ticks,
+                         "idle_share": 1 - busy / wall if busy else None,
+                         "top": sorted(rows, key=lambda r: -r[1])[:12]}
+        print(f"{n_ticks} decode ticks at batch 8 (positions 69-88): wall {wall:.4f} s "
+              f"({1e3 * wall / n_ticks:.3f} ms/tick), device busy {busy:.4f} s, idle share "
+              f"{'not measured' if not busy else f'{1 - busy / wall:.3f}'}")
+        for key, us, count in serve_profile["top"]:
+            print(f"   {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+
     table = [{"name": name, **k} for name, k in kernels.items()]
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -447,7 +887,8 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": table, "times": times, "main_path": main_path,
-                   "profile": profile}, f, indent=1)
+                   "profile": profile, "serving": serving, "decode_times": decode_times,
+                   "serve_profile": serve_profile}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

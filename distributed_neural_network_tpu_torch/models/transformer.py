@@ -1,0 +1,335 @@
+"""Decoder-only transformer LM: the dense single-device model of the JAX
+package's `models/transformer.py`, in PyTorch.
+
+Parameters are a plain dict with the JAX package's layout, so a tree carries
+across with no transpose: ``embed`` (V, d), ``head`` (d, V), ``lnf_scale`` /
+``lnf_bias`` (d,), and ``layers``, each leaf stacked on a leading layer axis
+(L, ...), Dense kernels as (in, out). `from_jax_params` / `to_numpy` carry a
+tree across in either direction.
+
+`apply` is the teacher-forced forward with full causal attention; `generate`
+is the offline cached decode, whose per-step attention runs the decode
+kernel (`ops/decode_attention.py`) on a CUDA device and its plain version on
+the CPU. The port's seeded `init_params` and sampling draw from
+`torch.Generator`s, so they differ from the JAX package's for the same seed.
+
+Not ported here (they raise `NotImplementedError`): mixture-of-experts,
+sequence-parallel attention (ring, Ulysses, zigzag), the flash kernel and
+rematerialisation; they come with slice 3 (LM training).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.decode_attention import (
+    decode_cache_attention,
+    decode_kernel_ok,
+    masked_decode_attention,
+)
+
+LAYER_KEYS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
+              "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
+DECODE_IMPLS = ("auto", "torch", "cuda")
+_SLICE3 = "slice 3 of the port (LM training)"
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 256
+    d_model: int = 128
+    n_heads: int = 8
+    n_layers: int = 2
+    d_ff: int = 512
+    dtype: torch.dtype = torch.float32
+    n_experts: int = 0
+    remat: bool = False
+
+    def __post_init__(self):
+        if self.n_experts:
+            raise NotImplementedError(f"mixture-of-experts layers come with {_SLICE3}")
+        if self.remat:
+            raise NotImplementedError(f"rematerialisation comes with {_SLICE3}")
+
+    @property
+    def head_dim(self) -> int:
+        assert self.d_model % self.n_heads == 0
+        return self.d_model // self.n_heads
+
+
+def init_params(seed: int, cfg: TransformerConfig, device="cpu"):
+    """Seeded random parameters (f32) with the JAX package's shapes and
+    scales; the stream is a `torch.Generator`'s, not `jax.random`'s."""
+    g = torch.Generator().manual_seed(seed)
+    d, f, v, n_l = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    scale = 1.0 / np.sqrt(d)
+    w2_scale = 1.0 / np.sqrt(f) / np.sqrt(2 * n_l)
+
+    def dense(shape, s):
+        return torch.randn(shape, generator=g) * s
+
+    params = {
+        "embed": dense((v, d), 1.0),
+        "lnf_scale": torch.ones(d),
+        "lnf_bias": torch.zeros(d),
+        "head": dense((d, v), scale),
+        "layers": {
+            "ln1_scale": torch.ones(n_l, d),
+            "ln1_bias": torch.zeros(n_l, d),
+            "wq": dense((n_l, d, d), scale),
+            "wk": dense((n_l, d, d), scale),
+            "wv": dense((n_l, d, d), scale),
+            "wo": dense((n_l, d, d), scale / np.sqrt(2 * n_l)),
+            "ln2_scale": torch.ones(n_l, d),
+            "ln2_bias": torch.zeros(n_l, d),
+            "w1": dense((n_l, d, f), scale),
+            "b1": torch.zeros(n_l, f),
+            "w2": dense((n_l, f, d), w2_scale),
+            "b2": torch.zeros(n_l, d),
+        },
+    }
+    return to_device(params, device)
+
+
+def to_device(params, device):
+    if isinstance(params, dict):
+        return {k: to_device(v, device) for k, v in params.items()}
+    return params.to(device)
+
+
+def from_jax_params(tree, device="cpu"):
+    """A JAX parameter tree (numpy or jax leaves, same layout) as f32 torch tensors."""
+    if isinstance(tree, dict):
+        return {k: from_jax_params(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+
+def to_numpy(params):
+    """The parameter dict as a tree of f32 numpy arrays (the JAX layout)."""
+    if isinstance(params, dict):
+        return {k: to_numpy(v) for k, v in params.items()}
+    return params.detach().float().cpu().numpy()
+
+
+def param_count(params) -> int:
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return params.numel()
+
+
+def layer_params(params, cfg: TransformerConfig) -> list[dict]:
+    """One dict per layer, its weight matrices cast to the model dtype (the
+    casts the JAX package repeats inside every step, done once)."""
+    dt = cfg.dtype
+    out = []
+    for i in range(cfg.n_layers):
+        lp = {k: params["layers"][k][i] for k in LAYER_KEYS}
+        for k in ("wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2"):
+            lp[k] = lp[k].to(dt)
+        out.append(lp)
+    return out
+
+
+# ------------------------------------------------------------------ pieces
+
+
+def _layer_norm(x, scale, bias, eps=1e-5):
+    m = x.mean(-1, keepdim=True)
+    v = ((x - m) ** 2).mean(-1, keepdim=True)
+    return (x - m) * torch.rsqrt(v + eps) * scale + bias
+
+
+def _sinusoid_pe(pos, d_model, dtype):
+    """Sin then cos (concatenated, not interleaved), as the JAX package."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=pos.device) / half)
+    ang = pos[:, None].float() * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def gelu(x):
+    """`jax.nn.gelu`'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_residual(x, lp, dt):
+    """x + MLP(LN2(x)), in the JAX package's order of operations."""
+    h = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"]).to(dt)
+    h = gelu(h @ lp["w1"] + lp["b1"])
+    return x + h @ lp["w2"] + lp["b2"]
+
+
+def resolve_decode_impl(impl: str, device: torch.device) -> str:
+    """`auto` -> `cuda` on a CUDA device, `torch` on the CPU; `cuda` on the
+    CPU raises (the port never runs a kernel's plain version in its stead)."""
+    if impl not in DECODE_IMPLS:
+        raise ValueError(f"decode impl must be one of {DECODE_IMPLS}, got {impl!r}")
+    if impl == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    if impl == "cuda" and device.type != "cuda":
+        raise ValueError(f"decode impl 'cuda' needs a CUDA device, got {device}")
+    return impl
+
+
+# ------------------------------------------------------------- the forward
+
+
+def apply_hidden(params, tokens, cfg: TransformerConfig, *, attn_impl: str = "full"):
+    """tokens (B, S) -> final-layer-norm hidden (B, S, d) in the model dtype."""
+    if attn_impl != "full":
+        raise NotImplementedError(
+            f"attn_impl {attn_impl!r} (ring/ulysses/zigzag/flash) comes with {_SLICE3}; "
+            "the port runs 'full'")
+    dt = cfg.dtype
+    b, s = tokens.shape
+    h_n, d_h = cfg.n_heads, cfg.head_dim
+    x = params["embed"][tokens].to(dt)
+    x = x + _sinusoid_pe(torch.arange(s, device=tokens.device), cfg.d_model, dt)[None]
+    causal = torch.ones(s, s, dtype=torch.bool, device=tokens.device).tril()
+    for lp in layer_params(params, cfg):
+        h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]).to(dt)
+        q = (h @ lp["wq"]).reshape(b, s, h_n, d_h)
+        k = (h @ lp["wk"]).reshape(b, s, h_n, d_h)
+        v = (h @ lp["wv"]).reshape(b, s, h_n, d_h)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(d_h))
+        p = torch.softmax(sc.masked_fill(~causal, -1e30), dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, s, -1)
+        x = x + o @ lp["wo"]
+        x = mlp_residual(x, lp, dt)
+    return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)
+
+
+def apply(params, tokens, cfg: TransformerConfig, *, attn_impl: str = "full"):
+    """tokens (B, S) int -> logits (B, S, vocab) f32."""
+    x = apply_hidden(params, tokens, cfg, attn_impl=attn_impl)
+    return (x @ params["head"].to(cfg.dtype)).float()
+
+
+# --------------------------------------------------------------- inference
+
+
+def _filter_logits(logits, temperature: float, top_k: int, top_p: float):
+    """The JAX package's top-k then nucleus cut; both keep the top-1."""
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = logits.masked_fill(logits < kth, -math.inf)
+    if 0.0 < top_p < 1.0:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        p_srt = torch.softmax(srt / temperature, dim=-1)
+        keep = (torch.cumsum(p_srt, dim=-1) - p_srt) < top_p
+        cutoff = torch.where(keep, srt, math.inf).amin(-1, keepdim=True)
+        logits = logits.masked_fill(logits < cutoff, -math.inf)
+    return logits
+
+
+def sample_gumbel(logits, temperature: float, uniform):
+    """argmax(logits / t + Gumbel noise) from uniform draws of the same shape:
+    a categorical sample whose randomness the caller supplies."""
+    u = uniform.clamp(1e-20, 1.0 - 1e-7)
+    return torch.argmax(logits / temperature - torch.log(-torch.log(u)), dim=-1)
+
+
+@torch.no_grad()
+def generate(
+    params,
+    prompt,
+    cfg: TransformerConfig,
+    *,
+    max_new_tokens: int,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 0.0,
+    generator: torch.Generator | None = None,
+    prompt_lens=None,
+    decode_impl: str = "auto",
+):
+    """Autoregressive decoding with per-layer KV caches.
+
+    prompt (B, S_p) int on the parameters' device -> (B, S_p +
+    max_new_tokens) int64: the prompt followed by the generated tokens.
+    temperature 0 is greedy argmax; > 0 samples from softmax(logits / t)
+    after the top-k and nucleus (top_p) cuts, with uniform draws from
+    `generator` (a CPU `torch.Generator`, required then). ``prompt_lens``
+    (B,) makes the batch left-padded, as in the JAX package (plain route
+    only: the kernel masks on the position alone).
+
+    The prompt goes through the same cached step as generation, one token
+    at a time, over a static cache of S_p + max_new_tokens slots. The
+    logits are the serving engine's: the model-dtype hidden state times the
+    model-dtype head, accumulated and kept in f32. (The JAX package's
+    generate rounds them to the model dtype, where near-ties then break by
+    index; at bf16 that alone changes a greedy stream that the engine does
+    not. At f32 the two are the same.)
+    ``decode_impl``: ``cuda`` runs every step's attention in the decode
+    kernel, ``torch`` in its plain version, ``auto`` picks ``cuda`` on a
+    CUDA device.
+    """
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature > 0 sampling requires `generator`")
+    if not 0.0 <= top_p <= 1.0:
+        raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+    dev = prompt.device
+    impl = resolve_decode_impl(decode_impl, dev)
+    dt = cfg.dtype
+    b, s_p = prompt.shape
+    n_h, d_h = cfg.n_heads, cfg.head_dim
+    total = s_p + max_new_tokens
+    offsets = None
+    if prompt_lens is not None:
+        lens = torch.as_tensor(prompt_lens, dtype=torch.int64, device=dev)
+        if tuple(lens.shape) != (b,) or bool((lens < 1).any() or (lens > s_p).any()):
+            raise ValueError(f"prompt_lens must be ({b},) values in [1, {s_p}]")
+        if impl == "cuda":
+            raise ValueError("decode impl 'cuda' does not take left-padded batches "
+                             "(prompt_lens): the kernel masks on the position alone")
+        offsets = s_p - lens
+    if impl == "cuda" and not decode_kernel_ok(d_h):
+        raise ValueError(f"head dim {d_h} is outside the decode kernel's range")
+    layers = layer_params(params, cfg)
+    head = params["head"].to(dt)
+    cache_k = [torch.zeros(b, n_h, total, d_h, dtype=dt, device=dev) for _ in layers]
+    cache_v = [torch.zeros(b, n_h, total, d_h, dtype=dt, device=dev) for _ in layers]
+    pe_all = _sinusoid_pe(torch.arange(total, device=dev), cfg.d_model, dt)
+    cols = torch.arange(total, device=dev)
+    out = torch.zeros(b, total, dtype=torch.int64, device=dev)
+    out[:, :s_p] = prompt
+    for pos in range(total - 1):
+        tok = out[:, pos]
+        if offsets is None:
+            pe = pe_all[pos][None]
+        else:
+            pe = pe_all[torch.clamp(pos - offsets, min=0)]
+        x = params["embed"][tok].to(dt) + pe  # (B, d)
+        for lp, ck, cv in zip(layers, cache_k, cache_v):
+            h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]).to(dt)
+            q = (h @ lp["wq"]).reshape(b, n_h, d_h)
+            ck[:, :, pos] = (h @ lp["wk"]).reshape(b, n_h, d_h)
+            cv[:, :, pos] = (h @ lp["wv"]).reshape(b, n_h, d_h)
+            if impl == "cuda":
+                o = decode_cache_attention(q, ck, cv, pos)
+            else:
+                live = (cols <= pos)[None].expand(b, total)
+                if offsets is not None:
+                    live = live & (cols[None, :] >= offsets[:, None])
+                o = masked_decode_attention(q, ck, cv, live)
+            x = x + o.reshape(b, -1) @ lp["wo"]
+            x = mlp_residual(x, lp, dt)
+        if pos < s_p - 1:
+            continue  # a prompt position: its prediction is discarded
+        h = _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)
+        logits = h.float() @ head.float()
+        if temperature > 0.0:
+            logits = _filter_logits(logits, temperature, top_k, top_p)
+            u = torch.rand(logits.shape, generator=generator).to(dev)
+            nxt = sample_gumbel(logits, temperature, u)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        out[:, pos + 1] = nxt
+    return out
+

@@ -3,8 +3,8 @@
 Counterpart of `distributed_neural_network_tpu/ops/pallas_kernels.py`
 (`fused_mlp3`, `_fwd_kernel`, `_bwd_kernel`). The kernels live in
 `csrc/fused_mlp3.cu` (the design note is at the top of that file); this module
-builds them with `nvcc` at first use, binds them with ctypes, and wraps them in
-a `torch.autograd.Function`.
+builds them with `nvcc` at first use (`ops/_nvcc.py`), binds them with ctypes,
+and wraps them in a `torch.autograd.Function`.
 
 Three kernels, each with a launch counter in `LAUNCHES`:
 
@@ -23,25 +23,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
 
 import torch
+
+from . import _nvcc
 
 D_IN, D1, D2, D_OUT = 400, 120, 84, 10
 WEIGHT_SHAPES = ((D_IN, D1), (D1,), (D1, D2), (D2,), (D2, D_OUT), (D_OUT,))
 GRAD_SIZE = sum(int(torch.Size(s).numel()) for s in WEIGHT_SHAPES)  # 59,134
 BWD_TILE_ROWS = 16
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_mlp3.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = os.path.join(_nvcc.CSRC, "fused_mlp3.cu")
 
 # kernel name -> launches since the last reset (callers zero the values)
 LAUNCHES = {"fused_mlp3_fwd": 0, "fused_mlp3_bwd": 0, "fused_mlp3_bwd_reduce": 0}
@@ -114,51 +107,21 @@ def split_grads(flat):
 # ----------------------------------------------------------------- the build
 
 
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the fused head's CUDA kernels cannot be built")
-
-
 def build() -> str:
-    """Compile csrc/fused_mlp3.cu into a shared library (once per source
-    hash) and return its path. Raises if nvcc fails."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"fused_mlp3_{tag}.so")
-    if os.path.isfile(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}"
-        )
-    with open(os.path.join(BUILD_DIR, f"fused_mlp3_{tag}.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    """Compile csrc/fused_mlp3.cu (once per source hash); return the library path."""
+    return _nvcc.build(SOURCE)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_mlp3_fwd.argtypes = [p] * 10 + [i, p]
-    lib.fused_mlp3_bwd.argtypes = [p] * 9 + [i, p]
-    lib.fused_mlp3_bwd_reduce.argtypes = [p, i, p, p]
-    for fn in ("fused_mlp3_fwd", "fused_mlp3_bwd", "fused_mlp3_bwd_reduce",
-               "fused_mlp3_grad_size", "fused_mlp3_bwd_tile_rows"):
-        getattr(lib, fn).restype = i
+    lib = _nvcc.load(SOURCE, {
+        "fused_mlp3_fwd": [p] * 10 + [i, p],
+        "fused_mlp3_bwd": [p] * 9 + [i, p],
+        "fused_mlp3_bwd_reduce": [p, i, p, p],
+        "fused_mlp3_grad_size": [],
+        "fused_mlp3_bwd_tile_rows": [],
+    })
     if (lib.fused_mlp3_grad_size(), lib.fused_mlp3_bwd_tile_rows()) != (
         GRAD_SIZE, BWD_TILE_ROWS
     ):
@@ -167,11 +130,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    lib = _lib()
-    with torch.cuda.device(device):
-        rc = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    _nvcc.launch(_lib(), name, device, *args)
     LAUNCHES[name] += 1
 
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from distributed_neural_network_tpu.ops.pallas_kernels import fused_mlp3 as jax_fused_mlp3
+from distributed_neural_network_tpu_torch.ops import _nvcc
 from distributed_neural_network_tpu_torch.ops import fused_head as fh
 
 
@@ -118,4 +119,4 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 def test_module_import_builds_nothing():
     """Importing the wrapper neither compiles nor loads the kernel library."""
     assert fh._lib.cache_info().currsize == 0
-    assert fh.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
+    assert _nvcc.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
