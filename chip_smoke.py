@@ -54,7 +54,41 @@ Phases (any failure exits non-zero and prints no result):
    scaled_dot_product_attention with a boolean mask as the library
    yardstick (int8: dequantize, then SDPA);
 11. a torch.profiler trace of a steady stretch of serving decode ticks
-   (batch 8): idle share and top kernels.
+   (batch 8): idle share and top kernels;
+12. the flash kernels (forward, dq, dkv) against their plain versions on the
+   card: (B, H) in {(1, 1), (2, 8)}, S in {1, 64, 200, 2048}, D in {64, 128,
+   16}, causal and not, f32 and bf16, contiguous and a strided (B, S, H, D)
+   view, and the main path's own shape FLASH_MAIN (16, 2048, 8, 64) causal
+   bf16; f32 atol = rtol = 1e-4, bf16 1.6e-2, lse 1e-4; and the quantized
+   forward (int8, fp8) on codes at the kernel's own k tile, at B 2 and at
+   FLASH_MAIN (int8 2e-2; fp8 mean error 1e-4 and max two e4m3 steps, see
+   FP8_STEP); every kernel gives the same bits on a second call. The kernel
+   line's max_abs_err is the one at FLASH_MAIN;
+13. the LM training main path at full width through `lm_train.main`, the
+   repo's flagship row lm_flash_d512_L8_seq2048_bf16 with nothing cut
+   (d512/L8/H8/d_ff 2048/vocab 32768, batch 16, seq 2048, bf16, SGD lr 0.01
+   momentum 0.9, 20 steps, a loss read every 10 steps as the JAX row's
+   unfenced loop): --attn flash, then --precision int8 and fp8, then the
+   plain route (--attn ring; its (B, H, S, S) buffers fit in device memory,
+   so without --remat-attn), and the four again in mirrored order, so that
+   routes are compared in turns. Gates: each flash counter equals its
+   formula (flash_counts) and is 0 on the plain route; finite losses; the
+   kernel route's logged losses within LOSS_TOL of the plain route's, and
+   every weight's step-0 gradient within GRAD_TOL of the plain route's
+   (route_compare; `python3 chip_smoke.py --route-check` runs this check
+   alone). Then FORMULA_STEPS-step runs at full width with --remat,
+   --remat-attn, --accum-steps 2, eval batches (--data-path, --eval-every),
+   and int8 with --remat-attn and eval, each held to flash_counts. Prints
+   tokens/s, ms per step and MFU against the bf16 dense peak;
+14. learnability: the copy task at d32/L2/H4/d_ff 64/vocab 32/seq 16/batch
+   32, lr 0.3, 300 steps, --attn flash --generate 7: final loss < 0.2 and
+   the greedy continuation matches the repeat on > 90% of positions;
+15. flash kernel times at (B, S, H, D) = (16, 2048, 8, 64) and (16, 2048, 4,
+   128), causal bf16: per call, device time in a CUDA graph, bound, plain
+   version, and the dispatch's `lib` route (scaled_dot_product_attention,
+   is_causal=True) forward and forward + backward as the library yardstick;
+16. a torch.profiler trace of 3 steady full-width training steps: idle
+   share, the flash kernels' share of device time and the top kernels.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -81,8 +115,39 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12  # the int8 / fp8 dense tensor-core peak, same sheet
 TOL = 1e-4
+# flash kernels vs plain: bf16 as the decode kernels (two bf16 ulps at 1).
+# Quantized forward: p comes from expf in the kernel and torch.exp in the
+# plain version, which differ in the last bits, so now and then a code of p
+# rounds the other way. An int8 code step moves o by at most 1/127 of the
+# row's largest term: atol = rtol = 2e-2. An e4m3 step is up to 1/8 of its
+# term, so fp8 is gated on the mean error (1e-4; such flips are rare) and on
+# a max error of two steps, 2 * (1/8) * max |v|
+QUANT_TOL = 2e-2
+FP8_MEAN_TOL, FP8_STEP = 1e-4, 0.25
 DECODE = "distributed_neural_network_tpu/ops/decode_pallas.py"
+FLASH = "distributed_neural_network_tpu/ops/flash_pallas.py"
+# the repo's flagship LM training row lm_flash_d512_L8_seq2048_bf16 (bench.py,
+# geometry in train/measure.py measure_lm_training), nothing cut
+LM_SHAPE = {"batch_size": 16, "seq_len": 2048, "vocab": 32768, "d_model": 512, "n_layers": 8,
+            "n_heads": 8, "d_ff": 2048}
+LM_ARGS = [a for k, v in LM_SHAPE.items() for a in ("--" + k.replace("_", "-"), str(v))] + [
+    "--dtype", "bfloat16", "--lr", "0.01", "--momentum", "0.9", "--seed", "0"]
+LM_STEPS, LM_LOG_EVERY = 20, 10
+# the attention inputs that LM_ARGS give each flash kernel: (B, S, H, D)
+FLASH_MAIN = (16, 2048, 8, 64)
+# kernel route vs plain route from the same init and batches, bf16 (scores
+# and softmax in bf16 on the plain route, f32 in the kernels): the logged
+# losses (steps 0, 10, 19; the loss moves about 0.27 over the 20 steps;
+# measured differences 4e-5 to 6e-5) within LOSS_TOL, and the gradient of
+# every weight at step 0 (each layer of a stacked leaf on its own) within
+# GRAD_TOL in relative L2 norm (measured: 0.0115 at worst)
+LOSS_TOL = 1e-3
+GRAD_TOL = 5e-2
+# the launch-formula runs of phase 13 (--remat, --remat-attn, --accum-steps,
+# eval) take this many steps at full width
+FORMULA_STEPS = 4
 SERVE_ARGS = ["--device", "cuda", "--port", "0", "--d-model", "512", "--n-layers", "8",
               "--n-heads", "8", "--d-ff", "2048", "--vocab", "256", "--dtype", "bfloat16",
               "--seed", "0", "--max-batch", "8", "--num-blocks", "129", "--block-size", "16",
@@ -206,11 +271,27 @@ def pct(xs, q):
 
 
 def print_ptxas(lib):
+    """One line per library from the compiler's log (printed and returned):
+    its kernel instances, their register range and those that spill
+    (mangled names)."""
     log = lib[: -len(".so")] + ".log"
-    if os.path.isfile(log):
-        for line in open(log):
-            if "Used" in line or "spill" in line:
-                print("   ptxas:", line.strip())
+    if not os.path.isfile(log):
+        return
+    name, regs, spills = None, [], []
+    for line in open(log):
+        if "Function properties for" in line:
+            name = line.split("for")[-1].strip()
+        elif "spill stores" in line:
+            stores = int(line.split("bytes spill stores")[0].split(",")[-1])
+            if stores:
+                spills.append(f"{name[:70]} ({stores} B)")
+        elif "Used" in line and "registers" in line:
+            regs.append(int(line.split("Used")[1].split()[0]))
+    if regs:
+        line = (f"ptxas {os.path.basename(lib)}: {len(regs)} kernel instances, {min(regs)}-"
+                f"{max(regs)} registers; spills: {'; '.join(spills) or 'none'}")
+        print("   " + line)
+        return line
 
 
 def profile_rows(prof, DeviceType):
@@ -363,6 +444,273 @@ class Oracle:
         return agree / n, (agree + ties) / n, zipped / n
 
 
+# -------------------------------------------------------------- flash helpers
+
+
+def flash_inputs(torch, b, s, h, d, dtype, strided, dev, g):
+    """q, k, v, dO (B, S, H, D): contiguous, or the (B, S, H, D) view of a
+    (B, H, S, D) buffer (strided on S and H, read in place by the kernels)."""
+    def one():
+        if strided:
+            return torch.randn(b, h, s, d, device=dev, generator=g).to(dtype).transpose(1, 2)
+        return torch.randn(b, s, h, d, device=dev, generator=g).to(dtype)
+    return one(), one(), one(), one()
+
+
+def flash_vs_plain(torch, fa, dev):
+    """Phase 12: every flash kernel against its plain version on the card,
+    and bitwise against itself on a second call. Returns the number of
+    cases, the worst max abs errors per kernel over all cases, and those at
+    the main path's own shape (FLASH_MAIN: (B, S, H, D) = (16, 2048, 8, 64),
+    causal, bf16, contiguous; int8 and fp8 for the quantized kernel)."""
+    g = torch.Generator(dev).manual_seed(12)
+    worst, main, n = {}, {}, 0
+    mb, ms, mh, md = FLASH_MAIN
+    main_case = (mb, ms, mh, md, True, torch.bfloat16, False)
+
+    def record(name, err, is_main):
+        worst[name] = max(worst.get(name, 0.0), err)
+        if is_main:
+            main[name] = max(main.get(name, 0.0), err)
+
+    cases = [(b, s, h, d, causal, dtype, strided)
+             for (b, h) in ((1, 1), (2, 8)) for s in (1, 64, 200, 2048) for d in (64, 128, 16)
+             for causal in (True, False) for dtype in (torch.float32, torch.bfloat16)
+             for strided in (False, True)]
+    cases.append(main_case)
+    for case in cases:
+        b, s, h, d, causal, dtype, strided = case
+        is_main = case == main_case
+        tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+        q, k, v, do = flash_inputs(torch, b, s, h, d, dtype, strided, dev, g)
+        where = f"B={b} S={s} H={h} D={d} causal={causal} {dtype} strided={strided}"
+        o, lse = fa.flash_fwd(q, k, v, causal=causal)
+        o2, lse2 = fa.flash_fwd(q, k, v, causal=causal)
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"flash_fwd not bitwise reproducible: {where}")
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal=causal)
+        for name, x, y, t in (("o", o, o_p, tol), ("lse", lse, lse_p, TOL)):
+            ok = torch.allclose(x.float(), y.float(), atol=t, rtol=t)
+            check(ok, f"flash_fwd {name} max abs err {max_err(torch, x.float(), y.float())}: "
+                  f"{where}")
+        record("flash_fwd", max(max_err(torch, o.float(), o_p.float()),
+                                max_err(torch, lse, lse_p)), is_main)
+        delta = fa.flash_delta(o, do)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, causal=causal)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
+        check(torch.equal(dq, fa.flash_dq(q, k, v, do, lse, delta, causal=causal)),
+              f"flash_dq not bitwise reproducible: {where}")
+        dk2, dv2 = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
+        check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"flash_dkv not bitwise reproducible: {where}")
+        dq_p = fa.flash_dq_plain(q, k, v, do, lse, delta, causal=causal)
+        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=causal)
+        for name, x, y in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+            ok = torch.allclose(x.float(), y.float(), atol=tol, rtol=tol)
+            check(ok, f"flash {name} max abs err {max_err(torch, x.float(), y.float())}: "
+                  f"{where}")
+        record("flash_dq", max_err(torch, dq.float(), dq_p.float()), is_main)
+        record("flash_dkv", max(max_err(torch, dk.float(), dk_p.float()),
+                                max_err(torch, dv.float(), dv_p.float())), is_main)
+        n += 1
+    # the quantized forward on codes, at the kernel's own k tile (BLOCK_K)
+    qcases = [(fmt, 2, s, 8, d, causal, out, s == 200)
+              for fmt in ("int8", "fp8") for s in (64, 200, 2048) for d in (64, 128)
+              for causal in (True, False) for out in (torch.bfloat16, torch.float32)]
+    qcases += [(fmt,) + main_case for fmt in ("int8", "fp8")]
+    for fmt, *case in qcases:
+        b, s, h, d, causal, out, strided = case
+        is_main = tuple(case) == main_case
+        q, k, v, _ = flash_inputs(torch, b, s, h, d, out, strided, dev, g)
+        qc, sq, kc, sk, vc, sv = fa.quantize_qkv(q, k, v, fmt)
+        where = f"{fmt} B={b} S={s} H={h} D={d} causal={causal} out {out} strided={strided}"
+        o, lse = fa.flash_fwd_quant_codes(qc, kc, vc, sq, sk, sv, causal=causal, out_dtype=out)
+        o2, lse2 = fa.flash_fwd_quant_codes(qc, kc, vc, sq, sk, sv, causal=causal,
+                                            out_dtype=out)
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"flash_fwd_quant not bitwise reproducible: {where}")
+        o_p, lse_p = fa.flash_fwd_quant_plain(qc, kc, vc, sq, sk, sv, causal=causal,
+                                              out_dtype=out)
+        diff = (o.float() - o_p.float()).abs()
+        err = float(diff.max())
+        if fmt == "int8":
+            ok = torch.allclose(o.float(), o_p.float(), atol=QUANT_TOL, rtol=QUANT_TOL)
+        else:
+            v_max = float((vc.float() * sv[..., None]).abs().max())
+            ok = float(diff.mean()) <= FP8_MEAN_TOL and err <= FP8_STEP * v_max
+        check(ok and torch.allclose(lse, lse_p, atol=TOL, rtol=TOL),
+              f"flash_fwd_quant max abs err {err}, mean {float(diff.mean())} "
+              f"(lse {max_err(torch, lse, lse_p)}): {where}")
+        record("flash_fwd_quant", err, is_main)
+        if is_main:
+            main[f"flash_fwd_quant {fmt}"] = err
+        n += 1
+    torch.cuda.synchronize()
+    return n, worst, main
+
+
+def flash_work(b, s, h, d):
+    """(bytes, operations) each causal flash kernel must move and do at (B,
+    S, H, D): bf16 tensors, 1-byte codes and f32 scales for the quantized
+    kernel, f32 lse and delta (inputs read once, outputs written once; the
+    causal triangle counts S(S+1)/2 pairs)."""
+    pairs = s * (s + 1) // 2
+    mat = b * s * h * d  # elements of one (B, S, H, D) tensor
+    rows = b * h * s
+    mm = 2 * b * h * d * pairs  # one (pairs x D) product
+    return {
+        "flash_fwd": (4 * mat * 2 + rows * 4, 2 * mm),
+        "flash_fwd_quant": (3 * mat * 1 + 3 * rows * 4 + mat * 2 + rows * 4, 2 * mm),
+        "flash_dq": (5 * mat * 2 + 2 * rows * 4, 3 * mm),
+        "flash_dkv": (6 * mat * 2 + 2 * rows * 4, 4 * mm),
+    }
+
+
+def flash_counts(steps, *, quant=False, remat=False, accum=1, evals=0, eval_batches=0):
+    """The flash launches a kernel-route training run at LM_SHAPE must
+    make: each micro-batch's forward launches the forward kernel once per
+    layer, and once more when a checkpoint (--remat or --remat-attn)
+    recomputes it in backward; its backward launches dq and dkv once per
+    layer; an eval batch launches the forward alone."""
+    layers = LM_SHAPE["n_layers"]
+    fwd = layers * (steps * accum * (2 if remat else 1) + evals * eval_batches)
+    bwd = layers * steps * accum
+    return {"flash_fwd": 0 if quant else fwd, "flash_fwd_quant": fwd if quant else 0,
+            "flash_dq": bwd, "flash_dkv": bwd}
+
+
+def lm_run(torch, fa, lm_train, steps, extra):
+    """One `lm_train.main` run on the card at LM_ARGS + `extra`, the flash
+    counters set to 0 just before it: its launches, logged losses {step:
+    loss}, tokens/s, ms per step, MFU and peak memory."""
+    lines = []
+
+    def log(line):
+        if not line.startswith("step "):
+            print("   " + line, flush=True)
+        lines.append(line)
+
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = lm_train.main(["--device", "cuda", "--steps", str(steps), "--log-every",
+                        str(LM_LOG_EVERY)] + LM_ARGS + extra, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fa.LAUNCHES)
+    check(rc == 0, f"lm_train.main {extra} returned {rc}")
+    summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
+    # the step lines print 4 decimals; SUMMARY has the first and last loss in full
+    losses = {int(l.split()[1]): float(l.split()[3]) for l in lines
+              if l.startswith("step ") and l.split()[2] == "loss"}
+    logged = sorted({i for i in range(steps) if i % LM_LOG_EVERY == 0} | {steps - 1})
+    check(sorted(losses) == logged, f"{extra}: logged losses {losses}")
+    losses.update({0: summary["first_loss"], steps - 1: summary["final_loss"]})
+    check(all(math.isfinite(x) for x in losses.values()), f"{extra}: losses {losses}")
+    return {"extra": extra, "steps": steps, "launches": counts, "losses": losses,
+            "wall_s": wall, "tokens_per_s": summary["tokens_per_s"],
+            "mfu_pct": summary["mfu_pct"], "eval": summary["eval"],
+            "ms_per_step": 1e3 * summary["wall_s_post_compile"] / (steps - 1),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def named_grads(params, grads):
+    """{name: gradient} from `grads` in `tree_leaves` order; a stacked layer
+    leaf (n_layers, ...) gives one entry per layer."""
+    out, it = {}, iter(grads)
+    for key in sorted(params):
+        if isinstance(params[key], dict):
+            for sub in sorted(params[key]):
+                g = next(it)
+                out.update({f"{key}.{sub}[{i}]": g[i] for i in range(g.shape[0])})
+        else:
+            out[key] = next(it)
+    return out
+
+
+def route_grad_errs(torch, tfm, lmtrain, dev):
+    """The relative L2 error of every weight's step-0 gradient (the flagship
+    model and seed, the copy-task batch lm_train makes) on each kernel route
+    (flash, int8, fp8) against the plain route: {route: {name: err}}."""
+    sh = LM_SHAPE
+    toks, tgts = lmtrain.make_copy_task(torch.Generator().manual_seed(1), batch=sh["batch_size"],
+                                        seq_len=sh["seq_len"], vocab=sh["vocab"], device=dev)
+    params = None
+    grads = {}
+    for route, attn, quant in (("plain", "ring", ""), ("flash", "flash", ""),
+                               ("int8", "flash", "int8"), ("fp8", "flash", "fp8")):
+        cfg = tfm.TransformerConfig(vocab_size=sh["vocab"], d_model=sh["d_model"],
+                                    n_heads=sh["n_heads"], n_layers=sh["n_layers"],
+                                    d_ff=sh["d_ff"], dtype=torch.bfloat16, attn_quant=quant)
+        if params is None:
+            params = tfm.init_params(0, cfg, dev)
+            leaves = lmtrain.tree_leaves(params)
+            for x in leaves:
+                x.requires_grad_(True)
+        loss = lmtrain.lm_loss(params, toks, tgts, cfg, attn_impl=attn)
+        grads[route] = named_grads(params, torch.autograd.grad(loss, leaves))
+    ref = grads.pop("plain")
+    return {route: {name: float((g[name] - ref[name]).norm() / ref[name].norm().clamp_min(1e-30))
+                    for name in ref} for route, g in grads.items()}
+
+
+def route_compare(torch, fa, tfm, lmtrain, dev, flash_row, plain_row):
+    """The kernel route against the plain route: the logged losses of two
+    `lm_run` rows and the step-0 gradients. Prints both readings before it
+    gates either (LOSS_TOL, GRAD_TOL on the bf16 kernel route)."""
+    d_loss = max(abs(flash_row["losses"][i] - plain_row["losses"][i])
+                 for i in plain_row["losses"])
+    saved = dict(fa.LAUNCHES)
+    errs = route_grad_errs(torch, tfm, lmtrain, dev)
+    fa.LAUNCHES.update(saved)  # these launches are not the main path's
+    worst = {route: max(e.items(), key=lambda kv: kv[1]) for route, e in errs.items()}
+    print(f"   kernel route vs plain route: logged losses (steps {sorted(plain_row['losses'])}) "
+          f"max |difference| {d_loss:.6f} (tolerance {LOSS_TOL}); step-0 gradients, worst "
+          f"relative L2 error per route: " + ", ".join(
+              f"{route} {err:.5f} ({name})" for route, (name, err) in worst.items())
+          + f" (tolerance {GRAD_TOL} on flash)", flush=True)
+    for route in errs:
+        rows = sorted(errs[route].items(), key=lambda kv: -kv[1])[:4]
+        print(f"   {route}: " + ", ".join(f"{name} {err:.5f}" for name, err in rows))
+    out = {"loss_diff": d_loss, "grad_rel_err": {r: {"worst": n, "err": e}
+                                                 for r, (n, e) in worst.items()}}
+    check(d_loss <= LOSS_TOL, f"kernel-route losses off the plain route by {d_loss}")
+    check(worst["flash"][1] <= GRAD_TOL,
+          f"kernel-route gradient {worst['flash'][0]} off the plain route by relative "
+          f"{worst['flash'][1]}")
+    return out
+
+
+def route_check() -> int:
+    """`python3 chip_smoke.py --route-check`: phase 13's kernel route against
+    the plain route alone (build, one flash and one plain run of LM_STEPS
+    steps, the step-0 gradients), for showing that a copy of the repo with a
+    fault planted in a kernel fails it. Exits 1 when a gate fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from distributed_neural_network_tpu_torch import lm_train
+    from distributed_neural_network_tpu_torch.models import transformer as tfm
+    from distributed_neural_network_tpu_torch.ops import flash_attention as fa
+    from distributed_neural_network_tpu_torch.train import lm as lmtrain
+
+    fa.build()
+    rows = [lm_run(torch, fa, lm_train, LM_STEPS, extra)
+            for extra in (["--attn", "flash"], ["--attn", "ring"])]
+    try:
+        route_compare(torch, fa, tfm, lmtrain, torch.device("cuda"), *rows)
+    except SmokeFailure as e:
+        print(f"route check FAILED: {e}")
+        return 1
+    print("route check passed")
+    return 0
+
+
 # -------------------------------------------------------------------- phases
 
 
@@ -376,6 +724,7 @@ def main() -> int:
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
     from distributed_neural_network_tpu_torch.ops import _nvcc
     from distributed_neural_network_tpu_torch.ops import decode_attention as da
+    from distributed_neural_network_tpu_torch.ops import flash_attention as fa
     from distributed_neural_network_tpu_torch.ops import fused_head as fh
 
     dev = torch.device("cuda")
@@ -393,6 +742,10 @@ def main() -> int:
     for name, line in (("decode_attention", 95), ("decode_attention_q8", 133)):
         kernels[name] = {"route": "cuda", "replaces": f"{DECODE}:{line}",
                          "source": "distributed_neural_network_tpu_torch/csrc/decode_attention.cu"}
+    for name, line in (("flash_fwd", 157), ("flash_fwd_quant", 280), ("flash_dq", 414),
+                       ("flash_dkv", 447)):
+        kernels[name] = {"route": "cuda", "replaces": f"{FLASH}:{line}",
+                         "source": "distributed_neural_network_tpu_torch/csrc/flash_attention.cu"}
 
     with phase("1 environment"):
         print(f"card: {smi}")
@@ -403,20 +756,22 @@ def main() -> int:
         except ImportError:
             triton_v = "absent"
         nvcc = run([_nvcc.nvcc(), "--version"]).splitlines()
-        print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-              f"CUDA {torch.version.cuda}, nvcc {nvcc[-1] if nvcc else '?'}, triton {triton_v}")
+        env = {"card": smi, "versions": f"python {sys.version.split()[0]}, torch "
+               f"{torch.__version__}, CUDA {torch.version.cuda}, nvcc "
+               f"{nvcc[-1] if nvcc else '?'}, triton {triton_v}"}
+        print(env["versions"])
         print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     with phase("2 build"):
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:
-            libs = list(pool.map(lambda m: m.build(), (fh, da)))
-        fh._lib()
-        da._lib()
+        with ThreadPoolExecutor(3) as pool:
+            libs = list(pool.map(lambda m: m.build(), (fh, da, fa)))
+        for m in (fh, da, fa):
+            m._lib()
+        env["build_s"] = time.perf_counter() - t0
         print(f"built {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
-              f"{time.perf_counter() - t0:.2f} s (in parallel)")
-        for lib in libs:
-            print_ptxas(lib)
+              f"{env['build_s']:.2f} s (in parallel)")
+        env["ptxas"] = [print_ptxas(lib) for lib in libs]
 
     with phase("3 kernels vs plain"):
         for b in (1, 16, 200, 4096):
@@ -876,6 +1231,231 @@ def main() -> int:
         for key, us, count in serve_profile["top"]:
             print(f"   {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
 
+    with phase("12 flash kernels vs plain"):
+        saved = dict(fa.LAUNCHES)
+        n, worst, main_err = flash_vs_plain(torch, fa, dev)
+        fa.LAUNCHES.update(saved)  # comparison launches are not main-path launches
+        for name in ("flash_fwd", "flash_fwd_quant", "flash_dq", "flash_dkv"):
+            kernels[name]["max_abs_err"] = main_err[name]
+        print(f"{n} cases within tolerance and bitwise reproducible; max abs err over all "
+              f"cases {worst}; at the main path's shape (B, S, H, D) = {FLASH_MAIN}, causal "
+              f"bf16 (the quantized kernel: the larger of int8 and fp8) {main_err}")
+
+    lm_runs, lm_checks = {}, {}
+    with phase("13 LM training main path, full width"):
+        import numpy as np
+
+        from distributed_neural_network_tpu_torch import lm_train
+        from distributed_neural_network_tpu_torch.models import transformer as tfm
+        from distributed_neural_network_tpu_torch.train import lm as lmtrain
+
+        runs = (("flash", ["--attn", "flash"], {}),
+                ("int8", ["--attn", "flash", "--precision", "int8"], {"quant": True}),
+                ("fp8", ["--attn", "flash", "--precision", "fp8"], {"quant": True}),
+                ("plain", ["--attn", "ring"], None))
+        # each route twice, in mirrored order (flash, int8, fp8, plain, plain,
+        # fp8, int8, flash), so a drift along the call shows and routes are
+        # compared in turns
+        for name, extra, formula in runs + runs[::-1]:
+            row = lm_run(torch, fa, lm_train, LM_STEPS, extra)
+            counts = row["launches"]
+            first = name not in lm_runs
+            lm_runs.setdefault(name, []).append(row)
+            loss = row["losses"]
+            print(f"   {name}: {row['tokens_per_s']} tokens/s, {row['ms_per_step']:.2f} ms per "
+                  f"step, MFU {row['mfu_pct']}% of the bf16 dense peak, losses {loss[0]:.4f} "
+                  f"-> {loss[LM_STEPS - 1]:.4f}, peak memory {row['peak_mem_gib']:.2f} GiB, "
+                  f"launches {counts}", flush=True)
+            want = (dict.fromkeys(counts, 0) if formula is None
+                    else flash_counts(LM_STEPS, **formula))
+            check(counts == want, f"{name}: flash launches {counts} != expected {want}")
+            if first and name == "flash":
+                for key in ("flash_fwd", "flash_dq", "flash_dkv"):
+                    kernels[key]["launches"] = counts[key]
+            elif first and name == "int8":
+                kernels["flash_fwd_quant"]["launches"] = counts["flash_fwd_quant"]
+        for name, rows in lm_runs.items():
+            steps_ms = ", ".join(f"{r['ms_per_step']:.2f}" for r in rows)
+            print(f"   {name}: ms per step {steps_ms} (in the order run)")
+        lm_checks["route"] = route_compare(torch, fa, tfm, lmtrain, dev, lm_runs["flash"][0],
+                                           lm_runs["plain"][0])
+
+        # the launch formulas under recomputation, accumulation and eval, at
+        # full width for FORMULA_STEPS steps (eval batches from a corpus of
+        # random tokens written here and removed after)
+        corpus = os.path.join(ROOT, "chiprun_out", "lm_tokens.npy")
+        os.makedirs(os.path.dirname(corpus), exist_ok=True)
+        np.save(corpus, np.random.default_rng(13).integers(0, 32768, 1 << 20, dtype=np.uint16))
+        ev = ["--data-path", corpus, "--eval-every", "2", "--eval-batches", "2"]
+        n_ev = {"evals": FORMULA_STEPS // 2, "eval_batches": 2}
+        lm_checks["formulas"] = {}
+        try:
+            for name, extra, formula in (
+                    ("--remat", ["--attn", "flash", "--remat"], {"remat": True}),
+                    ("--remat-attn", ["--attn", "flash", "--remat-attn"], {"remat": True}),
+                    ("--accum-steps 2", ["--attn", "flash", "--accum-steps", "2"], {"accum": 2}),
+                    ("eval", ["--attn", "flash"] + ev, n_ev),
+                    ("int8 --remat-attn eval", ["--attn", "flash", "--precision", "int8",
+                                                "--remat-attn"] + ev,
+                     {"quant": True, "remat": True, **n_ev})):
+                row = lm_run(torch, fa, lm_train, FORMULA_STEPS, extra)
+                want = flash_counts(FORMULA_STEPS, **formula)
+                lm_checks["formulas"][name] = {"launches": row["launches"], "want": want,
+                                               "formula": formula}
+                print(f"   {name}: launches {row['launches']} (formula {formula}: {want})",
+                      flush=True)
+                check(row["launches"] == want,
+                      f"{name}: flash launches {row['launches']} != expected {want}")
+                check(("evals" not in formula) == (row["eval"] is None)
+                      and (row["eval"] is None or math.isfinite(row["eval"]["eval_loss"])),
+                      f"{name}: eval {row['eval']}")
+        finally:
+            os.remove(corpus)
+
+    learn = {}
+    with phase("14 learnability"):
+        lines = []
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0
+        rc = lm_train.main(["--device", "cuda", "--steps", "300", "--batch-size", "32",
+                            "--seq-len", "16", "--vocab", "32", "--d-model", "32", "--n-heads",
+                            "4", "--n-layers", "2", "--d-ff", "64", "--lr", "0.3", "--attn",
+                            "flash", "--generate", "7", "--log-every", "100"],
+                           log=lambda line: (print("   " + line, flush=True), lines.append(line)))
+        counts = dict(fa.LAUNCHES)
+        summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
+        gens = [l for l in lines if l.startswith("gen[")]
+        hits = total = 0
+        for g_line in gens:
+            prompt = json.loads(g_line.split("prompt=")[1].split(" completion=")[0])
+            done = json.loads(g_line.split("completion=")[1])
+            # prompt = the first half + its first token again: the rest repeats
+            hits += sum(int(a == b) for a, b in zip(done, prompt[1:8]))
+            total += len(done)
+        learn = {"final_loss": summary["final_loss"], "match": hits / max(total, 1),
+                 "launches": counts}
+        print(f"copy task: final loss {summary['final_loss']:.4f}, greedy continuation "
+              f"matches the repeat on {hits}/{total} positions; launches {counts}")
+        check(rc == 0 and len(gens) == 2, "lm_train.main did not generate")
+        check(summary["final_loss"] < 0.2, f"final loss {summary['final_loss']} >= 0.2")
+        check(hits / max(total, 1) > 0.9, f"continuation match {hits}/{total} <= 0.9")
+        check(counts["flash_fwd"] == counts["flash_dq"] == counts["flash_dkv"] == 300 * 2,
+              f"learnability launches {counts} != 300 steps x 2 layers")
+
+    flash_times = []
+    with phase("15 flash kernel times"):
+        # the library yardstick: the dispatch's `lib` route, one
+        # scaled_dot_product_attention(is_causal=True) call on (B, H, S, D) views
+        from distributed_neural_network_tpu_torch.ops.flash import flash_local_attention
+
+        saved = dict(fa.LAUNCHES)
+        g = torch.Generator(dev).manual_seed(15)
+        for b, s_, h, d in (FLASH_MAIN, (16, 2048, 4, 128)):
+            q, k, v, do = flash_inputs(torch, b, s_, h, d, torch.bfloat16, False, dev, g)
+            o, lse = fa.flash_fwd(q, k, v)
+            delta = fa.flash_delta(o, do)
+            qc, sq, kc, sk, vc, sv = fa.quantize_qkv(q, k, v, "int8")
+
+            def sdpa_fwd():
+                return flash_local_attention(q, k, v, impl="lib")
+
+            def sdpa_fwd_bwd():
+                ls = [x.detach().requires_grad_() for x in (q, k, v)]
+                return torch.autograd.grad(flash_local_attention(*ls, impl="lib"), ls, do)
+
+            lib = {"fwd": (time_ms(torch, sdpa_fwd, iters=50), graph_ms(torch, sdpa_fwd, iters=10)),
+                   "fwd_bwd": (time_ms(torch, sdpa_fwd_bwd, iters=50),
+                               graph_ms(torch, sdpa_fwd_bwd, iters=10))}
+            bwd = tuple(None if fb is None or f is None else fb - f
+                        for fb, f in zip(lib["fwd_bwd"], lib["fwd"]))
+            work = flash_work(b, s_, h, d)
+            rows = {
+                "flash_fwd": (lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_plain(q, k, v),
+                              lib["fwd"], PEAK_BF16_FLOPS),
+                "flash_fwd_quant": (
+                    lambda: fa.flash_fwd_quant_codes(qc, kc, vc, sq, sk, sv,
+                                                     out_dtype=torch.bfloat16),
+                    lambda: fa.flash_fwd_quant_plain(qc, kc, vc, sq, sk, sv,
+                                                     out_dtype=torch.bfloat16),
+                    (None, None), PEAK_INT8_OPS),
+                "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta),
+                             lambda: fa.flash_dq_plain(q, k, v, do, lse, delta), bwd,
+                             PEAK_BF16_FLOPS),
+                "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta),
+                              lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta), bwd,
+                              PEAK_BF16_FLOPS),
+            }
+            for name, (kern_fn, plain_fn, (t_l, d_l), peak) in rows.items():
+                t_k, t_p = time_ms(torch, kern_fn, iters=20, warmup=3), \
+                    time_ms(torch, plain_fn, iters=3, warmup=1)
+                d_k = graph_ms(torch, kern_fn, iters=10, replays=3)
+                d_p = graph_ms(torch, plain_fn, iters=2, replays=2)
+                nbytes, ops = work[name]
+                bms, by = bound_ms(nbytes, ops, peak)
+                flash_times.append({"name": name, "B": b, "S": s_, "H": h, "D": d, "ms": t_k,
+                                    "graph_ms": d_k, "plain_ms": t_p, "plain_graph_ms": d_p,
+                                    "library_ms": t_l, "library_graph_ms": d_l,
+                                    "sdpa_fwd_bwd_ms": lib["fwd_bwd"][0], "bound_ms": bms,
+                                    "bound_by": by, "bytes": nbytes, "ops": ops})
+                print(f"{name:16s} B={b} S={s_} H={h} D={d}: per call kernel {t_k:.4f} ms plain "
+                      f"{t_p:.4f} ms library {fmt(t_l)} ms | device (graph): kernel {fmt(d_k)} "
+                      f"ms plain {fmt(d_p)} ms library {fmt(d_l)} ms | bound {bms:.5f} ms "
+                      f"({by}: {nbytes} B, {ops} ops) | kernel/bound {t_k / bms:.1f}x",
+                      flush=True)
+                if (h, d) == (8, 64):
+                    kernels[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms,
+                                         bound_by=by, graph_ms=d_k)
+            print(f"   SDPA causal at this shape: forward {lib['fwd'][0]:.4f} ms, forward + "
+                  f"backward {lib['fwd_bwd'][0]:.4f} ms per call (library_ms of flash_dq and "
+                  f"flash_dkv is SDPA's whole backward, dq, dk and dv together); the quantized "
+                  f"kernel has no single PyTorch call for the same function")
+            del q, k, v, do, o, lse, delta, qc, kc, vc
+            torch.cuda.empty_cache()
+        fa.LAUNCHES.update(saved)
+
+    lm_profile = {}
+    with phase("16 where the training time goes"):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        from distributed_neural_network_tpu_torch.models import transformer as tfm
+        from distributed_neural_network_tpu_torch.train import lm as lmtrain
+
+        saved = dict(fa.LAUNCHES)
+        cfg = tfm.TransformerConfig(vocab_size=32768, d_model=512, n_heads=8, n_layers=8,
+                                    d_ff=2048, dtype=torch.bfloat16)
+        params = tfm.init_params(0, cfg, dev)
+        mom = lmtrain.init_lm_momentum(params)
+        step = lmtrain.make_lm_train_step(cfg, device=dev, lr=0.01, attn_impl="flash")
+        toks, tgts = lmtrain.make_copy_task(torch.Generator().manual_seed(1), batch=16,
+                                            seq_len=2048, vocab=32768, device=dev)
+        for _ in range(2):
+            step(params, mom, toks, tgts)
+        torch.cuda.synchronize()
+        n_steps = 3
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                step(params, mom, toks, tgts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        fa.LAUNCHES.update(saved)
+        rows = profile_rows(prof, DeviceType)
+        busy = sum(r[1] for r in rows) / 1e6
+        flash_us = sum(r[1] for r in rows if "flash_" in r[0])
+        lm_profile = {"wall_s": wall, "device_busy_s": busy, "steps": n_steps,
+                      "idle_share": 1 - busy / wall if busy else None,
+                      "flash_share_of_busy": flash_us / 1e6 / busy if busy else None,
+                      "top": sorted(rows, key=lambda r: -r[1])[:12]}
+        print(f"{n_steps} steady steps at full width (flash, bf16): wall {wall:.3f} s "
+              f"({1e3 * wall / n_steps:.1f} ms/step), device busy {busy:.3f} s, idle share "
+              f"{'not measured' if not busy else f'{1 - busy / wall:.3f}'}, flash kernels "
+              f"{'not measured' if not busy else f'{flash_us / 1e6 / busy:.3f}'} of busy time")
+        for key, us, count in lm_profile["top"]:
+            print(f"   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+        del params, mom, step
+        torch.cuda.empty_cache()
+
     table = [{"name": name, **k} for name, k in kernels.items()]
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -886,9 +1466,12 @@ def main() -> int:
             return 1
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "kernels": table, "times": times, "main_path": main_path,
+        json.dump({"card": smi, "env": env, "kernels": table, "times": times,
+                   "main_path": main_path,
                    "profile": profile, "serving": serving, "decode_times": decode_times,
-                   "serve_profile": serve_profile}, f, indent=1)
+                   "serve_profile": serve_profile, "flash_times": flash_times,
+                   "lm_runs": lm_runs, "lm_checks": lm_checks, "learn": learn,
+                   "lm_profile": lm_profile}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -898,4 +1481,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(route_check() if sys.argv[1:] == ["--route-check"] else main())

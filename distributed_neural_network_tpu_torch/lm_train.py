@@ -1,0 +1,327 @@
+"""Train the transformer LM on one device: the port of the JAX package's
+`lm_train.py`, with its flags, its per-step ``step N  loss X`` lines, its MFU
+line and its final ``SUMMARY {json}`` line (the same keys).
+
+    python -m distributed_neural_network_tpu_torch.lm_train --attn flash \\
+        --dtype bfloat16 --steps 20 --batch-size 16 --seq-len 2048 \\
+        --vocab 32768 --d-model 512 --n-layers 8 --n-heads 8 --d-ff 2048 --lr 0.01
+
+Runs on the GPU unless ``--device cpu`` is given. ``--attn flash`` runs the
+hand-written flash kernels (`ops/flash_attention.py`; their plain versions on
+the CPU); ``--attn ring|ulysses|zigzag`` at ``--sp 1`` is the plain local
+attention, as the JAX `_attend` with no sequence axis. ``--precision
+fp8|int8`` quantizes the attention forward. The task is the synthetic copy
+task (a `torch.Generator` stream, not `jax.random`'s) unless ``--data-path``
+names a token corpus. Flags of later slices raise `NotImplementedError`
+naming the slice; ``--compilation-cache-dir`` is JAX-only and not a flag here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import time
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .models import transformer as tfm
+from .ops.schedule import make_ema_update, warmup_cosine
+from .parallel.ring import PARALLEL_SLICE
+from .train import lm as lmtrain
+from .train.engine import SLICE4
+from .train.measure import model_flops_per_token, peak_flops
+
+# the keys of the JAX CLI's SUMMARY line, in its order
+SUMMARY_KEYS = (
+    "mesh", "steps", "start_step", "last_step", "preempted", "guard", "guard_summary",
+    "dtype", "pp_bubble_frac", "grad_sync", "accum_steps", "dynamics", "data_source", "eval",
+    "first_loss", "final_loss", "tokens_per_s", "wall_s_post_compile", "model_tflops_per_s",
+    "mfu_pct",
+)
+
+# dest -> (flag, the slice that brings it); each is parsed with default None
+LATER_FLAGS = {
+    "sharding": ("--sharding", PARALLEL_SLICE),
+    "microbatches": ("--microbatches", PARALLEL_SLICE),
+    "pp_interleave": ("--pp-interleave", PARALLEL_SLICE),
+    "bucket_mb": ("--bucket-mb", PARALLEL_SLICE),
+    "stop_at_step": ("--stop-at-step", SLICE4),
+    "metrics_jsonl": ("--metrics-jsonl", SLICE4),
+    "run_record": ("--run-record", SLICE4),
+    "trace_out": ("--trace-out", SLICE4),
+    "step_stats": ("--step-stats", SLICE4),
+    "dynamics": ("--dynamics", SLICE4),
+    "dynamics_jsonl": ("--dynamics-jsonl", SLICE4),
+    "metrics_port": ("--metrics-port", SLICE4),
+    "metrics_linger": ("--metrics-linger", SLICE4),
+    "profile_dir": ("--profile-dir", SLICE4),
+    "watchdog": ("--watchdog", SLICE4),
+    "watchdog_escalate": ("--watchdog-escalate", SLICE4),
+    "checkpoint_dir": ("--checkpoint-dir", SLICE4),
+    "checkpoint_every": ("--checkpoint-every", SLICE4),
+    "resume": ("--resume", SLICE4),
+    "elastic": ("--elastic", SLICE4),
+    "guard": ("--guard", SLICE4),
+    "guard_spike_zscore": ("--guard-spike-zscore", SLICE4),
+    "snapshot_every": ("--snapshot-every", SLICE4),
+    "max_retries": ("--max-retries", SLICE4),
+    "on_sigterm": ("--on-sigterm", SLICE4),
+    "chaos_nan_step": ("--chaos-nan-step", SLICE4),
+    "chaos_nan_layer": ("--chaos-nan-layer", SLICE4),
+    "chaos_spike_step": ("--chaos-spike-step", SLICE4),
+    "chaos_sigterm_after": ("--chaos-sigterm-after", SLICE4),
+    "chaos_stall_step": ("--chaos-stall-step", SLICE4),
+    "chaos_stall_seconds": ("--chaos-stall-seconds", SLICE4),
+    "chaos_stall_rank": ("--chaos-stall-rank", SLICE4),
+    "chaos_shrink_at_step": ("--chaos-shrink-at-step", SLICE4),
+    "chaos_shrink_to": ("--chaos-shrink-to", SLICE4),
+}
+INT8_KV_MESSAGE = (
+    "--precision int8-kv quantizes the SERVING KV cache (paged pool + per-block scales); it "
+    "is a flag of python -m distributed_neural_network_tpu.serve. Training's quantized paths "
+    "are --precision fp8|int8"
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m distributed_neural_network_tpu_torch.lm_train",
+                                description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; asking for cuda without a GPU is an error")
+    for flag in ("--dp", "--sp", "--tp", "--pp"):
+        p.add_argument(flag, type=int, default=1,
+                       help=f"must be 1: parallel axes come with {PARALLEL_SLICE}")
+    p.add_argument("--attn", choices=("ring", "ulysses", "zigzag", "flash"), default="ring",
+                   help="ring/ulysses/zigzag at --sp 1 = plain local attention; flash = the "
+                   "hand-written flash kernels")
+    p.add_argument("--experts", type=int, default=0, help="MoE experts (0 = dense)")
+    p.add_argument("--optimizer", choices=lmtrain.OPTIMIZERS, default="sgd")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=32, help="global batch")
+    p.add_argument("--seq-len", type=int, default=64)
+    p.add_argument("--vocab", type=int, default=256)
+    p.add_argument("--d-model", type=int, default=128)
+    p.add_argument("--n-heads", type=int, default=8)
+    p.add_argument("--n-layers", type=int, default=4)
+    p.add_argument("--d-ff", type=int, default=512)
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    p.add_argument("--precision", choices=("bf16", "fp8", "int8", "int8-kv"), default="bf16",
+                   help="fp8/int8 quantize the attention forward (backward full precision)")
+    p.add_argument("--loss-chunks", type=int, default=0,
+                   help="CE in this many sequence chunks (0 = auto by a 64 MB logits "
+                   "budget, 1 = single pass)")
+    p.add_argument("--remat", action="store_true", help="recompute every block in backward")
+    p.add_argument("--remat-policy", default="",
+                   help="a jax.checkpoint_policies name in the JAX CLI; only '' here")
+    p.add_argument("--remat-attn", action="store_true",
+                   help="recompute only the attention call in backward")
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--lr-schedule", choices=("constant", "cosine"), default="constant")
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--min-lr-frac", type=float, default=0.0)
+    p.add_argument("--clip-norm", type=float, default=0.0)
+    p.add_argument("--accum-steps", type=int, default=1)
+    p.add_argument("--grad-sync", choices=("end", "overlap"), default="end")
+    p.add_argument("--ema-decay", type=float, default=0.0)
+    p.add_argument("--weight-decay", type=float, default=0.0)
+    p.add_argument("--momentum", type=float, default=0.9,
+                   help="SGD momentum; Adam's b1 with --optimizer adam")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data-path", default=None, help="token corpus (.npy, .bin, .txt)")
+    p.add_argument("--eval-every", type=int, default=0)
+    p.add_argument("--eval-batches", type=int, default=8)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--gen-temperature", type=float, default=0.0)
+    p.add_argument("--gen-top-k", type=int, default=0)
+    p.add_argument("--gen-top-p", type=float, default=0.0)
+    p.add_argument("--generate", type=int, default=0, metavar="N",
+                   help="after training, decode N tokens from the first two prompts")
+    for dest, (flag, later) in LATER_FLAGS.items():
+        p.add_argument(flag, dest=dest, nargs="?", const=True, default=None,
+                       help=f"not ported yet: {later}")
+    return p
+
+
+def validate(p: argparse.ArgumentParser, args) -> None:
+    """The JAX CLI's argument checks that apply on one device."""
+    if args.steps < 1:
+        p.error("--steps must be >= 1")
+    if args.remat_policy and not args.remat:
+        p.error("--remat-policy only applies with --remat")
+    if args.eval_every and not args.data_path:
+        p.error("--eval-every requires --data-path (the held-out split is the token "
+                "stream's tail)")
+    if args.gen_temperature < 0:
+        p.error(f"--gen-temperature must be >= 0, got {args.gen_temperature}")
+    if not 0.0 <= args.gen_top_p <= 1.0:
+        p.error(f"--gen-top-p must be in [0, 1], got {args.gen_top_p}")
+    if (args.gen_top_k or args.gen_top_p) and args.gen_temperature <= 0:
+        p.error("--gen-top-k/--gen-top-p only apply when sampling; set --gen-temperature > 0")
+    if args.generate <= 0 and (args.gen_temperature > 0 or args.gen_top_k or args.gen_top_p):
+        p.error("--gen-temperature/--gen-top-k/--gen-top-p configure --generate N, which was "
+                "not requested")
+    if args.loss_chunks > 1 and args.seq_len % args.loss_chunks:
+        p.error(f"--loss-chunks {args.loss_chunks} must divide --seq-len {args.seq_len}")
+    if args.precision == "int8-kv":
+        p.error(INT8_KV_MESSAGE)
+    if args.n_heads < 1 or args.d_model % args.n_heads:
+        p.error(f"--d-model {args.d_model} must divide by --n-heads {args.n_heads}")
+
+
+def check_ported(args) -> None:
+    """Raise NotImplementedError for a flag whose feature is not ported yet."""
+    for dest, (flag, later) in LATER_FLAGS.items():
+        if getattr(args, dest) is not None:
+            raise NotImplementedError(f"{flag} is not ported yet; it comes with {later}")
+    for flag in ("dp", "sp", "tp", "pp"):
+        if getattr(args, flag) != 1:
+            raise NotImplementedError(f"--{flag} {getattr(args, flag)}: the port trains on one "
+                                      f"device; parallel axes come with {PARALLEL_SLICE}")
+    if args.experts:
+        raise NotImplementedError(f"--experts comes with {PARALLEL_SLICE}")
+    if args.optimizer.startswith("zero"):
+        raise NotImplementedError(f"--optimizer {args.optimizer} comes with {PARALLEL_SLICE}")
+    if args.grad_sync == "overlap":
+        raise NotImplementedError(f"--grad-sync overlap comes with {PARALLEL_SLICE}")
+    if args.remat_policy:
+        raise NotImplementedError(f"--remat-policy {args.remat_policy!r} comes with "
+                                  f"{tfm.REMAT_POLICY_SLICE}")
+
+
+def main(argv=None, *, log=print) -> int:
+    p = build_parser()
+    args = p.parse_args(argv)
+    validate(p, args)
+    check_ported(args)
+    device = resolve_device(args.device)
+    cfg = tfm.TransformerConfig(
+        vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        n_layers=args.n_layers, d_ff=args.d_ff,
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        remat=args.remat, remat_attn=args.remat_attn,
+        attn_quant="" if args.precision == "bf16" else args.precision,
+    )
+    params = tfm.init_params(args.seed, cfg, device)
+    mom = lmtrain.init_lm_momentum(params, args.optimizer)
+    lr_schedule = None
+    if args.lr_schedule == "cosine":
+        lr_schedule = functools.partial(warmup_cosine, base_lr=args.lr, total_steps=args.steps,
+                                        warmup_steps=args.warmup_steps,
+                                        min_lr_frac=args.min_lr_frac)
+    step = lmtrain.make_lm_train_step(
+        cfg, device=device, lr=args.lr, momentum=args.momentum, attn_impl=args.attn,
+        optimizer=args.optimizer, loss_chunks=args.loss_chunks, lr_schedule=lr_schedule,
+        clip_norm=args.clip_norm, accum_steps=args.accum_steps,
+        weight_decay=args.weight_decay,
+    )
+
+    stream = batch_at = None
+    if args.data_path:
+        from .data.tokens import load_token_stream, sample_batch
+
+        stream = load_token_stream(args.data_path, vocab_size=args.vocab)
+        log(f"(token stream: {len(stream.tokens):,} tokens [{stream.source}], "
+            f"{stream.n_eval:,} held out)")
+
+        def batch_at(i, split="train"):
+            tok, tgt = sample_batch(stream, batch=args.batch_size, seq_len=args.seq_len,
+                                    step=i, seed=args.seed, split=split)
+            return (torch.from_numpy(tok).long().to(device),
+                    torch.from_numpy(tgt).long().to(device))
+
+        tokens, targets = batch_at(0)
+    else:
+        tokens, targets = lmtrain.make_copy_task(
+            torch.Generator().manual_seed(args.seed + 1), batch=args.batch_size,
+            seq_len=args.seq_len, vocab=args.vocab, device=device)
+    eval_fn = None
+    if args.eval_every:
+        eval_fn = lmtrain.make_eval_fn(cfg, attn_impl=args.attn, loss_chunks=args.loss_chunks)
+    log(f"(LM {tfm.param_count(params):,} params, mesh single, "
+        f"attn={'flash' if args.attn == 'flash' else 'full'}, "
+        + (f"precision={args.precision}, " if args.precision != "bf16" else "")
+        + f"experts=dense, optimizer={args.optimizer}, device={device})")
+
+    ema = ema_fn = None
+    leaves = lmtrain.tree_leaves(params)
+    if args.ema_decay:
+        ema_fn = make_ema_update(args.ema_decay)
+        ema = [x.detach().clone() for x in leaves]
+    first_loss = t0 = last_eval = None
+    eval_s, timed_steps = 0.0, 0
+    t_first = time.perf_counter()
+    loss = None
+    for i in range(args.steps):
+        if stream is not None:
+            tokens, targets = batch_at(i)
+        loss = step(params, mom, tokens, targets, i)
+        if ema_fn is not None:
+            ema_fn(ema, leaves)
+        if eval_fn is not None and (i + 1) % args.eval_every == 0:
+            t_ev = time.perf_counter()
+            eval_params = lmtrain.tree_unflatten(params, ema) if ema is not None else params
+            ev = float(np.mean([float(eval_fn(eval_params, *batch_at(j, "eval")))
+                                for j in range(args.eval_batches)]))
+            if t0 is not None:
+                eval_s += time.perf_counter() - t_ev
+            last_eval = {"step": i, "eval_loss": round(ev, 4),
+                         "ppl": round(float(np.exp(min(ev, 30.0))), 2)}
+            log(f"step {i:>5}  eval_loss {ev:.4f}  ppl {last_eval['ppl']:.2f}")
+        if i == 0:
+            first_loss = float(loss)  # waits for the step
+            log(f"(first step incl. kernel build: {time.perf_counter() - t_first:.1f}s)")
+            t0 = time.perf_counter()
+        else:
+            timed_steps += 1
+        if i % args.log_every == 0 or i == args.steps - 1:
+            log(f"step {i:>5}  loss {float(loss):.4f}")
+    final_loss = float(loss)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0 - eval_s if timed_steps else 0.0
+    tok_s = args.batch_size * args.seq_len * timed_steps / dt if dt else 0.0
+    flops_tok = model_flops_per_token(cfg, args.seq_len)
+    model_flops_s = flops_tok * tok_s
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    peak = peak_flops(kind, args.dtype)
+    mfu = model_flops_s / peak * 100.0 if peak else None
+    if mfu is not None:
+        log(f"MFU {mfu:.1f}% = {model_flops_s / 1e12:.1f} model TFLOP/s / ({peak / 1e12:.0f} "
+            f"peak {'bf16' if args.dtype == 'bfloat16' else 'f32'} TFLOP/s x 1 dev, {kind}); "
+            f"FLOPs/token = 3*(L*(8d^2 + 4sd + 4d*ff) + 2d*V) = {flops_tok / 1e6:.1f}M")
+    if args.generate > 0:
+        gen_params = lmtrain.tree_unflatten(params, ema) if ema is not None else params
+        ptoks, _ = lmtrain.make_copy_task(
+            torch.Generator().manual_seed(args.seed + 1), batch=args.batch_size,
+            seq_len=args.seq_len, vocab=args.vocab, device=device)
+        half = args.seq_len // 2
+        out = tfm.generate(
+            gen_params, ptoks[:2, : half + 1], cfg, max_new_tokens=args.generate,
+            temperature=args.gen_temperature, top_k=args.gen_top_k, top_p=args.gen_top_p,
+            generator=(torch.Generator().manual_seed(args.seed + 2)
+                       if args.gen_temperature > 0 else None))
+        for j, row in enumerate(out.tolist()):
+            log(f"gen[{j}] prompt={row[:half + 1]} completion={row[half + 1:]}")
+    summary = dict.fromkeys(SUMMARY_KEYS)
+    summary.update({
+        "mesh": "single", "steps": args.steps, "start_step": 0, "last_step": args.steps - 1,
+        "preempted": False, "guard": "off", "dtype": args.dtype, "grad_sync": args.grad_sync,
+        "accum_steps": args.accum_steps,
+        "data_source": stream.source if stream is not None else "copy-task",
+        "eval": last_eval, "first_loss": first_loss, "final_loss": final_loss,
+        "tokens_per_s": round(tok_s), "wall_s_post_compile": round(dt, 3),
+        "model_tflops_per_s": round(model_flops_s / 1e12, 2),
+        "mfu_pct": round(mfu, 2) if mfu is not None else None,
+    })
+    log("SUMMARY " + json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -7,15 +7,23 @@ across with no transpose: ``embed`` (V, d), ``head`` (d, V), ``lnf_scale`` /
 (L, ...), Dense kernels as (in, out). `from_jax_params` / `to_numpy` carry a
 tree across in either direction.
 
-`apply` is the teacher-forced forward with full causal attention; `generate`
-is the offline cached decode, whose per-step attention runs the decode
-kernel (`ops/decode_attention.py`) on a CUDA device and its plain version on
-the CPU. The port's seeded `init_params` and sampling draw from
+`apply_hidden` / `apply_with_aux` / `apply` are the teacher-forced forward,
+differentiable: the f32 master leaves are sliced per layer and cast to the
+model dtype inside the graph, so their gradients land in f32. Attention is
+the plain local attention (`parallel/ring.py` `attention`) for ``full``,
+``ring``, ``ulysses`` and ``zigzag`` (one device has no sequence axis, as in
+the JAX `_attend`), or the flash kernels (`ops/flash.py`) for ``flash``;
+``attn_quant`` quantizes the attention forward. ``remat`` checkpoints every
+block, ``remat_attn`` the attention call alone (`torch.utils.checkpoint`).
+`generate` is the offline cached decode, whose per-step attention runs the
+decode kernel (`ops/decode_attention.py`) on a CUDA device and its plain
+version on the CPU. The port's seeded `init_params` and sampling draw from
 `torch.Generator`s, so they differ from the JAX package's for the same seed.
 
-Not ported here (they raise `NotImplementedError`): mixture-of-experts,
-sequence-parallel attention (ring, Ulysses, zigzag), the flash kernel and
-rematerialisation; they come with slice 3 (LM training).
+Not ported here (they raise `NotImplementedError`): mixture-of-experts and
+sequence-parallel attention over a device mesh, which come with the parallel
+layouts, and named remat policies (`remat_policy`), which come with
+selective activation checkpointing in a later slice.
 """
 
 from __future__ import annotations
@@ -27,16 +35,24 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from ..ops.decode_attention import (
     decode_cache_attention,
     decode_kernel_ok,
     masked_decode_attention,
 )
+from ..ops.quant import QUANT_FORMATS, quantized_attention
+from ..parallel.ring import PARALLEL_SLICE, attention
 
 LAYER_KEYS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
               "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 DECODE_IMPLS = ("auto", "torch", "cuda")
-_SLICE3 = "slice 3 of the port (LM training)"
+# full/ring/ulysses/zigzag: plain local attention on one device; flash: the
+# flash kernels (ops/flash.py)
+ATTN_IMPLS = ("full", "ring", "ulysses", "zigzag", "flash")
+REMAT_POLICY_SLICE = ("a later slice of the port (selective activation checkpointing, "
+                      "ROADMAP.md Queue 1 item 10)")
 
 
 @dataclass(frozen=True)
@@ -47,14 +63,26 @@ class TransformerConfig:
     n_layers: int = 2
     d_ff: int = 512
     dtype: torch.dtype = torch.float32
-    n_experts: int = 0
+    # checkpoint every block (recomputed in backward)
     remat: bool = False
+    # a jax.checkpoint_policies name in the JAX package; "" = save nothing
+    remat_policy: str = ""
+    # checkpoint only the attention call (ignored with remat)
+    remat_attn: bool = False
+    n_experts: int = 0
+    # low-precision attention forward: "" (off), "int8" or "fp8"
+    attn_quant: str = ""
 
     def __post_init__(self):
         if self.n_experts:
-            raise NotImplementedError(f"mixture-of-experts layers come with {_SLICE3}")
-        if self.remat:
-            raise NotImplementedError(f"rematerialisation comes with {_SLICE3}")
+            raise NotImplementedError(f"mixture-of-experts layers come with {PARALLEL_SLICE}")
+        if self.remat_policy:
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r} (a jax.checkpoint_policies name) comes "
+                f"with {REMAT_POLICY_SLICE}; remat=True alone recomputes whole blocks")
+        if self.attn_quant and self.attn_quant not in QUANT_FORMATS:
+            raise ValueError(f"attn_quant must be '' or one of {tuple(QUANT_FORMATS)}, "
+                             f"got {self.attn_quant!r}")
 
     @property
     def head_dim(self) -> int:
@@ -125,14 +153,15 @@ def param_count(params) -> int:
 def layer_params(params, cfg: TransformerConfig) -> list[dict]:
     """One dict per layer, its weight matrices cast to the model dtype (the
     casts the JAX package repeats inside every step, done once)."""
-    dt = cfg.dtype
-    out = []
-    for i in range(cfg.n_layers):
-        lp = {k: params["layers"][k][i] for k in LAYER_KEYS}
-        for k in ("wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2"):
-            lp[k] = lp[k].to(dt)
-        out.append(lp)
-    return out
+    return [_layer(params, i, cfg.dtype) for i in range(cfg.n_layers)]
+
+
+def _layer(params, i: int, dt):
+    """Layer i's params, its weight matrices cast to the model dtype."""
+    lp = {k: params["layers"][k][i] for k in LAYER_KEYS}
+    for k in ("wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2"):
+        lp[k] = lp[k].to(dt)
+    return lp
 
 
 # ------------------------------------------------------------------ pieces
@@ -180,35 +209,74 @@ def resolve_decode_impl(impl: str, device: torch.device) -> str:
 # ------------------------------------------------------------- the forward
 
 
-def apply_hidden(params, tokens, cfg: TransformerConfig, *, attn_impl: str = "full"):
-    """tokens (B, S) -> final-layer-norm hidden (B, S, d) in the model dtype."""
-    if attn_impl != "full":
-        raise NotImplementedError(
-            f"attn_impl {attn_impl!r} (ring/ulysses/zigzag/flash) comes with {_SLICE3}; "
-            "the port runs 'full'")
+def _attend_fn(attn_impl: str, cfg: TransformerConfig):
+    """(q, k, v) (B, S, H, Dh) -> (B, S, H, Dh): the JAX `_attend` with no
+    sequence axis, wrapped in a checkpoint under ``remat_attn``."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+    quant = cfg.attn_quant or None
+    if attn_impl == "flash":
+        from ..ops.flash import flash_local_attention
+
+        def attend(q, k, v):
+            return flash_local_attention(q, k, v, causal=True, quant=quant)
+    elif quant:
+        def attend(q, k, v):
+            return quantized_attention(q, k, v, causal=True, fmt=quant)
+    else:
+        def attend(q, k, v):
+            return attention(q, k, v, causal=True)
+    if cfg.remat_attn and not cfg.remat:
+        return lambda q, k, v: checkpoint(attend, q, k, v, use_reentrant=False)
+    return attend
+
+
+def transformer_block(x, lp, cfg: TransformerConfig, attend):
+    """One pre-norm block on x (B, S, d) with the layer's params `lp` (weights
+    already in the model dtype), in the JAX package's order of operations."""
     dt = cfg.dtype
-    b, s = tokens.shape
+    b, s = x.shape[:2]
     h_n, d_h = cfg.n_heads, cfg.head_dim
+    h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]).to(dt)
+    q = (h @ lp["wq"]).reshape(b, s, h_n, d_h)
+    k = (h @ lp["wk"]).reshape(b, s, h_n, d_h)
+    v = (h @ lp["wv"]).reshape(b, s, h_n, d_h)
+    o = attend(q, k, v)
+    x = x + o.reshape(b, s, -1) @ lp["wo"]
+    return mlp_residual(x, lp, dt)
+
+
+def apply_hidden(params, tokens, cfg: TransformerConfig, *, attn_impl: str = "ring"):
+    """tokens (B, S) -> final-layer-norm hidden (B, S, d) in the model dtype.
+
+    Differentiable with respect to the f32 leaves of `params`. The vocab
+    projection is left to the caller (the chunked loss never forms the
+    whole (B, S, vocab) logits)."""
+    dt = cfg.dtype
+    s = tokens.shape[1]
+    attend = _attend_fn(attn_impl, cfg)
     x = params["embed"][tokens].to(dt)
     x = x + _sinusoid_pe(torch.arange(s, device=tokens.device), cfg.d_model, dt)[None]
-    causal = torch.ones(s, s, dtype=torch.bool, device=tokens.device).tril()
-    for lp in layer_params(params, cfg):
-        h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]).to(dt)
-        q = (h @ lp["wq"]).reshape(b, s, h_n, d_h)
-        k = (h @ lp["wk"]).reshape(b, s, h_n, d_h)
-        v = (h @ lp["wv"]).reshape(b, s, h_n, d_h)
-        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(d_h))
-        p = torch.softmax(sc.masked_fill(~causal, -1e30), dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, s, -1)
-        x = x + o @ lp["wo"]
-        x = mlp_residual(x, lp, dt)
+    for i in range(cfg.n_layers):
+        if cfg.remat:
+            x = checkpoint(lambda x, i=i: transformer_block(x, _layer(params, i, dt), cfg, attend),
+                           x, use_reentrant=False)
+        else:
+            x = transformer_block(x, _layer(params, i, dt), cfg, attend)
     return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)
 
 
-def apply(params, tokens, cfg: TransformerConfig, *, attn_impl: str = "full"):
-    """tokens (B, S) int -> logits (B, S, vocab) f32."""
+def apply_with_aux(params, tokens, cfg: TransformerConfig, *, attn_impl: str = "ring"):
+    """tokens (B, S) -> (logits (B, S, vocab) f32, aux): aux is the MoE
+    load-balancing loss of the JAX package, 0.0 for this dense model."""
     x = apply_hidden(params, tokens, cfg, attn_impl=attn_impl)
-    return (x @ params["head"].to(cfg.dtype)).float()
+    logits = (x @ params["head"].to(cfg.dtype)).float()
+    return logits, torch.zeros((), device=logits.device)
+
+
+def apply(params, tokens, cfg: TransformerConfig, *, attn_impl: str = "ring"):
+    """tokens (B, S) int -> logits (B, S, vocab) f32."""
+    return apply_with_aux(params, tokens, cfg, attn_impl=attn_impl)[0]
 
 
 # --------------------------------------------------------------- inference

@@ -121,7 +121,7 @@ class GoodputLedger:
         if taxonomy != "serve":
             raise NotImplementedError(
                 f"ledger taxonomy {taxonomy!r}: the port carries the serving "
-                "ledger only; the training taxonomy comes with slice 3 (LM training)"
+                "ledger only; the training taxonomy comes with slice 4 (the run record)"
             )
         self.taxonomy = taxonomy
         self._causes = SERVE_CAUSES
@@ -295,6 +295,7 @@ class GoodputLedger:
         return {c: _dist_summary(d) for c, d in sorted(durs.items())}
 
     def _record(self, buckets: dict, total: float, *, final: bool) -> dict:
+        rounded = {c: round(v, 6) for c, v in buckets.items()}
         return {
             "version": RECORD_VERSION,
             "kind": self.taxonomy,
@@ -312,12 +313,14 @@ class GoodputLedger:
             "steps": self.steps,
             "goodput_steps": self.goodput_steps,
             "tokens": self.tokens,
-            "wall_s": round(total, 6),
-            "goodput_s": round(buckets[SERVE_GOODPUT_CAUSE], 6),
+            # the sum of the rounded buckets, so that the record conserves
+            # at its own precision (finalize checked the unrounded sum)
+            "wall_s": round(sum(rounded.values()), 6),
+            "goodput_s": rounded[SERVE_GOODPUT_CAUSE],
             "goodput_ratio": round(
                 buckets[SERVE_GOODPUT_CAUSE] / total, 6
             ) if total > 0 else None,
-            "badput_s": {c: round(buckets[c], 6) for c in SERVE_BADPUT_CAUSES},
+            "badput_s": {c: rounded[c] for c in SERVE_BADPUT_CAUSES},
             "events": self._event_stats(),
             "metrics": self.metrics,
         }

@@ -1,0 +1,196 @@
+"""The port's flash attention (`ops/flash_attention.py`, `ops/flash.py`)
+against the JAX package's `flash_mha`, run as its own tests run it on the
+CPU (Pallas in interpret mode), on the same numpy inputs.
+
+On the CPU the port's wrappers run the kernels' plain versions; the CUDA
+kernels themselves are held against those plain versions on the card
+(the `cuda` tests here, skipped without one, and `chip_smoke.py` phase 12).
+
+Tolerances: f32 outputs and gradients atol = rtol = 2e-5 (two float stacks
+summing in other orders; the JAX package's own flash test uses the same);
+bf16 outputs 1e-2 (one bf16 ulp at 1 is 2^-7); the quantized forward 2e-5
+against JAX at the same k tile (the codes are the same; only f32 sums differ).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_neural_network_tpu.ops.flash_pallas import FlashBlocks, _fwd_call
+from distributed_neural_network_tpu.ops.flash_pallas import flash_mha as jax_flash_mha
+from distributed_neural_network_tpu.ops.quant import quantized_attention as jax_quant_attn
+from distributed_neural_network_tpu.parallel.ring import attention as jax_attention
+from distributed_neural_network_tpu_torch.ops import flash_attention as fa
+from distributed_neural_network_tpu_torch.ops.flash import flash_local_attention
+from distributed_neural_network_tpu_torch.ops.quant import quantized_attention
+from distributed_neural_network_tpu_torch.parallel.ring import attention
+
+F32_TOL = 2e-5
+
+
+def _qkv(b=2, s=40, h=2, d=16, seed=0, n=3):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=(b, s, h, d)) * 0.5).astype(np.float32) for _ in range(n)]
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(x).to(dtype)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_k", [fa.BLOCK_K, 16])
+def test_plain_forward_matches_jax(n_devices, causal, dtype, block_k):
+    """o and lse of the plain forward at S = 40 (not a multiple of the
+    port's tile; block_k 16 leaves a ragged last tile) against JAX
+    flash_mha in interpret mode and both packages' plain attention."""
+    q, k, v = _qkv()
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    want = _np(jax_flash_mha(jq, jk, jv, causal=causal, interpret=True))
+    o, lse = fa.flash_fwd_plain(*(_t(x, tdt) for x in (q, k, v)), causal=causal,
+                                block_k=block_k)
+    assert o.dtype == tdt and tuple(o.shape) == q.shape and tuple(lse.shape) == (2, 2, 40)
+    tol = F32_TOL if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(o.float().numpy(), want, atol=tol, rtol=tol)
+    ref = _np(jax_attention(jq, jk, jv, causal=causal))
+    np.testing.assert_allclose(o.float().numpy(), ref, atol=tol, rtol=tol)
+    ours = attention(*(_t(x, tdt) for x in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(ours.float().numpy(), ref, atol=tol, rtol=tol)
+    # lse against the Pallas forward's own residual
+    b, s, h, d = q.shape
+    flat = [jnp.asarray(x, jdt).transpose(0, 2, 1, 3).reshape(b * h, s, d) for x in (q, k, v)]
+    _, jlse = _fwd_call(*flat, blocks=FlashBlocks().resolve(s), scale=1 / np.sqrt(d),
+                        causal=causal, interpret=True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse).reshape(b, h, s), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_grads_match_jax(n_devices, causal):
+    """dq/dk/dv through the port's autograd Function (plain route) against
+    jax.grad of flash_mha in interpret mode, through sum(o * w)."""
+    q, k, v, w = _qkv(s=24, seed=1, n=4)
+
+    def jloss(a, b_, c):
+        return jnp.sum(jax_flash_mha(a, b_, c, causal=causal, interpret=True) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    (fa.flash_mha(*leaves, causal=causal) * _t(w)).sum().backward()
+    for got, exp in zip(leaves, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(exp), atol=F32_TOL, rtol=F32_TOL)
+    assert not any(fa.LAUNCHES.values())  # the CPU route launches nothing
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_quant_plain_matches_jax_at_the_same_k_tile(n_devices, fmt, causal):
+    """The quantized plain forward at block_k = 8 against the JAX quantized
+    kernel at bk = 8 (S = 32, a multiple of it), and at the port's own tile
+    (>= S, one tile per row) against both quantized_attention references."""
+    q, k, v = _qkv(s=32, seed=2)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    tq, tk, tv = (_t(x) for x in (q, k, v))
+    codes = fa.quantize_qkv(tq, tk, tv, fmt)
+    qc, sq, kc, sk, vc, sv = codes
+    want = _np(jax_flash_mha(jq, jk, jv, causal=causal, quant=fmt, interpret=True,
+                             blocks=FlashBlocks(bq=16, bk=8)))
+    got, _ = fa.flash_fwd_quant_plain(qc, kc, vc, sq, sk, sv, causal=causal, block_k=8)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+    whole, _ = fa.flash_fwd_quant(tq, tk, tv, fmt=fmt, causal=causal)
+    ref = _np(jax_quant_attn(jq, jk, jv, causal=causal, fmt=fmt))
+    np.testing.assert_allclose(whole.numpy(), ref, atol=F32_TOL, rtol=F32_TOL)
+    np.testing.assert_allclose(quantized_attention(tq, tk, tv, causal=causal, fmt=fmt).numpy(),
+                               ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_straight_through_grads_match_jax(n_devices, fmt):
+    """A quantized forward's gradients are the full-precision backward on
+    the original q/k/v at the quantized forward's o and lse, in both
+    packages (S = 32 <= both k tiles, so the forwards agree)."""
+    q, k, v, w = _qkv(s=32, seed=3, n=4)
+
+    def jloss(a, b_, c):
+        o = jax_flash_mha(a, b_, c, causal=True, quant=fmt, interpret=True,
+                          blocks=FlashBlocks(bq=32, bk=32))
+        return jnp.sum(o * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    (fa.flash_mha(*leaves, quant=fmt) * _t(w)).sum().backward()
+    for got, exp in zip(leaves, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(exp), atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_plain_backward_pieces_agree():
+    """flash_bwd_plain equals autograd of the plain attention, and the
+    wrappers' CPU route equals the plain versions bit for bit."""
+    q, k, v, do = (_t(x) for x in _qkv(s=20, seed=4, n=4))
+    o, lse = fa.flash_fwd(q, k, v)
+    dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in
+               zip((dq, dk, dv), fa.flash_bwd_plain(q, k, v, o, lse, do)))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.autograd.backward(attention(*leaves, causal=True), do)
+    for got, ref in zip((dq, dk, dv), leaves):
+        torch.testing.assert_close(got, ref.grad, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_dispatch_routes_and_checks(monkeypatch):
+    # no environment variable chooses the route: only impl="lib" does
+    monkeypatch.setenv("DNN_TPU_FLASH_IMPL", "pallas")
+    q, k, v = (_t(x) for x in _qkv(s=12, seed=5))
+    ref = attention(q, k, v, causal=True)
+    torch.testing.assert_close(flash_local_attention(q, k, v), ref, atol=F32_TOL, rtol=F32_TOL)
+    lib = flash_local_attention(q, k, v, impl="lib")
+    torch.testing.assert_close(lib, ref, atol=F32_TOL, rtol=F32_TOL)
+    with pytest.raises(ValueError, match="no quantized path"):
+        flash_local_attention(q, k, v, impl="lib", quant="int8")
+    with pytest.raises(ValueError, match="unknown flash impl"):
+        flash_local_attention(q, k, v, impl="pallas")
+    with pytest.raises(ValueError, match="unknown quant"):
+        fa.flash_mha(q, k, v, quant="int4")
+    with pytest.raises(ValueError, match="D <= 128"):
+        fa.flash_fwd(*(torch.zeros(1, 4, 1, 129) for _ in range(3)))
+    with pytest.raises(ValueError, match="one shape"):
+        fa.flash_fwd(q, k[:, :6], v)
+    with pytest.raises(TypeError, match="must be one of"):
+        fa.flash_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_fwd(q.transpose(1, 3), k.transpose(1, 3), v.transpose(1, 3))
+    # a strided (B, S, H, D) view is legal and gives the contiguous answer
+    o_view, _ = fa.flash_fwd(*(x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)))
+    assert torch.equal(o_view, fa.flash_fwd(q, k, v)[0])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernels are CUDA C++ with no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_kernels_match_plain(cuda_device, dtype):
+    """On the card: each kernel against its plain version at a ragged S."""
+    tol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    q, k, v, do = (_t(x, dtype).to(cuda_device) for x in _qkv(s=100, h=3, d=64, n=4))
+    o, lse = fa.flash_fwd(q, k, v)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+    delta = fa.flash_delta(o, do)
+    for got, ref in zip((fa.flash_dq(q, k, v, do, lse, delta),
+                         *fa.flash_dkv(q, k, v, do, lse, delta)),
+                        (fa.flash_dq_plain(q, k, v, do, lse, delta),
+                         *fa.flash_dkv_plain(q, k, v, do, lse, delta))):
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)

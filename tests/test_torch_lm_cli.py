@@ -1,0 +1,152 @@
+"""The port's LM trainer entry point (`python -m
+distributed_neural_network_tpu_torch.lm_train`) on the CPU at a tiny width:
+its step lines, its MFU-less CPU summary with the JAX CLI's SUMMARY keys
+(read from the JAX script's source), the quantized route, the JAX CLI's
+argument errors, a NotImplementedError naming the slice for every flag of a
+later slice, and the flash launch formulas (the CPU runs each kernel's plain
+version where the card launches the kernel, so counting the plain versions
+counts the launches the card makes)."""
+
+import ast
+import json
+import os
+
+import pytest
+import torch
+
+from distributed_neural_network_tpu_torch import lm_train
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["--device", "cpu", "--steps", "3", "--batch-size", "4", "--seq-len", "16",
+        "--vocab", "32", "--d-model", "32", "--n-heads", "4", "--n-layers", "2",
+        "--d-ff", "64", "--log-every", "1"]
+
+
+def _jax_summary_keys():
+    """The keys of the dict in the JAX lm_train.py's `"SUMMARY " + json.dumps({...})`."""
+    tree = ast.parse(open(os.path.join(ROOT, "lm_train.py")).read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.BinOp) and isinstance(node.left, ast.Constant)
+                and node.left.value == "SUMMARY "):
+            return tuple(k.value for k in node.right.args[0].keys)
+    raise AssertionError("no SUMMARY line in lm_train.py")
+
+
+def _run(args):
+    lines = []
+    assert lm_train.main(args, log=lines.append) == 0
+    return lines
+
+
+def test_cpu_run_prints_steps_and_the_jax_summary_keys():
+    lines = _run(TINY + ["--attn", "flash", "--generate", "4"])
+    steps = [line for line in lines if line.startswith("step ")]
+    assert [line.split()[1] for line in steps] == ["0", "1", "2"]
+    summary = json.loads(next(line for line in lines if line.startswith("SUMMARY "))[8:])
+    assert tuple(summary) == _jax_summary_keys() == lm_train.SUMMARY_KEYS
+    assert summary["mesh"] == "single" and summary["mfu_pct"] is None  # no CPU peak
+    assert summary["final_loss"] < summary["first_loss"]
+    assert sum(line.startswith("gen[") for line in lines) == 2
+
+
+@pytest.mark.parametrize("extra", [
+    ["--attn", "flash", "--precision", "int8"],
+    ["--attn", "flash", "--precision", "fp8", "--remat-attn"],
+    ["--attn", "zigzag", "--optimizer", "adam", "--lr-schedule", "cosine", "--warmup-steps",
+     "1", "--clip-norm", "1.0", "--weight-decay", "0.01", "--accum-steps", "2", "--remat",
+     "--loss-chunks", "4", "--ema-decay", "0.9"],
+])
+def test_routes_run(extra):
+    summary = json.loads(_run(TINY + extra)[-1][8:])
+    assert summary["final_loss"] == summary["final_loss"]  # finite, not NaN
+
+
+def test_data_path_eval_and_ema(tmp_path):
+    corpus = tmp_path / "c.npy"
+    import numpy as np
+
+    np.save(corpus, np.random.default_rng(0).integers(0, 32, size=3000).astype(np.int32))
+    lines = _run(TINY + ["--data-path", str(corpus), "--eval-every", "2", "--eval-batches",
+                         "2", "--ema-decay", "0.5"])
+    summary = json.loads(lines[-1][8:])
+    assert summary["data_source"] == "npy" and summary["eval"]["step"] == 1
+
+
+# extra flags -> (quantized forward, recomputed in backward, accum steps,
+# eval passes); 4 steps of 2 layers, eval passes of 2 batches
+FORMULAS = {
+    "--attn flash": (False, False, 1, 0),
+    "--attn flash --remat": (False, True, 1, 0),
+    "--attn flash --remat-attn": (False, True, 1, 0),
+    "--attn flash --accum-steps 2": (False, False, 2, 0),
+    "--attn flash --eval-every 2": (False, False, 1, 2),
+    "--attn flash --precision int8 --remat-attn --eval-every 2": (True, True, 1, 2),
+    "--attn flash --precision fp8 --accum-steps 2 --remat": (True, True, 2, 0),
+}
+
+
+@pytest.mark.parametrize("flags", list(FORMULAS) + ["--attn ring", "--attn ring --remat"])
+def test_flash_launch_formulas(flags, tmp_path, monkeypatch):
+    import numpy as np
+
+    from distributed_neural_network_tpu_torch.ops import flash_attention as fa
+
+    counts = dict.fromkeys(fa.LAUNCHES, 0)
+    for fn, key in (("flash_fwd_plain", "flash_fwd"), ("flash_fwd_quant_plain", "flash_fwd_quant"),
+                    ("flash_dq_plain", "flash_dq"), ("flash_dkv_plain", "flash_dkv")):
+        def counted(*a, _fn=getattr(fa, fn), _key=key, **k):
+            counts[_key] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(fa, fn, counted)
+    corpus = tmp_path / "c.npy"
+    np.save(corpus, np.random.default_rng(0).integers(0, 32, size=3000).astype(np.int32))
+    steps, layers, batches = 4, 2, 2
+    _run(TINY + flags.split() + ["--steps", str(steps), "--data-path", str(corpus),
+                                 "--eval-batches", str(batches)])
+    quant, remat, accum, evals = FORMULAS.get(flags, (False, False, 1, None))
+    if evals is None:  # the plain route launches nothing
+        assert counts == dict.fromkeys(fa.LAUNCHES, 0)
+        return
+    fwd = layers * (steps * accum * (2 if remat else 1) + evals * batches)
+    bwd = layers * steps * accum
+    assert counts == {"flash_fwd": 0 if quant else fwd, "flash_fwd_quant": fwd if quant else 0,
+                      "flash_dq": bwd, "flash_dkv": bwd}
+
+
+LATER = {
+    "--dp 2": "parallel-layouts", "--sp 2": "parallel-layouts", "--tp 2": "parallel-layouts",
+    "--pp 2": "parallel-layouts", "--optimizer zero": "parallel-layouts",
+    "--optimizer zero-adam": "parallel-layouts", "--grad-sync overlap": "parallel-layouts",
+    "--experts 4": "parallel-layouts", "--sharding auto": "parallel-layouts",
+    "--microbatches 4": "parallel-layouts", "--guard warn": "slice 4",
+    "--checkpoint-dir ck": "slice 4", "--resume": "slice 4", "--elastic": "slice 4",
+    "--trace-out t.json": "slice 4", "--metrics-port 0": "slice 4",
+    "--metrics-jsonl m.jsonl": "slice 4", "--run-record r.json": "slice 4",
+    "--step-stats": "slice 4", "--dynamics": "slice 4", "--profile-dir p": "slice 4",
+    "--watchdog on": "slice 4", "--chaos-nan-step 1": "slice 4",
+    "--remat --remat-policy dots_saveable": "selective activation checkpointing",
+}
+
+
+@pytest.mark.parametrize("flags", list(LATER))
+def test_later_slice_flags_raise_naming_the_slice(flags):
+    with pytest.raises(NotImplementedError, match=LATER[flags]):
+        lm_train.main(TINY + flags.split(), log=lambda line: None)
+
+
+def test_argument_errors_match_the_jax_cli(capsys):
+    with pytest.raises(SystemExit):
+        lm_train.main(TINY + ["--precision", "int8-kv"])
+    assert lm_train.INT8_KV_MESSAGE in capsys.readouterr().err
+    for bad in (["--loss-chunks", "3"], ["--eval-every", "2"], ["--gen-top-k", "5"],
+                ["--steps", "0"]):
+        with pytest.raises(SystemExit):
+            lm_train.main(TINY + bad)
+
+
+def test_default_device_without_cuda_fails_cleanly(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = [a for a in TINY if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        lm_train.main(args, log=lambda line: None)

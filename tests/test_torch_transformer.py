@@ -110,12 +110,50 @@ def test_sampling_is_seeded_and_filters_hold(params):
 
 
 def test_later_slice_features_raise(params):
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="parallel-layouts slice"):
         tfm.TransformerConfig(n_experts=2)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tfm.TransformerConfig(remat=True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tfm.apply(params, torch.zeros(1, 4, dtype=torch.long), CFG, attn_impl="ring")
+    with pytest.raises(NotImplementedError, match="selective activation checkpointing"):
+        tfm.TransformerConfig(remat=True, remat_policy="dots_saveable")
+    with pytest.raises(ValueError, match="attn impl"):
+        tfm.apply(params, torch.zeros(1, 4, dtype=torch.long), CFG, attn_impl="sharded")
     with pytest.raises(ValueError, match="CUDA device"):
         tfm.generate(params, torch.zeros(1, 4, dtype=torch.long), CFG, max_new_tokens=2,
                      decode_impl="cuda")
+
+
+@pytest.mark.parametrize("attn_impl", ["ring", "flash"])
+def test_differentiable_forward_grads_match_jax(n_devices, jparams, attn_impl):
+    """Gradients of sum(logits * w) with respect to every f32 leaf, through
+    the port's autograd (the per-layer casts inside the graph) against
+    jax.grad of the JAX forward; flash is the kernels' plain route here."""
+    toks = _tokens(11, (2, 10))
+    w = np.random.default_rng(12).normal(size=(2, 10, 32)).astype(np.float32)
+
+    def jloss(p):
+        return jnp.sum(jtfm.apply(p, jnp.asarray(toks), JCFG, attn_impl=attn_impl) * w)
+
+    want = jax.grad(jloss)(jparams)
+    params = tfm.from_jax_params(jax.tree.map(np.asarray, jparams))
+    leaves = [p.requires_grad_() for p in jax.tree.leaves(params)]
+    logits, aux = tfm.apply_with_aux(params, torch.from_numpy(toks).long(), CFG,
+                                     attn_impl=attn_impl)
+    assert float(aux) == 0.0
+    (logits * torch.from_numpy(w)).sum().backward()
+    for got, exp in zip(leaves, jax.tree.leaves(want)):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(exp), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("flag", ["remat", "remat_attn"])
+def test_remat_changes_no_number(params, flag):
+    toks = torch.from_numpy(_tokens(13, (2, 8))).long()
+    outs = []
+    for cfg in (CFG, tfm.TransformerConfig(vocab_size=32, d_model=32, n_heads=4, n_layers=2,
+                                           d_ff=64, **{flag: True})):
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in params["layers"].items()}
+        p = {**params, "layers": leaves}
+        logits = tfm.apply(p, toks, cfg, attn_impl="flash")
+        logits.square().sum().backward()
+        outs.append((logits.detach(), [leaves[k].grad for k in sorted(leaves)]))
+    torch.testing.assert_close(outs[0][0], outs[1][0], atol=1e-6, rtol=1e-6)
+    for a, b in zip(outs[0][1], outs[1][1]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
