@@ -7,7 +7,8 @@ Phases (any failure exits non-zero and prints no result):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc/triton versions;
 2. build every CUDA source of csrc/ (one nvcc each, started together) and
-   time the build;
+   time the build; print each tensor-core backward instance's registers,
+   spills, dynamic shared memory and blocks per SM;
 3. each fused-head kernel against its plain PyTorch version on the card, at
    B in {1, 16, 200, 4096} (atol = rtol = 1e-4, f32 with another summation
    order), plus a bitwise check that the backward gives the same bits twice;
@@ -58,8 +59,11 @@ Phases (any failure exits non-zero and prints no result):
 12. the flash kernels (forward, dq, dkv) against their plain versions on the
    card: (B, H) in {(1, 1), (2, 8)}, S in {1, 64, 200, 2048}, D in {64, 128,
    16}, causal and not, f32 and bf16, contiguous and a strided (B, S, H, D)
-   view, and the main path's own shape FLASH_MAIN (16, 2048, 8, 64) causal
-   bf16; f32 atol = rtol = 1e-4, bf16 1.6e-2, lse 1e-4; and the quantized
+   view; bf16 at D 32 (the mma route) and D 40 (the simt route), and
+   misaligned views (simt); and the main path's own shape FLASH_MAIN (16,
+   2048, 8, 64) causal bf16; each backward case on the route the stated rule
+   gives it (`expected_route`, read from the route counters: FLASH_MAIN on
+   mma); f32 atol = rtol = 1e-4, bf16 1.6e-2, lse 1e-4; and the quantized
    forward (int8, fp8) on codes at the kernel's own k tile, at B 2 and at
    FLASH_MAIN (int8 2e-2; fp8 mean error 1e-4 and max two e4m3 steps, see
    FP8_STEP); every kernel gives the same bits on a second call. The kernel
@@ -72,7 +76,9 @@ Phases (any failure exits non-zero and prints no result):
    plain route (--attn ring; its (B, H, S, S) buffers fit in device memory,
    so without --remat-attn), and the four again in mirrored order, so that
    routes are compared in turns. Gates: each flash counter equals its
-   formula (flash_counts) and is 0 on the plain route; finite losses; the
+   formula (flash_counts) and is 0 on the plain route, every dq and dkv
+   launch of a kernel-route run on the mma route (mma_counts); finite
+   losses; the
    kernel route's logged losses within LOSS_TOL of the plain route's, and
    every weight's step-0 gradient within GRAD_TOL of the plain route's
    (route_compare; `python3 chip_smoke.py --route-check` runs this check
@@ -87,6 +93,8 @@ Phases (any failure exits non-zero and prints no result):
    128), causal bf16: per call, device time in a CUDA graph, bound, plain
    version, and the dispatch's `lib` route (scaled_dot_product_attention,
    is_causal=True) forward and forward + backward as the library yardstick;
+   the backward pair on the simt route too (the same values in misaligned
+   views), and the pair's summed device time against SDPA's whole backward;
 16. a torch.profiler trace of 3 steady full-width training steps: idle
    share, the flash kernels' share of device time and the top kernels.
 
@@ -100,6 +108,7 @@ import http.client
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -182,6 +191,18 @@ def run(cmd):
         return subprocess.run(cmd, capture_output=True, text=True, timeout=60).stdout.strip()
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"unavailable ({e})"
+
+
+@contextmanager
+def uncounted(*counters):
+    """Launches made inside are not main-path launches: each launch-counter
+    dict gets its values back on the way out."""
+    saved = [dict(c) for c in counters]
+    try:
+        yield
+    finally:
+        for c, values in zip(counters, saved):
+            c.update(values)
 
 
 # ------------------------------------------------------------------- helpers
@@ -292,6 +313,22 @@ def print_ptxas(lib):
                 f"{max(regs)} registers; spills: {'; '.join(spills) or 'none'}")
         print("   " + line)
         return line
+
+
+def ptxas_instances(lib, stem):
+    """{"kernel<DP>": {"registers", "spill_stores", "spill_loads"}} from the
+    compiler's log, for the kernel instances whose name holds `stem`."""
+    out, name = {}, None
+    for line in open(lib[: -len(".so")] + ".log"):
+        if "Function properties for" in line:
+            m = re.search(r"(flash_[a-z_]+_kernel)ILi(\d+)E", line)
+            name = f"{m.group(1)}<{m.group(2)}>" if m and stem in m.group(1) else None
+        elif name and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name] = {"spill_stores": int(stores), "spill_loads": int(loads)}
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used")[1].split()[0])
+    return out
 
 
 def profile_rows(prof, DeviceType):
@@ -447,43 +484,71 @@ class Oracle:
 # -------------------------------------------------------------- flash helpers
 
 
-def flash_inputs(torch, b, s, h, d, dtype, strided, dev, g):
-    """q, k, v, dO (B, S, H, D): contiguous, or the (B, S, H, D) view of a
-    (B, H, S, D) buffer (strided on S and H, read in place by the kernels)."""
+FLASH_LAYOUTS = ("contiguous", "strided", "misaligned")
+
+
+def flash_inputs(torch, b, s, h, d, dtype, layout, dev, g):
+    """q, k, v, dO (B, S, H, D) in one of FLASH_LAYOUTS: contiguous; the (B,
+    S, H, D) view of a (B, H, S, D) buffer (strided on S and H, read in
+    place by the kernels); or head dims 4 .. 4 + D of a (B, S, H, D + 8)
+    buffer, whose base is 8 bytes (bf16) off a 16-byte boundary."""
     def one():
-        if strided:
+        if layout == "strided":
             return torch.randn(b, h, s, d, device=dev, generator=g).to(dtype).transpose(1, 2)
+        if layout == "misaligned":
+            return torch.randn(b, s, h, d + 8, device=dev, generator=g).to(dtype)[..., 4:4 + d]
         return torch.randn(b, s, h, d, device=dev, generator=g).to(dtype)
     return one(), one(), one(), one()
 
 
+def expected_route(torch, d, dtype, layout):
+    """The backward route the stated rule gives these inputs (ops/
+    flash_attention.py `bwd_route`), from the case alone: "mma" for bf16 with
+    D % 16 == 0 in an aligned layout, "simt" otherwise."""
+    return "mma" if dtype == torch.bfloat16 and d % 16 == 0 and layout != "misaligned" else "simt"
+
+
 def flash_vs_plain(torch, fa, dev):
     """Phase 12: every flash kernel against its plain version on the card,
-    and bitwise against itself on a second call. Returns the number of
-    cases, the worst max abs errors per kernel over all cases, and those at
-    the main path's own shape (FLASH_MAIN: (B, S, H, D) = (16, 2048, 8, 64),
-    causal, bf16, contiguous; int8 and fp8 for the quantized kernel)."""
+    and bitwise against itself on a second call; each backward case on the
+    route the stated rule gives it (`expected_route`), shown by the route
+    counters. Returns the number of cases, the worst max abs errors per
+    kernel over all cases ("flash_dq mma", ... per backward route too), and
+    those at the main path's own shape (FLASH_MAIN: (B, S, H, D) = (16, 2048,
+    8, 64), causal, bf16, contiguous, on the mma route; int8 and fp8 for the
+    quantized kernel)."""
     g = torch.Generator(dev).manual_seed(12)
     worst, main, n = {}, {}, 0
     mb, ms, mh, md = FLASH_MAIN
-    main_case = (mb, ms, mh, md, True, torch.bfloat16, False)
+    main_case = (mb, ms, mh, md, True, torch.bfloat16, "contiguous")
 
     def record(name, err, is_main):
         worst[name] = max(worst.get(name, 0.0), err)
         if is_main:
             main[name] = max(main.get(name, 0.0), err)
 
-    cases = [(b, s, h, d, causal, dtype, strided)
+    cases = [(b, s, h, d, causal, dtype, layout)
              for (b, h) in ((1, 1), (2, 8)) for s in (1, 64, 200, 2048) for d in (64, 128, 16)
              for causal in (True, False) for dtype in (torch.float32, torch.bfloat16)
-             for strided in (False, True)]
+             for layout in ("contiguous", "strided")]
+    # bf16 on both backward routes: D 32 (mma), D 40 (simt: D % 16 != 0) and
+    # misaligned views (simt)
+    cases += [(2, s, 8, d, causal, torch.bfloat16, layout)
+              for s in (64, 200) for d in (32, 40) for causal in (True, False)
+              for layout in ("contiguous", "strided")]
+    cases += [(2, s, 8, d, causal, torch.bfloat16, "misaligned")
+              for s in (1, 200) for d in (64, 128) for causal in (True, False)]
     cases.append(main_case)
     for case in cases:
-        b, s, h, d, causal, dtype, strided = case
+        b, s, h, d, causal, dtype, layout = case
         is_main = case == main_case
         tol = 1e-4 if dtype == torch.float32 else 1.6e-2
-        q, k, v, do = flash_inputs(torch, b, s, h, d, dtype, strided, dev, g)
-        where = f"B={b} S={s} H={h} D={d} causal={causal} {dtype} strided={strided}"
+        q, k, v, do = flash_inputs(torch, b, s, h, d, dtype, layout, dev, g)
+        where = f"B={b} S={s} H={h} D={d} causal={causal} {dtype} {layout}"
+        route = fa.bwd_route(q, k, v, do)
+        check(route == expected_route(torch, d, dtype, layout),
+              f"backward route {route}, the rule says {expected_route(torch, d, dtype, layout)}: "
+              f"{where}")
         o, lse = fa.flash_fwd(q, k, v, causal=causal)
         o2, lse2 = fa.flash_fwd(q, k, v, causal=causal)
         check(torch.equal(o, o2) and torch.equal(lse, lse2),
@@ -496,6 +561,7 @@ def flash_vs_plain(torch, fa, dev):
         record("flash_fwd", max(max_err(torch, o.float(), o_p.float()),
                                 max_err(torch, lse, lse_p)), is_main)
         delta = fa.flash_delta(o, do)
+        before = dict(fa.ROUTE_LAUNCHES)
         dq = fa.flash_dq(q, k, v, do, lse, delta, causal=causal)
         dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
         check(torch.equal(dq, fa.flash_dq(q, k, v, do, lse, delta, causal=causal)),
@@ -503,27 +569,33 @@ def flash_vs_plain(torch, fa, dev):
         dk2, dv2 = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
         check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
               f"flash_dkv not bitwise reproducible: {where}")
+        ran = {key: n_ - before[key] for key, n_ in fa.ROUTE_LAUNCHES.items()}
+        want = {key: 2 if key.endswith("_" + route) else 0 for key in ran}
+        check(ran == want, f"route launches {ran} != {want}: {where}")
         dq_p = fa.flash_dq_plain(q, k, v, do, lse, delta, causal=causal)
         dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=causal)
         for name, x, y in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
             ok = torch.allclose(x.float(), y.float(), atol=tol, rtol=tol)
             check(ok, f"flash {name} max abs err {max_err(torch, x.float(), y.float())}: "
                   f"{where}")
-        record("flash_dq", max_err(torch, dq.float(), dq_p.float()), is_main)
-        record("flash_dkv", max(max_err(torch, dk.float(), dk_p.float()),
-                                max_err(torch, dv.float(), dv_p.float())), is_main)
+        errs = {"flash_dq": max_err(torch, dq.float(), dq_p.float()),
+                "flash_dkv": max(max_err(torch, dk.float(), dk_p.float()),
+                                 max_err(torch, dv.float(), dv_p.float()))}
+        for name, err in errs.items():
+            record(name, err, is_main)
+            record(f"{name} {route} {'f32' if dtype == torch.float32 else 'bf16'}", err, False)
         n += 1
     # the quantized forward on codes, at the kernel's own k tile (BLOCK_K)
-    qcases = [(fmt, 2, s, 8, d, causal, out, s == 200)
+    qcases = [(fmt, 2, s, 8, d, causal, out, "strided" if s == 200 else "contiguous")
               for fmt in ("int8", "fp8") for s in (64, 200, 2048) for d in (64, 128)
               for causal in (True, False) for out in (torch.bfloat16, torch.float32)]
     qcases += [(fmt,) + main_case for fmt in ("int8", "fp8")]
     for fmt, *case in qcases:
-        b, s, h, d, causal, out, strided = case
+        b, s, h, d, causal, out, layout = case
         is_main = tuple(case) == main_case
-        q, k, v, _ = flash_inputs(torch, b, s, h, d, out, strided, dev, g)
+        q, k, v, _ = flash_inputs(torch, b, s, h, d, out, layout, dev, g)
         qc, sq, kc, sk, vc, sv = fa.quantize_qkv(q, k, v, fmt)
-        where = f"{fmt} B={b} S={s} H={h} D={d} causal={causal} out {out} strided={strided}"
+        where = f"{fmt} B={b} S={s} H={h} D={d} causal={causal} out {out} {layout}"
         o, lse = fa.flash_fwd_quant_codes(qc, kc, vc, sq, sk, sv, causal=causal, out_dtype=out)
         o2, lse2 = fa.flash_fwd_quant_codes(qc, kc, vc, sq, sk, sv, causal=causal,
                                             out_dtype=out)
@@ -579,10 +651,19 @@ def flash_counts(steps, *, quant=False, remat=False, accum=1, evals=0, eval_batc
             "flash_dq": bwd, "flash_dkv": bwd}
 
 
+def mma_counts(want):
+    """The backward's launches by route that a bf16 run at LM_SHAPE (D 64,
+    the model's aligned projections) must make, from its `flash_counts`:
+    every dq and dkv launch on the mma route, none on the simt route."""
+    return {f"{k}_{r}": want[k] if r == "mma" else 0 for k in ("flash_dq", "flash_dkv")
+            for r in ("mma", "simt")}
+
+
 def lm_run(torch, fa, lm_train, steps, extra):
     """One `lm_train.main` run on the card at LM_ARGS + `extra`, the flash
-    counters set to 0 just before it: its launches, logged losses {step:
-    loss}, tokens/s, ms per step, MFU and peak memory."""
+    counters set to 0 just before it: its launches (and the backward's by
+    route), logged losses {step: loss}, tokens/s, ms per step, MFU and peak
+    memory."""
     lines = []
 
     def log(line):
@@ -590,8 +671,9 @@ def lm_run(torch, fa, lm_train, steps, extra):
             print("   " + line, flush=True)
         lines.append(line)
 
-    for key in fa.LAUNCHES:
-        fa.LAUNCHES[key] = 0
+    for counters in (fa.LAUNCHES, fa.ROUTE_LAUNCHES):
+        for key in counters:
+            counters[key] = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -599,7 +681,7 @@ def lm_run(torch, fa, lm_train, steps, extra):
                         str(LM_LOG_EVERY)] + LM_ARGS + extra, log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(fa.LAUNCHES)
+    counts, routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
     check(rc == 0, f"lm_train.main {extra} returned {rc}")
     summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
     # the step lines print 4 decimals; SUMMARY has the first and last loss in full
@@ -609,7 +691,7 @@ def lm_run(torch, fa, lm_train, steps, extra):
     check(sorted(losses) == logged, f"{extra}: logged losses {losses}")
     losses.update({0: summary["first_loss"], steps - 1: summary["final_loss"]})
     check(all(math.isfinite(x) for x in losses.values()), f"{extra}: losses {losses}")
-    return {"extra": extra, "steps": steps, "launches": counts, "losses": losses,
+    return {"extra": extra, "steps": steps, "launches": counts, "routes": routes, "losses": losses,
             "wall_s": wall, "tokens_per_s": summary["tokens_per_s"],
             "mfu_pct": summary["mfu_pct"], "eval": summary["eval"],
             "ms_per_step": 1e3 * summary["wall_s_post_compile"] / (steps - 1),
@@ -662,9 +744,8 @@ def route_compare(torch, fa, tfm, lmtrain, dev, flash_row, plain_row):
     gates either (LOSS_TOL, GRAD_TOL on the bf16 kernel route)."""
     d_loss = max(abs(flash_row["losses"][i] - plain_row["losses"][i])
                  for i in plain_row["losses"])
-    saved = dict(fa.LAUNCHES)
-    errs = route_grad_errs(torch, tfm, lmtrain, dev)
-    fa.LAUNCHES.update(saved)  # these launches are not the main path's
+    with uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):  # not the main path's launches
+        errs = route_grad_errs(torch, tfm, lmtrain, dev)
     worst = {route: max(e.items(), key=lambda kv: kv[1]) for route, e in errs.items()}
     print(f"   kernel route vs plain route: logged losses (steps {sorted(plain_row['losses'])}) "
           f"max |difference| {d_loss:.6f} (tolerance {LOSS_TOL}); step-0 gradients, worst "
@@ -772,6 +853,16 @@ def main() -> int:
         print(f"built {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
               f"{env['build_s']:.2f} s (in parallel)")
         env["ptxas"] = [print_ptxas(lib) for lib in libs]
+        # the backward pair's tensor-core instances, one per padded head dim
+        env["mma_instances"] = ptxas_instances(libs[2], "_mma_")
+        for name, info in sorted(env["mma_instances"].items()):
+            dp = int(name.split("<")[1][:-1])
+            info.update(fa.mma_info(name.split("_mma")[0], dp))
+            print(f"   {name}: {info['registers']} registers, spill stores "
+                  f"{info['spill_stores']} B, spill loads {info['spill_loads']} B; "
+                  f"{info['smem_bytes']} B of dynamic shared memory, {info['blocks_per_sm']} "
+                  f"blocks per SM")
+        check(len(env["mma_instances"]) == 8, f"mma instances {sorted(env['mma_instances'])}")
 
     with phase("3 kernels vs plain"):
         for b in (1, 16, 200, 4096):
@@ -1232,9 +1323,9 @@ def main() -> int:
             print(f"   {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
 
     with phase("12 flash kernels vs plain"):
-        saved = dict(fa.LAUNCHES)
-        n, worst, main_err = flash_vs_plain(torch, fa, dev)
-        fa.LAUNCHES.update(saved)  # comparison launches are not main-path launches
+        with uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):  # comparison launches
+            n, worst, main_err = flash_vs_plain(torch, fa, dev)
+        flash_checks = {"cases": n, "worst": worst, "main": main_err}
         for name in ("flash_fwd", "flash_fwd_quant", "flash_dq", "flash_dkv"):
             kernels[name]["max_abs_err"] = main_err[name]
         print(f"{n} cases within tolerance and bitwise reproducible; max abs err over all "
@@ -1265,10 +1356,12 @@ def main() -> int:
             print(f"   {name}: {row['tokens_per_s']} tokens/s, {row['ms_per_step']:.2f} ms per "
                   f"step, MFU {row['mfu_pct']}% of the bf16 dense peak, losses {loss[0]:.4f} "
                   f"-> {loss[LM_STEPS - 1]:.4f}, peak memory {row['peak_mem_gib']:.2f} GiB, "
-                  f"launches {counts}", flush=True)
+                  f"launches {counts}, backward by route {row['routes']}", flush=True)
             want = (dict.fromkeys(counts, 0) if formula is None
                     else flash_counts(LM_STEPS, **formula))
             check(counts == want, f"{name}: flash launches {counts} != expected {want}")
+            check(row["routes"] == mma_counts(want),
+                  f"{name}: backward launches by route {row['routes']} != {mma_counts(want)}")
             if first and name == "flash":
                 for key in ("flash_fwd", "flash_dq", "flash_dkv"):
                     kernels[key]["launches"] = counts[key]
@@ -1301,11 +1394,13 @@ def main() -> int:
                 row = lm_run(torch, fa, lm_train, FORMULA_STEPS, extra)
                 want = flash_counts(FORMULA_STEPS, **formula)
                 lm_checks["formulas"][name] = {"launches": row["launches"], "want": want,
-                                               "formula": formula}
-                print(f"   {name}: launches {row['launches']} (formula {formula}: {want})",
-                      flush=True)
+                                               "routes": row["routes"], "formula": formula}
+                print(f"   {name}: launches {row['launches']} (formula {formula}: {want}); "
+                      f"by route {row['routes']}", flush=True)
                 check(row["launches"] == want,
                       f"{name}: flash launches {row['launches']} != expected {want}")
+                check(row["routes"] == mma_counts(want),
+                      f"{name}: backward launches by route {row['routes']} != {mma_counts(want)}")
                 check(("evals" not in formula) == (row["eval"] is None)
                       and (row["eval"] is None or math.isfinite(row["eval"]["eval_loss"])),
                       f"{name}: eval {row['eval']}")
@@ -1342,19 +1437,25 @@ def main() -> int:
         check(counts["flash_fwd"] == counts["flash_dq"] == counts["flash_dkv"] == 300 * 2,
               f"learnability launches {counts} != 300 steps x 2 layers")
 
-    flash_times = []
-    with phase("15 flash kernel times"):
+    flash_times, flash_pair = [], []
+    with phase("15 flash kernel times"), uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):
         # the library yardstick: the dispatch's `lib` route, one
         # scaled_dot_product_attention(is_causal=True) call on (B, H, S, D) views
         from distributed_neural_network_tpu_torch.ops.flash import flash_local_attention
 
-        saved = dict(fa.LAUNCHES)
         g = torch.Generator(dev).manual_seed(15)
         for b, s_, h, d in (FLASH_MAIN, (16, 2048, 4, 128)):
-            q, k, v, do = flash_inputs(torch, b, s_, h, d, torch.bfloat16, False, dev, g)
+            q, k, v, do = flash_inputs(torch, b, s_, h, d, torch.bfloat16, "contiguous", dev, g)
             o, lse = fa.flash_fwd(q, k, v)
             delta = fa.flash_delta(o, do)
             qc, sq, kc, sk, vc, sv = fa.quantize_qkv(q, k, v, "int8")
+            # the same values in misaligned views: the backward's simt route
+            # (the scalar kernels) at this shape, timed in the same call
+            mis = flash_inputs(torch, b, s_, h, d, torch.bfloat16, "misaligned", dev, g)
+            for x, y in zip(mis, (q, k, v, do)):
+                x.copy_(y)
+            check(fa.bwd_route(q, k, v, do) == "mma" and fa.bwd_route(*mis) == "simt",
+                  "phase 15's inputs are not on the routes they time")
 
             def sdpa_fwd():
                 return flash_local_attention(q, k, v, impl="lib")
@@ -1384,44 +1485,65 @@ def main() -> int:
                 "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta),
                               lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta), bwd,
                               PEAK_BF16_FLOPS),
+                "flash_dq simt": (lambda: fa.flash_dq(*mis, lse, delta), None, bwd,
+                                  PEAK_BF16_FLOPS),
+                "flash_dkv simt": (lambda: fa.flash_dkv(*mis, lse, delta), None, bwd,
+                                   PEAK_BF16_FLOPS),
             }
+            dev_ms = {}
             for name, (kern_fn, plain_fn, (t_l, d_l), peak) in rows.items():
-                t_k, t_p = time_ms(torch, kern_fn, iters=20, warmup=3), \
-                    time_ms(torch, plain_fn, iters=3, warmup=1)
+                t_k = time_ms(torch, kern_fn, iters=20, warmup=3)
                 d_k = graph_ms(torch, kern_fn, iters=10, replays=3)
-                d_p = graph_ms(torch, plain_fn, iters=2, replays=2)
-                nbytes, ops = work[name]
+                t_p = d_p = None
+                if plain_fn is not None:  # the simt rows share the mma rows' plain version
+                    t_p = time_ms(torch, plain_fn, iters=3, warmup=1)
+                    d_p = graph_ms(torch, plain_fn, iters=2, replays=2)
+                nbytes, ops = work[name.split()[0]]
                 bms, by = bound_ms(nbytes, ops, peak)
+                dev_ms[name] = d_k
                 flash_times.append({"name": name, "B": b, "S": s_, "H": h, "D": d, "ms": t_k,
                                     "graph_ms": d_k, "plain_ms": t_p, "plain_graph_ms": d_p,
                                     "library_ms": t_l, "library_graph_ms": d_l,
                                     "sdpa_fwd_bwd_ms": lib["fwd_bwd"][0], "bound_ms": bms,
                                     "bound_by": by, "bytes": nbytes, "ops": ops})
                 print(f"{name:16s} B={b} S={s_} H={h} D={d}: per call kernel {t_k:.4f} ms plain "
-                      f"{t_p:.4f} ms library {fmt(t_l)} ms | device (graph): kernel {fmt(d_k)} "
+                      f"{fmt(t_p)} ms library {fmt(t_l)} ms | device (graph): kernel {fmt(d_k)} "
                       f"ms plain {fmt(d_p)} ms library {fmt(d_l)} ms | bound {bms:.5f} ms "
                       f"({by}: {nbytes} B, {ops} ops) | kernel/bound {t_k / bms:.1f}x",
                       flush=True)
-                if (h, d) == (8, 64):
+                if (h, d) == (8, 64) and name in kernels:
                     kernels[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms,
                                          bound_by=by, graph_ms=d_k)
             print(f"   SDPA causal at this shape: forward {lib['fwd'][0]:.4f} ms, forward + "
                   f"backward {lib['fwd_bwd'][0]:.4f} ms per call (library_ms of flash_dq and "
                   f"flash_dkv is SDPA's whole backward, dq, dk and dv together); the quantized "
                   f"kernel has no single PyTorch call for the same function")
-            del q, k, v, do, o, lse, delta, qc, kc, vc
+            if None not in (dev_ms["flash_dq"], dev_ms["flash_dkv"], bwd[1]):
+                pair = {"B": b, "S": s_, "H": h, "D": d, "dq_ms": dev_ms["flash_dq"],
+                        "dkv_ms": dev_ms["flash_dkv"],
+                        "pair_ms": dev_ms["flash_dq"] + dev_ms["flash_dkv"],
+                        "simt_pair_ms": None if None in (dev_ms["flash_dq simt"],
+                                                         dev_ms["flash_dkv simt"])
+                        else dev_ms["flash_dq simt"] + dev_ms["flash_dkv simt"],
+                        "sdpa_bwd_ms": bwd[1]}
+                pair["x_sdpa_bwd"] = pair["pair_ms"] / pair["sdpa_bwd_ms"]
+                flash_pair.append(pair)
+                print(f"backward pair (B, S, H, D) = ({b}, {s_}, {h}, {d}), device time: flash_dq "
+                      f"{pair['dq_ms']:.4f} + flash_dkv {pair['dkv_ms']:.4f} = "
+                      f"{pair['pair_ms']:.4f} ms (mma route) against SDPA's whole backward "
+                      f"{pair['sdpa_bwd_ms']:.4f} ms: {pair['x_sdpa_bwd']:.2f}x; the simt route "
+                      f"at this shape {fmt(pair['simt_pair_ms'])} ms", flush=True)
+            del q, k, v, do, o, lse, delta, qc, kc, vc, mis
             torch.cuda.empty_cache()
-        fa.LAUNCHES.update(saved)
 
     lm_profile = {}
-    with phase("16 where the training time goes"):
+    with phase("16 where the training time goes"), uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as torch_profile
 
         from distributed_neural_network_tpu_torch.models import transformer as tfm
         from distributed_neural_network_tpu_torch.train import lm as lmtrain
 
-        saved = dict(fa.LAUNCHES)
         cfg = tfm.TransformerConfig(vocab_size=32768, d_model=512, n_heads=8, n_layers=8,
                                     d_ff=2048, dtype=torch.bfloat16)
         params = tfm.init_params(0, cfg, dev)
@@ -1439,7 +1561,6 @@ def main() -> int:
                 step(params, mom, toks, tgts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        fa.LAUNCHES.update(saved)
         rows = profile_rows(prof, DeviceType)
         busy = sum(r[1] for r in rows) / 1e6
         flash_us = sum(r[1] for r in rows if "flash_" in r[0])
@@ -1470,6 +1591,7 @@ def main() -> int:
                    "main_path": main_path,
                    "profile": profile, "serving": serving, "decode_times": decode_times,
                    "serve_profile": serve_profile, "flash_times": flash_times,
+                   "flash_pair": flash_pair, "flash_checks": flash_checks,
                    "lm_runs": lm_runs, "lm_checks": lm_checks, "learn": learn,
                    "lm_profile": lm_profile}, f, indent=1)
     print(json.dumps({"kernels": table}))

@@ -35,7 +35,53 @@
 // of q/k/v/o, about 500 FLOP a byte, above the H100's ~295 FLOP/byte
 // ridge in bf16: the bound is the FLOPs over the tensor cores' 989 TFLOP/s.
 //
-// Design (the simple first version; no tensor cores yet):
+// Two routes for the backward pair, chosen by a stated rule (mma_ok below;
+// `bwd_route` in ops/flash_attention.py states the same rule):
+// - "mma": flash_dq_mma_kernel and flash_dkv_mma_kernel, on the tensor
+//   cores, for bf16 q/k/v/dO with D % 16 == 0, D <= 128, 16-byte-aligned base
+//   pointers and batch/sequence/head strides that are multiples of 8
+//   elements (the model's (B, S, H, D) projections all are);
+// - "simt": flash_dq_kernel and flash_dkv_kernel, scalar f32 FMAs, for
+//   every other legal input (f32, D 40, a misaligned view).
+// The entry point of the mma route refuses inputs outside its rule; no
+// input that the rule admits falls back to the scalar kernels.
+//
+// The backward pair on tensor cores. What bounds it: operations. dq does 3
+// products of (pairs x D) (s = q k^T, dp = do v^T, dq = ds k) and dkv 4
+// (s^T, dp^T, dv = p^T do, dk = ds^T q): at the flagship shape 103 and 137
+// GFLOP for 170 and 203 MB, 0.104 and 0.139 ms at 989 TFLOP/s. Recomputing s
+// and dp in both kernels costs 7 products where a fused backward with
+// atomics does 5; the price buys bitwise-repeatable gradients (each block
+// owns its output tile and there are no atomics). The design:
+// - mma.sync.m16n8k16 (bf16 in, f32 accumulate) for all seven products;
+//   operands come from shared memory by ldmatrix.x4, with .trans for the
+//   operands read transposed (K in dq += ds k, dO in dv += p^T dO, Q in
+//   dk += ds^T q);
+// - p and ds never leave registers: the m16n8 accumulator layout of s / dp
+//   is the m16n8k16 A-operand layout, so ds (dq) and p^T, ds^T (dkv) are
+//   rounded to bf16 and packed straight into the A fragments of the next
+//   product; lse and delta are per row in registers (dq) or per column in
+//   shared memory (dkv);
+// - tiles stay bf16 in shared memory with a row pad of 8 elements (16 B),
+//   which makes every ldmatrix free of bank conflicts; the resident tile
+//   (Q and dO in dq, K and V in dkv) is loaded once, the streamed tiles (K
+//   and V; Q, dO, lse and delta) go through a 2-stage ring of 16-byte
+//   cp.async.cg copies (4-byte ones for lse and delta), zero-filled past S
+//   and past D, the next tile's copy issued before the current tile's
+//   products: 55 KB (dq) and 56 KB (dkv) a block at D 64, 104 / 105 KB at
+//   D 128; with the register caps of MmaTile, 4 blocks of dq and 3 of dkv
+//   (4 warps each) fit on an SM at D 64, 2 of each at D 128;
+// - 4 warps own 16 rows each of the block's 64-row output tile; a warp
+//   takes the other axis in chunks of NC columns (64, or 32 at D 128, so
+//   that s, dp and the accumulators stay in registers);
+// - causal schedule: the grid is 1-D, blocks ordered by their tile's work,
+//   heaviest first (dq: the last q tile, which meets every k tile; dkv: k
+//   tile 0), every (batch, head) of one rank together, so the short
+//   diagonal blocks fill the tail of the grid; the mask is evaluated only on the diagonal tile and
+//   on tiles that run past S, every other tile takes the unmasked path.
+//
+// Design of the forward kernels and the scalar backward (the simple first
+// version; no tensor cores yet):
 // - one block of 256 threads per (q tile of 64 rows, b*h) in the forward
 //   and dq kernels, per (k tile of 64 rows, b*h) in the dkv kernel; each
 //   output tile belongs to one block, so there are no atomics and a call
@@ -57,9 +103,8 @@
 // strided (B, S, H, D) view is read in place. The wrapper raises outside
 // the rule.
 //
-// Left for later PRs: mma.sync / wgmma on the bf16, int8 and fp8 paths,
-// cp.async or TMA double-buffering of the K/V tiles, and a persistent
-// schedule that balances the causal triangle.
+// Left for later PRs: the same tensor-core design for the forward and the
+// quantized forward, and wgmma with TMA for the backward pair.
 //
 // Each entry point returns cudaGetLastError() right after its launch.
 
@@ -563,6 +608,406 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   }
 }
 
+// ------------------------------------------- backward pair on tensor cores
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of the 64-row output tile each
+constexpr int kPad = 8;           // bf16 elements of row padding in shared memory
+
+// the mma route's legality rule (ops/flash_attention.py `bwd_route`)
+constexpr int kMmaDimStep = 16;
+
+// bf16 shared-memory tile of 64 rows x DP head dims, row stride DP + kPad
+template <int DP>
+struct MmaTile {
+  static constexpr int LD = DP + kPad;
+  static constexpr int kElems = 64 * LD;
+  static constexpr int NC = DP <= 64 ? 64 : 32;  // columns of the other axis per chunk
+  // blocks per SM asked of the register allocator: at D <= 64, 4 blocks of
+  // dq (128 registers) and 3 of dkv (168) instead of the 3 and 2 that the
+  // uncapped 168 and 190 registers allow at D 64, for more warps to hide
+  // ldmatrix and expf latency, at the price of a few bytes of spills in
+  // some instances (chip_smoke.py phase 2 prints them); at D 128 a cap
+  // spills hundreds of bytes, so none is asked
+  static constexpr int kMinBlocksDq = DP <= 64 ? 4 : 1;
+  static constexpr int kMinBlocksDkv = DP <= 64 ? 3 : 1;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes from global to shared memory, asynchronously; zero-filled
+// when !live (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(live ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 b16 matrices from shared memory (lane l gives the address of
+// row l % 8 of matrix l / 8); .trans delivers each one transposed
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragment coordinates of lane l (g = l / 4, t = l % 4). m16n8 accumulator
+// element e of n-tile j sits at row g + 8 * (e / 2), column 8 j + 2 t + e % 2;
+// the m16n8k16 A operand's registers 0..3 hold (row g, k 2t), (g + 8, 2t),
+// (g, 2t + 8), (g + 8, 2t + 8), pairs of columns each: the accumulators of
+// n-tiles 2kk and 2kk + 1, packed, are the A operand of k step kk.
+//
+// ldmatrix row offsets: an A operand (16 x 16 at (r, c) of a row-major
+// tile) and a B operand read transposed (k rows, n columns) take lane l's
+// address at (r + a_row, c + a_col); a B operand stored n-major (n rows,
+// contiguous k) at (n + b_row, k + b_col). x4 gives B for two n-tiles:
+// registers 0, 1 the first, 2, 3 the second.
+struct Lane {
+  int warp, g, t, a_row, a_col, b_row, b_col;
+  __device__ __forceinline__ Lane() {
+    const int l = threadIdx.x & 31;
+    warp = threadIdx.x >> 5;
+    g = l >> 2;
+    t = l & 3;
+    a_row = (l & 7) + ((l >> 3) & 1) * 8;
+    a_col = (l >> 4) * 8;
+    b_row = (l & 7) + (l >> 4) * 8;
+    b_col = ((l >> 3) & 1) * 8;
+  }
+};
+
+// rows [row0, row0 + 64) of head (b, h) into a bf16 tile, zero past S and D
+// (D % 8 == 0 on this route, so a 16-byte chunk is all in or all out)
+template <int DP>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const View& v, int b, int h, int row0,
+                                                int S, int D) {
+  constexpr int kChunks = DP / 8;
+  static_assert(64 * kChunks % kMmaThreads == 0, "tile chunks split evenly over the threads");
+#pragma unroll
+  for (int i = 0; i < 64 * kChunks / kMmaThreads; ++i) {
+    const int idx = threadIdx.x + i * kMmaThreads;
+    const int r = idx / kChunks, c = idx - r * kChunks;
+    const bool live = row0 + r < S && c * 8 < D;
+    const bf16* src = live ? at<const bf16>(v, b, row0 + r, h) + c * 8 : static_cast<const bf16*>(v.p);
+    cp_async16(dst + r * MmaTile<DP>::LD + c * 8, src, live);
+  }
+}
+
+// rows [q0, q0 + 64) of lse and delta (B, H, S) into shared memory, zero past S
+__device__ __forceinline__ void load_rows_async(float* s_lse, float* s_dlt, const Args& a, int bh,
+                                                int q0) {
+  const int r = threadIdx.x & 63;
+  const bool live = q0 + r < a.S;
+  const long long i = static_cast<long long>(bh) * a.S + q0 + r;
+  if (threadIdx.x < 64) {
+    cp_async4(s_lse + r, live ? a.lse + i : a.lse, live);
+  } else {
+    cp_async4(s_dlt + r, live ? a.delta + i : a.delta, live);
+  }
+}
+
+// the accumulators (16 x DP per warp) of rows row0 + g, row0 + g + 8 to out
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 8][4], const View& out, int b,
+                                           int h, int row0, const Lane& ln, int S, int D) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + ln.g + 8 * i;
+    if (row >= S) continue;
+    bf16* o = at<bf16>(out, b, row, h);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int d = 8 * j + 2 * ln.t;
+      if (d < D)
+        *reinterpret_cast<__nv_bfloat162*>(o + d) =
+            __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
+  }
+}
+
+// One k tile of dq for one warp: s = q k^T and dp = do v^T over the warp's
+// 16 q rows, p = exp(s * scale - lse), ds = p (dp - delta) scale rounded to
+// bf16 in registers, dq += ds k. kMask: the diagonal tile or a tile past S.
+template <int DP, bool kMask>
+__device__ __forceinline__ void dq_tile(float (&dq)[DP / 8][4], const bf16* sQ, const bf16* sDO,
+                                        const bf16* sK, const bf16* sV, const float (&lse)[2],
+                                        const float (&dlt)[2], int q0, int k0, const Args& a,
+                                        const Lane& ln) {
+  constexpr int LD = MmaTile<DP>::LD, NC = MmaTile<DP>::NC;
+  const int r0 = ln.warp * 16;
+#pragma unroll
+  for (int c0 = 0; c0 < kBK; c0 += NC) {
+    float s[NC / 8][4], dp[NC / 8][4];
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      uint32_t qa[4], da[4];
+      ldsm_x4(qa, sQ + (r0 + ln.a_row) * LD + kk + ln.a_col);
+      ldsm_x4(da, sDO + (r0 + ln.a_row) * LD + kk + ln.a_col);
+#pragma unroll
+      for (int j = 0; j < NC / 16; ++j) {
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, sK + (c0 + 16 * j + ln.b_row) * LD + kk + ln.b_col);
+        ldsm_x4(vb, sV + (c0 + 16 * j + ln.b_row) * LD + kk + ln.b_col);
+        mma_bf16(s[2 * j], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * j + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[2 * j], da, vb[0], vb[1]);
+        mma_bf16(dp[2 * j + 1], da, vb[2], vb[3]);
+      }
+    }
+    uint32_t dsa[NC / 16][4];
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = 0.f;
+        if (!kMask || (q0 + r0 + ln.g + 8 * i < a.S &&
+                       !masked(q0 + r0 + ln.g + 8 * i, k0 + c0 + 8 * j + 2 * ln.t + (e & 1), a.S,
+                               a.causal)))
+          p = expf(s[j][e] * a.scale - lse[i]);
+        ds[e] = p * (dp[j][e] - dlt[i]) * a.scale;
+      }
+      dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < NC / 16; ++kk)
+#pragma unroll
+      for (int jd = 0; jd < DP / 16; ++jd) {
+        uint32_t kb[4];
+        ldsm_x4_t(kb, sK + (c0 + 16 * kk + ln.a_row) * LD + 16 * jd + ln.a_col);
+        mma_bf16(dq[2 * jd], dsa[kk], kb[0], kb[1]);
+        mma_bf16(dq[2 * jd + 1], dsa[kk], kb[2], kb[3]);
+      }
+  }
+}
+
+// 1-D grid of (q tiles) x (B*H) blocks, ranked by work: the blocks of q
+// tile n_qt - 1 first
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads, MmaTile<DP>::kMinBlocksDq)
+    flash_dq_mma_kernel(Args a) {
+  constexpr int TILE = MmaTile<DP>::kElems;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sDO = sQ + TILE;
+  bf16* sK = sDO + TILE;  // 2 stages
+  bf16* sV = sK + 2 * TILE;  // 2 stages
+  const Lane ln;
+  const int n_bh = a.B * a.H, rank = static_cast<int>(blockIdx.x) / n_bh;
+  const int bh = static_cast<int>(blockIdx.x) - rank * n_bh, b = bh / a.H, h = bh - b * a.H;
+  const int n_qt = (a.S + kBQ - 1) / kBQ;
+  const int qt = n_qt - 1 - rank, q0 = qt * kBQ;
+  const int n_kt = a.causal ? qt + 1 : (a.S + kBK - 1) / kBK;
+
+  load_tile_async<DP>(sQ, a.q, b, h, q0, a.S, a.D);
+  load_tile_async<DP>(sDO, a.d_o, b, h, q0, a.S, a.D);
+  cp_async_commit();
+  load_tile_async<DP>(sK, a.k, b, h, 0, a.S, a.D);
+  load_tile_async<DP>(sV, a.v, b, h, 0, a.S, a.D);
+  cp_async_commit();
+  float lse[2], dlt[2], dq[DP / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + ln.warp * 16 + ln.g + 8 * i;
+    const long long r = static_cast<long long>(bh) * a.S + row;
+    lse[i] = row < a.S ? a.lse[r] : 0.f;
+    dlt[i] = row < a.S ? a.delta[r] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    if (kt + 1 < n_kt) {
+      const int nxt = ((kt + 1) & 1) * TILE;
+      load_tile_async<DP>(sK + nxt, a.k, b, h, k0 + kBK, a.S, a.D);
+      load_tile_async<DP>(sV + nxt, a.v, b, h, k0 + kBK, a.S, a.D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int cur = (kt & 1) * TILE;
+    const bool edge = (a.causal && k0 + kBK > q0) || k0 + kBK > a.S || q0 + kBQ > a.S;
+    if (edge) {
+      dq_tile<DP, true>(dq, sQ, sDO, sK + cur, sV + cur, lse, dlt, q0, k0, a, ln);
+    } else {
+      dq_tile<DP, false>(dq, sQ, sDO, sK + cur, sV + cur, lse, dlt, q0, k0, a, ln);
+    }
+    __syncthreads();  // the next iteration's copy overwrites this stage
+  }
+  store_rows<DP>(dq, a.dq, b, h, q0 + ln.warp * 16, ln, a.S, a.D);
+}
+
+// One q tile of dk, dv for one warp: s^T = k q^T and dp^T = v do^T over the
+// warp's 16 k rows, p^T = exp(s^T * scale - lse[col]) and ds^T = p^T (dp^T -
+// delta[col]) scale, both rounded to bf16 in registers, dv += p^T do and
+// dk += ds^T q. kMask: the diagonal tile or a tile past S.
+template <int DP, bool kMask>
+__device__ __forceinline__ void dkv_tile(float (&dk)[DP / 8][4], float (&dv)[DP / 8][4],
+                                         const bf16* sK, const bf16* sV, const bf16* sQ,
+                                         const bf16* sDO, const float* sLse, const float* sDlt,
+                                         int q0, int k0, const Args& a, const Lane& ln) {
+  constexpr int LD = MmaTile<DP>::LD, NC = MmaTile<DP>::NC;
+  const int r0 = ln.warp * 16;
+#pragma unroll
+  for (int c0 = 0; c0 < kBQ; c0 += NC) {
+    float st[NC / 8][4], dpt[NC / 8][4];
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, sK + (r0 + ln.a_row) * LD + kk + ln.a_col);
+      ldsm_x4(va, sV + (r0 + ln.a_row) * LD + kk + ln.a_col);
+#pragma unroll
+      for (int j = 0; j < NC / 16; ++j) {
+        uint32_t qb[4], ob[4];
+        ldsm_x4(qb, sQ + (c0 + 16 * j + ln.b_row) * LD + kk + ln.b_col);
+        ldsm_x4(ob, sDO + (c0 + 16 * j + ln.b_row) * LD + kk + ln.b_col);
+        mma_bf16(st[2 * j], ka, qb[0], qb[1]);
+        mma_bf16(st[2 * j + 1], ka, qb[2], qb[3]);
+        mma_bf16(dpt[2 * j], va, ob[0], ob[1]);
+        mma_bf16(dpt[2 * j + 1], va, ob[2], ob[3]);
+      }
+    }
+    uint32_t pa[NC / 16][4], dsa[NC / 16][4];
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 8 * j + 2 * ln.t + (e & 1);  // q column within the tile
+        p[e] = 0.f;
+        if (!kMask || (q0 + c < a.S &&
+                       !masked(q0 + c, k0 + r0 + ln.g + 8 * (e >> 1), a.S, a.causal)))
+          p[e] = expf(st[j][e] * a.scale - sLse[c]);
+        ds[e] = p[e] * (dpt[j][e] - sDlt[c]) * a.scale;
+      }
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      dsa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < NC / 16; ++kk)
+#pragma unroll
+      for (int jd = 0; jd < DP / 16; ++jd) {
+        uint32_t ob[4], qb[4];
+        ldsm_x4_t(ob, sDO + (c0 + 16 * kk + ln.a_row) * LD + 16 * jd + ln.a_col);
+        ldsm_x4_t(qb, sQ + (c0 + 16 * kk + ln.a_row) * LD + 16 * jd + ln.a_col);
+        mma_bf16(dv[2 * jd], pa[kk], ob[0], ob[1]);
+        mma_bf16(dv[2 * jd + 1], pa[kk], ob[2], ob[3]);
+        mma_bf16(dk[2 * jd], dsa[kk], qb[0], qb[1]);
+        mma_bf16(dk[2 * jd + 1], dsa[kk], qb[2], qb[3]);
+      }
+  }
+}
+
+// 1-D grid of (k tiles) x (B*H) blocks, ranked by work: the blocks of k
+// tile 0 first
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads, MmaTile<DP>::kMinBlocksDkv)
+    flash_dkv_mma_kernel(Args a) {
+  constexpr int TILE = MmaTile<DP>::kElems;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + TILE;
+  bf16* sQ = sV + TILE;  // 2 stages
+  bf16* sDO = sQ + 2 * TILE;  // 2 stages
+  float* sLse = reinterpret_cast<float*>(sDO + 2 * TILE);  // 2 stages of 64
+  float* sDlt = sLse + 2 * kBQ;  // 2 stages of 64
+  const Lane ln;
+  const int n_bh = a.B * a.H, rank = static_cast<int>(blockIdx.x) / n_bh;
+  const int bh = static_cast<int>(blockIdx.x) - rank * n_bh, b = bh / a.H, h = bh - b * a.H;
+  const int k0 = rank * kBK;
+  const int n_qt = (a.S + kBQ - 1) / kBQ, qt0 = a.causal ? k0 / kBQ : 0;
+
+  load_tile_async<DP>(sK, a.k, b, h, k0, a.S, a.D);
+  load_tile_async<DP>(sV, a.v, b, h, k0, a.S, a.D);
+  cp_async_commit();
+  load_tile_async<DP>(sQ, a.q, b, h, qt0 * kBQ, a.S, a.D);
+  load_tile_async<DP>(sDO, a.d_o, b, h, qt0 * kBQ, a.S, a.D);
+  load_rows_async(sLse, sDlt, a, bh, qt0 * kBQ);
+  cp_async_commit();
+  float dk[DP / 8][4], dv[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * kBQ, it = qt - qt0;
+    if (qt + 1 < n_qt) {
+      const int nxt = (it + 1) & 1;
+      load_tile_async<DP>(sQ + nxt * TILE, a.q, b, h, q0 + kBQ, a.S, a.D);
+      load_tile_async<DP>(sDO + nxt * TILE, a.d_o, b, h, q0 + kBQ, a.S, a.D);
+      load_rows_async(sLse + nxt * kBQ, sDlt + nxt * kBQ, a, bh, q0 + kBQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int cur = it & 1;
+    const bool edge = (a.causal && q0 < k0 + kBK) || q0 + kBQ > a.S || k0 + kBK > a.S;
+    if (edge) {
+      dkv_tile<DP, true>(dk, dv, sK, sV, sQ + cur * TILE, sDO + cur * TILE, sLse + cur * kBQ,
+                         sDlt + cur * kBQ, q0, k0, a, ln);
+    } else {
+      dkv_tile<DP, false>(dk, dv, sK, sV, sQ + cur * TILE, sDO + cur * TILE, sLse + cur * kBQ,
+                          sDlt + cur * kBQ, q0, k0, a, ln);
+    }
+    __syncthreads();  // the next iteration's copy overwrites this stage
+  }
+  store_rows<DP>(dk, a.dk, b, h, k0 + ln.warp * 16, ln, a.S, a.D);
+  store_rows<DP>(dv, a.dv, b, h, k0 + ln.warp * 16, ln, a.S, a.D);
+}
+
 // ------------------------------------------------------------------ launch
 
 // shared memory in bytes, per kernel kind and padded head dim
@@ -605,6 +1050,66 @@ int pad_dim(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128; }
     case 64: return launch<KERNEL<__VA_ARGS__, 64>>(KIND, 64, a, stream);      \
     default: return launch<KERNEL<__VA_ARGS__, 128>>(KIND, 128, a, stream);    \
   }
+
+// dynamic shared memory of the mma kernels: 6 bf16 tiles (2 resident, 2
+// streamed x 2 stages), and for dkv 2 stages of lse and delta
+size_t mma_smem_bytes(Kind kind, int dp) {
+  const size_t tile = 64 * static_cast<size_t>(dp + kPad) * sizeof(bf16);
+  return kind == kDq ? 6 * tile : 6 * tile + 4 * kBQ * sizeof(float);
+}
+
+// raises the instance's dynamic shared-memory cap once (outside any CUDA
+// graph capture) and asks for the largest shared-memory carveout
+template <void (*Kernel)(Args)>
+cudaError_t prepare_mma(Kind kind, int dp) {
+  static bool raised = false;
+  if (raised) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(mma_smem_bytes(kind, dp)));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(Kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  raised = e == cudaSuccess;
+  return e;
+}
+
+template <void (*Kernel)(Args)>
+cudaError_t launch_mma(Kind kind, int dp, const Args& a, cudaStream_t stream) {
+  const cudaError_t e = prepare_mma<Kernel>(kind, dp);
+  if (e != cudaSuccess) return e;
+  const unsigned grid = static_cast<unsigned>((a.S + kBQ - 1) / kBQ) * (a.B * a.H);
+  Kernel<<<grid, kMmaThreads, mma_smem_bytes(kind, dp), stream>>>(a);
+  return cudaGetLastError();
+}
+
+// blocks of an mma instance that fit on one SM
+template <void (*Kernel)(Args)>
+cudaError_t occupancy_mma(Kind kind, int dp, int* blocks) {
+  const cudaError_t e = prepare_mma<Kernel>(kind, dp);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, Kernel, kMmaThreads,
+                                                       mma_smem_bytes(kind, dp));
+}
+
+#define FLASH_MMA_DISPATCH(FN, KERNEL, KIND, ...)                     \
+  switch (pad_dim(D)) {                                               \
+    case 16: return FN<KERNEL<16>>(KIND, 16, __VA_ARGS__);            \
+    case 32: return FN<KERNEL<32>>(KIND, 32, __VA_ARGS__);            \
+    case 64: return FN<KERNEL<64>>(KIND, 64, __VA_ARGS__);            \
+    default: return FN<KERNEL<128>>(KIND, 128, __VA_ARGS__);          \
+  }
+
+// the mma route's rule on one operand: 16-byte-aligned base, strides in
+// multiples of 8 elements (so every 16-byte chunk of a row is aligned)
+bool mma_view_ok(const View& v) {
+  return reinterpret_cast<uintptr_t>(v.p) % 16 == 0 && v.sb % 8 == 0 && v.ss % 8 == 0 &&
+         v.sh % 8 == 0;
+}
+
+bool mma_ok(int dtype, const Args& a, const View& out1, const View& out2) {
+  return dtype == 1 && a.D % kMmaDimStep == 0 && a.D <= kMaxHeadDim && mma_view_ok(a.q) && mma_view_ok(a.k) &&
+         mma_view_ok(a.v) && mma_view_ok(a.d_o) && mma_view_ok(out1) && mma_view_ok(out2);
+}
 
 bool shape_ok(int B, int S, int H, int D) {
   return B >= 1 && S >= 1 && H >= 1 && D >= 1 && D <= kMaxHeadDim &&
@@ -715,5 +1220,61 @@ int flash_dkv(int dtype, void* q, long long q_sb, long long q_ss, long long q_sh
   if (dtype == 1) { FLASH_DISPATCH(flash_dkv_kernel, kDkv, __nv_bfloat16) }
   return cudaErrorInvalidValue;
 }
+
+// the mma route (bf16 only): the same arguments as flash_dq / flash_dkv;
+// inputs outside the route's rule are refused, never sent to another kernel
+int flash_dq_mma(int dtype, void* q, long long q_sb, long long q_ss, long long q_sh, void* k,
+                 long long k_sb, long long k_ss, long long k_sh, void* v, long long v_sb,
+                 long long v_ss, long long v_sh, void* d_o, long long do_sb, long long do_ss,
+                 long long do_sh, float* lse, const float* delta, void* dq, long long dq_sb,
+                 long long dq_ss, long long dq_sh, int B, int S, int H, int D, float scale,
+                 int causal, cudaStream_t stream) {
+  if (!shape_ok(B, S, H, D)) return cudaErrorInvalidValue;
+  Args a{};
+  a.q = view(q, q_sb, q_ss, q_sh);
+  a.k = view(k, k_sb, k_ss, k_sh);
+  a.v = view(v, v_sb, v_ss, v_sh);
+  a.d_o = view(d_o, do_sb, do_ss, do_sh);
+  a.dq = view(dq, dq_sb, dq_ss, dq_sh);
+  a.lse = lse;
+  a.delta = delta;
+  a.B = B, a.S = S, a.H = H, a.D = D, a.scale = scale, a.causal = causal;
+  if (!mma_ok(dtype, a, a.dq, a.dq)) return cudaErrorInvalidValue;
+  FLASH_MMA_DISPATCH(launch_mma, flash_dq_mma_kernel, kDq, a, stream)
+}
+
+int flash_dkv_mma(int dtype, void* q, long long q_sb, long long q_ss, long long q_sh, void* k,
+                  long long k_sb, long long k_ss, long long k_sh, void* v, long long v_sb,
+                  long long v_ss, long long v_sh, void* d_o, long long do_sb, long long do_ss,
+                  long long do_sh, float* lse, const float* delta, void* dk, long long dk_sb,
+                  long long dk_ss, long long dk_sh, void* dv, long long dv_sb, long long dv_ss,
+                  long long dv_sh, int B, int S, int H, int D, float scale, int causal,
+                  cudaStream_t stream) {
+  if (!shape_ok(B, S, H, D)) return cudaErrorInvalidValue;
+  Args a{};
+  a.q = view(q, q_sb, q_ss, q_sh);
+  a.k = view(k, k_sb, k_ss, k_sh);
+  a.v = view(v, v_sb, v_ss, v_sh);
+  a.d_o = view(d_o, do_sb, do_ss, do_sh);
+  a.dk = view(dk, dk_sb, dk_ss, dk_sh);
+  a.dv = view(dv, dv_sb, dv_ss, dv_sh);
+  a.lse = lse;
+  a.delta = delta;
+  a.B = B, a.S = S, a.H = H, a.D = D, a.scale = scale, a.causal = causal;
+  if (!mma_ok(dtype, a, a.dk, a.dv)) return cudaErrorInvalidValue;
+  FLASH_MMA_DISPATCH(launch_mma, flash_dkv_mma_kernel, kDkv, a, stream)
+}
+
+// the mma instance for head dim D: its dynamic shared memory (bytes) and
+// the blocks of it that fit on one SM (dkv: 0 = dq, 1 = dkv)
+int flash_bwd_mma_info(int dkv, int D, int* smem, int* blocks) {
+  if (D < 1 || D > kMaxHeadDim || D % kMmaDimStep) return cudaErrorInvalidValue;
+  const Kind kind = dkv ? kDkv : kDq;
+  *smem = static_cast<int>(mma_smem_bytes(kind, pad_dim(D)));
+  if (dkv) { FLASH_MMA_DISPATCH(occupancy_mma, flash_dkv_mma_kernel, kDkv, blocks) }
+  FLASH_MMA_DISPATCH(occupancy_mma, flash_dq_mma_kernel, kDq, blocks)
+}
+
+int flash_mma_dim_step() { return kMmaDimStep; }
 
 }  // extern "C"

@@ -17,6 +17,15 @@ tensors computes the plain PyTorch version of the same function
 (`flash_fwd_plain`, `flash_fwd_quant_plain`, `flash_dq_plain`,
 `flash_dkv_plain`); given CUDA tensors it launches the kernel or raises.
 
+The backward pair has two routes, picked by `bwd_route` from the inputs'
+dtype, head dim, alignment and strides alone: ``mma`` (the tensor-core
+kernels, for bf16 with D % 16 == 0, 16-byte-aligned base pointers and
+batch/sequence/head strides in multiples of 8 elements) and ``simt`` (the
+scalar kernels, for every other legal input). `ROUTE_LAUNCHES` counts the
+launches of each route; their sums are the ``flash_dq`` / ``flash_dkv``
+totals in `LAUNCHES`. A failing mma launch raises: no input changes route
+after the rule has picked it.
+
 Legality rule (the TPU's divisor-of-S block rule does not apply): any
 sequence length S >= 1, head dim 1..128, B*H <= 65535, float32 or bfloat16
 q/k/v of one (B, S, H, D) shape with unit stride on D; the other strides are
@@ -43,8 +52,15 @@ NEG_BIG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FMT_CODE = {"int8": 0, "fp8": 1}
 
+MMA_DIM_STEP = 16  # the mma route's head dims are multiples of this
+MMA_ALIGN_BYTES = 16  # ... its base pointers aligned to this
+MMA_STRIDE_STEP = 8  # ... and its batch/sequence/head strides multiples of this
+BWD_ROUTES = ("mma", "simt")
+
 # kernel name -> launches since the last reset (callers zero the values)
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_quant": 0, "flash_dq": 0, "flash_dkv": 0}
+# the backward pair's launches by route, "<kernel>_<route>"
+ROUTE_LAUNCHES = {f"{k}_{r}": 0 for k in ("flash_dq", "flash_dkv") for r in BWD_ROUTES}
 
 
 # ------------------------------------------------------------ plain versions
@@ -203,13 +219,30 @@ def _lib() -> ctypes.CDLL:
         "flash_fwd_quant": [i, i] + view * 7 + [p] + shape + [p],
         "flash_dq": [i] + view * 4 + [p, p] + view + shape + [p],
         "flash_dkv": [i] + view * 4 + [p, p] + view * 2 + shape + [p],
+        "flash_dq_mma": [i] + view * 4 + [p, p] + view + shape + [p],
+        "flash_dkv_mma": [i] + view * 4 + [p, p] + view * 2 + shape + [p],
+        "flash_bwd_mma_info": [i, i, p, p],
         "flash_max_head_dim": [],
         "flash_block_k": [],
+        "flash_mma_dim_step": [],
     })
-    if lib.flash_max_head_dim() != MAX_HEAD_DIM or lib.flash_block_k() != BLOCK_K:
+    if (lib.flash_max_head_dim() != MAX_HEAD_DIM or lib.flash_block_k() != BLOCK_K
+            or lib.flash_mma_dim_step() != MMA_DIM_STEP):
         raise RuntimeError("csrc/flash_attention.cu disagrees with flash_attention.py on "
-                           "the largest head dim or the k tile")
+                           "the largest head dim, the k tile or the mma route's head dims")
     return lib
+
+
+def mma_info(kernel: str, d: int) -> dict:
+    """The mma instance of `kernel` ("flash_dq" | "flash_dkv") for head dim
+    `d` on the current card: its dynamic shared memory in bytes and the
+    blocks of it that fit on one SM."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib().flash_bwd_mma_info(int(kernel == "flash_dkv"), d, ctypes.byref(smem),
+                                   ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_mma_info({kernel}, D={d}) failed: cudaError {rc}")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
 def _view(t):
@@ -303,6 +336,38 @@ def flash_fwd_quant(q, k, v, *, fmt: str, causal: bool = True, scale=None):
                                  out_dtype=q.dtype)
 
 
+def bwd_route(q, k, v, do) -> str:
+    """The backward pair's route for these inputs, from their dtype, head
+    dim, alignment and strides alone: "mma" (the tensor-core kernels) when
+    all four are bfloat16 with D % MMA_DIM_STEP == 0, D <= MAX_HEAD_DIM, a
+    base pointer aligned to MMA_ALIGN_BYTES and batch, sequence and head
+    strides in multiples of MMA_STRIDE_STEP elements; "simt" (the scalar
+    kernels) for every other input the kernels take (f32, D 40, a
+    misaligned view). The kernels' outputs are allocated contiguous, so
+    they meet the rule whenever the inputs do. `csrc/flash_attention.cu`
+    `mma_ok` states the same rule and refuses what it excludes."""
+    d = q.shape[-1]
+    if d % MMA_DIM_STEP or d > MAX_HEAD_DIM:
+        return "simt"
+    for t in (q, k, v, do):
+        if (t.dtype != torch.bfloat16 or t.data_ptr() % MMA_ALIGN_BYTES
+                or any(st % MMA_STRIDE_STEP for st in t.stride()[:3])):
+            return "simt"
+    return "mma"
+
+
+def _launch_bwd(kernel, q, k, v, do, lse, delta, outs, scale, causal) -> None:
+    """One launch of `kernel` ("flash_dq" | "flash_dkv") on the route that
+    `bwd_route` picks; counted in LAUNCHES and ROUTE_LAUNCHES."""
+    route = bwd_route(q, k, v, do)
+    entry = kernel + "_mma" if route == "mma" else kernel  # the C entry point
+    _nvcc.launch(_lib(), entry, q.device, _DTYPE_CODE[q.dtype], *_view(q),
+                 *_view(k), *_view(v), *_view(do), lse.data_ptr(), delta.data_ptr(),
+                 *(x for o in outs for x in _view(o)), *_shape_args(q, scale, causal))
+    LAUNCHES[kernel] += 1
+    ROUTE_LAUNCHES[f"{kernel}_{route}"] += 1
+
+
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True, scale=None):
     """dq in q's dtype from the forward's lse and delta (B, H, S) f32."""
     _check(q, k, v)
@@ -311,10 +376,7 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True, scale=None):
         return flash_dq_plain(q, k, v, do, lse, delta, causal=causal, scale=scale)
     _check_residuals(q, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _nvcc.launch(_lib(), "flash_dq", q.device, _DTYPE_CODE[q.dtype], *_view(q), *_view(k),
-                 *_view(v), *_view(do), lse.data_ptr(), delta.data_ptr(), *_view(dq),
-                 *_shape_args(q, scale, causal))
-    LAUNCHES["flash_dq"] += 1
+    _launch_bwd("flash_dq", q, k, v, do, lse, delta, (dq,), scale, causal)
     return dq
 
 
@@ -327,10 +389,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True, scale=None):
     _check_residuals(q, lse, delta)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _nvcc.launch(_lib(), "flash_dkv", q.device, _DTYPE_CODE[q.dtype], *_view(q), *_view(k),
-                 *_view(v), *_view(do), lse.data_ptr(), delta.data_ptr(), *_view(dk),
-                 *_view(dv), *_shape_args(q, scale, causal))
-    LAUNCHES["flash_dkv"] += 1
+    _launch_bwd("flash_dkv", q, k, v, do, lse, delta, (dk, dv), scale, causal)
     return dk, dv
 
 

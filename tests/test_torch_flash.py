@@ -171,6 +171,102 @@ def test_dispatch_routes_and_checks(monkeypatch):
     assert torch.equal(o_view, fa.flash_fwd(q, k, v)[0])
 
 
+def _bf16(shape, offset=0, pad=0):
+    """A bf16 (B, S, H, D) tensor: head dims `offset` .. `offset` + D of a
+    buffer whose last axis is D + `pad` long (a view that starts `offset`
+    elements past its buffer's base, with strides of D + `pad`)."""
+    b, s, h, d = shape
+    buf = torch.randn(b, s, h, d + pad, generator=torch.Generator().manual_seed(0))
+    return buf.to(torch.bfloat16)[..., offset:offset + d]
+
+
+def _aligned(t):
+    return t.data_ptr() % fa.MMA_ALIGN_BYTES == 0
+
+
+# (case, the four inputs' builder, the route when every base is 16-byte aligned)
+ROUTE_CASES = [
+    ("bf16 D64", lambda: [_bf16((2, 40, 2, 64)) for _ in range(4)], "mma"),
+    ("bf16 D16", lambda: [_bf16((1, 9, 3, 16)) for _ in range(4)], "mma"),
+    ("bf16 D32", lambda: [_bf16((2, 7, 2, 32)) for _ in range(4)], "mma"),
+    ("bf16 D48", lambda: [_bf16((1, 5, 2, 48)) for _ in range(4)], "mma"),
+    ("bf16 D128", lambda: [_bf16((1, 5, 2, 128)) for _ in range(4)], "mma"),
+    ("bf16 D40", lambda: [_bf16((2, 7, 2, 40)) for _ in range(4)], "simt"),
+    ("bf16 D8", lambda: [_bf16((2, 7, 2, 8)) for _ in range(4)], "simt"),
+    ("bf16 D24", lambda: [_bf16((2, 7, 2, 24)) for _ in range(4)], "simt"),
+    ("f32 D64", lambda: [torch.zeros(2, 7, 2, 64) for _ in range(4)], "simt"),
+    ("bf16 strided (B, H, S, D) buffer",
+     lambda: [_bf16((2, 3, 5, 64)).permute(0, 2, 1, 3) for _ in range(4)], "mma"),
+    ("bf16 strided D16", lambda: [_bf16((1, 2, 9, 16)).transpose(1, 2) for _ in range(4)], "mma"),
+    ("bf16 view 8 elements in (16 bytes)", lambda: [_bf16((2, 7, 2, 64), 8, 16) for _ in range(4)],
+     "mma"),
+    ("bf16 view 4 elements in (8 bytes)", lambda: [_bf16((2, 7, 2, 64), 4, 8) for _ in range(4)],
+     "simt"),
+    ("bf16 dO alone misaligned",
+     lambda: [_bf16((2, 7, 2, 64)) for _ in range(3)] + [_bf16((2, 7, 2, 64), 4, 8)], "simt"),
+    ("bf16 head stride D + 4", lambda: [_bf16((2, 7, 2, 64), 0, 4) for _ in range(4)], "simt"),
+    ("bf16 k's head stride D + 4",
+     lambda: [_bf16((2, 7, 2, 64)), _bf16((2, 7, 2, 64), 0, 4)] + [_bf16((2, 7, 2, 64))] * 2,
+     "simt"),
+]
+
+
+@pytest.mark.parametrize("name, make, route", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_bwd_route_rule(name, make, route):
+    """The backward's route from dtype, head dim, alignment and strides. A
+    CPU buffer's base is aligned by its allocator, not by this test, so the
+    expected route takes the base pointers as they came: a case meant for
+    the mma route goes to simt when an allocator hands out a base off a
+    16-byte boundary."""
+    q, k, v, do = make()
+    want = route if route == "simt" or all(_aligned(t) for t in (q, k, v, do)) else "simt"
+    assert fa.bwd_route(q, k, v, do) == want
+    # the rule reads nothing but the four inputs' metadata: copies of the
+    # same values in contiguous aligned buffers route by dtype and D alone
+    copies = [t.contiguous() for t in (q, k, v, do)]
+    legal_d = q.shape[-1] % fa.MMA_DIM_STEP == 0 and q.dtype == torch.bfloat16
+    if all(_aligned(t) for t in copies):
+        assert fa.bwd_route(*copies) == ("mma" if legal_d else "simt")
+
+
+@pytest.mark.parametrize("name, make, route", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_bwd_launch_takes_the_routes_entry_and_counts_it(monkeypatch, name, make, route):
+    """On the card the wrapper launches the entry point of the route the
+    rule picks and counts it in LAUNCHES and ROUTE_LAUNCHES; here the
+    launch is recorded instead of made (CPU tensors, no nvcc)."""
+    q, k, v, do = make()
+    calls = []
+    monkeypatch.setattr(fa, "_lib", lambda: None)
+    monkeypatch.setattr(fa._nvcc, "launch", lambda lib, entry, device, *args: calls.append(
+        (entry, args)))
+    monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
+    monkeypatch.setattr(fa, "ROUTE_LAUNCHES", dict.fromkeys(fa.ROUTE_LAUNCHES, 0))
+    b, s, h, d = q.shape
+    lse = delta = torch.zeros(b, h, s)
+    dq = torch.empty(q.shape, dtype=q.dtype)
+    dk, dv = torch.empty(q.shape, dtype=q.dtype), torch.empty(q.shape, dtype=q.dtype)
+    fa._launch_bwd("flash_dq", q, k, v, do, lse, delta, (dq,), None, True)
+    fa._launch_bwd("flash_dkv", q, k, v, do, lse, delta, (dk, dv), None, True)
+    got = fa.bwd_route(q, k, v, do)
+    suffix = "_mma" if got == "mma" else ""
+    assert [c[0] for c in calls] == ["flash_dq" + suffix, "flash_dkv" + suffix]
+    # dtype code, 4 input views, lse, delta, the outputs' views, the shape
+    assert [len(c[1]) for c in calls] == [1 + 16 + 2 + 4 + 6, 1 + 16 + 2 + 8 + 6]
+    assert calls[0][1][0] == fa._DTYPE_CODE[q.dtype] and calls[0][1][1] == q.data_ptr()
+    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_fwd_quant": 0, "flash_dq": 1, "flash_dkv": 1}
+    assert fa.ROUTE_LAUNCHES == {f"{kern}_{r}": int(r == got) for kern in ("flash_dq", "flash_dkv")
+                                 for r in fa.BWD_ROUTES}
+
+
+def test_route_counters_sum_to_the_totals_and_stay_zero_on_the_cpu():
+    assert set(fa.ROUTE_LAUNCHES) == {f"{k}_{r}" for k in ("flash_dq", "flash_dkv")
+                                      for r in fa.BWD_ROUTES}
+    q, k, v, do = (_bf16((1, 20, 2, 64)) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v)
+    fa.flash_bwd(q, k, v, o, lse, do)
+    assert not any(fa.ROUTE_LAUNCHES.values()) and not any(fa.LAUNCHES.values())
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -179,18 +275,31 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_card_kernels_match_plain(cuda_device, dtype):
-    """On the card: each kernel against its plain version at a ragged S."""
+@pytest.mark.parametrize("dtype, d, strided, route", [
+    (torch.float32, 64, False, "simt"), (torch.bfloat16, 64, False, "mma"),
+    (torch.bfloat16, 64, True, "mma"), (torch.bfloat16, 128, True, "mma")])
+def test_card_kernels_match_plain(cuda_device, dtype, d, strided, route):
+    """On the card: each kernel against its plain version at a ragged S,
+    the backward on the route the rule gives (bf16 strided views of a (B, H,
+    S, D) buffer: the tensor-core kernels)."""
     tol = 1e-4 if dtype == torch.float32 else 1.6e-2
-    q, k, v, do = (_t(x, dtype).to(cuda_device) for x in _qkv(s=100, h=3, d=64, n=4))
+    arrays = _qkv(s=100, h=3, d=d, n=4)
+    if strided:
+        arrays = [np.ascontiguousarray(x.transpose(0, 2, 1, 3)) for x in arrays]
+    q, k, v, do = (_t(x, dtype).to(cuda_device) for x in arrays)
+    if strided:
+        q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+    assert fa.bwd_route(q, k, v, do) == route
     o, lse = fa.flash_fwd(q, k, v)
     o_p, lse_p = fa.flash_fwd_plain(q, k, v)
     torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
     delta = fa.flash_delta(o, do)
+    before = dict(fa.ROUTE_LAUNCHES)
     for got, ref in zip((fa.flash_dq(q, k, v, do, lse, delta),
                          *fa.flash_dkv(q, k, v, do, lse, delta)),
                         (fa.flash_dq_plain(q, k, v, do, lse, delta),
                          *fa.flash_dkv_plain(q, k, v, do, lse, delta))):
         torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    assert {key: n - before[key] for key, n in fa.ROUTE_LAUNCHES.items()} == {
+        f"{kern}_{r}": int(r == route) for kern in ("flash_dq", "flash_dkv") for r in fa.BWD_ROUTES}
