@@ -7,11 +7,14 @@ Phases (any failure exits non-zero and prints no result):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc/triton versions;
 2. build every CUDA source of csrc/ (one nvcc each, started together) and
-   time the build; print each tensor-core backward instance's registers,
-   spills, dynamic shared memory and blocks per SM;
+   time the build; print each tensor-core flash instance's (forward, dq,
+   dkv) registers, spills, dynamic shared memory and blocks per SM, and the
+   head forward's cluster instances' registers, shared memory, blocks per
+   SM and clusters at once;
 3. each fused-head kernel against its plain PyTorch version on the card, at
-   B in {1, 16, 200, 4096} (atol = rtol = 1e-4, f32 with another summation
-   order), plus a bitwise check that the backward gives the same bits twice;
+   B in {1, 16, 17, 128, 200, 4096} (atol = rtol = 1e-4, f32 with another
+   summation order), plus bitwise checks that the forward and the backward
+   give the same bits twice;
 4. the port's CNN Engine on the card (kernels="cuda", data_parallel, 512
    rows, 4 workers, 2 epochs) against the float64 numpy oracle in
    tests/oracle_numpy.py, with the engine's own shuffle orders fed to both
@@ -28,6 +31,7 @@ Phases (any failure exits non-zero and prints no result):
    PyTorch library call, at B in {16, 128, 4096}: per call in an eager loop
    timed with CUDA events (what the main path pays, host dispatch
    included), and device time from the same calls captured in a CUDA graph;
+   gate: the forward's device time at B = 16 is at most the addmm chain's;
 7. a torch.profiler trace of one steady epoch of the CNN engine (4 workers x
    1024 rows): device busy time, idle share and the top kernels;
 8. the decode-attention kernels (f32, bf16, int8 K/V with bf16 q) against
@@ -61,9 +65,11 @@ Phases (any failure exits non-zero and prints no result):
    16}, causal and not, f32 and bf16, contiguous and a strided (B, S, H, D)
    view; bf16 at D 32 (the mma route) and D 40 (the simt route), and
    misaligned views (simt); and the main path's own shape FLASH_MAIN (16,
-   2048, 8, 64) causal bf16; each backward case on the route the stated rule
-   gives it (`expected_route`, read from the route counters: FLASH_MAIN on
-   mma); f32 atol = rtol = 1e-4, bf16 1.6e-2, lse 1e-4; and the quantized
+   2048, 8, 64) causal bf16; each case, forward and backward, on the route
+   the stated rule gives it (`expected_route`, read from the route
+   counters: FLASH_MAIN on mma; the forward's mma route is wgmma at D 48
+   and 64, mma.sync at 16, 32 and 128);
+   f32 atol = rtol = 1e-4, bf16 1.6e-2, lse 1e-4; and the quantized
    forward (int8, fp8) on codes at the kernel's own k tile, at B 2 and at
    FLASH_MAIN (int8 2e-2; fp8 mean error 1e-4 and max two e4m3 steps, see
    FP8_STEP); every kernel gives the same bits on a second call. The kernel
@@ -76,8 +82,8 @@ Phases (any failure exits non-zero and prints no result):
    plain route (--attn ring; its (B, H, S, S) buffers fit in device memory,
    so without --remat-attn), and the four again in mirrored order, so that
    routes are compared in turns. Gates: each flash counter equals its
-   formula (flash_counts) and is 0 on the plain route, every dq and dkv
-   launch of a kernel-route run on the mma route (mma_counts); finite
+   formula (flash_counts) and is 0 on the plain route, every forward, dq
+   and dkv launch of a kernel-route run on the mma route (mma_counts); finite
    losses; the
    kernel route's logged losses within LOSS_TOL of the plain route's, and
    every weight's step-0 gradient within GRAD_TOL of the plain route's
@@ -88,13 +94,16 @@ Phases (any failure exits non-zero and prints no result):
    tokens/s, ms per step and MFU against the bf16 dense peak;
 14. learnability: the copy task at d32/L2/H4/d_ff 64/vocab 32/seq 16/batch
    32, lr 0.3, 300 steps, --attn flash --generate 7: final loss < 0.2 and
-   the greedy continuation matches the repeat on > 90% of positions;
+   the greedy continuation matches the repeat on > 90% of positions; its
+   head dim 8 puts every flash launch on the simt route;
 15. flash kernel times at (B, S, H, D) = (16, 2048, 8, 64) and (16, 2048, 4,
    128), causal bf16: per call, device time in a CUDA graph, bound, plain
    version, and the dispatch's `lib` route (scaled_dot_product_attention,
    is_causal=True) forward and forward + backward as the library yardstick;
-   the backward pair on the simt route too (the same values in misaligned
-   views), and the pair's summed device time against SDPA's whole backward;
+   the forward and the backward pair on the simt route too (the same values
+   in misaligned views);
+   the forward's device time against SDPA's forward and its bound, and the
+   pair's summed device time against SDPA's whole backward;
 16. a torch.profiler trace of 3 steady full-width training steps: idle
    share, the flash kernels' share of device time and the top kernels.
 
@@ -316,18 +325,23 @@ def print_ptxas(lib):
 
 
 def ptxas_instances(lib, stem):
-    """{"kernel<DP>": {"registers", "spill_stores", "spill_loads"}} from the
-    compiler's log, for the kernel instances whose name holds `stem`."""
+    """{"kernel<A[,B]>": {"registers", "spill_stores", "spill_loads"[,
+    "static_smem"]}} from the compiler's log, for the kernel instances whose
+    name holds `stem` (A, B: their integer template arguments)."""
     out, name = {}, None
     for line in open(lib[: -len(".so")] + ".log"):
         if "Function properties for" in line:
-            m = re.search(r"(flash_[a-z_]+_kernel)ILi(\d+)E", line)
-            name = f"{m.group(1)}<{m.group(2)}>" if m and stem in m.group(1) else None
+            m = re.search(r"((?:flash|mlp3)_[a-z_]+_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
+            name = (f"{m.group(1)}<{m.group(2)}{',' + m.group(3) if m.group(3) else ''}>"
+                    if m and stem in m.group(1) else None)
         elif name and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             out[name] = {"spill_stores": int(stores), "spill_loads": int(loads)}
         elif name and "Used" in line and "registers" in line:
             out[name]["registers"] = int(line.split("Used")[1].split()[0])
+            smem = re.search(r"(\d+) bytes smem", line)
+            if smem:
+                out[name]["static_smem"] = int(smem.group(1))
     return out
 
 
@@ -502,21 +516,22 @@ def flash_inputs(torch, b, s, h, d, dtype, layout, dev, g):
 
 
 def expected_route(torch, d, dtype, layout):
-    """The backward route the stated rule gives these inputs (ops/
-    flash_attention.py `bwd_route`), from the case alone: "mma" for bf16 with
-    D % 16 == 0 in an aligned layout, "simt" otherwise."""
+    """The route the stated rule gives these inputs, forward and backward
+    alike (ops/flash_attention.py `fwd_route`, `bwd_route`), from the case
+    alone: "mma" for bf16 with D % 16 == 0 in an aligned layout, "simt"
+    otherwise."""
     return "mma" if dtype == torch.bfloat16 and d % 16 == 0 and layout != "misaligned" else "simt"
 
 
 def flash_vs_plain(torch, fa, dev):
     """Phase 12: every flash kernel against its plain version on the card,
-    and bitwise against itself on a second call; each backward case on the
-    route the stated rule gives it (`expected_route`), shown by the route
-    counters. Returns the number of cases, the worst max abs errors per
-    kernel over all cases ("flash_dq mma", ... per backward route too), and
-    those at the main path's own shape (FLASH_MAIN: (B, S, H, D) = (16, 2048,
-    8, 64), causal, bf16, contiguous, on the mma route; int8 and fp8 for the
-    quantized kernel)."""
+    and bitwise against itself on a second call; each case, forward and
+    backward, on the route the stated rule gives it (`expected_route`),
+    shown by the route counters. Returns the number of cases, the worst max
+    abs errors per kernel over all cases ("flash_dq mma bf16", ... per route
+    too), and those at the main path's own shape (FLASH_MAIN: (B, S, H, D) =
+    (16, 2048, 8, 64), causal, bf16, contiguous, on the mma route; int8 and
+    fp8 for the quantized kernel; "flash_fwd o": o's alone)."""
     g = torch.Generator(dev).manual_seed(12)
     worst, main, n = {}, {}, 0
     mb, ms, mh, md = FLASH_MAIN
@@ -546,9 +561,10 @@ def flash_vs_plain(torch, fa, dev):
         q, k, v, do = flash_inputs(torch, b, s, h, d, dtype, layout, dev, g)
         where = f"B={b} S={s} H={h} D={d} causal={causal} {dtype} {layout}"
         route = fa.bwd_route(q, k, v, do)
-        check(route == expected_route(torch, d, dtype, layout),
-              f"backward route {route}, the rule says {expected_route(torch, d, dtype, layout)}: "
-              f"{where}")
+        check(route == expected_route(torch, d, dtype, layout) == fa.fwd_route(q, k, v),
+              f"routes: forward {fa.fwd_route(q, k, v)}, backward {route}, the rule says "
+              f"{expected_route(torch, d, dtype, layout)}: {where}")
+        before = dict(fa.ROUTE_LAUNCHES)
         o, lse = fa.flash_fwd(q, k, v, causal=causal)
         o2, lse2 = fa.flash_fwd(q, k, v, causal=causal)
         check(torch.equal(o, o2) and torch.equal(lse, lse2),
@@ -558,10 +574,12 @@ def flash_vs_plain(torch, fa, dev):
             ok = torch.allclose(x.float(), y.float(), atol=t, rtol=t)
             check(ok, f"flash_fwd {name} max abs err {max_err(torch, x.float(), y.float())}: "
                   f"{where}")
-        record("flash_fwd", max(max_err(torch, o.float(), o_p.float()),
-                                max_err(torch, lse, lse_p)), is_main)
+        err_o = max_err(torch, o.float(), o_p.float())
+        record("flash_fwd", max(err_o, max_err(torch, lse, lse_p)), is_main)
+        record(f"flash_fwd {route} {'f32' if dtype == torch.float32 else 'bf16'}", err_o, False)
+        if is_main:
+            main["flash_fwd o"] = err_o
         delta = fa.flash_delta(o, do)
-        before = dict(fa.ROUTE_LAUNCHES)
         dq = fa.flash_dq(q, k, v, do, lse, delta, causal=causal)
         dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal=causal)
         check(torch.equal(dq, fa.flash_dq(q, k, v, do, lse, delta, causal=causal)),
@@ -652,17 +670,17 @@ def flash_counts(steps, *, quant=False, remat=False, accum=1, evals=0, eval_batc
 
 
 def mma_counts(want):
-    """The backward's launches by route that a bf16 run at LM_SHAPE (D 64,
-    the model's aligned projections) must make, from its `flash_counts`:
-    every dq and dkv launch on the mma route, none on the simt route."""
-    return {f"{k}_{r}": want[k] if r == "mma" else 0 for k in ("flash_dq", "flash_dkv")
+    """The launches by route that a bf16 run at LM_SHAPE (D 64, the model's
+    aligned projections) must make, from its `flash_counts`: every forward,
+    dq and dkv launch on the mma route, none on the simt route."""
+    return {f"{k}_{r}": want[k] if r == "mma" else 0 for k in ("flash_fwd", "flash_dq", "flash_dkv")
             for r in ("mma", "simt")}
 
 
 def lm_run(torch, fa, lm_train, steps, extra):
     """One `lm_train.main` run on the card at LM_ARGS + `extra`, the flash
-    counters set to 0 just before it: its launches (and the backward's by
-    route), logged losses {step: loss}, tokens/s, ms per step, MFU and peak
+    counters set to 0 just before it: its launches (and by route), logged
+    losses {step: loss}, tokens/s, ms per step, MFU and peak
     memory."""
     lines = []
 
@@ -853,24 +871,43 @@ def main() -> int:
         print(f"built {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
               f"{env['build_s']:.2f} s (in parallel)")
         env["ptxas"] = [print_ptxas(lib) for lib in libs]
-        # the backward pair's tensor-core instances, one per padded head dim
+        # the tensor-core instances: dq and dkv per padded head dim, the
+        # forward's mma.sync ones (16, 32, 128) and its wgmma one (64)
         env["mma_instances"] = ptxas_instances(libs[2], "_mma_")
+        env["mma_instances"].update(ptxas_instances(libs[2], "_wgmma_"))
         for name, info in sorted(env["mma_instances"].items()):
             dp = int(name.split("<")[1][:-1])
-            info.update(fa.mma_info(name.split("_mma")[0], dp))
+            info.update(fa.mma_info(name.split("_mma")[0].split("_wgmma")[0], dp))
             print(f"   {name}: {info['registers']} registers, spill stores "
                   f"{info['spill_stores']} B, spill loads {info['spill_loads']} B; "
                   f"{info['smem_bytes']} B of dynamic shared memory, {info['blocks_per_sm']} "
                   f"blocks per SM")
-        check(len(env["mma_instances"]) == 8, f"mma instances {sorted(env['mma_instances'])}")
+        check(len(env["mma_instances"]) == 12, f"mma instances {sorted(env['mma_instances'])}")
+        # the head forward's cluster instances (<blocks per 16-row tile>)
+        env["head_fwd_instances"] = ptxas_instances(libs[0], "mlp3_fwd")
+        for name, info in sorted(env["head_fwd_instances"].items()):
+            info.update(fh.fwd_info(int(name.split("<")[1][:-1])))
+            print(f"   {name}: {info['registers']} registers, spill stores "
+                  f"{info['spill_stores']} B; {info['static_smem']} B of static shared memory, "
+                  f"{info['blocks_per_sm']} blocks per SM, {info['active_clusters']} clusters "
+                  f"at once")
+        check(len(env["head_fwd_instances"]) == 2,
+              f"head forward instances {sorted(env['head_fwd_instances'])}")
 
     with phase("3 kernels vs plain"):
-        for b in (1, 16, 200, 4096):
+        for b in (1, 16, 17, 128, 200, 4096):
             args = head_inputs(torch, b, dev, seed=b)
-            # each kernel alone against its plain version
+            # each kernel alone against its plain version; the forward (a
+            # cluster of 8 blocks a tile up to 256 rows, 4 above) with and
+            # without residuals, bitwise on a rerun
             out_k = fh.mlp3_forward(*args, residuals=True)
             out_r = fh.mlp3_forward_reference(*args)
             assert_close(torch, f"fwd B={b}", out_k, out_r)
+            again = fh.mlp3_forward(*args, residuals=True)
+            check(all(torch.equal(a, c) for a, c in zip(out_k, again)),
+                  f"forward is not bitwise reproducible at B={b}")
+            check(torch.equal(fh.mlp3_forward(*args, residuals=False)[0], out_k[0]),
+                  f"forward logits differ without residuals at B={b}")
             x, w1, b1, w2, b2, w3, b3 = args
             gout = torch.randn(b, 10, device=dev, generator=torch.Generator(dev).manual_seed(b))
             _, h1, h2 = out_r
@@ -899,7 +936,7 @@ def main() -> int:
                 first = fh.mlp3_backward(gout, x, h1, h2, w1, w2, w3)
                 check(all(torch.equal(a, c) for a, c in zip(first, again)),
                       f"backward is not bitwise reproducible at B={b}")
-        print("backward bitwise reproducible at B=200 and B=4096")
+        print("forward bitwise reproducible at every B; backward at B=200 and B=4096")
 
     with phase("4 oracle on the card"):
         import numpy as np
@@ -1056,6 +1093,16 @@ def main() -> int:
                 if b == 16:
                     kernels[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                          bound_ms=bms, bound_by=by, graph_ms=d_k)
+            fwd = next(t for t in times if t["B"] == b and t["name"] == "fused_mlp3_fwd")
+            fwd["cluster"] = fh.fwd_cluster(b)
+            ratio = (fwd["graph_ms"] / fwd["library_graph_ms"]
+                     if fwd["graph_ms"] and fwd["library_graph_ms"] else None)
+            print(f"B={b:5d} fused_mlp3_fwd, {fwd['cluster']} blocks a tile: device "
+                  f"{fmt(fwd['graph_ms'])} ms, {fmt(ratio)}x the addmm chain's")
+            if b == 16:
+                check(ratio is not None and ratio <= 1.0,
+                      f"the head forward's device time at B=16 is {fmt(ratio)}x the addmm "
+                      f"chain's")
             fh.LAUNCHES.update(saved)  # timing launches are not main-path launches
         for kern, runs in main_path.items():
             for r in runs:
@@ -1356,12 +1403,12 @@ def main() -> int:
             print(f"   {name}: {row['tokens_per_s']} tokens/s, {row['ms_per_step']:.2f} ms per "
                   f"step, MFU {row['mfu_pct']}% of the bf16 dense peak, losses {loss[0]:.4f} "
                   f"-> {loss[LM_STEPS - 1]:.4f}, peak memory {row['peak_mem_gib']:.2f} GiB, "
-                  f"launches {counts}, backward by route {row['routes']}", flush=True)
+                  f"launches {counts}, by route {row['routes']}", flush=True)
             want = (dict.fromkeys(counts, 0) if formula is None
                     else flash_counts(LM_STEPS, **formula))
             check(counts == want, f"{name}: flash launches {counts} != expected {want}")
             check(row["routes"] == mma_counts(want),
-                  f"{name}: backward launches by route {row['routes']} != {mma_counts(want)}")
+                  f"{name}: launches by route {row['routes']} != {mma_counts(want)}")
             if first and name == "flash":
                 for key in ("flash_fwd", "flash_dq", "flash_dkv"):
                     kernels[key]["launches"] = counts[key]
@@ -1400,7 +1447,7 @@ def main() -> int:
                 check(row["launches"] == want,
                       f"{name}: flash launches {row['launches']} != expected {want}")
                 check(row["routes"] == mma_counts(want),
-                      f"{name}: backward launches by route {row['routes']} != {mma_counts(want)}")
+                      f"{name}: launches by route {row['routes']} != {mma_counts(want)}")
                 check(("evals" not in formula) == (row["eval"] is None)
                       and (row["eval"] is None or math.isfinite(row["eval"]["eval_loss"])),
                       f"{name}: eval {row['eval']}")
@@ -1410,8 +1457,9 @@ def main() -> int:
     learn = {}
     with phase("14 learnability"):
         lines = []
-        for key in fa.LAUNCHES:
-            fa.LAUNCHES[key] = 0
+        for counters in (fa.LAUNCHES, fa.ROUTE_LAUNCHES):
+            for key in counters:
+                counters[key] = 0
         rc = lm_train.main(["--device", "cuda", "--steps", "300", "--batch-size", "32",
                             "--seq-len", "16", "--vocab", "32", "--d-model", "32", "--n-heads",
                             "4", "--n-layers", "2", "--d-ff", "64", "--lr", "0.3", "--attn",
@@ -1436,6 +1484,10 @@ def main() -> int:
         check(hits / max(total, 1) > 0.9, f"continuation match {hits}/{total} <= 0.9")
         check(counts["flash_fwd"] == counts["flash_dq"] == counts["flash_dkv"] == 300 * 2,
               f"learnability launches {counts} != 300 steps x 2 layers")
+        # head dim 8 is outside the mma rule: every launch on the simt route
+        check(all(n == (600 if key.endswith("_simt") else 0)
+                  for key, n in fa.ROUTE_LAUNCHES.items()),
+              f"learnability launches by route {fa.ROUTE_LAUNCHES}")
 
     flash_times, flash_pair = [], []
     with phase("15 flash kernel times"), uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):
@@ -1449,12 +1501,13 @@ def main() -> int:
             o, lse = fa.flash_fwd(q, k, v)
             delta = fa.flash_delta(o, do)
             qc, sq, kc, sk, vc, sv = fa.quantize_qkv(q, k, v, "int8")
-            # the same values in misaligned views: the backward's simt route
-            # (the scalar kernels) at this shape, timed in the same call
+            # the same values in misaligned views: the simt route (the scalar
+            # kernels) at this shape, timed in the same call
             mis = flash_inputs(torch, b, s_, h, d, torch.bfloat16, "misaligned", dev, g)
             for x, y in zip(mis, (q, k, v, do)):
                 x.copy_(y)
-            check(fa.bwd_route(q, k, v, do) == "mma" and fa.bwd_route(*mis) == "simt",
+            check(fa.bwd_route(q, k, v, do) == fa.fwd_route(q, k, v) == "mma"
+                  and fa.bwd_route(*mis) == fa.fwd_route(*mis[:3]) == "simt",
                   "phase 15's inputs are not on the routes they time")
 
             def sdpa_fwd():
@@ -1473,6 +1526,8 @@ def main() -> int:
             rows = {
                 "flash_fwd": (lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_fwd_plain(q, k, v),
                               lib["fwd"], PEAK_BF16_FLOPS),
+                "flash_fwd simt": (lambda: fa.flash_fwd(*mis[:3]), None, lib["fwd"],
+                                   PEAK_BF16_FLOPS),
                 "flash_fwd_quant": (
                     lambda: fa.flash_fwd_quant_codes(qc, kc, vc, sq, sk, sv,
                                                      out_dtype=torch.bfloat16),
@@ -1495,7 +1550,7 @@ def main() -> int:
                 t_k = time_ms(torch, kern_fn, iters=20, warmup=3)
                 d_k = graph_ms(torch, kern_fn, iters=10, replays=3)
                 t_p = d_p = None
-                if plain_fn is not None:  # the simt rows share the mma rows' plain version
+                if plain_fn is not None:  # the other rows share the mma rows' plain version
                     t_p = time_ms(torch, plain_fn, iters=3, warmup=1)
                     d_p = graph_ms(torch, plain_fn, iters=2, replays=2)
                 nbytes, ops = work[name.split()[0]]
@@ -1514,6 +1569,14 @@ def main() -> int:
                 if (h, d) == (8, 64) and name in kernels:
                     kernels[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms,
                                          bound_by=by, graph_ms=d_k)
+            fwd_row = next(t for t in flash_times[::-1] if t["name"] == "flash_fwd")
+            if None not in (fwd_row["graph_ms"], lib["fwd"][1]):
+                kern = "wgmma" if d == 64 else "mma.sync"
+                print(f"forward (B, S, H, D) = ({b}, {s_}, {h}, {d}), device time: flash_fwd "
+                      f"{fwd_row['graph_ms']:.4f} ms (mma route, the {kern} kernel), "
+                      f"{fwd_row['graph_ms'] / lib['fwd'][1]:.2f}x SDPA's forward "
+                      f"({lib['fwd'][1]:.4f} ms) and {fwd_row['graph_ms'] / fwd_row['bound_ms']:.1f}x "
+                      f"its bound; the simt route {fmt(dev_ms['flash_fwd simt'])} ms", flush=True)
             print(f"   SDPA causal at this shape: forward {lib['fwd'][0]:.4f} ms, forward + "
                   f"backward {lib['fwd_bwd'][0]:.4f} ms per call (library_ms of flash_dq and "
                   f"flash_dkv is SDPA's whole backward, dq, dk and dv together); the quantized "
@@ -1577,6 +1640,11 @@ def main() -> int:
         del params, mom, step
         torch.cuda.empty_cache()
 
+    designs = {"fused_mlp3_fwd": f"cluster of {fh.fwd_cluster(16)} blocks per 16-row tile",
+               "flash_fwd": "wgmma (tensor cores; mma.sync at D 16/32/128)",
+               "flash_dq": "mma.sync (tensor cores)", "flash_dkv": "mma.sync (tensor cores)"}
+    for name, k in kernels.items():
+        k["design"] = designs.get(name, "scalar (no tensor cores)")
     table = [{"name": name, **k} for name, k in kernels.items()]
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -3,10 +3,11 @@
 //
 // Replaces the Pallas TPU kernels of distributed_neural_network_tpu/ops/
 // flash_pallas.py, all reached through `flash_mha`:
-//   flash_fwd_kernel        <- `_fwd_kernel`        (call `_fwd_call`)
+//   flash_fwd_wgmma_kernel, flash_fwd_mma_kernel, flash_fwd_kernel
+//                           <- `_fwd_kernel`        (call `_fwd_call`)
 //   flash_fwd_quant_kernel  <- `_fwd_quant_kernel`  (call `_fwd_quant_call`)
-//   flash_dq_kernel         <- `_dq_kernel`         (call `_bwd_call`)
-//   flash_dkv_kernel        <- `_dkv_kernel`        (call `_bwd_call`)
+//   flash_dq_mma_kernel, flash_dq_kernel    <- `_dq_kernel`  (call `_bwd_call`)
+//   flash_dkv_mma_kernel, flash_dkv_kernel  <- `_dkv_kernel` (call `_bwd_call`)
 //
 // For every (batch b, head h), on rows of a (B, S, H, D) tensor:
 //   s  = (q k^T) * scale, masked to -1e30 (causal: col > row; and col >= S)
@@ -35,16 +36,52 @@
 // of q/k/v/o, about 500 FLOP a byte, above the H100's ~295 FLOP/byte
 // ridge in bf16: the bound is the FLOPs over the tensor cores' 989 TFLOP/s.
 //
-// Two routes for the backward pair, chosen by a stated rule (mma_ok below;
-// `bwd_route` in ops/flash_attention.py states the same rule):
-// - "mma": flash_dq_mma_kernel and flash_dkv_mma_kernel, on the tensor
-//   cores, for bf16 q/k/v/dO with D % 16 == 0, D <= 128, 16-byte-aligned base
-//   pointers and batch/sequence/head strides that are multiples of 8
-//   elements (the model's (B, S, H, D) projections all are);
-// - "simt": flash_dq_kernel and flash_dkv_kernel, scalar f32 FMAs, for
-//   every other legal input (f32, D 40, a misaligned view).
-// The entry point of the mma route refuses inputs outside its rule; no
+// Two routes for the forward and for the backward pair, chosen by one
+// stated rule (mma_ok below; `fwd_route` and `bwd_route` in
+// ops/flash_attention.py state the same rule through one helper):
+// - "mma": the tensor-core kernels, for bf16 operands with D % 16 == 0, D <=
+//   128, 16-byte-aligned base pointers and batch/sequence/head strides that
+//   are multiples of 8 elements (the model's (B, S, H, D) projections all
+//   are): flash_fwd_wgmma_kernel at a padded head dim of 64 (D 48, 64),
+//   flash_fwd_mma_kernel at the others, flash_dq_mma_kernel and
+//   flash_dkv_mma_kernel;
+// - "simt": flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel, scalar
+//   f32 FMAs, for every other legal input (f32, D 40, D 8, a misaligned view).
+// The entry points of the mma route refuse inputs outside the rule; no
 // input that the rule admits falls back to the scalar kernels.
+//
+// The forward on tensor cores. What bounds it: operations, 2 products of
+// (pairs x D) and one expf per pair. Two kernels, both with the rounding
+// points above and the online softmax of `online_softmax` (s scaled and
+// masked in f32, row max and sum over the 4 lanes of a quad, l summed from
+// the unrounded p, p rounded to bf16 straight into the A fragments of P.V,
+// acc rescaled in f32, no shared-memory round trip for p):
+// - flash_fwd_wgmma_kernel (D 64, the main path): one warpgroup per 64 q
+//   rows; s = q k^T and acc += p v are wgmma.m64n64k16 (q, k, v from
+//   shared memory by descriptor, p from registers: warp by warp, wgmma's
+//   m64 accumulator and A layouts are mma.sync's m16n8 and m16n8k16
+//   layouts); tiles in the 128-byte-swizzled canonical layout (a 64-element
+//   row is 128 bytes), filled by a 2-stage cp.async ring with a
+//   fence.proxy.async before the barrier; 100 registers, 4 blocks per SM.
+// - flash_fwd_mma_kernel (D 16, 32, 128): the backward pair's building
+//   blocks (mma.sync.m16n8k16, ldmatrix / ldmatrix.trans, the padded tiles,
+//   the 2-stage ring) on a q tile of 128 rows: 4 warps of 2 m-tiles at D <=
+//   32, so each K and V fragment feeds two products, 8 warps of 1 at D 128.
+// Both: a 1-D grid ranked by work (the causal triangle's heaviest q tile
+// first), the k loop bounded at the diagonal, the mask only on diagonal
+// and ragged tiles, no atomics (bitwise-repeatable calls).
+// Measured device time at (B, S, H, D) = (16, 2048, 8, 64) causal bf16 on
+// an H100 at 700 W (chip_smoke.py phase 15; the mma.sync kernel at D 64 in
+// the same call while it was still built for that head dim): wgmma 0.358
+// ms, mma.sync 0.404 ms (a 64-row q tile of 4 warps x 1 m-tile: 0.420 ms),
+// the scalar kernel 3.39 ms; at (16, 2048, 4, 128) the mma.sync kernel
+// 0.349-0.367 ms (64 rows: 0.412 ms). What holds mma.sync back here: at about 17 clocks
+// per m16n8k16 per SM sub-partition (the dq and dkv kernels' times fit the
+// same rate) the products alone take about 0.3 ms, and the expf chain (8
+// instructions a pair) overlaps them only partly; wgmma's products run
+// asynchronously at the warpgroup's rate. Tried and not kept (no gain in
+// probe runs): a 3-stage ring with one barrier a tile, q's fragments read
+// from shared memory each k step, s * scale - m as one FFMA.
 //
 // The backward pair on tensor cores. What bounds it: operations. dq does 3
 // products of (pairs x D) (s = q k^T, dp = do v^T, dq = ds k) and dkv 4
@@ -80,8 +117,8 @@
 //   diagonal blocks fill the tail of the grid; the mask is evaluated only on the diagonal tile and
 //   on tiles that run past S, every other tile takes the unmasked path.
 //
-// Design of the forward kernels and the scalar backward (the simple first
-// version; no tensor cores yet):
+// Design of the scalar kernels (the simt route's forward and backward, and
+// the quantized forward; the first version, no tensor cores):
 // - one block of 256 threads per (q tile of 64 rows, b*h) in the forward
 //   and dq kernels, per (k tile of 64 rows, b*h) in the dkv kernel; each
 //   output tile belongs to one block, so there are no atomics and a call
@@ -103,8 +140,8 @@
 // strided (B, S, H, D) view is read in place. The wrapper raises outside
 // the rule.
 //
-// Left for later PRs: the same tensor-core design for the forward and the
-// quantized forward, and wgmma with TMA for the backward pair.
+// Left for later PRs: the tensor cores for the quantized forward, wgmma for
+// the backward pair and the forward's other head dims, TMA loads.
 //
 // Each entry point returns cudaGetLastError() right after its launch.
 
@@ -114,6 +151,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -711,16 +749,17 @@ struct Lane {
   }
 };
 
-// rows [row0, row0 + 64) of head (b, h) into a bf16 tile, zero past S and D
-// (D % 8 == 0 on this route, so a 16-byte chunk is all in or all out)
-template <int DP>
+// rows [row0, row0 + ROWS) of head (b, h) into a bf16 tile by THREADS
+// threads, zero past S and D (D % 8 == 0 on this route, so a 16-byte chunk
+// is all in or all out)
+template <int DP, int ROWS = 64, int THREADS = kMmaThreads>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const View& v, int b, int h, int row0,
                                                 int S, int D) {
-  constexpr int kChunks = DP / 8;
-  static_assert(64 * kChunks % kMmaThreads == 0, "tile chunks split evenly over the threads");
+  constexpr int kChunks = DP / 8, kTotal = ROWS * kChunks;
 #pragma unroll
-  for (int i = 0; i < 64 * kChunks / kMmaThreads; ++i) {
-    const int idx = threadIdx.x + i * kMmaThreads;
+  for (int i = 0; i < (kTotal + THREADS - 1) / THREADS; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    if (kTotal % THREADS != 0 && idx >= kTotal) break;
     const int r = idx / kChunks, c = idx - r * kChunks;
     const bool live = row0 + r < S && c * 8 < D;
     const bf16* src = live ? at<const bf16>(v, b, row0 + r, h) + c * 8 : static_cast<const bf16*>(v.p);
@@ -1008,6 +1047,357 @@ __global__ void __launch_bounds__(kMmaThreads, MmaTile<DP>::kMinBlocksDkv)
   store_rows<DP>(dv, a.dv, b, h, k0 + ln.warp * 16, ln, a.S, a.D);
 }
 
+// ------------------------------------------------ forward on tensor cores
+
+// The mma.sync forward's q tile: 128 rows, 4 warps of 2 m-tiles (16 rows
+// each) at D <= 32, so that each K and V fragment read by ldmatrix feeds two
+// products, and 8 warps of 1 at D 128, where two m-tiles' accumulators do
+// not fit in registers. kMinBlocks: blocks per SM asked of the register
+// allocator.
+constexpr int kFwdRows = 128;
+template <int DP>
+struct FwdMma {
+  static constexpr int kWarps = DP <= 32 ? 4 : 8;
+  static constexpr int kMt = kFwdRows / (16 * kWarps), kThreads = 32 * kWarps;
+  static constexpr int kMinBlocks = DP <= 32 ? 2 : 1;
+};
+
+// The online softmax of one m-tile (16 rows of a warp) over one k tile, in
+// registers: s (the m16n8 accumulators of s = q k^T) scaled and, kMask,
+// masked; the row max and sum reduce over the 4 lanes of a quad, so every
+// lane of a row holds the same bits; p = exp(s - m) is summed unrounded
+// into l and rounded to bf16 straight into pa, the m16n8k16 A fragments of
+// acc += p v; acc is rescaled by exp(m_old - m). r0: the m-tile's first row.
+template <int DP, bool kMask>
+__device__ __forceinline__ void online_softmax(float (&s)[kBK / 8][4], float (&m)[2], float (&l)[2],
+                                               float (&acc)[DP / 8][4], uint32_t (&pa)[kBK / 16][4],
+                                               int r0, int k0, const Args& a, const Lane& ln) {
+  float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      s[j][e] = kMask && masked(r0 + ln.g + 8 * i, k0 + 8 * j + 2 * ln.t + (e & 1), a.S, a.causal)
+                    ? kNegBig
+                    : s[j][e] * a.scale;
+      mx[i] = fmaxf(mx[i], s[j][e]);
+    }
+  float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    alpha[i] = expf(m[i] - m_new);
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = expf(s[j][e] - m[e >> 1]);
+      ps[e >> 1] += p[e];
+    }
+    pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 1);
+    ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 2);
+    l[i] = l[i] * alpha[i] + ps[i];
+  }
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+}
+
+// One k tile of the forward for one warp's MT m-tiles: s = q k^T (q's A
+// fragments held in registers; each K fragment feeds every m-tile), the
+// online softmax, acc += p v (each V fragment feeds every m-tile). kMask:
+// the diagonal tile or a tile past S; r0: the warp's first row.
+template <int DP, int MT, bool kMask>
+__device__ __forceinline__ void fwd_tile(float (&acc)[MT][DP / 8][4], float (&m)[MT][2],
+                                         float (&l)[MT][2], const uint32_t (&qa)[MT][DP / 16][4],
+                                         const bf16* sK, const bf16* sV, int r0, int k0,
+                                         const Args& a, const Lane& ln) {
+  constexpr int LD = MmaTile<DP>::LD;
+  float s[MT][kBK / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      uint32_t kb[4];
+      ldsm_x4(kb, sK + (16 * j + ln.b_row) * LD + 16 * kk + ln.b_col);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(s[mt][2 * j], qa[mt][kk], kb[0], kb[1]);
+        mma_bf16(s[mt][2 * j + 1], qa[mt][kk], kb[2], kb[3]);
+      }
+    }
+  uint32_t pa[MT][kBK / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    online_softmax<DP, kMask>(s[mt], m[mt], l[mt], acc[mt], pa[mt], r0 + 16 * mt, k0, a, ln);
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int jd = 0; jd < DP / 16; ++jd) {
+      uint32_t vb[4];
+      ldsm_x4_t(vb, sV + (16 * kk + ln.a_row) * LD + 16 * jd + ln.a_col);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(acc[mt][2 * jd], pa[mt][kk], vb[0], vb[1]);
+        mma_bf16(acc[mt][2 * jd + 1], pa[mt][kk], vb[2], vb[3]);
+      }
+    }
+}
+
+// o = acc / l in bf16 and lse = m + log(l) for one m-tile's rows (r0 + g,
+// r0 + g + 8), l clamped to 1e-30
+template <int DP>
+__device__ __forceinline__ void fwd_store(const float (&acc)[DP / 8][4], const float (&m)[2],
+                                          const float (&l)[2], const Args& a, int b, int h, int bh,
+                                          int r0, const Lane& ln) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + ln.g + 8 * i;
+    if (row >= a.S) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+    bf16* o = at<bf16>(a.o, b, row, h);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int d = 8 * j + 2 * ln.t;
+      if (d < a.D)
+        *reinterpret_cast<__nv_bfloat162*>(o + d) =
+            __floats2bfloat162_rn(acc[j][2 * i] / lc, acc[j][2 * i + 1] / lc);
+    }
+    if (ln.t == 0) a.lse[static_cast<long long>(bh) * a.S + row] = m[i] + logf(lc);
+  }
+}
+
+// 1-D grid of (q tiles) x (B*H) blocks, ranked by work: the blocks of q
+// tile n_qt - 1 (which meets every k tile of a causal call) first. A warp
+// skips the k tiles in which all its rows are masked (an exact no-op: p =
+// 0, alpha = 1) and the whole loop when its rows lie past S.
+template <int DP>
+__global__ void __launch_bounds__(FwdMma<DP>::kThreads, FwdMma<DP>::kMinBlocks)
+    flash_fwd_mma_kernel(Args a) {
+  constexpr int LD = MmaTile<DP>::LD, TILE = MmaTile<DP>::kElems, ROWS = kFwdRows;
+  constexpr int MT = FwdMma<DP>::kMt, THREADS = FwdMma<DP>::kThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + ROWS * LD;  // 2 stages
+  bf16* sV = sK + 2 * TILE;   // 2 stages
+  const Lane ln;
+  const int n_bh = a.B * a.H, rank = static_cast<int>(blockIdx.x) / n_bh;
+  const int bh = static_cast<int>(blockIdx.x) - rank * n_bh, b = bh / a.H, h = bh - b * a.H;
+  const int n_qt = (a.S + ROWS - 1) / ROWS;
+  const int q0 = (n_qt - 1 - rank) * ROWS, r0 = q0 + ln.warp * 16 * MT;
+  const int n_kt = a.causal ? (min(q0 + ROWS, a.S) - 1) / kBK + 1 : (a.S + kBK - 1) / kBK;
+
+  load_tile_async<DP, ROWS, THREADS>(sQ, a.q, b, h, q0, a.S, a.D);
+  load_tile_async<DP, kBK, THREADS>(sK, a.k, b, h, 0, a.S, a.D);
+  load_tile_async<DP, kBK, THREADS>(sV, a.v, b, h, 0, a.S, a.D);
+  cp_async_commit();
+  uint32_t qa[MT][DP / 16][4];
+  float m[MT][2], l[MT][2], acc[MT][DP / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = kNegBig;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    if (kt + 1 < n_kt) {
+      const int nxt = ((kt + 1) & 1) * TILE;
+      load_tile_async<DP, kBK, THREADS>(sK + nxt, a.k, b, h, k0 + kBK, a.S, a.D);
+      load_tile_async<DP, kBK, THREADS>(sV + nxt, a.v, b, h, k0 + kBK, a.S, a.D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          ldsm_x4(qa[mt][kk], sQ + (r0 - q0 + 16 * mt + ln.a_row) * LD + 16 * kk + ln.a_col);
+    }
+    const int cur = (kt & 1) * TILE;
+    if (r0 < a.S && (!a.causal || k0 <= r0 + 16 * MT - 1)) {
+      if ((a.causal && k0 + kBK - 1 > r0) || k0 + kBK > a.S) {
+        fwd_tile<DP, MT, true>(acc, m, l, qa, sK + cur, sV + cur, r0, k0, a, ln);
+      } else {
+        fwd_tile<DP, MT, false>(acc, m, l, qa, sK + cur, sV + cur, r0, k0, a, ln);
+      }
+    }
+    __syncthreads();  // the next iteration's copy overwrites this stage
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) fwd_store<DP>(acc[mt], m[mt], l[mt], a, b, h, bh, r0 + 16 * mt, ln);
+}
+
+// ------------------------------------------- forward with wgmma (head dim 64)
+
+// One warpgroup (4 warps) per 64 q rows: both products as wgmma, s = q k^T
+// with q and k from shared memory, acc += p v with p from registers (the
+// m64 accumulator and A layouts of wgmma are, warp by warp, the m16n8 and
+// m16n8k16 layouts of mma.sync, so the online softmax is the same code).
+// Tiles sit in shared memory in wgmma's canonical 128-byte-swizzled
+// layout: a tile row of 64 bf16 is 128 bytes, 8 rows make a 1024-byte atom,
+// and 16-byte chunk c of row r lies at byte 128 r + 16 (c ^ (r % 8)), so
+// the 8 rows of any 16-byte column sit in 8 different bank groups. Q and K
+// are read k-major (16 columns a product: 32 bytes into the rows), V
+// n-major (16 rows a product: two atoms); atoms are 1024 bytes apart.
+constexpr int kWgThreads = 128;
+constexpr uint32_t kAtomBytes = 1024;
+
+// rows [row0, row0 + 64) of head (b, h) into a swizzled tile (64 x 64),
+// zero past S and D
+__device__ __forceinline__ void load_tile_sw128(bf16* dst, const View& v, int b, int h, int row0,
+                                                int S, int D) {
+#pragma unroll
+  for (int i = 0; i < 64 * 8 / kWgThreads; ++i) {
+    const int idx = threadIdx.x + i * kWgThreads;
+    const int r = idx >> 3, c = idx & 7;
+    const bool live = row0 + r < S && c * 8 < D;
+    const bf16* src = live ? at<const bf16>(v, b, row0 + r, h) + c * 8 : static_cast<const bf16*>(v.p);
+    cp_async16(dst + r * 64 + ((c ^ (r & 7)) << 3), src, live);
+  }
+}
+
+// a shared-memory matrix descriptor of wgmma for a 128-byte-swizzled
+// operand at p (inside a 1024-byte-aligned tile): start address, atoms
+// `sbo` bytes apart
+__device__ __forceinline__ uint64_t wg_desc(const bf16* p, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | uint64_t{1} << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | uint64_t{1} << 62;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// makes the cp.async writes to shared memory visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (the warpgroup's 64 x 64 f32, m16n8 accumulators per warp) = (d if
+// accumulate) + A B, A (64 x 16) and B (64 x 16, k contiguous) in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+               : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+                 "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+                 "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+                 "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+                 "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+                 "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+                 "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+                 "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+               : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, A (64 x 16) from registers (each warp's m16n8k16 A fragment),
+// B (16 x 64, n contiguous) in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+               : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+                 "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+                 "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+                 "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+                 "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+                 "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+                 "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+                 "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// 1-D grid of (q tiles of 64 rows) x (B*H) blocks ranked by work, as the
+// mma.sync kernels; the K/V ring, the mask only on diagonal and ragged tiles
+// and the rounding points are theirs
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads) flash_fwd_wgmma_kernel(Args a) {
+  static_assert(DP == 64, "the wgmma forward takes head dim 64 (128-byte rows, m64n64)");
+  constexpr int TILE = 64 * DP;  // elements of a tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the tiles start on a 1024-byte boundary (the swizzle atom)
+  bf16* sQ = reinterpret_cast<bf16*>(
+      smem_raw + ((kAtomBytes - smem_u32(smem_raw) % kAtomBytes) % kAtomBytes));
+  bf16* sK = sQ + TILE;      // 2 stages
+  bf16* sV = sK + 2 * TILE;  // 2 stages
+  const Lane ln;
+  const int n_bh = a.B * a.H, rank = static_cast<int>(blockIdx.x) / n_bh;
+  const int bh = static_cast<int>(blockIdx.x) - rank * n_bh, b = bh / a.H, h = bh - b * a.H;
+  const int n_qt = (a.S + kBQ - 1) / kBQ;
+  const int q0 = (n_qt - 1 - rank) * kBQ, r0 = q0 + ln.warp * 16;
+  const int n_kt = a.causal ? (min(q0 + kBQ, a.S) - 1) / kBK + 1 : (a.S + kBK - 1) / kBK;
+
+  load_tile_sw128(sQ, a.q, b, h, q0, a.S, a.D);
+  load_tile_sw128(sK, a.k, b, h, 0, a.S, a.D);
+  load_tile_sw128(sV, a.v, b, h, 0, a.S, a.D);
+  cp_async_commit();
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f}, acc[DP / 8][4], s[kBK / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    if (kt + 1 < n_kt) {
+      const int nxt = ((kt + 1) & 1) * TILE;
+      load_tile_sw128(sK + nxt, a.k, b, h, k0 + kBK, a.S, a.D);
+      load_tile_sw128(sV + nxt, a.v, b, h, k0 + kBK, a.S, a.D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const bf16* k = sK + (kt & 1) * TILE;
+    const bf16* v = sV + (kt & 1) * TILE;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)  // 16 columns of q and k: 32 bytes into the rows
+      wgmma_ss(s, wg_desc(sQ + kk * 16, kAtomBytes), wg_desc(k + kk * 16, kAtomBytes), kk);
+    wg_commit_wait();
+    uint32_t pa[kBK / 16][4];
+    if ((a.causal && k0 + kBK - 1 > q0) || k0 + kBK > a.S) {
+      online_softmax<DP, true>(s, m, l, acc, pa, r0, k0, a, ln);
+    } else {
+      online_softmax<DP, false>(s, m, l, acc, pa, r0, k0, a, ln);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)  // 16 rows of v: 2 atoms
+      wgmma_rs(acc, pa[kk], wg_desc(v + kk * 16 * DP, kAtomBytes));
+    wg_commit_wait();
+    __syncthreads();  // the next iteration's copy overwrites this stage
+  }
+  fwd_store<DP>(acc, m, l, a, b, h, bh, r0, ln);
+}
+
 // ------------------------------------------------------------------ launch
 
 // shared memory in bytes, per kernel kind and padded head dim
@@ -1051,21 +1441,23 @@ int pad_dim(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128; }
     default: return launch<KERNEL<__VA_ARGS__, 128>>(KIND, 128, a, stream);    \
   }
 
-// dynamic shared memory of the mma kernels: 6 bf16 tiles (2 resident, 2
+// dynamic shared memory of the mma kernels: the forward's q tile of `rows`
+// rows and 2 stages of K and V; dq and dkv 6 bf16 tiles (2 resident, 2
 // streamed x 2 stages), and for dkv 2 stages of lse and delta
-size_t mma_smem_bytes(Kind kind, int dp) {
-  const size_t tile = 64 * static_cast<size_t>(dp + kPad) * sizeof(bf16);
+size_t mma_smem_bytes(Kind kind, int dp, int rows) {
+  const size_t row = static_cast<size_t>(dp + kPad) * sizeof(bf16), tile = 64 * row;
+  if (kind == kFwd) return rows * row + 4 * tile;
   return kind == kDq ? 6 * tile : 6 * tile + 4 * kBQ * sizeof(float);
 }
 
 // raises the instance's dynamic shared-memory cap once (outside any CUDA
 // graph capture) and asks for the largest shared-memory carveout
 template <void (*Kernel)(Args)>
-cudaError_t prepare_mma(Kind kind, int dp) {
+cudaError_t prepare_mma(Kind kind, int dp, int rows) {
   static bool raised = false;
   if (raised) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(mma_smem_bytes(kind, dp)));
+                                       static_cast<int>(mma_smem_bytes(kind, dp, rows)));
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(Kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
@@ -1073,31 +1465,58 @@ cudaError_t prepare_mma(Kind kind, int dp) {
   return e;
 }
 
+// one block of `threads` per (output tile of `rows` rows, b*h) on a 1-D grid
 template <void (*Kernel)(Args)>
-cudaError_t launch_mma(Kind kind, int dp, const Args& a, cudaStream_t stream) {
-  const cudaError_t e = prepare_mma<Kernel>(kind, dp);
+cudaError_t launch_mma(Kind kind, int dp, int rows, int threads, const Args& a,
+                       cudaStream_t stream) {
+  const cudaError_t e = prepare_mma<Kernel>(kind, dp, rows);
   if (e != cudaSuccess) return e;
+  const unsigned grid = static_cast<unsigned>((a.S + rows - 1) / rows) * (a.B * a.H);
+  Kernel<<<grid, threads, mma_smem_bytes(kind, dp, rows), stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the wgmma forward (head dim 64): Q and 2 stages of K and V, 64-row tiles
+// of 8 KB, and room to start them on a 1024-byte boundary
+constexpr size_t kWgSmem = 5 * 64 * 64 * sizeof(bf16) + kAtomBytes;
+
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   const unsigned grid = static_cast<unsigned>((a.S + kBQ - 1) / kBQ) * (a.B * a.H);
-  Kernel<<<grid, kMmaThreads, mma_smem_bytes(kind, dp), stream>>>(a);
+  flash_fwd_wgmma_kernel<64><<<grid, kWgThreads, kWgSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // blocks of an mma instance that fit on one SM
 template <void (*Kernel)(Args)>
-cudaError_t occupancy_mma(Kind kind, int dp, int* blocks) {
-  const cudaError_t e = prepare_mma<Kernel>(kind, dp);
+cudaError_t occupancy_mma(Kind kind, int dp, int rows, int threads, int* blocks) {
+  const cudaError_t e = prepare_mma<Kernel>(kind, dp, rows);
   if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, Kernel, kMmaThreads,
-                                                       mma_smem_bytes(kind, dp));
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, Kernel, threads,
+                                                       mma_smem_bytes(kind, dp, rows));
 }
 
 #define FLASH_MMA_DISPATCH(FN, KERNEL, KIND, ...)                     \
   switch (pad_dim(D)) {                                               \
-    case 16: return FN<KERNEL<16>>(KIND, 16, __VA_ARGS__);            \
-    case 32: return FN<KERNEL<32>>(KIND, 32, __VA_ARGS__);            \
-    case 64: return FN<KERNEL<64>>(KIND, 64, __VA_ARGS__);            \
-    default: return FN<KERNEL<128>>(KIND, 128, __VA_ARGS__);          \
+    case 16: return FN<KERNEL<16>>(KIND, 16, kBQ, kMmaThreads, __VA_ARGS__);   \
+    case 32: return FN<KERNEL<32>>(KIND, 32, kBQ, kMmaThreads, __VA_ARGS__);   \
+    case 64: return FN<KERNEL<64>>(KIND, 64, kBQ, kMmaThreads, __VA_ARGS__);   \
+    default: return FN<KERNEL<128>>(KIND, 128, kBQ, kMmaThreads, __VA_ARGS__); \
   }
+
+// the mma.sync forward's instance for head dim D (padded head dims 16, 32
+// and 128; 64 takes the wgmma kernel)
+#define FLASH_FWD_MMA_CASE(FN, DP, ...) \
+  FN<flash_fwd_mma_kernel<DP>>(kFwd, DP, kFwdRows, FwdMma<DP>::kThreads, __VA_ARGS__)
+#define FLASH_FWD_MMA_DISPATCH(FN, ...)                                \
+  switch (pad_dim(D)) {                                                \
+    case 16: return FLASH_FWD_MMA_CASE(FN, 16, __VA_ARGS__);           \
+    case 32: return FLASH_FWD_MMA_CASE(FN, 32, __VA_ARGS__);           \
+    default: return FLASH_FWD_MMA_CASE(FN, 128, __VA_ARGS__);          \
+  }
+
+// the forward's kernel on the mma route: wgmma where the head dim pads to
+// 64 (rows of 128 bytes, the 128-byte swizzle's width), mma.sync elsewhere
+bool fwd_wgmma(int D) { return pad_dim(D) == 64; }
 
 // the mma route's rule on one operand: 16-byte-aligned base, strides in
 // multiples of 8 elements (so every 16-byte chunk of a row is aligned)
@@ -1106,10 +1525,15 @@ bool mma_view_ok(const View& v) {
          v.sh % 8 == 0;
 }
 
-bool mma_ok(int dtype, const Args& a, const View& out1, const View& out2) {
-  return dtype == 1 && a.D % kMmaDimStep == 0 && a.D <= kMaxHeadDim && mma_view_ok(a.q) && mma_view_ok(a.k) &&
-         mma_view_ok(a.v) && mma_view_ok(a.d_o) && mma_view_ok(out1) && mma_view_ok(out2);
+// the mma route's rule (ops/flash_attention.py `_mma_rule`): bf16, D % 16
+// == 0, D <= 128, and every operand, inputs and outputs, meets mma_view_ok
+bool mma_ok(int dtype, int D, std::initializer_list<View> views) {
+  if (dtype != 1 || D % kMmaDimStep != 0 || D > kMaxHeadDim) return false;
+  for (const View& v : views)
+    if (!mma_view_ok(v)) return false;
+  return true;
 }
+
 
 bool shape_ok(int B, int S, int H, int D) {
   return B >= 1 && S >= 1 && H >= 1 && D >= 1 && D <= kMaxHeadDim &&
@@ -1142,6 +1566,26 @@ int flash_fwd(int dtype, void* q, long long q_sb, long long q_ss, long long q_sh
   if (dtype == 0) { FLASH_DISPATCH(flash_fwd_kernel, kFwd, float) }
   if (dtype == 1) { FLASH_DISPATCH(flash_fwd_kernel, kFwd, __nv_bfloat16) }
   return cudaErrorInvalidValue;
+}
+
+// the mma route of the forward (bf16 only): the same arguments as flash_fwd;
+// inputs outside the route's rule are refused, never sent to another kernel
+int flash_fwd_mma(int dtype, void* q, long long q_sb, long long q_ss, long long q_sh, void* k,
+                  long long k_sb, long long k_ss, long long k_sh, void* v, long long v_sb,
+                  long long v_ss, long long v_sh, void* o, long long o_sb, long long o_ss,
+                  long long o_sh, float* lse, int B, int S, int H, int D, float scale, int causal,
+                  cudaStream_t stream) {
+  if (!shape_ok(B, S, H, D)) return cudaErrorInvalidValue;
+  Args a{};
+  a.q = view(q, q_sb, q_ss, q_sh);
+  a.k = view(k, k_sb, k_ss, k_sh);
+  a.v = view(v, v_sb, v_ss, v_sh);
+  a.o = view(o, o_sb, o_ss, o_sh);
+  a.lse = lse;
+  a.B = B, a.S = S, a.H = H, a.D = D, a.scale = scale, a.causal = causal;
+  if (!mma_ok(dtype, D, {a.q, a.k, a.v, a.o})) return cudaErrorInvalidValue;
+  if (fwd_wgmma(D)) return launch_wgmma(a, stream);
+  FLASH_FWD_MMA_DISPATCH(launch_mma, a, stream)
 }
 
 // out_dtype: o's (0 float32, 1 bfloat16); fmt: 0 = int8 codes, 1 = e4m3 codes;
@@ -1239,7 +1683,7 @@ int flash_dq_mma(int dtype, void* q, long long q_sb, long long q_ss, long long q
   a.lse = lse;
   a.delta = delta;
   a.B = B, a.S = S, a.H = H, a.D = D, a.scale = scale, a.causal = causal;
-  if (!mma_ok(dtype, a, a.dq, a.dq)) return cudaErrorInvalidValue;
+  if (!mma_ok(dtype, D, {a.q, a.k, a.v, a.d_o, a.dq})) return cudaErrorInvalidValue;
   FLASH_MMA_DISPATCH(launch_mma, flash_dq_mma_kernel, kDq, a, stream)
 }
 
@@ -1261,7 +1705,7 @@ int flash_dkv_mma(int dtype, void* q, long long q_sb, long long q_ss, long long 
   a.lse = lse;
   a.delta = delta;
   a.B = B, a.S = S, a.H = H, a.D = D, a.scale = scale, a.causal = causal;
-  if (!mma_ok(dtype, a, a.dk, a.dv)) return cudaErrorInvalidValue;
+  if (!mma_ok(dtype, D, {a.q, a.k, a.v, a.d_o, a.dk, a.dv})) return cudaErrorInvalidValue;
   FLASH_MMA_DISPATCH(launch_mma, flash_dkv_mma_kernel, kDkv, a, stream)
 }
 
@@ -1270,9 +1714,21 @@ int flash_dkv_mma(int dtype, void* q, long long q_sb, long long q_ss, long long 
 int flash_bwd_mma_info(int dkv, int D, int* smem, int* blocks) {
   if (D < 1 || D > kMaxHeadDim || D % kMmaDimStep) return cudaErrorInvalidValue;
   const Kind kind = dkv ? kDkv : kDq;
-  *smem = static_cast<int>(mma_smem_bytes(kind, pad_dim(D)));
+  *smem = static_cast<int>(mma_smem_bytes(kind, pad_dim(D), kBQ));
   if (dkv) { FLASH_MMA_DISPATCH(occupancy_mma, flash_dkv_mma_kernel, kDkv, blocks) }
   FLASH_MMA_DISPATCH(occupancy_mma, flash_dq_mma_kernel, kDq, blocks)
+}
+
+// the same for the forward's kernel on the mma route for head dim D
+int flash_fwd_mma_info(int D, int* smem, int* blocks) {
+  if (D < 1 || D > kMaxHeadDim || D % kMmaDimStep) return cudaErrorInvalidValue;
+  if (fwd_wgmma(D)) {
+    *smem = static_cast<int>(kWgSmem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_fwd_wgmma_kernel<64>,
+                                                         kWgThreads, kWgSmem);
+  }
+  *smem = static_cast<int>(mma_smem_bytes(kFwd, pad_dim(D), kFwdRows));
+  FLASH_FWD_MMA_DISPATCH(occupancy_mma, blocks)
 }
 
 int flash_mma_dim_step() { return kMmaDimStep; }

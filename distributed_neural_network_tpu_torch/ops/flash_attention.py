@@ -17,12 +17,16 @@ tensors computes the plain PyTorch version of the same function
 (`flash_fwd_plain`, `flash_fwd_quant_plain`, `flash_dq_plain`,
 `flash_dkv_plain`); given CUDA tensors it launches the kernel or raises.
 
-The backward pair has two routes, picked by `bwd_route` from the inputs'
-dtype, head dim, alignment and strides alone: ``mma`` (the tensor-core
-kernels, for bf16 with D % 16 == 0, 16-byte-aligned base pointers and
+The forward and the backward pair each have two routes, picked by
+`fwd_route` and `bwd_route` from the inputs' dtype, head dim, alignment and
+strides alone, by one rule (`_mma_rule`): ``mma`` (the tensor-core kernels,
+for bf16 with D % 16 == 0, 16-byte-aligned base pointers and
 batch/sequence/head strides in multiples of 8 elements) and ``simt`` (the
-scalar kernels, for every other legal input). `ROUTE_LAUNCHES` counts the
-launches of each route; their sums are the ``flash_dq`` / ``flash_dkv``
+scalar kernels, for every other legal input). On the mma route the forward
+runs the wgmma kernel where the head dim pads to 64 (48, 64) and the
+mma.sync kernel elsewhere, chosen in `csrc/flash_attention.cu` (`fwd_wgmma`).
+`ROUTE_LAUNCHES` counts the launches of each
+route; their sums are the ``flash_fwd``, ``flash_dq`` and ``flash_dkv``
 totals in `LAUNCHES`. A failing mma launch raises: no input changes route
 after the rule has picked it.
 
@@ -55,12 +59,13 @@ _FMT_CODE = {"int8": 0, "fp8": 1}
 MMA_DIM_STEP = 16  # the mma route's head dims are multiples of this
 MMA_ALIGN_BYTES = 16  # ... its base pointers aligned to this
 MMA_STRIDE_STEP = 8  # ... and its batch/sequence/head strides multiples of this
-BWD_ROUTES = ("mma", "simt")
+ROUTES = ("mma", "simt")
 
 # kernel name -> launches since the last reset (callers zero the values)
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_quant": 0, "flash_dq": 0, "flash_dkv": 0}
-# the backward pair's launches by route, "<kernel>_<route>"
-ROUTE_LAUNCHES = {f"{k}_{r}": 0 for k in ("flash_dq", "flash_dkv") for r in BWD_ROUTES}
+# the routed kernels' launches by route, "<kernel>_<route>"
+ROUTED = ("flash_fwd", "flash_dq", "flash_dkv")
+ROUTE_LAUNCHES = {f"{k}_{r}": 0 for k in ROUTED for r in ROUTES}
 
 
 # ------------------------------------------------------------ plain versions
@@ -216,12 +221,14 @@ def _lib() -> ctypes.CDLL:
     shape = [i, i, i, i, f, i]  # B, S, H, D, scale, causal
     lib = _nvcc.load(SOURCE, {
         "flash_fwd": [i] + view * 4 + [p] + shape + [p],
+        "flash_fwd_mma": [i] + view * 4 + [p] + shape + [p],
         "flash_fwd_quant": [i, i] + view * 7 + [p] + shape + [p],
         "flash_dq": [i] + view * 4 + [p, p] + view + shape + [p],
         "flash_dkv": [i] + view * 4 + [p, p] + view * 2 + shape + [p],
         "flash_dq_mma": [i] + view * 4 + [p, p] + view + shape + [p],
         "flash_dkv_mma": [i] + view * 4 + [p, p] + view * 2 + shape + [p],
         "flash_bwd_mma_info": [i, i, p, p],
+        "flash_fwd_mma_info": [i, p, p],
         "flash_max_head_dim": [],
         "flash_block_k": [],
         "flash_mma_dim_step": [],
@@ -234,14 +241,17 @@ def _lib() -> ctypes.CDLL:
 
 
 def mma_info(kernel: str, d: int) -> dict:
-    """The mma instance of `kernel` ("flash_dq" | "flash_dkv") for head dim
-    `d` on the current card: its dynamic shared memory in bytes and the
-    blocks of it that fit on one SM."""
+    """The mma-route instance of `kernel` ("flash_fwd" | "flash_dq" |
+    "flash_dkv") for head dim `d` on the current card: its dynamic shared
+    memory in bytes and the blocks of it that fit on one SM."""
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    rc = _lib().flash_bwd_mma_info(int(kernel == "flash_dkv"), d, ctypes.byref(smem),
-                                   ctypes.byref(blocks))
+    if kernel == "flash_fwd":
+        rc = _lib().flash_fwd_mma_info(d, ctypes.byref(smem), ctypes.byref(blocks))
+    else:
+        rc = _lib().flash_bwd_mma_info(int(kernel == "flash_dkv"), d, ctypes.byref(smem),
+                                       ctypes.byref(blocks))
     if rc != 0:
-        raise RuntimeError(f"flash_bwd_mma_info({kernel}, D={d}) failed: cudaError {rc}")
+        raise RuntimeError(f"mma_info({kernel}, D={d}) failed: cudaError {rc}")
     return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
@@ -282,17 +292,27 @@ def _shape_args(q, scale, causal):
 
 def flash_fwd(q, k, v, *, causal: bool = True, scale=None):
     """Forward: (o (B, S, H, D) in q's dtype, lse (B, H, S) f32). CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel of the
+    route that `fwd_route` picks, counted in LAUNCHES and ROUTE_LAUNCHES."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
     b, s, h, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _nvcc.launch(_lib(), "flash_fwd", q.device, _DTYPE_CODE[q.dtype], *_view(q), *_view(k),
-                 *_view(v), *_view(o), lse.data_ptr(), *_shape_args(q, scale, causal))
-    LAUNCHES["flash_fwd"] += 1
+    _launch_fwd(q, k, v, o, lse, scale, causal)
     return o, lse
+
+
+def _launch_fwd(q, k, v, o, lse, scale, causal) -> None:
+    """One launch of the forward on the route that `fwd_route` picks;
+    counted in LAUNCHES and ROUTE_LAUNCHES."""
+    route = fwd_route(q, k, v)
+    entry = "flash_fwd_mma" if route == "mma" else "flash_fwd"  # the C entry point
+    _nvcc.launch(_lib(), entry, q.device, _DTYPE_CODE[q.dtype], *_view(q), *_view(k), *_view(v),
+                 *_view(o), lse.data_ptr(), *_shape_args(q, scale, causal))
+    LAUNCHES["flash_fwd"] += 1
+    ROUTE_LAUNCHES[f"flash_fwd_{route}"] += 1
 
 
 def flash_fwd_quant_codes(qc, kc, vc, sq, sk, sv, *, causal: bool = True, scale=None,
@@ -336,24 +356,35 @@ def flash_fwd_quant(q, k, v, *, fmt: str, causal: bool = True, scale=None):
                                  out_dtype=q.dtype)
 
 
-def bwd_route(q, k, v, do) -> str:
-    """The backward pair's route for these inputs, from their dtype, head
-    dim, alignment and strides alone: "mma" (the tensor-core kernels) when
-    all four are bfloat16 with D % MMA_DIM_STEP == 0, D <= MAX_HEAD_DIM, a
-    base pointer aligned to MMA_ALIGN_BYTES and batch, sequence and head
-    strides in multiples of MMA_STRIDE_STEP elements; "simt" (the scalar
-    kernels) for every other input the kernels take (f32, D 40, a
-    misaligned view). The kernels' outputs are allocated contiguous, so
-    they meet the rule whenever the inputs do. `csrc/flash_attention.cu`
-    `mma_ok` states the same rule and refuses what it excludes."""
-    d = q.shape[-1]
+def _mma_rule(*tensors) -> str:
+    """The one route rule of the forward and the backward pair: "mma" (the
+    tensor-core kernels) when every tensor is bfloat16 with D %
+    MMA_DIM_STEP == 0, D <= MAX_HEAD_DIM, a base pointer aligned to
+    MMA_ALIGN_BYTES and batch, sequence and head strides in multiples of
+    MMA_STRIDE_STEP elements; "simt" (the scalar kernels) for every other
+    input the kernels take (f32, D 40, a misaligned view). The kernels'
+    outputs are allocated contiguous, so they meet the rule whenever the
+    inputs do. `csrc/flash_attention.cu` `mma_ok` states the same rule over
+    inputs and outputs and refuses what it excludes."""
+    d = tensors[0].shape[-1]
     if d % MMA_DIM_STEP or d > MAX_HEAD_DIM:
         return "simt"
-    for t in (q, k, v, do):
+    for t in tensors:
         if (t.dtype != torch.bfloat16 or t.data_ptr() % MMA_ALIGN_BYTES
                 or any(st % MMA_STRIDE_STEP for st in t.stride()[:3])):
             return "simt"
     return "mma"
+
+
+def fwd_route(q, k, v) -> str:
+    """The forward's route for these inputs (`_mma_rule` over q, k, v)."""
+    return _mma_rule(q, k, v)
+
+
+def bwd_route(q, k, v, do) -> str:
+    """The backward pair's route for these inputs (`_mma_rule` over q, k,
+    v, dO)."""
+    return _mma_rule(q, k, v, do)
 
 
 def _launch_bwd(kernel, q, k, v, do, lse, delta, outs, scale, causal) -> None:

@@ -9,7 +9,8 @@ and wraps them in a `torch.autograd.Function`.
 Three kernels, each with a launch counter in `LAUNCHES`:
 
 - ``fused_mlp3_fwd``: logits, plus the h1/h2 residuals when a gradient is
-  needed (the TPU kernel's two forward variants);
+  needed (the TPU kernel's two forward variants), each 16-row tile spread
+  over a thread-block cluster of `fwd_cluster(B)` blocks;
 - ``fused_mlp3_bwd``: dx and one row of per-tile dW/db partials per block;
 - ``fused_mlp3_bwd_reduce``: the fixed-order sum of those partial rows (the
   TPU kernel accumulated across its sequential grid instead).
@@ -33,6 +34,11 @@ D_IN, D1, D2, D_OUT = 400, 120, 84, 10
 WEIGHT_SHAPES = ((D_IN, D1), (D1,), (D1, D2), (D2,), (D2, D_OUT), (D_OUT,))
 GRAD_SIZE = sum(int(torch.Size(s).numel()) for s in WEIGHT_SHAPES)  # 59,134
 BWD_TILE_ROWS = 16
+# the forward kernel's cluster: FWD_CLUSTERS[0] blocks per 16-row tile up to
+# FWD_CLUSTER_MAX_ROWS rows, FWD_CLUSTERS[1] above (csrc/fused_mlp3.cu's
+# header note has the measurements behind the rule)
+FWD_CLUSTERS = (8, 4)
+FWD_CLUSTER_MAX_ROWS = 256
 
 SOURCE = os.path.join(_nvcc.CSRC, "fused_mlp3.cu")
 
@@ -116,7 +122,8 @@ def build() -> str:
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = _nvcc.load(SOURCE, {
-        "fused_mlp3_fwd": [p] * 10 + [i, p],
+        "fused_mlp3_fwd": [p] * 10 + [i, i, p],
+        "fused_mlp3_fwd_info": [i, p, p],
         "fused_mlp3_bwd": [p] * 9 + [i, p],
         "fused_mlp3_bwd_reduce": [p, i, p, p],
         "fused_mlp3_grad_size": [],
@@ -127,6 +134,24 @@ def _lib() -> ctypes.CDLL:
     ):
         raise RuntimeError("csrc/fused_mlp3.cu disagrees with fused_head.py on sizes")
     return lib
+
+
+def fwd_cluster(b: int) -> int:
+    """The forward kernel's blocks per 16-row tile at `b` rows: 8 up to
+    FWD_CLUSTER_MAX_ROWS rows (the main path's 16; more blocks, each on
+    fewer columns, shorten one tile's chain), 4 above (fewer blocks that
+    each read the whole x tile)."""
+    return FWD_CLUSTERS[0] if b <= FWD_CLUSTER_MAX_ROWS else FWD_CLUSTERS[1]
+
+
+def fwd_info(cluster: int) -> dict:
+    """The forward kernel with `cluster` blocks per tile on the current
+    card: its blocks per SM and the clusters of it that run at once."""
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib().fused_mlp3_fwd_info(cluster, ctypes.byref(blocks), ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError(f"fused_mlp3_fwd_info({cluster}) failed: cudaError {rc}")
+    return {"blocks_per_sm": blocks.value, "active_clusters": clusters.value}
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -172,8 +197,9 @@ def _check_head(x, w1, b1, w2, b2, w3, b3) -> None:
 
 
 def mlp3_forward(x, w1, b1, w2, b2, w3, b3, *, residuals: bool):
-    """(logits, h1, h2) from the forward kernel; h1/h2 are None unless
-    `residuals`. CPU tensors take the plain version."""
+    """(logits, h1, h2) from the forward kernel, each 16-row tile on a
+    cluster of `fwd_cluster(B)` blocks; h1/h2 are None unless `residuals`.
+    CPU tensors take the plain version."""
     _check_head(x, w1, b1, w2, b2, w3, b3)
     if x.device.type == "cpu":
         out, h1, h2 = mlp3_forward_reference(x, w1, b1, w2, b2, w3, b3)
@@ -184,7 +210,7 @@ def mlp3_forward(x, w1, b1, w2, b2, w3, b3, *, residuals: bool):
     h2 = torch.empty(b, D2, device=x.device) if residuals else None
     _launch(
         "fused_mlp3_fwd", x.device,
-        *map(_ptr, (x, w1, b1, w2, b2, w3, b3, out, h1, h2)), b,
+        *map(_ptr, (x, w1, b1, w2, b2, w3, b3, out, h1, h2)), b, fwd_cluster(b),
     )
     return out, h1, h2
 

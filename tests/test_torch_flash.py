@@ -254,13 +254,68 @@ def test_bwd_launch_takes_the_routes_entry_and_counts_it(monkeypatch, name, make
     assert [len(c[1]) for c in calls] == [1 + 16 + 2 + 4 + 6, 1 + 16 + 2 + 8 + 6]
     assert calls[0][1][0] == fa._DTYPE_CODE[q.dtype] and calls[0][1][1] == q.data_ptr()
     assert fa.LAUNCHES == {"flash_fwd": 0, "flash_fwd_quant": 0, "flash_dq": 1, "flash_dkv": 1}
-    assert fa.ROUTE_LAUNCHES == {f"{kern}_{r}": int(r == got) for kern in ("flash_dq", "flash_dkv")
-                                 for r in fa.BWD_ROUTES}
+    assert fa.ROUTE_LAUNCHES == {f"{kern}_{r}": int(r == got and kern != "flash_fwd")
+                                 for kern in fa.ROUTED for r in fa.ROUTES}
+
+
+# the forward reads no dO: a case whose only misaligned input is dO runs
+# its forward on the mma route
+FWD_ROUTE = {"bf16 dO alone misaligned": "mma"}
+
+
+@pytest.mark.parametrize("name, make, route", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_fwd_route_rule(name, make, route):
+    """The forward's route from q, k, v's dtype, head dim, alignment and
+    strides, by the backward's rule (base pointers taken as they came, as in
+    test_bwd_route_rule)."""
+    q, k, v, _ = make()
+    route = FWD_ROUTE.get(name, route)
+    want = route if route == "simt" or all(_aligned(t) for t in (q, k, v)) else "simt"
+    assert fa.fwd_route(q, k, v) == want
+
+
+@pytest.mark.parametrize("name, make, route", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_fwd_and_bwd_routes_agree(name, make, route):
+    """One rule: the forward's route on (q, k, v) is the backward's on (q,
+    k, v) with q in dO's place, and a backward on the mma route has its
+    forward there too."""
+    q, k, v, do = make()
+    assert fa.fwd_route(q, k, v) == fa.bwd_route(q, k, v, q)
+    if fa.bwd_route(q, k, v, do) == "mma":
+        assert fa.fwd_route(q, k, v) == "mma"
+
+
+@pytest.mark.parametrize("name, make, route", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_fwd_launch_takes_the_routes_entry_and_counts_it(monkeypatch, name, make, route):
+    """On the card the forward launches the entry point of the route the
+    rule picks and counts it in LAUNCHES and ROUTE_LAUNCHES; here the
+    launch is recorded instead of made."""
+    q, k, v, _ = make()
+    calls = []
+    monkeypatch.setattr(fa, "_lib", lambda: None)
+    monkeypatch.setattr(fa._nvcc, "launch", lambda lib, entry, device, *args: calls.append(
+        (entry, args)))
+    monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
+    monkeypatch.setattr(fa, "ROUTE_LAUNCHES", dict.fromkeys(fa.ROUTE_LAUNCHES, 0))
+    b, s, h, d = q.shape
+    o, lse = torch.empty(q.shape, dtype=q.dtype), torch.zeros(b, h, s)
+    fa._launch_fwd(q, k, v, o, lse, None, True)
+    got = fa.fwd_route(q, k, v)
+    (entry, args), = calls
+    # dtype code, 4 views (q, k, v, o), lse, the shape
+    assert entry == ("flash_fwd_mma" if got == "mma" else "flash_fwd")
+    assert len(args) == 1 + 16 + 1 + 6
+    assert args[0] == fa._DTYPE_CODE[q.dtype] and args[1] == q.data_ptr()
+    assert args[13] == o.data_ptr() and args[17] == lse.data_ptr()
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_fwd_quant": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert fa.ROUTE_LAUNCHES == {f"{kern}_{r}": int(kern == "flash_fwd" and r == got)
+                                 for kern in fa.ROUTED for r in fa.ROUTES}
 
 
 def test_route_counters_sum_to_the_totals_and_stay_zero_on_the_cpu():
-    assert set(fa.ROUTE_LAUNCHES) == {f"{k}_{r}" for k in ("flash_dq", "flash_dkv")
-                                      for r in fa.BWD_ROUTES}
+    assert set(fa.ROUTE_LAUNCHES) == {f"{k}_{r}" for k in ("flash_fwd", "flash_dq", "flash_dkv")
+                                      for r in fa.ROUTES}
+    assert set(fa.ROUTED) <= set(fa.LAUNCHES)
     q, k, v, do = (_bf16((1, 20, 2, 64)) for _ in range(4))
     o, lse = fa.flash_fwd(q, k, v)
     fa.flash_bwd(q, k, v, o, lse, do)
@@ -280,8 +335,8 @@ def cuda_device():
     (torch.bfloat16, 64, True, "mma"), (torch.bfloat16, 128, True, "mma")])
 def test_card_kernels_match_plain(cuda_device, dtype, d, strided, route):
     """On the card: each kernel against its plain version at a ragged S,
-    the backward on the route the rule gives (bf16 strided views of a (B, H,
-    S, D) buffer: the tensor-core kernels)."""
+    the forward and the backward on the route the rule gives (bf16 strided
+    views of a (B, H, S, D) buffer: the tensor-core kernels)."""
     tol = 1e-4 if dtype == torch.float32 else 1.6e-2
     arrays = _qkv(s=100, h=3, d=d, n=4)
     if strided:
@@ -289,17 +344,17 @@ def test_card_kernels_match_plain(cuda_device, dtype, d, strided, route):
     q, k, v, do = (_t(x, dtype).to(cuda_device) for x in arrays)
     if strided:
         q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
-    assert fa.bwd_route(q, k, v, do) == route
+    assert fa.bwd_route(q, k, v, do) == fa.fwd_route(q, k, v) == route
+    before = dict(fa.ROUTE_LAUNCHES)
     o, lse = fa.flash_fwd(q, k, v)
     o_p, lse_p = fa.flash_fwd_plain(q, k, v)
     torch.testing.assert_close(o.float(), o_p.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
     delta = fa.flash_delta(o, do)
-    before = dict(fa.ROUTE_LAUNCHES)
     for got, ref in zip((fa.flash_dq(q, k, v, do, lse, delta),
                          *fa.flash_dkv(q, k, v, do, lse, delta)),
                         (fa.flash_dq_plain(q, k, v, do, lse, delta),
                          *fa.flash_dkv_plain(q, k, v, do, lse, delta))):
         torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
     assert {key: n - before[key] for key, n in fa.ROUTE_LAUNCHES.items()} == {
-        f"{kern}_{r}": int(r == route) for kern in ("flash_dq", "flash_dkv") for r in fa.BWD_ROUTES}
+        f"{kern}_{r}": int(r == route) for kern in fa.ROUTED for r in fa.ROUTES}

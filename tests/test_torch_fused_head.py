@@ -116,6 +116,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         fh.fused_mlp3(*args)
 
 
+@pytest.mark.parametrize("batch, cluster", [(1, 8), (16, 8), (256, 8), (257, 4), (4096, 4)])
+def test_forward_cluster_rule(batch, cluster):
+    """The forward kernel's blocks per 16-row tile by the stated rule: 8 up
+    to FWD_CLUSTER_MAX_ROWS rows (the main path's 16 among them), 4 above;
+    the cluster changes how the card splits the work, not the function (the
+    CPU route is the plain version at every B)."""
+    assert fh.fwd_cluster(batch) == cluster
+    assert cluster in fh.FWD_CLUSTERS
+    args = list(map(torch.from_numpy, _make(batch, seed=5)))
+    got = fh.mlp3_forward(*args, residuals=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, fh.mlp3_forward_reference(*args)))
+
+
 def test_module_import_builds_nothing():
     """Importing the wrapper neither compiles nor loads the kernel library."""
     assert fh._lib.cache_info().currsize == 0
