@@ -8,13 +8,15 @@ Phases (any failure exits non-zero and prints no result):
 1. environment: the card's name and power limit, torch/CUDA/nvcc/triton versions;
 2. build every CUDA source of csrc/ (one nvcc each, started together) and
    time the build; print each tensor-core flash instance's (forward, dq,
-   dkv) registers, spills, dynamic shared memory and blocks per SM, and the
-   head forward's cluster instances' registers, shared memory, blocks per
-   SM and clusters at once;
+   dkv) registers, spills, dynamic shared memory and blocks per SM, the
+   head forward's and backward's cluster instances' registers, shared
+   memory, blocks per SM and clusters at once, and the same for the decode
+   kernel's split instances;
 3. each fused-head kernel against its plain PyTorch version on the card, at
    B in {1, 16, 17, 128, 200, 4096} (atol = rtol = 1e-4, f32 with another
-   summation order), plus bitwise checks that the forward and the backward
-   give the same bits twice;
+   summation order), the backward at both of its cluster sizes, plus
+   bitwise checks that the forward and the backward give the same bits
+   twice;
 4. the port's CNN Engine on the card (kernels="cuda", data_parallel, 512
    rows, 4 workers, 2 epochs) against the float64 numpy oracle in
    tests/oracle_numpy.py, with the engine's own shuffle orders fed to both
@@ -31,15 +33,21 @@ Phases (any failure exits non-zero and prints no result):
    PyTorch library call, at B in {16, 128, 4096}: per call in an eager loop
    timed with CUDA events (what the main path pays, host dispatch
    included), and device time from the same calls captured in a CUDA graph;
-   gate: the forward's device time at B = 16 is at most the addmm chain's;
+   gates at B = 16: the
+   forward's device time is at most the addmm chain's, the backward's at
+   most the autograd backward's;
 7. a torch.profiler trace of one steady epoch of the CNN engine (4 workers x
    1024 rows): device busy time, idle share and the top kernels;
 8. the decode-attention kernels (f32, bf16, int8 K/V with bf16 q) against
    their plain versions on the card: B in {1, 8}, (H, Dh) in {(8, 64),
    (4, 128), (4, 8)}, total in {16, 256, 2048}, pos a scalar and vectors
-   holding 0 and total-1, K/V contiguous and as a transposed view;
-   f32 atol = rtol = 1e-5, bf16/int8 1.6e-2 (two bf16 ulps at 1); two calls
-   must give the same bits;
+   holding 0 and total-1, K/V contiguous, as a transposed view and as a
+   view 8 bytes off a 16-byte boundary; each case on the route
+   `decode_route` gives (f32/bf16 aligned: split; misaligned and int8:
+   simt), read from the route counters; f32 atol = rtol = 1e-5, bf16/int8
+   1.6e-2 (two bf16 ulps at 1); two calls must give the same bits, and so
+   must a shorter cache and, at B = 8, each (b, h) row alone in a batch of
+   1; `decode_pieces` against the CUDA source's piece rows;
 9. the LM serving main path at full width through `serve.http.build_server`,
    the stack `python -m distributed_neural_network_tpu_torch.serve` builds:
    d512/L8/H8/d_ff 2048/vocab 256, bf16, seed 0, max_batch 8, 129 blocks of
@@ -53,11 +61,17 @@ Phases (any failure exits non-zero and prints no result):
    Oracle.agreement), and for bf16 with cuda also >= 99% with the streams
    zipped position by position;
    with cuda the decode kernel launches = (the engine's decode calls +
-   prefill calls) x 8 layers, with torch none; the serving ledger conserves;
+   prefill calls) x 8 layers, all on the split route for bf16 and on simt
+   for int8-kv, with torch none; the serving ledger conserves. The bf16
+   torch run is also compared with generate(decode_impl="torch"), the same
+   route, and their per-token and zipped agreement printed (not gated;
+   generate() has no int8 K/V);
 10. decode-kernel times at B = 8, (H, Dh) in {(8, 64), (4, 128)}, live
-   prefix 64 and 256: per call and device time, bound, plain version, and
+   prefix 64 and 256: per call and device time, bound, plain version, the
+   simt route on the same values (misaligned views), and
    scaled_dot_product_attention with a boolean mask as the library
-   yardstick (int8: dequantize, then SDPA);
+   yardstick (int8: dequantize, then SDPA); gate: the split route's device
+   time at (8, 8, 64, 256) is at most SDPA's;
 11. a torch.profiler trace of a steady stretch of serving decode ticks
    (batch 8): idle share and top kernels;
 12. the flash kernels (forward, dq, dkv) against their plain versions on the
@@ -325,15 +339,18 @@ def print_ptxas(lib):
 
 
 def ptxas_instances(lib, stem):
-    """{"kernel<A[,B]>": {"registers", "spill_stores", "spill_loads"[,
+    """{"kernel<[T,]A[,B]>": {"registers", "spill_stores", "spill_loads"[,
     "static_smem"]}} from the compiler's log, for the kernel instances whose
-    name holds `stem` (A, B: their integer template arguments)."""
+    name holds `stem` (T: f32 or bf16 where the first template argument is
+    a type; A, B: the integer ones)."""
     out, name = {}, None
     for line in open(lib[: -len(".so")] + ".log"):
         if "Function properties for" in line:
-            m = re.search(r"((?:flash|mlp3)_[a-z_]+_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
-            name = (f"{m.group(1)}<{m.group(2)}{',' + m.group(3) if m.group(3) else ''}>"
-                    if m and stem in m.group(1) else None)
+            m = re.search(r"((?:flash|mlp3|decode)_[a-z_]+_kernel)I(f|13__nv_bfloat16)?"
+                          r"Li(\d+)E(?:Li(\d+)E)?", line)
+            args = ([{"f": "f32"}.get(m.group(2), "bf16")] if m and m.group(2) else []) + [
+                g for g in (m.groups()[2:] if m else ()) if g]
+            name = f"{m.group(1)}<{','.join(args)}>" if m and stem in m.group(1) else None
         elif name and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             out[name] = {"spill_stores": int(stores), "spill_loads": int(loads)}
@@ -367,18 +384,36 @@ def head_work(b, fh):
 # ------------------------------------------------------------ serving helpers
 
 
-def decode_inputs(torch, kind, b, h, d, total, strided, dev, g):
-    """q and the K/V cache (a transposed (B, S, H, Dh) slab when `strided`,
-    as the serving engine passes it), plus the int8 kernel's scales."""
+DECODE_LAYOUTS = ("contiguous", "strided", "misaligned")
+
+
+def decode_inputs(torch, kind, b, h, d, total, layout, dev, g):
+    """q and the K/V cache in one of DECODE_LAYOUTS: contiguous (B, H, S,
+    Dh); the transposed (B, S, H, Dh) slab the serving engine passes; or
+    that slab's head dims starting 8 bytes into rows of Dh + 16 elements
+    (off a 16-byte boundary: the simt route); plus the int8 kernel's
+    scales."""
     qdt = torch.float32 if kind == "float32" else torch.bfloat16
+    kvdt = torch.int8 if kind == "int8" else qdt
     q = torch.randn(b, h, d, device=dev, generator=g).to(qdt)
-    shape = (b, total, h, d) if strided else (b, h, total, d)
+    shape = (b, h, total, d) if layout == "contiguous" else (b, total, h, d)
     k, v = (torch.randn(*shape, device=dev, generator=g) for _ in "kv")
-    if strided:
+    if kind == "int8":
+        k, v = ((t * 40).round().clamp(-127, 127) for t in (k, v))
+    if layout == "misaligned":
+        off = 8 // torch.empty(0, dtype=kvdt).element_size()
+
+        def shift(t):
+            buf = torch.zeros(b, total, h, d + 16, device=dev, dtype=kvdt)
+            buf[..., off:off + d] = t
+            return buf[..., off:off + d]
+
+        k, v = shift(k), shift(v)
+    if layout != "contiguous":
         k, v = k.transpose(1, 2), v.transpose(1, 2)
+    k, v = k.to(kvdt), v.to(kvdt)
     if kind != "int8":
-        return q, k.to(qdt), v.to(qdt), {}
-    k, v = ((t * 40).round().clamp(-127, 127).to(torch.int8) for t in (k, v))
+        return q, k, v, {}
     kw = {name: torch.rand(b, h, total, device=dev, generator=g) * 0.05 + 1e-3
           for name in ("k_scale", "v_scale")}
     return q, k, v, kw
@@ -430,21 +465,27 @@ def open_loop(port, prompts, arrivals):
 
 
 class Oracle:
-    """The port's offline bf16 generate() (decode-kernel route) on the
-    served model: its streams for the served prompts, and how far the
-    served streams agree with it."""
+    """The port's offline bf16 generate() on the served model, on either
+    route (decode kernel "cuda", plain "torch"): its streams for the served
+    prompts, and how far the served streams agree with them."""
 
     def __init__(self, torch, tfm, prompts, dev):
         self.torch, self.tfm, self.prompts, self.dev = torch, tfm, prompts, dev
         self.cfg = tfm.TransformerConfig(vocab_size=256, d_model=512, n_heads=8, n_layers=8,
                                          d_ff=2048, dtype=torch.bfloat16)
         self.params = tfm.init_params(0, self.cfg, dev)
-        self.streams = [None] * len(prompts)
-        for n in sorted({len(p) for p in prompts}):
-            idx = [i for i, p in enumerate(prompts) if len(p) == n]
-            out = self.generate([prompts[i] for i in idx], MAX_NEW)
+        self.routes = {"cuda": self.route_streams("cuda")}
+
+    def route_streams(self, impl):
+        """generate()'s streams on route `impl` for every prompt (prompts of
+        one length in one batch)."""
+        streams = [None] * len(self.prompts)
+        for n in sorted({len(p) for p in self.prompts}):
+            idx = [i for i, p in enumerate(self.prompts) if len(p) == n]
+            out = self.generate([self.prompts[i] for i in idx], MAX_NEW, impl)
             for row, i in zip(out, idx):
-                self.streams[i] = row
+                streams[i] = row
+        return streams
 
     def generate(self, prompts, n_new, impl="cuda"):
         out = self.tfm.generate(self.params, self.torch.tensor(prompts, device=self.dev),
@@ -455,7 +496,7 @@ class Oracle:
         """Share of the oracle's own greedy choices whose top-2 logit gap is
         under `gap`: how often a rounding difference can flip a stream."""
         torch, n_close, n = self.torch, 0, 0
-        for p, want in zip(self.prompts, self.streams):
+        for p, want in zip(self.prompts, self.routes["cuda"]):
             toks = torch.tensor([p + want], device=self.dev)
             h = self.tfm.apply_hidden(self.params, toks, self.cfg)[0, len(p) - 1: -1]
             # f32 logits, as the engine and generate() form them
@@ -465,21 +506,25 @@ class Oracle:
             n += len(want)
         return n_close / n
 
-    def agreement(self, served):
+    def agreement(self, served, impl="cuda"):
         """(per-token agreement, the same up to the oracle's own rounding,
-        stream agreement) of the served streams.
+        stream agreement) of the served streams against generate() on route
+        `impl`.
 
         Per token: each served token against generate()'s choice after the
         same prompt and the same earlier served tokens (generate runs again
         from the served prefix after each disagreement). Up to rounding: a
-        disagreement counts as agreement when generate's plain route (the
+        disagreement counts as agreement when generate's other route (the
         same function, summed in another order) picks the served token after
         that history, i.e. where the bf16 model itself has no single answer.
         Stream: the two streams zipped position by position, the JAX serving
         row's form, in which one flipped near-tie makes every later token
         count as wrong."""
+        if impl not in self.routes:
+            self.routes[impl] = self.route_streams(impl)
+        other = "torch" if impl == "cuda" else "cuda"
         agree = ties = zipped = total = 0
-        for p, want, got in zip(self.prompts, self.streams, served):
+        for p, want, got in zip(self.prompts, self.routes[impl], served):
             zipped += sum(int(a == b) for a, b in zip(got, want))
             total += len(got)
             j, ref = 0, want
@@ -487,10 +532,10 @@ class Oracle:
                 if ref[0] == got[j]:
                     agree, j, ref = agree + 1, j + 1, ref[1:]
                     continue
-                ties += int(self.generate([p + got[:j]], 1, impl="torch")[0][0] == got[j])
+                ties += int(self.generate([p + got[:j]], 1, impl=other)[0][0] == got[j])
                 j += 1
                 if j < len(got):
-                    ref = self.generate([p + got[:j]], len(got) - j)[0]
+                    ref = self.generate([p + got[:j]], len(got) - j, impl)[0]
         n = max(total, 1)
         return agree / n, (agree + ties) / n, zipped / n
 
@@ -893,6 +938,35 @@ def main() -> int:
                   f"at once")
         check(len(env["head_fwd_instances"]) == 2,
               f"head forward instances {sorted(env['head_fwd_instances'])}")
+        # the head backward's one instance (<blocks per 16-row tile>), the
+        # size the rule gives
+        env["head_bwd_instances"] = ptxas_instances(libs[0], "mlp3_bwd")
+        for name, info in sorted(env["head_bwd_instances"].items()):
+            info.update(fh.bwd_info())
+            print(f"   {name}: {info['registers']} registers, spill stores "
+                  f"{info['spill_stores']} B; {info['smem_bytes']} B of dynamic shared memory, "
+                  f"{info['blocks_per_sm']} blocks per SM, {info['active_clusters']} clusters "
+                  f"at once")
+            check(info["cluster"] == fh.bwd_cluster(16),
+                  f"the backward is built at {info['cluster']} blocks a tile, the rule says "
+                  f"{fh.bwd_cluster(16)}")
+        check(sorted(env["head_bwd_instances"]) == [f"mlp3_bwd_kernel<{fh.bwd_cluster(16)}>"],
+              f"head backward instances {sorted(env['head_bwd_instances'])}")
+        # the decode kernel's split instances (<dtype, lanes per row, vectors
+        # a lane>), each at its largest head dim and a cache of 256 rows
+        env["decode_split_instances"] = ptxas_instances(libs[1], "decode_split")
+        for name, info in sorted(env["decode_split_instances"].items()):
+            dt, lanes, vecs = name.split("<")[1][:-1].split(",")
+            f32 = dt == "f32"
+            info["head_dim"] = int(lanes) * int(vecs) * (4 if f32 else 8)
+            info.update(da.split_info(torch.float32 if f32 else torch.bfloat16,
+                                      info["head_dim"], 256))
+            print(f"   {name} (Dh {info['head_dim']}): {info['registers']} registers, spill "
+                  f"stores {info['spill_stores']} B; {info['static_smem']} B of static shared "
+                  f"memory, {info['blocks_per_sm']} blocks per SM, clusters of "
+                  f"{info['cluster']}, {info['active_clusters']} at once")
+        check(len(env["decode_split_instances"]) == 13,
+              f"decode split instances {sorted(env['decode_split_instances'])}")
 
     with phase("3 kernels vs plain"):
         for b in (1, 16, 17, 128, 200, 4096):
@@ -914,6 +988,11 @@ def main() -> int:
             part_k = fh.mlp3_bwd_partials(gout, x, h1, h2, w1, w2, w3)
             part_r = fh.mlp3_bwd_partials_reference(gout, x, h1, h2, w1, w2, w3)
             assert_close(torch, f"bwd B={b}", part_k, part_r)
+            # the backward (a cluster of bwd_cluster(B) blocks a tile) bitwise
+            # on a rerun
+            check(all(torch.equal(a, c) for a, c in zip(
+                part_k, fh.mlp3_bwd_partials(gout, x, h1, h2, w1, w2, w3))),
+                  f"backward partials are not bitwise reproducible at B={b}")
             red_k = fh.mlp3_bwd_reduce(part_r[1])
             red_r = part_r[1].sum(0)
             assert_close(torch, f"reduce B={b}", red_k, red_r)
@@ -936,7 +1015,8 @@ def main() -> int:
                 first = fh.mlp3_backward(gout, x, h1, h2, w1, w2, w3)
                 check(all(torch.equal(a, c) for a, c in zip(first, again)),
                       f"backward is not bitwise reproducible at B={b}")
-        print("forward bitwise reproducible at every B; backward at B=200 and B=4096")
+        print("forward and backward partials bitwise reproducible at every B; the whole "
+              "backward at B=200 and B=4096")
 
     with phase("4 oracle on the card"):
         import numpy as np
@@ -1103,6 +1183,16 @@ def main() -> int:
                 check(ratio is not None and ratio <= 1.0,
                       f"the head forward's device time at B=16 is {fmt(ratio)}x the addmm "
                       f"chain's")
+            bwd = next(t for t in times if t["B"] == b and t["name"] == "fused_mlp3_bwd")
+            bwd["cluster"] = fh.bwd_cluster(b)
+            ratio = (bwd["graph_ms"] / bwd["library_graph_ms"]
+                     if bwd["graph_ms"] and bwd["library_graph_ms"] else None)
+            print(f"B={b:5d} fused_mlp3_bwd, {bwd['cluster']} blocks a tile: device "
+                  f"{fmt(bwd['graph_ms'])} ms, {fmt(ratio)}x the autograd backward's")
+            if b == 16:
+                check(ratio is not None and ratio <= 1.0,
+                      f"the head backward's device time at B=16 is {fmt(ratio)}x the autograd "
+                      f"backward's")
             fh.LAUNCHES.update(saved)  # timing launches are not main-path launches
         for kern, runs in main_path.items():
             for r in runs:
@@ -1143,11 +1233,11 @@ def main() -> int:
         for key, us, count in profile["top"]:
             print(f"   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
 
-    with phase("8 decode kernels vs plain"):
+    with phase("8 decode kernels vs plain"), uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
+        # comparison launches are not main-path launches
         g = torch.Generator(dev).manual_seed(0)
-        saved = dict(da.LAUNCHES)
         n_checks = 0
-        worst = {}
+        worst, routes = {}, {}
         for kind in ("float32", "bfloat16", "int8"):
             tol = 1e-5 if kind == "float32" else 1.6e-2
             for b in (1, 8):
@@ -1157,38 +1247,64 @@ def main() -> int:
                                             dtype=torch.int32)
                         vec[0], vec[-1] = 0, total - 1
                         vecs = [vec] if b > 1 else [vec[:1] * 0, vec[:1] * 0 + total - 1]
-                        for strided in (False, True):
-                            q, k, v, kw = decode_inputs(torch, kind, b, h, d, total, strided,
+                        for layout in DECODE_LAYOUTS:
+                            q, k, v, kw = decode_inputs(torch, kind, b, h, d, total, layout,
                                                         dev, g)
+                            route = da.decode_route(q, k, v, kw.get("k_scale"))
+                            want_route = ("split" if kind != "int8" and layout != "misaligned"
+                                          else "simt")
+                            fn = "decode_attention_q8" if kw else "decode_attention"
                             for pos in (0, total - 1, *vecs):
+                                where = (f"{kind} B={b} H={h} Dh={d} total={total} {layout} "
+                                         f"pos={pos if isinstance(pos, int) else pos.tolist()}")
+                                check(route == want_route,
+                                      f"route {route}, the rule says {want_route}: {where}")
+                                before = dict(da.ROUTE_LAUNCHES)
                                 o1 = da.decode_cache_attention(q, k, v, pos, **kw)
                                 o2 = da.decode_cache_attention(q, k, v, pos, **kw)
                                 ref = da.decode_attention_plain(q, k, v, pos, **kw)
-                                where = (f"{kind} B={b} H={h} Dh={d} total={total} "
-                                         f"strided={strided} pos={pos if isinstance(pos, int) else pos.tolist()}")
                                 check(torch.equal(o1, o2), f"not bitwise reproducible: {where}")
                                 err = max_err(torch, o1.float(), ref.float())
                                 check(torch.allclose(o1.float(), ref.float(), atol=tol, rtol=tol),
                                       f"kernel vs plain max abs err {err}: {where}")
-                                # the sum order may not depend on the cache length
+                                # the bits may not depend on the cache length ...
                                 m = int(pos if isinstance(pos, int) else pos.max()) + 1
                                 kw_m = {n: t[:, :, :m] for n, t in kw.items()}
                                 o3 = da.decode_cache_attention(q, k[:, :, :m], v[:, :, :m], pos,
                                                                **kw_m)
                                 check(torch.equal(o1, o3), f"bits change with the cache length: {where}")
+                                calls = 3
+                                if b > 1:
+                                    # ... nor on the batch: row 3 alone in a batch of 1
+                                    kw_1 = {n: t[3:4] for n, t in kw.items()}
+                                    o4 = da.decode_cache_attention(
+                                        q[3:4].contiguous(), k[3:4], v[3:4],
+                                        pos if isinstance(pos, int) else pos[3:4], **kw_1)
+                                    check(torch.equal(o4, o1[3:4]),
+                                          f"bits change with the batch: {where}")
+                                    calls = 4
+                                ran = {key: n_ - before[key] for key, n_ in da.ROUTE_LAUNCHES.items()}
+                                want = {key: calls if key == f"{fn}_{route}" else 0 for key in ran}
+                                check(ran == want, f"route launches {ran} != {want}: {where}")
                                 worst[kind] = max(worst.get(kind, 0.0), err)
-                                if (h, d) == (8, 64) and total <= 256:
+                                routes[kind, route] = routes.get((kind, route), 0) + 1
+                                if (h, d) == (8, 64) and total <= 256 and layout != "misaligned":
                                     worst[kind, "main"] = max(worst.get((kind, "main"), 0.0), err)
                                 n_checks += 1
         torch.cuda.synchronize()
-        da.LAUNCHES.update(saved)  # comparison launches are not main-path launches
+        # the split rule as the CUDA source computes it
+        mism = [(n, d) for d in (4, 8, 16, 24, 64, 128, 256) for n in range(0, 4200, 3)
+                if da.kernel_piece_rows(n, d) != da.piece_rows(n, d)]
+        check(not mism, f"decode_pieces disagrees with the CUDA source at (n, Dh) {mism[:5]}")
         kernels["decode_attention"]["max_abs_err"] = worst["bfloat16", "main"]
         kernels["decode_attention_q8"]["max_abs_err"] = worst["int8", "main"]
-        print(f"{n_checks} cases within tolerance, bitwise reproducible and independent of "
-              f"the cache length; max abs err f32 {worst['float32']:.3g}, bf16 "
-              f"{worst['bfloat16']:.3g}, int8 {worst['int8']:.3g} (at B<=8, H=8, Dh=64, "
-              f"total<=256: bf16 {worst['bfloat16', 'main']:.3g}, int8 "
-              f"{worst['int8', 'main']:.3g})")
+        print(f"{n_checks} cases within tolerance, each on the route the rule gives "
+              f"({', '.join(f'{k} {r}: {n}' for (k, r), n in sorted(routes.items()))}), bitwise "
+              f"reproducible and independent of the cache length and the batch; max abs err "
+              f"f32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}, int8 "
+              f"{worst['int8']:.3g} (at B<=8, H=8, Dh=64, total<=256, aligned: bf16 "
+              f"{worst['bfloat16', 'main']:.3g}, int8 {worst['int8', 'main']:.3g}); "
+              f"decode_pieces agrees with the CUDA source")
 
     serving = []
     with phase("9 serving main path, full width"):
@@ -1201,11 +1317,10 @@ def main() -> int:
         prompts = [rng.integers(0, 256, size=PROMPT_LENS[i % 3]).tolist()
                    for i in range(N_REQUESTS)]
         arrivals = np.cumsum(rng.exponential(1.0 / RATE, size=N_REQUESTS)).tolist()
-        saved = dict(da.LAUNCHES)
         t0 = time.perf_counter()
-        oracle = Oracle(torch, tfm, prompts, dev)
-        ties = oracle.near_ties()
-        da.LAUNCHES.update(saved)
+        with uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
+            oracle = Oracle(torch, tfm, prompts, dev)
+            ties = oracle.near_ties()
         print(f"offline bf16 generate() oracle for {N_REQUESTS} prompts in "
               f"{time.perf_counter() - t0:.2f} s; {ties:.4f} of its greedy choices have a "
               f"top-2 logit gap under 0.02")
@@ -1215,13 +1330,14 @@ def main() -> int:
                     SERVE_ARGS + ["--precision", precision, "--decode-impl", impl],
                     log=lambda line: print("   " + line, flush=True))
                 try:
-                    for name in da.LAUNCHES:
-                        da.LAUNCHES[name] = 0
+                    for counters in (da.LAUNCHES, da.ROUTE_LAUNCHES):
+                        for name in counters:
+                            counters[name] = 0
                     calls0, pre0, ticks0 = eng.decode_calls, eng.prefill_calls, eng.ticks
                     torch.cuda.synchronize()
                     results = open_loop(srv.port, prompts, arrivals)
                     torch.cuda.synchronize()
-                    launches = dict(da.LAUNCHES)
+                    launches, by_route = dict(da.LAUNCHES), dict(da.ROUTE_LAUNCHES)
                     calls, ticks = eng.decode_calls - calls0, eng.ticks - ticks0
                     pre_calls = eng.prefill_calls - pre0
                 finally:
@@ -1230,10 +1346,16 @@ def main() -> int:
                 done = [r for r in results
                         if r.get("done") and r["done"].get("status") == "done"
                         and len(r["tokens"]) == MAX_NEW]
-                saved = dict(da.LAUNCHES)
-                strict, agree, stream_agree = oracle.agreement(
-                    [r.get("tokens", []) for r in results])
-                da.LAUNCHES.update(saved)
+                served = [r.get("tokens", []) for r in results]
+                same_route = None
+                with uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
+                    strict, agree, stream_agree = oracle.agreement(served)
+                    if (precision, impl) == ("bf16", "torch"):
+                        # the plain route's own contract: generate() on the same
+                        # route (generate() has no int8 K/V, so bf16 only)
+                        same_route = dict(zip(("strict_agreement", "agreement",
+                                               "stream_agreement"),
+                                              oracle.agreement(served, impl="torch")))
                 n_tok = sum(len(r.get("tokens", [])) for r in results)
                 window = max(r["t_done"] for r in results) - min(r["t0"] for r in results)
                 ttft = [r["stamps"][0] - r["t0"] for r in results if r.get("stamps")]
@@ -1250,6 +1372,7 @@ def main() -> int:
                        "intertoken_p99_s": pct(gaps, 0.99), "ticks": ticks,
                        "decode_calls": calls, "prefill_calls": pre_calls, "step_ms_per_tick": 1e3 * step_s / max(ticks, 1),
                        "goodput_ratio": rec["goodput_ratio"], "launches": launches,
+                       "launches_by_route": by_route, "same_route": same_route,
                        "badput_s": rec["badput_s"], "wall_s": rec["wall_s"]}
                 serving.append(row)
                 print(f"   {precision:7s} {impl:5s}: {len(done)}/{N_REQUESTS} done, agreement "
@@ -1261,7 +1384,12 @@ def main() -> int:
                       f"{row['intertoken_p99_s']:.4f} s; {row['step_ms_per_tick']:.3f} ms per "
                       f"engine tick ({ticks} ticks, {calls} decode calls, {pre_calls} prefill "
                       f"calls); goodput ratio "
-                      f"{rec['goodput_ratio']}; launches {launches}")
+                      f"{rec['goodput_ratio']}; launches {launches}, by route {by_route}")
+                if same_route is not None:
+                    print(f"   {precision:7s} {impl:5s} against generate(decode_impl=\"torch\"), "
+                          f"the same route: per token {same_route['strict_agreement']:.4f} "
+                          f"(up to the kernel route's rounding {same_route['agreement']:.4f}), "
+                          f"stream {same_route['stream_agreement']:.4f}")
                 check(len(done) == N_REQUESTS, f"{len(done)}/{N_REQUESTS} requests completed")
                 check(agree >= 0.99,
                       f"per-token agreement {agree:.4f} < 0.99 vs offline generate")
@@ -1278,21 +1406,25 @@ def main() -> int:
                     check(calls > 0 and launches == want,
                           f"decode launches {launches} != (decode calls {calls} + prefill calls "
                           f"{pre_calls}) x 8 layers")
+                    # bf16 on the split route, int8 K/V on simt, every launch
+                    route = f"{name}_{'simt' if precision == 'int8-kv' else 'split'}"
+                    want = {k: (n if k == route else 0) for k in by_route}
+                    check(by_route == want, f"decode launches by route {by_route} != {want}")
                     kernels[name]["launches"] = launches[name]
                 else:
-                    check(not any(launches.values()), f"--decode-impl torch launched {launches}")
+                    check(not any(launches.values()) and not any(by_route.values()),
+                          f"--decode-impl torch launched {launches}")
 
     decode_times = []
-    with phase("10 decode kernel times"):
+    with phase("10 decode kernel times"), uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
         import torch.nn.functional as F
 
         g = torch.Generator(dev).manual_seed(1)
-        saved = dict(da.LAUNCHES)
         b, total = 8, 256
         for h, d in ((8, 64), (4, 128)):
             for prefix in (64, 256):
                 for kind in ("bfloat16", "int8"):
-                    q, k, v, kw = decode_inputs(torch, kind, b, h, d, total, True, dev, g)
+                    q, k, v, kw = decode_inputs(torch, kind, b, h, d, total, "strided", dev, g)
                     pos = torch.full((b,), prefix - 1, dtype=torch.int32, device=dev)
                     mask = (torch.arange(total, device=dev) < prefix)[None, None, None, :]
 
@@ -1308,6 +1440,21 @@ def main() -> int:
                            da.decode_attention_plain(q, k, v, pos, **kw), lib)
                     t_k, t_p, t_l = (time_ms(torch, f) for f in fns)
                     d_k, d_p, d_l = (graph_ms(torch, f) for f in fns)
+                    route = da.decode_route(q, k, v, kw.get("k_scale"))
+                    simt = {}
+                    if route == "split":
+                        # the same values in misaligned views: the simt route
+                        # (the one-block kernel) at this shape, in this call
+                        mq, mk, mv, _ = decode_inputs(torch, kind, b, h, d, total, "misaligned",
+                                                      dev, g)
+                        mq.copy_(q), mk.copy_(k), mv.copy_(v)
+                        check(da.decode_route(mq, mk, mv) == "simt",
+                              "phase 10's misaligned copies are not on the simt route")
+
+                        def simt_fn(q=mq, k=mk, v=mv, pos=pos):
+                            return da.decode_cache_attention(q, k, v, pos)
+
+                        simt = {"ms": time_ms(torch, simt_fn), "graph_ms": graph_ms(torch, simt_fn)}
                     kv_bytes = 2 * b * h * prefix * d * (1 if kw else 2)
                     nbytes = kv_bytes + 2 * b * h * d * 2 + b * 4 + (
                         2 * b * h * prefix * 4 if kw else 0)
@@ -1315,21 +1462,32 @@ def main() -> int:
                     bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
                     name = "decode_attention_q8" if kw else "decode_attention"
                     decode_times.append({
-                        "name": name, "B": b, "H": h, "Dh": d, "prefix": prefix, "total": total,
-                        "ms": t_k, "graph_ms": d_k, "plain_ms": t_p, "plain_graph_ms": d_p,
-                        "library_ms": t_l, "library_graph_ms": d_l, "bound_ms": bms,
-                        "bound_by": by, "bytes": nbytes, "flops": flops})
-                    print(f"{name:20s} B={b} H={h} Dh={d} prefix {prefix:3d}: per call kernel "
-                          f"{t_k:.5f} ms plain {t_p:.5f} ms library {t_l:.5f} ms | device "
+                        "name": name, "route": route, "B": b, "H": h, "Dh": d, "prefix": prefix,
+                        "total": total, "ms": t_k, "graph_ms": d_k, "plain_ms": t_p,
+                        "plain_graph_ms": d_p, "library_ms": t_l, "library_graph_ms": d_l,
+                        "simt_ms": simt.get("ms"), "simt_graph_ms": simt.get("graph_ms"),
+                        "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops})
+                    print(f"{name:20s} B={b} H={h} Dh={d} prefix {prefix:3d} ({route}): per call "
+                          f"kernel {t_k:.5f} ms plain {t_p:.5f} ms library {t_l:.5f} ms | device "
                           f"(graph): kernel {fmt(d_k)} ms plain {fmt(d_p)} ms library "
-                          f"{fmt(d_l)} ms | bound {bms:.6f} ms ({by}: {nbytes} B, {flops} FLOP)")
+                          f"{fmt(d_l)} ms" + (f" simt route {fmt(simt['graph_ms'])} ms" if simt
+                                              else "")
+                          + f" | bound {bms:.6f} ms ({by}: {nbytes} B, {flops} FLOP)")
                     if (h, d, prefix) == (8, 64, 256):
                         kernels[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                              bound_ms=bms, bound_by=by, graph_ms=d_k)
-        da.LAUNCHES.update(saved)
+                        if name == "decode_attention":
+                            ratio = d_k / d_l if d_k and d_l else None
+                            print(f"   split route at (B, H, Dh, prefix) = (8, 8, 64, 256): "
+                                  f"{fmt(ratio)}x SDPA's device time, "
+                                  f"{fmt(simt['graph_ms'] / d_k if d_k else None)}x faster than "
+                                  f"the simt route, {fmt(d_k / bms if d_k else None)}x its bound")
+                            check(ratio is not None and ratio <= 1.0,
+                                  f"the decode kernel's device time at (8, 8, 64, 256) is "
+                                  f"{fmt(ratio)}x SDPA's")
 
     serve_profile = {}
-    with phase("11 where the serving time goes"):
+    with phase("11 where the serving time goes"), uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -1340,7 +1498,6 @@ def main() -> int:
                                        log=lambda line: None)
         sched.close(finalize=False)  # the engine is driven directly below
         srv.close()
-        saved = dict(da.LAUNCHES)
         rng = np.random.default_rng(5)
         seqs = [Sequence(i, rng.integers(0, 256, size=64).tolist(), 64) for i in range(8)]
         for s_ in seqs:
@@ -1357,15 +1514,20 @@ def main() -> int:
                 eng.step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        da.LAUNCHES.update(saved)
         rows = profile_rows(prof, DeviceType)
         busy = sum(r[1] for r in rows) / 1e6
+        decode_rows = [r for r in rows if "decode_" in r[0]]
+        decode_s = sum(r[1] for r in decode_rows) / 1e6
         serve_profile = {"wall_s": wall, "device_busy_s": busy, "ticks": n_ticks,
                          "idle_share": 1 - busy / wall if busy else None,
+                         "decode_kernel_s": decode_s,
+                         "decode_launches": sum(r[2] for r in decode_rows),
                          "top": sorted(rows, key=lambda r: -r[1])[:12]}
         print(f"{n_ticks} decode ticks at batch 8 (positions 69-88): wall {wall:.4f} s "
               f"({1e3 * wall / n_ticks:.3f} ms/tick), device busy {busy:.4f} s, idle share "
-              f"{'not measured' if not busy else f'{1 - busy / wall:.3f}'}")
+              f"{'not measured' if not busy else f'{1 - busy / wall:.3f}'}; the decode kernel "
+              f"{1e3 * decode_s:.3f} ms over {serve_profile['decode_launches']} launches"
+              + (f", {decode_s / busy:.3f} of device time" if busy else ""))
         for key, us, count in serve_profile["top"]:
             print(f"   {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
 
@@ -1641,6 +1803,11 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     designs = {"fused_mlp3_fwd": f"cluster of {fh.fwd_cluster(16)} blocks per 16-row tile",
+               "fused_mlp3_bwd": f"cluster of {fh.bwd_cluster(16)} blocks per 16-row tile, "
+                                 f"W1 split by rows",
+               "decode_attention": "split route: the live prefix in up to 8 pieces, one "
+                                   "block of a cluster each, rows per lane group by 16-byte "
+                                   "loads, merged in order on rank 0",
                "flash_fwd": "wgmma (tensor cores; mma.sync at D 16/32/128)",
                "flash_dq": "mma.sync (tensor cores)", "flash_dkv": "mma.sync (tensor cores)"}
     for name, k in kernels.items():

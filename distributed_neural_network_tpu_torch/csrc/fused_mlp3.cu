@@ -36,19 +36,31 @@
 //
 // The backward, as the TPU kernels' design against Hopper:
 // - The TPU kernel pins all three weight matrices in VMEM (235,680 B). That is more than
-//   the 227 KB of shared memory a Hopper block can have. Here a block keeps only its own
-//   tile of rows (x and the h1/h2 activations) in shared memory (< 48 KB, static) and
-//   reads the weights through L2 (they stay resident there: 236 KB against 50 MB).
+//   the 227 KB of shared memory a Hopper block can have. Here each 16-row tile is a
+//   thread-block cluster of BWD_CL = 8 blocks (mlp3_bwd_kernel<8>), and each block keeps
+//   its share: W1's rows [50 c, 50 c + 50), W2's rows for its dh1 columns, W3, and the
+//   tile's x columns, h1 columns, h2 and g (55,848 B of dynamic shared memory). Every
+//   block forms all of dh2 (16 x 84, K = 10), then its dh1 columns, and pushes them into
+//   every block's shared memory (distributed shared memory), so that after one
+//   cluster.sync() each block holds all of dh1 and computes its rows of dW1 and its
+//   columns of dx from its own W1 rows, read once, coalesced.
+//   The one-block design before it read W1 a column at a time for dx (lanes 120
+//   floats apart) and ran the whole tile on one SM: 86-87 us at B = 16 and at B = 128.
 // - The TPU backward sums dW/db across grid steps in place, which is legal because a
 //   TPU grid runs in order. Hopper blocks run in parallel and in no order, so each
-//   backward block writes its tile's partial dW/db to a scratch row of its own and a
-//   second kernel sums those rows in a fixed order. No atomics: the result is bitwise
-//   reproducible run to run.
+//   cluster writes its tile's partial dW/db to a scratch row of its own (each element
+//   by one block) and a second kernel sums those rows in a fixed order. No atomics:
+//   the result is bitwise reproducible run to run.
 // - Rows past B (a ragged last tile) are masked in the kernel: they load as zeros,
 //   contribute exactly zero to every gradient, and are never stored. There is no
 //   host-side padding copy.
 // - f32 in, f32 accumulate (fmaf), no TF32 and no tensor cores.
-//
+// Which cluster size, measured (chip_smoke.py phase 6, device time in a CUDA graph, H100
+// at 700 W): CL 8 at B = 16 in 13.2 us against 17.6 us for CL 4 (100 W1 rows a block,
+// 89,248 B of shared memory, 2 blocks per SM) and 59.6 us for the autograd backward;
+// B = 128 13.4 against 17.7; B = 4096 119.5 against 121.6. CL 8 is the faster at every
+// B, so only it is built (ops/fused_head.py bwd_cluster).
+
 // Plain C interface, loaded with ctypes. Each entry returns cudaGetLastError().
 
 #include <cooperative_groups.h>
@@ -67,6 +79,7 @@ constexpr int FWD_ROWS = 16;
 constexpr int FWD_THREADS = 320;
 constexpr int BWD_ROWS = 16;
 constexpr int BWD_THREADS = 256;
+constexpr int BWD_CL = 8;  // blocks of the backward's cluster per 16-row tile
 constexpr int REDUCE_THREADS = 256;
 
 // layout of one row of gradient partials (and of the final flat gradient)
@@ -218,90 +231,253 @@ mlp3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
-// part[o] = sum over the tile's rows of a[r][o / NB] * b[r][o % NB]   (a^T b, flattened)
-template <int ROWS, int NA, int NB, int THREADS>
-__device__ __forceinline__ void outer_tile(const float* a, const float* bm,
-                                           float* __restrict__ part) {
-  for (int o = threadIdx.x; o < NA * NB; o += THREADS) {
-    const int i = o / NB, j = o % NB;
-    float acc = 0.f;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc = fmaf(a[r * NA + i], bm[r * NB + j], acc);
-    part[o] = acc;
-  }
+// the cluster barrier in two halves: arrive at the start (relaxed: no
+// memory is published by it), wait before the first write into another
+// block's shared memory, which is then known to be running
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// part[j] = sum over the tile's rows of m[r][j]
-template <int ROWS, int N, int THREADS>
-__device__ __forceinline__ void colsum_tile(const float* m, float* __restrict__ part) {
-  for (int j = threadIdx.x; j < N; j += THREADS) {
-    float acc = 0.f;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc += m[r * N + j];
-    part[j] = acc;
-  }
-}
+// The backward spread over a cluster of CL blocks per 16-row tile (built
+// at CL = BWD_CL). Block rank c owns W1's rows [c K1, c K1 + K1) (dW1's rows and dx's
+// columns), dh1's columns [c N1, c N1 + N1) (with dW2's rows and db1) and
+// dW3's rows and db2's columns [c N2, c N2 + N2); its tile data lives in
+// dynamic shared memory at these offsets (floats).
+template <int CL>
+struct BwdSplit {
+  static constexpr int K1 = D0 / CL;             // 50 at CL 8
+  static constexpr int N1 = D1 / CL;             // 15
+  static constexpr int N2 = (D2 + CL - 1) / CL;  // 11
+  static constexpr int LDW1 = D1 + 1;            // a W1 row in shared memory, padded to odd
+  static constexpr int G = 0;                        // g (16 x 10)
+  static constexpr int H2 = G + BWD_ROWS * D3;       // h2 (16 x 84)
+  static constexpr int W3 = H2 + BWD_ROWS * D2;      // W3 (84 x 10)
+  static constexpr int DH2T = W3 + D2 * D3 + 4;      // dh2, transposed (84 x 16)
+  static constexpr int H1T = DH2T + D2 * BWD_ROWS;   // h1's columns of the block, (N1 x 16)
+  static constexpr int W2 = H1T + N1 * BWD_ROWS;     // W2's rows of the block (N1 x 84)
+  static constexpr int XT = W2 + N1 * D2;            // x's columns of the block, (K1 x 16)
+  static constexpr int DH1T = XT + K1 * BWD_ROWS;    // all of dh1, transposed (120 x 16)
+  static constexpr int W1 = DH1T + D1 * BWD_ROWS;    // W1's rows of the block (K1 x LDW1)
+  static constexpr int BYTES = (W1 + K1 * LDW1) * 4;
+  static_assert(D0 % CL == 0 && D1 % CL == 0, "the ranks split W1's rows and dh1's columns");
+  static_assert(DH2T % 4 == 0 && H1T % 4 == 0 && XT % 4 == 0 && DH1T % 4 == 0,
+                "float4 reads of the transposed tiles");
+};
 
-// d[r][i] = (d[r][i] > 0 ? sum_j up[r][j] * w[i][j] : 0), in place: `d` holds the
-// forward activation on entry (its sign is the ReLU mask) and the masked gradient on exit.
-template <int ROWS, int NI, int NJ, int THREADS>
-__device__ __forceinline__ void relu_bwd_tile(const float* up, const float* __restrict__ w,
-                                              float* d) {
-  for (int o = threadIdx.x; o < ROWS * NI; o += THREADS) {
-    const int r = o / NI, i = o % NI;
-    float acc = 0.f;
-    for (int j = 0; j < NJ; ++j) acc = fmaf(up[r * NJ + j], w[i * NJ + j], acc);
-    d[o] = d[o] > 0.f ? acc : 0.f;
-  }
-}
-
+// One 16-row tile per cluster: dx's rows of the tile and the tile's row of
+// gradient partials (layout OFF_DW1 .. N_GRAD), every element written by
+// exactly one block of the cluster:
+// - every block loads g, h2, W3, its h1 columns and its x columns (both
+//   transposed: 16 rows a float4 quad) and its W2 and W1 rows (coalesced, W1
+//   into rows padded to 121 floats);
+// - every block computes all of dh2 = (g W3^T) [h2 > 0] (16 x 84, K = 10),
+//   then its dW3 rows, db3 (rank 0), its dh1 columns (dh2 W2^T) [h1 > 0]
+//   (K = 84), which it pushes into every block's dh1^T (distributed shared
+//   memory), and its dW2 rows and db2 columns;
+// - after cluster.sync() every block holds all of dh1 and computes its dW1
+//   rows (thread (i, run of k): dh1's column i in 16 registers, x^T rows as
+//   float4 broadcasts, stores coalesced along i), its db1 columns and its dx
+//   columns (thread (k, 4 rows): W1's row k from shared memory, dh1^T as
+//   float4 broadcasts, i in order).
+// A thread keeps one operand's 16 rows (or 4) in registers wherever it can,
+// so that a shared-memory read feeds 4 FMAs. Every sum runs in a fixed order
+// (r, j or i ascending, fmaf), so a call gives the same bits every time;
+// ragged rows load as zero, so they add exactly zero, and dx is never stored
+// for them.
+template <int CL>
 __global__ void __launch_bounds__(BWD_THREADS)
 mlp3_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
                 const float* __restrict__ h1, const float* __restrict__ h2,
                 const float* __restrict__ w1, const float* __restrict__ w2,
                 const float* __restrict__ w3, float* __restrict__ dx,
                 float* __restrict__ partials, int B) {
-  __shared__ float xs[BWD_ROWS * D0];
-  __shared__ float a1[BWD_ROWS * D1];  // h1, then dh1
-  __shared__ float a2[BWD_ROWS * D2];  // h2, then dh2
-  __shared__ float gs[BWD_ROWS * D3];
-  const int row0 = blockIdx.x * BWD_ROWS;
-  const int rows = min(BWD_ROWS, B - row0);
-  float* part = partials + (size_t)blockIdx.x * N_GRAD;
+  using Sp = BwdSplit<CL>;
+  constexpr int K1 = Sp::K1, N1 = Sp::N1, N2 = Sp::N2, LDW1 = Sp::LDW1;
+  constexpr int Q = BWD_ROWS / 4;  // float4 quads of a transposed row
+  extern __shared__ __align__(16) float smem[];
+  float* gs = smem + Sp::G;
+  float* h2s = smem + Sp::H2;
+  float* w3s = smem + Sp::W3;
+  float* dh2t = smem + Sp::DH2T;
+  float* h1t = smem + Sp::H1T;
+  float* w2s = smem + Sp::W2;
+  float* xt = smem + Sp::XT;
+  float* dh1t = smem + Sp::DH1T;
+  float* w1s = smem + Sp::W1;
+  const float4* dh2v = reinterpret_cast<const float4*>(dh2t);
+  const float4* h1v = reinterpret_cast<const float4*>(h1t);
+  const float4* xv = reinterpret_cast<const float4*>(xt);
+  const float4* dh1v = reinterpret_cast<const float4*>(dh1t);
 
-  load_tile<BWD_ROWS, D0, BWD_THREADS>(xs, x, row0, rows);
-  load_tile<BWD_ROWS, D1, BWD_THREADS>(a1, h1, row0, rows);
-  load_tile<BWD_ROWS, D2, BWD_THREADS>(a2, h2, row0, rows);
+  cluster_arrive_relaxed();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int tile = static_cast<int>(blockIdx.x / CL);
+  const int row0 = tile * BWD_ROWS;
+  const int rows = min(BWD_ROWS, B - row0);
+  const int t = threadIdx.x;
+  float* part = partials + (size_t)tile * N_GRAD;
+
+  const float* w1b = w1 + (size_t)c * K1 * D1;
+  for (int o = t; o < K1 * D1; o += BWD_THREADS) {
+    const int kk = o / D1;
+    w1s[kk * LDW1 + o - kk * D1] = w1b[o];
+  }
+  const float* w2b = w2 + (size_t)c * N1 * D2;
+  for (int o = t; o < N1 * D2; o += BWD_THREADS) w2s[o] = w2b[o];
+  for (int o = t; o < D2 * D3; o += BWD_THREADS) w3s[o] = w3[o];
+  for (int o = t; o < BWD_ROWS * K1; o += BWD_THREADS) {
+    const int r = o / K1, kk = o - r * K1;
+    xt[kk * BWD_ROWS + r] = r < rows ? x[(size_t)(row0 + r) * D0 + c * K1 + kk] : 0.f;
+  }
+  for (int o = t; o < BWD_ROWS * N1; o += BWD_THREADS) {
+    const int r = o / N1, ii = o - r * N1;
+    h1t[ii * BWD_ROWS + r] = r < rows ? h1[(size_t)(row0 + r) * D1 + c * N1 + ii] : 0.f;
+  }
+  load_tile<BWD_ROWS, D2, BWD_THREADS>(h2s, h2, row0, rows);
   load_tile<BWD_ROWS, D3, BWD_THREADS>(gs, g, row0, rows);
   __syncthreads();
 
-  // layer 3: dW3 = h2^T g, db3 = sum g; then dh2 = (g W3^T) * [h2 > 0]
-  outer_tile<BWD_ROWS, D2, D3, BWD_THREADS>(a2, gs, part + OFF_DW3);
-  colsum_tile<BWD_ROWS, D3, BWD_THREADS>(gs, part + OFF_DB3);
-  __syncthreads();
-  relu_bwd_tile<BWD_ROWS, D2, D3, BWD_THREADS>(gs, w3, a2);
-  __syncthreads();
-
-  // layer 2: dW2 = h1^T dh2, db2 = sum dh2; then dh1 = (dh2 W2^T) * [h1 > 0]
-  outer_tile<BWD_ROWS, D1, D2, BWD_THREADS>(a1, a2, part + OFF_DW2);
-  colsum_tile<BWD_ROWS, D2, BWD_THREADS>(a2, part + OFF_DB2);
-  __syncthreads();
-  relu_bwd_tile<BWD_ROWS, D1, D2, BWD_THREADS>(a2, w2, a1);
-  __syncthreads();
-
-  // layer 1: dW1 = x^T dh1, db1 = sum dh1, dx = dh1 W1^T
-  outer_tile<BWD_ROWS, D0, D1, BWD_THREADS>(xs, a1, part + OFF_DW1);
-  colsum_tile<BWD_ROWS, D1, BWD_THREADS>(a1, part + OFF_DB1);
-  for (int k = threadIdx.x; k < D0; k += BWD_THREADS) {
-    float acc[BWD_ROWS];
+  // layer 3: dh2 (all of it; thread (i, half of the rows), W3's row i in
+  // registers), this block's dW3 rows, db3 on rank 0
+  if (t < 2 * D2) {
+    const int i = t % D2, r0 = (t / D2) * (BWD_ROWS / 2);
+    float w[D3];
 #pragma unroll
-    for (int r = 0; r < BWD_ROWS; ++r) acc[r] = 0.f;
-    for (int i = 0; i < D1; ++i) {
-      const float wki = w1[k * D1 + i];
+    for (int j = 0; j < D3; ++j) w[j] = w3s[i * D3 + j];
 #pragma unroll
-      for (int r = 0; r < BWD_ROWS; ++r) acc[r] = fmaf(a1[r * D1 + i], wki, acc[r]);
+    for (int r = r0; r < r0 + BWD_ROWS / 2; ++r) {
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < D3; ++j) acc = fmaf(gs[r * D3 + j], w[j], acc);
+      dh2t[i * BWD_ROWS + r] = h2s[r * D2 + i] > 0.f ? acc : 0.f;
     }
-    for (int r = 0; r < rows; ++r) dx[(size_t)(row0 + r) * D0 + k] = acc[r];
+  }
+  for (int o = t; o < N2 * D3; o += BWD_THREADS) {
+    const int i = c * N2 + o / D3, j = o % D3;
+    if (i >= D2) continue;
+    float acc = 0.f;
+#pragma unroll
+    for (int r = 0; r < BWD_ROWS; ++r) acc = fmaf(h2s[r * D2 + i], gs[r * D3 + j], acc);
+    part[OFF_DW3 + i * D3 + j] = acc;
+  }
+  if (c == 0) {
+    for (int j = t; j < D3; j += BWD_THREADS) {
+      float acc = 0.f;
+#pragma unroll
+      for (int r = 0; r < BWD_ROWS; ++r) acc += gs[r * D3 + j];
+      part[OFF_DB3 + j] = acc;
+    }
+  }
+  __syncthreads();
+
+  // layer 2: this block's dh1 columns (thread (column, 4 rows)), pushed into
+  // every block's dh1^T; its dW2 rows (thread (j, run of columns): dh2's
+  // column j in registers) and db2 columns
+  cluster_wait();
+  for (int o = t; o < N1 * Q; o += BWD_THREADS) {
+    const int ii = o % N1, rq = o / N1;
+    float a4[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* wr = w2s + ii * D2;
+    for (int j = 0; j < D2; ++j) {
+      const float w = wr[j];
+      const float4 d = dh2v[j * Q + rq];
+      a4[0] = fmaf(d.x, w, a4[0]);
+      a4[1] = fmaf(d.y, w, a4[1]);
+      a4[2] = fmaf(d.z, w, a4[2]);
+      a4[3] = fmaf(d.w, w, a4[3]);
+    }
+    const float4 hq = h1v[ii * Q + rq];
+    const float hv[4] = {hq.x, hq.y, hq.z, hq.w};
+    const int at = (c * N1 + ii) * BWD_ROWS + 4 * rq;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float v = hv[q] > 0.f ? a4[q] : 0.f;
+#pragma unroll
+      for (int dst = 0; dst < CL; ++dst) cluster.map_shared_rank(dh1t, dst)[at + q] = v;
+    }
+  }
+  constexpr int IH = BWD_THREADS / D2;  // runs of columns per j
+  if (t < IH * D2) {
+    const int j = t % D2, ih = t / D2;
+    float dv[BWD_ROWS];
+#pragma unroll
+    for (int q4 = 0; q4 < Q; ++q4) {
+      const float4 d = dh2v[j * Q + q4];
+      dv[4 * q4] = d.x, dv[4 * q4 + 1] = d.y, dv[4 * q4 + 2] = d.z, dv[4 * q4 + 3] = d.w;
+    }
+    for (int ii = ih; ii < N1; ii += IH) {
+      float acc = 0.f;
+#pragma unroll
+      for (int q4 = 0; q4 < Q; ++q4) {
+        const float4 hq = h1v[ii * Q + q4];
+        acc = fmaf(hq.x, dv[4 * q4], acc);
+        acc = fmaf(hq.y, dv[4 * q4 + 1], acc);
+        acc = fmaf(hq.z, dv[4 * q4 + 2], acc);
+        acc = fmaf(hq.w, dv[4 * q4 + 3], acc);
+      }
+      part[OFF_DW2 + (c * N1 + ii) * D2 + j] = acc;
+    }
+  }
+  for (int jj = t; jj < N2; jj += BWD_THREADS) {
+    const int j = c * N2 + jj;
+    if (j >= D2) continue;
+    float acc = 0.f;
+#pragma unroll
+    for (int r = 0; r < BWD_ROWS; ++r) acc += dh2t[j * BWD_ROWS + r];
+    part[OFF_DB2 + j] = acc;
+  }
+  cluster.sync();  // every block's dh1 columns are in every block; none is read remotely after
+
+  // layer 1: this block's dW1 rows, db1 columns and dx columns
+  constexpr int KH = BWD_THREADS / D1;  // runs of k per column i
+  if (t < KH * D1) {
+    const int i = t % D1, kh = t / D1;
+    float dv[BWD_ROWS];
+#pragma unroll
+    for (int q4 = 0; q4 < Q; ++q4) {
+      const float4 d = dh1v[i * Q + q4];
+      dv[4 * q4] = d.x, dv[4 * q4 + 1] = d.y, dv[4 * q4 + 2] = d.z, dv[4 * q4 + 3] = d.w;
+    }
+    for (int kk = kh; kk < K1; kk += KH) {
+      float acc = 0.f;
+#pragma unroll
+      for (int q4 = 0; q4 < Q; ++q4) {
+        const float4 xk = xv[kk * Q + q4];
+        acc = fmaf(xk.x, dv[4 * q4], acc);
+        acc = fmaf(xk.y, dv[4 * q4 + 1], acc);
+        acc = fmaf(xk.z, dv[4 * q4 + 2], acc);
+        acc = fmaf(xk.w, dv[4 * q4 + 3], acc);
+      }
+      part[OFF_DW1 + (size_t)(c * K1 + kk) * D1 + i] = acc;
+    }
+  }
+  for (int ii = t; ii < N1; ii += BWD_THREADS) {
+    float acc = 0.f;
+#pragma unroll
+    for (int r = 0; r < BWD_ROWS; ++r) acc += dh1t[(c * N1 + ii) * BWD_ROWS + r];
+    part[OFF_DB1 + c * N1 + ii] = acc;
+  }
+  for (int o = t; o < Q * K1; o += BWD_THREADS) {
+    const int kk = o % K1, rq = o / K1;
+    float a4[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* wr = w1s + kk * LDW1;
+    for (int i = 0; i < D1; ++i) {
+      const float w = wr[i];
+      const float4 d = dh1v[i * Q + rq];
+      a4[0] = fmaf(d.x, w, a4[0]);
+      a4[1] = fmaf(d.y, w, a4[1]);
+      a4[2] = fmaf(d.z, w, a4[2]);
+      a4[3] = fmaf(d.w, w, a4[3]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = 4 * rq + q;
+      if (r < rows) dx[(size_t)(row0 + r) * D0 + c * K1 + kk] = a4[q];
+    }
   }
 }
 
@@ -354,6 +530,29 @@ cudaError_t fwd_occupancy(int* blocks, int* clusters) {
   return cudaOccupancyMaxActiveClusters(clusters, mlp3_fwd_kernel<CL>, &cfg);
 }
 
+// the backward's dynamic shared memory (above the 48 KB default), set once
+cudaError_t bwd_smem_attr() {
+  static const cudaError_t e =
+      cudaFuncSetAttribute(mlp3_bwd_kernel<BWD_CL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           BwdSplit<BWD_CL>::BYTES);
+  return e;
+}
+
+cudaLaunchConfig_t bwd_config(int B, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((B + BWD_ROWS - 1) / BWD_ROWS) * BWD_CL);
+  cfg.blockDim = dim3(BWD_THREADS);
+  cfg.dynamicSmemBytes = BwdSplit<BWD_CL>::BYTES;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = BWD_CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
 extern "C" {
@@ -381,10 +580,30 @@ int fused_mlp3_fwd_info(int cluster, int* blocks_per_sm, int* clusters) {
 int fused_mlp3_bwd(const float* g, const float* x, const float* h1, const float* h2,
                    const float* w1, const float* w2, const float* w3, float* dx,
                    float* partials, int B, void* stream) {
-  const int grid = (B + BWD_ROWS - 1) / BWD_ROWS;
-  mlp3_bwd_kernel<<<grid, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, x, h1, h2, w1, w2, w3, dx, partials, B);
-  return static_cast<int>(cudaGetLastError());
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = bwd_smem_attr();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = bwd_config(B, static_cast<cudaStream_t>(stream), &attr);
+  e = cudaLaunchKernelEx(&cfg, mlp3_bwd_kernel<BWD_CL>, g, x, h1, h2, w1, w2, w3, dx,
+                         partials, B);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// the backward's cluster size, dynamic shared memory, blocks per SM and the
+// clusters of it that the card runs at once (at B = 16 * 1024)
+int fused_mlp3_bwd_info(int* cluster, int* blocks_per_sm, int* clusters, int* smem_bytes) {
+  *cluster = BWD_CL;
+  *smem_bytes = BwdSplit<BWD_CL>::BYTES;
+  cudaError_t e = bwd_smem_attr();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, mlp3_bwd_kernel<BWD_CL>,
+                                                    BWD_THREADS, BwdSplit<BWD_CL>::BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = bwd_config(BWD_ROWS * 1024, nullptr, &attr);
+  e = cudaOccupancyMaxActiveClusters(clusters, mlp3_bwd_kernel<BWD_CL>, &cfg);
+  return static_cast<int>(e);
 }
 
 int fused_mlp3_bwd_reduce(const float* partials, int ntiles, float* grads, void* stream) {

@@ -11,7 +11,9 @@ Three kernels, each with a launch counter in `LAUNCHES`:
 - ``fused_mlp3_fwd``: logits, plus the h1/h2 residuals when a gradient is
   needed (the TPU kernel's two forward variants), each 16-row tile spread
   over a thread-block cluster of `fwd_cluster(B)` blocks;
-- ``fused_mlp3_bwd``: dx and one row of per-tile dW/db partials per block;
+- ``fused_mlp3_bwd``: dx and one row of per-tile dW/db partials, each
+  16-row tile spread over a thread-block cluster of `bwd_cluster(B)`
+  blocks;
 - ``fused_mlp3_bwd_reduce``: the fixed-order sum of those partial rows (the
   TPU kernel accumulated across its sequential grid instead).
 
@@ -39,6 +41,9 @@ BWD_TILE_ROWS = 16
 # header note has the measurements behind the rule)
 FWD_CLUSTERS = (8, 4)
 FWD_CLUSTER_MAX_ROWS = 256
+# the backward kernel's blocks per 16-row tile (csrc/fused_mlp3.cu BWD_CL; its
+# header note has the measurements behind it)
+BWD_CLUSTER = 8
 
 SOURCE = os.path.join(_nvcc.CSRC, "fused_mlp3.cu")
 
@@ -125,6 +130,7 @@ def _lib() -> ctypes.CDLL:
         "fused_mlp3_fwd": [p] * 10 + [i, i, p],
         "fused_mlp3_fwd_info": [i, p, p],
         "fused_mlp3_bwd": [p] * 9 + [i, p],
+        "fused_mlp3_bwd_info": [p, p, p, p],
         "fused_mlp3_bwd_reduce": [p, i, p, p],
         "fused_mlp3_grad_size": [],
         "fused_mlp3_bwd_tile_rows": [],
@@ -152,6 +158,26 @@ def fwd_info(cluster: int) -> dict:
     if rc != 0:
         raise RuntimeError(f"fused_mlp3_fwd_info({cluster}) failed: cudaError {rc}")
     return {"blocks_per_sm": blocks.value, "active_clusters": clusters.value}
+
+
+def bwd_cluster(b: int) -> int:
+    """The backward kernel's blocks per 16-row tile at `b` rows: 8 at every
+    B, each block then owning 50 of W1's 400 rows (8 measured faster than 4
+    at B = 16, 128 and 4096; the kernel's header note)."""
+    return BWD_CLUSTER
+
+
+def bwd_info() -> dict:
+    """The backward kernel on the current card: its blocks per tile (as
+    built), dynamic shared memory, blocks per SM and the clusters of it that
+    run at once."""
+    out = [ctypes.c_int(0) for _ in range(4)]
+    rc = _lib().fused_mlp3_bwd_info(*map(ctypes.byref, out))
+    if rc != 0:
+        raise RuntimeError(f"fused_mlp3_bwd_info failed: cudaError {rc}")
+    cluster, blocks, clusters, smem = (v.value for v in out)
+    return {"cluster": cluster, "smem_bytes": smem, "blocks_per_sm": blocks,
+            "active_clusters": clusters}
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -216,7 +242,8 @@ def mlp3_forward(x, w1, b1, w2, b2, w3, b3, *, residuals: bool):
 
 
 def mlp3_bwd_partials(g, x, h1, h2, w1, w2, w3):
-    """(dx, partials (ceil(B/16), 59134)) from the backward kernel."""
+    """(dx, partials (ceil(B/16), 59134)) from the backward kernel, each
+    16-row tile on a cluster of `bwd_cluster(B)` blocks."""
     b = _rows(x)
     _check(
         x.device, g=(g, (b, D_OUT)), x=(x, (b, D_IN)), h1=(h1, (b, D1)),
@@ -226,8 +253,8 @@ def mlp3_bwd_partials(g, x, h1, h2, w1, w2, w3):
     if x.device.type == "cpu":
         return mlp3_bwd_partials_reference(g, x, h1, h2, w1, w2, w3)
     nt = -(-b // BWD_TILE_ROWS)
-    dx = torch.empty(b, D_IN, device=x.device)
-    partials = torch.empty(nt, GRAD_SIZE, device=x.device)
+    dx = x.new_empty(b, D_IN)
+    partials = x.new_empty(nt, GRAD_SIZE)
     _launch(
         "fused_mlp3_bwd", x.device, *map(_ptr, (g, x, h1, h2, w1, w2, w3, dx, partials)), b
     )

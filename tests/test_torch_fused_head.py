@@ -129,6 +129,40 @@ def test_forward_cluster_rule(batch, cluster):
     assert all(torch.equal(a, b) for a, b in zip(got, fh.mlp3_forward_reference(*args)))
 
 
+@pytest.mark.parametrize("batch", [1, 16, 17, 128, 256, 257, 4096])
+def test_backward_cluster_rule(batch):
+    """The backward kernel's blocks per 16-row tile by the stated rule: 8 at
+    every B, which splits W1's 400 rows and dh1's 120 columns evenly (each
+    block then owns 50 rows and 15 columns). The kernel against its plain
+    version at each B is chip_smoke.py phase 3's check, on the card."""
+    cl = fh.bwd_cluster(batch)
+    assert cl == fh.BWD_CLUSTER == 8
+    assert (fh.D_IN // cl, fh.D1 // cl) == (50, 15)
+    assert fh.D_IN % cl == 0 and fh.D1 % cl == 0
+
+
+@pytest.mark.parametrize("batch, tiles", [(1, 1), (16, 1), (17, 2), (40, 3), (4096, 256)])
+def test_backward_launch_passes_its_batch(monkeypatch, batch, tiles):
+    """On the card the backward's entry point gets the nine tensors and the
+    batch, and its outputs are dx (B, 400) and one partial row per 16-row
+    tile on x's device; here the launch is recorded instead of made."""
+    args = list(map(torch.from_numpy, _make(batch, seed=7)))
+    _, h1, h2 = fh.mlp3_forward(*args, residuals=True)
+    x, w1, _, w2, _, w3, _ = args
+    g = torch.zeros(batch, 10)
+    calls = []
+    monkeypatch.setattr(fh, "_lib", lambda: None)
+    monkeypatch.setattr(fh._nvcc, "launch", lambda lib, name, device, *a: calls.append((name, a)))
+    monkeypatch.setattr(fh, "LAUNCHES", dict.fromkeys(fh.LAUNCHES, 0))
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda", 0)))
+    dx, partials = fh.mlp3_bwd_partials(g, x, h1, h2, w1, w2, w3)
+    (name, a), = calls
+    assert name == "fused_mlp3_bwd" and a[-1] == batch and len(a) == 10
+    assert a[:9] == tuple(t.data_ptr() for t in (g, x, h1, h2, w1, w2, w3, dx, partials))
+    assert dx.shape == (batch, fh.D_IN) and partials.shape == (tiles, fh.GRAD_SIZE)
+    assert fh.LAUNCHES["fused_mlp3_bwd"] == 1
+
+
 def test_module_import_builds_nothing():
     """Importing the wrapper neither compiles nor loads the kernel library."""
     assert fh._lib.cache_info().currsize == 0
