@@ -8,10 +8,11 @@ Phases (any failure exits non-zero and prints no result):
 1. environment: the card's name and power limit, torch/CUDA/nvcc/triton versions;
 2. build every CUDA source of csrc/ (one nvcc each, started together) and
    time the build; print each tensor-core flash instance's (forward, dq,
-   dkv) registers, spills, dynamic shared memory and blocks per SM, the
-   head forward's and backward's cluster instances' registers, shared
-   memory, blocks per SM and clusters at once, and the same for the decode
-   kernel's split instances;
+   dkv, and the quantized forward's 8-bit ones) registers, spills, dynamic
+   shared memory and blocks per SM, the head forward's and backward's
+   cluster instances' registers, shared memory, blocks per SM and clusters
+   at once, and the same for the decode kernel's split instances (K/V in
+   q's dtype and int8);
 3. each fused-head kernel against its plain PyTorch version on the card, at
    B in {1, 16, 17, 128, 200, 4096} (atol = rtol = 1e-4, f32 with another
    summation order), the backward at both of its cluster sizes, plus
@@ -43,11 +44,16 @@ Phases (any failure exits non-zero and prints no result):
    (4, 128), (4, 8)}, total in {16, 256, 2048}, pos a scalar and vectors
    holding 0 and total-1, K/V contiguous, as a transposed view and as a
    view 8 bytes off a 16-byte boundary; each case on the route
-   `decode_route` gives (f32/bf16 aligned: split; misaligned and int8:
+   `decode_route` gives (aligned: split; misaligned and int8 at Dh 8:
    simt), read from the route counters; f32 atol = rtol = 1e-5, bf16/int8
    1.6e-2 (two bf16 ulps at 1); two calls must give the same bits, and so
    must a shorter cache and, at B = 8, each (b, h) row alone in a batch of
-   1; `decode_pieces` against the CUDA source's piece rows;
+   1, and each int8 split case must equal the bf16 split route on its
+   dequantized cache bit for bit; `decode_pieces` against the CUDA
+   source's piece rows; the plain
+   version's bits for one row padded to 48 and 2048 columns, alone and in
+   a batch of 8, contiguous and transposed, bf16 and int8 K/V, all equal
+   (`plain_invariance`);
 9. the LM serving main path at full width through `serve.http.build_server`,
    the stack `python -m distributed_neural_network_tpu_torch.serve` builds:
    d512/L8/H8/d_ff 2048/vocab 256, bf16, seed 0, max_batch 8, 129 blocks of
@@ -61,19 +67,19 @@ Phases (any failure exits non-zero and prints no result):
    Oracle.agreement), and for bf16 with cuda also >= 99% with the streams
    zipped position by position;
    with cuda the decode kernel launches = (the engine's decode calls +
-   prefill calls) x 8 layers, all on the split route for bf16 and on simt
-   for int8-kv, with torch none; the serving ledger conserves. The bf16
-   torch run is also compared with generate(decode_impl="torch"), the same
-   route, and their per-token and zipped agreement printed (not gated;
-   generate() has no int8 K/V);
+   prefill calls) x 8 layers, all on the split route (bf16 and int8-kv),
+   with torch none; the serving ledger conserves. The bf16 torch run is
+   also held to generate(decode_impl="torch"), the same route: token-exact,
+   per token and zipped (generate() has no int8 K/V);
 10. decode-kernel times at B = 8, (H, Dh) in {(8, 64), (4, 128)}, live
    prefix 64 and 256: per call and device time, bound, plain version, the
    simt route on the same values (misaligned views), and
    scaled_dot_product_attention with a boolean mask as the library
-   yardstick (int8: dequantize, then SDPA); gate: the split route's device
-   time at (8, 8, 64, 256) is at most SDPA's;
+   yardstick (int8: dequantize, then SDPA); gates: each split route's
+   device time at (8, 8, 64, 256) is at most its library call's;
 11. a torch.profiler trace of a steady stretch of serving decode ticks
-   (batch 8): idle share and top kernels;
+   (batch 8), bf16 and int8-kv: idle share, the decode kernel's share and
+   top kernels;
 12. the flash kernels (forward, dq, dkv) against their plain versions on the
    card: (B, H) in {(1, 1), (2, 8)}, S in {1, 64, 200, 2048}, D in {64, 128,
    16}, causal and not, f32 and bf16, contiguous and a strided (B, S, H, D)
@@ -86,8 +92,10 @@ Phases (any failure exits non-zero and prints no result):
    f32 atol = rtol = 1e-4, bf16 1.6e-2, lse 1e-4; and the quantized
    forward (int8, fp8) on codes at the kernel's own k tile, at B 2 and at
    FLASH_MAIN (int8 2e-2; fp8 mean error 1e-4 and max two e4m3 steps, see
-   FP8_STEP); every kernel gives the same bits on a second call. The kernel
-   line's max_abs_err is the one at FLASH_MAIN;
+   FP8_STEP), each on both of its routes (`quant_route`: the codes as they
+   come on mma, the same codes 8 bytes off a 16-byte boundary on simt);
+   every kernel gives the same bits on a second call. The kernel line's
+   max_abs_err is the one at FLASH_MAIN (the quantized kernel's on mma);
 13. the LM training main path at full width through `lm_train.main`, the
    repo's flagship row lm_flash_d512_L8_seq2048_bf16 with nothing cut
    (d512/L8/H8/d_ff 2048/vocab 32768, batch 16, seq 2048, bf16, SGD lr 0.01
@@ -96,12 +104,11 @@ Phases (any failure exits non-zero and prints no result):
    plain route (--attn ring; its (B, H, S, S) buffers fit in device memory,
    so without --remat-attn), and the four again in mirrored order, so that
    routes are compared in turns. Gates: each flash counter equals its
-   formula (flash_counts) and is 0 on the plain route, every forward, dq
-   and dkv launch of a kernel-route run on the mma route (mma_counts); finite
-   losses; the
-   kernel route's logged losses within LOSS_TOL of the plain route's, and
-   every weight's step-0 gradient within GRAD_TOL of the plain route's
-   (route_compare; `python3 chip_smoke.py --route-check` runs this check
+   formula (flash_counts) and is 0 on the plain route, every forward, dq,
+   dkv and quantized-forward launch of a kernel-route run on the mma route
+   (mma_counts); finite losses; each kernel route's (flash, int8, fp8)
+   logged losses within LOSS_TOL of the plain route's, and every weight's
+   step-0 gradient within GRAD_TOL of the plain route's (route_compare; `python3 chip_smoke.py --route-check` runs this check
    alone). Then FORMULA_STEPS-step runs at full width with --remat,
    --remat-attn, --accum-steps 2, eval batches (--data-path, --eval-every),
    and int8 with --remat-attn and eval, each held to flash_counts. Prints
@@ -117,7 +124,9 @@ Phases (any failure exits non-zero and prints no result):
    the forward and the backward pair on the simt route too (the same values
    in misaligned views);
    the forward's device time against SDPA's forward and its bound, and the
-   pair's summed device time against SDPA's whole backward;
+   pair's summed device time against SDPA's whole backward; the quantized
+   forward (int8 and fp8 on mma, int8 on simt) against its operations
+   bound at the int8 peak, beside the bf16 forward and SDPA's forward;
 16. a torch.profiler trace of 3 steady full-width training steps: idle
    share, the flash kernels' share of device time and the top kernels.
 
@@ -339,15 +348,15 @@ def print_ptxas(lib):
 
 
 def ptxas_instances(lib, stem):
-    """{"kernel<[T,]A[,B]>": {"registers", "spill_stores", "spill_loads"[,
+    """{"kernel<[T,]A[,B[,C]]>": {"registers", "spill_stores", "spill_loads"[,
     "static_smem"]}} from the compiler's log, for the kernel instances whose
     name holds `stem` (T: f32 or bf16 where the first template argument is
-    a type; A, B: the integer ones)."""
+    a type; A, B, C: the integral ones, a bool as 0 or 1)."""
     out, name = {}, None
     for line in open(lib[: -len(".so")] + ".log"):
         if "Function properties for" in line:
-            m = re.search(r"((?:flash|mlp3|decode)_[a-z_]+_kernel)I(f|13__nv_bfloat16)?"
-                          r"Li(\d+)E(?:Li(\d+)E)?", line)
+            m = re.search(r"(?<=\d)((?:flash|mlp3|decode)_[a-z0-9_]+?_kernel)I(f|13__nv_bfloat16)?"
+                          r"L[ib](\d+)E(?:L[ib](\d+)E)?(?:L[ib](\d+)E)?", line)
             args = ([{"f": "f32"}.get(m.group(2), "bf16")] if m and m.group(2) else []) + [
                 g for g in (m.groups()[2:] if m else ()) if g]
             name = f"{m.group(1)}<{','.join(args)}>" if m and stem in m.group(1) else None
@@ -540,6 +549,55 @@ class Oracle:
         return agree / n, (agree + ties) / n, zipped / n
 
 
+def plain_invariance(torch, da, dev, g):
+    """Phase 8's check of the plain decode version on the card, at the
+    shapes its two callers give it (the serving engine's bucket slab and
+    generate()'s static cache): one (b, h) row's live prefix of 37 columns
+    padded to 48 and to 2048 columns, alone and at position 3 of a batch of
+    8 whose other rows sit at other positions, in a contiguous (B, H, S, Dh)
+    cache and as the engine's transposed (B, S, H, Dh) slab, must give the
+    same bits; for bf16 K/V and for int8 K/V with per-slot scales. Returns
+    the number of surroundings compared per dtype."""
+    h, d, n = 8, 64, 37
+    n_cases = 0
+    for quantized in (False, True):
+        kv_dt = torch.int8 if quantized else torch.bfloat16
+
+        def rand(*shape):
+            x = torch.randn(*shape, device=dev, generator=g)
+            return (x * 40).round().clamp(-127, 127).to(kv_dt) if quantized else x.to(kv_dt)
+
+        q_row = torch.randn(h, d, device=dev, generator=g).to(torch.bfloat16)
+        k_row, v_row = rand(n, h, d), rand(n, h, d)
+        s_row = [torch.rand(n, h, device=dev, generator=g) * 0.05 + 1e-3 for _ in "kv"]
+        outs = []
+        for total in (48, 2048):
+            for batch, at in ((1, 0), (8, 3)):
+                for transposed in (False, True):
+                    k, v = rand(batch, total, h, d), rand(batch, total, h, d)
+                    k[at, :n], v[at, :n] = k_row, v_row
+                    scales = [torch.rand(batch, total, h, device=dev, generator=g) * 0.05 + 1e-3
+                              for _ in "kv"]
+                    for sc, row in zip(scales, s_row):
+                        sc[at, :n] = row
+                    q = torch.randn(batch, h, d, device=dev, generator=g).to(torch.bfloat16)
+                    q[at] = q_row
+                    pos = torch.randint(0, total, (batch,), device=dev, generator=g)
+                    pos[at] = n - 1
+                    k, v = k.transpose(1, 2), v.transpose(1, 2)
+                    scales = [sc.transpose(1, 2) for sc in scales]
+                    if not transposed:
+                        k, v = k.contiguous(), v.contiguous()
+                        scales = [sc.contiguous() for sc in scales]
+                    kw = dict(zip(("k_scale", "v_scale"), scales)) if quantized else {}
+                    outs.append(da.decode_attention_plain(q, k, v, pos, **kw)[at])
+        check(all(torch.equal(outs[0], o) for o in outs[1:]),
+              f"the plain decode version's bits change with the row's surroundings "
+              f"({'int8' if quantized else 'bf16'} K/V)")
+        n_cases = len(outs)
+    return n_cases
+
+
 # -------------------------------------------------------------- flash helpers
 
 
@@ -633,7 +691,7 @@ def flash_vs_plain(torch, fa, dev):
         check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
               f"flash_dkv not bitwise reproducible: {where}")
         ran = {key: n_ - before[key] for key, n_ in fa.ROUTE_LAUNCHES.items()}
-        want = {key: 2 if key.endswith("_" + route) else 0 for key in ran}
+        want = {key: 2 if key.endswith("_" + route) and "quant" not in key else 0 for key in ran}
         check(ran == want, f"route launches {ran} != {want}: {where}")
         dq_p = fa.flash_dq_plain(q, k, v, do, lse, delta, causal=causal)
         dk_p, dv_p = fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=causal)
@@ -658,30 +716,52 @@ def flash_vs_plain(torch, fa, dev):
         is_main = tuple(case) == main_case
         q, k, v, _ = flash_inputs(torch, b, s, h, d, out, layout, dev, g)
         qc, sq, kc, sk, vc, sv = fa.quantize_qkv(q, k, v, fmt)
-        where = f"{fmt} B={b} S={s} H={h} D={d} causal={causal} out {out} {layout}"
-        o, lse = fa.flash_fwd_quant_codes(qc, kc, vc, sq, sk, sv, causal=causal, out_dtype=out)
-        o2, lse2 = fa.flash_fwd_quant_codes(qc, kc, vc, sq, sk, sv, causal=causal,
-                                            out_dtype=out)
-        check(torch.equal(o, o2) and torch.equal(lse, lse2),
-              f"flash_fwd_quant not bitwise reproducible: {where}")
         o_p, lse_p = fa.flash_fwd_quant_plain(qc, kc, vc, sq, sk, sv, causal=causal,
                                               out_dtype=out)
-        diff = (o.float() - o_p.float()).abs()
-        err = float(diff.max())
-        if fmt == "int8":
-            ok = torch.allclose(o.float(), o_p.float(), atol=QUANT_TOL, rtol=QUANT_TOL)
-        else:
-            v_max = float((vc.float() * sv[..., None]).abs().max())
-            ok = float(diff.mean()) <= FP8_MEAN_TOL and err <= FP8_STEP * v_max
-        check(ok and torch.allclose(lse, lse_p, atol=TOL, rtol=TOL),
-              f"flash_fwd_quant max abs err {err}, mean {float(diff.mean())} "
-              f"(lse {max_err(torch, lse, lse_p)}): {where}")
-        record("flash_fwd_quant", err, is_main)
-        if is_main:
-            main[f"flash_fwd_quant {fmt}"] = err
-        n += 1
+        v_max = float((vc.float() * sv[..., None]).abs().max())
+        # the codes as they come (aligned: the mma route) and the same codes
+        # 8 bytes off a 16-byte boundary (the simt route)
+        for route, codes in (("mma", (qc, kc, vc)), ("simt", misaligned_codes(torch, qc, kc, vc))):
+            where = f"{fmt} B={b} S={s} H={h} D={d} causal={causal} out {out} {layout} {route}"
+            check(fa.quant_route(*codes) == route,
+                  f"route {fa.quant_route(*codes)}, the rule says {route}: {where}")
+            before = dict(fa.ROUTE_LAUNCHES)
+            o, lse = fa.flash_fwd_quant_codes(*codes, sq, sk, sv, causal=causal, out_dtype=out)
+            o2, lse2 = fa.flash_fwd_quant_codes(*codes, sq, sk, sv, causal=causal, out_dtype=out)
+            check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                  f"flash_fwd_quant not bitwise reproducible: {where}")
+            ran = {key: n_ - before[key] for key, n_ in fa.ROUTE_LAUNCHES.items()}
+            want = {key: 2 if key == f"flash_fwd_quant_{route}" else 0 for key in ran}
+            check(ran == want, f"route launches {ran} != {want}: {where}")
+            diff = (o.float() - o_p.float()).abs()
+            err = float(diff.max())
+            if fmt == "int8":
+                ok = torch.allclose(o.float(), o_p.float(), atol=QUANT_TOL, rtol=QUANT_TOL)
+            else:
+                ok = float(diff.mean()) <= FP8_MEAN_TOL and err <= FP8_STEP * v_max
+            check(ok and torch.allclose(lse, lse_p, atol=TOL, rtol=TOL),
+                  f"flash_fwd_quant max abs err {err}, mean {float(diff.mean())} "
+                  f"(lse {max_err(torch, lse, lse_p)}): {where}")
+            record(f"flash_fwd_quant {route} {fmt}", err, False)
+            if route == "mma":
+                record("flash_fwd_quant", err, is_main)
+                if is_main:
+                    main[f"flash_fwd_quant {fmt}"] = err
+            n += 1
     torch.cuda.synchronize()
     return n, worst, main
+
+
+def misaligned_codes(torch, *codes):
+    """Copies of 8-bit codes (B, S, H, D) whose head dims start 8 bytes into
+    rows of D + 16 bytes: off a 16-byte boundary, so on the simt route."""
+    out = []
+    for t in codes:
+        buf = torch.zeros(*t.shape[:-1], t.shape[-1] + 16, dtype=torch.int8, device=t.device)
+        view = buf.view(t.dtype)[..., 8:8 + t.shape[-1]]
+        view.copy_(t)
+        out.append(view)
+    return out
 
 
 def flash_work(b, s, h, d):
@@ -715,10 +795,12 @@ def flash_counts(steps, *, quant=False, remat=False, accum=1, evals=0, eval_batc
 
 
 def mma_counts(want):
-    """The launches by route that a bf16 run at LM_SHAPE (D 64, the model's
+    """The launches by route that a run at LM_SHAPE (D 64, the model's
     aligned projections) must make, from its `flash_counts`: every forward,
-    dq and dkv launch on the mma route, none on the simt route."""
-    return {f"{k}_{r}": want[k] if r == "mma" else 0 for k in ("flash_fwd", "flash_dq", "flash_dkv")
+    quantized forward (int8 / fp8 codes of those projections), dq and dkv
+    launch on the mma route, none on the simt route."""
+    return {f"{k}_{r}": want[k] if r == "mma" else 0
+            for k in ("flash_fwd", "flash_fwd_quant", "flash_dq", "flash_dkv")
             for r in ("mma", "simt")}
 
 
@@ -801,37 +883,40 @@ def route_grad_errs(torch, tfm, lmtrain, dev):
                     for name in ref} for route, g in grads.items()}
 
 
-def route_compare(torch, fa, tfm, lmtrain, dev, flash_row, plain_row):
-    """The kernel route against the plain route: the logged losses of two
-    `lm_run` rows and the step-0 gradients. Prints both readings before it
-    gates either (LOSS_TOL, GRAD_TOL on the bf16 kernel route)."""
-    d_loss = max(abs(flash_row["losses"][i] - plain_row["losses"][i])
-                 for i in plain_row["losses"])
+def route_compare(torch, fa, tfm, lmtrain, dev, kernel_rows, plain_row):
+    """The kernel routes (`kernel_rows`: {"flash" | "int8" | "fp8": an
+    `lm_run` row}) against the plain route: the logged losses and the
+    step-0 gradients. Prints every reading before it gates any (LOSS_TOL,
+    GRAD_TOL on every kernel route)."""
+    d_loss = {route: max(abs(row["losses"][i] - plain_row["losses"][i])
+                         for i in plain_row["losses"]) for route, row in kernel_rows.items()}
     with uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):  # not the main path's launches
         errs = route_grad_errs(torch, tfm, lmtrain, dev)
     worst = {route: max(e.items(), key=lambda kv: kv[1]) for route, e in errs.items()}
-    print(f"   kernel route vs plain route: logged losses (steps {sorted(plain_row['losses'])}) "
-          f"max |difference| {d_loss:.6f} (tolerance {LOSS_TOL}); step-0 gradients, worst "
-          f"relative L2 error per route: " + ", ".join(
-              f"{route} {err:.5f} ({name})" for route, (name, err) in worst.items())
-          + f" (tolerance {GRAD_TOL} on flash)", flush=True)
+    print(f"   kernel routes vs plain route: logged losses (steps {sorted(plain_row['losses'])}) "
+          f"max |difference| " + ", ".join(f"{r} {x:.6f}" for r, x in d_loss.items())
+          + f" (tolerance {LOSS_TOL}); step-0 gradients, worst relative L2 error per route: "
+          + ", ".join(f"{route} {err:.5f} ({name})" for route, (name, err) in worst.items())
+          + f" (tolerance {GRAD_TOL})", flush=True)
     for route in errs:
         rows = sorted(errs[route].items(), key=lambda kv: -kv[1])[:4]
         print(f"   {route}: " + ", ".join(f"{name} {err:.5f}" for name, err in rows))
     out = {"loss_diff": d_loss, "grad_rel_err": {r: {"worst": n, "err": e}
                                                  for r, (n, e) in worst.items()}}
-    check(d_loss <= LOSS_TOL, f"kernel-route losses off the plain route by {d_loss}")
-    check(worst["flash"][1] <= GRAD_TOL,
-          f"kernel-route gradient {worst['flash'][0]} off the plain route by relative "
-          f"{worst['flash'][1]}")
+    for route, x in d_loss.items():
+        check(x <= LOSS_TOL, f"{route} route's losses off the plain route by {x}")
+    for route, (name, err) in worst.items():
+        check(err <= GRAD_TOL,
+              f"{route} route's gradient {name} off the plain route by relative {err}")
     return out
 
 
 def route_check() -> int:
-    """`python3 chip_smoke.py --route-check`: phase 13's kernel route against
-    the plain route alone (build, one flash and one plain run of LM_STEPS
-    steps, the step-0 gradients), for showing that a copy of the repo with a
-    fault planted in a kernel fails it. Exits 1 when a gate fails."""
+    """`python3 chip_smoke.py --route-check`: phase 13's kernel routes against
+    the plain route alone (build, one flash, int8, fp8 and plain run of
+    LM_STEPS steps each, the step-0 gradients), for showing that a copy of
+    the repo with a fault planted in a kernel fails it. Exits 1 when a gate
+    fails."""
     import torch
 
     if not torch.cuda.is_available():
@@ -844,10 +929,12 @@ def route_check() -> int:
     from distributed_neural_network_tpu_torch.train import lm as lmtrain
 
     fa.build()
-    rows = [lm_run(torch, fa, lm_train, LM_STEPS, extra)
-            for extra in (["--attn", "flash"], ["--attn", "ring"])]
+    rows = {route: lm_run(torch, fa, lm_train, LM_STEPS, extra) for route, extra in (
+        ("flash", ["--attn", "flash"]), ("int8", ["--attn", "flash", "--precision", "int8"]),
+        ("fp8", ["--attn", "flash", "--precision", "fp8"]), ("plain", ["--attn", "ring"]))}
+    plain = rows.pop("plain")
     try:
-        route_compare(torch, fa, tfm, lmtrain, torch.device("cuda"), *rows)
+        route_compare(torch, fa, tfm, lmtrain, torch.device("cuda"), rows, plain)
     except SmokeFailure as e:
         print(f"route check FAILED: {e}")
         return 1
@@ -918,7 +1005,8 @@ def main() -> int:
         env["ptxas"] = [print_ptxas(lib) for lib in libs]
         # the tensor-core instances: dq and dkv per padded head dim, the
         # forward's mma.sync ones (16, 32, 128) and its wgmma one (64)
-        env["mma_instances"] = ptxas_instances(libs[2], "_mma_")
+        env["mma_instances"] = {n: i for n, i in ptxas_instances(libs[2], "_mma_").items()
+                                if "quant" not in n}
         env["mma_instances"].update(ptxas_instances(libs[2], "_wgmma_"))
         for name, info in sorted(env["mma_instances"].items()):
             dp = int(name.split("<")[1][:-1])
@@ -928,6 +1016,20 @@ def main() -> int:
                   f"{info['smem_bytes']} B of dynamic shared memory, {info['blocks_per_sm']} "
                   f"blocks per SM")
         check(len(env["mma_instances"]) == 12, f"mma instances {sorted(env['mma_instances'])}")
+        # the quantized forward's 8-bit tensor-core instances <o's dtype,
+        # int8 (1) or e4m3 (0), padded head dim>
+        env["quant_mma_instances"] = ptxas_instances(libs[2], "quant_mma")
+        for name, info in sorted(env["quant_mma_instances"].items()):
+            out, int8, dp = name.split("<")[1][:-1].split(",")
+            info.update(fa.mma_info("flash_fwd_quant", int(dp),
+                                    out_dtype=torch.float32 if out == "f32" else torch.bfloat16,
+                                    fmt="int8" if int8 == "1" else "fp8"))
+            print(f"   {name}: {info['registers']} registers, spill stores "
+                  f"{info['spill_stores']} B, spill loads {info['spill_loads']} B; "
+                  f"{info['smem_bytes']} B of dynamic shared memory, {info['blocks_per_sm']} "
+                  f"blocks per SM")
+        check(len(env["quant_mma_instances"]) == 12,
+              f"quantized mma instances {sorted(env['quant_mma_instances'])}")
         # the head forward's cluster instances (<blocks per 16-row tile>)
         env["head_fwd_instances"] = ptxas_instances(libs[0], "mlp3_fwd")
         for name, info in sorted(env["head_fwd_instances"].items()):
@@ -952,20 +1054,22 @@ def main() -> int:
                   f"{fh.bwd_cluster(16)}")
         check(sorted(env["head_bwd_instances"]) == [f"mlp3_bwd_kernel<{fh.bwd_cluster(16)}>"],
               f"head backward instances {sorted(env['head_bwd_instances'])}")
-        # the decode kernel's split instances (<dtype, lanes per row, vectors
-        # a lane>), each at its largest head dim and a cache of 256 rows
+        # the decode kernel's split instances (<q's dtype, lanes per row,
+        # vectors a lane>; decode_split_q8_kernel: int8 K/V on q's dtype's
+        # lanes), each at its largest head dim and a cache of 256 rows
         env["decode_split_instances"] = ptxas_instances(libs[1], "decode_split")
         for name, info in sorted(env["decode_split_instances"].items()):
             dt, lanes, vecs = name.split("<")[1][:-1].split(",")
-            f32 = dt == "f32"
+            f32, q8 = dt == "f32", "_q8_" in name
             info["head_dim"] = int(lanes) * int(vecs) * (4 if f32 else 8)
             info.update(da.split_info(torch.float32 if f32 else torch.bfloat16,
-                                      info["head_dim"], 256))
+                                      info["head_dim"], 256, q8=q8))
             print(f"   {name} (Dh {info['head_dim']}): {info['registers']} registers, spill "
                   f"stores {info['spill_stores']} B; {info['static_smem']} B of static shared "
                   f"memory, {info['blocks_per_sm']} blocks per SM, clusters of "
                   f"{info['cluster']}, {info['active_clusters']} at once")
-        check(len(env["decode_split_instances"]) == 13,
+        n_q8 = sum("_q8_" in n for n in env["decode_split_instances"])
+        check(len(env["decode_split_instances"]) == 26 and n_q8 == 13,
               f"decode split instances {sorted(env['decode_split_instances'])}")
 
     with phase("3 kernels vs plain"):
@@ -1251,8 +1355,9 @@ def main() -> int:
                             q, k, v, kw = decode_inputs(torch, kind, b, h, d, total, layout,
                                                         dev, g)
                             route = da.decode_route(q, k, v, kw.get("k_scale"))
-                            want_route = ("split" if kind != "int8" and layout != "misaligned"
-                                          else "simt")
+                            # int8 at Dh 8 is half a 16-byte vector: simt
+                            want_route = ("split" if layout != "misaligned"
+                                          and (kind != "int8" or d % 16 == 0) else "simt")
                             fn = "decode_attention_q8" if kw else "decode_attention"
                             for pos in (0, total - 1, *vecs):
                                 where = (f"{kind} B={b} H={h} Dh={d} total={total} {layout} "
@@ -1286,6 +1391,14 @@ def main() -> int:
                                 ran = {key: n_ - before[key] for key, n_ in da.ROUTE_LAUNCHES.items()}
                                 want = {key: calls if key == f"{fn}_{route}" else 0 for key in ran}
                                 check(ran == want, f"route launches {ran} != {want}: {where}")
+                                if kw and route == "split":
+                                    # the int8 split route is the bf16 split route on
+                                    # the dequantized cache, bit for bit
+                                    kd, vd = ((t.float() * kw[n][..., None]).to(q.dtype)
+                                              for t, n in ((k, "k_scale"), (v, "v_scale")))
+                                    check(torch.equal(o1, da.decode_cache_attention(q, kd, vd, pos)),
+                                          f"int8 split differs from bf16 split on the "
+                                          f"dequantized cache: {where}")
                                 worst[kind] = max(worst.get(kind, 0.0), err)
                                 routes[kind, route] = routes.get((kind, route), 0) + 1
                                 if (h, d) == (8, 64) and total <= 256 and layout != "misaligned":
@@ -1296,6 +1409,7 @@ def main() -> int:
         mism = [(n, d) for d in (4, 8, 16, 24, 64, 128, 256) for n in range(0, 4200, 3)
                 if da.kernel_piece_rows(n, d) != da.piece_rows(n, d)]
         check(not mism, f"decode_pieces disagrees with the CUDA source at (n, Dh) {mism[:5]}")
+        plain_same = plain_invariance(torch, da, dev, g)
         kernels["decode_attention"]["max_abs_err"] = worst["bfloat16", "main"]
         kernels["decode_attention_q8"]["max_abs_err"] = worst["int8", "main"]
         print(f"{n_checks} cases within tolerance, each on the route the rule gives "
@@ -1304,7 +1418,9 @@ def main() -> int:
               f"f32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}, int8 "
               f"{worst['int8']:.3g} (at B<=8, H=8, Dh=64, total<=256, aligned: bf16 "
               f"{worst['bfloat16', 'main']:.3g}, int8 {worst['int8', 'main']:.3g}); "
-              f"decode_pieces agrees with the CUDA source")
+              f"decode_pieces agrees with the CUDA source; the plain version gives one row "
+              f"the same bits in {plain_same} surroundings (cache of 48 and 2048 columns, "
+              f"alone and in a batch of 8, contiguous and transposed; bf16 and int8 K/V)")
 
     serving = []
     with phase("9 serving main path, full width"):
@@ -1398,6 +1514,15 @@ def main() -> int:
                     # stream form of the gate holds as well
                     check(stream_agree >= 0.99,
                           f"stream agreement {stream_agree:.4f} < 0.99 vs offline generate")
+                if same_route is not None:
+                    # the plain route's bits depend on a row's live prefix
+                    # alone (masked_decode_attention), so the server and
+                    # generate() on that route give the same tokens
+                    check(same_route["strict_agreement"] == 1.0
+                          and same_route["stream_agreement"] == 1.0,
+                          f"--decode-impl torch is not token-exact against generate(decode_impl="
+                          f"\"torch\"): per token {same_route['strict_agreement']:.4f}, zipped "
+                          f"{same_route['stream_agreement']:.4f}")
                 check(conserved, f"serving ledger does not conserve: {rec}")
                 name = "decode_attention_q8" if precision == "int8-kv" else "decode_attention"
                 if impl == "cuda":
@@ -1406,8 +1531,9 @@ def main() -> int:
                     check(calls > 0 and launches == want,
                           f"decode launches {launches} != (decode calls {calls} + prefill calls "
                           f"{pre_calls}) x 8 layers")
-                    # bf16 on the split route, int8 K/V on simt, every launch
-                    route = f"{name}_{'simt' if precision == 'int8-kv' else 'split'}"
+                    # every launch on the split route (the engine's slab is
+                    # aligned, Dh 64 is whole 16-byte vectors in bf16 and int8)
+                    route = f"{name}_split"
                     want = {k: (n if k == route else 0) for k in by_route}
                     check(by_route == want, f"decode launches by route {by_route} != {want}")
                     kernels[name]["launches"] = launches[name]
@@ -1448,11 +1574,11 @@ def main() -> int:
                         mq, mk, mv, _ = decode_inputs(torch, kind, b, h, d, total, "misaligned",
                                                       dev, g)
                         mq.copy_(q), mk.copy_(k), mv.copy_(v)
-                        check(da.decode_route(mq, mk, mv) == "simt",
+                        check(da.decode_route(mq, mk, mv, kw.get("k_scale")) == "simt",
                               "phase 10's misaligned copies are not on the simt route")
 
-                        def simt_fn(q=mq, k=mk, v=mv, pos=pos):
-                            return da.decode_cache_attention(q, k, v, pos)
+                        def simt_fn(q=mq, k=mk, v=mv, pos=pos, kw=kw):
+                            return da.decode_cache_attention(q, k, v, pos, **kw)
 
                         simt = {"ms": time_ms(torch, simt_fn), "graph_ms": graph_ms(torch, simt_fn)}
                     kv_bytes = 2 * b * h * prefix * d * (1 if kw else 2)
@@ -1476,15 +1602,15 @@ def main() -> int:
                     if (h, d, prefix) == (8, 64, 256):
                         kernels[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                              bound_ms=bms, bound_by=by, graph_ms=d_k)
-                        if name == "decode_attention":
-                            ratio = d_k / d_l if d_k and d_l else None
-                            print(f"   split route at (B, H, Dh, prefix) = (8, 8, 64, 256): "
-                                  f"{fmt(ratio)}x SDPA's device time, "
-                                  f"{fmt(simt['graph_ms'] / d_k if d_k else None)}x faster than "
-                                  f"the simt route, {fmt(d_k / bms if d_k else None)}x its bound")
-                            check(ratio is not None and ratio <= 1.0,
-                                  f"the decode kernel's device time at (8, 8, 64, 256) is "
-                                  f"{fmt(ratio)}x SDPA's")
+                        lib_name = "dequantize + SDPA" if kw else "SDPA"
+                        ratio = d_k / d_l if d_k and d_l else None
+                        print(f"   {name} split route at (B, H, Dh, prefix) = (8, 8, 64, 256): "
+                              f"{fmt(ratio)}x {lib_name}'s device time, "
+                              f"{fmt(simt['graph_ms'] / d_k if d_k else None)}x faster than "
+                              f"the simt route, {fmt(d_k / bms if d_k else None)}x its bound")
+                        check(ratio is not None and ratio <= 1.0,
+                              f"{name}'s device time at (8, 8, 64, 256) is {fmt(ratio)}x "
+                              f"{lib_name}'s")
 
     serve_profile = {}
     with phase("11 where the serving time goes"), uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
@@ -1494,42 +1620,46 @@ def main() -> int:
         from distributed_neural_network_tpu_torch.serve.engine import Sequence
         from distributed_neural_network_tpu_torch.serve.http import build_server
 
-        srv, sched, eng = build_server(SERVE_ARGS + ["--decode-impl", "cuda"],
-                                       log=lambda line: None)
-        sched.close(finalize=False)  # the engine is driven directly below
-        srv.close()
-        rng = np.random.default_rng(5)
-        seqs = [Sequence(i, rng.integers(0, 256, size=64).tolist(), 64) for i in range(8)]
-        for s_ in seqs:
-            eng.add(s_)
-        while any(s_.pos < s_.prompt_len for s_ in seqs):
-            eng.step()
-        for _ in range(5):
-            eng.step()
-        torch.cuda.synchronize()
-        n_ticks = 20
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_ticks):
+        for precision in ("bf16", "int8-kv"):
+            srv, sched, eng = build_server(SERVE_ARGS + ["--decode-impl", "cuda", "--precision",
+                                                         precision], log=lambda line: None)
+            sched.close(finalize=False)  # the engine is driven directly below
+            srv.close()
+            rng = np.random.default_rng(5)
+            seqs = [Sequence(i, rng.integers(0, 256, size=64).tolist(), 64) for i in range(8)]
+            for s_ in seqs:
+                eng.add(s_)
+            while any(s_.pos < s_.prompt_len for s_ in seqs):
+                eng.step()
+            for _ in range(5):
                 eng.step()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = profile_rows(prof, DeviceType)
-        busy = sum(r[1] for r in rows) / 1e6
-        decode_rows = [r for r in rows if "decode_" in r[0]]
-        decode_s = sum(r[1] for r in decode_rows) / 1e6
-        serve_profile = {"wall_s": wall, "device_busy_s": busy, "ticks": n_ticks,
-                         "idle_share": 1 - busy / wall if busy else None,
-                         "decode_kernel_s": decode_s,
-                         "decode_launches": sum(r[2] for r in decode_rows),
-                         "top": sorted(rows, key=lambda r: -r[1])[:12]}
-        print(f"{n_ticks} decode ticks at batch 8 (positions 69-88): wall {wall:.4f} s "
-              f"({1e3 * wall / n_ticks:.3f} ms/tick), device busy {busy:.4f} s, idle share "
-              f"{'not measured' if not busy else f'{1 - busy / wall:.3f}'}; the decode kernel "
-              f"{1e3 * decode_s:.3f} ms over {serve_profile['decode_launches']} launches"
-              + (f", {decode_s / busy:.3f} of device time" if busy else ""))
-        for key, us, count in serve_profile["top"]:
-            print(f"   {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+            n_ticks = 20
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n_ticks):
+                    eng.step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            rows = profile_rows(prof, DeviceType)
+            busy = sum(r[1] for r in rows) / 1e6
+            decode_rows = [r for r in rows if "decode_" in r[0]]
+            decode_s = sum(r[1] for r in decode_rows) / 1e6
+            prof_row = {"wall_s": wall, "device_busy_s": busy, "ticks": n_ticks,
+                        "idle_share": 1 - busy / wall if busy else None,
+                        "decode_kernel_s": decode_s,
+                        "decode_kernel_share": decode_s / busy if busy else None,
+                        "decode_launches": sum(r[2] for r in decode_rows),
+                        "top": sorted(rows, key=lambda r: -r[1])[:12]}
+            serve_profile[precision] = prof_row
+            print(f"{precision}: {n_ticks} decode ticks at batch 8 (positions 69-88): wall "
+                  f"{wall:.4f} s ({1e3 * wall / n_ticks:.3f} ms/tick), device busy {busy:.4f} s, "
+                  f"idle share {'not measured' if not busy else f'{1 - busy / wall:.3f}'}; the "
+                  f"decode kernel {1e3 * decode_s:.3f} ms over {prof_row['decode_launches']} "
+                  f"launches" + (f", {decode_s / busy:.3f} of device time" if busy else ""))
+            for key, us, count in prof_row["top"]:
+                print(f"   {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+            del eng
 
     with phase("12 flash kernels vs plain"):
         with uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):  # comparison launches
@@ -1579,8 +1709,9 @@ def main() -> int:
         for name, rows in lm_runs.items():
             steps_ms = ", ".join(f"{r['ms_per_step']:.2f}" for r in rows)
             print(f"   {name}: ms per step {steps_ms} (in the order run)")
-        lm_checks["route"] = route_compare(torch, fa, tfm, lmtrain, dev, lm_runs["flash"][0],
-                                           lm_runs["plain"][0])
+        lm_checks["route"] = route_compare(
+            torch, fa, tfm, lmtrain, dev, {r: lm_runs[r][0] for r in ("flash", "int8", "fp8")},
+            lm_runs["plain"][0])
 
         # the launch formulas under recomputation, accumulation and eval, at
         # full width for FORMULA_STEPS steps (eval batches from a corpus of
@@ -1647,7 +1778,7 @@ def main() -> int:
         check(counts["flash_fwd"] == counts["flash_dq"] == counts["flash_dkv"] == 300 * 2,
               f"learnability launches {counts} != 300 steps x 2 layers")
         # head dim 8 is outside the mma rule: every launch on the simt route
-        check(all(n == (600 if key.endswith("_simt") else 0)
+        check(all(n == (600 if key.endswith("_simt") and "quant" not in key else 0)
                   for key, n in fa.ROUTE_LAUNCHES.items()),
               f"learnability launches by route {fa.ROUTE_LAUNCHES}")
 
@@ -1663,13 +1794,17 @@ def main() -> int:
             o, lse = fa.flash_fwd(q, k, v)
             delta = fa.flash_delta(o, do)
             qc, sq, kc, sk, vc, sv = fa.quantize_qkv(q, k, v, "int8")
+            fc, fsq, fkc, fsk, fvc, fsv = fa.quantize_qkv(q, k, v, "fp8")
             # the same values in misaligned views: the simt route (the scalar
             # kernels) at this shape, timed in the same call
             mis = flash_inputs(torch, b, s_, h, d, torch.bfloat16, "misaligned", dev, g)
             for x, y in zip(mis, (q, k, v, do)):
                 x.copy_(y)
+            mis_codes = misaligned_codes(torch, qc, kc, vc)
             check(fa.bwd_route(q, k, v, do) == fa.fwd_route(q, k, v) == "mma"
-                  and fa.bwd_route(*mis) == fa.fwd_route(*mis[:3]) == "simt",
+                  and fa.bwd_route(*mis) == fa.fwd_route(*mis[:3]) == "simt"
+                  and fa.quant_route(qc, kc, vc) == fa.quant_route(fc, fkc, fvc) == "mma"
+                  and fa.quant_route(*mis_codes) == "simt",
                   "phase 15's inputs are not on the routes they time")
 
             def sdpa_fwd():
@@ -1696,6 +1831,16 @@ def main() -> int:
                     lambda: fa.flash_fwd_quant_plain(qc, kc, vc, sq, sk, sv,
                                                      out_dtype=torch.bfloat16),
                     (None, None), PEAK_INT8_OPS),
+                "flash_fwd_quant fp8": (
+                    lambda: fa.flash_fwd_quant_codes(fc, fkc, fvc, fsq, fsk, fsv,
+                                                     out_dtype=torch.bfloat16),
+                    lambda: fa.flash_fwd_quant_plain(fc, fkc, fvc, fsq, fsk, fsv,
+                                                     out_dtype=torch.bfloat16),
+                    (None, None), PEAK_INT8_OPS),
+                "flash_fwd_quant simt": (
+                    lambda: fa.flash_fwd_quant_codes(*mis_codes, sq, sk, sv,
+                                                     out_dtype=torch.bfloat16),
+                    None, (None, None), PEAK_INT8_OPS),
                 "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta),
                              lambda: fa.flash_dq_plain(q, k, v, do, lse, delta), bwd,
                              PEAK_BF16_FLOPS),
@@ -1739,6 +1884,20 @@ def main() -> int:
                       f"{fwd_row['graph_ms'] / lib['fwd'][1]:.2f}x SDPA's forward "
                       f"({lib['fwd'][1]:.4f} ms) and {fwd_row['graph_ms'] / fwd_row['bound_ms']:.1f}x "
                       f"its bound; the simt route {fmt(dev_ms['flash_fwd simt'])} ms", flush=True)
+            quant = {key: dev_ms[key] for key in ("flash_fwd_quant", "flash_fwd_quant fp8",
+                                                  "flash_fwd_quant simt")}
+            if None not in (*quant.values(), fwd_row["graph_ms"], lib["fwd"][1]):
+                q_row = next(t for t in flash_times[::-1] if t["name"] == "flash_fwd_quant")
+                print(f"quantized forward (B, S, H, D) = ({b}, {s_}, {h}, {d}), device time: "
+                      f"int8 mma {quant['flash_fwd_quant']:.4f} ms, fp8 mma "
+                      f"{quant['flash_fwd_quant fp8']:.4f} ms, int8 simt "
+                      f"{quant['flash_fwd_quant simt']:.4f} ms; int8 mma is "
+                      f"{quant['flash_fwd_quant'] / q_row['bound_ms']:.1f}x its bound, "
+                      f"{quant['flash_fwd_quant'] / fwd_row['graph_ms']:.2f}x the bf16 forward "
+                      f"({fwd_row['graph_ms']:.4f} ms) and "
+                      f"{quant['flash_fwd_quant'] / lib['fwd'][1]:.2f}x SDPA's bf16 forward "
+                      f"({lib['fwd'][1]:.4f} ms, for reference: not the same function)",
+                      flush=True)
             print(f"   SDPA causal at this shape: forward {lib['fwd'][0]:.4f} ms, forward + "
                   f"backward {lib['fwd_bwd'][0]:.4f} ms per call (library_ms of flash_dq and "
                   f"flash_dkv is SDPA's whole backward, dq, dk and dv together); the quantized "
@@ -1758,7 +1917,7 @@ def main() -> int:
                       f"{pair['pair_ms']:.4f} ms (mma route) against SDPA's whole backward "
                       f"{pair['sdpa_bwd_ms']:.4f} ms: {pair['x_sdpa_bwd']:.2f}x; the simt route "
                       f"at this shape {fmt(pair['simt_pair_ms'])} ms", flush=True)
-            del q, k, v, do, o, lse, delta, qc, kc, vc, mis
+            del q, k, v, do, o, lse, delta, qc, kc, vc, fc, fkc, fvc, mis, mis_codes
             torch.cuda.empty_cache()
 
     lm_profile = {}
@@ -1808,7 +1967,14 @@ def main() -> int:
                "decode_attention": "split route: the live prefix in up to 8 pieces, one "
                                    "block of a cluster each, rows per lane group by 16-byte "
                                    "loads, merged in order on rank 0",
+               "decode_attention_q8": "split route on decode_attention's lanes and sums, "
+                                      "int8 codes loaded 8 bytes a lane with each row's "
+                                      "scales, code x scale rounded to q's dtype: bitwise "
+                                      "the bf16 route on the dequantized cache",
                "flash_fwd": "wgmma (tensor cores; mma.sync at D 16/32/128)",
+               "flash_fwd_quant": "mma.sync m16n8k32 on 8-bit codes (int8 into int32, e4m3 "
+                                  "into f32 per k32 step), p's codes packed from the "
+                                  "accumulators, V by ldmatrix.trans and a byte permute",
                "flash_dq": "mma.sync (tensor cores)", "flash_dkv": "mma.sync (tensor cores)"}
     for name, k in kernels.items():
         k["design"] = designs.get(name, "scalar (no tensor cores)")

@@ -18,19 +18,23 @@
 // What bounds it on this card: bytes. Each live K/V row is read once and
 // used for 2*Dh FLOPs, about 1 FLOP per byte in bf16 and 2 in int8, far
 // below the H100's ~295 FLOP/byte ridge, so the least time is the live K/V
-// prefix (plus q, o and the scales) over 3.35 TB/s.
+// prefix (plus q, o and the scales) over 3.35 TB/s. At the serving shapes
+// (B 8, prefix <= 256) that is under 2 us of bytes, so what a launch costs
+// is latency: one round trip to memory for a piece, two cluster barriers.
 //
-// Two routes, chosen by the stated rule (`split_ok` below; `decode_route` in
-// ops/decode_attention.py states the same rule):
-// - "split": decode_split_kernel, for K/V in q's dtype (f32, bf16) with a
-//   head dim of whole 16-byte vectors (at most 256), 16-byte-aligned q, K, V
-//   and out, and K/V batch, head and slot strides in whole 16-byte vectors
-//   (stride 0 included: the prefill's broadcast slab);
-// - "simt": decode_attention_kernel, for every other legal input and for
-//   int8 K/V.
-// The split route's entry point refuses inputs outside the rule.
+// Two routes for each K/V type, chosen by the stated rule (`split_ok`
+// below; `decode_route` in ops/decode_attention.py states the same rule):
+// - "split": decode_split_kernel (K/V in q's dtype, f32 or bf16) and
+//   decode_split_q8_kernel (int8 K/V with per-slot f32 scales), for a head
+//   dim of whole 16-byte vectors of K/V (at most 256; int8 at Dh 8 is half
+//   a vector), 16-byte-aligned q, K, V and out, and K/V batch, head and
+//   slot strides in whole 16-byte vectors (stride 0 included: the
+//   prefill's broadcast slab); the scales' strides are free;
+// - "simt": decode_attention_kernel, for every other legal input.
+// The split entry points refuse inputs outside the rule.
 //
-// The split route (decode_split_kernel<T, L, NV>). The live prefix [0, n),
+// The split route (split_attend<T, KV, L, NV>, the body of both split
+// kernels). The live prefix [0, n),
 // n = min(pos[b], total - 1) + 1, is cut into at most 8 contiguous pieces of
 // piece_rows(n, Dh) rows (a multiple of 16; the last piece may be shorter),
 // and each (b, h) row is a thread-block cluster with one block per piece:
@@ -38,9 +42,23 @@
 //   Dh / elements per 16 bytes, rounded up to a power of two, at most 32; NV
 //   vectors a lane); at Dh 64 in bf16 8 lanes hold a row, so a warp reads 4
 //   rows a load and each dot reduces in 3 shuffles inside its group;
-// - a block walks its piece in chunks of 4 warps x (32 / L) groups x 4 rows;
-//   every K and V load of a chunk is issued before the first score is formed,
-//   so a lane has 4 rows of K and 4 of V in flight;
+// - a block walks its piece in chunks of 4 warps x (32 / L) groups x 4
+//   rows; every K and V load of a chunk is issued before the first score is
+//   formed, so a lane has 4 rows of K and 4 of V in flight;
+// - int8 K/V (decode_split_q8_kernel) walk q's dtype's lanes, rows and sums
+//   exactly: a lane loads the same elements as codes (8 bytes for a bf16 q,
+//   4 for f32, where bf16 K/V take 16), each row's K and V scale is one
+//   4-byte load through the scale's own strides (the engine passes (B, S,
+//   H) scales transposed, and in prefill with stride 0 on the batch),
+//   issued with that row's codes, and each code x scale is rounded to q's
+//   dtype before its dot (the TPU kernel's rounding point), p to q's dtype
+//   before P.V. So the int8 route gives, bit for bit, the bf16 (f32) split
+//   route's result on the dequantized cache (chip_smoke.py phase 8 checks
+//   it), and int8-kv serving differs from bf16 serving by the K/V codes
+//   alone, never by a summation order. A first design read 16 bytes (4
+//   lanes per Dh-64 row) and summed in another order: as accurate against a
+//   float64 evaluation, but its int8-kv streams then differed from the bf16
+//   oracle by that order as well (PERF.md, PR 7);
 // - the piece's own max m is reduced over the block first, then p = exp(s -
 //   m) is rounded to V's dtype for P.V and summed unrounded for l (a piece
 //   longer than one chunk reads its K twice, scores and then P.V, with the
@@ -68,9 +86,8 @@
 // serving engine's gathered (B, S, H, Dh) slab is read as its (B, H, S, Dh)
 // view without a copy.
 //
-// Left for later PRs: the int8 K/V on the split design, reading the paged
-// pool through the block table instead of a gathered copy, and one CUDA
-// graph per serving bucket.
+// Left for later PRs: reading the paged pool through the block table
+// instead of a gathered copy, and one CUDA graph per serving bucket.
 //
 // Each entry point returns cudaGetLastError() right after its launch.
 
@@ -303,7 +320,7 @@ int split_cluster(int total, int D) {
   return cl;
 }
 
-// 16 bytes as floats: 8 bf16 or 4 f32
+// 16 bytes as floats: 8 bf16, 4 f32 or 16 int8
 template <typename T>
 __device__ __forceinline__ void unpack(const uint4& u, float* f);
 template <>
@@ -321,6 +338,29 @@ __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u, float* f) 
   }
 }
 
+// The K/V vector a lane loads: 16 bytes in q's dtype T, or, for int8 K/V,
+// the same VE elements as codes (8 bytes for a bf16 q, 4 for f32), so that
+// the int8 route walks the exact lanes, rows and sums of T's route
+template <typename KV, int VE>
+struct KVVec { using type = uint4; };
+template <>
+struct KVVec<int8_t, 8> { using type = uint2; };
+template <>
+struct KVVec<int8_t, 4> { using type = uint32_t; };
+
+// a loaded K/V vector as VE floats (int8: the raw codes, byte i element i)
+template <typename T, typename KV, int VE>
+__device__ __forceinline__ void unpack_kv(const typename KVVec<KV, VE>::type& u, float* f) {
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < VE; ++i)
+      f[i] = static_cast<float>(static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu));
+  } else {
+    unpack<T>(u, f);
+  }
+}
+
 // the cluster barrier in two halves: arrive at the start (relaxed: no
 // memory is published by it), wait before the first write into another
 // block's shared memory, which is then known to be running
@@ -331,14 +371,18 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// T: q/K/V/out dtype; L: lanes that read one row (a power of two <= 32);
-// NV: 16-byte vectors of a row per lane
-template <typename T, int L, int NV>
-__global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(Args a) {
+// The split route's body for one block. T: q/out dtype; KV: K/V dtype (T,
+// or int8_t with per-slot f32 scales); L: lanes that read one row (a power
+// of two <= 32); NV: 16-byte vectors of a row per lane
+template <typename T, typename KV, int L, int NV>
+__device__ __forceinline__ void split_attend(const Args& a) {
+  constexpr bool kQ8 = std::is_same<KV, int8_t>::value;
   constexpr int VE = kVecBytes / static_cast<int>(sizeof(T));  // elements per vector
+  using Vec = typename KVVec<KV, VE>::type;
   constexpr int NE = NV * VE;                  // elements of a row per lane
   constexpr int RW = 32 / L;                   // rows of a warp per load
-  constexpr int CH = kSplitWarps * RW * kRowsPerLane;  // rows per chunk
+  constexpr int RL = kRowsPerLane;
+  constexpr int CH = kSplitWarps * RW * RL;    // rows per chunk
   __shared__ float sm_m[kSplitWarps], sm_l[kSplitWarps];
   __shared__ __align__(16) float sm_acc[kSplitWarps][kMaxHeadDim];
   __shared__ float piece_m[kMaxPieces], piece_l[kMaxPieces];  // rank 0: every piece's
@@ -373,59 +417,68 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(Args a) {
   for (int e = 0; e < NE; ++e) acc[e] = 0.f;
 
   if (rank < np) {
-    const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-    const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+    const KV* kb = static_cast<const KV*>(a.k) + b * a.k_sb + h * a.k_sh;
+    const KV* vb = static_cast<const KV*>(a.v) + b * a.v_sb + h * a.v_sh;
+    const float* ksb = kQ8 ? a.ks + b * a.ks_sb + h * a.ks_sh : nullptr;
+    const float* vsb = kQ8 ? a.vs + b * a.vs_sb + h * a.vs_sh : nullptr;
     const int nch = (r1 - r0 + CH - 1) / CH;
-    uint4 kr[kRowsPerLane][NV], vr[kRowsPerLane][NV];
-    float s[kRowsPerLane];
+    Vec kr[RL][NV], vr[RL][NV];
+    float ksc[RL] = {}, vsc[RL] = {}, s[RL];
     // the lane group's row of slot u in chunk c
     auto row_of = [&](int c, int u) { return r0 + c * CH + (u * kSplitWarps + warp) * RW + grp; };
-    auto load = [&](const T* base, long long st, int c, uint4 (&dst)[kRowsPerLane][NV]) {
+    // a chunk's rows of K or V, and (int8) each row's scale: one 4-byte
+    // load through the scale's strides, issued with the row's vectors
+    auto load = [&](const KV* base, long long st, const float* sb, long long sst, int c,
+                    Vec (&dst)[RL][NV], float (&sc)[RL]) {
 #pragma unroll
-      for (int u = 0; u < kRowsPerLane; ++u) {
+      for (int u = 0; u < RL; ++u) {
         const int r = row_of(c, u);
+        if constexpr (kQ8) sc[u] = r < r1 ? sb[r * sst] : 0.f;
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
           const int vi = gl + L * j;
-          dst[u][j] = make_uint4(0u, 0u, 0u, 0u);
+          dst[u][j] = Vec{};
           if (r < r1 && vi < nvec)
-            dst[u][j] = *reinterpret_cast<const uint4*>(base + r * st + vi * VE);
+            dst[u][j] = *reinterpret_cast<const Vec*>(base + r * st + vi * VE);
         }
       }
     };
+    // an element of K or V as the dot sees it: the code times its row's
+    // scale rounded to q's dtype (int8), or the element itself
+    auto elem = [&](float x, float sc) { return kQ8 ? round_to<T>(x * sc) : x; };
     // s[u] = (q . k_row) * scale: the lane's NE products in order, then the
     // group's xor butterfly (the same bits in every lane of the group)
     auto scores = [&]() {
 #pragma unroll
-      for (int u = 0; u < kRowsPerLane; ++u) {
+      for (int u = 0; u < RL; ++u) {
         float part = 0.f;
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
           float kf[VE];
-          unpack<T>(kr[u][j], kf);
+          unpack_kv<T, KV, VE>(kr[u][j], kf);
 #pragma unroll
-          for (int e = 0; e < VE; ++e) part = fmaf(qf[j * VE + e], kf[e], part);
+          for (int e = 0; e < VE; ++e) part = fmaf(qf[j * VE + e], elem(kf[e], ksc[u]), part);
         }
         s[u] = part;
       }
 #pragma unroll
       for (int o = L / 2; o > 0; o >>= 1) {
 #pragma unroll
-        for (int u = 0; u < kRowsPerLane; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+        for (int u = 0; u < RL; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
       }
 #pragma unroll
-      for (int u = 0; u < kRowsPerLane; ++u) s[u] *= a.scale;
+      for (int u = 0; u < RL; ++u) s[u] *= a.scale;
     };
 
     // the piece's max: scores of every chunk (K and V of a one-chunk piece
     // are loaded together and kept)
     float mx = kNegBig;
     for (int c = 0; c < nch; ++c) {
-      load(kb, a.k_st, c, kr);
-      if (nch == 1) load(vb, a.v_st, c, vr);
+      load(kb, a.k_st, ksb, a.ks_st, c, kr, ksc);
+      if (nch == 1) load(vb, a.v_st, vsb, a.vs_st, c, vr, vsc);
       scores();
 #pragma unroll
-      for (int u = 0; u < kRowsPerLane; ++u)
+      for (int u = 0; u < RL; ++u)
         if (row_of(c, u) < r1) mx = fmaxf(mx, s[u]);
     }
 #pragma unroll
@@ -439,12 +492,12 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(Args a) {
     // P.V against the piece's max, chunk by chunk, slot by slot
     for (int c = 0; c < nch; ++c) {
       if (nch > 1) {
-        load(kb, a.k_st, c, kr);
-        load(vb, a.v_st, c, vr);
+        load(kb, a.k_st, ksb, a.ks_st, c, kr, ksc);
+        load(vb, a.v_st, vsb, a.vs_st, c, vr, vsc);
         scores();
       }
 #pragma unroll
-      for (int u = 0; u < kRowsPerLane; ++u) {
+      for (int u = 0; u < RL; ++u) {
         if (row_of(c, u) >= r1) continue;
         const float pj = expf(s[u] - m);
         l += pj;
@@ -452,9 +505,10 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(Args a) {
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
           float vf[VE];
-          unpack<T>(vr[u][j], vf);
+          unpack_kv<T, KV, VE>(vr[u][j], vf);
 #pragma unroll
-          for (int e = 0; e < VE; ++e) acc[j * VE + e] = fmaf(pr, vf[e], acc[j * VE + e]);
+          for (int e = 0; e < VE; ++e)
+            acc[j * VE + e] = fmaf(pr, elem(vf[e], vsc[u]), acc[j * VE + e]);
         }
       }
     }
@@ -516,6 +570,18 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(Args a) {
   }
 }
 
+// the split route, K/V in q's dtype T
+template <typename T, int L, int NV>
+__global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(Args a) {
+  split_attend<T, T, L, NV>(a);
+}
+
+// the split route, int8 K/V with per-slot f32 scales (q and out in T)
+template <typename T, int L, int NV>
+__global__ void __launch_bounds__(kSplitThreads) decode_split_q8_kernel(Args a) {
+  split_attend<T, int8_t, L, NV>(a);
+}
+
 cudaLaunchConfig_t split_config(const Args& a, int cl, cudaStream_t stream,
                                 cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
@@ -531,9 +597,10 @@ cudaLaunchConfig_t split_config(const Args& a, int cl, cudaStream_t stream,
   return cfg;
 }
 
-// the instance for D: lanes per row = the row's 16-byte vectors rounded up
-// to a power of two, at most 32 (then NV = 2 vectors a lane: f32 rows of
-// more than 128 elements); f(L, NV) gets them as integral constants
+// the instance for D: lanes per row = the row's 16-byte vectors of q's
+// dtype T rounded up to a power of two, at most 32 (then NV = 2 vectors a
+// lane: f32 rows of more than 128 elements); f(L, NV) gets them as
+// integral constants. int8 K/V take T's instance (the same lanes and rows)
 template <typename T, typename F>
 cudaError_t split_instance(int D, F&& f) {
   using std::integral_constant;
@@ -548,25 +615,35 @@ cudaError_t split_instance(int D, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+// the split kernel for q dtype T and K/V dtype KV (T, or int8_t)
+template <typename T, typename KV, int L, int NV>
+constexpr auto split_kernel() {
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    return decode_split_q8_kernel<T, L, NV>;
+  } else {
+    return decode_split_kernel<T, L, NV>;
+  }
+}
+
+template <typename T, typename KV>
 cudaError_t launch_split(const Args& a, cudaStream_t stream) {
   const int cl = split_cluster(a.total, a.D);
   if (static_cast<long long>(a.B) * a.H * cl > 0x7fffffffLL) return cudaErrorInvalidValue;
   return split_instance<T>(a.D, [&](auto l, auto nv) {
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = split_config(a, cl, stream, &attr);
-    const cudaError_t e =
-        cudaLaunchKernelEx(&cfg, decode_split_kernel<T, decltype(l)::value, decltype(nv)::value>, a);
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, split_kernel<T, KV, decltype(l)::value, decltype(nv)::value>(), a);
     return e != cudaSuccess ? e : cudaGetLastError();
   });
 }
 
 // blocks of the instance for D that fit on one SM, and clusters of it (for a
 // cache of `total` rows) that the card runs at once, at B * H = 1024
-template <typename T>
+template <typename T, typename KV>
 cudaError_t split_occupancy(int D, int total, int* blocks, int* clusters) {
   return split_instance<T>(D, [&](auto l, auto nv) {
-    auto* kernel = decode_split_kernel<T, decltype(l)::value, decltype(nv)::value>;
+    auto* kernel = split_kernel<T, KV, decltype(l)::value, decltype(nv)::value>();
     cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kSplitThreads, 0);
     if (e != cudaSuccess) return e;
     Args a{};
@@ -579,9 +656,11 @@ cudaError_t split_occupancy(int D, int total, int* blocks, int* clusters) {
 
 bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % kVecBytes == 0; }
 
-// the split route's rule: K/V in q's dtype (the caller's dtype code), a head
-// dim of whole 16-byte vectors up to kMaxHeadDim, 16-byte-aligned q/k/v/out
-// and K/V batch, head and slot strides in whole vectors (0 included)
+// the split route's rule, for K/V of `elem_bytes` bytes an element (q's
+// dtype, or int8 with the q8 entry): a head dim of whole 16-byte vectors of
+// K/V up to kMaxHeadDim (so int8 at Dh 8, half a vector, is refused),
+// 16-byte-aligned q/k/v/out and K/V batch, head and slot strides in whole
+// vectors (0 included); the scales' strides are free (4-byte loads)
 bool split_ok(int elem_bytes, const Args& a) {
   const int ve = kVecBytes / elem_bytes;
   if (a.D % ve != 0 || a.D > kMaxHeadDim) return false;
@@ -625,8 +704,8 @@ int decode_attention_split(int dtype, const void* q, const void* k, const void* 
   if (!shape_ok(B, H, total, D)) return cudaErrorInvalidValue;
   Args a{q, k, v, nullptr, nullptr, pos, pos_scalar, out, B, H, total, D, scale,
          k_sb, k_sh, k_st, v_sb, v_sh, v_st, 0, 0, 0, 0, 0, 0};
-  if (dtype == 0 && split_ok(4, a)) return launch_split<float>(a, stream);
-  if (dtype == 1 && split_ok(2, a)) return launch_split<__nv_bfloat16>(a, stream);
+  if (dtype == 0 && split_ok(4, a)) return launch_split<float, float>(a, stream);
+  if (dtype == 1 && split_ok(2, a)) return launch_split<__nv_bfloat16, __nv_bfloat16>(a, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -634,15 +713,21 @@ int decode_attention_split(int dtype, const void* q, const void* k, const void* 
 // states the same rule; chip_smoke.py compares the two)
 int decode_attention_piece_rows(int n, int D) { return D >= 1 ? piece_rows(n, D) : -1; }
 
-// the split instance for (dtype, D): its blocks per SM, the blocks of its
-// cluster for a cache of `total` rows, and the clusters that run at once
-int decode_attention_split_info(int dtype, int D, int total, int* blocks_per_sm,
+// the split instance for (dtype, K/V int8 or not, D): its blocks per SM, the
+// blocks of its cluster for a cache of `total` rows, and the clusters that
+// run at once
+int decode_attention_split_info(int dtype, int q8, int D, int total, int* blocks_per_sm,
                                 int* cluster, int* clusters) {
   if (D < 1 || D > kMaxHeadDim || total < 1 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   *cluster = split_cluster(total, D);
-  return dtype == 0 ? split_occupancy<float>(D, total, blocks_per_sm, clusters)
-                    : split_occupancy<__nv_bfloat16>(D, total, blocks_per_sm, clusters);
+  if (q8) {
+    return dtype == 0 ? split_occupancy<float, int8_t>(D, total, blocks_per_sm, clusters)
+                      : split_occupancy<__nv_bfloat16, int8_t>(D, total, blocks_per_sm, clusters);
+  }
+  return dtype == 0 ? split_occupancy<float, float>(D, total, blocks_per_sm, clusters)
+                    : split_occupancy<__nv_bfloat16, __nv_bfloat16>(D, total, blocks_per_sm,
+                                                                    clusters);
 }
 
 // int8 K/V with f32 per-slot scales; dtype is q's and out's (0 f32, 1 bf16)
@@ -658,6 +743,24 @@ int decode_attention_q8(int dtype, const void* q, const void* k, const void* v,
          k_sb, k_sh, k_st, v_sb, v_sh, v_st, ks_sb, ks_sh, ks_st, vs_sb, vs_sh, vs_st};
   if (dtype == 0) return launch_typed<float, int8_t>(a, stream);
   if (dtype == 1) return launch_typed<__nv_bfloat16, int8_t>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
+// the int8 split route (decode_split_q8_kernel): the same arguments as
+// decode_attention_q8; refuses inputs outside split_ok over int8 K/V
+int decode_attention_q8_split(int dtype, const void* q, const void* k, const void* v,
+                              const float* ks, const float* vs, const int* pos, int pos_scalar,
+                              void* out, int B, int H, int total, int D, float scale,
+                              long long k_sb, long long k_sh, long long k_st, long long v_sb,
+                              long long v_sh, long long v_st, long long ks_sb, long long ks_sh,
+                              long long ks_st, long long vs_sb, long long vs_sh, long long vs_st,
+                              cudaStream_t stream) {
+  if (!shape_ok(B, H, total, D)) return cudaErrorInvalidValue;
+  Args a{q, k, v, ks, vs, pos, pos_scalar, out, B, H, total, D, scale,
+         k_sb, k_sh, k_st, v_sb, v_sh, v_st, ks_sb, ks_sh, ks_st, vs_sb, vs_sh, vs_st};
+  if (!split_ok(1, a)) return cudaErrorInvalidValue;
+  if (dtype == 0) return launch_split<float, int8_t>(a, stream);
+  if (dtype == 1) return launch_split<__nv_bfloat16, int8_t>(a, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -5,7 +5,8 @@
 // flash_pallas.py, all reached through `flash_mha`:
 //   flash_fwd_wgmma_kernel, flash_fwd_mma_kernel, flash_fwd_kernel
 //                           <- `_fwd_kernel`        (call `_fwd_call`)
-//   flash_fwd_quant_kernel  <- `_fwd_quant_kernel`  (call `_fwd_quant_call`)
+//   flash_fwd_quant_mma_kernel, flash_fwd_quant_kernel
+//                           <- `_fwd_quant_kernel`  (call `_fwd_quant_call`)
 //   flash_dq_mma_kernel, flash_dq_kernel    <- `_dq_kernel`  (call `_bwd_call`)
 //   flash_dkv_mma_kernel, flash_dkv_kernel  <- `_dkv_kernel` (call `_bwd_call`)
 //
@@ -36,17 +37,21 @@
 // of q/k/v/o, about 500 FLOP a byte, above the H100's ~295 FLOP/byte
 // ridge in bf16: the bound is the FLOPs over the tensor cores' 989 TFLOP/s.
 //
-// Two routes for the forward and for the backward pair, chosen by one
-// stated rule (mma_ok below; `fwd_route` and `bwd_route` in
-// ops/flash_attention.py state the same rule through one helper):
+// Two routes for the forward, the quantized forward and the backward pair,
+// chosen by one stated rule (mma_ok and quant_mma_ok below; `fwd_route`,
+// `quant_route` and `bwd_route` in ops/flash_attention.py state the same
+// rule through one helper):
 // - "mma": the tensor-core kernels, for bf16 operands with D % 16 == 0, D <=
 //   128, 16-byte-aligned base pointers and batch/sequence/head strides that
 //   are multiples of 8 elements (the model's (B, S, H, D) projections all
 //   are): flash_fwd_wgmma_kernel at a padded head dim of 64 (D 48, 64),
 //   flash_fwd_mma_kernel at the others, flash_dq_mma_kernel and
-//   flash_dkv_mma_kernel;
-// - "simt": flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel, scalar
-//   f32 FMAs, for every other legal input (f32, D 40, D 8, a misaligned view).
+//   flash_dkv_mma_kernel; and for the quantized forward,
+//   flash_fwd_quant_mma_kernel on int8 or e4m3 codes with D % 16 == 0, D <=
+//   128, 16-byte-aligned bases and strides in whole 16-byte vectors;
+// - "simt": flash_fwd_kernel, flash_fwd_quant_kernel, flash_dq_kernel and
+//   flash_dkv_kernel, scalar FMAs, for every other legal input (f32, D 40,
+//   D 8, a misaligned view).
 // The entry points of the mma route refuse inputs outside the rule; no
 // input that the rule admits falls back to the scalar kernels.
 //
@@ -82,6 +87,39 @@
 // asynchronously at the warpgroup's rate. Tried and not kept (no gain in
 // probe runs): a 3-stage ring with one barrier a tile, q's fragments read
 // from shared memory each k step, s * scale - m as one FFMA.
+//
+// The quantized forward on tensor cores (flash_fwd_quant_mma_kernel). What
+// bounds it: operations, the same 2 products of (pairs x D) as the bf16
+// forward but at the 8-bit rate (1,979 TOP/s): 0.035 ms at the flagship
+// shape. Per pair it does more elementwise work than the bf16 forward
+// (fold sv, |p_f| max, a true division, a rounding, a byte pack), so its
+// exp-and-requantize chain, not its products, is the longer one. Both
+// products are mma.sync.m16n8k32 on 8-bit codes (.s32.s8.s8.s32 for int8,
+// .f32.e4m3.e4m3.f32 for fp8) on a 64-row q tile of 4 warps, with the
+// forward's other parts: the 2-stage cp.async ring (codes, and K's and V's
+// 64 column scales), the work-ranked 1-D grid, the mask only on diagonal
+// and ragged tiles, the quad reductions of online_softmax, no atomics (a
+// rerun gives the same bits). The traps, and what the design does:
+// - V is the reduction-major operand of P.V and ldmatrix.trans moves 16-bit
+//   elements only: V stays [key][d] in shared memory, ldmatrix.x4.trans
+//   reads 32 keys x 16 bytes, and a byte permute (prmt) of its registers
+//   makes the two n-tiles of even and odd byte columns (no transposed copy
+//   of V in memory, no extra pass);
+// - p's accumulator layout gives a thread 2 adjacent columns per n8 tile,
+//   the k32 A fragment wants 4 adjacent k: the kernel keeps p where it is
+//   and permutes k instead, the same way for V's keys (quant_tile's note);
+//   a permutation of the summed index leaves an int8 sum exact;
+// - rounding as the function: p_f / sp is a true division (a reciprocal
+//   multiply moves codes near .5), int8 codes are rintf (half to even),
+//   e4m3 codes satfinite round to nearest even as round_fp8, and sp is the
+//   max over the tile's 64 columns across the quad;
+// - fp8 accumulation: Hopper's fp8 tensor-core sums keep fewer bits than
+//   f32, so each k32 product runs into a zeroed fragment and is added into
+//   the f32 accumulator on the CUDA cores (mma8_add);
+// - int8 dots are exact in int32 on both routes, so s, the row max, p and
+//   the codes match the scalar kernel bit for bit; o and lse differ only
+//   through l's summation order (the quad's per-lane sums here, a 16-lane
+//   butterfly there) and the rounding of acc * alpha + pv * sp.
 //
 // The backward pair on tensor cores. What bounds it: operations. dq does 3
 // products of (pairs x D) (s = q k^T, dp = do v^T, dq = ds k) and dkv 4
@@ -140,8 +178,8 @@
 // strided (B, S, H, D) view is read in place. The wrapper raises outside
 // the rule.
 //
-// Left for later PRs: the tensor cores for the quantized forward, wgmma for
-// the backward pair and the forward's other head dims, TMA loads.
+// Left for later PRs: wgmma for the backward pair, the quantized forward
+// and the forward's other head dims, TMA loads.
 //
 // Each entry point returns cudaGetLastError() right after its launch.
 
@@ -1398,6 +1436,319 @@ __global__ void __launch_bounds__(kWgThreads) flash_fwd_wgmma_kernel(Args a) {
   fwd_store<DP>(acc, m, l, a, b, h, bh, r0, ln);
 }
 
+// ----------------------------------- quantized forward on tensor cores (8-bit)
+
+// The 8-bit forward's q tile: 64 rows, 4 warps of one m-tile (16 rows)
+// each. Codes sit in shared memory as bytes, a row of DP bytes (the head
+// dim padded to 32, 64 or 128) plus 16 bytes of pad, so every ldmatrix
+// row address falls in its own 16-byte bank group.
+constexpr int kQuantThreads = 128;
+constexpr int kQuantPad = 16;
+
+template <int DP>
+struct QuantTile {
+  static constexpr int LD = DP + kQuantPad;  // bytes a row
+  static constexpr int kBytes = 64 * LD;
+};
+
+// the 8-bit forward's padded head dim: whole k32 steps (32, 64 or 128 bytes)
+int quant_pad_dim(int D) { return D <= 32 ? 32 : D <= 64 ? 64 : 128; }
+
+// rows [row0, row0 + 64) of 8-bit codes of head (b, h) into a byte tile,
+// zero past S and D (D % 16 == 0 on this route, so a 16-byte chunk is all
+// in or all out)
+template <int DP>
+__device__ __forceinline__ void load_codes_async(uint8_t* dst, const View& v, int b, int h,
+                                                 int row0, int S, int D) {
+  constexpr int kChunks = DP / 16, kTotal = 64 * kChunks;
+#pragma unroll
+  for (int i = 0; i < kTotal / kQuantThreads; ++i) {
+    const int idx = threadIdx.x + i * kQuantThreads;
+    const int r = idx / kChunks, c = idx - r * kChunks;
+    const bool live = row0 + r < S && c * 16 < D;
+    const uint8_t* src =
+        live ? at<const uint8_t>(v, b, row0 + r, h) + c * 16 : static_cast<const uint8_t*>(v.p);
+    cp_async16(dst + r * QuantTile<DP>::LD + c * 16, src, live);
+  }
+}
+
+// the f32 scales of K and V for columns [k0, k0 + 64), zero past S
+__device__ __forceinline__ void load_col_scales_async(float* s_k, float* s_v, const Args& a,
+                                                      int b, int h, int k0) {
+  const int c = threadIdx.x & 63;
+  const bool live = k0 + c < a.S;
+  const View& v = threadIdx.x < 64 ? a.sk : a.sv;
+  float* dst = (threadIdx.x < 64 ? s_k : s_v) + c;
+  cp_async4(dst, live ? at<const float>(v, b, k0 + c, h) : static_cast<const float*>(v.p), live);
+}
+
+// c (16 x 8) += a (16 x 32, row) * b (32 x 8, col), 8-bit operands: int8
+// into an int32 accumulator (exact)
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// ... and e4m3 into an f32 accumulator
+__device__ __forceinline__ void mma_e4m3(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += one k32 product. int8: chained in the int32 accumulator. e4m3: the
+// tensor core's fp8 sums keep fewer bits than f32 (DeepSeek-V3's report on
+// Hopper), so each k32 product runs into a zeroed fragment and is added
+// into the f32 accumulator on the CUDA cores
+template <bool kInt8>
+__device__ __forceinline__ void mma8_add(typename std::conditional<kInt8, int, float>::type (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  if constexpr (kInt8) {
+    mma_s8(c, a, b0, b1);
+  } else {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_e4m3(t, a, b0, b1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += t[e];
+  }
+}
+
+// the code of p_f / sp as a byte: int8 rint (half to even, as jnp.round),
+// or e4m3 round to nearest even, saturating at 448 (round_fp8's rounding)
+template <bool kInt8>
+__device__ __forceinline__ uint32_t code_byte(float x) {
+  if constexpr (kInt8) {
+    return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(rintf(x))));
+  } else {
+    return static_cast<uint32_t>(__nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3));
+  }
+}
+
+__device__ __forceinline__ uint32_t pack4(uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3) {
+  return b0 | b1 << 8 | b2 << 16 | b3 << 24;
+}
+
+// One k tile (64 columns) of the 8-bit forward for one warp's 16 rows (r0
+// .. r0 + 15). Fragments (lane l: g = l / 4, t = l % 4):
+// - s = qc kc^T: Q's and K's k32 fragments are byte-for-byte the m16n8k16
+//   bf16 ones (4 bytes a register), so ldmatrix reads them as b16 pairs;
+// - p's codes go into the A fragments of P.V straight from the m16n8
+//   accumulators, no shuffle: the thread holds columns 8j + 2t, 8j + 2t + 1
+//   of n-tiles j, so k32 step kk's A register 0 (row g) packs columns {2t,
+//   2t+1, 8+2t, 9+2t} of the step and register 2 columns {16+2t, 17+2t,
+//   24+2t, 25+2t}: the step's k index is permuted, the same way for V below,
+//   which leaves the sum unchanged (exact for int8);
+// - V is K-major for P.V (the reduction runs over keys) and ldmatrix.trans
+//   moves 16-bit elements only: ldmatrix.x4.trans over 32 keys x 16 bytes
+//   gives each thread keys (2t, 2t+1) of each 8-key block at byte columns
+//   (2g, 2g+1); a byte permute of blocks (0, 1) and (2, 3) picks byte
+//   column 2g (even) or 2g+1 (odd) for the keys {2t, 2t+1, 8+2t, 9+2t} and
+//   {16+2t, ...}, the A fragment's order. So each 16-byte column block db
+//   gives two n-tiles, even (n -> d = 16 db + 2n) and odd (d = 16 db + 2n +
+//   1), and the thread's accumulators of rows g and g + 8 hold d = 16 db +
+//   4t .. 16 db + 4t + 3.
+// The function's rounding points: s = ((acc * sq) * sk) * scale in f32; p =
+// expf(s - m); p_f = p * sv; sp = max(max|p_f| over the 64 columns (the
+// quad's lanes), 1e-30) / qmax; codes of p_f / sp (a true division); acc =
+// acc * alpha + (codes . vc) * sp. kMask: the diagonal tile or one past S.
+template <bool kInt8, int DP, bool kMask>
+__device__ __forceinline__ void quant_tile(float (&acc)[DP / 8][4], float (&m)[2], float (&l)[2],
+                                           const uint32_t (&qa)[DP / 32][4], const float (&sq)[2],
+                                           const uint8_t* sK, const uint8_t* sV, const float* sSk,
+                                           const float* sSv, int r0, int k0, const Args& a,
+                                           const Lane& ln) {
+  using Acc = typename std::conditional<kInt8, int, float>::type;
+  constexpr int LD = QuantTile<DP>::LD;
+  constexpr float kQmax = kInt8 ? 127.f : 448.f;
+  const int lane = threadIdx.x & 31;
+  Acc sacc[kBK / 8][4];
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sacc[j][e] = Acc(0);
+#pragma unroll
+  for (int j = 0; j < kBK / 16; ++j)
+#pragma unroll
+    for (int kk = 0; kk < DP / 32; ++kk) {
+      uint32_t kb[4];
+      ldsm_x4(kb, reinterpret_cast<const bf16*>(sK + (16 * j + ln.b_row) * LD + 32 * kk +
+                                                2 * ln.b_col));
+      mma8_add<kInt8>(sacc[2 * j], qa[kk], kb[0], kb[1]);
+      mma8_add<kInt8>(sacc[2 * j + 1], qa[kk], kb[2], kb[3]);
+    }
+  float s[kBK / 8][4], mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1, c = 8 * j + 2 * ln.t + (e & 1);
+      s[j][e] = kMask && masked(r0 + ln.g + 8 * i, k0 + c, a.S, a.causal)
+                    ? kNegBig
+                    : static_cast<float>(sacc[j][e]) * sq[i] * sSk[c] * a.scale;
+      mx[i] = fmaxf(mx[i], s[j][e]);
+    }
+  float alpha[2], ps[2] = {0.f, 0.f}, amax[2] = {0.f, 0.f}, sp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    alpha[i] = expf(m[i] - m_new);
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const float p = expf(s[j][e] - m[i]);
+      ps[i] += p;
+      s[j][e] = p * sSv[8 * j + 2 * ln.t + (e & 1)];  // p_f, in place
+      amax[i] = fmaxf(amax[i], fabsf(s[j][e]));
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 1);
+    ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 2);
+    amax[i] = fmaxf(amax[i], __shfl_xor_sync(0xffffffffu, amax[i], 1));
+    amax[i] = fmaxf(amax[i], __shfl_xor_sync(0xffffffffu, amax[i], 2));
+    l[i] = l[i] * alpha[i] + ps[i];
+    sp[i] = fmaxf(amax[i], 1e-30f) / kQmax;
+  }
+  uint32_t pa[kBK / 32][4];
+#pragma unroll
+  for (int kk = 0; kk < kBK / 32; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {  // registers 0, 1 (half 0) and 2, 3 (half 1)
+      const int j = 4 * kk + 2 * half;
+      uint32_t cb[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cb[jj][e] = code_byte<kInt8>(s[j + jj][e] / sp[e >> 1]);
+      pa[kk][2 * half] = pack4(cb[0][0], cb[0][1], cb[1][0], cb[1][1]);      // row g
+      pa[kk][2 * half + 1] = pack4(cb[0][2], cb[0][3], cb[1][2], cb[1][3]);  // row g + 8
+    }
+  Acc pv[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pv[j][e] = Acc(0);
+#pragma unroll
+  for (int db = 0; db < DP / 16; ++db)
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk) {
+      uint32_t r[4];
+      ldsm_x4_t(r, reinterpret_cast<const bf16*>(sV + (32 * kk + lane) * LD + 16 * db));
+      mma8_add<kInt8>(pv[2 * db], pa[kk], __byte_perm(r[0], r[1], 0x6420),
+                      __byte_perm(r[2], r[3], 0x6420));
+      mma8_add<kInt8>(pv[2 * db + 1], pa[kk], __byte_perm(r[0], r[1], 0x7531),
+                      __byte_perm(r[2], r[3], 0x7531));
+    }
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[j][e] = acc[j][e] * alpha[e >> 1] + static_cast<float>(pv[j][e]) * sp[e >> 1];
+}
+
+// 1-D grid of (q tiles of 64 rows) x (B*H) blocks ranked by work (the last
+// q tile first), a 2-stage cp.async ring of K, V and their column scales,
+// a warp skipping the k tiles in which all its rows are masked (an exact
+// no-op: p = 0, alpha = 1, codes 0) and the whole loop past S, the mask
+// only on diagonal and ragged tiles, no atomics. TO: o's dtype; kInt8:
+// int8 codes, else e4m3.
+template <typename TO, bool kInt8, int DP>
+__global__ void __launch_bounds__(kQuantThreads) flash_fwd_quant_mma_kernel(Args a) {
+  constexpr int LD = QuantTile<DP>::LD, TILE = QuantTile<DP>::kBytes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* sQ = smem_raw;
+  uint8_t* sK = sQ + TILE;      // 2 stages
+  uint8_t* sV = sK + 2 * TILE;  // 2 stages
+  float* sSk = reinterpret_cast<float*>(sV + 2 * TILE);  // 2 stages of 64
+  float* sSv = sSk + 2 * kBK;                             // 2 stages of 64
+  const Lane ln;
+  const int n_bh = a.B * a.H, rank = static_cast<int>(blockIdx.x) / n_bh;
+  const int bh = static_cast<int>(blockIdx.x) - rank * n_bh, b = bh / a.H, h = bh - b * a.H;
+  const int n_qt = (a.S + kBQ - 1) / kBQ;
+  const int qt = n_qt - 1 - rank, q0 = qt * kBQ, r0 = q0 + ln.warp * 16;
+  const int n_kt = a.causal ? qt + 1 : (a.S + kBK - 1) / kBK;
+
+  load_codes_async<DP>(sQ, a.q, b, h, q0, a.S, a.D);
+  load_codes_async<DP>(sK, a.k, b, h, 0, a.S, a.D);
+  load_codes_async<DP>(sV, a.v, b, h, 0, a.S, a.D);
+  load_col_scales_async(sSk, sSv, a, b, h, 0);
+  cp_async_commit();
+  float sq[2], m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f}, acc[DP / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + ln.g + 8 * i;
+    sq[i] = row < a.S ? *at<const float>(a.sq, b, row, h) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t qa[DP / 32][4];
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    if (kt + 1 < n_kt) {
+      const int nxt = (kt + 1) & 1;
+      load_codes_async<DP>(sK + nxt * TILE, a.k, b, h, k0 + kBK, a.S, a.D);
+      load_codes_async<DP>(sV + nxt * TILE, a.v, b, h, k0 + kBK, a.S, a.D);
+      load_col_scales_async(sSk + nxt * kBK, sSv + nxt * kBK, a, b, h, k0 + kBK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 32; ++kk)
+        ldsm_x4(qa[kk], reinterpret_cast<const bf16*>(sQ + (ln.warp * 16 + ln.a_row) * LD +
+                                                      32 * kk + 2 * ln.a_col));
+    }
+    const int cur = kt & 1;
+    if (r0 < a.S && (!a.causal || k0 <= r0 + 15)) {
+      const uint8_t* k = sK + cur * TILE;
+      const uint8_t* v = sV + cur * TILE;
+      if ((a.causal && k0 + kBK - 1 > r0) || k0 + kBK > a.S) {
+        quant_tile<kInt8, DP, true>(acc, m, l, qa, sq, k, v, sSk + cur * kBK, sSv + cur * kBK, r0,
+                                    k0, a, ln);
+      } else {
+        quant_tile<kInt8, DP, false>(acc, m, l, qa, sq, k, v, sSk + cur * kBK, sSv + cur * kBK,
+                                     r0, k0, a, ln);
+      }
+    }
+    __syncthreads();  // the next iteration's copy overwrites this stage
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + ln.g + 8 * i;
+    if (row >= a.S) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+    TO* o = at<TO>(a.o, b, row, h);
+#pragma unroll
+    for (int db = 0; db < DP / 16; ++db) {
+      const int d = 16 * db + 4 * ln.t;  // the thread's 4 columns: even, odd, even, odd n-tile
+      if (d < a.D) {
+        o[d] = from_f<TO>(acc[2 * db][2 * i] / lc);
+        o[d + 1] = from_f<TO>(acc[2 * db + 1][2 * i] / lc);
+        o[d + 2] = from_f<TO>(acc[2 * db][2 * i + 1] / lc);
+        o[d + 3] = from_f<TO>(acc[2 * db + 1][2 * i + 1] / lc);
+      }
+    }
+    if (ln.t == 0) a.lse[static_cast<long long>(bh) * a.S + row] = m[i] + logf(lc);
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 // shared memory in bytes, per kernel kind and padded head dim
@@ -1535,6 +1886,70 @@ bool mma_ok(int dtype, int D, std::initializer_list<View> views) {
 }
 
 
+// the 8-bit forward's dynamic shared memory: Q, 2 stages of K and V, and 2
+// stages of K's and V's 64 column scales
+size_t quant_smem_bytes(int dp) {
+  return 5 * 64 * static_cast<size_t>(dp + kQuantPad) + 4 * kBK * sizeof(float);
+}
+
+// raises an instance's dynamic shared-memory cap once (outside any CUDA
+// graph capture)
+template <void (*Kernel)(Args)>
+cudaError_t prepare_quant(int dp) {
+  static bool raised = false;
+  if (raised) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(quant_smem_bytes(dp)));
+  raised = e == cudaSuccess;
+  return e;
+}
+
+template <void (*Kernel)(Args)>
+cudaError_t launch_quant_mma(int dp, const Args& a, cudaStream_t stream) {
+  const cudaError_t e = prepare_quant<Kernel>(dp);
+  if (e != cudaSuccess) return e;
+  const unsigned grid = static_cast<unsigned>((a.S + kBQ - 1) / kBQ) * (a.B * a.H);
+  Kernel<<<grid, kQuantThreads, quant_smem_bytes(dp), stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <void (*Kernel)(Args)>
+cudaError_t occupancy_quant_mma(int dp, int* blocks) {
+  const cudaError_t e = prepare_quant<Kernel>(dp);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, Kernel, kQuantThreads,
+                                                       quant_smem_bytes(dp));
+}
+
+// the 8-bit forward's instance for (o's dtype, int8 or e4m3, padded head
+// dim), handed to FN<kernel>(dp, ...)
+#define FLASH_QUANT_MMA_CASES(FN, TO, INT8, ...)                                     \
+  switch (quant_pad_dim(D)) {                                                        \
+    case 32: return FN<flash_fwd_quant_mma_kernel<TO, INT8, 32>>(32, __VA_ARGS__);   \
+    case 64: return FN<flash_fwd_quant_mma_kernel<TO, INT8, 64>>(64, __VA_ARGS__);   \
+    default: return FN<flash_fwd_quant_mma_kernel<TO, INT8, 128>>(128, __VA_ARGS__); \
+  }
+#define FLASH_QUANT_MMA_DISPATCH(FN, ...)                                             \
+  if (out_dtype == 0 && fmt == 0) { FLASH_QUANT_MMA_CASES(FN, float, true, __VA_ARGS__) } \
+  if (out_dtype == 0 && fmt == 1) { FLASH_QUANT_MMA_CASES(FN, float, false, __VA_ARGS__) } \
+  if (out_dtype == 1 && fmt == 0) { FLASH_QUANT_MMA_CASES(FN, bf16, true, __VA_ARGS__) }  \
+  if (out_dtype == 1 && fmt == 1) { FLASH_QUANT_MMA_CASES(FN, bf16, false, __VA_ARGS__) } \
+  return cudaErrorInvalidValue;
+
+// the 8-bit forward's mma rule (ops/flash_attention.py `quant_route`): int8
+// or e4m3 codes (1 byte), D % 16 == 0, D <= 128, and q, k, v each with a
+// 16-byte-aligned base and batch/sequence/head strides in whole 16-byte
+// vectors; o and the f32 scales are written and read element by element,
+// so their layout is free
+bool quant_mma_ok(int fmt, int D, std::initializer_list<View> views) {
+  if ((fmt != 0 && fmt != 1) || D % kMmaDimStep != 0 || D > kMaxHeadDim) return false;
+  for (const View& v : views)
+    if (reinterpret_cast<uintptr_t>(v.p) % 16 != 0 || v.sb % 16 != 0 || v.ss % 16 != 0 ||
+        v.sh % 16 != 0)
+      return false;
+  return true;
+}
+
 bool shape_ok(int B, int S, int H, int D) {
   return B >= 1 && S >= 1 && H >= 1 && D >= 1 && D <= kMaxHeadDim &&
          static_cast<long long>(B) * H <= 65535;
@@ -1618,6 +2033,40 @@ int flash_fwd_quant(int out_dtype, int fmt, void* q, long long q_sb, long long q
     FLASH_DISPATCH(flash_fwd_quant_kernel, kQuant, __nv_bfloat16, false)
   }
   return cudaErrorInvalidValue;
+}
+
+// the mma route of the quantized forward (8-bit tensor cores): the same
+// arguments as flash_fwd_quant; inputs outside quant_mma_ok are refused,
+// never sent to the scalar kernel
+int flash_fwd_quant_mma(int out_dtype, int fmt, void* q, long long q_sb, long long q_ss,
+                        long long q_sh, void* k, long long k_sb, long long k_ss, long long k_sh,
+                        void* v, long long v_sb, long long v_ss, long long v_sh, void* sq,
+                        long long sq_sb, long long sq_ss, long long sq_sh, void* sk,
+                        long long sk_sb, long long sk_ss, long long sk_sh, void* sv,
+                        long long sv_sb, long long sv_ss, long long sv_sh, void* o, long long o_sb,
+                        long long o_ss, long long o_sh, float* lse, int B, int S, int H, int D,
+                        float scale, int causal, cudaStream_t stream) {
+  if (!shape_ok(B, S, H, D)) return cudaErrorInvalidValue;
+  Args a{};
+  a.q = view(q, q_sb, q_ss, q_sh);
+  a.k = view(k, k_sb, k_ss, k_sh);
+  a.v = view(v, v_sb, v_ss, v_sh);
+  a.sq = view(sq, sq_sb, sq_ss, sq_sh);
+  a.sk = view(sk, sk_sb, sk_ss, sk_sh);
+  a.sv = view(sv, sv_sb, sv_ss, sv_sh);
+  a.o = view(o, o_sb, o_ss, o_sh);
+  a.lse = lse;
+  a.B = B, a.S = S, a.H = H, a.D = D, a.scale = scale, a.causal = causal;
+  if (!quant_mma_ok(fmt, D, {a.q, a.k, a.v})) return cudaErrorInvalidValue;
+  FLASH_QUANT_MMA_DISPATCH(launch_quant_mma, a, stream)
+}
+
+// the quantized forward's mma instance for (o's dtype, fmt, head dim D):
+// its dynamic shared memory (bytes) and the blocks of it that fit on one SM
+int flash_fwd_quant_mma_info(int out_dtype, int fmt, int D, int* smem, int* blocks) {
+  if (D < 1 || D > kMaxHeadDim || D % kMmaDimStep) return cudaErrorInvalidValue;
+  *smem = static_cast<int>(quant_smem_bytes(quant_pad_dim(D)));
+  FLASH_QUANT_MMA_DISPATCH(occupancy_quant_mma, blocks)
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and dq); lse, delta (B, H, S) f32

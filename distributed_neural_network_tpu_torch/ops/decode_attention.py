@@ -12,17 +12,20 @@ Two functions, each with a launch counter in `LAUNCHES`:
 - ``decode_attention_q8``: int8 K/V with per-slot float32 scales,
   dequantized inside the kernel's column loop.
 
-Two routes, picked by `decode_route` from the inputs' dtype, head dim,
-alignment and strides alone: ``split`` (the live prefix cut into pieces by
-`decode_pieces`, one block of a thread-block cluster per piece, merged in
-order: K/V in q's dtype, a head dim of whole 16-byte vectors up to 256,
-16-byte-aligned bases and K/V batch, head and slot strides in whole
-16-byte vectors, 0 included) and ``simt`` (the first kernel, one block per
-(b, h): every other legal input, and int8 K/V). `ROUTE_LAUNCHES` counts
-each route's launches ("<function>_<route>"); their sums are the
-`LAUNCHES` totals. The split route's bits depend only on pos[b] and the
-head dim: `decode_pieces` is a function of the live length and the head
-dim alone, and `csrc/decode_attention.cu` `piece_rows` mirrors it.
+Two routes for each function, picked by `decode_route` from the inputs'
+dtype, head dim, alignment and strides alone: ``split`` (the live prefix
+cut into pieces by `decode_pieces`, one block of a thread-block cluster per
+piece, merged in order: a head dim of whole 16-byte vectors of K/V up to
+256, 16-byte-aligned bases and K/V batch, head and slot strides in whole
+16-byte vectors, 0 included; for K/V in q's dtype and for int8 K/V alike)
+and ``simt`` (the first kernel, one block per (b, h): every other legal
+input, such as a misaligned view or int8 K/V at Dh 8, half a vector).
+`ROUTE_LAUNCHES` counts each route's launches ("<function>_<route>");
+their sums are the `LAUNCHES` totals. The split route's bits depend only on
+pos[b] and the head dim: `decode_pieces` is a function of the live length
+and the head dim alone, and `csrc/decode_attention.cu` `piece_rows` mirrors
+it. The plain version's bits depend on the live prefix alone too
+(`masked_decode_attention`).
 
 A wrapper given CPU tensors computes the plain PyTorch version of the same
 function (`decode_attention_reference`, `decode_attention_q8_reference`);
@@ -57,9 +60,8 @@ ROUTES = ("split", "simt")
 
 # kernel name -> launches since the last reset (callers zero the values)
 LAUNCHES = {"decode_attention": 0, "decode_attention_q8": 0}
-# the launches by route, "<function>_<route>" (int8 K/V has the simt route only)
-ROUTE_LAUNCHES = {"decode_attention_split": 0, "decode_attention_simt": 0,
-                  "decode_attention_q8_simt": 0}
+# the launches by route, "<function>_<route>"
+ROUTE_LAUNCHES = {f"{fn}_{r}": 0 for fn in LAUNCHES for r in ROUTES}
 
 
 def decode_kernel_ok(head_dim: int) -> bool:
@@ -85,16 +87,18 @@ def decode_pieces(n: int, head_dim: int) -> list[tuple[int, int]]:
 
 
 def decode_route(q, ck, cv, k_scale=None) -> str:
-    """The route for these inputs: "split" when ck/cv are in q's dtype, the
-    head dim is whole VEC_BYTES vectors (at most MAX_HEAD_DIM), q, ck and cv
-    start on VEC_BYTES boundaries and ck/cv's batch, head and slot strides
-    are whole vectors (stride 0 included); "simt" otherwise, int8 K/V
-    included. `csrc/decode_attention.cu` `split_ok` states the same rule
-    (over the output too, which the wrapper allocates aligned) and refuses
-    what it excludes."""
-    if k_scale is not None or ck.dtype != q.dtype or cv.dtype != q.dtype:
+    """The route for these inputs: "split" when ck/cv are in q's dtype (or
+    int8, with `k_scale` given), the head dim is whole VEC_BYTES vectors of
+    K/V (at most MAX_HEAD_DIM; int8 K/V at Dh 8 is half a vector), q, ck and
+    cv start on VEC_BYTES boundaries and ck/cv's batch, head and slot
+    strides are whole vectors (stride 0 included); "simt" otherwise. The
+    scales' strides are free. `csrc/decode_attention.cu` `split_ok` states
+    the same rule (over the output too, which the wrapper allocates
+    aligned) and refuses what it excludes."""
+    kv_dtype = torch.int8 if k_scale is not None else q.dtype
+    if ck.dtype != kv_dtype or cv.dtype != kv_dtype:
         return "simt"
-    vec = VEC_BYTES // q.element_size()
+    vec = VEC_BYTES // ck.element_size()
     if q.shape[-1] % vec or q.shape[-1] > MAX_HEAD_DIM:
         return "simt"
     if any(t.data_ptr() % VEC_BYTES for t in (q, ck, cv)):
@@ -115,17 +119,43 @@ def _live(pos, b: int, total: int, device) -> torch.Tensor:
     return torch.arange(total, device=device)[None, :] <= pos[:, None]
 
 
+def _pair_sum(x, dim: int):
+    """Sum over `dim` as a tree of elementwise adds that pairs neighbours:
+    level by level, element 2i + 1 is added to element 2i, the axis padded
+    with zeros to a power of two first. Which elements meet depends on
+    their indices alone, never on the axis' length, strides or the other
+    axes, so the sum of a prefix followed by zeros has the same bits at any
+    padded length, on any device (elementwise adds have no kernel choice)."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    width = 1 << max(0, n - 1).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
 def masked_decode_attention(q, ck, cv, live):
     """The kernels' function for any (B, total) mask: f32 scores scaled by
     1/sqrt(Dh), masked to -1e30, exp against the row max, the unnormalised
     p rounded to V's dtype for P.V, the f32 sum clamped to 1e-30, the
-    output cast to q's dtype."""
+    output cast to q's dtype.
+
+    What the bits depend on: every sum (q . k over Dh; p . v and the
+    denominator over the cache) is `_pair_sum`, elementwise products added
+    in a tree fixed by the element indices, and a dead column adds an
+    exact 0 (p = exp(-1e30 - m) = 0). So under a prefix mask the bits of a
+    (b, h) row are a function of its live prefix, Dh and the dtypes alone:
+    not of `total`, B, the other rows or the strides of K/V (a transposed
+    view, a stride-0 broadcast), which lets the serving engine's bucket
+    slab and generate()'s static cache give the same tokens."""
     d = q.shape[-1]
-    s = torch.einsum("bhd,bhtd->bht", q.float(), ck.float()) * (1.0 / math.sqrt(d))
+    s = _pair_sum(q.float()[:, :, None, :] * ck.float(), -1) * (1.0 / math.sqrt(d))
     s = s.masked_fill(~live[:, None, :], NEG_BIG)
     e = torch.exp(s - s.amax(-1, keepdim=True))
-    o = torch.einsum("bht,bhtd->bhd", e.to(cv.dtype).float(), cv.float())
-    return (o / e.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
+    o = _pair_sum(e.to(cv.dtype).float()[..., None] * cv.float(), -2)
+    return (o / _pair_sum(e, -1)[..., None].clamp_min(1e-30)).to(q.dtype)
 
 
 def decode_attention_reference(q, ck, cv, pos):
@@ -165,9 +195,11 @@ def _lib() -> ctypes.CDLL:
         "decode_attention": [i, p, p, p, p, i, p, i, i, i, i, f] + [ll] * 6 + [p],
         "decode_attention_split": [i, p, p, p, p, i, p, i, i, i, i, f] + [ll] * 6 + [p],
         "decode_attention_q8": [i, p, p, p, p, p, p, i, p, i, i, i, i, f] + [ll] * 12 + [p],
+        "decode_attention_q8_split": [i, p, p, p, p, p, p, i, p, i, i, i, i, f] + [ll] * 12
+        + [p],
         "decode_attention_max_head_dim": [],
         "decode_attention_piece_rows": [i, i],
-        "decode_attention_split_info": [i, i, i, p, p, p],
+        "decode_attention_split_info": [i, i, i, i, p, p, p],
     })
     if lib.decode_attention_max_head_dim() != MAX_HEAD_DIM:
         raise RuntimeError("csrc/decode_attention.cu disagrees with decode_attention.py "
@@ -180,12 +212,12 @@ def kernel_piece_rows(n: int, head_dim: int) -> int:
     return _lib().decode_attention_piece_rows(n, head_dim)
 
 
-def split_info(dtype: torch.dtype, head_dim: int, total: int) -> dict:
-    """The split kernel's instance for (dtype, head_dim) on the current
-    card: its blocks per SM, the blocks of its cluster for a cache of
-    `total` rows, and the clusters of it that run at once."""
+def split_info(dtype: torch.dtype, head_dim: int, total: int, *, q8: bool = False) -> dict:
+    """The split kernel's instance for (q's dtype, head_dim; int8 K/V when
+    `q8`) on the current card: its blocks per SM, the blocks of its cluster
+    for a cache of `total` rows, and the clusters of it that run at once."""
     out = [ctypes.c_int(0) for _ in range(3)]
-    rc = _lib().decode_attention_split_info(_DTYPE_CODE[dtype], head_dim, total,
+    rc = _lib().decode_attention_split_info(_DTYPE_CODE[dtype], int(q8), head_dim, total,
                                             *map(ctypes.byref, out))
     if rc != 0:
         raise RuntimeError(f"decode_attention_split_info failed: cudaError {rc}")
@@ -268,13 +300,13 @@ def decode_cache_attention(q, ck, cv, pos, *, k_scale=None, v_scale=None):
     tail = (out.data_ptr(), b, h, total, d, scale, *ck.stride()[:3], *cv.stride()[:3])
     route = decode_route(q, ck, cv, k_scale)
     if quantized:
-        name, entry = "decode_attention_q8", "decode_attention_q8"
+        name = "decode_attention_q8"
         args = (*head, k_scale.data_ptr(), v_scale.data_ptr(), pos_ptr, pos_scalar, *tail,
                 *k_scale.stride(), *v_scale.stride())
     else:
         name = "decode_attention"
-        entry = "decode_attention_split" if route == "split" else "decode_attention"
         args = (*head, pos_ptr, pos_scalar, *tail)
+    entry = f"{name}_split" if route == "split" else name  # the C entry point
     _nvcc.launch(_lib(), entry, q.device, *args)
     LAUNCHES[name] += 1
     ROUTE_LAUNCHES[f"{name}_{route}"] += 1

@@ -17,18 +17,19 @@ tensors computes the plain PyTorch version of the same function
 (`flash_fwd_plain`, `flash_fwd_quant_plain`, `flash_dq_plain`,
 `flash_dkv_plain`); given CUDA tensors it launches the kernel or raises.
 
-The forward and the backward pair each have two routes, picked by
-`fwd_route` and `bwd_route` from the inputs' dtype, head dim, alignment and
-strides alone, by one rule (`_mma_rule`): ``mma`` (the tensor-core kernels,
-for bf16 with D % 16 == 0, 16-byte-aligned base pointers and
-batch/sequence/head strides in multiples of 8 elements) and ``simt`` (the
-scalar kernels, for every other legal input). On the mma route the forward
-runs the wgmma kernel where the head dim pads to 64 (48, 64) and the
-mma.sync kernel elsewhere, chosen in `csrc/flash_attention.cu` (`fwd_wgmma`).
-`ROUTE_LAUNCHES` counts the launches of each
-route; their sums are the ``flash_fwd``, ``flash_dq`` and ``flash_dkv``
-totals in `LAUNCHES`. A failing mma launch raises: no input changes route
-after the rule has picked it.
+The forward, the quantized forward and the backward pair each have two
+routes, picked by `fwd_route`, `quant_route` and `bwd_route` from the
+inputs' dtype, head dim, alignment and strides alone, by one rule
+(`_mma_rule`): ``mma`` (the tensor-core kernels, for bf16 operands, or int8
+/ e4m3 codes for the quantized forward, with D % 16 == 0, 16-byte-aligned
+base pointers and batch/sequence/head strides in whole 16-byte vectors) and
+``simt`` (the scalar kernels, for every other legal input). On the mma
+route the forward runs the wgmma kernel where the head dim pads to 64 (48,
+64) and the mma.sync kernel elsewhere, chosen in `csrc/flash_attention.cu`
+(`fwd_wgmma`); the quantized forward runs 8-bit mma.sync. `ROUTE_LAUNCHES`
+counts the launches of each route; their sums are the `LAUNCHES` totals. A
+failing mma launch raises: no input changes route after the rule has
+picked it.
 
 Legality rule (the TPU's divisor-of-S block rule does not apply): any
 sequence length S >= 1, head dim 1..128, B*H <= 65535, float32 or bfloat16
@@ -57,14 +58,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FMT_CODE = {"int8": 0, "fp8": 1}
 
 MMA_DIM_STEP = 16  # the mma route's head dims are multiples of this
-MMA_ALIGN_BYTES = 16  # ... its base pointers aligned to this
-MMA_STRIDE_STEP = 8  # ... and its batch/sequence/head strides multiples of this
+MMA_ALIGN_BYTES = 16  # ... its base pointers and batch/sequence/head strides whole vectors of this
 ROUTES = ("mma", "simt")
 
 # kernel name -> launches since the last reset (callers zero the values)
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_quant": 0, "flash_dq": 0, "flash_dkv": 0}
 # the routed kernels' launches by route, "<kernel>_<route>"
-ROUTED = ("flash_fwd", "flash_dq", "flash_dkv")
+ROUTED = ("flash_fwd", "flash_fwd_quant", "flash_dq", "flash_dkv")
 ROUTE_LAUNCHES = {f"{k}_{r}": 0 for k in ROUTED for r in ROUTES}
 
 
@@ -223,6 +223,8 @@ def _lib() -> ctypes.CDLL:
         "flash_fwd": [i] + view * 4 + [p] + shape + [p],
         "flash_fwd_mma": [i] + view * 4 + [p] + shape + [p],
         "flash_fwd_quant": [i, i] + view * 7 + [p] + shape + [p],
+        "flash_fwd_quant_mma": [i, i] + view * 7 + [p] + shape + [p],
+        "flash_fwd_quant_mma_info": [i, i, i, p, p],
         "flash_dq": [i] + view * 4 + [p, p] + view + shape + [p],
         "flash_dkv": [i] + view * 4 + [p, p] + view * 2 + shape + [p],
         "flash_dq_mma": [i] + view * 4 + [p, p] + view + shape + [p],
@@ -240,12 +242,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def mma_info(kernel: str, d: int) -> dict:
-    """The mma-route instance of `kernel` ("flash_fwd" | "flash_dq" |
-    "flash_dkv") for head dim `d` on the current card: its dynamic shared
+def mma_info(kernel: str, d: int, *, out_dtype=torch.bfloat16, fmt: str = "int8") -> dict:
+    """The mma-route instance of `kernel` ("flash_fwd" | "flash_fwd_quant"
+    | "flash_dq" | "flash_dkv") for head dim `d` (the quantized forward's
+    for `out_dtype` and `fmt` too) on the current card: its dynamic shared
     memory in bytes and the blocks of it that fit on one SM."""
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    if kernel == "flash_fwd":
+    if kernel == "flash_fwd_quant":
+        rc = _lib().flash_fwd_quant_mma_info(_DTYPE_CODE[out_dtype], _FMT_CODE[fmt], d,
+                                             ctypes.byref(smem), ctypes.byref(blocks))
+    elif kernel == "flash_fwd":
         rc = _lib().flash_fwd_mma_info(d, ctypes.byref(smem), ctypes.byref(blocks))
     else:
         rc = _lib().flash_bwd_mma_info(int(kernel == "flash_dkv"), d, ctypes.byref(smem),
@@ -319,7 +325,8 @@ def flash_fwd_quant_codes(qc, kc, vc, sq, sk, sv, *, causal: bool = True, scale=
                           out_dtype=torch.float32):
     """Quantized forward on codes (int8 or float8_e4m3fn, (B, S, H, D)) and
     f32 row scales (B, S, H): (o in `out_dtype`, lse f32). CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    the plain version; CUDA tensors launch the kernel of the route that
+    `quant_route` picks, counted in LAUNCHES and ROUTE_LAUNCHES."""
     _check(qc, kc, vc, dtypes=(torch.int8, torch.float8_e4m3fn))
     b, s, h, _ = qc.shape
     for name, t in (("sq", sq), ("sk", sk), ("sv", sv)):
@@ -333,12 +340,21 @@ def flash_fwd_quant_codes(qc, kc, vc, sq, sk, sv, *, causal: bool = True, scale=
                                      out_dtype=out_dtype)
     o = torch.empty(qc.shape, dtype=out_dtype, device=qc.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=qc.device)
+    _launch_quant(qc, kc, vc, sq, sk, sv, o, lse, scale, causal)
+    return o, lse
+
+
+def _launch_quant(qc, kc, vc, sq, sk, sv, o, lse, scale, causal) -> None:
+    """One launch of the quantized forward on the route that `quant_route`
+    picks; counted in LAUNCHES and ROUTE_LAUNCHES."""
+    route = quant_route(qc, kc, vc)
+    entry = "flash_fwd_quant_mma" if route == "mma" else "flash_fwd_quant"  # the C entry
     fmt = _FMT_CODE["int8" if qc.dtype == torch.int8 else "fp8"]
-    _nvcc.launch(_lib(), "flash_fwd_quant", qc.device, _DTYPE_CODE[out_dtype], fmt,
+    _nvcc.launch(_lib(), entry, qc.device, _DTYPE_CODE[o.dtype], fmt,
                  *_view(qc), *_view(kc), *_view(vc), *_view(sq), *_view(sk), *_view(sv),
                  *_view(o), lse.data_ptr(), *_shape_args(qc, scale, causal))
     LAUNCHES["flash_fwd_quant"] += 1
-    return o, lse
+    ROUTE_LAUNCHES[f"flash_fwd_quant_{route}"] += 1
 
 
 def quantize_qkv(q, k, v, fmt: str):
@@ -356,22 +372,25 @@ def flash_fwd_quant(q, k, v, *, fmt: str, causal: bool = True, scale=None):
                                  out_dtype=q.dtype)
 
 
-def _mma_rule(*tensors) -> str:
-    """The one route rule of the forward and the backward pair: "mma" (the
-    tensor-core kernels) when every tensor is bfloat16 with D %
-    MMA_DIM_STEP == 0, D <= MAX_HEAD_DIM, a base pointer aligned to
-    MMA_ALIGN_BYTES and batch, sequence and head strides in multiples of
-    MMA_STRIDE_STEP elements; "simt" (the scalar kernels) for every other
-    input the kernels take (f32, D 40, a misaligned view). The kernels'
-    outputs are allocated contiguous, so they meet the rule whenever the
-    inputs do. `csrc/flash_attention.cu` `mma_ok` states the same rule over
-    inputs and outputs and refuses what it excludes."""
+def _mma_rule(*tensors, dtypes=(torch.bfloat16,)) -> str:
+    """The one route rule of the forward, the quantized forward and the
+    backward pair: "mma" (the tensor-core kernels) when every tensor is of
+    one of `dtypes` (bf16; int8 or e4m3 codes for the quantized forward)
+    with D % MMA_DIM_STEP == 0, D <= MAX_HEAD_DIM, a base pointer aligned to
+    MMA_ALIGN_BYTES and batch, sequence and head strides in whole
+    MMA_ALIGN_BYTES vectors (8 bf16 elements, 16 codes); "simt" (the scalar
+    kernels) for every other input the kernels take (f32, D 40, a
+    misaligned view). The kernels' outputs are allocated contiguous, so
+    they meet the rule whenever the inputs do. `csrc/flash_attention.cu`
+    `mma_ok` and `quant_mma_ok` state the same rule and refuse what it
+    excludes."""
     d = tensors[0].shape[-1]
     if d % MMA_DIM_STEP or d > MAX_HEAD_DIM:
         return "simt"
     for t in tensors:
-        if (t.dtype != torch.bfloat16 or t.data_ptr() % MMA_ALIGN_BYTES
-                or any(st % MMA_STRIDE_STEP for st in t.stride()[:3])):
+        vec = MMA_ALIGN_BYTES // t.element_size()
+        if (t.dtype not in dtypes or t.data_ptr() % MMA_ALIGN_BYTES
+                or any(st % vec for st in t.stride()[:3])):
             return "simt"
     return "mma"
 
@@ -379,6 +398,12 @@ def _mma_rule(*tensors) -> str:
 def fwd_route(q, k, v) -> str:
     """The forward's route for these inputs (`_mma_rule` over q, k, v)."""
     return _mma_rule(q, k, v)
+
+
+def quant_route(qc, kc, vc) -> str:
+    """The quantized forward's route for these codes (`_mma_rule` over qc,
+    kc, vc with int8 or e4m3 codes; the f32 scales' layout is free)."""
+    return _mma_rule(qc, kc, vc, dtypes=(torch.int8, torch.float8_e4m3fn))
 
 
 def bwd_route(q, k, v, do) -> str:

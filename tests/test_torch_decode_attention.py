@@ -155,7 +155,7 @@ def test_module_import_builds_nothing():
     assert da._lib.cache_info().currsize == 0
     assert da.LAUNCHES == {"decode_attention": 0, "decode_attention_q8": 0}
     assert da.ROUTE_LAUNCHES == {"decode_attention_split": 0, "decode_attention_simt": 0,
-                                 "decode_attention_q8_simt": 0}
+                                 "decode_attention_q8_split": 0, "decode_attention_q8_simt": 0}
 
 
 # ----------------------------------------------------------- the split route
@@ -216,7 +216,33 @@ ROUTE_CASES = [
     ("bf16 q, f32 K/V", lambda: (_q(2, 2, 64), _view((2, 2, 9, 64), torch.float32),
                                  _view((2, 2, 9, 64), torch.float32), None), "simt"),
     ("int8 K/V", lambda: (_q(2, 2, 64), _view((2, 2, 9, 64), torch.int8),
-                          _view((2, 2, 9, 64), torch.int8), torch.ones(2, 2, 9)), "simt"),
+                          _view((2, 2, 9, 64), torch.int8), torch.ones(2, 2, 9)), "split"),
+    ("int8 K/V engine slab, transposed scales", lambda: (
+        _q(8, 8, 64), _view((8, 8, 32, 64), torch.int8, transpose=True),
+        _view((8, 8, 32, 64), torch.int8, transpose=True),
+        torch.ones(8, 32, 8).transpose(1, 2)), "split"),
+    ("int8 K/V broadcast slab (batch stride 0)", lambda: (
+        _q(16, 8, 64), _view((1, 8, 48, 64), torch.int8, transpose=True).expand(16, -1, -1, -1),
+        _view((1, 8, 48, 64), torch.int8, transpose=True).expand(16, -1, -1, -1),
+        torch.ones(1, 48, 8).transpose(1, 2).expand(16, -1, -1)), "split"),
+    ("int8 K/V Dh16 (one vector)", lambda: (_q(2, 2, 16), _view((2, 2, 9, 16), torch.int8),
+                                            _view((2, 2, 9, 16), torch.int8),
+                                            torch.ones(2, 2, 9)), "split"),
+    ("int8 K/V Dh128, f32 q", lambda: (_q(2, 2, 128, torch.float32),
+                                       _view((2, 2, 9, 128), torch.int8),
+                                       _view((2, 2, 9, 128), torch.int8), torch.ones(2, 2, 9)),
+     "split"),
+    ("int8 K/V Dh8 (half a vector)", lambda: (_q(2, 2, 8), _view((2, 2, 9, 8), torch.int8),
+                                              _view((2, 2, 9, 8), torch.int8),
+                                              torch.ones(2, 2, 9)), "simt"),
+    ("int8 K/V Dh24", lambda: (_q(2, 2, 24), _view((2, 2, 9, 24), torch.int8),
+                               _view((2, 2, 9, 24), torch.int8), torch.ones(2, 2, 9)), "simt"),
+    ("int8 K/V 8 bytes in", lambda: (_q(2, 2, 64), _view((2, 2, 9, 64), torch.int8, 8, 8),
+                                     _view((2, 2, 9, 64), torch.int8, 8, 8),
+                                     torch.ones(2, 2, 9)), "simt"),
+    ("int8 K/V slot stride Dh + 8", lambda: (_q(2, 2, 64), _view((2, 2, 9, 64), torch.int8, pad=8),
+                                             _view((2, 2, 9, 64), torch.int8, pad=8),
+                                             torch.ones(2, 2, 9)), "simt"),
 ]
 
 
@@ -234,9 +260,13 @@ def test_decode_route_rule(name, make, route):
     want = route if route == "simt" or _aligned(q, ck, cv) else "simt"
     assert da.decode_route(q, ck, cv, k_scale) == want
     assert want in da.ROUTES
-    # int8 K/V never takes the split route, whatever its layout
-    if k_scale is not None:
-        assert da.decode_route(q, ck.contiguous(), cv.contiguous(), k_scale) == "simt"
+    # the rule reads the K/V layout, not the values: contiguous aligned
+    # copies route by dtype and head dim alone (the scales never matter)
+    copies = [t.contiguous() for t in (q, ck, cv)]
+    if _aligned(*copies) and k_scale is not None:
+        whole = q.shape[-1] % da.VEC_BYTES == 0
+        assert da.decode_route(*copies, k_scale) == ("split" if whole else "simt")
+        assert da.decode_route(*copies, k_scale.contiguous()) == da.decode_route(*copies, k_scale)
 
 
 # the cases the wrapper takes (it refuses K/V in another float dtype than q's)
@@ -263,7 +293,7 @@ def test_launch_takes_the_routes_entry_and_counts_it(monkeypatch, name, make, ro
     got = da.decode_route(q, ck, cv, k_scale)
     name_ = "decode_attention_q8" if kw else "decode_attention"
     (entry, args), = calls
-    assert entry == ("decode_attention_split" if got == "split" else name_)
+    assert entry == (f"{name_}_split" if got == "split" else name_)
     assert args[0] == da._DTYPE_CODE[q.dtype] and args[1:4] == (
         q.data_ptr(), ck.data_ptr(), cv.data_ptr())
     assert da.LAUNCHES == {n: int(n == name_) for n in da.LAUNCHES}
@@ -352,6 +382,86 @@ def test_split_emulation_matches_jax_kernel(n_devices, dtype, pos):
     _close(got.float(), da.decode_cache_attention(tq, tk, tv, tpos).float(), tol)
 
 
+def _split_q8_emulation(q, ck, cv, pos, k_scale, v_scale):
+    """The int8 split route's function: each code times its slot's scale
+    rounded to q's dtype (the kernel's rounding point, before the dot),
+    then the split route of q's dtype on those values (its pieces, per-piece
+    max and p rounded to q's dtype: `_split_emulation` over the dequantized
+    K/V), as the kernel walks the same lanes and sums as that route."""
+    k = (ck.float() * k_scale[..., None]).to(q.dtype)
+    v = (cv.float() * v_scale[..., None]).to(q.dtype)
+    return _split_emulation(q, k, v, pos)
+
+
+@pytest.mark.parametrize("pos", [0, 15, 16, 100, [0, 127], [37, 90]])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_q8_split_emulation_matches_jax_kernel(n_devices, dtype, pos):
+    """The int8 split route's order of operations against the JAX
+    package's `_decode_kernel_q8` in interpret mode (numpy-seeded codes and
+    per-slot scales), at the tolerances of test_int8_plain_matches_jax_kernel
+    (f32 1e-5; bf16 2e-2: the JAX kernel rounds p after a block-wise max,
+    the split route after its piece's max); and against the port's plain
+    version at the same tolerance."""
+    rng = np.random.default_rng(19)
+    q = rng.normal(size=(2, 2, 64)).astype(np.float32)
+    ck, cv = (rng.integers(-127, 128, size=(2, 2, 128, 64)).astype(np.int8) for _ in "kv")
+    ks, vs = (rng.uniform(0.001, 0.03, size=(2, 2, 128)).astype(np.float32) for _ in "kv")
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jpos, tpos = _pos_pair(pos)
+    want = jax_decode(jnp.asarray(q, jdt), jnp.asarray(ck), jnp.asarray(cv), jpos,
+                      k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs), interpret=True)
+    tq = torch.from_numpy(q).to(tdt)
+    tk, tv, tks, tvs = (torch.from_numpy(a) for a in (ck, cv, ks, vs))
+    assert da.decode_route(tq, tk, tv, tks) in ("split", "simt")  # alignment: the allocator's
+    got = _split_q8_emulation(tq, tk, tv, tpos, tks, tvs)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    _close(got.float(), want, tol)
+    plain = da.decode_cache_attention(tq, tk, tv, tpos, k_scale=tks, v_scale=tvs)
+    _close(got.float(), plain.float(), tol)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_bits_depend_on_the_live_prefix_alone(dtype, quantized):
+    """The plain version (the serving engine's and generate()'s `torch`
+    route) gives one (b, h) row the same bits whatever surrounds it: the
+    cache padded to 48 or 2048 columns, the row alone or at position 3 of a
+    batch of 8 with other positions, contiguous (B, H, S, Dh) or the
+    engine's transposed (B, S, H, Dh) slab. Bitwise on the CPU; chip_smoke.py
+    phase 8 checks the same on the card."""
+    g = torch.Generator().manual_seed(23)
+    h, d, n = 8, 64, 37
+    kv_dt = torch.int8 if quantized else dtype
+
+    def rand(*shape):
+        x = torch.randn(*shape, generator=g)
+        return (x * 40).round().clamp(-127, 127).to(kv_dt) if quantized else x.to(dtype)
+
+    q_row, k_row, v_row = torch.randn(h, d, generator=g).to(dtype), rand(n, h, d), rand(n, h, d)
+    s_row = [torch.rand(n, h, generator=g) * 0.05 + 1e-3 for _ in "kv"]
+    outs = []
+    for total in (48, 2048):
+        for batch, at in ((1, 0), (8, 3)):
+            for transposed in (False, True):
+                k, v = rand(batch, total, h, d), rand(batch, total, h, d)
+                k[at, :n], v[at, :n] = k_row, v_row
+                scales = [torch.rand(batch, total, h, generator=g) for _ in "kv"]
+                for sc, row in zip(scales, s_row):
+                    sc[at, :n] = row
+                q = torch.randn(batch, h, d, generator=g).to(dtype)
+                q[at] = q_row
+                pos = torch.randint(0, total, (batch,), generator=g)
+                pos[at] = n - 1
+                k, v = k.transpose(1, 2), v.transpose(1, 2)
+                scales = [sc.transpose(1, 2) for sc in scales]
+                if not transposed:
+                    k, v = k.contiguous(), v.contiguous()
+                    scales = [sc.contiguous() for sc in scales]
+                kw = dict(zip(("k_scale", "v_scale"), scales)) if quantized else {}
+                outs.append(da.decode_attention_plain(q, k, v, pos, **kw)[at])
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -384,3 +494,35 @@ def test_card_split_route_matches_plain_and_its_emulation(cuda_device, dtype):
     cut = da.decode_cache_attention(qc, kc[:, :, :300 - 7], vc[:, :, :300 - 7],
                                     pc.clamp_max(292))
     assert torch.equal(cut[:3], o[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_q8_split_route_matches_plain_and_its_emulation(cuda_device, dtype):
+    """On the card: the int8 split kernel against the plain version and the
+    emulation of its order, with the same bits in a batch of 1 as in the
+    batch, and under another cache length."""
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(4, 2, 64, generator=g).to(dtype)
+    ck, cv = ((torch.randn(4, 2, 300, 64, generator=g) * 40).round().clamp(-127, 127)
+              .to(torch.int8) for _ in "kv")
+    ks, vs = (torch.rand(4, 2, 300, generator=g) * 0.05 + 1e-3 for _ in "kv")
+    pos = torch.tensor([0, 17, 150, 299], dtype=torch.int32)
+    qc, kc, vc, ksc, vsc, pc = (t.to(cuda_device) for t in (q, ck, cv, ks, vs, pos))
+    assert da.decode_route(qc, kc, vc, ksc) == "split"
+    before = dict(da.ROUTE_LAUNCHES)
+    o = da.decode_cache_attention(qc, kc, vc, pc, k_scale=ksc, v_scale=vsc)
+    assert (da.ROUTE_LAUNCHES["decode_attention_q8_split"]
+            == before["decode_attention_q8_split"] + 1)
+    tol = 1e-5 if dtype == torch.float32 else 1.6e-2
+    ref = da.decode_attention_plain(q, ck, cv, pos, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(o.float().cpu(), ref.float(), atol=tol, rtol=tol)
+    emu = _split_q8_emulation(q, ck, cv, pos, ks, vs)
+    torch.testing.assert_close(o.float().cpu(), emu.float(), atol=tol, rtol=tol)
+    one = da.decode_cache_attention(qc[2:3].contiguous(), kc[2:3], vc[2:3], pc[2:3],
+                                    k_scale=ksc[2:3], v_scale=vsc[2:3])
+    assert torch.equal(one, o[2:3])
+    # the int8 split route is the split route of q's dtype on the
+    # dequantized cache, bit for bit
+    kd, vd = ((t.float() * sc[..., None]).to(dtype) for t, sc in ((kc, ksc), (vc, vsc)))
+    assert torch.equal(o, da.decode_cache_attention(qc, kd, vd, pc))

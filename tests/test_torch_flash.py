@@ -254,7 +254,7 @@ def test_bwd_launch_takes_the_routes_entry_and_counts_it(monkeypatch, name, make
     assert [len(c[1]) for c in calls] == [1 + 16 + 2 + 4 + 6, 1 + 16 + 2 + 8 + 6]
     assert calls[0][1][0] == fa._DTYPE_CODE[q.dtype] and calls[0][1][1] == q.data_ptr()
     assert fa.LAUNCHES == {"flash_fwd": 0, "flash_fwd_quant": 0, "flash_dq": 1, "flash_dkv": 1}
-    assert fa.ROUTE_LAUNCHES == {f"{kern}_{r}": int(r == got and kern != "flash_fwd")
+    assert fa.ROUTE_LAUNCHES == {f"{kern}_{r}": int(r == got and kern in ("flash_dq", "flash_dkv"))
                                  for kern in fa.ROUTED for r in fa.ROUTES}
 
 
@@ -313,12 +313,20 @@ def test_fwd_launch_takes_the_routes_entry_and_counts_it(monkeypatch, name, make
 
 
 def test_route_counters_sum_to_the_totals_and_stay_zero_on_the_cpu():
-    assert set(fa.ROUTE_LAUNCHES) == {f"{k}_{r}" for k in ("flash_fwd", "flash_dq", "flash_dkv")
+    """Every kernel has a route counter per route (their sums are the
+    LAUNCHES totals), and the CPU route counts nothing: the plain versions
+    run instead of the kernels."""
+    assert set(fa.ROUTE_LAUNCHES) == {f"{k}_{r}" for k in ("flash_fwd", "flash_fwd_quant",
+                                                           "flash_dq", "flash_dkv")
                                       for r in fa.ROUTES}
-    assert set(fa.ROUTED) <= set(fa.LAUNCHES)
+    assert set(fa.ROUTED) == set(fa.LAUNCHES)
+    for kern in fa.LAUNCHES:
+        assert fa.LAUNCHES[kern] == sum(fa.ROUTE_LAUNCHES[f"{kern}_{r}"] for r in fa.ROUTES)
     q, k, v, do = (_bf16((1, 20, 2, 64)) for _ in range(4))
     o, lse = fa.flash_fwd(q, k, v)
     fa.flash_bwd(q, k, v, o, lse, do)
+    fa.flash_fwd_quant(q, k, v, fmt="int8")
+    fa.flash_fwd_quant(q, k, v, fmt="fp8")
     assert not any(fa.ROUTE_LAUNCHES.values()) and not any(fa.LAUNCHES.values())
 
 
@@ -358,3 +366,129 @@ def test_card_kernels_match_plain(cuda_device, dtype, d, strided, route):
         torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
     assert {key: n - before[key] for key, n in fa.ROUTE_LAUNCHES.items()} == {
         f"{kern}_{r}": int(r == route) for kern in fa.ROUTED for r in fa.ROUTES}
+
+
+# ------------------------------------------------- the quantized forward's route
+
+
+def _codes(shape, dtype=torch.int8, offset=0, pad=0, transpose=False):
+    """8-bit codes (B, S, H, D): head dims `offset` .. `offset` + D of a
+    buffer whose last axis is D + `pad` long, of a (B, H, S, D + pad) buffer
+    read as (B, S, H, D) when `transpose`."""
+    b, s, h, d = shape
+    if transpose:
+        buf = torch.zeros(b, h, s, d + pad, dtype=torch.int8)
+        return buf.view(dtype)[..., offset:offset + d].transpose(1, 2)
+    return torch.zeros(b, s, h, d + pad, dtype=torch.int8).view(dtype)[..., offset:offset + d]
+
+
+E4M3 = torch.float8_e4m3fn
+# (case, a builder of (qc, kc, vc), the route when every base is 16-byte aligned)
+QUANT_ROUTE_CASES = [
+    ("int8 D64", lambda: [_codes((2, 40, 2, 64)) for _ in "qkv"], "mma"),
+    ("e4m3 D64", lambda: [_codes((2, 40, 2, 64), E4M3) for _ in "qkv"], "mma"),
+    ("int8 D16", lambda: [_codes((1, 9, 3, 16)) for _ in "qkv"], "mma"),
+    ("e4m3 D48", lambda: [_codes((1, 9, 3, 48), E4M3) for _ in "qkv"], "mma"),
+    ("int8 D128", lambda: [_codes((1, 5, 2, 128)) for _ in "qkv"], "mma"),
+    ("int8 D8", lambda: [_codes((2, 7, 2, 8)) for _ in "qkv"], "simt"),
+    ("e4m3 D40", lambda: [_codes((2, 7, 2, 40), E4M3) for _ in "qkv"], "simt"),
+    ("int8 strided (B, H, S, D) buffer",
+     lambda: [_codes((2, 5, 3, 64), transpose=True) for _ in "qkv"], "mma"),
+    ("int8 view 16 bytes in", lambda: [_codes((2, 7, 2, 64), offset=16, pad=32) for _ in "qkv"],
+     "mma"),
+    ("int8 view 8 bytes in", lambda: [_codes((2, 7, 2, 64), offset=8, pad=16) for _ in "qkv"],
+     "simt"),
+    ("e4m3 v alone 8 bytes in",
+     lambda: [_codes((2, 7, 2, 64), E4M3) for _ in "qk"]
+     + [_codes((2, 7, 2, 64), E4M3, offset=8, pad=16)], "simt"),
+    ("int8 head stride D + 8", lambda: [_codes((2, 7, 2, 64), pad=8) for _ in "qkv"], "simt"),
+    ("bf16 (not codes)", lambda: [_bf16((2, 7, 2, 64)) for _ in "qkv"], "simt"),
+]
+
+
+@pytest.mark.parametrize("name, make, route", QUANT_ROUTE_CASES,
+                         ids=[c[0] for c in QUANT_ROUTE_CASES])
+def test_quant_route_rule(name, make, route):
+    """The quantized forward's route from the codes' dtype, head dim,
+    alignment and strides (base pointers taken as the allocator gave them,
+    as in test_bwd_route_rule); contiguous aligned copies of 8-bit codes
+    route by D alone."""
+    qc, kc, vc = make()
+    want = route if route == "simt" or all(_aligned(t) for t in (qc, kc, vc)) else "simt"
+    assert fa.quant_route(qc, kc, vc) == want
+    copies = [t.contiguous() for t in (qc, kc, vc)]
+    if all(_aligned(t) for t in copies) and qc.element_size() == 1:
+        assert fa.quant_route(*copies) == ("mma" if qc.shape[-1] % 16 == 0 else "simt")
+
+
+@pytest.mark.parametrize("name, make, route", QUANT_ROUTE_CASES[:-1],
+                         ids=[c[0] for c in QUANT_ROUTE_CASES[:-1]])
+def test_quant_launch_takes_the_routes_entry_and_counts_it(monkeypatch, name, make, route):
+    """On the card the quantized forward launches the entry point of the
+    route `quant_route` picks and counts it in LAUNCHES and ROUTE_LAUNCHES;
+    here the launch is recorded instead of made (CPU tensors, no nvcc)."""
+    qc, kc, vc = make()
+    calls = []
+    monkeypatch.setattr(fa, "_lib", lambda: None)
+    monkeypatch.setattr(fa._nvcc, "launch", lambda lib, entry, device, *args: calls.append(
+        (entry, args)))
+    monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
+    monkeypatch.setattr(fa, "ROUTE_LAUNCHES", dict.fromkeys(fa.ROUTE_LAUNCHES, 0))
+    b, s, h, _ = qc.shape
+    sq, sk, sv = (torch.ones(b, s, h) for _ in "qkv")
+    o, lse = torch.empty(qc.shape, dtype=torch.bfloat16), torch.zeros(b, h, s)
+    fa._launch_quant(qc, kc, vc, sq, sk, sv, o, lse, None, True)
+    got = fa.quant_route(qc, kc, vc)
+    (entry, args), = calls
+    assert entry == ("flash_fwd_quant_mma" if got == "mma" else "flash_fwd_quant")
+    # o's dtype code, the format, 7 views (codes, scales, o), lse, the shape
+    assert len(args) == 2 + 28 + 1 + 6
+    assert args[:3] == (fa._DTYPE_CODE[torch.bfloat16], int(qc.dtype == E4M3), qc.data_ptr())
+    assert fa.LAUNCHES == {k: int(k == "flash_fwd_quant") for k in fa.LAUNCHES}
+    assert fa.ROUTE_LAUNCHES == {k: int(k == f"flash_fwd_quant_{got}") for k in fa.ROUTE_LAUNCHES}
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_quant_plain_matches_jax_at_the_kernels_k_tile(n_devices, fmt, causal):
+    """The quantized plain version at the kernels' own k tile (BLOCK_K = 64)
+    against the JAX quantized Pallas kernel (`_fwd_quant_kernel`, interpret
+    mode) at bk = 64, over S = 128 (two k tiles, so p's per-tile scales
+    differ from one per row), at F32_TOL: the codes are the same, only f32
+    sums differ."""
+    q, k, v = _qkv(s=128, seed=6)
+    tq, tk, tv = (_t(x) for x in (q, k, v))
+    qc, sq, kc, sk, vc, sv = fa.quantize_qkv(tq, tk, tv, fmt)
+    want = _np(jax_flash_mha(*(jnp.asarray(x) for x in (q, k, v)), causal=causal, quant=fmt,
+                             interpret=True, blocks=FlashBlocks(bq=64, bk=fa.BLOCK_K)))
+    got, _ = fa.flash_fwd_quant_plain(qc, kc, vc, sq, sk, sv, causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_card_quant_routes_match_plain(cuda_device, fmt):
+    """On the card: the quantized forward on both routes (aligned codes:
+    mma; the same codes 8 bytes off a 16-byte boundary: simt) against its
+    plain version, int8 at atol = rtol = 2e-2, fp8 on the mean error (an
+    e4m3 code of p may round the other way where expf and torch.exp differ:
+    chip_smoke.py FP8_STEP)."""
+    q, k, v = (_t(x, torch.bfloat16).to(cuda_device) for x in _qkv(s=200, h=3, d=64))
+    codes = fa.quantize_qkv(q, k, v, fmt)
+    qc, sq, kc, sk, vc, sv = codes
+    mis = []
+    for t in (qc, kc, vc):
+        buf = torch.zeros(*t.shape[:-1], t.shape[-1] + 16, dtype=torch.int8, device=cuda_device)
+        view = buf.view(t.dtype)[..., 8:8 + t.shape[-1]]
+        view.copy_(t)
+        mis.append(view)
+    assert fa.quant_route(qc, kc, vc) == "mma" and fa.quant_route(*mis) == "simt"
+    ref, lse_ref = fa.flash_fwd_quant_plain(qc, kc, vc, sq, sk, sv, out_dtype=torch.bfloat16)
+    for codes_ in ((qc, kc, vc), mis):
+        o, lse = fa.flash_fwd_quant_codes(*codes_, sq, sk, sv, out_dtype=torch.bfloat16)
+        diff = (o.float() - ref.float()).abs()
+        if fmt == "int8":
+            assert torch.allclose(o.float(), ref.float(), atol=2e-2, rtol=2e-2)
+        else:
+            assert float(diff.mean()) <= 1e-4
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
