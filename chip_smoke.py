@@ -11,34 +11,46 @@ Phases (any failure exits non-zero and prints no result):
    dkv, and the quantized forward's 8-bit ones) registers, spills, dynamic
    shared memory and blocks per SM, the head forward's and backward's
    cluster instances' registers, shared memory, blocks per SM and clusters
-   at once, and the same for the decode kernel's split instances (K/V in
+   at once, the backward's group rule (BWD_GROUP_MAX beside the clusters the
+   card runs at once; the rule at B 16, 64, 256, 4096, held to the CUDA
+   source's), and the same for the decode kernel's split instances (K/V in
    q's dtype and int8);
-3. each fused-head kernel against its plain PyTorch version on the card, at
-   B in {1, 16, 17, 128, 200, 4096} (atol = rtol = 1e-4, f32 with another
-   summation order), the backward at both of its cluster sizes, plus
-   bitwise checks that the forward and the backward give the same bits
-   twice;
+3. each fused-head kernel against its plain PyTorch version on the card,
+   with the replica axis, at (N, B) in {(1, 1), (4, 16), (4, 64), (1, 4096),
+   (2, 200)} (atol = rtol = 1e-4, f32 with another summation order): the
+   forward, the backward's group sums, the reduce where a replica has more
+   than one group (and no reduce launch where it has one), the whole
+   backward through autograd; each bitwise under a rerun;
 4. the port's CNN Engine on the card (kernels="cuda", data_parallel, 512
-   rows, 4 workers, 2 epochs) against the float64 numpy oracle in
-   tests/oracle_numpy.py, with the engine's own shuffle orders fed to both
-   (train loss within 5e-4, params max-rel within 2e-3), and a second run
-   that must reproduce the first bit for bit;
+   rows, 4 workers stacked, 2 epochs, replayed from its captured CUDA
+   graphs) against the float64 numpy oracle in tests/oracle_numpy.py, with
+   the engine's own shuffle orders fed to both (train loss within 5e-4,
+   params max-rel within 2e-3); the same programs run eagerly on the card
+   (the engine's `_capture` hook), a second graphed run and a 2-epoch
+   `run_span` must each equal the graphed run bit for bit (params,
+   momentum, every metric, eval included);
 5. the CNN main path at full width through the user's entry point,
    `train.cli.main`: data_parallel, 4 workers, 50,000 synthetic train rows
-   and 10,000 test rows, 2 epochs, batch 16, --kernels cuda. The kernels'
-   launch counters must equal the steps and eval batches the run made; the
-   train loss must fall and the final validation accuracy reach 50%. A run
-   with --kernels torch follows, for an end-to-end comparison of the two
-   heads within one call;
+   and 10,000 test rows, 2 epochs, batch 16, --kernels cuda and torch, each
+   per epoch and with --fused. The kernels' counters, replays included,
+   must equal 782 + 157 forward launches, 782 backward launches and no
+   reduce launch per epoch (one launch a step for all 4 replicas); the
+   train loss must fall and the final validation accuracy reach 50%; a
+   --fused run charges its spans to TRAINING. Then one point of
+   run_training.sh's sweep (B 64, per epoch), where the reduce runs once a
+   step;
 6. fused-head kernel times beside their bound, their plain version and a
-   PyTorch library call, at B in {16, 128, 4096}: per call in an eager loop
-   timed with CUDA events (what the main path pays, host dispatch
-   included), and device time from the same calls captured in a CUDA graph;
-   gates at B = 16: the
-   forward's device time is at most the addmm chain's, the backward's at
-   most the autograd backward's;
-7. a torch.profiler trace of one steady epoch of the CNN engine (4 workers x
-   1024 rows): device busy time, idle share and the top kernels;
+   PyTorch library call (the torch.baddbmm + relu chain, its autograd
+   backward, torch.sum), at (N, B) in {(4, 16), (1, 16), (1, 128), (1,
+   4096)}: per call in an eager loop timed with CUDA events, and device time
+   from the same calls captured in a CUDA graph; the reduce and the whole
+   backward at B 4096 with the bytes of sums written there against one
+   row per 16-row tile; the replicas' convolutions grouped against one per
+   replica; gates at (4, 16): the forward's device time is at most the
+   baddbmm chain's, the backward's at most the autograd backward's;
+7. a torch.profiler trace of one graphed epoch of the CNN engine at full
+   width (4 workers x 12,500 rows, eval of 10,000): wall time, device busy
+   time, idle share and the top kernels;
 8. the decode-attention kernels (f32, bf16, int8 K/V with bf16 q) against
    their plain versions on the card: B in {1, 8}, (H, Dh) in {(8, 64),
    (4, 128), (4, 8)}, total in {16, 256, 2048}, pos a scalar and vectors
@@ -194,6 +206,15 @@ SERVE_ARGS = ["--device", "cuda", "--port", "0", "--d-model", "512", "--n-layers
               "--seed", "0", "--max-batch", "8", "--num-blocks", "129", "--block-size", "16",
               "--max-seq-len", "256", "--prefill-chunk", "16", "--warmup"]
 N_REQUESTS, RATE, MAX_NEW, PROMPT_LENS = 24, 4.0, 32, (16, 64, 128)
+# the CNN head's (replicas N, rows B): the main path's shape (4 workers at
+# batch 16, one launch for all), the cases held to the plain versions (a
+# batch of 1, the main path, run_training.sh's B 64, 4,096 rows, ragged B),
+# the timed shapes, and where the reduce's kernel line is timed (the main
+# path never launches it: one group at B 16)
+HEAD_MAIN = (4, 16)
+HEAD_CASES = ((1, 1), HEAD_MAIN, (4, 64), (1, 4096), (2, 200))
+HEAD_TIMED = (HEAD_MAIN, (1, 16), (1, 128), (1, 4096))
+REDUCE_SHAPE = (1, 4096)
 
 
 class SmokeFailure(Exception):
@@ -240,11 +261,13 @@ def uncounted(*counters):
 # ------------------------------------------------------------------- helpers
 
 
-def head_inputs(torch, b, device, seed):
+def head_inputs(torch, b, device, seed, n=1):
+    """x (n, b, 400) and n replicas' weights (in, out) and biases, each
+    replica its own draw."""
     g = torch.Generator().manual_seed(seed)
     shapes = [(b, 400), (400, 120), (120,), (120, 84), (84,), (84, 10), (10,)]
     scales = [1.0, 0.05, 1.0, 0.05, 1.0, 0.05, 1.0]
-    return [(torch.randn(*s, generator=g) * k).to(device) for s, k in zip(shapes, scales)]
+    return [(torch.randn(n, *s, generator=g) * k).to(device) for s, k in zip(shapes, scales)]
 
 
 def max_err(torch, a, b):
@@ -284,7 +307,9 @@ def graph_ms(torch, fn, iters=50, replays=5):
                 fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # captured on the warm-up's stream, whose library workspaces the
+        # warm-up made
+        with torch.cuda.graph(graph, stream=side):
             for _ in range(iters):
                 fn()
     except RuntimeError as e:
@@ -371,6 +396,20 @@ def ptxas_instances(lib, stem):
     return out
 
 
+def device_busy_s(prof, DeviceType):
+    """Seconds in which the card ran at least one kernel, copy or memset:
+    the union of the device events' intervals (replays of a captured graph
+    report kernels whose intervals overlap, so their sum can exceed the wall
+    time)."""
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                              if e.device_type == DeviceType.CUDA):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e6
+
+
 def profile_rows(prof, DeviceType):
     """(kernel name, device us, count) rows: kernel rows only, since an
     operator's row repeats its kernels' device time."""
@@ -378,15 +417,17 @@ def profile_rows(prof, DeviceType):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def head_work(b, fh):
-    """(bytes, flops) each kernel must move/do at batch b (inputs read once,
-    outputs written once)."""
+def head_work(n, b, fh):
+    """(bytes, flops) each kernel must move/do for n replicas at batch b
+    (inputs read once, outputs written once; the backward writes one row of
+    sums per group, the reduce reads them)."""
     w = fh.GRAD_SIZE  # weights + biases
-    nt = ceil(b, fh.BWD_TILE_ROWS)
+    groups = fh.bwd_groups(b)
     mac = 400 * 120 + 120 * 84 + 84 * 10
-    fwd = (4 * (b * 400 + w + b * (10 + 120 + 84)), 2 * b * mac)
-    bwd = (4 * (b * (10 + 400 + 120 + 84) + (w - 214) + b * 400 + nt * w), 4 * b * mac)
-    red = (4 * (nt * w + w), nt * w)
+    fwd = (4 * n * (b * 400 + w + b * (10 + 120 + 84)), 2 * n * b * mac)
+    bwd = (4 * n * (b * (10 + 400 + 120 + 84) + (w - 214) + b * 400 + groups * w),
+           4 * n * b * mac)
+    red = (4 * n * (groups * w + w), n * groups * w)
     return {"fwd": fwd, "bwd": bwd, "reduce": red}
 
 
@@ -1054,6 +1095,20 @@ def main() -> int:
                   f"{fh.bwd_cluster(16)}")
         check(sorted(env["head_bwd_instances"]) == [f"mlp3_bwd_kernel<{fh.bwd_cluster(16)}>"],
               f"head backward instances {sorted(env['head_bwd_instances'])}")
+        # the backward's group rule: BWD_GROUP_MAX beside the clusters the
+        # card runs at once, and the rule at four batches against the CUDA
+        # source's own
+        bwd = fh.bwd_info()
+        env["bwd_groups"] = {"group_max": fh.BWD_GROUP_MAX,
+                             "active_clusters": bwd["active_clusters"],
+                             "rule": {b: fh.bwd_groups(b) for b in (16, 64, 256, 4096)}}
+        print(f"   backward group rule: BWD_GROUP_MAX {fh.BWD_GROUP_MAX}, {bwd['active_clusters']} "
+              f"clusters of {bwd['cluster']} at once; groups at B 16, 64, 256, 4096: "
+              f"{env['bwd_groups']['rule']}")
+        for b in (1, 16, 17, 64, 256, 1024, 1025, 4096, 8192):
+            check(fh.bwd_groups(b) == fh.kernel_bwd_groups(b),
+                  f"group rule at B {b}: {fh.bwd_groups(b)} here, {fh.kernel_bwd_groups(b)} "
+                  f"in the CUDA source")
         # the decode kernel's split instances (<q's dtype, lanes per row,
         # vectors a lane>; decode_split_q8_kernel: int8 K/V on q's dtype's
         # lanes), each at its largest head dim and a cache of 256 rows
@@ -1072,55 +1127,62 @@ def main() -> int:
         check(len(env["decode_split_instances"]) == 26 and n_q8 == 13,
               f"decode split instances {sorted(env['decode_split_instances'])}")
 
-    with phase("3 kernels vs plain"):
-        for b in (1, 16, 17, 128, 200, 4096):
-            args = head_inputs(torch, b, dev, seed=b)
-            # each kernel alone against its plain version; the forward (a
-            # cluster of 8 blocks a tile up to 256 rows, 4 above) with and
-            # without residuals, bitwise on a rerun
+    with phase("3 kernels vs plain"), uncounted(fh.LAUNCHES):
+        # comparison launches are not main-path launches; each (N, B) on its
+        # own inputs per replica: one forward and one backward launch for all
+        # N, the reduce only where a replica has more than one group
+        for n, b in HEAD_CASES:
+            args = head_inputs(torch, b, dev, seed=b, n=n)
             out_k = fh.mlp3_forward(*args, residuals=True)
             out_r = fh.mlp3_forward_reference(*args)
-            assert_close(torch, f"fwd B={b}", out_k, out_r)
+            assert_close(torch, f"fwd (N {n}, B {b})", out_k, out_r)
             again = fh.mlp3_forward(*args, residuals=True)
             check(all(torch.equal(a, c) for a, c in zip(out_k, again)),
-                  f"forward is not bitwise reproducible at B={b}")
+                  f"forward is not bitwise reproducible at (N {n}, B {b})")
             check(torch.equal(fh.mlp3_forward(*args, residuals=False)[0], out_k[0]),
-                  f"forward logits differ without residuals at B={b}")
+                  f"forward logits differ without residuals at (N {n}, B {b})")
             x, w1, b1, w2, b2, w3, b3 = args
-            gout = torch.randn(b, 10, device=dev, generator=torch.Generator(dev).manual_seed(b))
+            gout = torch.randn(n, b, 10, device=dev,
+                               generator=torch.Generator(dev).manual_seed(b))
             _, h1, h2 = out_r
             part_k = fh.mlp3_bwd_partials(gout, x, h1, h2, w1, w2, w3)
             part_r = fh.mlp3_bwd_partials_reference(gout, x, h1, h2, w1, w2, w3)
-            assert_close(torch, f"bwd B={b}", part_k, part_r)
-            # the backward (a cluster of bwd_cluster(B) blocks a tile) bitwise
-            # on a rerun
+            groups = fh.bwd_groups(b)
+            check(part_k[1].shape == (n, groups, fh.GRAD_SIZE),
+                  f"backward sums {tuple(part_k[1].shape)} at (N {n}, B {b})")
+            assert_close(torch, f"bwd (N {n}, B {b})", part_k, part_r)
             check(all(torch.equal(a, c) for a, c in zip(
                 part_k, fh.mlp3_bwd_partials(gout, x, h1, h2, w1, w2, w3))),
-                  f"backward partials are not bitwise reproducible at B={b}")
-            red_k = fh.mlp3_bwd_reduce(part_r[1])
-            red_r = part_r[1].sum(0)
-            assert_close(torch, f"reduce B={b}", red_k, red_r)
+                  f"backward is not bitwise reproducible at (N {n}, B {b})")
+            errs = {"fused_mlp3_fwd": max_err(torch, out_k, out_r),
+                    "fused_mlp3_bwd": max_err(torch, part_k, part_r)}
+            before = fh.LAUNCHES["fused_mlp3_bwd_reduce"]
+            full = fh.mlp3_backward(gout, x, h1, h2, w1, w2, w3)
+            reduces = fh.LAUNCHES["fused_mlp3_bwd_reduce"] - before
+            check(reduces == (groups > 1),
+                  f"(N {n}, B {b}), {groups} groups: {reduces} reduce launches")
+            check(all(torch.equal(a, c) for a, c in zip(
+                full, fh.mlp3_backward(gout, x, h1, h2, w1, w2, w3))),
+                  f"the whole backward is not bitwise reproducible at (N {n}, B {b})")
+            if groups > 1:
+                red_k = fh.mlp3_bwd_reduce(part_r[1])
+                red_r = part_r[1].sum(1)
+                assert_close(torch, f"reduce (N {n}, B {b})", red_k, red_r)
+                errs["fused_mlp3_bwd_reduce"] = max_err(torch, red_k, red_r)
             # forward and all 7 gradients through autograd
             leaves = [a.clone().requires_grad_() for a in args]
             grads_k = torch.autograd.grad(fh.fused_mlp3(*leaves), leaves, gout)
             grads_r = torch.autograd.grad(fh.mlp3_reference(*leaves), leaves, gout)
-            assert_close(torch, f"autograd B={b}", grads_k, grads_r)
-            errs = {
-                "fused_mlp3_fwd": max_err(torch, out_k, out_r),
-                "fused_mlp3_bwd": max_err(torch, part_k, part_r),
-                "fused_mlp3_bwd_reduce": max_err(torch, red_k, red_r),
-            }
-            print(f"B={b:5d} max_abs_err {errs}  grads {max_err(torch, grads_k, grads_r):.3g}")
-            if b == 16:
-                for name, e in errs.items():
-                    kernels[name]["max_abs_err"] = e
-            if b in (200, 4096):
-                again = fh.mlp3_backward(gout, x, h1, h2, w1, w2, w3)
-                first = fh.mlp3_backward(gout, x, h1, h2, w1, w2, w3)
-                check(all(torch.equal(a, c) for a, c in zip(first, again)),
-                      f"backward is not bitwise reproducible at B={b}")
-        print("forward and backward partials bitwise reproducible at every B; the whole "
-              "backward at B=200 and B=4096")
+            assert_close(torch, f"autograd (N {n}, B {b})", grads_k, grads_r)
+            print(f"(N {n}, B {b:5d}) {groups:2d} groups, {reduces} reduce launches: max_abs_err "
+                  f"{errs}  grads {max_err(torch, grads_k, grads_r):.3g}")
+            if (n, b) == HEAD_MAIN:
+                for name in ("fused_mlp3_fwd", "fused_mlp3_bwd"):
+                    kernels[name]["max_abs_err"] = errs[name]
+            if (n, b) == REDUCE_SHAPE:
+                kernels["fused_mlp3_bwd_reduce"]["max_abs_err"] = errs["fused_mlp3_bwd_reduce"]
+        print("forward, backward and the whole backward bitwise reproducible at every (N, B); "
+              "the reduce launched exactly where a replica has more than one group")
 
     with phase("4 oracle on the card"):
         import numpy as np
@@ -1130,33 +1192,49 @@ def main() -> int:
         from distributed_neural_network_tpu_torch.train.engine import Engine, TrainConfig
 
         split = load_split(True, source="synthetic", synthetic_size=512, seed=3)
+        test = load_split(False, source="synthetic", synthetic_size=128, seed=3)
         cfg = TrainConfig(lr=0.01, momentum=0.9, batch_size=16, epochs=2, nb_proc=4,
                           regime="data_parallel", kernels="cuda", seed=0)
-        eng = Engine(cfg, split, None, device=dev)
+        eng = Engine(cfg, split, test, device=dev)
         orders = [[eng.default_order(e, d).numpy() for d in range(4)] for e in range(2)]
         oracle = reference_trajectory(
             eng.state_tree()["params"], split.images, split.labels, n_workers=4,
             batch_size=16, epochs=2, lr=cfg.lr, momentum=cfg.momentum, orders=orders,
         )
-        twin = Engine(cfg, split, None, device=dev)
+        # the same programs run eagerly on the card (the engine's private
+        # hook), a second graphed run, and a 2-epoch fused span
+        twin, eager, span = (Engine(cfg, split, test, device=dev) for _ in range(3))
+        eager._capture = False
+        got = {"graphed": [], "twin": [], "eager": []}
         for e in range(2):
-            m = eng.run_epoch(e, do_eval=False)
-            twin.run_epoch(e, do_eval=False)
-            got = eng.state_tree()["params"]
+            for name, engine in (("graphed", eng), ("twin", twin), ("eager", eager)):
+                got[name].append(engine.run_epoch(e))
+            m = got["graphed"][-1]
+            params = eng.state_tree()["params"]
             rel = max(
-                float(np.max(np.abs(got[l][k] - oracle[e]["params"][l][k])
+                float(np.max(np.abs(params[l][k] - oracle[e]["params"][l][k])
                              / (np.abs(oracle[e]["params"][l][k]) + 1e-3)))
-                for l in got for k in got[l]
+                for l in params for k in params[l]
             )
             dl = abs(m.train_loss - oracle[e]["train_loss"])
             print(f"epoch {e}: train loss {m.train_loss:.6f} (oracle "
-                  f"{oracle[e]['train_loss']:.6f}, |d| {dl:.2e}), params max-rel {rel:.2e}")
+                  f"{oracle[e]['train_loss']:.6f}, |d| {dl:.2e}), params max-rel {rel:.2e}, "
+                  f"val acc {m.val_acc:.2f} %")
             check(dl < 5e-4, f"epoch {e} train loss off the oracle by {dl}")
             check(rel < 2e-3, f"epoch {e} params off the oracle by max-rel {rel}")
-        check(all(torch.equal(a, b) for a, b in
-                  zip(eng.model.parameters(), twin.model.parameters())),
-              "two identical engine runs differ")
-        print("second engine run bitwise identical")
+        span.compile_span(2)
+        got["span"] = span.run_span(0, 2)
+        check(eng._step.graph is not None and eager._step.graph is None,
+              "the engine's programs were not captured (or the eager run's were)")
+        state = {name: [*e.params, *e.mom] for name, e in
+                 (("graphed", eng), ("twin", twin), ("eager", eager), ("span", span))}
+        for name in ("twin", "eager", "span"):
+            same = got[name] == got["graphed"] and all(
+                torch.equal(a, b) for a, b in zip(state[name], state["graphed"]))
+            check(same, f"the {name} run differs from the graphed run: {got[name]} "
+                        f"against {got['graphed']}")
+        print("graphed run bitwise equal to its eager run on the card, to a second graphed "
+              "run and to a 2-epoch fused span (params, momentum, every metric)")
 
     full = ["--regime", "data_parallel", "--nb-proc", "4", "--data", "synthetic",
             "--synthetic-size", "50000", "--epochs", "2", "--batch-size", "16",
@@ -1165,12 +1243,10 @@ def main() -> int:
     with phase("5 main path, full width"):
         from distributed_neural_network_tpu_torch.train import cli
 
-        # the checked main-path run first, then torch, for an end-to-end
-        # comparison of the two heads within this call
-        for run_i, kern in enumerate(("cuda", "torch")):
+        def cnn_run(argv, label):
             lines = []
 
-            def log(line, lines=lines):
+            def log(line):
                 print("   " + line, flush=True)
                 lines.append(line)
 
@@ -1178,7 +1254,7 @@ def main() -> int:
                 fh.LAUNCHES[name] = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rc = cli.main(full + ["--kernels", kern], log=log)
+            rc = cli.main(argv, log=log)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = dict(fh.LAUNCHES)
@@ -1186,50 +1262,83 @@ def main() -> int:
             summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
             losses = [float(l.split(":")[1]) for l in lines
                       if l.startswith("Global Average Training Loss")]
-            train_s = float(next(l for l in lines if l.startswith("Time spent on training"))
-                            .split(":")[1])
-            steps = ceil(50_000 // 4, 16) * 4 * 2
-            eval_batches = ceil(ceil(10_000, 4), 16) * 4 * 2
-            images = (50_000 // 4) * 4 * 2
-            main_path.setdefault(kern, []).append(
-                {"wall_s": wall, "train_s": train_s, "images_per_s": images / train_s,
-                 "epoch_wall_s": summary["wall_clock_s"] / 2, "summary": summary})
-            print(f"   run {run_i} kernels={kern}: launches {counts}; training {train_s:.3f} s for "
-                  f"{images} images = {images / train_s:.1f} images/s; epoch wall "
-                  f"{summary['wall_clock_s'] / 2:.3f} s")
-            check(len(losses) == 2 and losses[1] < losses[0],
+            phases = {key: float(next(l for l in lines if l.startswith(label_)).split(":")[1])
+                      for key, label_ in (("train_s", "Time spent on training"),
+                                          ("eval_s", "Time spent on evaluation"),
+                                          ("sync_s", "Time spent on parent communication"))}
+            epochs = int(argv[argv.index("--epochs") + 1])
+            images = (50_000 // 4) * 4 * epochs
+            r = {"label": label, "wall_s": wall, **phases, "launches": counts,
+                 "images_per_s": images / phases["train_s"],
+                 "epoch_wall_s": summary["wall_clock_s"] / epochs, "losses": losses,
+                 "summary": summary}
+            print(f"   {label}: launches {counts}; training {phases['train_s']:.3f} s, sync "
+                  f"{phases['sync_s']:.3f} s, eval {phases['eval_s']:.3f} s; "
+                  f"{r['images_per_s']:.1f} images/s; epoch wall {r['epoch_wall_s']:.3f} s; "
+                  f"final_val_acc {summary['final_val_acc']}")
+            check(len(losses) == epochs and losses[-1] < losses[0],
                   f"train loss did not fall: {losses}")
             check(summary["final_val_acc"] is not None and summary["final_val_acc"] >= 50.0,
                   f"final_val_acc {summary['final_val_acc']} < 50")
-            if run_i == 0:
-                want = {"fused_mlp3_fwd": steps + eval_batches, "fused_mlp3_bwd": steps,
-                        "fused_mlp3_bwd_reduce": steps}
-                check(counts == want, f"launch counts {counts} != expected {want}")
-                for name, n in counts.items():
-                    kernels[name]["launches"] = n
-            elif kern == "torch":
-                check(all(n == 0 for n in counts.values()),
-                      f"kernels=torch launched fused kernels: {counts}")
+            return r
+
+        def head_launches(batch, epochs):
+            # per epoch: one forward and one backward launch per step for all
+            # 4 replicas, one forward per eval batch, the reduce per step
+            # where a replica's batch forms more than one group
+            steps = ceil(50_000 // 4, batch) * epochs
+            evals = ceil(ceil(10_000, 4), batch) * epochs
+            return {"fused_mlp3_fwd": steps + evals, "fused_mlp3_bwd": steps,
+                    "fused_mlp3_bwd_reduce": steps if fh.bwd_groups(batch) > 1 else 0}
+
+        # the checked main-path run first, then torch, then both fused
+        want = head_launches(16, 2)
+        print(f"   expected launches with the kernels: {want}")
+        for fused in (False, True):
+            for kern in ("cuda", "torch"):
+                label = f"kernels={kern}{' --fused' if fused else ''}"
+                r = cnn_run(full + ["--kernels", kern] + (["--fused"] if fused else []), label)
+                main_path.setdefault(kern + (" fused" if fused else ""), []).append(r)
+                if kern == "cuda":
+                    check(r["launches"] == want, f"{label}: launches {r['launches']} != {want}")
+                    if not fused:
+                        for name, count in r["launches"].items():
+                            kernels[name]["launches"] = count
+                else:
+                    check(not any(r["launches"].values()),
+                          f"kernels=torch launched fused kernels: {r['launches']}")
+                if fused:
+                    check(r["sync_s"] == 0.0 and r["eval_s"] == 0.0,
+                          f"{label}: the span's time was not all charged to TRAINING")
+        # one point of run_training.sh's sweep (B 1-64), where each replica's
+        # batch forms 4 groups and the reduce runs once per step
+        sweep = full[:full.index("--batch-size")] + ["--batch-size", "64", "--lr", "0.01",
+                                                     "--log-dir", full[-1]]
+        r = cnn_run(sweep + ["--kernels", "cuda"], "run_training.sh point, B 64")
+        main_path["cuda B 64"] = [r]
+        want64 = head_launches(64, 2)
+        check(r["launches"] == want64, f"B 64: launches {r['launches']} != {want64}")
+        kernels["fused_mlp3_bwd_reduce"]["launches_b64"] = r["launches"]["fused_mlp3_bwd_reduce"]
 
     times = []
-    with phase("6 times"):
-        for b in (16, 128, 4096):
-            args = head_inputs(torch, b, dev, seed=7)
+    with phase("6 times"), uncounted(fh.LAUNCHES):
+        for n, b in HEAD_TIMED:
+            args = head_inputs(torch, b, dev, seed=7, n=n)
             x, w1, b1, w2, b2, w3, b3 = args
             _, h1, h2 = fh.mlp3_forward_reference(*args)
-            g = torch.randn(b, 10, device=dev)
-            parts = fh.mlp3_bwd_partials_reference(g, x, h1, h2, w1, w2, w3)[1]
+            g = torch.randn(n, b, 10, device=dev)
+            sums = fh.mlp3_bwd_partials_reference(g, x, h1, h2, w1, w2, w3)[1]
             leaves = [a.clone().requires_grad_() for a in args]
 
             def lib_fwd():
-                hh1 = torch.addmm(b1, x, w1).relu_()
-                hh2 = torch.addmm(b2, hh1, w2).relu_()
-                return torch.addmm(b3, hh2, w3)
+                hh1 = torch.baddbmm(b1.unsqueeze(1), x, w1).relu_()
+                hh2 = torch.baddbmm(b2.unsqueeze(1), hh1, w2).relu_()
+                return torch.baddbmm(b3.unsqueeze(1), hh2, w3)
 
             def lib_leaves_fwd(ls=leaves):
-                lh1 = torch.addmm(ls[2], ls[0], ls[1]).relu()
-                lh2 = torch.addmm(ls[4], lh1, ls[3]).relu()
-                return torch.addmm(ls[6], lh2, ls[5])
+                lh1 = torch.baddbmm(ls[2].unsqueeze(1), ls[0], ls[1]).relu()
+                lh2 = torch.baddbmm(ls[4].unsqueeze(1), lh1, ls[3]).relu()
+                return torch.baddbmm(ls[6].unsqueeze(1), lh2, ls[5])
 
             lib_out = lib_leaves_fwd()
 
@@ -1246,7 +1355,7 @@ def main() -> int:
                 fwd = graph_ms(torch, lambda: lib_leaves_fwd([a.detach() for a in args]))
                 return None if both is None or fwd is None else both - fwd
 
-            work = head_work(b, fh)
+            work = head_work(n, b, fh)
             rows = {
                 "fused_mlp3_fwd": (
                     lambda: fh.mlp3_forward(*args, residuals=True),
@@ -1257,85 +1366,114 @@ def main() -> int:
                     lambda: fh.mlp3_bwd_partials_reference(g, x, h1, h2, w1, w2, w3),
                     lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True),
                     lib_bwd_device_ms, work["bwd"]),
-                "fused_mlp3_bwd_reduce": (
-                    lambda: fh.mlp3_bwd_reduce(parts), lambda: parts.sum(0),
-                    lambda: torch.sum(parts, 0), None, work["reduce"]),
             }
-            saved = dict(fh.LAUNCHES)
+            if fh.bwd_groups(b) > 1:
+                rows["fused_mlp3_bwd_reduce"] = (
+                    lambda: fh.mlp3_bwd_reduce(sums), lambda: sums.sum(1),
+                    lambda: torch.sum(sums, 1), None, work["reduce"])
             for name, (kern_fn, plain_fn, lib_fn, lib_dev, (nbytes, flops)) in rows.items():
                 t_k, t_p, t_l = (time_ms(torch, f) for f in (kern_fn, plain_fn, lib_fn))
                 d_k, d_p = (graph_ms(torch, f) for f in (kern_fn, plain_fn))
                 d_l = lib_dev() if lib_dev else graph_ms(torch, lib_fn)
                 bms, by = bound_ms(nbytes, flops)
-                print(f"B={b:5d} {name:22s} per call: kernel {t_k:.5f} ms  plain {t_p:.5f} ms  "
-                      f"library {t_l:.5f} ms | device (graph): kernel {fmt(d_k)} ms  plain "
-                      f"{fmt(d_p)} ms  library {fmt(d_l)} ms | bound {bms:.6f} ms "
+                print(f"(N {n}, B {b:5d}) {name:22s} per call: kernel {t_k:.5f} ms  plain "
+                      f"{t_p:.5f} ms  library {t_l:.5f} ms | device (graph): kernel {fmt(d_k)} ms"
+                      f"  plain {fmt(d_p)} ms  library {fmt(d_l)} ms | bound {bms:.6f} ms "
                       f"({by}: {nbytes} B, {flops} FLOP)")
-                times.append({"B": b, "name": name, "ms": t_k, "plain_ms": t_p,
+                times.append({"N": n, "B": b, "name": name, "ms": t_k, "plain_ms": t_p,
                               "library_ms": t_l, "graph_ms": d_k, "plain_graph_ms": d_p,
-                              "library_graph_ms": d_l, "bound_ms": bms, "bound_by": by})
-                if b == 16:
+                              "library_graph_ms": d_l, "bound_ms": bms, "bound_by": by,
+                              "groups": fh.bwd_groups(b)})
+                if (n, b) == (HEAD_MAIN if name != "fused_mlp3_bwd_reduce" else REDUCE_SHAPE):
                     kernels[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                          bound_ms=bms, bound_by=by, graph_ms=d_k)
-            fwd = next(t for t in times if t["B"] == b and t["name"] == "fused_mlp3_fwd")
-            fwd["cluster"] = fh.fwd_cluster(b)
-            ratio = (fwd["graph_ms"] / fwd["library_graph_ms"]
-                     if fwd["graph_ms"] and fwd["library_graph_ms"] else None)
-            print(f"B={b:5d} fused_mlp3_fwd, {fwd['cluster']} blocks a tile: device "
-                  f"{fmt(fwd['graph_ms'])} ms, {fmt(ratio)}x the addmm chain's")
-            if b == 16:
-                check(ratio is not None and ratio <= 1.0,
-                      f"the head forward's device time at B=16 is {fmt(ratio)}x the addmm "
-                      f"chain's")
-            bwd = next(t for t in times if t["B"] == b and t["name"] == "fused_mlp3_bwd")
-            bwd["cluster"] = fh.bwd_cluster(b)
-            ratio = (bwd["graph_ms"] / bwd["library_graph_ms"]
-                     if bwd["graph_ms"] and bwd["library_graph_ms"] else None)
-            print(f"B={b:5d} fused_mlp3_bwd, {bwd['cluster']} blocks a tile: device "
-                  f"{fmt(bwd['graph_ms'])} ms, {fmt(ratio)}x the autograd backward's")
-            if b == 16:
-                check(ratio is not None and ratio <= 1.0,
-                      f"the head backward's device time at B=16 is {fmt(ratio)}x the autograd "
-                      f"backward's")
-            fh.LAUNCHES.update(saved)  # timing launches are not main-path launches
+            for name, what in (("fused_mlp3_fwd", "the baddbmm chain's"),
+                               ("fused_mlp3_bwd", "the autograd backward's")):
+                t = next(t for t in times if (t["N"], t["B"], t["name"]) == (n, b, name))
+                ratio = (t["graph_ms"] / t["library_graph_ms"]
+                         if t["graph_ms"] and t["library_graph_ms"] else None)
+                t["ratio"] = ratio
+                print(f"(N {n}, B {b:5d}) {name}: device {fmt(t['graph_ms'])} ms, "
+                      f"{fmt(ratio)}x {what}")
+                if (n, b) == HEAD_MAIN:
+                    check(ratio is not None and ratio <= 1.0,
+                          f"{name}'s device time at (N {n}, B {b}) is {fmt(ratio)}x {what}")
+            if b == 4096:
+                whole = graph_ms(torch, lambda: fh.mlp3_backward(g, x, h1, h2, w1, w2, w3))
+                old = ceil(b, fh.BWD_TILE_ROWS) * fh.GRAD_SIZE * 4
+                new = fh.bwd_groups(b) * fh.GRAD_SIZE * 4
+                env["b4096"] = {"whole_backward_graph_ms": whole, "old_partial_bytes": old,
+                                "partial_bytes": new}
+                print(f"(N {n}, B {b}) whole backward (kernel + reduce) {fmt(whole)} ms; rows "
+                      f"of sums written and read back: {new} B ({fh.bwd_groups(b)} groups) "
+                      f"against {old} B (one row per 16-row tile)")
+        # the replicas' convolutions: one grouped conv per layer (the model's)
+        # against one conv per replica, forward + weight/input gradients, at
+        # the main path's (N 4, B 16)
+        gen = torch.Generator().manual_seed(0)
+        cx = torch.randn(16, 4 * 3, 32, 32, generator=gen).to(dev)
+        cw = [(torch.randn(4 * co, ci, 5, 5, generator=gen) * 0.1).to(dev).requires_grad_()
+              for co, ci in ((6, 3), (16, 6))]
+        cb = [torch.zeros(4 * co, device=dev, requires_grad=True) for co in (6, 16)]
+
+        def convs(per_replica):
+            h = cx
+            for w, bias in zip(cw, cb):
+                if per_replica:
+                    ci, co = w.shape[1], w.shape[0] // 4
+                    h = torch.cat([torch.nn.functional.conv2d(
+                        h[:, d * ci:(d + 1) * ci], w[d * co:(d + 1) * co],
+                        bias[d * co:(d + 1) * co]) for d in range(4)], 1)
+                else:
+                    h = torch.nn.functional.conv2d(h, w, bias, groups=4)
+                h = torch.nn.functional.max_pool2d(torch.relu(h), 2)
+            return torch.autograd.grad(h.square().sum(), [*cw, *cb])
+
+        conv = {"grouped_graph_ms": graph_ms(torch, lambda: convs(False)),
+                "per_replica_graph_ms": graph_ms(torch, lambda: convs(True))}
+        env["convs"] = conv
+        print(f"convs of 4 replicas at B 16, forward + backward, device (graph): grouped "
+              f"{fmt(conv['grouped_graph_ms'])} ms, one per replica "
+              f"{fmt(conv['per_replica_graph_ms'])} ms")
         for kern, runs in main_path.items():
             for r in runs:
-                print(f"main path kernels={kern}: epoch wall {r['epoch_wall_s']:.3f} s, "
-                      f"training {r['train_s']:.3f} s, {r['images_per_s']:.1f} images/s, "
-                      f"final_val_acc {r['summary']['final_val_acc']:.2f} %")
+                print(f"main path {r['label']}: epoch wall {r['epoch_wall_s']:.3f} s, training "
+                      f"{r['train_s']:.3f} s, {r['images_per_s']:.1f} images/s, final_val_acc "
+                      f"{r['summary']['final_val_acc']:.2f} %")
 
     profile = {}
-    with phase("7 where the time goes"):
+    with phase("7 where the time goes"), uncounted(fh.LAUNCHES):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as torch_profile
 
         from distributed_neural_network_tpu_torch.data.cifar10 import load_split
         from distributed_neural_network_tpu_torch.train.engine import Engine, TrainConfig
 
-        split = load_split(True, source="synthetic", synthetic_size=4096, seed=0)
+        split = load_split(True, source="synthetic", synthetic_size=50_000, seed=0)
+        test = load_split(False, source="synthetic", synthetic_size=10_000, seed=0)
         cfg = TrainConfig(lr=0.01, batch_size=16, nb_proc=4, kernels="cuda")
-        eng = Engine(cfg, split, None, device=dev)
-        saved = dict(fh.LAUNCHES)
-        eng.run_epoch(0, do_eval=False)  # warm-up
+        eng = Engine(cfg, split, test, device=dev)
+        eng.run_epoch(0)  # captures the programs
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            eng.run_epoch(1, do_eval=False)
+            eng.run_epoch(1)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        fh.LAUNCHES.update(saved)
         rows = profile_rows(prof, DeviceType)
-        busy = sum(r[1] for r in rows) / 1e6
-        steps = 4 * ceil(1024, 16)
-        profile = {"wall_s": wall, "device_busy_s": busy, "steps": steps,
-                   "idle_share": 1 - busy / wall if busy else None,
-                   "top": sorted(rows, key=lambda r: -r[1])[:10]}
-        print(f"one epoch, 4 workers x 1024 rows, {steps} steps: wall {wall:.3f} s "
-              f"({1e3 * wall / steps:.3f} ms/step), device busy "
-              f"{busy:.3f} s, idle share "
-              f"{'not measured' if not busy else f'{1 - busy / wall:.3f}'}")
+        busy = device_busy_s(prof, DeviceType)
+        summed = sum(r[1] for r in rows) / 1e6
+        steps = ceil(50_000 // 4, 16)
+        profile = {"wall_s": wall, "device_busy_s": busy, "kernel_sum_s": summed,
+                   "steps": steps, "idle_share": 1 - busy / wall if busy else None,
+                   "top": sorted(rows, key=lambda r: -r[1])[:12]}
+        print(f"one graphed epoch at full width (4 workers x 12,500 rows, {steps} steps, eval "
+              f"of 10,000 rows): wall {wall:.3f} s ({1e3 * wall / steps:.3f} ms/step), device "
+              f"busy {busy:.3f} s (the union of the device intervals; their sum {summed:.3f} "
+              f"s), idle share {'not measured' if not busy else f'{1 - busy / wall:.3f}'}")
         for key, us, count in profile["top"]:
             print(f"   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+        del eng, split, test
 
     with phase("8 decode kernels vs plain"), uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
         # comparison launches are not main-path launches
@@ -1961,9 +2099,14 @@ def main() -> int:
         del params, mom, step
         torch.cuda.empty_cache()
 
-    designs = {"fused_mlp3_fwd": f"cluster of {fh.fwd_cluster(16)} blocks per 16-row tile",
-               "fused_mlp3_bwd": f"cluster of {fh.bwd_cluster(16)} blocks per 16-row tile, "
-                                 f"W1 split by rows",
+    designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
+                                 f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
+               "fused_mlp3_bwd": f"one launch for all replicas, a cluster of "
+                                 f"{fh.bwd_cluster(16)} blocks per (replica, group of tiles), "
+                                 f"W1 split by rows, the group's sums in registers (the "
+                                 f"gradient itself at one group)",
+               "fused_mlp3_bwd_reduce": "each replica's group rows summed in group order, "
+                                        "one thread per element; not launched at one group",
                "decode_attention": "split route: the live prefix in up to 8 pieces, one "
                                    "block of a cluster each, rows per lane group by 16-byte "
                                    "loads, merged in order on rank 0",

@@ -2,7 +2,9 @@
 the JAX package's `data/pipeline.py`).
 
 An epoch is a (steps, batch) int64 tensor of row indices plus a
-(steps, batch) float32 weight mask. The final partial batch is kept, padded
+(steps, batch) float32 weight mask; `stacked_plan` stacks the N replicas'
+plans on a leading axis, with each replica's rows offset into the one
+tensor that holds them all. The final partial batch is kept, padded
 with row 0 and weight 0. The shuffle is a `torch.randperm` from a
 `torch.Generator`; the JAX package draws `jax.random.permutation`, so the
 two orders differ for the same seed. A caller (a parity test) can pass any
@@ -62,6 +64,22 @@ def _pad_and_reshape(order, n_rows: int, steps: int, bs: int, device):
     return idx.view(steps, bs).to(device), w.view(steps, bs).to(device)
 
 
+def stacked_plan(orders, n_rows: int, batch_size: int, offsets=None, device=None):
+    """(idx, w), each (N, steps, batch): replica d's plan from `orders[d]`
+    (as `epoch_plan` takes it), its row indices moved by `offsets[d]` into
+    the one tensor that holds every replica's rows (a data_parallel shard's
+    first row; 0 for replicas that share the full split). Padding rows point
+    at the replica's own row 0 with weight 0."""
+    plans = [epoch_plan(o, n_rows, batch_size) for o in orders]
+    idx = torch.stack([i for i, _ in plans])
+    if offsets is not None:
+        idx = idx + torch.as_tensor(offsets, dtype=torch.int64).view(-1, 1, 1)
+    return idx.to(device), torch.stack([w for _, w in plans]).to(device)
+
+
 def gather_batch(images: torch.Tensor, labels: torch.Tensor, idx: torch.Tensor):
-    """One batch by row gather on the device."""
-    return images.index_select(0, idx), labels.index_select(0, idx)
+    """One batch by row gather on the device; `idx` of any shape gives
+    images (*idx.shape, ...) and labels idx.shape."""
+    flat = idx.reshape(-1)
+    return (images.index_select(0, flat).view(*idx.shape, *images.shape[1:]),
+            labels.index_select(0, flat).view(idx.shape))

@@ -14,6 +14,10 @@ flatten(400) -> fc 120 -> relu -> fc 84 -> relu -> fc 10.
   (the numbers differ from JAX's for the same seed).
 - `kernels="cuda"` runs fc1->fc2->fc3 through the fused head
   (`ops/fused_head.py`); `kernels="torch"` runs its plain version.
+- `ReplicaNetwork(n)` is N replicas of `Network` with every parameter
+  stacked on a leading axis (the JAX momentum stack's `P(DATA_AXIS)`): its
+  forward takes (N, B, 32, 32, 3) and runs each conv once for all replicas
+  (grouped, `groups=N`) and the head once over all of them.
 """
 
 from __future__ import annotations
@@ -83,12 +87,61 @@ class Network(nn.Module):
         )
 
 
+class _Stacked(nn.Module):
+    """One layer's parameters, each with a leading replica axis."""
+
+    def __init__(self, layer: nn.Module, n: int):
+        super().__init__()
+        for name, p in layer.named_parameters(recurse=False):
+            stacked = p.detach().unsqueeze(0).repeat(n, *([1] * p.dim()))
+            self.register_parameter(name, nn.Parameter(stacked))
+
+
+class ReplicaNetwork(nn.Module):
+    """`n` replicas of `Network`, each parameter stacked on a leading axis.
+
+    Every replica starts as the one `Network(generator=generator)` that the
+    generator's stream draws. Input (n, batch, 32, 32, 3) float32 NHWC;
+    output (n, batch, 10) logits. The state_dict has `Network`'s names with
+    an (n, ...) tensor each.
+    """
+
+    def __init__(self, n: int, num_classes: int = 10, *, kernels: str = "torch",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        base = Network(num_classes, kernels=kernels, generator=generator)
+        self.n, self.kernels = n, kernels
+        for name in _CONVS + _DENSES:
+            setattr(self, name, _Stacked(base.get_submodule(name), n))
+
+    @staticmethod
+    def _conv(x, layer, n):
+        w, b = layer.weight, layer.bias
+        return F.conv2d(x, w.reshape(-1, *w.shape[2:]), b.reshape(-1), groups=n)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, b = x.shape[:2]
+        # (n, B, H, W, C) -> (B, n*C, H, W): replica d's channels are group d
+        x = x.permute(1, 0, 4, 2, 3).reshape(b, n * x.shape[-1], *x.shape[2:4])
+        x = F.max_pool2d(F.relu(self._conv(x, self.conv1, n)), 2)
+        x = F.max_pool2d(F.relu(self._conv(x, self.conv2, n)), 2)
+        c, h, w = x.shape[1] // n, x.shape[2], x.shape[3]
+        x = x.view(b, n, c, h, w).permute(1, 0, 3, 4, 2).reshape(n, b, h * w * c)  # H,W,C
+        head = fused_mlp3 if self.kernels == "cuda" else mlp3_reference
+        return head(
+            x, self.fc1.kernel, self.fc1.bias, self.fc2.kernel, self.fc2.bias,
+            self.fc3.kernel, self.fc3.bias,
+        )
+
+
 def from_jax_params(tree) -> dict[str, torch.Tensor]:
-    """JAX param tree (numpy leaves) -> this Network's state_dict."""
+    """JAX param tree (numpy leaves) -> a state_dict of `Network`, or of
+    `ReplicaNetwork` for a tree whose leaves are stacked on a leading axis."""
     state = {}
     for name in _CONVS:
-        k = np.asarray(tree[name]["kernel"])  # HWIO
-        state[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+        k = np.asarray(tree[name]["kernel"])  # HWIO, maybe behind a replica axis
+        oihw = np.moveaxis(k, (-1, -2), (-4, -3))
+        state[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(oihw))
         state[f"{name}.bias"] = torch.from_numpy(np.array(tree[name]["bias"]))
     for name in _DENSES:
         state[f"{name}.kernel"] = torch.from_numpy(np.array(tree[name]["kernel"]))
@@ -97,14 +150,13 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
 
 
 def to_jax_params(state) -> dict[str, dict[str, np.ndarray]]:
-    """This Network's state_dict -> JAX param tree with numpy leaves."""
+    """A state_dict of `Network` (or `ReplicaNetwork`: leaves keep the
+    replica axis) -> JAX param tree with numpy leaves."""
     host = {k: v.detach().cpu().numpy() for k, v in state.items()}
     tree = {}
     for name in _CONVS:
-        tree[name] = {
-            "kernel": np.ascontiguousarray(host[f"{name}.weight"].transpose(2, 3, 1, 0)),
-            "bias": host[f"{name}.bias"],
-        }
+        hwio = np.moveaxis(host[f"{name}.weight"], (-4, -3), (-1, -2))
+        tree[name] = {"kernel": np.ascontiguousarray(hwio), "bias": host[f"{name}.bias"]}
     for name in _DENSES:
         tree[name] = {"kernel": host[f"{name}.kernel"], "bias": host[f"{name}.bias"]}
     return tree

@@ -6,20 +6,27 @@ Counterpart of `distributed_neural_network_tpu/ops/pallas_kernels.py`
 builds them with `nvcc` at first use (`ops/_nvcc.py`), binds them with ctypes,
 and wraps them in a `torch.autograd.Function`.
 
-Three kernels, each with a launch counter in `LAUNCHES`:
+The kernels take a replica axis: x is (N, B, 400), each weight (N, in, out)
+and each bias (N, out), and one launch serves all N replicas (the replica
+group of `train/engine.py`, stacked on a leading axis). Three kernels, each
+with a launch counter in `LAUNCHES`:
 
 - ``fused_mlp3_fwd``: logits, plus the h1/h2 residuals when a gradient is
-  needed (the TPU kernel's two forward variants), each 16-row tile spread
-  over a thread-block cluster of `fwd_cluster(B)` blocks;
-- ``fused_mlp3_bwd``: dx and one row of per-tile dW/db partials, each
-  16-row tile spread over a thread-block cluster of `bwd_cluster(B)`
-  blocks;
-- ``fused_mlp3_bwd_reduce``: the fixed-order sum of those partial rows (the
-  TPU kernel accumulated across its sequential grid instead).
+  needed (the TPU kernel's two forward variants), each (replica, 16-row
+  tile) spread over a thread-block cluster of `fwd_cluster(B)` blocks;
+- ``fused_mlp3_bwd``: dx and the dW/db sums of each (replica, group of
+  tiles) by the group rule `bwd_groups(B)`, each group on a cluster of
+  `bwd_cluster(B)` blocks that walks its tiles in order; with one group (B
+  <= 16 * BWD_GROUP_MAX, the main path among them) that row is the
+  replica's gradient itself;
+- ``fused_mlp3_bwd_reduce``: the fixed-order sum of a replica's group rows,
+  launched only when it has more than one (the TPU kernel accumulated
+  across its sequential grid instead).
 
 A wrapper given CPU tensors computes the plain PyTorch version of the same
 math; given CUDA tensors it launches the kernel or raises. Weights are
 ``(in, out)``, the layout of the JAX package's Dense kernels.
+`fused_mlp3` also takes one replica's (B, 400) and unstacked weights.
 """
 
 from __future__ import annotations
@@ -36,12 +43,15 @@ D_IN, D1, D2, D_OUT = 400, 120, 84, 10
 WEIGHT_SHAPES = ((D_IN, D1), (D1,), (D1, D2), (D2,), (D2, D_OUT), (D_OUT,))
 GRAD_SIZE = sum(int(torch.Size(s).numel()) for s in WEIGHT_SHAPES)  # 59,134
 BWD_TILE_ROWS = 16
+# the most groups of 16-row tiles a replica's backward is cut into
+# (csrc/fused_mlp3.cu BWD_GROUP_MAX, where the measurement behind it is)
+BWD_GROUP_MAX = 64
 # the forward kernel's cluster: FWD_CLUSTERS[0] blocks per 16-row tile up to
 # FWD_CLUSTER_MAX_ROWS rows, FWD_CLUSTERS[1] above (csrc/fused_mlp3.cu's
 # header note has the measurements behind the rule)
 FWD_CLUSTERS = (8, 4)
 FWD_CLUSTER_MAX_ROWS = 256
-# the backward kernel's blocks per 16-row tile (csrc/fused_mlp3.cu BWD_CL; its
+# the backward kernel's blocks per cluster (csrc/fused_mlp3.cu BWD_CL; its
 # header note has the measurements behind it)
 BWD_CLUSTER = 8
 
@@ -51,66 +61,86 @@ SOURCE = os.path.join(_nvcc.CSRC, "fused_mlp3.cu")
 LAUNCHES = {"fused_mlp3_fwd": 0, "fused_mlp3_bwd": 0, "fused_mlp3_bwd_reduce": 0}
 
 
+def bwd_groups(b: int) -> int:
+    """The group rule: the backward cuts a replica's T = ceil(b/16) tiles
+    into groups of ceil(T / BWD_GROUP_MAX) consecutive tiles, so into
+    ceil(T / that) groups. A function of b alone (never of what the card
+    reports), so a gradient's bits depend on b only."""
+    tiles = -(-b // BWD_TILE_ROWS)
+    per_group = -(-tiles // BWD_GROUP_MAX)
+    return -(-tiles // per_group)
+
+
 # ------------------------------------------------------------ plain versions
 
 
 def mlp3_reference(x, w1, b1, w2, b2, w3, b3):
-    """Plain PyTorch math of the fused head (natively differentiable)."""
+    """Plain PyTorch math of the fused head (natively differentiable); one
+    replica's (B, 400) or stacked (N, B, 400)."""
     return mlp3_forward_reference(x, w1, b1, w2, b2, w3, b3)[0]
 
 
 def mlp3_forward_reference(x, w1, b1, w2, b2, w3, b3):
     """(logits, h1, h2): the plain version of the forward kernel with residuals."""
-    h1 = torch.relu(x @ w1 + b1)
-    h2 = torch.relu(h1 @ w2 + b2)
-    return h2 @ w3 + b3, h1, h2
+    h1 = torch.relu(x @ w1 + b1.unsqueeze(-2))
+    h2 = torch.relu(h1 @ w2 + b2.unsqueeze(-2))
+    return h2 @ w3 + b3.unsqueeze(-2), h1, h2
 
 
-def _layer_grads(g, x, h1, h2, w1, w2, w3):
-    dh2 = (g @ w3.T) * (h2 > 0)
-    dh1 = (dh2 @ w2.T) * (h1 > 0)
+def _layer_grads(g, h1, h2, w2, w3):
+    dh2 = (g @ w3.mT) * (h2 > 0)
+    dh1 = (dh2 @ w2.mT) * (h1 > 0)
     return dh1, dh2
 
 
 def mlp3_backward_reference(g, x, h1, h2, w1, w2, w3):
     """(dx, dW1, db1, dW2, db2, dW3, db3) in plain PyTorch."""
-    dh1, dh2 = _layer_grads(g, x, h1, h2, w1, w2, w3)
+    dh1, dh2 = _layer_grads(g, h1, h2, w2, w3)
     return (
-        dh1 @ w1.T,
-        x.T @ dh1, dh1.sum(0),
-        h1.T @ dh2, dh2.sum(0),
-        h2.T @ g, g.sum(0),
+        dh1 @ w1.mT,
+        x.mT @ dh1, dh1.sum(-2),
+        h1.mT @ dh2, dh2.sum(-2),
+        h2.mT @ g, g.sum(-2),
     )
 
 
 def mlp3_bwd_partials_reference(g, x, h1, h2, w1, w2, w3):
-    """(dx, partials): the plain version of the backward kernel, with one
-    row of flattened dW1|db1|dW2|db2|dW3|db3 per 16-row tile."""
-    dh1, dh2 = _layer_grads(g, x, h1, h2, w1, w2, w3)
-    b = x.shape[0]
+    """(dx (N, B, 400), sums (N, bwd_groups(B), 59134)): the plain version of
+    the backward kernel. Each 16-row tile's flattened dW1|db1|dW2|db2|dW3|db3
+    is summed over its rows, and a group's row is its tiles' sums added in
+    tile order."""
+    dh1, dh2 = _layer_grads(g, h1, h2, w2, w3)
+    n, b = x.shape[:2]
     nt = -(-b // BWD_TILE_ROWS)
-    pad = nt * BWD_TILE_ROWS - b
+    groups = bwd_groups(b)
+    per_group = -(-nt // groups)
 
     def tiles(a):
-        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
-        return a.view(nt, BWD_TILE_ROWS, a.shape[1])
+        a = torch.nn.functional.pad(a, (0, 0, 0, nt * BWD_TILE_ROWS - b))
+        return a.view(n, nt, BWD_TILE_ROWS, a.shape[-1])
 
     x_t, g_t, h1_t, h2_t = tiles(x), tiles(g), tiles(h1), tiles(h2)
     dh1_t, dh2_t = tiles(dh1), tiles(dh2)
-    parts = [
-        x_t.transpose(1, 2) @ dh1_t, dh1_t.sum(1),
-        h1_t.transpose(1, 2) @ dh2_t, dh2_t.sum(1),
-        h2_t.transpose(1, 2) @ g_t, g_t.sum(1),
-    ]
-    return dh1 @ w1.T, torch.cat([p.reshape(nt, -1) for p in parts], dim=1)
+    parts = torch.cat([p.reshape(n, nt, -1) for p in (
+        x_t.mT @ dh1_t, dh1_t.sum(2),
+        h1_t.mT @ dh2_t, dh2_t.sum(2),
+        h2_t.mT @ g_t, g_t.sum(2),
+    )], dim=2)
+    parts = torch.nn.functional.pad(parts, (0, 0, 0, groups * per_group - nt))
+    parts = parts.view(n, groups, per_group, GRAD_SIZE)
+    sums = parts[:, :, 0]
+    for i in range(1, per_group):
+        sums = sums + parts[:, :, i]
+    return dh1 @ w1.mT, sums
 
 
 def split_grads(flat):
-    """Views of a flat (59,134,) gradient as (dW1, db1, dW2, db2, dW3, db3)."""
+    """Views of flat (..., 59,134) gradients as (dW1, db1, dW2, db2, dW3, db3)
+    with the leading axes kept."""
     out, off = [], 0
     for shape in WEIGHT_SHAPES:
         n = int(torch.Size(shape).numel())
-        out.append(flat[off : off + n].view(shape))
+        out.append(flat[..., off : off + n].view(*flat.shape[:-1], *shape))
         off += n
     return tuple(out)
 
@@ -127,19 +157,25 @@ def build() -> str:
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = _nvcc.load(SOURCE, {
-        "fused_mlp3_fwd": [p] * 10 + [i, i, p],
+        "fused_mlp3_fwd": [p] * 10 + [i, i, i, p],
         "fused_mlp3_fwd_info": [i, p, p],
-        "fused_mlp3_bwd": [p] * 9 + [i, p],
+        "fused_mlp3_bwd": [p] * 9 + [i, i, i, p],
         "fused_mlp3_bwd_info": [p, p, p, p],
-        "fused_mlp3_bwd_reduce": [p, i, p, p],
+        "fused_mlp3_bwd_reduce": [p, i, i, p, p],
+        "fused_mlp3_bwd_groups": [i],
         "fused_mlp3_grad_size": [],
         "fused_mlp3_bwd_tile_rows": [],
+        "fused_mlp3_bwd_group_max": [],
     })
-    if (lib.fused_mlp3_grad_size(), lib.fused_mlp3_bwd_tile_rows()) != (
-        GRAD_SIZE, BWD_TILE_ROWS
-    ):
+    if (lib.fused_mlp3_grad_size(), lib.fused_mlp3_bwd_tile_rows(),
+            lib.fused_mlp3_bwd_group_max()) != (GRAD_SIZE, BWD_TILE_ROWS, BWD_GROUP_MAX):
         raise RuntimeError("csrc/fused_mlp3.cu disagrees with fused_head.py on sizes")
     return lib
+
+
+def kernel_bwd_groups(b: int) -> int:
+    """The CUDA source's group rule at `b` rows (to hold `bwd_groups` to)."""
+    return _lib().fused_mlp3_bwd_groups(b)
 
 
 def fwd_cluster(b: int) -> int:
@@ -161,14 +197,14 @@ def fwd_info(cluster: int) -> dict:
 
 
 def bwd_cluster(b: int) -> int:
-    """The backward kernel's blocks per 16-row tile at `b` rows: 8 at every
-    B, each block then owning 50 of W1's 400 rows (8 measured faster than 4
+    """The backward kernel's blocks per cluster at `b` rows: 8 at every B,
+    each block then owning 50 of W1's 400 rows (8 measured faster than 4
     at B = 16, 128 and 4096; the kernel's header note)."""
     return BWD_CLUSTER
 
 
 def bwd_info() -> dict:
-    """The backward kernel on the current card: its blocks per tile (as
+    """The backward kernel on the current card: its blocks per cluster (as
     built), dynamic shared memory, blocks per SM and the clusters of it that
     run at once."""
     out = [ctypes.c_int(0) for _ in range(4)]
@@ -206,78 +242,93 @@ def _check(device, **named) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _rows(x) -> int:
-    if x.dim() != 2 or x.shape[0] < 1:
-        raise ValueError(f"x must be (B>=1, {D_IN}), got {tuple(x.shape)}")
-    return x.shape[0]
+def _rows(x) -> tuple[int, int]:
+    """(N, B) of a stacked x."""
+    if x.dim() != 3 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"x must be (N>=1, B>=1, {D_IN}), got {tuple(x.shape)}")
+    return x.shape[0], x.shape[1]
+
+
+def _weights(n, names, tensors, shapes) -> dict:
+    return {k: (t, (n, *s)) for k, t, s in zip(names, tensors, shapes)}
 
 
 def _check_head(x, w1, b1, w2, b2, w3, b3) -> None:
-    b = _rows(x)
-    w = dict(zip(("w1", "b1", "w2", "b2", "w3", "b3"),
-                 zip((w1, b1, w2, b2, w3, b3), WEIGHT_SHAPES)))
-    _check(x.device, x=(x, (b, D_IN)), **w)
+    n, b = _rows(x)
+    w = _weights(n, ("w1", "b1", "w2", "b2", "w3", "b3"), (w1, b1, w2, b2, w3, b3),
+                 WEIGHT_SHAPES)
+    _check(x.device, x=(x, (n, b, D_IN)), **w)
 
 
 # ----------------------------------------------------------------- the kernels
 
 
 def mlp3_forward(x, w1, b1, w2, b2, w3, b3, *, residuals: bool):
-    """(logits, h1, h2) from the forward kernel, each 16-row tile on a
-    cluster of `fwd_cluster(B)` blocks; h1/h2 are None unless `residuals`.
-    CPU tensors take the plain version."""
+    """(logits, h1, h2), each (N, B, .), from one forward launch over the N
+    replicas, each (replica, 16-row tile) on a cluster of `fwd_cluster(B)`
+    blocks; h1/h2 are None unless `residuals`. CPU tensors take the plain
+    version."""
     _check_head(x, w1, b1, w2, b2, w3, b3)
     if x.device.type == "cpu":
         out, h1, h2 = mlp3_forward_reference(x, w1, b1, w2, b2, w3, b3)
         return (out, h1, h2) if residuals else (out, None, None)
-    b = x.shape[0]
-    out = torch.empty(b, D_OUT, device=x.device)
-    h1 = torch.empty(b, D1, device=x.device) if residuals else None
-    h2 = torch.empty(b, D2, device=x.device) if residuals else None
+    n, b = x.shape[:2]
+    out = x.new_empty(n, b, D_OUT)
+    h1 = x.new_empty(n, b, D1) if residuals else None
+    h2 = x.new_empty(n, b, D2) if residuals else None
     _launch(
         "fused_mlp3_fwd", x.device,
-        *map(_ptr, (x, w1, b1, w2, b2, w3, b3, out, h1, h2)), b, fwd_cluster(b),
+        *map(_ptr, (x, w1, b1, w2, b2, w3, b3, out, h1, h2)), n, b, fwd_cluster(b),
     )
     return out, h1, h2
 
 
 def mlp3_bwd_partials(g, x, h1, h2, w1, w2, w3):
-    """(dx, partials (ceil(B/16), 59134)) from the backward kernel, each
-    16-row tile on a cluster of `bwd_cluster(B)` blocks."""
-    b = _rows(x)
+    """(dx (N, B, 400), sums (N, bwd_groups(B), 59134)) from one backward
+    launch over the N replicas, each group of tiles on a cluster of
+    `bwd_cluster(B)` blocks."""
+    n, b = _rows(x)
     _check(
-        x.device, g=(g, (b, D_OUT)), x=(x, (b, D_IN)), h1=(h1, (b, D1)),
-        h2=(h2, (b, D2)), w1=(w1, WEIGHT_SHAPES[0]), w2=(w2, WEIGHT_SHAPES[2]),
-        w3=(w3, WEIGHT_SHAPES[4]),
+        x.device, g=(g, (n, b, D_OUT)), x=(x, (n, b, D_IN)), h1=(h1, (n, b, D1)),
+        h2=(h2, (n, b, D2)),
+        **_weights(n, ("w1", "w2", "w3"), (w1, w2, w3), WEIGHT_SHAPES[::2]),
     )
     if x.device.type == "cpu":
         return mlp3_bwd_partials_reference(g, x, h1, h2, w1, w2, w3)
-    nt = -(-b // BWD_TILE_ROWS)
-    dx = x.new_empty(b, D_IN)
-    partials = x.new_empty(nt, GRAD_SIZE)
+    groups = bwd_groups(b)
+    dx = x.new_empty(n, b, D_IN)
+    sums = x.new_empty(n, groups, GRAD_SIZE)
     _launch(
-        "fused_mlp3_bwd", x.device, *map(_ptr, (g, x, h1, h2, w1, w2, w3, dx, partials)), b
+        "fused_mlp3_bwd", x.device,
+        *map(_ptr, (g, x, h1, h2, w1, w2, w3, dx, sums)), n, b, groups,
     )
-    return dx, partials
+    return dx, sums
 
 
-def mlp3_bwd_reduce(partials):
-    """(59134,) fixed-order sum of the partial rows, from the reduce kernel."""
-    if partials.dim() != 2 or partials.shape[0] < 1:
-        raise ValueError(f"partials must be (T>=1, {GRAD_SIZE}), got {tuple(partials.shape)}")
-    _check(partials.device, partials=(partials, (partials.shape[0], GRAD_SIZE)))
-    if partials.device.type == "cpu":
-        return partials.sum(0)
-    grads = torch.empty(GRAD_SIZE, device=partials.device)
-    _launch("fused_mlp3_bwd_reduce", partials.device, partials.data_ptr(),
-            partials.shape[0], grads.data_ptr())
+def mlp3_bwd_reduce(sums):
+    """(N, 59134): each replica's group rows (N, G >= 2, 59134) summed in
+    group order, from the reduce kernel."""
+    if sums.dim() != 3 or min(sums.shape[:2]) < 1:
+        raise ValueError(f"sums must be (N>=1, G>=1, {GRAD_SIZE}), got {tuple(sums.shape)}")
+    n, groups = sums.shape[:2]
+    _check(sums.device, sums=(sums, (n, groups, GRAD_SIZE)))
+    if sums.device.type == "cpu":
+        out = sums[:, 0]
+        for q in range(1, groups):
+            out = out + sums[:, q]
+        return out
+    grads = sums.new_empty(n, GRAD_SIZE)
+    _launch("fused_mlp3_bwd_reduce", sums.device, sums.data_ptr(), n, groups,
+            grads.data_ptr())
     return grads
 
 
 def mlp3_backward(g, x, h1, h2, w1, w2, w3):
-    """(dx, dW1, db1, dW2, db2, dW3, db3) from the two backward kernels."""
-    dx, partials = mlp3_bwd_partials(g, x, h1, h2, w1, w2, w3)
-    return (dx, *split_grads(mlp3_bwd_reduce(partials)))
+    """(dx, dW1, db1, dW2, db2, dW3, db3), stacked, from the backward kernel
+    and, when a replica's tiles form more than one group, the reduce kernel."""
+    dx, sums = mlp3_bwd_partials(g, x, h1, h2, w1, w2, w3)
+    flat = sums[:, 0] if sums.shape[1] == 1 else mlp3_bwd_reduce(sums)
+    return (dx, *split_grads(flat))
 
 
 class _FusedMLP3(torch.autograd.Function):
@@ -295,12 +346,16 @@ class _FusedMLP3(torch.autograd.Function):
 def fused_mlp3(x, w1, b1, w2, b2, w3, b3):
     """relu(relu(x@W1+b1)@W2+b2)@W3+b3, trainable.
 
-    x (B, 400) float32; weights (in, out); returns (B, 10) logits. On CPU
-    tensors this is `mlp3_reference`; on CUDA tensors the forward launches
-    the fused kernel (with residuals only when a gradient is needed) and the
-    backward launches the backward and reduce kernels.
+    x (N, B, 400) float32 with weights (N, in, out) and biases (N, out)
+    returns (N, B, 10) logits; x (B, 400) with unstacked weights returns (B,
+    10). On CPU tensors this is `mlp3_reference`; on CUDA tensors the forward
+    launches the fused kernel once for all replicas (with residuals only when
+    a gradient is needed) and the backward launches the backward kernel (and
+    the reduce kernel when B > 16 * BWD_GROUP_MAX).
     """
     args = (x, w1, b1, w2, b2, w3, b3)
+    if x.dim() == 2:
+        return fused_mlp3(*(a.unsqueeze(0) for a in args))[0]
     if x.device.type == "cpu":
         _check_head(*args)
         return mlp3_reference(*args)

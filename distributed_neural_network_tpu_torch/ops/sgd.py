@@ -1,7 +1,8 @@
 """SGD with momentum, torch semantics (counterpart of the JAX package's
 `ops/sgd.py`): buf <- mu*buf + grad, p <- p - lr*buf, no dampening or
 nesterov; zero-initialised buffers make the first step buf = grad. The
-update is in place on the parameter and buffer tensors."""
+update is in place on the parameter and buffer tensors, which may be stacked
+replicas (N, ...)."""
 
 from __future__ import annotations
 

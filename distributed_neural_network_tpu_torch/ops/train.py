@@ -1,82 +1,79 @@
-"""Training and evaluation epochs (counterpart of the JAX package's
-`ops/train.py`). The JAX `lax.scan` over batches is a Python loop here; the
-split lives on the device and each batch is a row gather.
+"""Training and evaluation steps over stacked replicas (counterpart of the
+JAX package's `ops/train.py`). The N replicas of the group are one
+`ReplicaNetwork` (every parameter stacked on a leading axis), a batch is
+(N, B) row indices into the split on the device, and one call of the model
+serves every replica.
 
-- `train_epoch` is one worker's local-SGD epoch (`sync_mode="epoch"`);
-  `sync_mode="step"` is driven by the engine, with `sync_grads` taking the
-  gradient mean over the replica group each step.
-- `eval_epoch` keeps the JAX accounting: the mean of per-batch mean losses,
-  with batches that hold no valid row left out of the batch count.
+- `train_step` is one SGD step of every replica: gather, forward, the
+  per-replica masked loss, `autograd.grad`, update; `sync=True`
+  (`sync_mode="step"`) first takes the gradient mean over the replicas.
+  `train_epoch` is those steps over a stacked plan, the JAX `lax.scan`.
+- `eval_epoch` keeps the JAX accounting per replica: the sum of per-batch
+  mean losses, with batches that hold no valid row left out of the batch
+  count, and the correct and valid row counts.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..data.pipeline import epoch_plan, eval_plan, gather_batch
+from ..data.pipeline import gather_batch
 from .losses import masked_correct, masked_cross_entropy
-from .sgd import init_momentum, sgd_step
-
-
-def make_batch_loss(model):
-    """f(x, y, w) -> masked mean cross entropy of `model` on one batch."""
-
-    def batch_loss(x, y, w):
-        return masked_cross_entropy(model(x), y, w)
-
-    return batch_loss
+from .sgd import sgd_step
 
 
 def loss_and_grads(model, x, y, w):
-    """(loss, grads in `model.parameters()` order) for one batch."""
+    """(loss, grads in `model.parameters()` order) for one batch; stacked
+    replicas give (N,) losses and each replica's gradient in its slice."""
     params = list(model.parameters())
-    loss = make_batch_loss(model)(x, y, w)
-    return loss.detach(), torch.autograd.grad(loss, params)
+    loss = masked_cross_entropy(model(x), y, w)
+    return loss.detach(), torch.autograd.grad(loss.sum(), params)
 
 
-def sync_grads(grads_per_worker):
+def sync_grads(grads):
     """Per-step gradient mean over the replica group (`grad_sync="end"`):
-    one mean per parameter over the workers' gradient lists."""
-    return [torch.stack(gs).mean(0) for gs in zip(*grads_per_worker)]
+    each stacked gradient's mean over its leading axis, for every replica."""
+    return [g.mean(0, keepdim=True).expand_as(g) for g in grads]
 
 
-def train_epoch(model, mom, images, labels, order, *, batch_size: int,
-                lr: float, momentum: float, reset_momentum: bool = True):
-    """One local-SGD epoch of `model` over (images, labels) in `order`.
+def train_step(net, mom, images, labels, idx, w, *, lr: float, momentum: float,
+               sync: bool = False) -> torch.Tensor:
+    """One SGD-momentum step of every replica of `net` on rows `idx` (N, B)
+    weighted by `w` (N, B); updates the parameters and `mom` in place and
+    returns the (N,) batch losses."""
+    x, y = gather_batch(images, labels, idx)
+    loss, grads = loss_and_grads(net, x, y, w)
+    if sync:
+        grads = sync_grads(grads)
+    sgd_step(list(net.parameters()), mom, grads, lr, momentum)
+    return loss
 
-    Updates the model's parameters and `mom` in place and returns
-    (mom, loss_sum, n_batches): the sum of per-batch mean losses as a device
-    scalar and the batch count.
-    """
-    params = list(model.parameters())
+
+def train_epoch(net, mom, images, labels, idx, w, *, lr: float, momentum: float,
+                reset_momentum: bool = True, sync: bool = False):
+    """Every replica's epoch over a stacked plan `idx`, `w` (N, steps, B):
+    returns the (N,) sums of per-batch mean losses and the step count."""
     if reset_momentum:
-        mom = init_momentum(params)
-    idx, w = epoch_plan(order, images.shape[0], batch_size, images.device)
-    loss_sum = torch.zeros((), device=images.device)
-    for s in range(idx.shape[0]):
-        x, y = gather_batch(images, labels, idx[s])
-        loss, grads = loss_and_grads(model, x, y, w[s])
-        sgd_step(params, mom, grads, lr, momentum)
-        loss_sum += loss
-    return mom, loss_sum, idx.shape[0]
+        torch._foreach_zero_(mom)
+    loss_sums = torch.zeros(idx.shape[0], device=images.device)
+    for s in range(idx.shape[1]):
+        loss_sums += train_step(net, mom, images, labels, idx[:, s], w[:, s], lr=lr,
+                                momentum=momentum, sync=sync)
+    return loss_sums, idx.shape[1]
 
 
 @torch.no_grad()
-def eval_epoch(model, images, labels, row_weights, *, batch_size: int):
-    """(loss_sum, n_batches, correct, n_valid) device scalars over one
-    worker's eval rows; `row_weights` masks padding rows."""
-    idx, w = eval_plan(images.shape[0], batch_size, images.device)
-    dev = images.device
-    loss_sum, n_batches = torch.zeros((), device=dev), torch.zeros((), device=dev)
-    correct, n_valid = torch.zeros((), device=dev), torch.zeros((), device=dev)
-    for s in range(idx.shape[0]):
-        x, y = gather_batch(images, labels, idx[s])
-        rw = row_weights.index_select(0, idx[s]) * w[s]
-        logits = model(x)
-        valid = rw.sum()
+def eval_epoch(net, images, labels, row_weights, idx, w) -> torch.Tensor:
+    """(4, N) sums over every replica's eval plan `idx`, `w` (N, steps, B):
+    loss sum, batch count, correct and valid rows; `row_weights` masks
+    padding rows."""
+    totals = torch.zeros(4, idx.shape[0], device=images.device)
+    for s in range(idx.shape[1]):
+        x, y = gather_batch(images, labels, idx[:, s])
+        rw = row_weights.index_select(0, idx[:, s].reshape(-1)).view(y.shape) * w[:, s]
+        logits = net(x)
+        valid = rw.sum(-1)
         has_valid = (valid > 0).float()
-        loss_sum += masked_cross_entropy(logits, y, rw) * has_valid
-        n_batches += has_valid
-        correct += masked_correct(logits, y, rw)
-        n_valid += valid
-    return loss_sum, n_batches, correct, n_valid
+        totals += torch.stack([masked_cross_entropy(logits, y, rw) * has_valid, has_valid,
+                               masked_correct(logits, y, rw), valid])
+    return totals

@@ -24,13 +24,12 @@ from ..device import resolve_device
 from ..utils import timers as T
 from ..utils.logfiles import write_phase_logs
 from ..utils.metrics import init_run
-from .engine import SLICE1_LATER, SLICE4, Engine, TrainConfig
+from .engine import SLICE4, Engine, TrainConfig
 
 SLICE5 = "slice 5, static analysis (ROADMAP.md Queue 1 items 15-16)"
 
 # dest -> (flag, the slice that brings it); each is parsed with default None
 LATER_FLAGS = {
-    "fused": ("--fused", SLICE1_LATER + ": multi-epoch spans / CUDA graphs"),
     "checkpoint_dir": ("--checkpoint-dir", SLICE4),
     "checkpoint_every": ("--checkpoint-every", SLICE4),
     "checkpoint_keep": ("--checkpoint-keep", SLICE4),
@@ -88,6 +87,17 @@ def add_common_flags(p: argparse.ArgumentParser, *, epochs: int, batch_size: int
         "(JAX: pallas); torch = plain PyTorch ops (JAX: xla)",
     )
     p.add_argument("--eval-every", type=int, default=1)
+    p.add_argument(
+        "--fused",
+        action="store_true",
+        help="run multi-epoch spans (train, masked sync and eval replayed from "
+        "the captured CUDA graphs with no host read between epochs) instead "
+        "of one read per epoch - the fast path; phase timing then reports "
+        "train+sync(+eval at --eval-every 1) as one TRAINING number. "
+        "Downgraded to the per-epoch path when combined with "
+        "--failure-duration > 0 (straggler sleeps can only interleave "
+        "between epochs)",
+    )
     p.add_argument("--dynamics", action="store_true")
     for dest, (flag, later) in LATER_FLAGS.items():
         p.add_argument(flag, dest=dest, nargs="?", const=True, default=None,
@@ -190,7 +200,8 @@ def run_training(args, regime: str, *, log=print) -> Engine:
 
     t0 = time.perf_counter()
     engine = Engine(cfg, train_split, test_split, device=device)
-    engine.run(timers=timers, run=run, log=log, eval_every=args.eval_every)
+    engine.run(timers=timers, run=run, log=log, eval_every=args.eval_every,
+               fused=args.fused)
     wall = time.perf_counter() - t0
     run.stop()
 

@@ -1,7 +1,9 @@
 """The port's command line (`train/cli.py`) on the CPU: a tiny synthetic run
 writes the reference's two phase-log files and a parseable SUMMARY line; the
 default device is CUDA and asking for it without a GPU fails cleanly; a flag
-of a later slice raises NotImplementedError naming the slice."""
+of a later slice raises NotImplementedError naming the slice; `--fused` runs
+multi-epoch spans with the JAX CLI's lines, and downgrades to the per-epoch
+path under `--failure-duration` with the JAX message."""
 
 import json
 import os
@@ -53,7 +55,7 @@ def test_default_device_is_cuda_and_fails_cleanly_without_it(tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("flags", [
-    ["--fused"], ["--checkpoint-dir", "ckpt"], ["--guard", "skip"], ["--trace-out", "t.json"],
+    ["--resume"], ["--checkpoint-dir", "ckpt"], ["--guard", "skip"], ["--trace-out", "t.json"],
     ["--step-stats"], ["--metrics-port", "0"], ["--sharding", "auto"], ["--input-mode", "stream"],
     ["--grad-sync", "overlap"], ["--compute-dtype", "bfloat16"], ["--dynamics"], ["--neptune"],
 ])
@@ -65,3 +67,39 @@ def test_later_slice_flag_raises(flags):
 def test_quantized_precision_is_refused():
     with pytest.raises(SystemExit):
         cli.main(["--device", "cpu", *TINY, "--precision", "int8"], log=lambda _: None)
+
+
+@pytest.mark.parametrize("extra", [[], ["--eval-every", "2", "--epochs", "3"]])
+def test_fused_runs_spans_with_the_jax_lines(tmp_path, extra):
+    """`--fused` on the CPU: the JAX CLI's per-epoch lines, in the per-epoch
+    path's values (a span gives the per-epoch path's bits), and TRAINING
+    charged with the whole span."""
+    runs = {}
+    for fused in (False, True):
+        lines = []
+        rc = cli.main(["--device", "cpu", "--log-dir", str(tmp_path / str(fused)), *TINY,
+                       *extra, *(["--fused"] if fused else [])], log=lines.append)
+        assert rc == 0
+        runs[fused] = lines
+    epochs = 3 if extra else 2
+    keep = ("Starting epoch", "Global Average Training Loss", "Validation")
+    per_epoch, fused = ([l for l in runs[k] if l.startswith(keep)] for k in (False, True))
+    assert fused == per_epoch
+    assert sum(l.startswith("Starting epoch") for l in fused) == epochs
+    assert sum(l.startswith("Validation Accuracy") for l in fused) == (1 if extra else 2)
+    summary = json.loads(next(l for l in runs[True] if l.startswith("SUMMARY "))[8:])
+    assert (summary["final_val_acc"] is None) == bool(extra)  # epoch 2 is no eval epoch
+    comm = next(l for l in runs[True] if l.startswith("Time spent on parent communication"))
+    assert float(comm.split(":")[1]) == 0.0
+
+
+def test_fused_downgrades_under_failure_duration(tmp_path):
+    lines = []
+    rc = cli.main(["--device", "cpu", "--log-dir", str(tmp_path), *TINY, "--fused",
+                   "--failure-probability", "1.0", "--failure-duration", "0.01"],
+                  log=lines.append)
+    assert rc == 0
+    assert ("(fused mode does not support --failure-duration straggler sleeps; "
+            "using the per-epoch path)") in lines
+    assert any(l.startswith("Device 0 failed!") for l in lines)
+    assert lines.count("Starting epoch  1") == 1

@@ -1,6 +1,7 @@
 """The port's data layer (`data/cifar10.py`, `data/pipeline.py`,
 `parallel/partition.py`) against the JAX package's: synthetic data and
-labels byte-identical, `normalize` within 1e-6, shards and plans exact."""
+labels byte-identical, `normalize` within 1e-6, shards and plans exact,
+the stacked plan per replica with its shard offset."""
 
 import jax
 import jax.numpy as jnp
@@ -93,3 +94,20 @@ def test_gather_batch_matches_jax():
     )
     assert np.array_equal(x.numpy(), np.asarray(jx))
     assert np.array_equal(y.numpy(), np.asarray(jy))
+
+
+@pytest.mark.parametrize("n_rows,bs,offsets", [(40, 16, [0, 40, 80]), (33, 8, [0, 0, 0])])
+def test_stacked_plan_is_each_replicas_jax_plan(n_rows, bs, offsets):
+    """Replica d's slice of the stacked plan is JAX's plan for its own
+    permutation, moved by its shard offset (padding rows: the replica's row
+    0, weight 0)."""
+    keys = [jax.random.key(20 + d) for d in range(3)]
+    perms = [np.asarray(jax.random.permutation(k, n_rows)) for k in keys]
+    idx, w = pipeline.stacked_plan(perms, n_rows, bs, offsets)
+    assert idx.shape == w.shape == (3, -(-n_rows // bs), bs)
+    for d, key in enumerate(keys):
+        j_idx, j_w = jpipe.epoch_plan(key, n_rows, bs)
+        assert np.array_equal(idx[d].numpy(), np.asarray(j_idx) + offsets[d])
+        assert np.array_equal(w[d].numpy(), np.asarray(j_w))
+    x, y = pipeline.gather_batch(torch.arange(200.0).view(200, 1), torch.arange(200), idx[:, 0])
+    assert x.shape == (3, bs, 1) and torch.equal(y, idx[:, 0])

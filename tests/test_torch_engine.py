@@ -9,12 +9,20 @@ reference algorithm (tests/oracle_numpy.py) and against the JAX Engine.
    `sync_mode="step"` epoch, each from the JAX Engine's initial params with
    its orders and masks injected: train loss and val_loss within 5e-4,
    val_acc within one test row.
+3. A fused span (`run_span(0, 3)`, with and without eval inside) against
+   the JAX Engine's `run_span(0, 3)` under the same injection, with the same
+   bounds and params max-rel within 2e-3; and the span equal bit for bit to
+   three `run_epoch` calls of the port.
+
+The engine keeps the N workers stacked on a leading axis; on the CPU its
+programs run eagerly.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from distributed_neural_network_tpu.data.cifar10 import load_split as jax_load_split
 from distributed_neural_network_tpu.parallel.fault import epoch_key
@@ -118,16 +126,20 @@ def test_state_tree_round_trips():
 
 
 def test_regimes_place_data_without_copies():
+    """Each split is one device tensor: data_parallel's workers read their
+    shards of it through row offsets, replication's all read it whole."""
     split = load_split(True, source="synthetic", synthetic_size=103, seed=0)
     test = load_split(False, source="synthetic", synthetic_size=10, seed=0)
     dp = Engine(TrainConfig(nb_proc=4, regime="data_parallel"), split, test, device="cpu")
     assert dp.local_train_rows == 25 and dp.local_test_rows == 3
-    base = dp.train_views[0][0].untyped_storage().data_ptr()
-    assert all(v[0].untyped_storage().data_ptr() == base for v in dp.train_views)
+    assert dp.train_images.shape[0] == 100 and dp.train_offsets == [0, 25, 50, 75]
+    assert dp.test_images.shape[0] == 12 and dp.eval_idx.shape == (4, 1, 16)
+    assert dp.eval_idx[:, 0, 0].tolist() == [0, 3, 6, 9]
+    assert all(p.shape[0] == 4 for p in dp.params)
     rep = Engine(TrainConfig(nb_proc=3, regime="replication", reference_compat=True),
                  split, None, device="cpu")
     assert rep.n_workers == 2 and rep.local_train_rows == 103
-    assert rep.train_views[0][0] is rep.train_views[1][0]
+    assert rep.train_images.shape[0] == 103 and rep.train_offsets == [0, 0]
     single = Engine(TrainConfig(nb_proc=8, regime="single"), split, None, device="cpu")
     assert single.n_workers == 1
 
@@ -138,8 +150,65 @@ def test_all_dead_epoch_degrades_to_plain_mean():
                  device="cpu")
     m = eng.run_epoch(0, do_eval=False)
     assert m.n_live == 0 and np.isfinite(m.train_loss)
-    a, b = (list(w.parameters()) for w in eng.workers)
-    assert all(bool((x == y).all()) for x, y in zip(a, b))
+    assert all(bool((p[0] == p[1]).all()) for p in eng.params)
+
+
+def _span_engines(eval_inside):
+    """The JAX Engine and the port's on the same data, with JAX's orders and
+    fault masks injected and the port loaded with JAX's initial state (before
+    either trains)."""
+    seed, p_fail = _fault_seed(0.5)[0], 0.5
+    kw = dict(lr=0.05, momentum=0.9, batch_size=16, epochs=3, nb_proc=N_WORKERS,
+              regime="data_parallel", seed=seed, failure_probability=p_fail,
+              eval_batch_size=8)
+    size = dict(source="synthetic", synthetic_size=192, seed=seed)
+    test_size = dict(source="synthetic", synthetic_size=40, seed=seed)
+    jeng = JaxEngine(JaxConfig(**kw), jax_load_split(True, **size),
+                     jax_load_split(False, **test_size) if eval_inside else None)
+    test_split = load_split(False, **test_size) if eval_inside else None
+    eng = Engine(
+        TrainConfig(**kw), load_split(True, **size), test_split, device="cpu",
+        orders=lambda e, d: _jax_order(seed, e, d, 192 // N_WORKERS),
+        masks=lambda e: np.asarray(jax_live_mask(epoch_key(seed, e), N_WORKERS, p_fail)),
+    )
+    eng.load_state_tree(jax.tree.map(np.asarray, jeng.state_tree()))
+    return jeng, eng, test_split
+
+
+@pytest.mark.parametrize("eval_inside", [True, False])
+def test_fused_span_matches_jax_engine(n_devices, eval_inside):
+    """`run_span(0, 3)` against the JAX Engine's fused span: per-epoch train
+    loss (and val_loss) within 5e-4, val_acc within one test row, the live
+    counts equal, and the final params within max-rel 2e-3."""
+    jeng, eng, test_split = _span_engines(eval_inside)
+    want = jeng.run_span(0, 3, eval_inside=eval_inside)
+    got = eng.run_span(0, 3, eval_inside=eval_inside)
+    assert [m.epoch for m in got] == [0, 1, 2]
+    assert len({m.n_live for m in got}) > 1 or got[0].n_live < N_WORKERS
+    for g, w in zip(got, want):
+        assert g.n_live == w.n_live
+        assert abs(g.train_loss - w.train_loss) < 5e-4
+        if eval_inside:
+            assert abs(g.val_loss - w.val_loss) < 5e-4
+            assert abs(g.val_acc - w.val_acc) <= 100.0 / len(test_split) + 1e-9
+        else:
+            assert g.val_loss is None and w.val_loss is None
+    rel = _max_rel_err(eng.state_tree()["params"], jax.tree.map(np.asarray, jeng.params))
+    assert rel < 2e-3
+
+
+def test_fused_span_equals_per_epoch_path():
+    """On the CPU a 3-epoch span gives the bits of three `run_epoch` calls:
+    params, momentum and every metric."""
+    split = load_split(True, source="synthetic", synthetic_size=160, seed=2)
+    test = load_split(False, source="synthetic", synthetic_size=30, seed=2)
+    cfg = TrainConfig(nb_proc=4, lr=0.05, batch_size=16, epochs=3, seed=5,
+                      failure_probability=0.4, reset_momentum=False, kernels="cuda")
+    a, b = (Engine(cfg, split, test, device="cpu") for _ in range(2))
+    per_epoch = [a.run_epoch(e) for e in range(3)]
+    span = b.run_span(0, 3)
+    assert per_epoch == span
+    assert all(torch.equal(p, q) for p, q in zip(a.params + a.mom, b.params + b.mom))
 
 
 @pytest.mark.parametrize("field,value", [

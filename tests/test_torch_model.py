@@ -1,6 +1,7 @@
 """The port's LeNet (`models/cnn.py`) against the JAX package's Flax
-`Network`: the parameter converter, logits for both head implementations of
-both frameworks, and the parameter and FLOP counts. f32, 1e-5."""
+`Network`: the parameter converter (stacked trees too), logits for both head
+implementations of both frameworks, the replica-stacked `ReplicaNetwork`
+per replica, and the parameter and FLOP counts. f32, 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +13,7 @@ from distributed_neural_network_tpu.models.cnn import Network as JaxNetwork
 from distributed_neural_network_tpu.models.cnn import flops_per_image as jax_flops
 from distributed_neural_network_tpu_torch.models.cnn import (
     Network,
+    ReplicaNetwork,
     flops_per_image,
     from_jax_params,
     param_count,
@@ -81,3 +83,46 @@ def test_init_is_seeded_and_bounded():
 def test_rejects_unknown_kernels():
     with pytest.raises(ValueError):
         Network(kernels="pallas")
+
+
+def test_stacked_tree_converts_per_replica():
+    """A JAX tree stacked on a leading axis (the engine's momentum stack,
+    `P(DATA_AXIS)`) converts to a ReplicaNetwork state_dict whose slice d is
+    replica d's own conversion, and back bit for bit."""
+    trees = [_jax_params(seed) for seed in range(3)]
+    stacked = jax.tree.map(lambda *a: np.stack(a), *trees)
+    state = from_jax_params(stacked)
+    for d, tree in enumerate(trees):
+        for k, v in from_jax_params(tree).items():
+            assert torch.equal(state[k][d], v), k
+    back = to_jax_params(state)
+    for a, b in zip(jax.tree.leaves(stacked), jax.tree.leaves(back)):
+        assert np.array_equal(a, b)
+    assert set(ReplicaNetwork(3).state_dict()) == set(state)
+
+
+@pytest.mark.parametrize("kernels", ["torch", "cuda"])
+def test_replica_network_matches_jax_per_replica(n_devices, kernels):
+    """ReplicaNetwork with 3 replicas of different params (grouped convs, one
+    head call) gives each replica JAX's logits for its own params and
+    images."""
+    trees = [_jax_params(seed) for seed in range(3)]
+    x = np.stack([_images(4, seed=d) for d in range(3)])
+    net = ReplicaNetwork(3, kernels=kernels)
+    net.load_state_dict(from_jax_params(jax.tree.map(lambda *a: np.stack(a), *trees)))
+    with torch.no_grad():
+        got = net(torch.from_numpy(x))
+    assert got.shape == (3, 4, 10)
+    for d, tree in enumerate(trees):
+        want = JaxNetwork().apply({"params": tree}, jnp.asarray(x[d]))
+        np.testing.assert_allclose(got[d].numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_replicas_start_from_one_seeded_network():
+    """Every replica is the `Network` that the generator's stream draws."""
+    base = Network(generator=torch.Generator().manual_seed(7)).state_dict()
+    net = ReplicaNetwork(4, generator=torch.Generator().manual_seed(7))
+    for k, v in net.state_dict().items():
+        assert v.shape == (4, *base[k].shape)
+        assert all(torch.equal(v[d], base[k]) for d in range(4)), k
+    assert param_count(net) == 4 * 62_006

@@ -1,8 +1,9 @@
 """The port's step math (`ops/losses.py`, `ops/sgd.py`, `ops/train.py`,
 `parallel/collectives.py`) against the JAX package's on the same numpy
-inputs: the batch loss (1e-5) and its gradients, one local-SGD epoch on an
-injected permutation (loss 1e-5, params max-rel 1e-4), and the fault-masked
-parameter mean with dead and all-dead workers."""
+inputs: the batch loss (1e-5) and its gradients, one local-SGD epoch of two
+stacked replicas on injected permutations, each against a JAX epoch (loss
+1e-5, params max-rel 1e-4), the eval accounting, and the fault-masked
+parameter mean with dead and all-dead workers, the mask on the device."""
 
 import jax
 import jax.numpy as jnp
@@ -19,13 +20,20 @@ from distributed_neural_network_tpu.parallel.collectives import (
     masked_pmean_tree,
     weighted_mean_scalar as j_weighted_mean_scalar,
 )
-from distributed_neural_network_tpu_torch.models.cnn import Network, from_jax_params, to_jax_params
+from distributed_neural_network_tpu_torch.data.pipeline import stacked_plan
+from distributed_neural_network_tpu_torch.models.cnn import (
+    Network,
+    ReplicaNetwork,
+    from_jax_params,
+    to_jax_params,
+)
 from distributed_neural_network_tpu_torch.ops import losses, sgd
 from distributed_neural_network_tpu_torch.ops.train import (
     eval_epoch,
     loss_and_grads,
     sync_grads,
     train_epoch,
+    train_step,
 )
 from distributed_neural_network_tpu_torch.parallel.collectives import (
     masked_mean,
@@ -94,39 +102,74 @@ def test_sgd_step_matches_jax():
     assert all(float(z.abs().sum()) == 0 for z in sgd.init_momentum(tp))
 
 
+def _replicas(params, n):
+    """A ReplicaNetwork whose n replicas all hold the JAX `params`."""
+    net = ReplicaNetwork(n)
+    net.load_state_dict({k: v.expand(n, *v.shape).clone()
+                         for k, v in from_jax_params(params).items()})
+    return net
+
+
 @pytest.mark.parametrize("reset_momentum", [True, False])
 def test_local_sgd_epoch_matches_jax(n_devices, reset_momentum):
-    """40 rows at batch 16: 3 steps, the last one padded."""
-    params, x, y, net = _setup(40, seed=2)
-    key = jax.random.key(9)
+    """40 rows at batch 16: 3 steps, the last one padded; two stacked
+    replicas from the same params on two permutations, each against a JAX
+    epoch with that permutation's key."""
+    params, x, y, _ = _setup(40, seed=2)
+    keys = [jax.random.key(9), jax.random.key(10)]
     mom0 = jax.tree.map(lambda a: (0.01 * np.ones_like(a)).astype(np.float32), params)
     epoch = make_train_epoch(
         JaxNetwork().apply, lr=0.05, momentum=0.9, n_rows=40, batch_size=16,
         reset_momentum=reset_momentum,
     )
-    j_params, j_mom, j_loss, j_nb = epoch(params, mom0, jnp.asarray(x), jnp.asarray(y), key)
+    net = _replicas(params, 2)
     names = [k for k, _ in net.named_parameters()]
-    mom = [from_jax_params(mom0)[k] for k in names]
-    mom, loss_sum, nb = train_epoch(
-        net, mom, torch.from_numpy(x), torch.from_numpy(y).long(),
-        np.asarray(jax.random.permutation(key, 40)), batch_size=16, lr=0.05,
+    mom = [from_jax_params(mom0)[k].expand(2, *p.shape[1:]).clone()
+           for k, p in net.named_parameters()]
+    idx, w = stacked_plan([np.asarray(jax.random.permutation(k, 40)) for k in keys], 40, 16)
+    loss_sums, nb = train_epoch(
+        net, mom, torch.from_numpy(x), torch.from_numpy(y).long(), idx, w, lr=0.05,
         momentum=0.9, reset_momentum=reset_momentum,
     )
-    assert nb == float(j_nb) == 3
-    assert abs(float(loss_sum) - float(j_loss)) < 1e-5
-    assert _max_rel(to_jax_params(net.state_dict()), j_params) < 1e-4
-    assert _max_rel(to_jax_params(dict(zip(names, mom))), j_mom) < 1e-4
+    assert nb == 3
+    state = net.state_dict()
+    for d, key in enumerate(keys):
+        j_params, j_mom, j_loss, j_nb = epoch(params, mom0, jnp.asarray(x), jnp.asarray(y), key)
+        assert float(j_nb) == 3
+        assert abs(float(loss_sums[d]) - float(j_loss)) < 1e-5
+        assert _max_rel(to_jax_params({k: v[d] for k, v in state.items()}), j_params) < 1e-4
+        assert _max_rel(to_jax_params({k: m[d] for k, m in zip(names, mom)}), j_mom) < 1e-4
+
+
+def test_step_sync_takes_the_replica_mean(n_devices):
+    """`sync=True` (sync_mode="step"): every replica takes the SGD step with
+    the mean of the replicas' gradients, JAX's `pmean` of the grads."""
+    params, x, y, net1 = _setup(32, seed=6)
+    net = _replicas(params, 2)
+    mom = [torch.zeros_like(p) for p in net.parameters()]
+    idx = torch.tensor([list(range(16)), list(range(16, 32))])
+    w = torch.ones(2, 16)
+    images, labels = torch.from_numpy(x), torch.from_numpy(y).long()
+    loss = train_step(net, mom, images, labels, idx, w, lr=0.1, momentum=0.9, sync=True)
+    grads = [loss_and_grads(net1, images[16 * d:16 * d + 16], labels[16 * d:16 * d + 16],
+                            torch.ones(16))[1] for d in range(2)]
+    for (name, p), g0, g1 in zip(net.named_parameters(), *grads):
+        want = from_jax_params(params)[name] - 0.1 * (g0 + g1) / 2
+        torch.testing.assert_close(p[0], want, rtol=1e-5, atol=1e-6)
+        assert torch.equal(p[0], p[1]), name
+    assert loss.shape == (2,)
 
 
 def test_eval_epoch_matches_jax(n_devices):
-    params, x, y, net = _setup(37, seed=3)
+    params, x, y, _ = _setup(37, seed=3)
     rw = np.ones(37, np.float32)
     rw[30:] = 0.0  # padding rows of a per-worker partition
     j = make_eval_epoch(JaxNetwork().apply, n_rows=37, batch_size=8)(
         params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(rw)
     )
-    got = eval_epoch(net, torch.from_numpy(x), torch.from_numpy(y).long(),
-                     torch.from_numpy(rw), batch_size=8)
+    idx, w = stacked_plan([np.arange(37)], 37, 8)
+    got = eval_epoch(_replicas(params, 1), torch.from_numpy(x), torch.from_numpy(y).long(),
+                     torch.from_numpy(rw), idx, w)[:, 0]
     # 5 batches, the last (rows 32..36) all padding: excluded from the count
     assert float(got[1]) == float(j[1]) == 4
     assert abs(float(got[0]) - float(j[0])) < 1e-5
@@ -142,12 +185,13 @@ def test_masked_mean_matches_jax(live):
     want = jax.vmap(lambda t, w: masked_pmean_tree(t, w, "data"), axis_name="data")(
         stacked, jnp.asarray(live)
     )
-    per_worker = [[torch.from_numpy(stacked[k][d]) for k in ("a", "b")] for d in range(4)]
-    got = masked_mean_tree(per_worker, live)
+    got = masked_mean_tree([torch.from_numpy(stacked[k]) for k in ("a", "b")],
+                           torch.from_numpy(live))
     for k, g in zip(("a", "b"), got):
         np.testing.assert_allclose(g.numpy(), np.asarray(want[k][0]), rtol=1e-6, atol=1e-6)
     assert torch.allclose(
-        masked_mean(torch.from_numpy(stacked["a"]), live), got[0], rtol=0, atol=0
+        masked_mean(torch.from_numpy(stacked["a"]), torch.from_numpy(live)), got[0],
+        rtol=0, atol=0
     )
 
 
@@ -159,10 +203,11 @@ def test_weighted_mean_scalar_and_sync_grads_match_jax():
     )
     assert abs(float(weighted_mean_scalar(torch.from_numpy(v), torch.from_numpy(w)))
                - float(want[0])) < 1e-6
-    grads = [[torch.full((2,), float(d)), torch.full((3,), 2.0 * d)] for d in range(4)]
+    grads = [torch.arange(4.0)[:, None].expand(4, 2), 2.0 * torch.arange(4.0)[:, None].expand(4, 3)]
     mean = sync_grads(grads)
     want = jax.vmap(lambda g: jax.lax.pmean(g, "data"), axis_name="data")(
         jnp.arange(4.0)
     )
-    assert torch.allclose(mean[0], torch.full((2,), float(want[0])))
-    assert torch.allclose(mean[1], torch.full((3,), 2.0 * float(want[0])))
+    assert mean[0].shape == (4, 2) and mean[1].shape == (4, 3)
+    assert torch.allclose(mean[0], torch.full((4, 2), float(want[0])))
+    assert torch.allclose(mean[1], torch.full((4, 3), 2.0 * float(want[0])))
