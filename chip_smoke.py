@@ -326,6 +326,21 @@ def graph_ms(torch, fn, iters=50, replays=5):
     return start.elapsed_time(end) / (iters * replays)
 
 
+def l2_cold(torch, t):
+    """A function that returns the next of enough copies of `t` that
+    cycling through them reads each from HBM: between two reads of one copy
+    the others move twice the card's L2."""
+    l2 = getattr(torch.cuda.get_device_properties(t.device), "L2_cache_size", 0) or 50 << 20
+    copies = [t.clone() for _ in range(ceil(2 * l2, t.numel() * t.element_size()) + 1)]
+    at = [0]
+
+    def nxt():
+        at[0] = (at[0] + 1) % len(copies)
+        return copies[at[0]]
+
+    return nxt
+
+
 def fmt(t):
     return "n/a" if t is None else f"{t:.5f}"
 
@@ -1222,7 +1237,6 @@ def main() -> int:
                   f"val acc {m.val_acc:.2f} %")
             check(dl < 5e-4, f"epoch {e} train loss off the oracle by {dl}")
             check(rel < 2e-3, f"epoch {e} params off the oracle by max-rel {rel}")
-        span.compile_span(2)
         got["span"] = span.run_span(0, 2)
         check(eng._step.graph is not None and eager._step.graph is None,
               "the engine's programs were not captured (or the eager run's were)")
@@ -1368,9 +1382,12 @@ def main() -> int:
                     lib_bwd_device_ms, work["bwd"]),
             }
             if fh.bwd_groups(b) > 1:
+                # the group rows are read from HBM, as the bound counts
+                # them: one set of rows, replayed, would sit in L2
+                cold = l2_cold(torch, sums)
                 rows["fused_mlp3_bwd_reduce"] = (
-                    lambda: fh.mlp3_bwd_reduce(sums), lambda: sums.sum(1),
-                    lambda: torch.sum(sums, 1), None, work["reduce"])
+                    lambda: fh.mlp3_bwd_reduce(cold()), lambda: cold().sum(1),
+                    lambda: torch.sum(cold(), 1), None, work["reduce"])
             for name, (kern_fn, plain_fn, lib_fn, lib_dev, (nbytes, flops)) in rows.items():
                 t_k, t_p, t_l = (time_ms(torch, f) for f in (kern_fn, plain_fn, lib_fn))
                 d_k, d_p = (graph_ms(torch, f) for f in (kern_fn, plain_fn))
@@ -1400,13 +1417,19 @@ def main() -> int:
                           f"{name}'s device time at (N {n}, B {b}) is {fmt(ratio)}x {what}")
             if b == 4096:
                 whole = graph_ms(torch, lambda: fh.mlp3_backward(g, x, h1, h2, w1, w2, w3))
+                kern = next(t["graph_ms"] for t in times
+                            if (t["N"], t["B"], t["name"]) == (n, b, "fused_mlp3_bwd"))
+                on_path = None if None in (whole, kern) else whole - kern
                 old = ceil(b, fh.BWD_TILE_ROWS) * fh.GRAD_SIZE * 4
                 new = fh.bwd_groups(b) * fh.GRAD_SIZE * 4
                 env["b4096"] = {"whole_backward_graph_ms": whole, "old_partial_bytes": old,
-                                "partial_bytes": new}
-                print(f"(N {n}, B {b}) whole backward (kernel + reduce) {fmt(whole)} ms; rows "
-                      f"of sums written and read back: {new} B ({fh.bwd_groups(b)} groups) "
-                      f"against {old} B (one row per 16-row tile)")
+                                "partial_bytes": new, "reduce_on_path_graph_ms": on_path}
+                if (n, b) == REDUCE_SHAPE:
+                    kernels["fused_mlp3_bwd_reduce"]["on_path_graph_ms"] = on_path
+                print(f"(N {n}, B {b}) whole backward (kernel + reduce) {fmt(whole)} ms, the "
+                      f"reduce's share of it {fmt(on_path)} ms (its rows just written, in L2); "
+                      f"rows of sums written and read back: {new} B ({fh.bwd_groups(b)} "
+                      f"groups) against {old} B (one row per 16-row tile)")
         # the replicas' convolutions: one grouped conv per layer (the model's)
         # against one conv per replica, forward + weight/input gradients, at
         # the main path's (N 4, B 16)
@@ -2106,7 +2129,10 @@ def main() -> int:
                                  f"W1 split by rows, the group's sums in registers (the "
                                  f"gradient itself at one group)",
                "fused_mlp3_bwd_reduce": "each replica's group rows summed in group order, "
-                                        "one thread per element; not launched at one group",
+                                        "one thread per element; not launched at one group; "
+                                        "timed with its rows read from HBM "
+                                        "(on_path_graph_ms: its share of the whole backward, "
+                                        "the rows just written)",
                "decode_attention": "split route: the live prefix in up to 8 pieces, one "
                                    "block of a cluster each, rows per lane group by 16-byte "
                                    "loads, merged in order on rank 0",

@@ -337,7 +337,7 @@ __host__ __device__ __forceinline__ int bwd_groups(int B) {
 //   dh1^T as float4 broadcasts, i in order), and stores dx;
 // - each tile's dW/db sums (r ascending) are added to the owner's registers in tile
 //   order, and the group's sums are stored once after its last tile. With one group
-//   (B <= 16 BWD_GROUP_MAX) that row is the replica's gradient itself.
+//   (B <= 16) that row is the replica's gradient itself.
 // A cluster barrier split in two halves guards dh1^T between tiles: each block arrives
 // after its last read of the tile's dh1^T and waits before its first push of the next.
 // Every sum runs in a fixed order and there are no atomics, so a call gives the same bits

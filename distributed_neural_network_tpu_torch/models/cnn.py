@@ -12,12 +12,13 @@ flatten(400) -> fc 120 -> relu -> fc 84 -> relu -> fc 10.
 - Init: every weight and bias ~ U(-1/sqrt(fan_in), +1/sqrt(fan_in)), the
   JAX package's torch-default init, drawn from an explicit `torch.Generator`
   (the numbers differ from JAX's for the same seed).
-- `kernels="cuda"` runs fc1->fc2->fc3 through the fused head
-  (`ops/fused_head.py`); `kernels="torch"` runs its plain version.
-- `ReplicaNetwork(n)` is N replicas of `Network` with every parameter
-  stacked on a leading axis (the JAX momentum stack's `P(DATA_AXIS)`): its
+- `Network` is one replica's parameters and their init; the model that
+  runs is `ReplicaNetwork(n)`, N replicas of `Network` with every parameter
+  stacked on a leading axis (the JAX momentum stack's `P(DATA_AXIS)`). Its
   forward takes (N, B, 32, 32, 3) and runs each conv once for all replicas
-  (grouped, `groups=N`) and the head once over all of them.
+  (grouped, `groups=N`) and the head once over all of them: through the
+  fused head (`ops/fused_head.py`) with `kernels="cuda"`, its plain version
+  with `kernels="torch"`.
 """
 
 from __future__ import annotations
@@ -46,17 +47,11 @@ class Dense(nn.Module):
 
 
 class Network(nn.Module):
-    """The reference's 62,006-parameter CIFAR-10 classifier.
+    """The parameters of the reference's 62,006-parameter CIFAR-10
+    classifier, drawn by its init (`ReplicaNetwork` runs them)."""
 
-    Input (batch, 32, 32, 3) float32 NHWC; output (batch, 10) logits.
-    """
-
-    def __init__(self, num_classes: int = 10, *, kernels: str = "torch",
-                 generator: torch.Generator | None = None):
+    def __init__(self, num_classes: int = 10, *, generator: torch.Generator | None = None):
         super().__init__()
-        if kernels not in KERNELS:
-            raise ValueError(f"kernels must be one of {KERNELS}, got {kernels!r}")
-        self.kernels = kernels
         self.conv1 = nn.Conv2d(3, 6, 5)
         self.conv2 = nn.Conv2d(6, 16, 5)
         self.fc1 = Dense(400, 120)
@@ -74,17 +69,6 @@ class Network(nn.Module):
                 fan_in = layer.kernel.shape[0]
             bound = 1.0 / math.sqrt(fan_in)
             nn.init.uniform_(p, -bound, bound, generator=generator)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view
-        x = F.max_pool2d(F.relu(self.conv1(x)), 2)
-        x = F.max_pool2d(F.relu(self.conv2(x)), 2)
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).contiguous()  # H,W,C
-        head = fused_mlp3 if self.kernels == "cuda" else mlp3_reference
-        return head(
-            x, self.fc1.kernel, self.fc1.bias, self.fc2.kernel, self.fc2.bias,
-            self.fc3.kernel, self.fc3.bias,
-        )
 
 
 class _Stacked(nn.Module):
@@ -109,7 +93,9 @@ class ReplicaNetwork(nn.Module):
     def __init__(self, n: int, num_classes: int = 10, *, kernels: str = "torch",
                  generator: torch.Generator | None = None):
         super().__init__()
-        base = Network(num_classes, kernels=kernels, generator=generator)
+        if kernels not in KERNELS:
+            raise ValueError(f"kernels must be one of {KERNELS}, got {kernels!r}")
+        base = Network(num_classes, generator=generator)
         self.n, self.kernels = n, kernels
         for name in _CONVS + _DENSES:
             setattr(self, name, _Stacked(base.get_submodule(name), n))

@@ -17,8 +17,8 @@ with a launch counter in `LAUNCHES`:
 - ``fused_mlp3_bwd``: dx and the dW/db sums of each (replica, group of
   tiles) by the group rule `bwd_groups(B)`, each group on a cluster of
   `bwd_cluster(B)` blocks that walks its tiles in order; with one group (B
-  <= 16 * BWD_GROUP_MAX, the main path among them) that row is the
-  replica's gradient itself;
+  <= 16, the main path among them) that row is the replica's gradient
+  itself;
 - ``fused_mlp3_bwd_reduce``: the fixed-order sum of a replica's group rows,
   launched only when it has more than one (the TPU kernel accumulated
   across its sequential grid instead).
@@ -26,7 +26,6 @@ with a launch counter in `LAUNCHES`:
 A wrapper given CPU tensors computes the plain PyTorch version of the same
 math; given CUDA tensors it launches the kernel or raises. Weights are
 ``(in, out)``, the layout of the JAX package's Dense kernels.
-`fused_mlp3` also takes one replica's (B, 400) and unstacked weights.
 """
 
 from __future__ import annotations
@@ -347,15 +346,12 @@ def fused_mlp3(x, w1, b1, w2, b2, w3, b3):
     """relu(relu(x@W1+b1)@W2+b2)@W3+b3, trainable.
 
     x (N, B, 400) float32 with weights (N, in, out) and biases (N, out)
-    returns (N, B, 10) logits; x (B, 400) with unstacked weights returns (B,
-    10). On CPU tensors this is `mlp3_reference`; on CUDA tensors the forward
-    launches the fused kernel once for all replicas (with residuals only when
-    a gradient is needed) and the backward launches the backward kernel (and
-    the reduce kernel when B > 16 * BWD_GROUP_MAX).
+    returns (N, B, 10) logits. On CPU tensors this is `mlp3_reference`; on
+    CUDA tensors the forward launches the fused kernel once for all replicas
+    (with residuals only when a gradient is needed) and the backward
+    launches the backward kernel (and the reduce kernel when B > 16).
     """
     args = (x, w1, b1, w2, b2, w3, b3)
-    if x.dim() == 2:
-        return fused_mlp3(*(a.unsqueeze(0) for a in args))[0]
     if x.device.type == "cpu":
         _check_head(*args)
         return mlp3_reference(*args)

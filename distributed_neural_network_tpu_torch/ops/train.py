@@ -7,7 +7,8 @@ serves every replica.
 - `train_step` is one SGD step of every replica: gather, forward, the
   per-replica masked loss, `autograd.grad`, update; `sync=True`
   (`sync_mode="step"`) first takes the gradient mean over the replicas.
-  `train_epoch` is those steps over a stacked plan, the JAX `lax.scan`.
+  The engine's captured step program runs it once per step of an epoch's
+  stacked plan, the JAX `lax.scan` (`train/engine.py`).
 - `eval_epoch` keeps the JAX accounting per replica: the sum of per-batch
   mean losses, with batches that hold no valid row left out of the batch
   count, and the correct and valid row counts.
@@ -47,19 +48,6 @@ def train_step(net, mom, images, labels, idx, w, *, lr: float, momentum: float,
         grads = sync_grads(grads)
     sgd_step(list(net.parameters()), mom, grads, lr, momentum)
     return loss
-
-
-def train_epoch(net, mom, images, labels, idx, w, *, lr: float, momentum: float,
-                reset_momentum: bool = True, sync: bool = False):
-    """Every replica's epoch over a stacked plan `idx`, `w` (N, steps, B):
-    returns the (N,) sums of per-batch mean losses and the step count."""
-    if reset_momentum:
-        torch._foreach_zero_(mom)
-    loss_sums = torch.zeros(idx.shape[0], device=images.device)
-    for s in range(idx.shape[1]):
-        loss_sums += train_step(net, mom, images, labels, idx[:, s], w[:, s], lr=lr,
-                                momentum=momentum, sync=sync)
-    return loss_sums, idx.shape[1]
 
 
 @torch.no_grad()

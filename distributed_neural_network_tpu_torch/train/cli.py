@@ -92,7 +92,7 @@ def add_common_flags(p: argparse.ArgumentParser, *, epochs: int, batch_size: int
         action="store_true",
         help="run multi-epoch spans (train, masked sync and eval replayed from "
         "the captured CUDA graphs with no host read between epochs) instead "
-        "of one read per epoch - the fast path; phase timing then reports "
+        "of one read per epoch; phase timing then reports "
         "train+sync(+eval at --eval-every 1) as one TRAINING number. "
         "Downgraded to the per-epoch path when combined with "
         "--failure-duration > 0 (straggler sleeps can only interleave "

@@ -313,11 +313,6 @@ class Engine:
         if self._capture and self._step.graph is None:
             capture_all(self._programs(), self._state(), self.device)
 
-    def compile_span(self, span: int, *, eval_inside: bool = True) -> None:
-        """Ready the programs a fused span runs without running an epoch (the
-        JAX engine's AOT compile): every span replays the same graphs."""
-        self.compile()
-
     def _load(self, idx, w, mask) -> None:
         """The epoch's plan and live mask into the static buffers (host or
         device sources; a device source is a copy on the card's queue)."""

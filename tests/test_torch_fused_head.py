@@ -45,10 +45,12 @@ def _close(a, b, tol=1e-5):
 
 @pytest.mark.parametrize("batch", [128, 200, 8, 1])
 def test_forward_matches_jax_kernel(n_devices, batch):
+    """One replica (N = 1) against the JAX kernel on the same inputs."""
     args = _make(batch)
     want = jax_fused_mlp3(*map(jnp.asarray, args), interpret=True)
-    got = fh.fused_mlp3(*map(torch.from_numpy, args))
-    _close(got.numpy(), want)
+    got = fh.fused_mlp3(*(torch.from_numpy(a)[None] for a in args))
+    assert got.shape == (1, *want.shape)
+    _close(got[0].numpy(), want)
 
 
 def _jax_grads(args, g):
@@ -59,15 +61,15 @@ def _jax_grads(args, g):
 
 
 def test_gradients_match_jax_kernel(n_devices):
-    """B = 200 is not a multiple of either framework's tile."""
+    """B = 200 is not a multiple of either framework's tile; one replica."""
     args = _make(200)
     g = np.random.default_rng(1).normal(size=(200, 10)).astype(np.float32)
     want = _jax_grads(args, g)
-    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
-    got = torch.autograd.grad(fh.fused_mlp3(*leaves), leaves, torch.from_numpy(g))
+    leaves = [torch.from_numpy(a)[None].requires_grad_() for a in args]
+    got = torch.autograd.grad(fh.fused_mlp3(*leaves), leaves, torch.from_numpy(g)[None])
     for p, r in zip(got, want):
         scale = max(float(np.max(np.abs(r))), 1.0)
-        _close(p.numpy() / scale, np.asarray(r) / scale)
+        _close(p[0].numpy() / scale, np.asarray(r) / scale)
 
 
 def test_plain_kernel_versions_match_jax_kernel(n_devices):
@@ -147,20 +149,22 @@ def test_padded_rows_contribute_nothing():
 
 @pytest.mark.parametrize(
     "bad",
-    ["dtype", "shape", "noncontiguous", "weight_shape", "empty"],
+    ["dtype", "shape", "noncontiguous", "weight_shape", "empty", "unstacked"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
-    args = list(map(torch.from_numpy, _make(8)))
+    args = [torch.from_numpy(a)[None] for a in _make(8)]
     if bad == "dtype":
         args[0] = args[0].double()
     elif bad == "shape":
-        args[0] = args[0][:, :399]
+        args[0] = args[0][..., :399]
     elif bad == "noncontiguous":
-        args[0] = torch.cat([args[0], args[0]], dim=1)[:, ::2]
+        args[0] = torch.cat([args[0], args[0]], dim=-1)[..., ::2]
     elif bad == "weight_shape":
-        args[1] = args[1].T.contiguous()
-    else:
-        args[0] = args[0][:0]
+        args[1] = args[1].mT.contiguous()
+    elif bad == "empty":
+        args[0] = args[0][:, :0]
+    else:  # one replica's tensors without the replica axis
+        args = [a[0] for a in args]
     with pytest.raises((TypeError, ValueError)):
         fh.fused_mlp3(*args)
 

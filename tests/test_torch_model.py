@@ -50,15 +50,17 @@ def test_converter_round_trips_bitwise():
 @pytest.mark.parametrize("kernels", ["torch", "cuda"])
 def test_logits_match_jax(n_devices, use_pallas_head, kernels):
     """Port kernels torch/cuda (the latter on CPU tensors takes the plain
-    head) vs JAX use_pallas_head False/True (off-TPU: the plain jnp head)."""
+    head) vs JAX use_pallas_head False/True (off-TPU: the plain jnp head),
+    through a one-replica ReplicaNetwork (the model the engine runs)."""
     tree = _jax_params()
     x = _images()
     want = JaxNetwork(use_pallas_head=use_pallas_head).apply({"params": tree}, jnp.asarray(x))
-    net = Network(kernels=kernels)
-    net.load_state_dict(from_jax_params(tree))
+    net = ReplicaNetwork(1, kernels=kernels)
+    net.load_state_dict({k: v.unsqueeze(0) for k, v in from_jax_params(tree).items()})
     with torch.no_grad():
-        got = net(torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        got = net(torch.from_numpy(x).unsqueeze(0))
+    assert got.shape == (1, *want.shape)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_param_and_flop_counts():
@@ -82,7 +84,7 @@ def test_init_is_seeded_and_bounded():
 
 def test_rejects_unknown_kernels():
     with pytest.raises(ValueError):
-        Network(kernels="pallas")
+        ReplicaNetwork(1, kernels="pallas")
 
 
 def test_stacked_tree_converts_per_replica():

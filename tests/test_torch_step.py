@@ -22,7 +22,6 @@ from distributed_neural_network_tpu.parallel.collectives import (
 )
 from distributed_neural_network_tpu_torch.data.pipeline import stacked_plan
 from distributed_neural_network_tpu_torch.models.cnn import (
-    Network,
     ReplicaNetwork,
     from_jax_params,
     to_jax_params,
@@ -32,7 +31,6 @@ from distributed_neural_network_tpu_torch.ops.train import (
     eval_epoch,
     loss_and_grads,
     sync_grads,
-    train_epoch,
     train_step,
 )
 from distributed_neural_network_tpu_torch.parallel.collectives import (
@@ -48,9 +46,7 @@ def _setup(n=32, seed=0):
     rng = np.random.default_rng(seed + 1)
     x = rng.uniform(-1, 1, size=(n, 32, 32, 3)).astype(np.float32)
     y = rng.integers(0, 10, size=n).astype(np.int32)
-    net = Network()
-    net.load_state_dict(from_jax_params(params))
-    return params, x, y, net
+    return params, x, y, _replicas(params, 1)
 
 
 def _max_rel(a, b):
@@ -68,11 +64,12 @@ def test_batch_loss_and_grads_match_jax(n_devices):
         params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(w)
     )
     loss, grads = loss_and_grads(
-        net, torch.from_numpy(x), torch.from_numpy(y).long(), torch.from_numpy(w)
+        net, torch.from_numpy(x)[None], torch.from_numpy(y).long()[None], torch.from_numpy(w)[None]
     )
-    assert abs(float(loss) - float(j_loss)) < 1e-5
+    assert loss.shape == (1,)
+    assert abs(float(loss[0]) - float(j_loss)) < 1e-5
     names = [k for k, _ in net.named_parameters()]
-    assert _max_rel(to_jax_params(dict(zip(names, grads))), j_grads) < 1e-4
+    assert _max_rel(to_jax_params({k: g[0] for k, g in zip(names, grads)}), j_grads) < 1e-4
 
 
 def test_loss_and_correct_match_jax():
@@ -114,7 +111,8 @@ def _replicas(params, n):
 def test_local_sgd_epoch_matches_jax(n_devices, reset_momentum):
     """40 rows at batch 16: 3 steps, the last one padded; two stacked
     replicas from the same params on two permutations, each against a JAX
-    epoch with that permutation's key."""
+    epoch with that permutation's key. The port's epoch is what the engine's
+    programs run: the momentum reset, then `train_step` once per step."""
     params, x, y, _ = _setup(40, seed=2)
     keys = [jax.random.key(9), jax.random.key(10)]
     mom0 = jax.tree.map(lambda a: (0.01 * np.ones_like(a)).astype(np.float32), params)
@@ -127,11 +125,12 @@ def test_local_sgd_epoch_matches_jax(n_devices, reset_momentum):
     mom = [from_jax_params(mom0)[k].expand(2, *p.shape[1:]).clone()
            for k, p in net.named_parameters()]
     idx, w = stacked_plan([np.asarray(jax.random.permutation(k, 40)) for k in keys], 40, 16)
-    loss_sums, nb = train_epoch(
-        net, mom, torch.from_numpy(x), torch.from_numpy(y).long(), idx, w, lr=0.05,
-        momentum=0.9, reset_momentum=reset_momentum,
-    )
-    assert nb == 3
+    if reset_momentum:
+        torch._foreach_zero_(mom)
+    images, labels = torch.from_numpy(x), torch.from_numpy(y).long()
+    loss_sums = sum(train_step(net, mom, images, labels, idx[:, s], w[:, s], lr=0.05,
+                               momentum=0.9) for s in range(idx.shape[1]))
+    assert idx.shape[1] == 3
     state = net.state_dict()
     for d, key in enumerate(keys):
         j_params, j_mom, j_loss, j_nb = epoch(params, mom0, jnp.asarray(x), jnp.asarray(y), key)
@@ -151,10 +150,11 @@ def test_step_sync_takes_the_replica_mean(n_devices):
     w = torch.ones(2, 16)
     images, labels = torch.from_numpy(x), torch.from_numpy(y).long()
     loss = train_step(net, mom, images, labels, idx, w, lr=0.1, momentum=0.9, sync=True)
-    grads = [loss_and_grads(net1, images[16 * d:16 * d + 16], labels[16 * d:16 * d + 16],
-                            torch.ones(16))[1] for d in range(2)]
+    grads = [loss_and_grads(net1, images[None, 16 * d:16 * d + 16],
+                            labels[None, 16 * d:16 * d + 16], torch.ones(1, 16))[1]
+             for d in range(2)]
     for (name, p), g0, g1 in zip(net.named_parameters(), *grads):
-        want = from_jax_params(params)[name] - 0.1 * (g0 + g1) / 2
+        want = from_jax_params(params)[name] - 0.1 * (g0[0] + g1[0]) / 2
         torch.testing.assert_close(p[0], want, rtol=1e-5, atol=1e-6)
         assert torch.equal(p[0], p[1]), name
     assert loss.shape == (2,)
