@@ -140,7 +140,35 @@ Phases (any failure exits non-zero and prints no result):
    forward (int8 and fp8 on mma, int8 on simt) against its operations
    bound at the int8 peak, beside the bf16 forward and SDPA's forward;
 16. a torch.profiler trace of 3 steady full-width training steps: idle
-   share, the flash kernels' share of device time and the top kernels.
+   share, the flash kernels' share of device time and the top kernels;
+17. the CNN trainer across processes: (a) phase 4's run (512 rows, 2
+   epochs, --kernels cuda) as 2 ranks x 2 workers under gloo on the one
+   card (tests/torch_rank_worker.py): both ranks' histories equal, the
+   gathered sync bitwise the in-process one (a (4, 62,007) stack, 5 live
+   masks), within phase 4's oracle bounds, and the largest difference from
+   phase 4's in-process run printed; (b) one rank over NCCL holding all 4
+   workers, the all-reduce captured in the sync and eval graphs: bitwise
+   phase 4's graphed run; (c) full width through the user's entry point,
+   `python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+   distributed_neural_network_tpu_torch.train.cli --regime data_parallel
+   --nb-proc 4 --epochs 2 --batch-size 16 --lr 0.01 --data synthetic
+   --synthetic-size 50000 --kernels cuda`: both ranks' SUMMARY metrics equal, the gloo line
+   printed, each rank's head counters (its SUMMARY) at phase 5's formula,
+   the loss falling and validation accuracy >= 50% on each rank; epoch wall
+   time and images/s beside phase 5's one-process run; (d) the 2 x 2 run at
+   full width with its second epoch under the profiler on each rank: the
+   card's idle share over the union of both ranks' device intervals;
+18. streaming: the native batcher built (`native.available()`); full width
+   with --input-mode stream --kernels cuda per epoch: launches as phase 5,
+   the loss falling, accuracy >= 50%; images/s and a profiled stream
+   epoch's idle share beside the hbm run (phases 5, 7); at 512 rows the
+   stream engine within the oracle bounds on the stream's own orders, and
+   beside the hbm engine fed those orders;
+19. bf16: full width with --compute-dtype bfloat16, --kernels cuda (launches
+   as phase 5) and torch (none), the loss falling and accuracy >= 50%; at
+   512 rows the graphed bf16 run bitwise equal to its eager run; epoch wall
+   time, images/s, a profiled bf16 epoch's idle share (as phase 7), and the
+   grouped convs' device time a step in bf16 beside f32.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -215,6 +243,10 @@ HEAD_MAIN = (4, 16)
 HEAD_CASES = ((1, 1), HEAD_MAIN, (4, 64), (1, 4096), (2, 200))
 HEAD_TIMED = (HEAD_MAIN, (1, 16), (1, 128), (1, 4096))
 REDUCE_SHAPE = (1, 4096)
+# phase 4's CNN run (512 synthetic rows of seed 3, 128 test rows), which
+# phases 17-19 run again across processes, streamed and in bf16
+CNN_SMALL = {"lr": 0.01, "momentum": 0.9, "batch_size": 16, "epochs": 2, "nb_proc": 4,
+             "regime": "data_parallel", "kernels": "cuda", "seed": 0}
 
 
 class SmokeFailure(Exception):
@@ -430,6 +462,26 @@ def profile_rows(prof, DeviceType):
     operator's row repeats its kernels' device time."""
     return [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def profiled_epoch(torch, eng, epoch):
+    """Run `epoch` of a CNN engine under torch.profiler (after a run that
+    captured its programs): wall, device busy (`device_busy_s`), the kernels'
+    summed time, idle share and the top 12 kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_epoch(epoch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = profile_rows(prof, DeviceType)
+    busy = device_busy_s(prof, DeviceType)
+    return {"wall_s": wall, "device_busy_s": busy, "kernel_sum_s": sum(r[1] for r in rows) / 1e6,
+            "idle_share": 1 - busy / wall if busy else None,
+            "top": sorted(rows, key=lambda r: -r[1])[:12]}
 
 
 def head_work(n, b, fh):
@@ -1208,8 +1260,7 @@ def main() -> int:
 
         split = load_split(True, source="synthetic", synthetic_size=512, seed=3)
         test = load_split(False, source="synthetic", synthetic_size=128, seed=3)
-        cfg = TrainConfig(lr=0.01, momentum=0.9, batch_size=16, epochs=2, nb_proc=4,
-                          regime="data_parallel", kernels="cuda", seed=0)
+        cfg = TrainConfig(**CNN_SMALL)
         eng = Engine(cfg, split, test, device=dev)
         orders = [[eng.default_order(e, d).numpy() for d in range(4)] for e in range(2)]
         oracle = reference_trajectory(
@@ -1249,6 +1300,10 @@ def main() -> int:
                         f"against {got['graphed']}")
         print("graphed run bitwise equal to its eager run on the card, to a second graphed "
               "run and to a 2-epoch fused span (params, momentum, every metric)")
+        # phases 17-19 hold their runs at this size to this one
+        p4 = {"cfg": cfg, "history": got["graphed"], "oracle": oracle,
+              "state": [t.clone() for t in (*eng.params, *eng.mom)],
+              "params": eng.state_tree()["params"]}
 
     full = ["--regime", "data_parallel", "--nb-proc", "4", "--data", "synthetic",
             "--synthetic-size", "50000", "--epochs", "2", "--batch-size", "16",
@@ -1466,9 +1521,6 @@ def main() -> int:
 
     profile = {}
     with phase("7 where the time goes"), uncounted(fh.LAUNCHES):
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as torch_profile
-
         from distributed_neural_network_tpu_torch.data.cifar10 import load_split
         from distributed_neural_network_tpu_torch.train.engine import Engine, TrainConfig
 
@@ -1477,23 +1529,14 @@ def main() -> int:
         cfg = TrainConfig(lr=0.01, batch_size=16, nb_proc=4, kernels="cuda")
         eng = Engine(cfg, split, test, device=dev)
         eng.run_epoch(0)  # captures the programs
-        torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.run_epoch(1)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = profile_rows(prof, DeviceType)
-        busy = device_busy_s(prof, DeviceType)
-        summed = sum(r[1] for r in rows) / 1e6
         steps = ceil(50_000 // 4, 16)
-        profile = {"wall_s": wall, "device_busy_s": busy, "kernel_sum_s": summed,
-                   "steps": steps, "idle_share": 1 - busy / wall if busy else None,
-                   "top": sorted(rows, key=lambda r: -r[1])[:12]}
+        profile = dict(profiled_epoch(torch, eng, 1), steps=steps)
+        wall, busy = profile["wall_s"], profile["device_busy_s"]
         print(f"one graphed epoch at full width (4 workers x 12,500 rows, {steps} steps, eval "
               f"of 10,000 rows): wall {wall:.3f} s ({1e3 * wall / steps:.3f} ms/step), device "
-              f"busy {busy:.3f} s (the union of the device intervals; their sum {summed:.3f} "
-              f"s), idle share {'not measured' if not busy else f'{1 - busy / wall:.3f}'}")
+              f"busy {busy:.3f} s (the union of the device intervals; their sum "
+              f"{profile['kernel_sum_s']:.3f} s), idle share "
+              f"{'not measured' if not busy else f'{1 - busy / wall:.3f}'}")
         for key, us, count in profile["top"]:
             print(f"   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
         del eng, split, test
@@ -2122,6 +2165,303 @@ def main() -> int:
         del params, mom, step
         torch.cuda.empty_cache()
 
+    across = {}
+    with phase("17 across processes"):
+        import numpy as np
+        import torch.distributed as tdist
+        from oracle_numpy import reference_trajectory
+        from torch_rank_worker import busy_union, free_port, launch
+
+        from distributed_neural_network_tpu_torch.data.cifar10 import load_split
+        from distributed_neural_network_tpu_torch.train.engine import Engine, TrainConfig
+
+        check(TrainConfig(**CNN_SMALL) == p4["cfg"], "phase 4's configuration moved")
+        split4 = load_split(True, source="synthetic", synthetic_size=512, seed=3)
+        test4 = load_split(False, source="synthetic", synthetic_size=128, seed=3)
+        # (a) 2 ranks x 2 workers under gloo on the one card, phase 4's run
+        out17 = os.path.join(ROOT, "chiprun_out", "ranks17")
+        os.makedirs(out17, exist_ok=True)
+        spec = {"device": "cuda", "out": out17, "sync": {"n": 4, "p": 62_006 + 1, "seed": 0},
+                "runs": [{"name": "phase4", "config": CNN_SMALL,
+                          "train": {"size": 512, "seed": 3}, "test": {"size": 128, "seed": 3}}]}
+        t0 = time.perf_counter()
+        procs = launch(2, spec, timeout=300)
+        across["gloo_2x2_s"] = time.perf_counter() - t0
+        for r, proc in enumerate(procs):
+            check(proc.returncode == 0, f"rank {r} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out17, f"phase4_rank{r}.json")) as f:
+                info = json.load(f)
+            with open(os.path.join(out17, f"sync_rank{r}.json")) as f:
+                sync = json.load(f)
+            check(sync["bitwise"] == [True] * 5,
+                  f"rank {r}: the gathered sync is not bitwise the in-process one: {sync}")
+            check(info["backend"] == "gloo" and info["captured"] and info["workers"] == [2 * r, 2 * r + 1],
+                  f"rank {r}: {info}")
+            ranks.append((info, dict(np.load(os.path.join(out17, f"phase4_rank{r}.npz")))))
+        check(ranks[0][0]["history"] == ranks[1][0]["history"],
+              f"the ranks' histories differ: {ranks[0][0]['history']} / {ranks[1][0]['history']}")
+        hist, flat = ranks[0]
+        final = {l: {k: flat[f"params/{l}/{k}"] for k in p4["params"][l]} for l in p4["params"]}
+        want = p4["oracle"]
+        for e in range(2):
+            dl = abs(hist["history"][e]["train_loss"] - want[e]["train_loss"])
+            check(dl < 5e-4, f"2 x 2: epoch {e} train loss off the oracle by {dl}")
+        rel = max(float(np.max(np.abs(final[l][k] - want[-1]["params"][l][k])
+                               / (np.abs(want[-1]["params"][l][k]) + 1e-3)))
+                  for l in final for k in final[l])
+        check(rel < 2e-3, f"2 x 2: params off the oracle by max-rel {rel}")
+        d_loss = max(abs(h["train_loss"] - m.train_loss)
+                     for h, m in zip(hist["history"], p4["history"]))
+        d_par = max(float(np.abs(final[l][k] - p4["params"][l][k]).max())
+                    for l in final for k in final[l])
+        across["gloo_2x2"] = {"oracle_params_max_rel": rel, "d_loss_vs_in_process": d_loss,
+                              "d_params_vs_in_process": d_par, "history": hist["history"]}
+        print(f"(a) 2 ranks x 2 workers, gloo on one card ({across['gloo_2x2_s']:.1f} s with "
+              f"start-up): histories equal on both ranks; the gathered sync bitwise the "
+              f"in-process one (5 masks); oracle: params max-rel {rel:.2e}; largest difference "
+              f"from phase 4's in-process run: loss {d_loss:.3e}, params {d_par:.3e}")
+        # (b) one rank over NCCL holding all 4 workers: the all-reduce is
+        # captured in the sync graph; bitwise phase 4's graphed run
+        tdist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                                 world_size=1, rank=0,
+                                 device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            eng1 = Engine(p4["cfg"], split4, test4, device=dev)
+            hist1 = [eng1.run_epoch(e) for e in range(2)]
+            check(eng1.mesh.joined and tdist.get_backend() == "nccl", "not an NCCL group")
+            check(len(eng1._sync.graphs) == 1 and len(eng1._sync.segments) == 1
+                  and len(eng1._eval.segments) == 1,
+                  "the NCCL all-reduce was not captured in its program's one graph")
+            same = hist1 == p4["history"] and all(
+                torch.equal(a, b) for a, b in zip((*eng1.params, *eng1.mom), p4["state"]))
+            check(same, f"NCCL world 1 differs from phase 4's graphed run: {hist1} / "
+                        f"{p4['history']}")
+            del eng1
+        finally:
+            tdist.destroy_process_group()
+        print("(b) 1 rank over NCCL, the all-reduce captured in the sync and eval graphs: "
+              "bitwise phase 4's graphed run (params, momentum, every metric)")
+        # (c) full width through the user's entry point under torchrun
+        log17 = os.path.join(ROOT, "chiprun_out", "log17")
+        jsonl = os.path.join(log17, "m.jsonl")
+        for stale in (jsonl, os.path.join(log17, "m_rank1.jsonl")):
+            if os.path.exists(stale):
+                os.remove(stale)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+               "2", "-m", "distributed_neural_network_tpu_torch.train.cli", "--regime",
+               "data_parallel", "--nb-proc", "4", "--epochs", "2", "--batch-size", "16", "--lr",
+               "0.01", "--data", "synthetic", "--synthetic-size", "50000", "--kernels", "cuda",
+               "--log-dir", log17,
+               "--metrics-jsonl", jsonl]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(filter(None, [ROOT, env.get("PYTHONPATH")]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+        across["torchrun_s"] = time.perf_counter() - t0
+        with open(os.path.join(ROOT, "chiprun_out", "phase17_torchrun.log"), "w") as f:
+            f.write(proc.stdout + "\n" + proc.stderr)
+        check(proc.returncode == 0, f"torchrun exited {proc.returncode}: {proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        summaries = sorted((json.loads(l[8:]) for l in lines if l.startswith("SUMMARY ")),
+                           key=lambda s: s["rank"])
+        check([s["rank"] for s in summaries] == [0, 1],
+              f"SUMMARY lines: {summaries}; stdout ends: {proc.stdout[-3000:]}")
+        keys = ("final_train_loss", "final_val_acc", "best_val_acc")
+        check([summaries[0][k] for k in keys] == [summaries[1][k] for k in keys],
+              f"the ranks' SUMMARY metrics differ: {summaries}")
+        want = head_launches(16, 2)
+        per_rank = []
+        for r, summary in enumerate(summaries):
+            check(f"(Multi-process: rank {r}/2, backend gloo, device cuda:0)" in lines,
+                  f"rank {r}'s backend line is missing")
+            check(summary["head_launches"] == want,
+                  f"rank {r}: head launches {summary['head_launches']} != {want}")
+            suffix = "" if r == 0 else f"_rank{r}"
+            with open(os.path.join(log17, f"m{suffix}.jsonl")) as f:
+                events = [json.loads(l) for l in f]
+            losses = [e["value"] for e in events if e.get("series") == "train/loss"]
+            check(len(losses) == 2 and losses[-1] < losses[0], f"rank {r}: losses {losses}")
+            check(summary["final_val_acc"] >= 50.0, f"rank {r}: val acc {summary['final_val_acc']}")
+            with open(os.path.join(log17, f"bs16_log_epochs2_proc4_children{suffix}.txt")) as f:
+                train_s = float(next(l for l in f if l.startswith("Time spent on training"))
+                                .split(":")[1])
+            per_rank.append({"train_s": train_s, "wall_clock_s": summary["wall_clock_s"],
+                             "losses": losses, "launches": summary["head_launches"]})
+        images = (50_000 // 4) * 4 * 2
+        across["torchrun"] = {
+            "ranks": per_rank, "summary": summaries[0],
+            "epoch_wall_s": max(r["wall_clock_s"] for r in per_rank) / 2,
+            "images_per_s": images / max(r["train_s"] for r in per_rank)}
+        base = main_path["cuda"][0]
+        print(f"(c) torchrun, 2 ranks x 2 workers at full width ({across['torchrun_s']:.1f} s "
+              f"with start-up): SUMMARY equal on both ranks (final_val_acc "
+              f"{summaries[0]['final_val_acc']:.2f} %); launches per rank {want}; epoch wall "
+              f"{across['torchrun']['epoch_wall_s']:.3f} s and "
+              f"{across['torchrun']['images_per_s']:.1f} images/s, against phase 5's one "
+              f"process {base['epoch_wall_s']:.3f} s and {base['images_per_s']:.1f} images/s")
+        # (d) the 2 x 2 run at full width once more, its second epoch under
+        # the profiler on each rank: the card's idle share over the union of
+        # both ranks' device intervals
+        spec = {"device": "cuda", "out": out17,
+                "runs": [{"name": "full", "profile": True,
+                          "config": CNN_SMALL,
+                          "train": {"size": 50_000, "seed": 0},
+                          "test": {"size": 10_000, "seed": 0}}]}
+        procs = launch(2, spec, timeout=400)
+        for r, proc in enumerate(procs):
+            check(proc.returncode == 0, f"rank {r} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        traces = []
+        for r in range(2):
+            with open(os.path.join(out17, f"full_rank{r}.json")) as f:
+                traces.append(json.load(f)["trace"])
+        wall_us = max(t["end_us"] for t in traces) - min(t["start_us"] for t in traces)
+        shares = [busy_union(t["busy"]) / (t["end_us"] - t["start_us"]) for t in traces]
+        aligned = all(abs(t["trace_start_us"] - t["start_us"]) < 1e6 for t in traces)
+        union = (busy_union([(t["trace_start_us"] + a, t["trace_start_us"] + b)
+                             for t in traces for a, b in t["busy"]]) if aligned else None)
+        across["profile"] = {"wall_s": wall_us / 1e6, "rank_busy_share": shares,
+                             "clocks_aligned": aligned,
+                             "device_busy_s": None if union is None else union / 1e6,
+                             "idle_share": None if union is None else 1 - union / wall_us}
+        print(f"(d) a profiled full-width epoch of 2 ranks x 2 workers: wall "
+              f"{wall_us / 1e6:.3f} s, each rank's device-busy share {shares}; the card's "
+              f"idle share over both ranks' intervals "
+              f"{fmt(across['profile']['idle_share'])}"
+              f"{'' if aligned else ' (not measured: the traces clocks differ from the host)'}")
+        # the full-width traces are large; the results above keep what they say
+        os.remove(os.path.join(out17, "full_rank0.json"))
+        os.remove(os.path.join(out17, "full_rank1.json"))
+
+    stream_run = {}
+    with phase("18 streaming"):
+        from distributed_neural_network_tpu_torch import native
+
+        check(native.available(), "the native batcher did not build on this machine")
+        want = head_launches(16, 2)
+        r = cnn_run(full + ["--kernels", "cuda", "--input-mode", "stream"], "stream, kernels=cuda")
+        check(r["launches"] == want, f"stream: launches {r['launches']} != {want}")
+        stream_run["cli"] = r
+        # one stream epoch at full width under the profiler, as phase 7
+        raw = load_split(True, source="synthetic", synthetic_size=50_000, seed=0,
+                         normalize_images=False)
+        test = load_split(False, source="synthetic", synthetic_size=10_000, seed=0)
+        eng = Engine(TrainConfig(lr=0.01, batch_size=16, nb_proc=4, kernels="cuda",
+                                 input_mode="stream"), raw, test, device=dev)
+        with uncounted(fh.LAUNCHES):
+            eng.run_epoch(0)
+            stream_run["profile"] = profiled_epoch(torch, eng, 1)
+        wall, busy = stream_run["profile"]["wall_s"], stream_run["profile"]["device_busy_s"]
+        del eng, raw, test
+        hbm = main_path["cuda"][0]
+        print(f"stream at full width: {r['images_per_s']:.1f} images/s, epoch wall "
+              f"{r['epoch_wall_s']:.3f} s (hbm, phase 5: {hbm['images_per_s']:.1f} images/s, "
+              f"{hbm['epoch_wall_s']:.3f} s); a profiled stream epoch: wall {wall:.3f} s, device "
+              f"busy {busy:.3f} s, idle share "
+              f"{'not measured' if not busy else f'{1 - busy / wall:.3f}'} (hbm, phase 7: "
+              f"{fmt(profile.get('idle_share'))})")
+        for key, us, count in stream_run["profile"]["top"][:8]:
+            print(f"   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+        # at phase 4's size: the oracle on the stream's orders, and the hbm
+        # engine fed them
+        raw4 = load_split(True, source="synthetic", synthetic_size=512, seed=3,
+                          normalize_images=False)
+        with uncounted(fh.LAUNCHES):
+            seng = Engine(TrainConfig(**CNN_SMALL, input_mode="stream"), raw4, test4, device=dev)
+            heng = Engine(TrainConfig(**CNN_SMALL), split4, test4, device=dev,
+                          orders=seng.default_order)
+            orders = [[seng.default_order(e, d).numpy() for d in range(4)] for e in range(2)]
+            oracle = reference_trajectory(seng.state_tree()["params"], split4.images,
+                                          split4.labels, n_workers=4, batch_size=16, epochs=2,
+                                          lr=0.01, momentum=0.9, orders=orders)
+            d_hbm = []
+            for e in range(2):
+                ms, mh = seng.run_epoch(e), heng.run_epoch(e)
+                params = seng.state_tree()["params"]
+                rel = max(float(np.max(np.abs(params[l][k] - oracle[e]["params"][l][k])
+                                       / (np.abs(oracle[e]["params"][l][k]) + 1e-3)))
+                          for l in params for k in params[l])
+                dl = abs(ms.train_loss - oracle[e]["train_loss"])
+                check(dl < 5e-4 and rel < 2e-3,
+                      f"stream epoch {e}: loss off the oracle by {dl}, params by max-rel {rel}")
+                d_hbm.append(abs(ms.train_loss - mh.train_loss))
+            same = all(torch.equal(a, b) for a, b in zip(seng.params, heng.params))
+        stream_run["small"] = {"oracle_params_max_rel": rel, "d_loss_vs_hbm": d_hbm,
+                               "bitwise_hbm": same}
+        print(f"stream at 512 rows: within the oracle on the stream's orders (params max-rel "
+              f"{rel:.2e}); against the hbm engine fed the same orders: loss differences "
+              f"{d_hbm}, params bitwise {same}")
+        del seng, heng
+
+    bf16_run = {}
+    with phase("19 bf16"):
+        import torch.nn.functional as F
+
+        want = head_launches(16, 2)
+        for kern in ("cuda", "torch"):
+            r = cnn_run(full + ["--kernels", kern, "--compute-dtype", "bfloat16"],
+                        f"bf16, kernels={kern}")
+            check(r["launches"] == (want if kern == "cuda" else dict.fromkeys(want, 0)),
+                  f"bf16 {kern}: launches {r['launches']}")
+            bf16_run[kern] = r
+        # the graphed bf16 run against its eager run, at phase 4's size
+        with uncounted(fh.LAUNCHES):
+            cfgb = TrainConfig(**CNN_SMALL, compute_dtype="bfloat16")
+            graphed, eager = (Engine(cfgb, split4, test4, device=dev) for _ in range(2))
+            eager._capture = False
+            got_b = {"graphed": [graphed.run_epoch(e) for e in range(2)],
+                     "eager": [eager.run_epoch(e) for e in range(2)]}
+            check(graphed._step.graph is not None and eager._step.graph is None,
+                  "bf16: the programs were not captured (or the eager run's were)")
+            same = got_b["graphed"] == got_b["eager"] and all(
+                torch.equal(a, b) for a, b in zip((*graphed.params, *graphed.mom),
+                                                  (*eager.params, *eager.mom)))
+            check(same, f"bf16: the graphed run differs from its eager run: {got_b}")
+            del graphed, eager
+
+            # the model's convs at the main path's (N 4, B 16), forward +
+            # backward through the casts of the f32 parameters
+            def convs_at(dtype):
+                ws = [w.detach().clone().requires_grad_() for w in cw]
+                bs = [b.detach().clone().requires_grad_() for b in cb]
+
+                def f():
+                    h = cx.to(dtype)
+                    for w, b in zip(ws, bs):
+                        h = F.conv2d(h, w.to(dtype), b.to(dtype), groups=4)
+                        h = F.max_pool2d(torch.relu(h), 2)
+                    return torch.autograd.grad(h.float().square().sum(), [*ws, *bs])
+
+                return graph_ms(torch, f)
+
+            bf16_run["convs_graph_ms"] = {"float32": convs_at(torch.float32),
+                                          "bfloat16": convs_at(torch.bfloat16)}
+            # one graphed bf16 epoch at full width under the profiler, as phase 7
+            split = load_split(True, source="synthetic", synthetic_size=50_000, seed=0)
+            test = load_split(False, source="synthetic", synthetic_size=10_000, seed=0)
+            eng = Engine(TrainConfig(lr=0.01, batch_size=16, nb_proc=4, kernels="cuda",
+                                     compute_dtype="bfloat16"), split, test, device=dev)
+            eng.run_epoch(0)
+            bf16_run["profile"] = profiled_epoch(torch, eng, 1)
+            wall, busy = bf16_run["profile"]["wall_s"], bf16_run["profile"]["device_busy_s"]
+            del eng, split, test
+        f32 = main_path["cuda"][0]
+        print(f"a profiled bf16 epoch at full width: wall {wall:.3f} s, device busy {busy:.3f} "
+              f"s, idle share {fmt(bf16_run['profile']['idle_share'])} (f32, phase 7: "
+              f"{fmt(profile.get('idle_share'))})")
+        for key, us, count in bf16_run["profile"]["top"][:8]:
+            print(f"   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+        print(f"bf16 graphed run bitwise equal to its eager run (512 rows, 2 epochs); grouped "
+              f"convs a step, device (graph): bf16 {fmt(bf16_run['convs_graph_ms']['bfloat16'])} "
+              f"ms, f32 {fmt(bf16_run['convs_graph_ms']['float32'])} ms")
+        for kern in ("cuda", "torch"):
+            r = bf16_run[kern]
+            print(f"bf16 kernels={kern}: epoch wall {r['epoch_wall_s']:.3f} s, "
+                  f"{r['images_per_s']:.1f} images/s, final_val_acc "
+                  f"{r['summary']['final_val_acc']:.2f} % (f32 kernels=cuda: "
+                  f"{f32['epoch_wall_s']:.3f} s, {f32['images_per_s']:.1f} images/s)")
+
     designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
                                  f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
                "fused_mlp3_bwd": f"one launch for all replicas, a cluster of "
@@ -2163,7 +2503,8 @@ def main() -> int:
                    "serve_profile": serve_profile, "flash_times": flash_times,
                    "flash_pair": flash_pair, "flash_checks": flash_checks,
                    "lm_runs": lm_runs, "lm_checks": lm_checks, "learn": learn,
-                   "lm_profile": lm_profile}, f, indent=1)
+                   "lm_profile": lm_profile, "across": across, "stream": stream_run,
+                   "bf16": bf16_run}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

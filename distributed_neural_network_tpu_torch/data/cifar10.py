@@ -5,7 +5,10 @@ Sources, in order: ``{root}/cifar-10-batches-py/`` (the python pickle
 batches), ``{root}/cifar10.npz``, or ``synthetic`` - a seeded,
 class-structured stand-in (10 fixed class templates + noise) with CIFAR-10's
 shapes. Nothing is downloaded. `make_synthetic` gives byte-identical arrays to
-the JAX package's for the same seed; `normalize` is plain numpy.
+the JAX package's for the same seed. uint8 pixels are normalized by the
+native kernels (`native/`: the pickle rows decoded and normalized in one
+pass), as in the JAX package; `load_split(normalize_images=False)` keeps
+them uint8 for host streaming (`data/stream.py`).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import tarfile
 from dataclasses import dataclass
 
 import numpy as np
+
+from .. import native
 
 CIFAR10_MEAN = 0.5
 CIFAR10_STD = 0.5
@@ -39,18 +44,28 @@ class Split:
 
 
 def normalize(images_u8: np.ndarray) -> np.ndarray:
-    """uint8 [0,255] -> float32 in [-1,1]: (x/255 - 0.5)/0.5."""
-    x = np.asarray(images_u8).astype(np.float32) / 255.0
+    """uint8 [0,255] -> float32 in [-1,1]: (x/255 - 0.5)/0.5. uint8 input
+    runs through the native kernel (one pass); another dtype keeps the plain
+    numpy math."""
+    images_u8 = np.asarray(images_u8)
+    if images_u8.dtype == np.uint8:
+        return native.normalize_u8(images_u8, CIFAR10_MEAN, CIFAR10_STD)
+    x = images_u8.astype(np.float32) / 255.0
     return (x - CIFAR10_MEAN) / CIFAR10_STD
 
 
-def _load_pickle_batches(batch_dir: str, train: bool):
+def _load_pickle_batches(batch_dir: str, train: bool, normalize_images: bool):
+    """The python batches as NHWC: normalized float32 (the plane-major rows
+    decoded and normalized in one native pass) or raw uint8."""
     names = [f"data_batch_{i}" for i in range(1, 6)] if train else ["test_batch"]
     imgs, labels = [], []
     for name in names:
         with open(os.path.join(batch_dir, name), "rb") as f:
             d = pickle.load(f, encoding="bytes")
-        imgs.append(d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
+        if normalize_images:
+            imgs.append(native.cifar_decode_normalize(d[b"data"], CIFAR10_MEAN, CIFAR10_STD))
+        else:
+            imgs.append(d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
         labels.append(np.asarray(d[b"labels"], dtype=np.int32))
     return np.ascontiguousarray(np.concatenate(imgs)), np.concatenate(labels)
 
@@ -93,11 +108,15 @@ def load_split(
     source: str = "auto",
     synthetic_size: int | None = None,
     seed: int = 0,
+    normalize_images: bool = True,
 ) -> Split:
-    """Load one normalized CIFAR-10 split.
+    """Load one CIFAR-10 split, normalized float32 by default.
 
     source: "auto" (real data if present, else synthetic), "pickle", "npz",
-    or "synthetic".
+    or "synthetic". `normalize_images=False` keeps uint8 pixels where the
+    source has them (host streaming normalizes each batch natively, and
+    uint8 is a quarter of the host memory); a float npz is normalized
+    regardless.
     """
     root = root or default_root()
     if source in ("auto", "pickle"):
@@ -105,8 +124,8 @@ def load_split(
             _maybe_extract_tarball(root)
         batch_dir = os.path.join(root, "cifar-10-batches-py")
         if os.path.isdir(batch_dir):
-            x, y = _load_pickle_batches(batch_dir, train)
-            return Split(normalize(x), y, "pickle")
+            x, y = _load_pickle_batches(batch_dir, train, normalize_images)
+            return Split(x, y, "pickle")
         if source == "pickle":
             raise FileNotFoundError(f"no cifar-10-batches-py under {root}")
     if source in ("auto", "npz"):
@@ -115,9 +134,11 @@ def load_split(
             d = np.load(npz)
             x = d["x_train"] if train else d["x_test"]
             y = d["y_train"] if train else d["y_test"]
-            return Split(normalize(x), y.reshape(-1).astype(np.int32), "npz")
+            if normalize_images or x.dtype != np.uint8:
+                x = normalize(x)
+            return Split(x, y.reshape(-1).astype(np.int32), "npz")
         if source == "npz":
             raise FileNotFoundError(f"no cifar10.npz under {root}")
     n = synthetic_size or (TRAIN_SIZE if train else TEST_SIZE)
     x, y = make_synthetic(n, seed=seed, train=train)
-    return Split(normalize(x), y, "synthetic")
+    return Split(normalize(x) if normalize_images else x, y, "synthetic")

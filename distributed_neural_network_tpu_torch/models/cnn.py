@@ -19,6 +19,13 @@ flatten(400) -> fc 120 -> relu -> fc 84 -> relu -> fc 10.
   (grouped, `groups=N`) and the head once over all of them: through the
   fused head (`ops/fused_head.py`) with `kernels="cuda"`, its plain version
   with `kernels="torch"`.
+- `compute_dtype=torch.bfloat16` (the JAX `Network(compute_dtype=bfloat16)`):
+  the input, conv weights and biases are cast to bf16 and the grouped convs,
+  ReLUs and pools run in bf16. With `kernels="cuda"` the flattened
+  activations are cast to f32 for the f32 head kernels, as the JAX Pallas
+  head casts its input; with `kernels="torch"` the head runs in bf16 too.
+  The logits come out f32 either way; parameters stay f32 (the casts are
+  differentiable, so their gradients are f32).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch import nn
 from ..ops.fused_head import fused_mlp3, mlp3_reference
 
 KERNELS = ("torch", "cuda")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _CONVS = ("conv1", "conv2")
 _DENSES = ("fc1", "fc2", "fc3")
 
@@ -86,38 +94,43 @@ class ReplicaNetwork(nn.Module):
 
     Every replica starts as the one `Network(generator=generator)` that the
     generator's stream draws. Input (n, batch, 32, 32, 3) float32 NHWC;
-    output (n, batch, 10) logits. The state_dict has `Network`'s names with
-    an (n, ...) tensor each.
+    output (n, batch, 10) float32 logits, computed in `compute_dtype`
+    (module docstring). The state_dict has `Network`'s names with an
+    (n, ...) float32 tensor each.
     """
 
     def __init__(self, n: int, num_classes: int = 10, *, kernels: str = "torch",
+                 compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         if kernels not in KERNELS:
             raise ValueError(f"kernels must be one of {KERNELS}, got {kernels!r}")
+        if compute_dtype not in COMPUTE_DTYPES.values():
+            raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES.values())}, "
+                             f"got {compute_dtype!r}")
         base = Network(num_classes, generator=generator)
-        self.n, self.kernels = n, kernels
+        self.n, self.kernels, self.compute_dtype = n, kernels, compute_dtype
         for name in _CONVS + _DENSES:
             setattr(self, name, _Stacked(base.get_submodule(name), n))
 
-    @staticmethod
-    def _conv(x, layer, n):
-        w, b = layer.weight, layer.bias
+    def _conv(self, x, layer, n):
+        w, b = (t.to(self.compute_dtype) for t in (layer.weight, layer.bias))
         return F.conv2d(x, w.reshape(-1, *w.shape[2:]), b.reshape(-1), groups=n)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, b = x.shape[:2]
         # (n, B, H, W, C) -> (B, n*C, H, W): replica d's channels are group d
-        x = x.permute(1, 0, 4, 2, 3).reshape(b, n * x.shape[-1], *x.shape[2:4])
+        x = x.to(self.compute_dtype).permute(1, 0, 4, 2, 3).reshape(
+            b, n * x.shape[-1], *x.shape[2:4])
         x = F.max_pool2d(F.relu(self._conv(x, self.conv1, n)), 2)
         x = F.max_pool2d(F.relu(self._conv(x, self.conv2, n)), 2)
         c, h, w = x.shape[1] // n, x.shape[2], x.shape[3]
         x = x.view(b, n, c, h, w).permute(1, 0, 3, 4, 2).reshape(n, b, h * w * c)  # H,W,C
-        head = fused_mlp3 if self.kernels == "cuda" else mlp3_reference
-        return head(
-            x, self.fc1.kernel, self.fc1.bias, self.fc2.kernel, self.fc2.bias,
-            self.fc3.kernel, self.fc3.bias,
-        )
+        dense = [getattr(self, name) for name in _DENSES]
+        if self.kernels == "cuda":  # the head kernels take f32
+            return fused_mlp3(x.float(), *(t for d in dense for t in (d.kernel, d.bias)))
+        cd = self.compute_dtype
+        return mlp3_reference(x, *(t.to(cd) for d in dense for t in (d.kernel, d.bias))).float()
 
 
 def from_jax_params(tree) -> dict[str, torch.Tensor]:
@@ -138,7 +151,7 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
 def to_jax_params(state) -> dict[str, dict[str, np.ndarray]]:
     """A state_dict of `Network` (or `ReplicaNetwork`: leaves keep the
     replica axis) -> JAX param tree with numpy leaves."""
-    host = {k: v.detach().cpu().numpy() for k, v in state.items()}
+    host = {k: v.detach().cpu().numpy().copy() for k, v in state.items()}  # never a view
     tree = {}
     for name in _CONVS:
         hwio = np.moveaxis(host[f"{name}.weight"], (-4, -3), (-1, -2))

@@ -52,7 +52,7 @@ DECODE_IMPLS = ("auto", "torch", "cuda")
 # flash kernels (ops/flash.py)
 ATTN_IMPLS = ("full", "ring", "ulysses", "zigzag", "flash")
 REMAT_POLICY_SLICE = ("a later slice of the port (selective activation checkpointing, "
-                      "ROADMAP.md Queue 1 item 10)")
+                      "ROADMAP.md Queue 1 item 3)")
 
 
 @dataclass(frozen=True)

@@ -1,17 +1,26 @@
 """Training and evaluation steps over stacked replicas (counterpart of the
-JAX package's `ops/train.py`). The N replicas of the group are one
+JAX package's `ops/train.py`). The N replicas of a rank are one
 `ReplicaNetwork` (every parameter stacked on a leading axis), a batch is
-(N, B) row indices into the split on the device, and one call of the model
-serves every replica.
+(N, B, 32, 32, 3) images with (N, B) labels and weights, and one call of the
+model serves every replica.
 
-- `train_step` is one SGD step of every replica: gather, forward, the
-  per-replica masked loss, `autograd.grad`, update; `sync=True`
-  (`sync_mode="step"`) first takes the gradient mean over the replicas.
-  The engine's captured step program runs it once per step of an epoch's
-  stacked plan, the JAX `lax.scan` (`train/engine.py`).
+- `train_step` is one SGD step of every replica: forward, the per-replica
+  masked loss, `autograd.grad`, update. The engine's captured step program
+  runs it once per step of an epoch, the JAX `lax.scan`
+  (`train/engine.py`), on rows it gathers from the split on the device or
+  on a batch streamed from the host.
+- `sync_mode="step"` splits the step around the gradient collective:
+  `grad_step` writes every replica's gradients as one packed row into the
+  group's gather buffer (`parallel/collectives.py` `RowGather`), and
+  `apply_mean_grads` takes the mean over all N gathered rows, the JAX
+  `pmean` of the gradients, and updates every replica with it.
 - `eval_epoch` keeps the JAX accounting per replica: the sum of per-batch
   mean losses, with batches that hold no valid row left out of the batch
   count, and the correct and valid row counts.
+
+The model computes in its own `compute_dtype` and returns f32 logits, so
+the loss and the gradients of the f32 parameters are f32 at bf16 too: the
+steps need no cast of their own.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..data.pipeline import gather_batch
+from ..parallel.collectives import pack, unpack
 from .losses import masked_correct, masked_cross_entropy
 from .sgd import sgd_step
 
@@ -31,23 +41,32 @@ def loss_and_grads(model, x, y, w):
     return loss.detach(), torch.autograd.grad(loss.sum(), params)
 
 
-def sync_grads(grads):
-    """Per-step gradient mean over the replica group (`grad_sync="end"`):
-    each stacked gradient's mean over its leading axis, for every replica."""
-    return [g.mean(0, keepdim=True).expand_as(g) for g in grads]
-
-
-def train_step(net, mom, images, labels, idx, w, *, lr: float, momentum: float,
-               sync: bool = False) -> torch.Tensor:
-    """One SGD-momentum step of every replica of `net` on rows `idx` (N, B)
-    weighted by `w` (N, B); updates the parameters and `mom` in place and
-    returns the (N,) batch losses."""
-    x, y = gather_batch(images, labels, idx)
+def train_step(net, mom, x, y, w, *, lr: float, momentum: float) -> torch.Tensor:
+    """One SGD-momentum step of every replica of `net` on the batch `x`
+    (N, B, 32, 32, 3), labels `y` and weights `w` (N, B); updates the
+    parameters and `mom` in place and returns the (N,) batch losses."""
     loss, grads = loss_and_grads(net, x, y, w)
-    if sync:
-        grads = sync_grads(grads)
     sgd_step(list(net.parameters()), mom, grads, lr, momentum)
     return loss
+
+
+def grad_step(net, x, y, w, gather) -> torch.Tensor:
+    """The first half of a `sync_mode="step"` step: every replica's
+    gradients packed into its row of `gather` (a `RowGather` of (P,) rows);
+    returns the (N,) batch losses. The collective comes next."""
+    loss, grads = loss_and_grads(net, x, y, w)
+    gather.put(pack(grads, net.n))
+    return loss
+
+
+@torch.no_grad()
+def apply_mean_grads(net, mom, gathered: torch.Tensor, *, lr: float, momentum: float) -> None:
+    """The second half: the mean of the (N_total, P) gathered gradient rows
+    over the whole group, unpacked per parameter, and the SGD step of every
+    replica with it."""
+    params = list(net.parameters())
+    grads = [g.expand_as(p) for g, p in zip(unpack(gathered.mean(0), params), params)]
+    sgd_step(params, mom, grads, lr, momentum)
 
 
 @torch.no_grad()

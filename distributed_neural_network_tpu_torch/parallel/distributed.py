@@ -1,0 +1,190 @@
+"""Joining a process group (counterpart of the JAX package's
+`parallel/distributed.py` `initialize`).
+
+The reference runs ``mpiexec -n N`` and its parent gathers and averages the
+workers' state dicts. The port runs one process per rank under
+``python -m torch.distributed.run`` (torchrun) and joins them with
+`torch.distributed`: `initialize()` reads torchrun's environment
+(``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``), where the JAX package reads ``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``, and keeps its rules:
+
+- no address and a world of at most 1: a single process, nothing to join;
+- a partial configuration raises `ValueError` naming the missing variable;
+- idempotent: a second call in a joined process returns True;
+- bounded: up to ``max_retries`` + 1 attempts, backing off from
+  ``backoff_s`` and doubling (capped at 30 s), all within ``deadline_s``;
+  each attempt passes the deadline that remains as `init_process_group`'s
+  ``timeout``. Defaults: ``DNN_TPU_COORDINATOR_RETRIES``,
+  ``DNN_TPU_COORDINATOR_BACKOFF_S``, ``DNN_TPU_COORDINATOR_DEADLINE_S``, else
+  5, 1 s and 300 s. Exhaustion raises a `RuntimeError` naming the address,
+  the attempts and the variables to check.
+
+The backend follows the device (`backend_for`): gloo on the CPU; on the card
+NCCL when every local rank has a card of its own (rank r on
+``cuda:LOCAL_RANK``), gloo when ranks share a card (as on a one-GPU machine:
+NCCL refuses two ranks on one GPU). The CLI prints the choice.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import time
+
+import torch
+import torch.distributed as dist
+
+DEFAULT_COORDINATOR_RETRIES = 5
+DEFAULT_COORDINATOR_DEADLINE_S = 300.0
+DEFAULT_COORDINATOR_BACKOFF_S = 1.0
+_BACKOFF_CAP_S = 30.0
+
+
+def _env_int(name: str) -> int | None:
+    v = os.environ.get(name)
+    return int(v) if v else None
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return float(v) if v else default
+
+
+def joined() -> bool:
+    """True in a process that belongs to a torch.distributed group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def local_rank() -> tuple[int, int]:
+    """(LOCAL_RANK, LOCAL_WORLD_SIZE) from torchrun's environment; a
+    process started without them is rank 0 of 1 on its host."""
+    world = _env_int("LOCAL_WORLD_SIZE") or _env_int("WORLD_SIZE") or 1
+    return _env_int("LOCAL_RANK") or 0, world
+
+
+def backend_for(device: str | torch.device) -> str:
+    """gloo on the CPU; on the card NCCL when each local rank has a card
+    of its own, else gloo (ranks that share a card)."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    _, local_world = local_rank()
+    return "nccl" if local_world <= torch.cuda.device_count() else "gloo"
+
+
+def rank_device(device: str | torch.device) -> torch.device:
+    """This rank's device: the CPU as asked, or its own card
+    (``cuda:LOCAL_RANK``), or with more local ranks than cards the card
+    ``LOCAL_RANK`` mod the count (on one GPU: ``cuda:0`` for every rank)."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    rank, _ = local_rank()
+    return torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
+
+
+def initialize(
+    master_addr: str | None = None,
+    master_port: int | None = None,
+    world_size: int | None = None,
+    rank: int | None = None,
+    *,
+    device: str | torch.device = "cuda",
+    max_retries: int | None = None,
+    deadline_s: float | None = None,
+    backoff_s: float | None = None,
+    log=print,
+    _connect=None,
+    _sleep=time.sleep,
+    _clock=time.monotonic,
+) -> bool:
+    """Join the process group; returns True if this process is in one.
+
+    Explicit arguments win over torchrun's environment. Call it before
+    anything touches the card: it picks this rank's card (`rank_device`)
+    and the backend (`backend_for`). `_connect`, `_sleep` and `_clock` are
+    test seams (`_connect` stands for `torch.distributed.init_process_group`).
+    """
+    if joined():
+        return True
+    addr = master_addr or os.environ.get("MASTER_ADDR")
+    world = world_size if world_size is not None else _env_int("WORLD_SIZE")
+    rank = rank if rank is not None else _env_int("RANK")
+    port = master_port if master_port is not None else _env_int("MASTER_PORT")
+    if addr is None:
+        # a partial configuration fails loudly, never as N independent runs
+        if world is not None and world > 1:
+            raise ValueError(f"WORLD_SIZE={world} is set but MASTER_ADDR is not; set it to "
+                             "rank 0's host (torchrun sets both)")
+        return False
+    if world is None:
+        raise ValueError("MASTER_ADDR is set but WORLD_SIZE is not; set it to the number "
+                         "of processes")
+    if world <= 0:
+        raise ValueError(f"WORLD_SIZE must be positive, got {world}")
+    if world == 1:
+        return False
+    if rank is None:
+        raise ValueError("MASTER_ADDR and WORLD_SIZE are set but RANK is not; set it to "
+                         "this process's rank in [0, WORLD_SIZE)")
+    if port is None:
+        raise ValueError("MASTER_ADDR, WORLD_SIZE and RANK are set but MASTER_PORT is not; "
+                         "set it to a free port on rank 0's host")
+    dev = rank_device(device)
+    backend = backend_for(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    kwargs = dict(backend=backend, init_method=f"tcp://{addr}:{port}", world_size=world,
+                  rank=rank)
+    if backend == "nccl":
+        kwargs["device_id"] = dev  # the communicator is built now, not at first use
+    retries = (max_retries if max_retries is not None
+               else _env_int("DNN_TPU_COORDINATOR_RETRIES"))
+    _connect_with_retry(
+        _connect if _connect is not None else dist.init_process_group, kwargs,
+        addr=f"{addr}:{port}",
+        max_retries=retries if retries is not None else DEFAULT_COORDINATOR_RETRIES,
+        deadline_s=(deadline_s if deadline_s is not None else _env_float(
+            "DNN_TPU_COORDINATOR_DEADLINE_S", DEFAULT_COORDINATOR_DEADLINE_S)),
+        backoff_s=(backoff_s if backoff_s is not None else _env_float(
+            "DNN_TPU_COORDINATOR_BACKOFF_S", DEFAULT_COORDINATOR_BACKOFF_S)),
+        log=log, sleep=_sleep, clock=_clock,
+    )
+    return True
+
+
+def _connect_with_retry(connect, kwargs, *, addr, max_retries, deadline_s, backoff_s, log,
+                        sleep, clock) -> int:
+    """Call `connect(**kwargs, timeout=<the deadline that remains>)` until it
+    returns, backing off between failures; returns the attempt that
+    succeeded or raises an actionable RuntimeError."""
+    start = clock()
+    attempt = 0
+    last = None
+    while True:
+        attempt += 1
+        remaining = deadline_s - (clock() - start)
+        if remaining <= 0:
+            break
+        try:
+            connect(**kwargs, timeout=datetime.timedelta(seconds=max(int(remaining), 1)))
+            return attempt
+        except Exception as e:  # noqa: BLE001 - retrying is the handling
+            last = e
+            if attempt > max_retries:
+                break
+            remaining = deadline_s - (clock() - start)
+            if remaining <= 0:
+                break
+            pause = min(backoff_s * (2 ** (attempt - 1)), _BACKOFF_CAP_S, remaining)
+            log(f"(rendezvous attempt {attempt}/{max_retries + 1} failed: "
+                f"{type(e).__name__}: {e}; retrying in {pause:.1f}s)")
+            sleep(pause)
+    raise RuntimeError(
+        f"could not join the process group at {addr} after {attempt} attempt(s) over "
+        f"{clock() - start:.1f}s (deadline {deadline_s:g}s, retry budget {max_retries}). "
+        "Check that rank 0 is up and that MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK "
+        "match on every process; raise DNN_TPU_COORDINATOR_DEADLINE_S or "
+        "DNN_TPU_COORDINATOR_RETRIES for slow starts. Last error: "
+        f"{type(last).__name__ if last is not None else None}: {last}"
+    ) from last

@@ -4,7 +4,10 @@
 Each epoch each worker fails independently with probability p; a failed
 worker is left out of the epoch's parameter average and rejoins at the next
 epoch. The Bernoulli draws come from a `torch.Generator`, so the masks differ
-from the JAX package's for the same seed; a caller can inject a mask.
+from the JAX package's for the same seed; a caller can inject a mask. Every
+rank of a process group draws the same global mask; a straggler sleeps on
+the rank that hosts the failed worker, and the other ranks wait for it in
+the next collective, as the reference's parent waits for its children.
 """
 
 from __future__ import annotations
@@ -42,13 +45,15 @@ def live_mask(seed: int, epoch: int, n_workers: int, failure_probability: float,
     return (~fail).numpy().astype(np.float32)
 
 
-def straggler_sleep(mask_host, failure_duration: float, *, log=print) -> None:
+def straggler_sleep(mask_host, failure_duration: float, *, workers=None,
+                    log=print) -> None:
     """Optional host-side sleep keeping the reference's straggler timing:
-    one sleep per epoch with a failure, and the same fail/wake lines per
-    failed worker."""
+    one sleep per epoch in which one of `workers` (global indices; default
+    all) failed, and the same fail/wake lines per such worker."""
     if failure_duration <= 0.0:
         return
-    failed = [d for d, live in enumerate(mask_host) if not live]
+    workers = range(len(mask_host)) if workers is None else workers
+    failed = [d for d in workers if not mask_host[d]]
     if not failed:
         return
     for d in failed:

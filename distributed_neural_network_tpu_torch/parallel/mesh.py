@@ -1,12 +1,14 @@
 """The replica group: the port's counterpart of the JAX package's device mesh.
 
 The JAX package maps its N data-parallel workers onto N devices of a
-`jax.sharding.Mesh` and raises when N exceeds the device count. On one GPU
-the port runs the N workers as a replica group in one process: each worker
-has its own parameters and momentum on the same device, and the collectives
-(`parallel/collectives.py`) are means over the group. So `nb_proc` is
-bounded by device memory, not by the number of devices. A
-`torch.distributed` path across processes is later work.
+`jax.sharding.Mesh` and raises when N exceeds the device count. The port
+stacks workers on a leading axis of every parameter and runs them in one
+process; across processes (`parallel/distributed.py`) the N workers are
+split over the ranks of the torch.distributed group, rank r holding the
+contiguous block of global workers ``[r*N/w, (r+1)*N/w)``. `nb_proc` is the
+global group size, bounded by device memory, not by the number of devices,
+and must divide by the world size. The collectives
+(`parallel/collectives.py`) gather the ranks' blocks and reduce over all N.
 """
 
 from __future__ import annotations
@@ -14,16 +16,37 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
+from .distributed import joined
 
 
 @dataclass(frozen=True)
 class ReplicaGroup:
-    """N workers sharing one device."""
+    """N workers over `world` ranks; this rank holds `local` of them on
+    `device`. `joined`: the ranks form a torch.distributed group (the
+    collectives then cross processes, also at world 1)."""
 
     size: int
     device: torch.device
+    rank: int = 0
+    world: int = 1
+    joined: bool = False
+
+    @property
+    def local(self) -> int:
+        return self.size // self.world
+
+    @property
+    def first(self) -> int:
+        """Global index of this rank's first worker."""
+        return self.rank * self.local
+
+    @property
+    def workers(self) -> range:
+        """Global indices of this rank's workers."""
+        return range(self.first, self.first + self.local)
 
 
 def device_count(device: str | torch.device = "cuda") -> int:
@@ -34,10 +57,17 @@ def device_count(device: str | torch.device = "cuda") -> int:
 
 def create_mesh(n_workers: int | None = None,
                 device: str | torch.device = "cuda") -> ReplicaGroup:
-    """A group of `n_workers` replicas on `device` (default: one per
-    visible device of that type)."""
+    """A group of `n_workers` replicas (default: one per visible device of
+    the type) over the ranks of the torch.distributed group this process
+    joined, or over this process alone."""
     dev = resolve_device(device)
     n = n_workers if n_workers is not None else device_count(dev)
     if n < 1:
         raise ValueError(f"need >= 1 workers, got {n}")
-    return ReplicaGroup(n, dev)
+    if not joined():
+        return ReplicaGroup(n, dev)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n % world:
+        raise ValueError(f"{n} workers cannot split evenly over {world} ranks; make "
+                         "--nb-proc a multiple of the world size")
+    return ReplicaGroup(n, dev, rank, world, True)

@@ -13,7 +13,7 @@ import math
 import torch
 
 NEG_BIG = -1e30  # large-negative mask value; avoids -inf NaN propagation
-PARALLEL_SLICE = "the parallel-layouts slice of the port (ROADMAP.md Queue 1 item 10)"
+PARALLEL_SLICE = "the parallel-layouts slice of the port (ROADMAP.md Queue 1 item 3)"
 
 
 def attention(q, k, v, *, causal: bool = False, q_offset: int = 0, k_offset: int = 0,

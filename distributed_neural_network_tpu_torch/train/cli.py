@@ -8,25 +8,42 @@ files and final ``SUMMARY {json}`` line.
 Runs on the GPU unless ``--device cpu`` is given. ``--kernels torch`` (the
 default, as ``xla`` is the JAX default) runs the classifier head as plain
 PyTorch ops; ``--kernels cuda`` runs it as the hand-written fused CUDA kernel
-(the JAX package's ``pallas``). Flags whose feature this port has not reached
-yet are accepted and raise `NotImplementedError` naming the slice that brings
-them.
+(the JAX package's ``pallas``). ``--input-mode stream`` keeps the train split
+in host RAM and streams its batches (``--stream-prefetch`` steps ahead);
+``--compute-dtype bfloat16`` runs the convolutions in bf16. Flags whose
+feature this port has not reached yet are accepted and raise
+`NotImplementedError` naming the item that brings them.
+
+Across processes, one per rank under torchrun, which sets the rendezvous
+environment (`parallel/distributed.py`):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m distributed_neural_network_tpu_torch.train.cli --nb-proc 4 ...
+
+The ``--nb-proc`` workers split evenly over the ranks. Every rank prints its
+lines and its SUMMARY (the metrics are the same on every rank); ranks above
+0 write their phase logs and metrics JSONL under ``_rank{r}`` names.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
+
+import torch.distributed as dist
 
 from ..data.cifar10 import load_split
 from ..device import resolve_device
+from ..ops import fused_head
+from ..parallel.distributed import initialize, joined, rank_device
 from ..utils import timers as T
 from ..utils.logfiles import write_phase_logs
 from ..utils.metrics import init_run
 from .engine import SLICE4, Engine, TrainConfig
 
-SLICE5 = "slice 5, static analysis (ROADMAP.md Queue 1 items 15-16)"
+SLICE5 = "slice 5, static analysis (ROADMAP.md Queue 1 item 6)"
 
 # dest -> (flag, the slice that brings it); each is parsed with default None
 LATER_FLAGS = {
@@ -70,7 +87,17 @@ def add_common_flags(p: argparse.ArgumentParser, *, epochs: int, batch_size: int
         "--precision", choices=("bf16", "fp8", "int8", "int8-kv"), default="bf16",
         help="only bf16 (the full-precision contract) runs the CNN trainer",
     )
-    p.add_argument("--input-mode", choices=("hbm", "stream"), default="hbm")
+    p.add_argument(
+        "--input-mode", choices=("hbm", "stream"), default="hbm",
+        help="hbm = the split uploaded to device memory once (default); stream = the "
+        "train split stays in host RAM (uint8), each step's batch assembled by the "
+        "native C++ kernel and copied to the card",
+    )
+    p.add_argument(
+        "--stream-prefetch", type=int, default=2,
+        help="stream mode: batches assembled this many steps ahead on a background "
+        "thread (2 = double buffering, 0 = synchronous)",
+    )
     p.add_argument("--data", choices=("auto", "pickle", "npz", "synthetic"), default="auto")
     p.add_argument("--data-root", default=None, help="dataset dir (default ./data)")
     p.add_argument(
@@ -80,7 +107,11 @@ def add_common_flags(p: argparse.ArgumentParser, *, epochs: int, batch_size: int
     p.add_argument("--log-dir", default="log", help="phase-time log directory")
     p.add_argument("--metrics-jsonl", default=None, help="metrics JSONL path")
     p.add_argument("--eval-batch-size", type=int, default=None)
-    p.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default="float32")
+    p.add_argument(
+        "--compute-dtype", choices=("float32", "bfloat16"), default="float32",
+        help="bfloat16 = the convolutions in bf16 (parameters, momentum and loss stay "
+        "float32; the --kernels cuda head takes float32)",
+    )
     p.add_argument(
         "--kernels", choices=("torch", "cuda"), default="torch",
         help="cuda = the hand-written fused classifier-head kernel "
@@ -94,9 +125,9 @@ def add_common_flags(p: argparse.ArgumentParser, *, epochs: int, batch_size: int
         "the captured CUDA graphs with no host read between epochs) instead "
         "of one read per epoch; phase timing then reports "
         "train+sync(+eval at --eval-every 1) as one TRAINING number. "
-        "Downgraded to the per-epoch path when combined with "
-        "--failure-duration > 0 (straggler sleeps can only interleave "
-        "between epochs)",
+        "Downgraded, with a line saying so, to the per-epoch path when "
+        "combined with --failure-duration > 0 (straggler sleeps can only "
+        "interleave between epochs) or --input-mode stream",
     )
     p.add_argument("--dynamics", action="store_true")
     for dest, (flag, later) in LATER_FLAGS.items():
@@ -144,6 +175,7 @@ def config_from_args(args, regime: str) -> TrainConfig:
         kernels=args.kernels,
         reference_compat=getattr(args, "reference_compat", False),
         input_mode=args.input_mode,
+        stream_prefetch=args.stream_prefetch,
         grad_sync=args.grad_sync,
         compute_dtype=args.compute_dtype,
         dynamics=args.dynamics,
@@ -164,17 +196,35 @@ def check_ported(args) -> None:
         )
 
 
-def run_training(args, regime: str, *, log=print) -> Engine:
-    """Load data, train, write phase logs and print the SUMMARY line."""
+def say(line: str) -> None:
+    """Print `line` and its newline in one write. The ranks that torchrun
+    starts share its stdout; `print` writes the newline on its own, so
+    another rank's line could land between a line and its end."""
+    sys.stdout.write(f"{line}\n")
+    sys.stdout.flush()
+
+
+def run_training(args, regime: str, *, log=say) -> Engine:
+    """Join the process group if torchrun started this process, load data,
+    train, write phase logs and print the SUMMARY line."""
     check_ported(args)
     cfg = config_from_args(args, regime)
     device = resolve_device(args.device)
+    rank = None
+    # before anything touches the card: it picks the rank's card and backend
+    if initialize(device=device, log=log):
+        device, rank = rank_device(device), dist.get_rank()
+        log(f"(Multi-process: rank {rank}/{dist.get_world_size()}, backend "
+            f"{dist.get_backend()}, device {device})")
     timers = T.PhaseTimers(device)
     syn = args.synthetic_size
     with timers.phase(T.DATA_LOADING):
         train_split = load_split(
             True, root=args.data_root, source=args.data, seed=args.seed,
             synthetic_size=syn,
+            # streaming keeps the train split uint8 in host RAM; the native
+            # kernel normalizes each batch
+            normalize_images=cfg.input_mode != "stream",
         )
         test_split = load_split(
             False, root=args.data_root, source=args.data, seed=args.seed,
@@ -185,7 +235,7 @@ def run_training(args, regime: str, *, log=print) -> Engine:
         f"[source={train_split.source}], test length {len(test_split)})"
     )
 
-    run = init_run(jsonl_path=args.metrics_jsonl)
+    run = init_run(jsonl_path=args.metrics_jsonl, rank=rank)
     run["parameters"] = {
         "learning_rate": cfg.lr,
         "optimizer": "SGD",
@@ -196,6 +246,8 @@ def run_training(args, regime: str, *, log=print) -> Engine:
         "sync_mode": cfg.sync_mode,
         "nb_proc": cfg.nb_proc,
         "seed": cfg.seed,
+        "input_mode": cfg.input_mode,
+        "compute_dtype": cfg.compute_dtype,
     }
 
     t0 = time.perf_counter()
@@ -216,6 +268,7 @@ def run_training(args, regime: str, *, log=print) -> Engine:
             epochs=cfg.epochs,
             nb_proc=getattr(args, "nb_proc", None) or 1,
             timers=timers,
+            rank=rank,
         )
         log(f"(Phase logs written: {parent}, {children})")
 
@@ -236,12 +289,19 @@ def run_training(args, regime: str, *, log=print) -> Engine:
         "data_source": train_split.source,
         "device": str(engine.device),
         "kernels": cfg.kernels,
+        "input_mode": cfg.input_mode,
+        "compute_dtype": cfg.compute_dtype,
+        "rank": rank if rank is not None else 0,
+        "world": engine.mesh.world,
+        # this process's head kernel launches (replays included): the
+        # check that --kernels cuda ran the kernels on every path
+        "head_launches": dict(fused_head.LAUNCHES),
     }
     log("SUMMARY " + json.dumps(summary))
     return engine
 
 
-def main(argv=None, *, log=print) -> int:
+def main(argv=None, *, log=say) -> int:
     """`python -m distributed_neural_network_tpu_torch.train.cli`: the
     trainer with `--regime`. Defaults are small (synthetic data, 2,048 rows,
     one worker per visible device), as in the JAX package's module runner.
@@ -266,11 +326,13 @@ def main(argv=None, *, log=print) -> int:
     )
     parser.set_defaults(data="synthetic", synthetic_size=2048)
     args = parser.parse_args(argv)
-    run_training(args, args.regime, log=log)
+    try:
+        run_training(args, args.regime, log=log)
+    finally:
+        if joined():
+            dist.destroy_process_group()
     return 0
 
 
 if __name__ == "__main__":
-    import sys
-
     sys.exit(main())

@@ -7,11 +7,13 @@ package's `train/engine.py`).
 - ``data_parallel`` - N workers on contiguous 1/N row shards (remainder
                       dropped) of one tensor.
 
-The split is uploaded to the device once. The N workers are a replica group
-in one process (`parallel/mesh.py`), stacked on a leading axis: one
-`ReplicaNetwork` holds every worker's parameters as (N, ...) tensors, the
-momentum is stacked alike, and one step of the model serves all N (the
-counterpart of the JAX engine's `shard_map` over N devices). Per epoch:
+The N workers form a replica group (`parallel/mesh.py`). A process holds a
+contiguous block of them, all N unless it joined a torch.distributed group
+of w ranks (`parallel/distributed.py`), then N/w. Its workers are stacked
+on a leading axis: one `ReplicaNetwork` holds their parameters as (N/w,
+...) tensors, the momentum is stacked alike, and one step of the model
+serves all of them (the counterpart of the JAX engine's `shard_map` over N
+devices). Per epoch:
 
 1. **train** - `sync_mode="epoch"`: every worker's local-SGD epoch (faithful
    local SGD; momentum reset per epoch when `reset_momentum`).
@@ -22,17 +24,38 @@ counterpart of the JAX engine's `shard_map` over N devices). Per epoch:
    (padding rows weigh 0), as the JAX engine does, so `val_loss` - a mean of
    per-batch means - groups batches exactly as JAX does.
 
-Each phase is a `train/graphs.py` `Program` over static buffers (the
-epoch's stacked plan, the live mask, a step counter on the device): on the
-card one CUDA graph each (the train step replayed once per step), captured
-at the first epoch, so a phase issues no per-kernel launch from the host and
-reads nothing back; on the CPU the same functions run eagerly. `run_span`
-runs several epochs with one read of their metrics at the end (the JAX
-`--fused` span). `_capture = False` before the first epoch runs the programs
-eagerly on the card too (the graphed run is held to that run bit for bit).
+Every value that crosses workers (parameters with the loss sums, step
+gradients, eval sums) is packed into one buffer and gathered over the ranks
+(`parallel/collectives.py` `RowGather`: one collective per sync), and every
+rank reduces the same (N, ...) stack, so the metrics are equal on every rank
+and the sync is the one-process sync, bit for bit, for any layout. The global
+live mask and every worker's shuffle are keyed by the global worker index,
+so a worker sees the same rows wherever it runs.
 
-The shuffle orders and fault masks come from `torch.Generator`s and differ
-from the JAX package's; `orders` and `masks` hooks let a caller inject any.
+Data (``input_mode``): ``hbm`` uploads this rank's part of the split once
+(its workers' shards under data_parallel, else the full split) and each
+step gathers its rows on the device; ``stream`` keeps the train split in
+host RAM (uint8 where the loader kept it), assembles each step's batch for
+this rank's workers on the host (`data/stream.py`, native gather +
+normalize, prefetched on a thread) and copies it from pinned memory into the
+step program's static buffers. Eval stays on the device either way.
+``compute_dtype="bfloat16"`` runs the model's convolutions in bf16
+(`models/cnn.py`); parameters, momentum and the loss stay f32.
+
+Each phase is a `train/graphs.py` `Program` over static buffers (the
+epoch's stacked plan or batch, the live mask, a step counter on the device,
+the gather buffers): on the card CUDA graphs, captured at the first epoch,
+so a phase issues no per-kernel launch from the host and reads nothing
+back; on the CPU the same functions run eagerly. A collective under NCCL is
+captured with the rest; under gloo it runs eagerly between the graphs of
+its program. `run_span` runs several epochs with one read of their metrics
+at the end (the JAX `--fused` span). `_capture = False` before the first
+epoch runs the programs eagerly on the card too (the graphed run is held to
+that run bit for bit).
+
+The shuffle orders and fault masks come from `torch.Generator`s (in stream
+mode the shuffle is numpy's, the JAX stream's own) and differ from the JAX
+package's; `orders` and `masks` hooks let a caller inject any.
 """
 
 from __future__ import annotations
@@ -41,32 +64,46 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.cifar10 import Split
-from ..data.pipeline import shuffle_generator, stacked_plan
+from ..data.pipeline import gather_batch, shuffle_generator, stacked_plan
+from ..data.stream import HostStream, prefetch
 from ..device import resolve_device
-from ..models.cnn import KERNELS, ReplicaNetwork, from_jax_params, to_jax_params
+from ..models.cnn import (
+    COMPUTE_DTYPES,
+    KERNELS,
+    ReplicaNetwork,
+    from_jax_params,
+    to_jax_params,
+)
 from ..ops import fused_head
 from ..ops.sgd import init_momentum
-from ..ops.train import eval_epoch, train_step
-from ..parallel.collectives import effective_mask, masked_mean_tree, weighted_mean_scalar
+from ..ops.train import apply_mean_grads, eval_epoch, grad_step, train_step
+from ..parallel.collectives import (
+    RowGather,
+    effective_mask,
+    masked_mean,
+    pack,
+    unpack,
+    weighted_mean_scalar,
+)
 from ..parallel.fault import live_mask, straggler_sleep
 from ..parallel.mesh import create_mesh, device_count
 from ..parallel.partition import shard_size
 from ..utils import timers as T
-from .graphs import Program, capture_all
+from .graphs import Eager, Program, capture_all
 
 REGIMES = ("single", "data_parallel", "replication")
 SYNC_MODES = ("epoch", "step")
+INPUT_MODES = ("hbm", "stream")
 
-SLICE1_LATER = "a later slice-1 PR (ROADMAP.md Queue 1)"
-SLICE4 = "slice 4, robustness + observability (ROADMAP.md Queue 1 item 13)"
+PARALLEL_LAYOUTS = "the parallel-layouts slice of the port (ROADMAP.md Queue 1 item 3)"
+SLICE4 = "slice 4, robustness + observability (ROADMAP.md Queue 1 item 4)"
 
-# TrainConfig fields this slice leaves for later: (default, the slice that brings it)
+# TrainConfig fields this port leaves for later: (default, the item that brings it)
 LATER_FIELDS = {
-    "input_mode": ("hbm", SLICE1_LATER + ": host streaming, data/stream.py"),
-    "grad_sync": ("end", SLICE1_LATER + ": bucketed gradient sync"),
-    "compute_dtype": ("float32", SLICE1_LATER + ": bfloat16 convolutions"),
+    "grad_sync": ("end", PARALLEL_LAYOUTS + ": bucketed gradient sync"),
     "dynamics": (False, SLICE4),
 }
 
@@ -89,20 +126,20 @@ class TrainConfig:
     eval_batch_size: int | None = None
     kernels: str = "torch"  # "cuda" = the hand-written fused head kernel
     reference_compat: bool = False  # True: N-1 workers as in the reference
-    input_mode: str = "hbm"
+    input_mode: str = "hbm"  # "stream": the train split stays in host RAM
+    stream_prefetch: int = 2  # stream mode: batches assembled ahead on a thread
     grad_sync: str = "end"
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # "bfloat16": the convolutions in bf16
     dynamics: bool = False
 
     def __post_init__(self):
-        if self.regime not in REGIMES:
-            raise ValueError(f"regime must be one of {REGIMES}, got {self.regime}")
-        if self.sync_mode not in SYNC_MODES:
-            raise ValueError(
-                f"sync_mode must be one of {SYNC_MODES}, got {self.sync_mode}"
-            )
-        if self.kernels not in KERNELS:
-            raise ValueError(f"kernels must be one of {KERNELS}, got {self.kernels}")
+        for name, allowed in (("regime", REGIMES), ("sync_mode", SYNC_MODES),
+                              ("kernels", KERNELS), ("input_mode", INPUT_MODES),
+                              ("compute_dtype", tuple(COMPUTE_DTYPES))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)}")
+        if self.stream_prefetch < 0:
+            raise ValueError(f"stream_prefetch must be >= 0, got {self.stream_prefetch}")
         for name, (default, later) in LATER_FIELDS.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -120,10 +157,18 @@ class EpochMetrics:
     n_live: int
 
 
+def _float32(images: np.ndarray, what: str) -> np.ndarray:
+    if images.dtype != np.float32:
+        raise TypeError(f"{what} must be normalized float32 images, got {images.dtype} "
+                        "(only input_mode='stream' takes a uint8 train split)")
+    return images
+
+
 class Engine:
     """`orders(epoch, worker)` returns that worker's row order for the epoch
-    (a permutation of its local rows); `masks(epoch)` returns the epoch's
-    live mask. Both default to the port's own `torch.Generator` streams."""
+    (a permutation of its local rows; `worker` is the global index);
+    `masks(epoch)` returns the epoch's global live mask. Both default to the
+    port's own streams; in stream mode the stream's shuffle is the order."""
 
     def __init__(self, config: TrainConfig, train_split: Split,
                  test_split: Split | None, *, device="cuda", orders=None,
@@ -145,6 +190,9 @@ class Engine:
             n_workers = (n - 1) if c.reference_compat else n
             if n_workers < 1:
                 raise ValueError(f"need >=1 workers, got nb_proc={c.nb_proc}")
+        if orders is not None and c.input_mode == "stream":
+            raise ValueError("input_mode='stream' shuffles with its own streams; "
+                             "orders= applies to input_mode='hbm'")
         self.n_workers = n_workers
         self.mesh = create_mesh(n_workers, self.device)
         self._orders = orders
@@ -161,73 +209,116 @@ class Engine:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype)
 
     def _place_data(self, train_split: Split, test_split: Split | None):
-        """One device tensor per split; `train_offsets[d]` is worker d's
-        first row in it (its shard under data_parallel, else 0)."""
-        c, n = self.config, self.n_workers
+        """This rank's part of the data. `bounds[i]` is the row range of its
+        i-th worker (a data_parallel shard, else the whole split); in hbm
+        mode one device tensor holds their union and `train_offsets[i]` is
+        worker i's first row in it. The test split is padded to N equal
+        partitions, of which the rank uploads its workers'."""
+        c, g = self.config, self.mesh
         if c.regime == "data_parallel":
-            p = shard_size(len(train_split), n)
+            p = shard_size(len(train_split), self.n_workers)
             if p < 1:
-                raise ValueError(f"{len(train_split)} rows cannot shard over {n} workers")
-            self.train_offsets, rows = [d * p for d in range(n)], n * p
-        else:  # single / replication: every worker reads the one full tensor
-            p = rows = len(train_split)
-            self.train_offsets = [0] * n
-        self.train_images = self._to_device(train_split.images[:rows])
-        self.train_labels = self._to_device(train_split.labels[:rows], torch.int64)
+                raise ValueError(
+                    f"{len(train_split)} rows cannot shard over {self.n_workers} workers")
+            bounds = [(d * p, (d + 1) * p) for d in g.workers]
+        else:  # single / replication: every worker reads the full split
+            p = len(train_split)
+            bounds = [(0, p)] * g.local
         self.local_train_rows = p
+        self.train_images = self.train_labels = self._host_train = None
+        if c.input_mode == "stream":
+            self._host_train = (train_split.images, train_split.labels, bounds)
+        else:
+            lo, hi = bounds[0][0], bounds[-1][1]
+            images = _float32(train_split.images, "the hbm train split")
+            self.train_images = self._to_device(images[lo:hi])
+            self.train_labels = self._to_device(train_split.labels[lo:hi], torch.int64)
+            self.train_offsets = [b[0] - lo for b in bounds]
         self.test_images = None
         if test_split is not None:
-            total = len(test_split)
+            total, n = len(test_split), self.n_workers
             q = -(-total // n)
             pad = n * q - total
+            rows = slice(g.first * q, (g.first + g.local) * q)
+            images = _float32(test_split.images, "the test split")
             self.test_images = self._to_device(np.concatenate(
-                [test_split.images, np.zeros((pad, *test_split.images.shape[1:]), np.float32)]
-            ))
+                [images, np.zeros((pad, *images.shape[1:]), np.float32)])[rows])
             self.test_labels = self._to_device(
-                np.concatenate([test_split.labels, np.zeros(pad, np.int32)]), torch.int64
-            )
+                np.concatenate([test_split.labels, np.zeros(pad, np.int32)])[rows],
+                torch.int64)
             self.test_weights = self._to_device(
-                np.concatenate([np.ones(total, np.float32), np.zeros(pad, np.float32)])
-            )
+                np.concatenate([np.ones(total, np.float32), np.zeros(pad, np.float32)])[rows])
             self.local_test_rows = q
-            # every worker's partition in order (the JAX eval plan), stacked
+            # the rank's workers' partitions in order (the JAX eval plan), stacked
             self.eval_idx, self.eval_w = stacked_plan(
-                [torch.arange(q)] * n, q, c.eval_batch_size or c.batch_size,
-                [d * q for d in range(n)], self.device)
+                [torch.arange(q)] * g.local, q, c.eval_batch_size or c.batch_size,
+                [i * q for i in range(g.local)], self.device)
 
     def default_order(self, epoch: int, worker: int) -> torch.Tensor:
-        """The port's shuffle for (seed, epoch, worker)."""
-        return torch.randperm(
-            self.local_train_rows,
-            generator=shuffle_generator(self.config.seed, epoch, worker),
-        )
+        """The port's shuffle for (seed, epoch, global worker): in stream
+        mode the numpy stream `HostStream` draws, else a torch.Generator's."""
+        c, n = self.config, self.local_train_rows
+        if c.input_mode == "stream":
+            return torch.from_numpy(np.random.default_rng((c.seed, epoch, worker)).permutation(n))
+        return torch.randperm(n, generator=shuffle_generator(c.seed, epoch, worker))
 
     def epoch_plan(self, epoch: int):
-        """The epoch's stacked plan (idx, w), each (N, steps, batch), on the host."""
+        """The epoch's stacked plan (idx, w), each (N/w, steps, batch), on
+        the host: this rank's workers, offset into its train tensor."""
         order = self._orders or self.default_order
-        return stacked_plan([order(epoch, d) for d in range(self.n_workers)],
+        return stacked_plan([order(epoch, d) for d in self.mesh.workers],
                             self.local_train_rows, self.config.batch_size, self.train_offsets)
 
     def epoch_mask(self, epoch: int) -> np.ndarray:
+        """The epoch's global (N,) live mask (the same on every rank)."""
         c = self.config
         return live_mask(c.seed, epoch, self.n_workers, c.failure_probability,
                          mask=None if self._masks is None else self._masks(epoch))
+
+    def _stream_batches(self, epoch: int):
+        """Stream mode: the epoch's batches for this rank's workers, each
+        (images (N/w, B, 32, 32, 3) float32, labels (N/w, B) int64, weights
+        (N/w, B) float32) as CPU tensors, pinned for the card; assembled
+        `stream_prefetch` steps ahead on a thread."""
+        c = self.config
+        images, labels, bounds = self._host_train
+        streams = [HostStream(images[lo:hi], labels[lo:hi], c.batch_size,
+                              seed=(c.seed, epoch, d))
+                   for d, (lo, hi) in zip(self.mesh.workers, bounds)]
+        pin = self.device.type == "cuda"
+
+        def assemble():
+            for batches in zip(*(s.epoch() for s in streams)):
+                x, y, w = (np.stack(parts) for parts in zip(*batches))
+                out = [torch.from_numpy(a) for a in (x, y.astype(np.int64), w)]
+                # the caching host allocator keeps a pinned block until the
+                # copy that reads it has run
+                yield [t.pin_memory() for t in out] if pin else out
+
+        return prefetch(assemble(), c.stream_prefetch) if c.stream_prefetch else assemble()
 
     # --------------------------------------------------------------- state
 
     def _build_state(self):
         """The stacked parameters and momentum (every worker starts from the
         one `Network` the seed draws) and the programs' static buffers."""
-        c, n, dev = self.config, self.n_workers, self.device
+        c, n, dev = self.config, self.mesh.local, self.device
         g = torch.Generator()
         g.manual_seed(c.seed)
-        self.net = ReplicaNetwork(n, kernels=c.kernels, generator=g).to(dev)
+        self.net = ReplicaNetwork(n, kernels=c.kernels, generator=g,
+                                  compute_dtype=COMPUTE_DTYPES[c.compute_dtype]).to(dev)
         self.params = list(self.net.parameters())
         self.mom = init_momentum(self.params)
         steps = -(-self.local_train_rows // c.batch_size)
-        self.plan_idx = torch.zeros(n, steps, c.batch_size, dtype=torch.int64, device=dev)
-        self.plan_w = torch.zeros(n, steps, c.batch_size, device=dev)
-        self.mask = torch.ones(n, device=dev)
+        if c.input_mode == "stream":
+            self.batch = (torch.zeros(n, c.batch_size, 32, 32, 3, device=dev),
+                          torch.zeros(n, c.batch_size, dtype=torch.int64, device=dev),
+                          torch.zeros(n, c.batch_size, device=dev))
+        else:
+            self.plan_idx = torch.zeros(n, steps, c.batch_size, dtype=torch.int64, device=dev)
+            self.plan_w = torch.zeros(n, steps, c.batch_size, device=dev)
+        self.steps = steps
+        self.mask = torch.ones(self.n_workers, device=dev)
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
         self.loss_sums = torch.zeros(n, device=dev)
         # train_loss, n_live, val_loss, val_acc of the last epoch
@@ -238,8 +329,8 @@ class Engine:
 
     def state_tree(self):
         """{"params", "mom"} in the JAX engine's tree form with numpy
-        leaves: the synced params (worker 0's) and the per-worker momentum
-        stacked on a leading axis."""
+        leaves: the synced params (the first local worker's) and this
+        rank's workers' momentum stacked on a leading axis."""
         state = self.net.state_dict()
         names = list(state)
         return {"params": to_jax_params({k: v[0] for k, v in state.items()}),
@@ -260,11 +351,32 @@ class Engine:
         writes, never over the engine, so that dropping an engine frees its
         graphs at once (a cycle would leave them to the garbage collector,
         which may run during another capture and spoil it)."""
-        c, counters = self.config, (fused_head.LAUNCHES,)
+        c, g, counters = self.config, self.mesh, (fused_head.LAUNCHES,)
         net, params, mom = self.net, self.params, self.mom
-        at, loss_sums, metrics = self.step, self.loss_sums, self.metrics
-        plan_idx, plan_w, mask = self.plan_idx, self.plan_w, self.mask
-        images, labels = self.train_images, self.train_labels
+        at, loss_sums, metrics, mask = self.step, self.loss_sums, self.metrics, self.mask
+        n_params = sum(p[0].numel() for p in params)
+        n_batches = float(self.steps)
+        # the collective part of a program: captured under NCCL, eager
+        # between the graphs under gloo, absent in one process
+        graphable = g.joined and dist.get_backend() == "nccl"
+
+        def collective(gather):
+            if not g.joined:
+                return ()
+            return (gather.reduce if graphable else Eager(gather.reduce),)
+
+        if c.input_mode == "stream":
+            batch_x, batch_y, batch_w = self.batch
+
+            def batch():
+                return batch_x, batch_y, batch_w
+        else:
+            plan_idx, plan_w = self.plan_idx, self.plan_w
+            images, labels = self.train_images, self.train_labels
+
+            def batch():
+                x, y = gather_batch(images, labels, plan_idx.index_select(1, at).squeeze(1))
+                return x, y, plan_w.index_select(1, at).squeeze(1)
 
         def begin():
             at.zero_()
@@ -272,37 +384,58 @@ class Engine:
             if c.reset_momentum:
                 torch._foreach_zero_(mom)
 
-        def step():
-            loss_sums.add_(train_step(
-                net, mom, images, labels, plan_idx.index_select(1, at).squeeze(1),
-                plan_w.index_select(1, at).squeeze(1), lr=c.lr, momentum=c.momentum,
-                sync=c.sync_mode == "step",
-            ))
-            at.add_(1)
+        if c.sync_mode == "step":
+            grads = RowGather(g, (n_params,))
+
+            def step_grads():
+                loss_sums.add_(grad_step(net, *batch(), grads))
+
+            def step_apply():
+                apply_mean_grads(net, mom, grads.buf, lr=c.lr, momentum=c.momentum)
+                at.add_(1)
+
+            step_parts = (step_grads, *collective(grads), step_apply)
+        else:
+            def step():
+                loss_sums.add_(train_step(net, mom, *batch(), lr=c.lr, momentum=c.momentum))
+                at.add_(1)
+
+            step_parts = (step,)
+
+        # the parameters and the loss sums, one row per worker: one collective
+        state = RowGather(g, (n_params + 1,))
 
         @torch.no_grad()
-        def sync():
-            for p, avg in zip(params, masked_mean_tree(params, mask)):
+        def sync_put():
+            state.put(torch.cat([pack(params, g.local), loss_sums.unsqueeze(1)], 1))
+
+        @torch.no_grad()
+        def sync_mean():
+            buf = state.buf
+            for p, avg in zip(params, unpack(masked_mean(buf[:, :n_params], mask), params)):
                 p.copy_(avg.expand_as(p))
             w_eff = effective_mask(mask)
-            n_batches = float(plan_idx.shape[1])
-            metrics[0] = weighted_mean_scalar(loss_sums * w_eff, n_batches * w_eff)
+            metrics[0] = weighted_mean_scalar(buf[:, n_params] * w_eff, n_batches * w_eff)
             metrics[1] = mask.sum()
 
-        self._begin = Program(begin, counters)
-        self._step = Program(step, counters)
-        self._sync = Program(sync, counters)
+        self._begin = Program(begin, counters=counters)
+        self._step = Program(*step_parts, counters=counters)
+        self._sync = Program(sync_put, *collective(state), sync_mean, counters=counters)
         self._eval = None
         if self.test_images is not None:
             test = (self.test_images, self.test_labels, self.test_weights, self.eval_idx,
                     self.eval_w)
+            sums = RowGather(g, (4,))
 
-            def evaluate():
-                loss_sum, n_batches, correct, n_valid = eval_epoch(net, *test).sum(1)
-                metrics[2] = loss_sum / n_batches.clamp(min=1.0)
+            def eval_local():
+                sums.put(eval_epoch(net, *test).T)
+
+            def eval_mean():
+                loss_sum, n_eval, correct, n_valid = sums.buf.sum(0)
+                metrics[2] = loss_sum / n_eval.clamp(min=1.0)
                 metrics[3] = 100.0 * correct / n_valid.clamp(min=1.0)
 
-            self._eval = Program(evaluate, counters)
+            self._eval = Program(eval_local, *collective(sums), eval_mean, counters=counters)
 
     def _programs(self):
         return [p for p in (self._begin, self._step, self._sync, self._eval) if p is not None]
@@ -310,7 +443,7 @@ class Engine:
     def compile(self) -> None:
         """Capture the programs as CUDA graphs (once; on the card only, and
         only while `_capture` holds). The state is left as it was."""
-        if self._capture and self._step.graph is None:
+        if self._capture and self._step.segments is None:
             capture_all(self._programs(), self._state(), self.device)
 
     def _load(self, idx, w, mask) -> None:
@@ -320,9 +453,17 @@ class Engine:
         self.plan_w.copy_(w)
         self.mask.copy_(mask)
 
-    def _train(self) -> None:
+    def _train(self, epoch: int) -> None:
         self._begin()
-        self._step(self.plan_idx.shape[1])
+        if self._host_train is None:
+            self._step(self.steps)
+            return
+        # stream: each batch from pinned host memory into the static
+        # buffers, queued on the stream that then replays the step
+        for batch in self._stream_batches(epoch):
+            for dst, src in zip(self.batch, batch):
+                dst.copy_(src, non_blocking=True)
+            self._step()
 
     # --------------------------------------------------------------- epochs
 
@@ -330,11 +471,14 @@ class Engine:
                   do_eval: bool = True, log=print) -> EpochMetrics:
         timers = timers if timers is not None else T.PhaseTimers(self.device)
         mask = self.epoch_mask(epoch)
-        straggler_sleep(mask, self.config.failure_duration, log=log)
+        straggler_sleep(mask, self.config.failure_duration, workers=self.mesh.workers, log=log)
         self.compile()
-        self._load(*self.epoch_plan(epoch), torch.tensor(mask))
+        if self._host_train is None:
+            self._load(*self.epoch_plan(epoch), torch.tensor(mask))
+        else:
+            self.mask.copy_(torch.tensor(mask))
         with timers.phase(T.TRAINING):
-            self._train()
+            self._train(epoch)
         with timers.phase(T.COMMUNICATION):
             self._sync()
         do_eval = do_eval and self._eval is not None
@@ -356,7 +500,10 @@ class Engine:
         uploaded first, and the per-epoch metrics come back as one stacked
         tensor read at the end. Fault masks are those of `run_epoch`;
         straggler sleeps do not apply inside a span. Timing is charged to
-        TRAINING, eval included, as the JAX engine does."""
+        TRAINING, eval included, as the JAX engine does. Needs hbm data."""
+        if self._host_train is not None:
+            raise ValueError("run_span needs HBM-resident data; input_mode='stream' "
+                             "runs per epoch")
         timers = timers if timers is not None else T.PhaseTimers(self.device)
         eval_inside = eval_inside and self._eval is not None
         epochs = range(epoch0, epoch0 + span)
@@ -370,7 +517,7 @@ class Engine:
         with timers.phase(T.TRAINING):
             for i in range(span):
                 self._load(idx[i], w[i], masks_dev[i])
-                self._train()
+                self._train(epochs[i])
                 self._sync()
                 if eval_inside:
                     self._eval()
@@ -390,8 +537,13 @@ class Engine:
         """Full training run; `run` is a MetricsRun-like sink
         (`utils/metrics.py`). `fused=True` runs multi-epoch spans
         (`run_span`, split only at eval boundaries) instead of one read per
-        epoch; straggler sleeps (`failure_duration`) force the per-epoch
-        path, the only one where they can fall between epochs."""
+        epoch; stream mode (no HBM-resident data) and straggler sleeps
+        (`failure_duration`, which can only fall between epochs) force the
+        per-epoch path, each with a line saying so."""
+        if fused and self.config.input_mode == "stream":
+            log("(fused mode needs HBM-resident data; input_mode=stream uses the "
+                "per-epoch path)")
+            fused = False
         if fused and self.config.failure_duration > 0:
             log(
                 "(fused mode does not support --failure-duration straggler "

@@ -1,20 +1,28 @@
 """Captured programs: the port's counterpart of the JAX engine's compiled
 dispatches (`jax.jit` of a `shard_map`), as CUDA graphs.
 
-A `Program` wraps a function of no arguments that reads and writes only
-tensors that live as long as it does (the engine's static buffers: plans,
-mask, parameters, momentum, accumulators, metrics). On the card `capture`
-records it once as a CUDA graph and each call replays that graph `times`
-times: the host issues one graph launch per replay, never one per kernel.
-Off the card (a caller asked for the CPU) a call runs the function eagerly
-`times` times; that is not a fallback, and on the card nothing runs eagerly
-unless the caller asks for it (`Program.capture` is simply not called).
+A `Program` wraps functions of no arguments (its parts, run in order) that
+read and write only tensors that live as long as it does (the engine's
+static buffers: plans, batches, mask, parameters, momentum, accumulators,
+gather buffers, metrics). On the card `capture` records it once and each
+call replays it `times` times: the host issues one graph launch per replay,
+never one per kernel. Off the card (a caller asked for the CPU) a call runs
+the parts eagerly `times` times; that is not a fallback, and on the card
+nothing runs eagerly unless the caller asks for it (`Program.capture` is
+simply not called) or a part is marked `Eager`.
+
+`Eager` marks a part that no graph can hold: a gloo collective (gloo runs
+on the host, so a stream capture cannot record it). Such a program is
+captured as one graph per run of other parts, and each call replays them
+with the eager part between, so it crosses the host there. An NCCL
+collective is an ordinary part and is captured with the rest; the warm-up
+below builds its communicator's state on the capture stream first.
 
 Capture follows PyTorch's recipe for graphs that hold `autograd.grad` and
 in-place optimizer updates: one warm-up run of every program on a side
-stream (which builds the libraries' handles, cuDNN's plans and the kernels'
-attributes), then the capture on that same stream. The warm-up changes the
-state, so `capture_all` puts every state tensor back as it was.
+stream (which builds the libraries' handles, cuDNN's plans, the kernels'
+attributes and NCCL's), then the capture on that same stream. The warm-up
+changes the state, so `capture_all` puts every state tensor back as it was.
 
 Launch accounting: the kernel wrappers count a launch where they issue one
 (`ops/fused_head.py` `LAUNCHES`). During a capture nothing executes, so a
@@ -32,40 +40,80 @@ import gc
 import torch
 
 
-class Program:
-    """`fn` run `times` times per call: eagerly, or as replays of its graph
-    once `capture` has recorded it. `counters` are dicts of launch counts."""
+class Eager:
+    """A part of a `Program` that runs outside any graph (a gloo collective)."""
 
-    def __init__(self, fn, counters=()):
+    def __init__(self, fn):
         self.fn = fn
+
+
+class Program:
+    """Its parts run in order, `times` times per call: eagerly, or as
+    replays of the graphs `capture` recorded (one per run of parts between
+    `Eager` ones, which run eagerly between the replays). `counters` are
+    dicts of launch counts."""
+
+    def __init__(self, *parts, counters=()):
+        self.parts = parts
         self.counters = counters
-        self.graph = None
+        self.graphs = []
+        self.segments = None  # after capture: graph replays and eager parts, in order
         self.delta = None
 
-    def capture(self, stream: torch.cuda.Stream) -> None:
-        """Record `fn` as a CUDA graph on `stream`; raises if it cannot be."""
-        before = [dict(c) for c in self.counters]
+    @property
+    def graph(self):
+        """The first captured graph (None before capture)."""
+        return self.graphs[0] if self.graphs else None
+
+    def fn(self) -> None:
+        """One eager run of every part."""
+        for p in self.parts:
+            (p.fn if isinstance(p, Eager) else p)()
+
+    def _record(self, fns, stream):
         graph = torch.cuda.CUDAGraph()
-        # no garbage collection inside the capture: freeing another graph
+        # thread_local: other threads (NCCL's watchdog, the stream's
+        # prefetch thread pinning host memory) may call CUDA meanwhile
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            for f in fns:
+                f()
+        self.graphs.append(graph)
+        return graph.replay
+
+    def capture(self, stream: torch.cuda.Stream) -> None:
+        """Record the parts as CUDA graphs on `stream`; raises if they cannot be."""
+        before = [dict(c) for c in self.counters]
+        segments, run = [], []
+        # no garbage collection inside a capture: freeing another graph
         # there (cyclic garbage) would invalidate this one
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=stream):
-                self.fn()
+            for p in self.parts:
+                if isinstance(p, Eager):
+                    if run:
+                        segments.append(self._record(run, stream))
+                    segments.append(p.fn)
+                    run = []
+                else:
+                    run.append(p)
+            if run:
+                segments.append(self._record(run, stream))
         finally:
             gc.enable()
+        # the eager parts did not run during the capture: only graphs count
         self.delta = [{k: c[k] - b[k] for k in c} for c, b in zip(self.counters, before)]
         for c, b in zip(self.counters, before):
             c.update(b)
-        self.graph = graph
+        self.segments = segments
 
     def __call__(self, times: int = 1) -> None:
-        if self.graph is None:
+        if self.segments is None:
             for _ in range(times):
                 self.fn()
             return
         for _ in range(times):
-            self.graph.replay()
+            for s in self.segments:
+                s()
         for c, d in zip(self.counters, self.delta):
             for k, v in d.items():
                 c[k] += v * times

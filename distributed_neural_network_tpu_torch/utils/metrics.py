@@ -1,6 +1,8 @@
 """Experiment metrics with the reference's series names (counterpart of the
 JAX package's `utils/metrics.py`, JSONL and null sinks): `train/loss`,
-`val/loss`, `val/acc` and a `parameters` dict."""
+`val/loss`, `val/acc` and a `parameters` dict. Ranks above 0 of a process
+group write their JSONL under a ``_rank{r}`` name (`utils/logfiles.py`
+`rank_path`)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ import json
 import math
 import os
 import time
+
+from .logfiles import rank_path
 
 
 def _sanitize(value):
@@ -94,5 +98,5 @@ class NullSink:
     def stop(self): ...
 
 
-def init_run(jsonl_path: str | None = None) -> MetricsRun:
-    return MetricsRun([JsonlSink(jsonl_path)] if jsonl_path else [NullSink()])
+def init_run(jsonl_path: str | None = None, rank: int | None = None) -> MetricsRun:
+    return MetricsRun([JsonlSink(rank_path(jsonl_path, rank))] if jsonl_path else [NullSink()])

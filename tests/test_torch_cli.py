@@ -20,6 +20,8 @@ TINY = ["--synthetic-size", "96", "--epochs", "2", "--nb-proc", "2", "--lr", "0.
     ("data_parallel", ["--kernels", "cuda", "--failure-probability", "0.5", "--seed", "3"]),
     ("replication", ["--sync-mode", "step", "--no-momentum-reset"]),
     ("single", ["--eval-every", "2", "--eval-batch-size", "7"]),
+    ("data_parallel", ["--input-mode", "stream", "--stream-prefetch", "0", "--kernels", "cuda"]),
+    ("replication", ["--compute-dtype", "bfloat16", "--sync-mode", "step"]),
 ])
 def test_cpu_run_writes_logs_and_summary(tmp_path, regime, extra):
     lines = []
@@ -38,6 +40,10 @@ def test_cpu_run_writes_logs_and_summary(tmp_path, regime, extra):
     assert summary["regime"] == regime and summary["epochs"] == 2
     assert summary["device"] == "cpu" and summary["data_source"] == "synthetic"
     assert summary["final_val_acc"] is not None
+    for flag, key in (("--input-mode", "input_mode"), ("--compute-dtype", "compute_dtype")):
+        if flag in extra:
+            assert summary[key] == extra[extra.index(flag) + 1]
+    assert summary["rank"] == 0 and summary["world"] == 1
     assert lines.count("Starting epoch  1") == 1
     assert sum(l.startswith("Validation Accuracy") for l in lines) == (
         1 if "--eval-every" in extra else 2
@@ -56,8 +62,8 @@ def test_default_device_is_cuda_and_fails_cleanly_without_it(tmp_path, monkeypat
 
 @pytest.mark.parametrize("flags", [
     ["--resume"], ["--checkpoint-dir", "ckpt"], ["--guard", "skip"], ["--trace-out", "t.json"],
-    ["--step-stats"], ["--metrics-port", "0"], ["--sharding", "auto"], ["--input-mode", "stream"],
-    ["--grad-sync", "overlap"], ["--compute-dtype", "bfloat16"], ["--dynamics"], ["--neptune"],
+    ["--step-stats"], ["--metrics-port", "0"], ["--sharding", "auto"],
+    ["--grad-sync", "overlap"], ["--dynamics"], ["--neptune"],
 ])
 def test_later_slice_flag_raises(flags):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -103,3 +109,21 @@ def test_fused_downgrades_under_failure_duration(tmp_path):
             "using the per-epoch path)") in lines
     assert any(l.startswith("Device 0 failed!") for l in lines)
     assert lines.count("Starting epoch  1") == 1
+
+
+def test_say_writes_each_line_with_its_newline_at_once(monkeypatch):
+    """Ranks under torchrun share one stdout: a line and its newline go out
+    in one write, so no other rank's line lands inside it."""
+    writes = []
+
+    class Recorder:
+        def write(self, s):
+            writes.append(s)
+
+        def flush(self):
+            writes.append(None)
+
+    monkeypatch.setattr(cli.sys, "stdout", Recorder())
+    cli.say('SUMMARY {"rank": 1}')
+    cli.say("Starting epoch  0")
+    assert writes == ['SUMMARY {"rank": 1}\n', None, "Starting epoch  0\n", None]

@@ -26,7 +26,7 @@ def _counting_program(counters, step):
         counters["b"] += 1
         step.add_(1)
 
-    return graphs.Program(fn, (counters,))
+    return graphs.Program(fn, counters=(counters,))
 
 
 @pytest.mark.parametrize("times", [1, 3, 782])
@@ -59,7 +59,7 @@ def test_replays_add_the_captured_change_times_replays(monkeypatch, k):
     prog = _counting_program(counters, step)
 
     class Capture:
-        def __init__(self, graph, stream=None):
+        def __init__(self, graph, stream=None, capture_error_mode="global"):
             self.graph = graph
 
         def __enter__(self):
@@ -154,3 +154,52 @@ def test_card_graphed_engine_equals_its_eager_run(cuda_device):
     assert graphed._step.graph is not None and eager._step.graph is None
     assert all(torch.equal(a, b) for a, b in zip(graphed.params, eager.params))
     assert np.isfinite(got[-1].train_loss)
+
+
+def test_eager_part_runs_between_the_graphs(monkeypatch):
+    """A program with an `Eager` part (a gloo collective) is captured as a
+    graph before it and one after it; each call replays them with the eager
+    part between, in order, and the counters still count replays x the
+    captured change (the eager part counts for itself)."""
+    order, counters = [], {"a": 0}
+
+    def before():
+        order.append("before")
+        counters["a"] += 1
+
+    def after():
+        order.append("after")
+
+    class RecordingGraph(_FakeGraph):
+        def __init__(self):
+            super().__init__()
+            self.name = None
+
+        def replay(self):
+            super().replay()
+            order.append(f"replay {self.name}")
+
+    class Capture:
+        def __init__(self, graph, stream=None, capture_error_mode="global"):
+            self.graph = graph
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            self.graph.name = order[-1]  # the part the capture ran
+            return False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", RecordingGraph)
+    monkeypatch.setattr(torch.cuda, "graph", Capture)
+    prog = graphs.Program(before, graphs.Eager(lambda: order.append("collective")), after,
+                          counters=(counters,))
+    prog.capture(stream=None)
+    assert counters == {"a": 0} and prog.delta == [{"a": 1}] and len(prog.graphs) == 2
+    order.clear()
+    prog(2)
+    assert order == ["replay before", "collective", "replay after"] * 2
+    assert counters == {"a": 2}
+    order.clear()
+    prog.fn()  # one eager run of every part
+    assert order == ["before", "collective", "after"]

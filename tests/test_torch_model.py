@@ -1,7 +1,8 @@
 """The port's LeNet (`models/cnn.py`) against the JAX package's Flax
 `Network`: the parameter converter (stacked trees too), logits for both head
 implementations of both frameworks, the replica-stacked `ReplicaNetwork`
-per replica, and the parameter and FLOP counts. f32, 1e-5."""
+per replica, and the parameter and FLOP counts. f32, 1e-5; at
+`compute_dtype=bfloat16` against JAX's bf16 `Network`, 2 bf16 ulps."""
 
 import jax
 import jax.numpy as jnp
@@ -128,3 +129,36 @@ def test_replicas_start_from_one_seeded_network():
         assert v.shape == (4, *base[k].shape)
         assert all(torch.equal(v[d], base[k]) for d in range(4)), k
     assert param_count(net) == 4 * 62_006
+
+
+def _bf16_ulp(a) -> float:
+    """One bf16 ulp (8 significant bits) at the largest magnitude of `a`."""
+    return 2.0 ** (np.floor(np.log2(np.abs(np.asarray(a, np.float64)).max())) - 7)
+
+
+@pytest.mark.parametrize("use_pallas_head,kernels", [(False, "torch"), (True, "cuda")])
+def test_bf16_logits_match_jax(n_devices, use_pallas_head, kernels):
+    """`ReplicaNetwork(compute_dtype=bfloat16)` against JAX
+    `Network(compute_dtype=bfloat16)` on the same params, 2 replicas of 8
+    images: the convs in bf16 and the head in bf16 (torch; JAX's Dense) or
+    in f32 (cuda on CPU tensors: the plain head; JAX's Pallas head off the
+    TPU), logits f32. Within 2 bf16 ulps of the largest |logit| (another
+    summation order in each bf16 conv and dense rounds differently);
+    parameters and their gradients stay f32."""
+    for seed in range(3):
+        tree = _jax_params(seed)
+        x = np.stack([_images(8, seed=seed + d) for d in range(2)])
+        net = ReplicaNetwork(2, kernels=kernels, compute_dtype=torch.bfloat16)
+        net.load_state_dict({k: v.expand(2, *v.shape).clone()
+                             for k, v in from_jax_params(tree).items()})
+        got = net(torch.from_numpy(x))
+        assert got.dtype == torch.float32 and got.shape == (2, 8, 10)
+        model = JaxNetwork(compute_dtype=jnp.bfloat16, use_pallas_head=use_pallas_head)
+        want = np.stack([np.asarray(model.apply({"params": tree}, jnp.asarray(x[d])))
+                         for d in range(2)])
+        err = float(np.abs(got.detach().numpy() - want).max())
+        assert err <= 2 * _bf16_ulp(want), (seed, err, _bf16_ulp(want))
+        got.square().sum().backward()
+        assert all(p.dtype == p.grad.dtype == torch.float32 for p in net.parameters())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ReplicaNetwork(1, compute_dtype=torch.float16)

@@ -20,7 +20,7 @@ from distributed_neural_network_tpu.parallel.collectives import (
     masked_pmean_tree,
     weighted_mean_scalar as j_weighted_mean_scalar,
 )
-from distributed_neural_network_tpu_torch.data.pipeline import stacked_plan
+from distributed_neural_network_tpu_torch.data.pipeline import gather_batch, stacked_plan
 from distributed_neural_network_tpu_torch.models.cnn import (
     ReplicaNetwork,
     from_jax_params,
@@ -28,16 +28,20 @@ from distributed_neural_network_tpu_torch.models.cnn import (
 )
 from distributed_neural_network_tpu_torch.ops import losses, sgd
 from distributed_neural_network_tpu_torch.ops.train import (
+    apply_mean_grads,
     eval_epoch,
+    grad_step,
     loss_and_grads,
-    sync_grads,
     train_step,
 )
 from distributed_neural_network_tpu_torch.parallel.collectives import (
+    RowGather,
     masked_mean,
-    masked_mean_tree,
+    pack,
+    unpack,
     weighted_mean_scalar,
 )
+from distributed_neural_network_tpu_torch.parallel.mesh import create_mesh
 
 
 def _setup(n=32, seed=0):
@@ -128,8 +132,8 @@ def test_local_sgd_epoch_matches_jax(n_devices, reset_momentum):
     if reset_momentum:
         torch._foreach_zero_(mom)
     images, labels = torch.from_numpy(x), torch.from_numpy(y).long()
-    loss_sums = sum(train_step(net, mom, images, labels, idx[:, s], w[:, s], lr=0.05,
-                               momentum=0.9) for s in range(idx.shape[1]))
+    loss_sums = sum(train_step(net, mom, *gather_batch(images, labels, idx[:, s]), w[:, s],
+                               lr=0.05, momentum=0.9) for s in range(idx.shape[1]))
     assert idx.shape[1] == 3
     state = net.state_dict()
     for d, key in enumerate(keys):
@@ -141,15 +145,18 @@ def test_local_sgd_epoch_matches_jax(n_devices, reset_momentum):
 
 
 def test_step_sync_takes_the_replica_mean(n_devices):
-    """`sync=True` (sync_mode="step"): every replica takes the SGD step with
-    the mean of the replicas' gradients, JAX's `pmean` of the grads."""
+    """sync_mode="step": `grad_step` packs each replica's gradients into the
+    group's gather buffer and `apply_mean_grads` steps every replica with
+    their mean, JAX's `pmean` of the grads."""
     params, x, y, net1 = _setup(32, seed=6)
     net = _replicas(params, 2)
     mom = [torch.zeros_like(p) for p in net.parameters()]
     idx = torch.tensor([list(range(16)), list(range(16, 32))])
     w = torch.ones(2, 16)
     images, labels = torch.from_numpy(x), torch.from_numpy(y).long()
-    loss = train_step(net, mom, images, labels, idx, w, lr=0.1, momentum=0.9, sync=True)
+    gather = RowGather(create_mesh(2, "cpu"), (sum(p[0].numel() for p in net.parameters()),))
+    loss = grad_step(net, *gather_batch(images, labels, idx), w, gather)
+    apply_mean_grads(net, mom, gather.buf, lr=0.1, momentum=0.9)
     grads = [loss_and_grads(net1, images[None, 16 * d:16 * d + 16],
                             labels[None, 16 * d:16 * d + 16], torch.ones(1, 16))[1]
              for d in range(2)]
@@ -185,8 +192,8 @@ def test_masked_mean_matches_jax(live):
     want = jax.vmap(lambda t, w: masked_pmean_tree(t, w, "data"), axis_name="data")(
         stacked, jnp.asarray(live)
     )
-    got = masked_mean_tree([torch.from_numpy(stacked[k]) for k in ("a", "b")],
-                           torch.from_numpy(live))
+    like = [torch.from_numpy(stacked[k]) for k in ("a", "b")]
+    got = unpack(masked_mean(pack(like, 4), torch.from_numpy(live)), like)
     for k, g in zip(("a", "b"), got):
         np.testing.assert_allclose(g.numpy(), np.asarray(want[k][0]), rtol=1e-6, atol=1e-6)
     assert torch.allclose(
@@ -204,7 +211,7 @@ def test_weighted_mean_scalar_and_sync_grads_match_jax():
     assert abs(float(weighted_mean_scalar(torch.from_numpy(v), torch.from_numpy(w)))
                - float(want[0])) < 1e-6
     grads = [torch.arange(4.0)[:, None].expand(4, 2), 2.0 * torch.arange(4.0)[:, None].expand(4, 3)]
-    mean = sync_grads(grads)
+    mean = [m.expand(4, *m.shape) for m in unpack(pack(grads, 4).mean(0), grads)]
     want = jax.vmap(lambda g: jax.lax.pmean(g, "data"), axis_name="data")(
         jnp.arange(4.0)
     )
