@@ -69,7 +69,9 @@ Phases (any failure exits non-zero and prints no result):
 9. the LM serving main path at full width through `serve.http.build_server`,
    the stack `python -m distributed_neural_network_tpu_torch.serve` builds:
    d512/L8/H8/d_ff 2048/vocab 256, bf16, seed 0, max_batch 8, 129 blocks of
-   16, max_seq_len 256, prefill_chunk 16, --warmup, HTTP on 127.0.0.1:0;
+   16, max_seq_len 256, prefill_chunk 16, --warmup (every bucket's CUDA
+   graph captured; each decode and prefill call a replay), HTTP on
+   127.0.0.1:0;
    24 greedy requests over HTTP/SSE (prompts of 16/64/128 tokens, 32 new
    each) sent open loop at 4 req/s, for --precision bf16 and int8-kv, each
    with --decode-impl cuda and torch. Gates: 24/24 complete; >= 99%
@@ -82,15 +84,22 @@ Phases (any failure exits non-zero and prints no result):
    prefill calls) x 8 layers, all on the split route (bf16 and int8-kv),
    with torch none; the serving ledger conserves. The bf16 torch run is
    also held to generate(decode_impl="torch"), the same route: token-exact,
-   per token and zipped (generate() has no int8 K/V);
+   per token and zipped (generate() has no int8 K/V). The cuda runs of bf16
+   and int8-kv are served again with the engine run eagerly (its `_capture`
+   hook), for the graphs' effect on req/s, TTFT, inter-token gaps and ms per
+   tick; those runs are gated on completion, the ledger and the launch
+   formula;
 10. decode-kernel times at B = 8, (H, Dh) in {(8, 64), (4, 128)}, live
    prefix 64 and 256: per call and device time, bound, plain version, the
    simt route on the same values (misaligned views), and
    scaled_dot_product_attention with a boolean mask as the library
    yardstick (int8: dequantize, then SDPA); gates: each split route's
    device time at (8, 8, 64, 256) is at most its library call's;
-11. a torch.profiler trace of a steady stretch of serving decode ticks
-   (batch 8), bf16 and int8-kv: idle share, the decode kernel's share and
+11. the serving engine driven directly, graphed and eager, bf16 and
+   int8-kv: warmup's time over the whole grid and the graph pool's bytes,
+   then a torch.profiler trace of 20 steady decode ticks (batch 8): idle
+   share (busy = the union of the device intervals), the decode kernel's
+   share, host calls per tick (graph launches, kernel launches, copies) and
    top kernels;
 12. the flash kernels (forward, dq, dkv) against their plain versions on the
    card: (B, H) in {(1, 1), (2, 8)}, S in {1, 64, 200, 2048}, D in {64, 128,
@@ -123,8 +132,11 @@ Phases (any failure exits non-zero and prints no result):
    step-0 gradient within GRAD_TOL of the plain route's (route_compare; `python3 chip_smoke.py --route-check` runs this check
    alone). Then FORMULA_STEPS-step runs at full width with --remat,
    --remat-attn, --accum-steps 2, eval batches (--data-path, --eval-every),
-   and int8 with --remat-attn and eval, each held to flash_counts. Prints
-   tokens/s, ms per step and MFU against the bf16 dense peak;
+   and int8 with --remat-attn and eval, each held to flash_counts. Every
+   run replays its step (and eval) from a CUDA graph; the flash run is made
+   again with the step run eagerly ("flash eager", in the mirrored order
+   too, held to the same formulas). Prints tokens/s, ms per step, the first
+   step's time (capture included) and MFU against the bf16 dense peak;
 14. learnability: the copy task at d32/L2/H4/d_ff 64/vocab 32/seq 16/batch
    32, lr 0.3, 300 steps, --attn flash --generate 7: final loss < 0.2 and
    the greedy continuation matches the repeat on > 90% of positions; its
@@ -139,8 +151,10 @@ Phases (any failure exits non-zero and prints no result):
    pair's summed device time against SDPA's whole backward; the quantized
    forward (int8 and fp8 on mma, int8 on simt) against its operations
    bound at the int8 peak, beside the bf16 forward and SDPA's forward;
-16. a torch.profiler trace of 3 steady full-width training steps: idle
-   share, the flash kernels' share of device time and the top kernels;
+16. a torch.profiler trace of 3 steady full-width training steps, graphed
+   and eager: the first step's time (the capture), the graph pool's bytes,
+   idle share, the flash kernels' share, host calls per step and the top
+   kernels;
 17. the CNN trainer across processes: (a) phase 4's run (512 rows, 2
    epochs, --kernels cuda) as 2 ranks x 2 workers under gloo on the one
    card (tests/torch_rank_worker.py): both ranks' histories equal, the
@@ -168,7 +182,17 @@ Phases (any failure exits non-zero and prints no result):
    as phase 5) and torch (none), the loss falling and accuracy >= 50%; at
    512 rows the graphed bf16 run bitwise equal to its eager run; epoch wall
    time, images/s, a profiled bf16 epoch's idle share (as phase 7), and the
-   grouped convs' device time a step in bf16 beside f32.
+   grouped convs' device time a step in bf16 beside f32;
+20. graphed against eager: (a) serving, bf16 and int8-kv on both decode
+   routes, full width: phase 9's 24 prompts admitted in order as slots and
+   blocks allow (request SAMPLED sampled), prefill chunks of 16, through an
+   engine run eagerly and a graphed one, each warmed up to WARM_WIDTH
+   blocks so that the wider buckets are first met, and captured, mid-run:
+   the tokens and the final K/V pools (and scales) bit for bit; (b) the LM
+   step and eval (LM_GRAPH_CASES): 3 flash bf16 steps at full width, and
+   4 steps each of int8, --accum-steps 2 and adam + cosine + clip at full
+   width and 2 layers, eagerly and graphed: the losses, eval losses,
+   parameters and optimizer state bit for bit.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -187,7 +211,7 @@ import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -462,6 +486,60 @@ def profile_rows(prof, DeviceType):
     operator's row repeats its kernels' device time."""
     return [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+HOST_CALLS = {"graph": ("cudaGraphLaunch",), "kernel": ("cudaLaunchKernel", "cuLaunchKernel"),
+              "copy": ("cudaMemcpyAsync",)}
+
+
+def host_calls(prof, DeviceType):
+    """The host's launches in a profiled window, from the CUDA runtime and
+    driver calls the profiler records: graph launches, kernel launches
+    (cudaLaunchKernel*, cuLaunchKernel*) and async copies."""
+    out = dict.fromkeys(HOST_CALLS, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            for kind, names in HOST_CALLS.items():
+                if e.key.startswith(names):
+                    out[kind] += e.count
+    return out
+
+
+def pool_bytes(torch, handle):
+    """Bytes of the device segments in memory pool `handle` (a graph
+    pool), from the allocator's snapshot; None where it does not say."""
+    segs = torch.cuda.memory._snapshot()["segments"]
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) == tuple(handle))
+
+
+def profiled_window(torch, fn, n, part):
+    """`fn` run n times under torch.profiler, synchronised: wall, device busy
+    (`device_busy_s`), the kernels' summed time, idle share, host calls
+    (`host_calls`), the top 12 kernels and the kernels whose name holds
+    `part`: their summed time, launches and share of the kernels' sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = profile_rows(prof, DeviceType)
+    busy = device_busy_s(prof, DeviceType)
+    total = sum(r[1] for r in rows) / 1e6
+    mine = [r for r in rows if part in r[0]]
+    part_s = sum(r[1] for r in mine) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy, "kernel_sum_s": total,
+            "idle_share": 1 - busy / wall if busy else None,
+            "host_calls": host_calls(prof, DeviceType), "part": part, "part_s": part_s,
+            "part_launches": sum(r[2] for r in mine),
+            "part_share": part_s / total if total else None,
+            "top": sorted(rows, key=lambda r: -r[1])[:12]}
 
 
 def profiled_epoch(torch, eng, epoch):
@@ -912,11 +990,33 @@ def mma_counts(want):
             for r in ("mma", "simt")}
 
 
-def lm_run(torch, fa, lm_train, steps, extra):
+@contextmanager
+def eager_lm(lmtrain):
+    """`lm_train.main` inside runs its train step and eval eagerly on the
+    card (their `_capture` hook), for the graphed path's eager twin."""
+    make_step, make_eval = lmtrain.make_lm_train_step, lmtrain.make_eval_fn
+
+    def eager(make):
+        def made(*a, **kw):
+            fn = make(*a, **kw)
+            fn._capture = False
+            return fn
+        return made
+
+    lmtrain.make_lm_train_step, lmtrain.make_eval_fn = eager(make_step), eager(make_eval)
+    try:
+        yield
+    finally:
+        lmtrain.make_lm_train_step, lmtrain.make_eval_fn = make_step, make_eval
+
+
+def lm_run(torch, fa, lm_train, steps, extra, capture=True):
     """One `lm_train.main` run on the card at LM_ARGS + `extra`, the flash
-    counters set to 0 just before it: its launches (and by route), logged
-    losses {step: loss}, tokens/s, ms per step, MFU and peak
-    memory."""
+    counters set to 0 just before it, its step replayed from a CUDA graph
+    (or, `capture` false, run eagerly): its launches (and by route), logged
+    losses {step: loss}, tokens/s, ms per step, MFU and peak memory."""
+    from distributed_neural_network_tpu_torch.train import lm as lmtrain
+
     lines = []
 
     def log(line):
@@ -930,8 +1030,9 @@ def lm_run(torch, fa, lm_train, steps, extra):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rc = lm_train.main(["--device", "cuda", "--steps", str(steps), "--log-every",
-                        str(LM_LOG_EVERY)] + LM_ARGS + extra, log=log)
+    with (nullcontext() if capture else eager_lm(lmtrain)):
+        rc = lm_train.main(["--device", "cuda", "--steps", str(steps), "--log-every",
+                            str(LM_LOG_EVERY)] + LM_ARGS + extra, log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, routes = dict(fa.LAUNCHES), dict(fa.ROUTE_LAUNCHES)
@@ -944,8 +1045,9 @@ def lm_run(torch, fa, lm_train, steps, extra):
     check(sorted(losses) == logged, f"{extra}: logged losses {losses}")
     losses.update({0: summary["first_loss"], steps - 1: summary["final_loss"]})
     check(all(math.isfinite(x) for x in losses.values()), f"{extra}: losses {losses}")
+    first = next(l for l in lines if l.startswith("(first step"))
     return {"extra": extra, "steps": steps, "launches": counts, "routes": routes, "losses": losses,
-            "wall_s": wall, "tokens_per_s": summary["tokens_per_s"],
+            "wall_s": wall, "first_step_s": float(first.split(": ")[1].rstrip("s)")), "tokens_per_s": summary["tokens_per_s"],
             "mfu_pct": summary["mfu_pct"], "eval": summary["eval"],
             "ms_per_step": 1e3 * summary["wall_s_post_compile"] / (steps - 1),
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -1048,6 +1150,195 @@ def route_check() -> int:
         return 1
     print("route check passed")
     return 0
+
+
+# ------------------------------------------------------------ graph helpers
+
+
+# phase 20: request SAMPLED is sampled (temperature 0.8, seed 7); the engines
+# are warmed up to WARM_WIDTH blocks, so widths 8 and 16 (prompts of 128 +
+# 32 tokens need 10 blocks) are first met, and captured, mid-run
+SAMPLED, WARM_WIDTH = 5, 4
+# phase 20's LM cases: (name, layers, steps, options); depth cut to 2 layers
+# for all but the first
+LM_GRAPH_CASES = (
+    ("flash bf16", LM_SHAPE["n_layers"], 3, {}),
+    ("int8", 2, 4, {"quant": "int8"}),
+    ("accum 2", 2, 4, {"accum_steps": 2}),
+    ("adam cosine clip", 2, 4, {"optimizer": "adam", "lr": 0.01, "lr_schedule": "cosine",
+                                "clip_norm": 0.5, "weight_decay": 0.01}),
+)
+
+
+def serve_engine(precision, impl, capture):
+    """A full-width engine with phase 9's flags (no warmup, its scheduler
+    loop closed: the caller steps it), captured or (`capture` false) eager
+    on the card."""
+    from distributed_neural_network_tpu_torch.serve.http import build_server
+
+    args = [a for a in SERVE_ARGS if a != "--warmup"]
+    srv, sched, eng = build_server(args + ["--precision", precision, "--decode-impl", impl],
+                                   log=lambda line: None)
+    sched.close(finalize=False)
+    srv.close()
+    eng._capture = capture
+    return eng
+
+
+def scripted_serve(torch, eng, prompts):
+    """Phase 20's ticks: warmup up to WARM_WIDTH blocks, then the prompts
+    admitted in order as slots and blocks allow (request SAMPLED sampled),
+    preempted ones first, stepped to the end. Returns the streams, the
+    ticks, their wall time, warmup's time and the programs built after it
+    (buckets first met mid-run), the pools' state and the device memory the
+    warmup reserved."""
+    from collections import deque
+
+    from distributed_neural_network_tpu_torch.serve.engine import Sequence
+
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    eng.warmup(max_width_blocks=WARM_WIDTH)
+    warm_s = time.perf_counter() - t0
+    reserved = torch.cuda.memory_reserved() - reserved
+    warm = eng.compiled_programs()["total"]
+    seqs = [Sequence(i, p, MAX_NEW, temperature=0.8 if i == SAMPLED else 0.0, seed=7)
+            for i, p in enumerate(prompts)]
+    queue, ticks = deque(seqs), 0
+    kv, cap = eng.kv, eng.ecfg.max_batch
+    t0 = time.perf_counter()
+    while queue or eng.has_work() or eng.preempted:
+        for waiting in (eng.preempted, queue):
+            while (waiting and len(eng.active) < cap
+                   and kv.can_fit(waiting[0].prompt_len + 1)):
+                eng.add(waiting.popleft())
+        eng.step()
+        ticks += 1
+        check(ticks < 5000, "phase 20's tick script did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    state = [t.clone() for t in (eng.k_pool, eng.v_pool, eng.k_scale, eng.v_scale)
+             if t is not None]
+    graphs = [b.program.graph is not None for fam in eng._programs.values()
+              for b in fam.values()]
+    return {"streams": [s.out for s in seqs], "ticks": ticks, "wall_s": wall,
+            "warmup_s": warm_s, "warmup_reserved_bytes": reserved,
+            "mid_run_programs": eng.compiled_programs()["total"] - warm,
+            "programs": eng.compiled_programs(), "all_graphed": all(graphs),
+            "none_graphed": not any(graphs), "state": state}
+
+
+def serve_graphs_vs_eager(torch, prompts):
+    """Phase 20 for serving: for bf16 and int8-kv on both decode routes,
+    the same tick script on an eager engine and on a graphed one: tokens and
+    pools (and scales) bitwise, every bucket of the graphed engine captured
+    (some mid-run) and none of the eager one's. Returns one row per case."""
+    rows = []
+    for precision in ("bf16", "int8-kv"):
+        for impl in ("cuda", "torch"):
+            runs = {}
+            for mode in ("eager", "graphed"):
+                eng = serve_engine(precision, impl, mode == "graphed")
+                runs[mode] = scripted_serve(torch, eng, prompts)
+                del eng
+            e, g = runs["eager"], runs["graphed"]
+            same_tokens = e["streams"] == g["streams"]
+            same_pools = len(e["state"]) == len(g["state"]) and all(
+                torch.equal(a, b) for a, b in zip(e["state"], g["state"]))
+            row = {"precision": precision, "decode_impl": impl, "tokens_bitwise": same_tokens,
+                   "pools_bitwise": same_pools, "ticks": g["ticks"],
+                   "mid_run_programs": g["mid_run_programs"], "programs": g["programs"],
+                   **{f"{m}_{k}": runs[m][k] for m in runs
+                      for k in ("wall_s", "warmup_s", "warmup_reserved_bytes")}}
+            rows.append(row)
+            print(f"   serving {precision:7s} {impl:5s}: {g['ticks']} ticks, tokens bitwise "
+                  f"{same_tokens}, pools bitwise {same_pools}; {g['mid_run_programs']} buckets "
+                  f"first met mid-run, programs {g['programs']}; ms per tick graphed "
+                  f"{1e3 * g['wall_s'] / g['ticks']:.3f}, eager {1e3 * e['wall_s'] / e['ticks']:.3f}"
+                  f"; warmup graphed {g['warmup_s']:.2f} s ({g['warmup_reserved_bytes']} B "
+                  f"reserved), eager {e['warmup_s']:.2f} s", flush=True)
+            check(same_tokens and same_pools,
+                  f"serving {precision} {impl}: the graphed engine differs from the eager one "
+                  f"(tokens {same_tokens}, pools {same_pools})")
+            check(g["all_graphed"] and e["none_graphed"] and g["mid_run_programs"] > 0,
+                  f"serving {precision} {impl}: graphed {g['all_graphed']}, eager none "
+                  f"{e['none_graphed']}, buckets met mid-run {g['mid_run_programs']}")
+            check(e["ticks"] == g["ticks"] and e["programs"] == g["programs"],
+                  f"serving {precision} {impl}: ticks or programs differ")
+    return rows
+
+
+def lm_graphs_vs_eager(torch, name, n_layers, steps, opts):
+    """Phase 20 for one LM case: `steps` steps at LM_SHAPE's width (depth
+    `n_layers`) from the same init and batches, eagerly and graphed, then
+    the eval loss of two batches: losses, eval losses, parameters and
+    optimizer state bitwise. Returns the case's row (first-step and
+    steady times of each mode, the graph's reserved memory)."""
+    import functools
+
+    from distributed_neural_network_tpu_torch.models import transformer as tfm
+    from distributed_neural_network_tpu_torch.ops.schedule import warmup_cosine
+    from distributed_neural_network_tpu_torch.train import lm as lmtrain
+
+    sh, dev = LM_SHAPE, torch.device("cuda")
+    opts = dict(opts)
+    quant = opts.pop("quant", "")
+    if opts.get("lr_schedule") == "cosine":
+        opts["lr_schedule"] = functools.partial(warmup_cosine, base_lr=opts["lr"],
+                                                total_steps=steps, warmup_steps=1,
+                                                min_lr_frac=0.1)
+    opts.setdefault("lr", 0.01)
+    cfg = tfm.TransformerConfig(vocab_size=sh["vocab"], d_model=sh["d_model"],
+                                n_heads=sh["n_heads"], n_layers=n_layers, d_ff=sh["d_ff"],
+                                dtype=torch.bfloat16, attn_quant=quant)
+    g = torch.Generator().manual_seed(20)
+    batches = [lmtrain.make_copy_task(g, batch=sh["batch_size"], seq_len=sh["seq_len"],
+                                      vocab=sh["vocab"], device=dev) for _ in range(steps)]
+    runs = {}
+    for mode in ("eager", "graphed"):
+        params = tfm.init_params(0, cfg, dev)
+        mom = lmtrain.init_lm_momentum(params, opts.get("optimizer", "sgd"))
+        step = lmtrain.make_lm_train_step(cfg, device=dev, attn_impl="flash", momentum=0.9,
+                                          **opts)
+        ev = lmtrain.make_eval_fn(cfg, attn_impl="flash")
+        step._capture = ev._capture = mode == "graphed"
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        losses = [step(params, mom, *batches[0], 0)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses += [step(params, mom, *batches[i], i) for i in range(1, steps)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        evals = [ev(params, *b) for b in batches[:2]]
+        moments = mom if isinstance(mom, list) else mom["m"] + mom["v"]
+        runs[mode] = {"losses": torch.stack(losses), "evals": torch.stack(evals),
+                      "state": [t.detach().clone() for t in lmtrain.tree_leaves(params) + moments],
+                      "first_s": t1 - t0, "ms_per_step": 1e3 * (t2 - t1) / (steps - 1),
+                      "reserved_bytes": torch.cuda.memory_reserved() - reserved,
+                      "graphed": step.program.graph is not None and ev.program.graph is not None,
+                      "eager": step.program.graph is None and ev.program.graph is None}
+        del params, mom, step, ev, moments
+    e, gr = runs["eager"], runs["graphed"]
+    same = {"losses": torch.equal(e["losses"], gr["losses"]),
+            "evals": torch.equal(e["evals"], gr["evals"]),
+            "state": all(torch.equal(a, b) for a, b in zip(e["state"], gr["state"]))}
+    row = {"case": name, "layers": n_layers, "steps": steps, "bitwise": same,
+           "losses": gr["losses"].tolist(), "eager_losses": e["losses"].tolist(),
+           **{f"{m}_{k}": runs[m][k] for m in runs
+              for k in ("first_s", "ms_per_step", "reserved_bytes")}}
+    print(f"   LM {name} (L{n_layers}, {steps} steps): bitwise {same}; losses "
+          f"{[round(x, 6) for x in row['losses']]}; first step graphed {gr['first_s']:.2f} s "
+          f"(capture incl.), eager {e['first_s']:.2f} s; ms per later step graphed "
+          f"{gr['ms_per_step']:.2f}, eager {e['ms_per_step']:.2f}; graphed step's reserved "
+          f"memory {gr['reserved_bytes']} B", flush=True)
+    check(all(same.values()), f"LM {name}: the graphed step differs from the eager one: {same}")
+    check(gr["graphed"] and e["eager"], f"LM {name}: captured {gr['graphed']}, eager "
+          f"{e['eager']}")
+    torch.cuda.empty_cache()
+    return row
 
 
 # -------------------------------------------------------------------- phases
@@ -1644,106 +1935,127 @@ def main() -> int:
         print(f"offline bf16 generate() oracle for {N_REQUESTS} prompts in "
               f"{time.perf_counter() - t0:.2f} s; {ties:.4f} of its greedy choices have a "
               f"top-2 logit gap under 0.02")
-        for precision in ("bf16", "int8-kv"):
-            for impl in ("cuda", "torch"):
-                srv, sched, eng = build_server(
-                    SERVE_ARGS + ["--precision", precision, "--decode-impl", impl],
-                    log=lambda line: print("   " + line, flush=True))
-                try:
-                    for counters in (da.LAUNCHES, da.ROUTE_LAUNCHES):
-                        for name in counters:
-                            counters[name] = 0
-                    calls0, pre0, ticks0 = eng.decode_calls, eng.prefill_calls, eng.ticks
-                    torch.cuda.synchronize()
-                    results = open_loop(srv.port, prompts, arrivals)
-                    torch.cuda.synchronize()
-                    launches, by_route = dict(da.LAUNCHES), dict(da.ROUTE_LAUNCHES)
-                    calls, ticks = eng.decode_calls - calls0, eng.ticks - ticks0
-                    pre_calls = eng.prefill_calls - pre0
-                finally:
-                    rec = sched.close()  # finalize asserts the ledger's conservation
-                    srv.close()
-                done = [r for r in results
-                        if r.get("done") and r["done"].get("status") == "done"
-                        and len(r["tokens"]) == MAX_NEW]
-                served = [r.get("tokens", []) for r in results]
-                same_route = None
-                with uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
-                    strict, agree, stream_agree = oracle.agreement(served)
-                    if (precision, impl) == ("bf16", "torch"):
-                        # the plain route's own contract: generate() on the same
-                        # route (generate() has no int8 K/V, so bf16 only)
-                        same_route = dict(zip(("strict_agreement", "agreement",
-                                               "stream_agreement"),
-                                              oracle.agreement(served, impl="torch")))
-                n_tok = sum(len(r.get("tokens", [])) for r in results)
-                window = max(r["t_done"] for r in results) - min(r["t0"] for r in results)
-                ttft = [r["stamps"][0] - r["t0"] for r in results if r.get("stamps")]
-                gaps = [b - a for r in results for a, b in zip(r["stamps"], r["stamps"][1:])]
-                step_s = rec["goodput_s"] + rec["badput_s"]["prefill"] + rec["badput_s"][
-                    "kv_alloc_stall"]
-                conserved = abs(rec["goodput_s"] + sum(rec["badput_s"].values())
-                                - rec["wall_s"]) <= 1e-5 * max(rec["wall_s"], 1.0)
-                row = {"precision": precision, "decode_impl": impl, "completed": len(done),
-                       "agreement": agree, "strict_agreement": strict,
-                       "stream_agreement": stream_agree, "tokens": n_tok,
-                       "req_per_s": len(done) / window, "tokens_per_s": n_tok / window,
-                       "ttft_p50_s": pct(ttft, 0.5), "ttft_p99_s": pct(ttft, 0.99),
-                       "intertoken_p99_s": pct(gaps, 0.99), "ticks": ticks,
-                       "decode_calls": calls, "prefill_calls": pre_calls, "step_ms_per_tick": 1e3 * step_s / max(ticks, 1),
-                       "goodput_ratio": rec["goodput_ratio"], "launches": launches,
-                       "launches_by_route": by_route, "same_route": same_route,
-                       "badput_s": rec["badput_s"], "wall_s": rec["wall_s"]}
-                serving.append(row)
-                print(f"   {precision:7s} {impl:5s}: {len(done)}/{N_REQUESTS} done, agreement "
-                      f"per token {agree:.4f} (strict {strict:.4f}), stream {stream_agree:.4f} "
-                      f"over {n_tok} tokens; "
-                      f"{row['req_per_s']:.3f} req/s, "
-                      f"{row['tokens_per_s']:.1f} tokens/s; TTFT p50 {row['ttft_p50_s']:.4f} s "
-                      f"p99 {row['ttft_p99_s']:.4f} s; inter-token p99 "
-                      f"{row['intertoken_p99_s']:.4f} s; {row['step_ms_per_tick']:.3f} ms per "
-                      f"engine tick ({ticks} ticks, {calls} decode calls, {pre_calls} prefill "
-                      f"calls); goodput ratio "
-                      f"{rec['goodput_ratio']}; launches {launches}, by route {by_route}")
-                if same_route is not None:
-                    print(f"   {precision:7s} {impl:5s} against generate(decode_impl=\"torch\"), "
-                          f"the same route: per token {same_route['strict_agreement']:.4f} "
-                          f"(up to the kernel route's rounding {same_route['agreement']:.4f}), "
-                          f"stream {same_route['stream_agreement']:.4f}")
-                check(len(done) == N_REQUESTS, f"{len(done)}/{N_REQUESTS} requests completed")
-                check(agree >= 0.99,
-                      f"per-token agreement {agree:.4f} < 0.99 vs offline generate")
-                if (precision, impl) == ("bf16", "cuda"):
-                    # generate()'s arithmetic on the card, so the JAX row's
-                    # stream form of the gate holds as well
-                    check(stream_agree >= 0.99,
-                          f"stream agreement {stream_agree:.4f} < 0.99 vs offline generate")
-                if same_route is not None:
-                    # the plain route's bits depend on a row's live prefix
-                    # alone (masked_decode_attention), so the server and
-                    # generate() on that route give the same tokens
-                    check(same_route["strict_agreement"] == 1.0
-                          and same_route["stream_agreement"] == 1.0,
-                          f"--decode-impl torch is not token-exact against generate(decode_impl="
-                          f"\"torch\"): per token {same_route['strict_agreement']:.4f}, zipped "
-                          f"{same_route['stream_agreement']:.4f}")
-                check(conserved, f"serving ledger does not conserve: {rec}")
+        # the main path's four runs, graphed, and the kernel route's two
+        # again with the engine run eagerly (its `_capture` hook; warmed up
+        # eagerly before any request), for the graphs' end-to-end effect
+        for precision, impl, mode in (("bf16", "cuda", "graphed"), ("bf16", "cuda", "eager"),
+                                      ("bf16", "torch", "graphed"),
+                                      ("int8-kv", "cuda", "graphed"),
+                                      ("int8-kv", "cuda", "eager"),
+                                      ("int8-kv", "torch", "graphed")):
+            main_run = mode == "graphed"
+            args = SERVE_ARGS if main_run else [a for a in SERVE_ARGS if a != "--warmup"]
+            srv, sched, eng = build_server(
+                args + ["--precision", precision, "--decode-impl", impl],
+                log=lambda line: print("   " + line, flush=True))
+            if not main_run:
+                eng._capture = False
+                eng.warmup()
+            try:
+                for counters in (da.LAUNCHES, da.ROUTE_LAUNCHES):
+                    for name in counters:
+                        counters[name] = 0
+                calls0, pre0, ticks0 = eng.decode_calls, eng.prefill_calls, eng.ticks
+                torch.cuda.synchronize()
+                results = open_loop(srv.port, prompts, arrivals)
+                torch.cuda.synchronize()
+                launches, by_route = dict(da.LAUNCHES), dict(da.ROUTE_LAUNCHES)
+                calls, ticks = eng.decode_calls - calls0, eng.ticks - ticks0
+                pre_calls = eng.prefill_calls - pre0
+            finally:
+                rec = sched.close()  # finalize asserts the ledger's conservation
+                srv.close()
+            done = [r for r in results
+                    if r.get("done") and r["done"].get("status") == "done"
+                    and len(r["tokens"]) == MAX_NEW]
+            served = [r.get("tokens", []) for r in results]
+            same_route = None
+            with uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
+                strict, agree, stream_agree = oracle.agreement(served)
+                if (precision, impl) == ("bf16", "torch"):
+                    # the plain route's own contract: generate() on the same
+                    # route (generate() has no int8 K/V, so bf16 only)
+                    same_route = dict(zip(("strict_agreement", "agreement",
+                                           "stream_agreement"),
+                                          oracle.agreement(served, impl="torch")))
+            n_tok = sum(len(r.get("tokens", [])) for r in results)
+            window = max(r["t_done"] for r in results) - min(r["t0"] for r in results)
+            ttft = [r["stamps"][0] - r["t0"] for r in results if r.get("stamps")]
+            gaps = [b - a for r in results for a, b in zip(r["stamps"], r["stamps"][1:])]
+            step_s = rec["goodput_s"] + rec["badput_s"]["prefill"] + rec["badput_s"][
+                "kv_alloc_stall"]
+            conserved = abs(rec["goodput_s"] + sum(rec["badput_s"].values())
+                            - rec["wall_s"]) <= 1e-5 * max(rec["wall_s"], 1.0)
+            row = {"precision": precision, "decode_impl": impl, "mode": mode,
+                   "completed": len(done),
+                   "agreement": agree, "strict_agreement": strict,
+                   "stream_agreement": stream_agree, "tokens": n_tok,
+                   "req_per_s": len(done) / window, "tokens_per_s": n_tok / window,
+                   "ttft_p50_s": pct(ttft, 0.5), "ttft_p99_s": pct(ttft, 0.99),
+                   "intertoken_p99_s": pct(gaps, 0.99), "ticks": ticks,
+                   "decode_calls": calls, "prefill_calls": pre_calls, "step_ms_per_tick": 1e3 * step_s / max(ticks, 1),
+                   "goodput_ratio": rec["goodput_ratio"], "launches": launches,
+                   "launches_by_route": by_route, "same_route": same_route,
+                   "badput_s": rec["badput_s"], "wall_s": rec["wall_s"]}
+            serving.append(row)
+            print(f"   {precision:7s} {impl:5s} {mode:7s}: {len(done)}/{N_REQUESTS} done, agreement "
+                  f"per token {agree:.4f} (strict {strict:.4f}), stream {stream_agree:.4f} "
+                  f"over {n_tok} tokens; "
+                  f"{row['req_per_s']:.3f} req/s, "
+                  f"{row['tokens_per_s']:.1f} tokens/s; TTFT p50 {row['ttft_p50_s']:.4f} s "
+                  f"p99 {row['ttft_p99_s']:.4f} s; inter-token p99 "
+                  f"{row['intertoken_p99_s']:.4f} s; {row['step_ms_per_tick']:.3f} ms per "
+                  f"engine tick ({ticks} ticks, {calls} decode calls, {pre_calls} prefill "
+                  f"calls); goodput ratio "
+                  f"{rec['goodput_ratio']}; launches {launches}, by route {by_route}")
+            if same_route is not None:
+                print(f"   {precision:7s} {impl:5s} against generate(decode_impl=\"torch\"), "
+                      f"the same route: per token {same_route['strict_agreement']:.4f} "
+                      f"(up to the kernel route's rounding {same_route['agreement']:.4f}), "
+                      f"stream {same_route['stream_agreement']:.4f}")
+            check(len(done) == N_REQUESTS, f"{len(done)}/{N_REQUESTS} requests completed")
+            check(conserved, f"serving ledger does not conserve: {rec}")
+            if not main_run:
+                # the eager twin: measured beside the main path, gated on its
+                # completion, ledger and launch formula only
+                n = (calls + pre_calls) * 8
                 name = "decode_attention_q8" if precision == "int8-kv" else "decode_attention"
-                if impl == "cuda":
-                    n = (calls + pre_calls) * 8
-                    want = {k: (n if k == name else 0) for k in launches}
-                    check(calls > 0 and launches == want,
-                          f"decode launches {launches} != (decode calls {calls} + prefill calls "
-                          f"{pre_calls}) x 8 layers")
-                    # every launch on the split route (the engine's slab is
-                    # aligned, Dh 64 is whole 16-byte vectors in bf16 and int8)
-                    route = f"{name}_split"
-                    want = {k: (n if k == route else 0) for k in by_route}
-                    check(by_route == want, f"decode launches by route {by_route} != {want}")
-                    kernels[name]["launches"] = launches[name]
-                else:
-                    check(not any(launches.values()) and not any(by_route.values()),
-                          f"--decode-impl torch launched {launches}")
+                check(launches == {k: (n if k == name else 0) for k in launches},
+                      f"eager {precision}: decode launches {launches} != (decode calls {calls} "
+                      f"+ prefill calls {pre_calls}) x 8 layers")
+                continue
+            check(agree >= 0.99,
+                  f"per-token agreement {agree:.4f} < 0.99 vs offline generate")
+            if (precision, impl) == ("bf16", "cuda"):
+                # generate()'s arithmetic on the card, so the JAX row's
+                # stream form of the gate holds as well
+                check(stream_agree >= 0.99,
+                      f"stream agreement {stream_agree:.4f} < 0.99 vs offline generate")
+            if same_route is not None:
+                # the plain route's bits depend on a row's live prefix
+                # alone (masked_decode_attention), so the server and
+                # generate() on that route give the same tokens
+                check(same_route["strict_agreement"] == 1.0
+                      and same_route["stream_agreement"] == 1.0,
+                      f"--decode-impl torch is not token-exact against generate(decode_impl="
+                      f"\"torch\"): per token {same_route['strict_agreement']:.4f}, zipped "
+                      f"{same_route['stream_agreement']:.4f}")
+            name = "decode_attention_q8" if precision == "int8-kv" else "decode_attention"
+            if impl == "cuda":
+                n = (calls + pre_calls) * 8
+                want = {k: (n if k == name else 0) for k in launches}
+                check(calls > 0 and launches == want,
+                      f"decode launches {launches} != (decode calls {calls} + prefill calls "
+                      f"{pre_calls}) x 8 layers")
+                # every launch on the split route (the engine's slab is
+                # aligned, Dh 64 is whole 16-byte vectors in bf16 and int8)
+                route = f"{name}_split"
+                want = {k: (n if k == route else 0) for k in by_route}
+                check(by_route == want, f"decode launches by route {by_route} != {want}")
+                kernels[name]["launches"] = launches[name]
+            else:
+                check(not any(launches.values()) and not any(by_route.values()),
+                      f"--decode-impl torch launched {launches}")
 
     decode_times = []
     with phase("10 decode kernel times"), uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
@@ -1818,52 +2130,50 @@ def main() -> int:
 
     serve_profile = {}
     with phase("11 where the serving time goes"), uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as torch_profile
-
         from distributed_neural_network_tpu_torch.serve.engine import Sequence
-        from distributed_neural_network_tpu_torch.serve.http import build_server
 
+        # the engine driven directly (no HTTP), graphed and eager in turns:
+        # the grid's capture (or eager warmup) time and its graph pool, then
+        # 20 profiled ticks at batch 8
         for precision in ("bf16", "int8-kv"):
-            srv, sched, eng = build_server(SERVE_ARGS + ["--decode-impl", "cuda", "--precision",
-                                                         precision], log=lambda line: None)
-            sched.close(finalize=False)  # the engine is driven directly below
-            srv.close()
-            rng = np.random.default_rng(5)
-            seqs = [Sequence(i, rng.integers(0, 256, size=64).tolist(), 64) for i in range(8)]
-            for s_ in seqs:
-                eng.add(s_)
-            while any(s_.pos < s_.prompt_len for s_ in seqs):
-                eng.step()
-            for _ in range(5):
-                eng.step()
-            torch.cuda.synchronize()
-            n_ticks = 20
-            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(n_ticks):
-                    eng.step()
+            for mode in ("graphed", "eager"):
+                eng = serve_engine(precision, "cuda", mode == "graphed")
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            rows = profile_rows(prof, DeviceType)
-            busy = sum(r[1] for r in rows) / 1e6
-            decode_rows = [r for r in rows if "decode_" in r[0]]
-            decode_s = sum(r[1] for r in decode_rows) / 1e6
-            prof_row = {"wall_s": wall, "device_busy_s": busy, "ticks": n_ticks,
-                        "idle_share": 1 - busy / wall if busy else None,
-                        "decode_kernel_s": decode_s,
-                        "decode_kernel_share": decode_s / busy if busy else None,
-                        "decode_launches": sum(r[2] for r in decode_rows),
-                        "top": sorted(rows, key=lambda r: -r[1])[:12]}
-            serve_profile[precision] = prof_row
-            print(f"{precision}: {n_ticks} decode ticks at batch 8 (positions 69-88): wall "
-                  f"{wall:.4f} s ({1e3 * wall / n_ticks:.3f} ms/tick), device busy {busy:.4f} s, "
-                  f"idle share {'not measured' if not busy else f'{1 - busy / wall:.3f}'}; the "
-                  f"decode kernel {1e3 * decode_s:.3f} ms over {prof_row['decode_launches']} "
-                  f"launches" + (f", {decode_s / busy:.3f} of device time" if busy else ""))
-            for key, us, count in prof_row["top"]:
-                print(f"   {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
-            del eng
+                t0 = time.perf_counter()
+                n_grid = eng.warmup()
+                warm_s = time.perf_counter() - t0
+                pool = pool_bytes(torch, eng._pool) if eng._pool is not None else None
+                rng = np.random.default_rng(5)
+                seqs = [Sequence(i, rng.integers(0, 256, size=64).tolist(), 64) for i in range(8)]
+                for s_ in seqs:
+                    eng.add(s_)
+                while any(s_.pos < s_.prompt_len for s_ in seqs):
+                    eng.step()
+                for _ in range(5):
+                    eng.step()
+                n_ticks = 20
+                prof_row = profiled_window(torch, eng.step, n_ticks, "decode_")
+                prof_row.update(ticks=n_ticks, grid=n_grid, warmup_s=warm_s, pool_bytes=pool,
+                                programs=eng.compiled_programs())
+                serve_profile[f"{precision} {mode}"] = prof_row
+                busy, wall = prof_row["device_busy_s"], prof_row["wall_s"]
+                calls = {k: v / n_ticks for k, v in prof_row["host_calls"].items()}
+                print(f"{precision} {mode}: warmup of the {n_grid}-bucket grid {warm_s:.3f} s"
+                      + (f", graph pool {pool} B" if mode == "graphed" else "")
+                      + f"; {n_ticks} decode ticks at batch 8 (positions 69-88): wall {wall:.4f} s "
+                      f"({1e3 * wall / n_ticks:.3f} ms/tick), device busy {busy:.4f} s, idle share "
+                      f"{fmt(prof_row['idle_share'])}; the decode kernel "
+                      f"{1e3 * prof_row['part_s']:.3f} ms over {prof_row['part_launches']} "
+                      f"launches ({fmt(prof_row['part_share'])} of the kernels' summed time); host "
+                      f"calls per tick: graph launches {calls['graph']:.2f}, kernel launches "
+                      f"{calls['kernel']:.2f}, async copies {calls['copy']:.2f}")
+                for key, us, count in prof_row["top"]:
+                    print(f"   {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+                check(prof_row["part_launches"] > 0, f"{precision} {mode}: no decode kernel in "
+                      f"the profiled ticks")
+                if mode == "graphed":
+                    check(calls["graph"] > 0, f"{precision}: no graph launch in the profiled ticks")
+                del eng
 
     with phase("12 flash kernels vs plain"):
         with uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):  # comparison launches
@@ -1883,21 +2193,25 @@ def main() -> int:
         from distributed_neural_network_tpu_torch.models import transformer as tfm
         from distributed_neural_network_tpu_torch.train import lm as lmtrain
 
-        runs = (("flash", ["--attn", "flash"], {}),
-                ("int8", ["--attn", "flash", "--precision", "int8"], {"quant": True}),
-                ("fp8", ["--attn", "flash", "--precision", "fp8"], {"quant": True}),
-                ("plain", ["--attn", "ring"], None))
-        # each route twice, in mirrored order (flash, int8, fp8, plain, plain,
-        # fp8, int8, flash), so a drift along the call shows and routes are
-        # compared in turns
-        for name, extra, formula in runs + runs[::-1]:
-            row = lm_run(torch, fa, lm_train, LM_STEPS, extra)
+        # the step replayed from its CUDA graph, and ("flash eager") the same
+        # flash run with the step run eagerly (its `_capture` hook)
+        runs = (("flash", ["--attn", "flash"], {}, True),
+                ("flash eager", ["--attn", "flash"], {}, False),
+                ("int8", ["--attn", "flash", "--precision", "int8"], {"quant": True}, True),
+                ("fp8", ["--attn", "flash", "--precision", "fp8"], {"quant": True}, True),
+                ("plain", ["--attn", "ring"], None, True))
+        # each route twice, in mirrored order (flash, flash eager, int8, fp8,
+        # plain, plain, fp8, int8, flash eager, flash), so a drift along the
+        # call shows and routes are compared in turns
+        for name, extra, formula, capture in runs + runs[::-1]:
+            row = lm_run(torch, fa, lm_train, LM_STEPS, extra, capture)
             counts = row["launches"]
             first = name not in lm_runs
             lm_runs.setdefault(name, []).append(row)
             loss = row["losses"]
             print(f"   {name}: {row['tokens_per_s']} tokens/s, {row['ms_per_step']:.2f} ms per "
-                  f"step, MFU {row['mfu_pct']}% of the bf16 dense peak, losses {loss[0]:.4f} "
+                  f"step (first step {row['first_step_s']:.2f} s), MFU {row['mfu_pct']}% of the "
+                  f"bf16 dense peak, losses {loss[0]:.4f} "
                   f"-> {loss[LM_STEPS - 1]:.4f}, peak memory {row['peak_mem_gib']:.2f} GiB, "
                   f"launches {counts}, by route {row['routes']}", flush=True)
             want = (dict.fromkeys(counts, 0) if formula is None
@@ -2126,44 +2440,46 @@ def main() -> int:
 
     lm_profile = {}
     with phase("16 where the training time goes"), uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as torch_profile
-
         from distributed_neural_network_tpu_torch.models import transformer as tfm
         from distributed_neural_network_tpu_torch.train import lm as lmtrain
 
         cfg = tfm.TransformerConfig(vocab_size=32768, d_model=512, n_heads=8, n_layers=8,
                                     d_ff=2048, dtype=torch.bfloat16)
-        params = tfm.init_params(0, cfg, dev)
-        mom = lmtrain.init_lm_momentum(params)
-        step = lmtrain.make_lm_train_step(cfg, device=dev, lr=0.01, attn_impl="flash")
         toks, tgts = lmtrain.make_copy_task(torch.Generator().manual_seed(1), batch=16,
                                             seq_len=2048, vocab=32768, device=dev)
-        for _ in range(2):
-            step(params, mom, toks, tgts)
-        torch.cuda.synchronize()
-        n_steps = 3
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                step(params, mom, toks, tgts)
+        # 3 steady steps replayed from the step's graph, then the same eagerly
+        for mode in ("graphed", "eager"):
+            params = tfm.init_params(0, cfg, dev)
+            mom = lmtrain.init_lm_momentum(params)
+            step = lmtrain.make_lm_train_step(cfg, device=dev, lr=0.01, attn_impl="flash")
+            step._capture = mode == "graphed"
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = profile_rows(prof, DeviceType)
-        busy = sum(r[1] for r in rows) / 1e6
-        flash_us = sum(r[1] for r in rows if "flash_" in r[0])
-        lm_profile = {"wall_s": wall, "device_busy_s": busy, "steps": n_steps,
-                      "idle_share": 1 - busy / wall if busy else None,
-                      "flash_share_of_busy": flash_us / 1e6 / busy if busy else None,
-                      "top": sorted(rows, key=lambda r: -r[1])[:12]}
-        print(f"{n_steps} steady steps at full width (flash, bf16): wall {wall:.3f} s "
-              f"({1e3 * wall / n_steps:.1f} ms/step), device busy {busy:.3f} s, idle share "
-              f"{'not measured' if not busy else f'{1 - busy / wall:.3f}'}, flash kernels "
-              f"{'not measured' if not busy else f'{flash_us / 1e6 / busy:.3f}'} of busy time")
-        for key, us, count in lm_profile["top"]:
-            print(f"   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
-        del params, mom, step
-        torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            step(params, mom, toks, tgts)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            step(params, mom, toks, tgts)
+            n_steps = 3
+            prof = profiled_window(torch, lambda: step(params, mom, toks, tgts), n_steps, "flash_")
+            graph = step.program.graph
+            prof.update(steps=n_steps, first_step_s=first_s,
+                        pool_bytes=pool_bytes(torch, graph.pool()) if graph is not None else None)
+            lm_profile[mode] = prof
+            wall, busy = prof["wall_s"], prof["device_busy_s"]
+            calls = {k: v / n_steps for k, v in prof["host_calls"].items()}
+            print(f"{mode}: first step {first_s:.3f} s"
+                  + (f" (capture incl.), graph pool {prof['pool_bytes']} B" if graph else "")
+                  + f"; {n_steps} steady steps at full width (flash, bf16): wall {wall:.3f} s "
+                  f"({1e3 * wall / n_steps:.1f} ms/step), device busy {busy:.3f} s, idle share "
+                  f"{fmt(prof['idle_share'])}, flash kernels {fmt(prof['part_share'])} of the "
+                  f"kernels' summed time; host calls per step: graph launches "
+                  f"{calls['graph']:.1f}, kernel launches {calls['kernel']:.1f}, async copies "
+                  f"{calls['copy']:.1f}")
+            for key, us, count in prof["top"]:
+                print(f"   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+            check((graph is not None) == (mode == "graphed"), f"{mode}: graph {graph}")
+            del params, mom, step, graph
+            torch.cuda.empty_cache()
 
     across = {}
     with phase("17 across processes"):
@@ -2462,6 +2778,12 @@ def main() -> int:
                   f"{r['summary']['final_val_acc']:.2f} % (f32 kernels=cuda: "
                   f"{f32['epoch_wall_s']:.3f} s, {f32['images_per_s']:.1f} images/s)")
 
+    graphs_run = {}
+    with phase("20 graphed against eager"), uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES, fa.LAUNCHES,
+                                                      fa.ROUTE_LAUNCHES):
+        graphs_run["serving"] = serve_graphs_vs_eager(torch, prompts)
+        graphs_run["lm"] = [lm_graphs_vs_eager(torch, *case) for case in LM_GRAPH_CASES]
+
     designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
                                  f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
                "fused_mlp3_bwd": f"one launch for all replicas, a cluster of "
@@ -2503,7 +2825,8 @@ def main() -> int:
                    "serve_profile": serve_profile, "flash_times": flash_times,
                    "flash_pair": flash_pair, "flash_checks": flash_checks,
                    "lm_runs": lm_runs, "lm_checks": lm_checks, "learn": learn,
-                   "lm_profile": lm_profile, "across": across, "stream": stream_run,
+                   "lm_profile": lm_profile, "graphs": graphs_run, "across": across,
+                   "stream": stream_run,
                    "bf16": bf16_run}, f, indent=1)
     print(json.dumps({"kernels": table}))
     print(smi)

@@ -6,7 +6,9 @@ line and its final ``SUMMARY {json}`` line (the same keys).
         --dtype bfloat16 --steps 20 --batch-size 16 --seq-len 2048 \\
         --vocab 32768 --d-model 512 --n-layers 8 --n-heads 8 --d-ff 2048 --lr 0.01
 
-Runs on the GPU unless ``--device cpu`` is given. ``--attn flash`` runs the
+Runs on the GPU unless ``--device cpu`` is given; there the train step (and
+the eval loss) is one CUDA graph, captured at the first step and replayed
+after. ``--generate`` decodes eagerly. ``--attn flash`` runs the
 hand-written flash kernels (`ops/flash_attention.py`; their plain versions on
 the CPU); ``--attn ring|ulysses|zigzag`` at ``--sp 1`` is the plain local
 attention, as the JAX `_attend` with no sequence axis. ``--precision
@@ -273,7 +275,8 @@ def main(argv=None, *, log=print) -> int:
             log(f"step {i:>5}  eval_loss {ev:.4f}  ppl {last_eval['ppl']:.2f}")
         if i == 0:
             first_loss = float(loss)  # waits for the step
-            log(f"(first step incl. kernel build: {time.perf_counter() - t_first:.1f}s)")
+            log(f"(first step incl. kernel build and graph capture: "
+                f"{time.perf_counter() - t_first:.1f}s)")
             t0 = time.perf_counter()
         else:
             timed_steps += 1

@@ -14,7 +14,9 @@ the plain local attention (`parallel/ring.py` `attention`) for ``full``,
 ``ring``, ``ulysses`` and ``zigzag`` (one device has no sequence axis, as in
 the JAX `_attend`), or the flash kernels (`ops/flash.py`) for ``flash``;
 ``attn_quant`` quantizes the attention forward. ``remat`` checkpoints every
-block, ``remat_attn`` the attention call alone (`torch.utils.checkpoint`).
+block, ``remat_attn`` the attention call alone (`torch.utils.checkpoint`,
+without stashing the RNG state: the model draws no random numbers, and a
+step captured as a CUDA graph could not read the generator's state).
 `generate` is the offline cached decode, whose per-step attention runs the
 decode kernel (`ops/decode_attention.py`) on a CUDA device and its plain
 version on the CPU. The port's seeded `init_params` and sampling draw from
@@ -227,7 +229,8 @@ def _attend_fn(attn_impl: str, cfg: TransformerConfig):
         def attend(q, k, v):
             return attention(q, k, v, causal=True)
     if cfg.remat_attn and not cfg.remat:
-        return lambda q, k, v: checkpoint(attend, q, k, v, use_reentrant=False)
+        return lambda q, k, v: checkpoint(attend, q, k, v, use_reentrant=False,
+                                          preserve_rng_state=False)
     return attend
 
 
@@ -260,7 +263,7 @@ def apply_hidden(params, tokens, cfg: TransformerConfig, *, attn_impl: str = "ri
     for i in range(cfg.n_layers):
         if cfg.remat:
             x = checkpoint(lambda x, i=i: transformer_block(x, _layer(params, i, dt), cfg, attend),
-                           x, use_reentrant=False)
+                           x, use_reentrant=False, preserve_rng_state=False)
         else:
             x = transformer_block(x, _layer(params, i, dt), cfg, attend)
     return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)

@@ -3,13 +3,17 @@ Adam with optional decoupled weight decay, in the JAX order of operations,
 updating lists of parameter and state tensors in place with `_foreach` ops.
 
 State: ``{"m": [...], "v": [...], "t": int}`` with one tensor per parameter
-leaf.
+leaf. The step counter stays on the host; the lr and the bias corrections
+may be numbers or 0-d f32 tensors (a captured step reads them from buffers
+written before each replay), with the same arithmetic either way.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+B2, EPS = 0.999, 1e-8  # the JAX package's defaults
 
 
 def init_adam(params) -> dict:
@@ -29,7 +33,8 @@ def bias_corrections(t: int, b1: float, b2: float):
 def adam_leaf_update(p, g, m, v, c1, c2, lr, b1, b2, eps, weight_decay) -> None:
     """The elementwise Adam/AdamW update for lists of leaves, in place:
     m = b1 m + (1-b1) g; v = b2 v + (1-b2) g^2; step = (m/c1) / (sqrt(v/c2)
-    + eps) [+ wd p]; p -= lr step."""
+    + eps) [+ wd p]; p -= lr step. c1, c2 and lr are numbers or 0-d
+    tensors."""
     torch._foreach_mul_(m, b1)
     torch._foreach_add_(m, g, alpha=1.0 - b1)
     torch._foreach_mul_(v, b2)
@@ -39,11 +44,12 @@ def adam_leaf_update(p, g, m, v, c1, c2, lr, b1, b2, eps, weight_decay) -> None:
     step = torch._foreach_div(torch._foreach_div(m, c1), denom)
     if weight_decay:
         torch._foreach_add_(step, torch._foreach_mul(p, weight_decay))
-    torch._foreach_add_(p, step, alpha=-lr)
+    torch._foreach_mul_(step, lr)
+    torch._foreach_sub_(p, step)
 
 
-def adam_step(params, state, grads, lr: float, b1: float = 0.9, b2: float = 0.999,
-              eps: float = 1e-8, weight_decay: float = 0.0) -> None:
+def adam_step(params, state, grads, lr, b1: float = 0.9, b2: float = B2,
+              eps: float = EPS, weight_decay: float = 0.0) -> None:
     """One bias-corrected Adam/AdamW update of `params` and `state`, in place."""
     state["t"] += 1
     c1, c2 = bias_corrections(state["t"], b1, b2)

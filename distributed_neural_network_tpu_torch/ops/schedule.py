@@ -75,8 +75,9 @@ def clip_by_global_norm(leaves, max_norm: float, *, specs=None, axes=()):
 
 
 @torch.no_grad()
-def apply_decoupled_weight_decay(params, lr_t: float, weight_decay: float) -> None:
-    """AdamW-style decay after the optimizer update, in place: p -= lr*wd*p."""
+def apply_decoupled_weight_decay(params, lr_t, weight_decay: float) -> None:
+    """AdamW-style decay after the optimizer update, in place: p -= lr*wd*p;
+    `lr_t` a number or a 0-d tensor."""
     if weight_decay:
         torch._foreach_add_(params, torch._foreach_mul(params, lr_t * weight_decay), alpha=-1.0)
 

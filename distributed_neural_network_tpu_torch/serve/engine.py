@@ -40,7 +40,27 @@ deterministic, and already-streamed tokens are not re-emitted.
 
 Sampling (temperature > 0) is a Gumbel-max draw from uniform noise made by
 a CPU `torch.Generator` seeded from (seed, position): deterministic across
-preemption and devices, but not the JAX package's stream.
+preemption and devices, but not the JAX package's stream. Every decode call
+takes a noise row per slot (zeros for greedy slots, whose token is the
+argmax either way), so one program serves greedy and sampled batches, as the
+JAX step always computes its sample.
+
+Each bucket is one `train/graphs.py` `Program` over static buffers (the
+counterpart of the JAX engine's jitted step per bucket): decode (B, W) reads
+tok, pos, table, temps and noise and leaves nxt and the logits; prefill (C,
+W) reads the chunk's tokens, its first position, the table and its valid
+length. A bucket's inputs lie in one device buffer, written by one copy from
+one pinned host block per call. On the card every bucket is a CUDA graph,
+all of one engine's graphs in one memory pool, captured by `warmup()` over
+the JAX engine's grid, or at its first use for a bucket warmup did not
+cover (from the zeros its fresh buffers hold, whose writes land in the
+scratch block, which is put back after the capture's warm-up; a bucket is
+kept only once captured). A tick is then one staging copy (a sampled slot's
+noise row written in place, a row the last call drew for zeroed), one
+replay per call and one read of the next tokens.
+On the CPU the same functions run eagerly. `_capture = False` before the
+first call runs them eagerly on the card too (the graphed engine is held to
+that run bit for bit). The pools stay persistent tensors updated in place.
 
 Not ported here: speculative decoding and int8 weights (``spec_decode``,
 ``weight_dtype="int8"``) raise `NotImplementedError` naming their slice.
@@ -49,6 +69,7 @@ Not ported here: speculative decoding and int8 weights (``spec_decode``,
 from __future__ import annotations
 
 import threading
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -65,11 +86,13 @@ from ..models.transformer import (
     resolve_decode_impl,
     sample_gumbel,
 )
+from ..ops import decode_attention as da
 from ..ops.decode_attention import (
     decode_attention_plain,
     decode_cache_attention,
     decode_kernel_ok,
 )
+from ..train.graphs import Program, capture_all
 from .kv_cache import KVCacheConfig, OutOfBlocks, PagedKVCache
 
 _INT8_MAX = 127.0
@@ -261,6 +284,54 @@ def _append_q8_chunk(pool, scales, val, valid, blkv, flat, table, gather_idx, bs
     scales.copy_(new_scales)
 
 
+class _Bucket:
+    """One decode (B, W) or prefill (C, W) bucket: its static inputs as
+    views of one device buffer (`fields`: name -> (shape, dtype)), filled by
+    one copy from one pinned host block per call, the outputs of its last
+    run (`out`) and its `Program`, made by `make_fn(inputs, out)`."""
+
+    def __init__(self, name: str, fields: dict, device, make_fn):
+        offsets, total = {}, 0
+        for key, (shape, dtype) in fields.items():
+            n = int(np.prod(shape, dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
+            offsets[key] = (total, n)
+            total += -(-n // 16) * 16  # each field 16-byte aligned
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(total, dtype=torch.uint8, pin_memory=cuda)
+        self.dev = torch.zeros(total, dtype=torch.uint8, device=device)
+        self.inputs, self.staged = {}, {}
+        for key, (shape, dtype) in fields.items():
+            o, n = offsets[key]
+            self.inputs[key] = self.dev[o:o + n].view(dtype).view(shape)
+            self.staged[key] = self.host[o:o + n].view(dtype).view(shape).numpy()
+        # the last copy out of `host`, which must land before `host` is rewritten
+        self.copied = torch.cuda.Event() if cuda else None
+        self.noisy = []  # decode: the rows of staged noise that hold draws
+        self.out = {}
+        self.program = Program(make_fn(self.inputs, self.out), name=f"the serving {name}",
+                               counters=(da.LAUNCHES, da.ROUTE_LAUNCHES))
+
+    def stage(self) -> dict:
+        """The staged host arrays, free to write once the last copy out of
+        them has landed."""
+        if self.copied is not None:
+            self.copied.synchronize()
+        return self.staged
+
+    def send(self) -> None:
+        """Copy the staged block in."""
+        self.dev.copy_(self.host, non_blocking=True)
+        if self.copied is not None:
+            self.copied.record()
+
+    def load(self, **values) -> None:
+        """Stage `values` (arrays or numbers, by field) and copy them in."""
+        staged = self.stage()
+        for key, x in values.items():
+            staged[key][...] = x
+        self.send()
+
+
 class ServeEngine:
     """The model executor: owns the parameters and KV pools on one device
     and advances all active sequences one tick at a time. Single-threaded
@@ -296,7 +367,10 @@ class ServeEngine:
             self.k_scale = self.v_scale = None
         self.lock = threading.Lock()
         self.active: list[Sequence] = []
-        self._buckets = {"decode": set(), "prefill": set()}
+        # (B, W) decode and (C, W) prefill buckets, each a program
+        self._programs = {"decode": {}, "prefill": {}}
+        self._capture = self.device.type == "cuda"
+        self._pool = self._stream = None  # one memory pool and side stream for the graphs
         self.ticks = 0
         self.decode_calls = 0
         self.prefill_calls = 0
@@ -368,11 +442,13 @@ class ServeEngine:
                               self.ecfg.block_size, self.kv_dtype_name())
 
     def compiled_programs(self) -> dict:
-        """Distinct (batch, width) decode and (chunk, width) prefill shapes
-        run so far, under the JAX engine's /v1/status key (eager PyTorch
-        compiles nothing; the shapes are what warmup() covers)."""
-        fams = {"decode": len(self._buckets["decode"]),
-                "prefill": len(self._buckets["prefill"]), "draft": 0, "verify": 0}
+        """Per-family program counts (plus ``total``) under the JAX
+        engine's /v1/status key: the (batch, width) decode and (chunk,
+        width) prefill buckets built so far, each a captured CUDA graph on
+        the card. After ``warmup()`` they equal its grid; a growth while
+        serving is an un-warmed bucket captured on a live request."""
+        fams = {"decode": len(self._programs["decode"]),
+                "prefill": len(self._programs["prefill"]), "draft": 0, "verify": 0}
         fams["total"] = sum(fams.values())
         return fams
 
@@ -389,11 +465,6 @@ class ServeEngine:
             self.v_scale[:, idx, :] = 0.0
         return n
 
-    def _reset_scratch_scales(self) -> None:
-        if self.quantized:
-            self.k_scale[:, 0, :] = 0.0
-            self.v_scale[:, 0, :] = 0.0
-
     # ------------------------------------------------------------ steps
 
     def _attend(self, q, ks, vs, pos, k_slot=None, v_slot=None):
@@ -409,13 +480,11 @@ class ServeEngine:
     def _decode(self, tok, pos, table, temps, noise):
         """One decode step over a (B, W) bucket; returns the next tokens
         (B,) and the f32 logits (B, V). tok/pos (B,), table (B, W) int64,
-        temps (B,) f32, noise (B, V) uniform draws or None (all greedy)."""
+        temps (B,) f32, noise (B, V) uniform draws (zero rows where greedy)."""
         cfg, dt = self.cfg, self.cfg.dtype
         n_h, d_h = cfg.n_heads, cfg.head_dim
         bs = self.kv.cfg.block_size
         b, w = table.shape
-        self._buckets["decode"].add((b, w))
-        self.decode_calls += 1
         ar = torch.arange(bs, device=self.device)
         x = self.params["embed"][tok].to(dt) + _sinusoid_pe(pos, cfg.d_model, dt)
         blk = table[torch.arange(b, device=self.device), pos // bs]
@@ -443,24 +512,21 @@ class ServeEngine:
         h = _layer_norm(x, self.params["lnf_scale"], self.params["lnf_bias"]).to(dt)
         logits = h.float() @ self.head_f32
         nxt = torch.argmax(logits, dim=-1)
-        if noise is not None:
-            sampled = sample_gumbel(logits, temps.clamp_min(1e-6)[:, None], noise)
-            nxt = torch.where(temps > 0.0, sampled, nxt)
-        return nxt, logits
+        sampled = sample_gumbel(logits, temps.clamp_min(1e-6)[:, None], noise)
+        return torch.where(temps > 0.0, sampled, nxt), logits
 
     @torch.no_grad()
-    def _prefill(self, toks, pos0: int, table, n_valid: int) -> None:
+    def _prefill(self, toks, pos0, table, n_valid) -> None:
         """Up to C prompt tokens of one sequence at positions pos0.. in one
         call; its attention is the decode tick's (`_attend`) with C query
-        rows. toks (C,), table (W,) int64; rows past n_valid are a dead
-        tail whose writes land in the scratch block."""
+        rows. toks (C,), table (W,) int64, pos0 and n_valid 0-d int64
+        tensors (a graph's inputs, not constants); rows past n_valid are a
+        dead tail whose writes land in the scratch block."""
         cfg, dt = self.cfg, self.cfg.dtype
         n_h, d_h = cfg.n_heads, cfg.head_dim
         bs = self.kv.cfg.block_size
         c, w = toks.shape[0], table.shape[0]
         s = w * bs
-        self._buckets["prefill"].add((c, w))
-        self.prefill_calls += 1
         dev = self.device
         pv = pos0 + torch.arange(c, device=dev)
         valid = torch.arange(c, device=dev) < n_valid
@@ -494,34 +560,128 @@ class ServeEngine:
             x = x + o.reshape(c, n_h * d_h) @ lp["wo"]
             x = mlp_residual(x, lp, dt)
 
+    # ---------------------------------------------------------- programs
+
+    def _state(self) -> list:
+        """The tensors the programs write: the pools (and scales)."""
+        return [t for t in (self.k_pool, self.v_pool, self.k_scale, self.v_scale)
+                if t is not None]
+
+    def _make_bucket(self, kind: str, key) -> _Bucket:
+        """The bucket's program; its function reaches the engine through a
+        weak reference, so the engine and its graphs form no cycle and a
+        dropped engine frees them at once."""
+        me = weakref.ref(self)
+        dev, i64 = self.device, torch.int64
+        if kind == "decode":
+            b, w = key
+            fields = {"tok": ((b,), i64), "pos": ((b,), i64), "table": ((b, w), i64),
+                      "temps": ((b,), torch.float32),
+                      "noise": ((b, self.cfg.vocab_size), torch.float32)}
+
+            def make_fn(x, out):
+                def fn():
+                    out["nxt"], out["logits"] = me()._decode(
+                        x["tok"], x["pos"], x["table"], x["temps"], x["noise"])
+                return fn
+        else:
+            c, w = key
+            fields = {"toks": ((c,), i64), "pos0": ((), i64), "table": ((w,), i64),
+                      "n_valid": ((), i64)}
+
+            def make_fn(x, out):
+                def fn():
+                    me()._prefill(x["toks"], x["pos0"], x["table"], x["n_valid"])
+                return fn
+        return _Bucket(f"{kind} bucket {key}", fields, dev, make_fn)
+
+    def _build(self, keys, *, run: bool) -> None:
+        """Make the buckets of `keys` ((kind, key) pairs) that do not exist
+        yet and, on the card, capture them from the zeros of their fresh
+        buffers; eagerly (`_capture` false, or the CPU) run each once on
+        them if `run`. Their dummy writes land in the scratch block, which
+        is put back as it was. A bucket is kept only once built: a capture
+        that fails raises, naming its bucket, and keeps none of them."""
+        new = {(kind, key): self._make_bucket(kind, key) for kind, key in keys
+               if key not in self._programs[kind]}
+        if not new:
+            return
+        programs = [b.program for b in new.values()]
+        # the scratch block 0 (slots [0, bs) and its scales): the only
+        # memory a zero table at position 0 writes
+        bs = self.kv.cfg.block_size
+        scratch = [self.k_pool[:, :bs], self.v_pool[:, :bs]]
+        if self.quantized:
+            scratch += [self.k_scale[:, 0], self.v_scale[:, 0]]
+        if self._capture:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+                self._stream = torch.cuda.Stream(self.device)
+            # under the lock: no cancel() touches the pools on another
+            # thread while a capture runs
+            with self.lock:
+                capture_all(programs, scratch, self.device, stream=self._stream,
+                            pool=self._pool)
+        elif run:
+            saved = [t.clone() for t in scratch]
+            for p in programs:
+                p()
+            for t, v in zip(scratch, saved):
+                t.copy_(v)
+        for (kind, key), bucket in new.items():
+            self._programs[kind][key] = bucket
+
+    def _bucket(self, kind: str, key) -> _Bucket:
+        """The bucket `key` of `kind`, made (and on the card captured) at
+        its first use when warmup did not cover it."""
+        if key not in self._programs[kind]:
+            self._build([(kind, key)], run=False)
+        return self._programs[kind][key]
+
     def warmup(self, *, max_width_blocks: int | None = None) -> int:
-        """Run every (batch, width) decode bucket and (chunk, width)
-        prefill bucket once with dummy inputs whose writes land in the
-        scratch block, so the first request pays no kernel build or
-        library set-up. Returns the number of calls."""
-        dev = self.device
+        """Build every (batch, width) decode bucket and (chunk, width)
+        prefill bucket of the JAX engine's grid (pow2 batches up to
+        max_batch x pow2 widths; chunks with C <= W * block_size): on the
+        card each is captured, off it each runs once, with dummy inputs
+        whose writes land in the scratch block, which is left as it was. The first request then pays no capture, kernel build or
+        library set-up. Returns the grid's size (the JAX engine's count)."""
         widths = _pow2_upto(_bucket(max_width_blocks or self.kv.cfg.max_blocks_per_seq))
-        n = 0
-        for b in _pow2_upto(self.ecfg.max_batch):
-            for w in widths:
-                zeros = torch.zeros(b, dtype=torch.int64, device=dev)
-                self._decode(zeros, zeros, torch.zeros(b, w, dtype=torch.int64, device=dev),
-                             torch.zeros(b, device=dev), None)
-                self._reset_scratch_scales()
-                n += 1
+        keys = [("decode", (b, w)) for b in _pow2_upto(self.ecfg.max_batch) for w in widths]
         if self.ecfg.prefill_chunk > 1:
             bs = self.kv.cfg.block_size
-            for c in _pow2_upto(self.ecfg.prefill_chunk):
-                for w in widths:
-                    if c > w * bs:
-                        continue
-                    self._prefill(torch.zeros(c, dtype=torch.int64, device=dev), 0,
-                                  torch.zeros(w, dtype=torch.int64, device=dev), 0)
-                    self._reset_scratch_scales()
-                    n += 1
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return n
+            keys += [("prefill", (c, w)) for c in _pow2_upto(self.ecfg.prefill_chunk)
+                     for w in widths if c <= w * bs]
+        self._build(keys, run=True)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return len(keys)
+
+    def _run_decode(self, tok, pos, table, temps, draws: dict) -> list:
+        """One decode call from host arrays: the (B, W) bucket's inputs
+        copied in, one run; returns the next tokens (read before any other
+        program runs: the graphs share their memory). `draws` maps the
+        sampled slots to their noise rows; the other rows stay zero."""
+        bucket = self._bucket("decode", table.shape)
+        staged = bucket.stage()
+        staged["tok"][...] = tok
+        staged["pos"][...] = pos
+        staged["table"][...] = table
+        staged["temps"][...] = temps
+        noise = staged["noise"]
+        noise[bucket.noisy] = 0.0  # the rows the last call drew for
+        for i, row in draws.items():
+            noise[i] = row
+        bucket.noisy = list(draws)
+        bucket.send()
+        bucket.program()
+        self.decode_calls += 1
+        return bucket.out["nxt"].tolist()
+
+    def _run_prefill(self, toks, pos0: int, table, n_valid: int) -> None:
+        bucket = self._bucket("prefill", (toks.shape[0], table.shape[0]))
+        bucket.load(toks=toks, pos0=pos0, table=table, n_valid=n_valid)
+        bucket.program()
+        self.prefill_calls += 1
 
     # ------------------------------------------------------------ the tick
 
@@ -575,7 +735,6 @@ class ServeEngine:
         touched (the JAX engine's schema; the speculative fields stay 0)."""
         ecfg = self.ecfg
         bs = self.kv.cfg.block_size
-        dev = self.device
         with self.lock:
             todo = list(self.active)
         parked: list[Sequence] = []
@@ -615,9 +774,7 @@ class ServeEngine:
                 w = _bucket((seq.pos + n - 1) // bs + 1)
                 toks = np.zeros((c,), np.int64)
                 toks[:n] = seq.prompt[seq.pos: seq.pos + n]
-                table = self.kv.table([seq.seq_id], w)[0]
-                self._prefill(torch.from_numpy(toks).to(dev), seq.pos,
-                              torch.from_numpy(table.astype(np.int64)).to(dev), n)
+                self._run_prefill(toks, seq.pos, self.kv.table([seq.seq_id], w)[0], n)
                 seq.pos += n
                 budget -= n
                 self.prefill_tokens += n
@@ -664,20 +821,10 @@ class ServeEngine:
             tok[i] = s.next_input()
             pos[i] = s.pos
             temps[i] = s.temperature
-        noise = None
-        if temps.any():
-            noise = torch.zeros(b, self.cfg.vocab_size)
-            for i, s in enumerate(batch):
-                if s.temperature > 0.0:
-                    noise[i] = self._sample_noise(s)
-            noise = noise.to(dev)
+        draws = {i: self._sample_noise(s).numpy() for i, s in enumerate(batch)
+                 if s.temperature > 0.0}
         table = self.kv.table([s.seq_id for s in batch] + [-1] * (b - len(batch)), w)
-        nxt, _ = self._decode(
-            torch.from_numpy(tok).to(dev), torch.from_numpy(pos).to(dev),
-            torch.from_numpy(table.astype(np.int64)).to(dev),
-            torch.from_numpy(temps).to(dev), noise,
-        )
-        nxt = nxt.tolist()
+        nxt = self._run_decode(tok, pos, table, temps, draws)
         for i, s in enumerate(batch):
             consumed_at = s.pos
             s.pos += 1

@@ -379,9 +379,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="finalized per-request records kept for "
                    "GET /v1/requests")
     p.add_argument("--warmup", action="store_true",
-                   help="run every (batch, width) bucket once before "
-                   "binding the port (kernel build and library set-up "
-                   "off the first request)")
+                   help="capture every (batch, width) bucket's CUDA graph "
+                   "(on the CPU: run it once) before binding the port, so "
+                   "no capture, kernel build or library set-up lands on a "
+                   "request")
     p.add_argument("--replica-id",
                    default=os.environ.get("DNN_TPU_REPLICA_ID"),
                    help="replica identity stamped on summaries and "
@@ -430,7 +431,7 @@ def build_server(argv=None, *, log=print):
     ))
     if args.warmup:
         n = engine.warmup()
-        log(f"(warmup: {n} bucket calls)")
+        log(f"(warmup: {n} bucket programs {'captured' if engine._capture else 'run'})")
     registry = MetricsRegistry()
     scheduler = ServeScheduler(
         engine,

@@ -418,9 +418,10 @@ class Engine:
             metrics[0] = weighted_mean_scalar(buf[:, n_params] * w_eff, n_batches * w_eff)
             metrics[1] = mask.sum()
 
-        self._begin = Program(begin, counters=counters)
-        self._step = Program(*step_parts, counters=counters)
-        self._sync = Program(sync_put, *collective(state), sync_mean, counters=counters)
+        self._begin = Program(begin, counters=counters, name="the CNN epoch's start")
+        self._step = Program(*step_parts, counters=counters, name="the CNN train step")
+        self._sync = Program(sync_put, *collective(state), sync_mean, counters=counters,
+                             name="the CNN replica sync")
         self._eval = None
         if self.test_images is not None:
             test = (self.test_images, self.test_labels, self.test_weights, self.eval_idx,
@@ -435,7 +436,8 @@ class Engine:
                 metrics[2] = loss_sum / n_eval.clamp(min=1.0)
                 metrics[3] = 100.0 * correct / n_valid.clamp(min=1.0)
 
-            self._eval = Program(eval_local, *collective(sums), eval_mean, counters=counters)
+            self._eval = Program(eval_local, *collective(sums), eval_mean, counters=counters,
+                                 name="the CNN eval")
 
     def _programs(self):
         return [p for p in (self._begin, self._step, self._sync, self._eval) if p is not None]

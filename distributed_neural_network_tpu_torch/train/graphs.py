@@ -24,6 +24,17 @@ stream (which builds the libraries' handles, cuDNN's plans, the kernels'
 attributes and NCCL's), then the capture on that same stream. The warm-up
 changes the state, so `capture_all` puts every state tensor back as it was.
 
+An owner with many programs that run one at a time on one stream (the
+serving engine's bucket graphs) passes one `torch.cuda.graph_pool_handle()`
+and one side stream to every `capture_all`: the graphs then share a memory
+pool, so the intermediates of one reuse those of another (only tensors a
+program keeps, such as its outputs, stay its own; read them before the next
+replay), and the libraries' per-stream workspaces are built once. A program
+captured later than the others (a serving bucket first met mid-serve) is
+captured the same way, from the dummy values its fresh static buffers hold:
+`capture_all` puts the state back after the warm-up, so the capture leaves
+the state as it found it.
+
 Launch accounting: the kernel wrappers count a launch where they issue one
 (`ops/fused_head.py` `LAUNCHES`). During a capture nothing executes, so a
 program records each counter's change during its capture, puts the counters
@@ -51,11 +62,12 @@ class Program:
     """Its parts run in order, `times` times per call: eagerly, or as
     replays of the graphs `capture` recorded (one per run of parts between
     `Eager` ones, which run eagerly between the replays). `counters` are
-    dicts of launch counts."""
+    dicts of launch counts; `name` says what it is in a capture's error."""
 
-    def __init__(self, *parts, counters=()):
+    def __init__(self, *parts, counters=(), name: str = "a program"):
         self.parts = parts
         self.counters = counters
+        self.name = name
         self.graphs = []
         self.segments = None  # after capture: graph replays and eager parts, in order
         self.delta = None
@@ -70,18 +82,20 @@ class Program:
         for p in self.parts:
             (p.fn if isinstance(p, Eager) else p)()
 
-    def _record(self, fns, stream):
+    def _record(self, fns, stream, pool):
         graph = torch.cuda.CUDAGraph()
         # thread_local: other threads (NCCL's watchdog, the stream's
         # prefetch thread pinning host memory) may call CUDA meanwhile
-        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
             for f in fns:
                 f()
         self.graphs.append(graph)
         return graph.replay
 
-    def capture(self, stream: torch.cuda.Stream) -> None:
-        """Record the parts as CUDA graphs on `stream`; raises if they cannot be."""
+    def capture(self, stream: torch.cuda.Stream, pool=None) -> None:
+        """Record the parts as CUDA graphs on `stream`, in memory pool `pool`
+        (None: a pool of their own); raises if they cannot be."""
         before = [dict(c) for c in self.counters]
         segments, run = [], []
         # no garbage collection inside a capture: freeing another graph
@@ -91,13 +105,13 @@ class Program:
             for p in self.parts:
                 if isinstance(p, Eager):
                     if run:
-                        segments.append(self._record(run, stream))
+                        segments.append(self._record(run, stream, pool))
                     segments.append(p.fn)
                     run = []
                 else:
                     run.append(p)
             if run:
-                segments.append(self._record(run, stream))
+                segments.append(self._record(run, stream, pool))
         finally:
             gc.enable()
         # the eager parts did not run during the capture: only graphs count
@@ -119,19 +133,26 @@ class Program:
                 c[k] += v * times
 
 
-def capture_all(programs, state, device: torch.device) -> None:
-    """Warm every program up once on a side stream, give each tensor of
-    `state` its value back, and capture every program on that stream."""
+def capture_all(programs, state, device: torch.device, *, stream=None, pool=None) -> None:
+    """Warm every program up once on a side stream (`stream`, or a new
+    one), give each tensor of `state` its value back, and capture every
+    program on that stream, into memory pool `pool` (None: each graph its
+    own). A failure raises naming the program it hit; the programs are
+    then to be dropped, the captured ones with the rest."""
     counts = [dict(c) for p in programs for c in p.counters]
     # detached: a clone that tracked gradients would keep each parameter's
     # AccumulateGrad node alive, tied to the default stream, and autograd
     # would then make that stream wait on the capture
     saved = [t.detach().clone() for t in state]
-    stream = torch.cuda.Stream(device)
+    if stream is None:
+        stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(stream):
         for p in programs:
-            p.fn()
+            try:
+                p.fn()
+            except Exception as e:
+                raise RuntimeError(f"warming up {p.name} for its capture failed") from e
         with torch.no_grad():
             for t, s in zip(state, saved):
                 t.copy_(s)
@@ -139,4 +160,7 @@ def capture_all(programs, state, device: torch.device) -> None:
     for c, v in zip((c for p in programs for c in p.counters), counts):
         c.update(v)
     for p in programs:
-        p.capture(stream)
+        try:
+            p.capture(stream, pool)
+        except Exception as e:
+            raise RuntimeError(f"capturing {p.name} as a CUDA graph failed") from e

@@ -9,6 +9,18 @@ tree carries across leaf by leaf). The step updates parameters and state in
 place, as the CNN port does, where the JAX step returns new trees. Meshes,
 ZeRO and the overlapped gradient sync come with the parallel layouts; the
 guard, fault plans and dynamics with slice 4.
+
+The train step and the eval loss are each one `train/graphs.py` `Program`
+over static buffers (tokens, targets and the step's lr and Adam bias
+corrections as 0-d f32 tensors), bound to the parameter and optimizer-state
+tensors of their first call: on the card a CUDA graph captured at that call
+(the counterpart of the JAX package's jitted step and eval), so a step is a
+few copies into the buffers and one replay; on the CPU the same function
+runs eagerly. The host computes each step's lr and corrections in f32, as
+before, and writes them into their buffers; the updates read the buffers,
+so graph and eager give the same bits. `_capture = False` before the first
+call runs the program eagerly on the card too (the graphed step is held to
+that run bit for bit).
 """
 
 from __future__ import annotations
@@ -18,7 +30,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..models import transformer as tfm
-from ..ops.adam import adam_step, init_adam
+from ..ops import flash_attention as fa
+from ..ops.adam import B2, EPS, adam_leaf_update, bias_corrections, init_adam
 from ..ops.schedule import (
     GRAD_SYNCS,
     accumulate_fwd_bwd,
@@ -29,6 +42,7 @@ from ..ops.schedule import (
 )
 from ..ops.sgd import init_momentum, sgd_step
 from ..parallel.ring import PARALLEL_SLICE
+from .graphs import Program, capture_all
 
 OPTIMIZERS = ("sgd", "adam", "zero", "zero-adam")
 
@@ -91,8 +105,10 @@ def _ce_sum_chunked(x, head, targets, n_chunks: int):
     total = torch.zeros((), device=x.device)
     for c in range(n_chunks):
         sl = slice(c * cs, (c + 1) * cs)
+        # the model draws no random numbers: no RNG state to stash (a
+        # captured step could not read the generator's state)
         total = total + checkpoint(_chunk_ce, x[:, sl], head, targets[:, sl],
-                                   use_reentrant=False)
+                                   use_reentrant=False, preserve_rng_state=False)
     return total
 
 
@@ -127,6 +143,139 @@ def init_lm_momentum(params, optimizer: str = "sgd"):
     return init_momentum(leaves) if optimizer == "sgd" else init_adam(leaves)
 
 
+class _Captured:
+    """One `Program` over static input buffers, built at the first call and
+    bound to that call's parameter (and optimizer-state) tensors; captured
+    there when `_capture` holds (by default: when the buffers are on the
+    card). A capture that fails raises and keeps nothing, so the next call
+    starts afresh."""
+
+    def __init__(self, name: str, device=None):
+        self.name = name
+        self.device = None if device is None else torch.device(device)
+        self._capture = None
+        self.program = None
+        self._bound = None
+        self._inputs = None
+
+    def _bind(self, bound, inputs, build) -> bool:
+        """At the first call make the static buffers and the program
+        (`build(*buffers)`, a function of no arguments) and return True;
+        later raise if `bound` or the inputs' shapes are not the first
+        call's, before anything is written."""
+        first = self.program is None
+        if first:
+            dev = self.device or bound[0].device
+            if self._capture is None:
+                self._capture = dev.type == "cuda"
+            self._bound = bound
+            self._inputs = [torch.empty(x.shape, dtype=x.dtype, device=dev) for x in inputs]
+            # a replay adds the flash kernels' captured launches to their counters
+            self.program = Program(build(*self._inputs), name=self.name,
+                                   counters=(fa.LAUNCHES, fa.ROUTE_LAUNCHES))
+        elif len(bound) != len(self._bound) or any(a is not b for a, b in zip(bound, self._bound)):
+            raise ValueError(f"{self.name} was built over other parameter or optimizer-state "
+                             f"tensors; make a new one for these")
+        elif any(x.shape != b.shape for x, b in zip(inputs, self._inputs)):
+            raise ValueError(f"{self.name} runs at shapes {[tuple(b.shape) for b in self._inputs]}"
+                             f", got {[tuple(x.shape) for x in inputs]}")
+        return first
+
+    def _run(self, first: bool, inputs, state) -> None:
+        """Copy `inputs` into the static buffers and run the program,
+        capturing it at the first call (`state`: the tensors the program
+        writes, put back after the capture's warm-up)."""
+        for b, x in zip(self._inputs, inputs):
+            b.copy_(x)
+        if first and self._capture:
+            try:
+                capture_all([self.program], state, self._inputs[0].device)
+            except Exception:
+                self.program = self._bound = self._inputs = None
+                raise
+        self.program()
+
+
+class LMTrainStep(_Captured):
+    """`step(params, mom, tokens, targets, step_i=None)` -> loss (0-d f32
+    tensor), or (loss, health) with `with_health`; params and optimizer
+    state are updated in place. See `make_lm_train_step`."""
+
+    def __init__(self, cfg, *, device, lr, momentum, attn_impl, optimizer, loss_chunks,
+                 lr_schedule, clip_norm, accum_steps, weight_decay, with_health):
+        super().__init__("the LM train step", device)
+        self.cfg, self.lr, self.momentum = cfg, lr, momentum
+        self.attn_impl, self.optimizer, self.loss_chunks = attn_impl, optimizer, loss_chunks
+        self.lr_schedule, self.clip_norm, self.accum_steps = lr_schedule, clip_norm, accum_steps
+        self.weight_decay, self.with_health = weight_decay, with_health
+        self._out = {}
+        self._scalars = None
+
+    def _build(self, params, mom, tokens, targets):
+        """The step's function over the static buffers (closing over no
+        reference to this object: a dropped step frees its graph at once)."""
+        cfg, attn_impl, loss_chunks = self.cfg, self.attn_impl, self.loss_chunks
+        optimizer, momentum, weight_decay = self.optimizer, self.momentum, self.weight_decay
+        clip_norm, with_health, out = self.clip_norm, self.with_health, self._out
+        accum = self.accum_steps
+        lr_t, c1, c2 = self._scalars
+        leaves = tree_leaves(params)
+
+        def fn():
+            for p in leaves:
+                p.requires_grad_(True)
+                p.grad = None
+
+            def one(tok, tgt):
+                loss = lm_loss(params, tok, tgt, cfg, attn_impl=attn_impl,
+                               loss_chunks=loss_chunks)
+                loss.backward()
+                return loss.detach()
+
+            loss = accumulate_fwd_bwd(one, accum)(leaves, tokens, targets)
+            grads = [p.grad for p in leaves]
+            norm = None
+            if clip_norm > 0.0:
+                norm = clip_by_global_norm(grads, clip_norm)
+            elif with_health:
+                norm = global_norm(grads)
+            if optimizer == "adam":
+                adam_leaf_update(leaves, grads, mom["m"], mom["v"], c1, c2, lr_t, momentum,
+                                 B2, EPS, weight_decay)
+            else:
+                sgd_step(leaves, mom, grads, lr_t, momentum)
+                apply_decoupled_weight_decay(leaves, lr_t, weight_decay)
+            for p in leaves:
+                p.grad = None
+            out["loss"] = loss
+            if with_health:
+                out["health"] = health_bundle(loss, norm)
+
+        return fn
+
+    def __call__(self, params, mom, tokens, targets, step_i=None):
+        leaves = tree_leaves(params)
+        bound = leaves + (mom if self.optimizer == "sgd" else mom["m"] + mom["v"])
+        if self._scalars is None:
+            self._scalars = [torch.zeros((), device=self.device or leaves[0].device)
+                             for _ in range(3)]
+        first = self._bind(bound, (tokens, targets),
+                           lambda tok, tgt: self._build(params, mom, tok, tgt))
+        lr_t, c1, c2 = self._scalars
+        # the host's f32 values, written into the buffers the updates read
+        lr_t.fill_(self.lr if self.lr_schedule is None else self.lr_schedule(step_i))
+        if self.optimizer == "adam":
+            for buf, c in zip((c1, c2), bias_corrections(mom["t"] + 1, self.momentum, B2)):
+                buf.fill_(c)
+        self._run(first, (tokens, targets), bound)
+        if self.optimizer == "adam":
+            mom["t"] += 1
+        loss = self._out["loss"].clone()
+        if self.with_health:
+            return loss, {k: v.clone() for k, v in self._out["health"].items()}
+        return loss
+
+
 def make_lm_train_step(cfg, *, device=None, lr: float = 0.1, momentum: float = 0.9,
                        attn_impl: str = "ring", optimizer: str = "sgd", loss_chunks: int = 0,
                        lr_schedule=None, clip_norm: float = 0.0, accum_steps: int = 1,
@@ -142,8 +291,11 @@ def make_lm_train_step(cfg, *, device=None, lr: float = 0.1, momentum: float = 0
     pre-clip one), lr from `lr_schedule(step_i)` (a callable, e.g.
     `functools.partial(warmup_cosine, ...)`) or `lr`, then the optimizer:
     SGD with momentum followed by decoupled weight decay, or Adam/AdamW
-    with `momentum` as b1. `device`, when given, is where the step moves
-    tokens and targets.
+    with `momentum` as b1. `device`, when given, is where the step's
+    buffers live (the parameters' device; by default theirs), into which
+    each call copies its tokens and targets. The step is one program, bound
+    to the parameter and state tensors and the token shape of its first
+    call (a call with others raises), and on the card a CUDA graph.
     """
     _check_optimizer(optimizer)
     if grad_sync not in GRAD_SYNCS:
@@ -152,47 +304,38 @@ def make_lm_train_step(cfg, *, device=None, lr: float = 0.1, momentum: float = 0
         raise NotImplementedError(f"grad_sync='overlap' comes with {PARALLEL_SLICE}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    device = None if device is None else torch.device(device)
+    return LMTrainStep(cfg, device=device, lr=lr, momentum=momentum, attn_impl=attn_impl,
+                       optimizer=optimizer, loss_chunks=loss_chunks, lr_schedule=lr_schedule,
+                       clip_norm=clip_norm, accum_steps=accum_steps,
+                       weight_decay=weight_decay, with_health=with_health)
 
-    def step(params, mom, tokens, targets, step_i=None):
-        if device is not None:
-            tokens, targets = tokens.to(device), targets.to(device)
-        leaves = tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-            p.grad = None
 
-        def one(tok, tgt):
-            loss = lm_loss(params, tok, tgt, cfg, attn_impl=attn_impl, loss_chunks=loss_chunks)
-            loss.backward()
-            return loss.detach()
+class EvalLoss(_Captured):
+    """(params, tokens, targets) -> held-out loss, no gradient: one program
+    at the shape of its first call, bound to that call's parameter tensors
+    (the JAX CLI's jitted eval)."""
 
-        loss = accumulate_fwd_bwd(one, accum_steps)(leaves, tokens, targets)
-        grads = [p.grad for p in leaves]
-        norm = None
-        if clip_norm > 0.0:
-            norm = clip_by_global_norm(grads, clip_norm)
-        elif with_health:
-            norm = global_norm(grads)
-        lr_t = lr if lr_schedule is None else lr_schedule(step_i)
-        if optimizer == "adam":
-            adam_step(leaves, mom, grads, lr_t, b1=momentum, weight_decay=weight_decay)
-        else:
-            sgd_step(leaves, mom, grads, lr_t, momentum)
-            apply_decoupled_weight_decay(leaves, lr_t, weight_decay)
-        for p in leaves:
-            p.grad = None
-        return (loss, health_bundle(loss, norm)) if with_health else loss
+    def __init__(self, cfg, *, attn_impl: str, loss_chunks: int):
+        super().__init__("the LM eval loss")
+        self.cfg, self.attn_impl, self.loss_chunks = cfg, attn_impl, loss_chunks
+        self._out = {}
 
-    return step
+    def __call__(self, params, tokens, targets):
+        cfg, attn_impl, loss_chunks, out = self.cfg, self.attn_impl, self.loss_chunks, self._out
+
+        def build(tok, tgt):
+            @torch.no_grad()
+            def fn():
+                out["loss"] = lm_loss(params, tok, tgt, cfg, attn_impl=attn_impl,
+                                      loss_chunks=loss_chunks)
+
+            return fn
+
+        self._run(self._bind(tree_leaves(params), (tokens, targets), build), (tokens, targets),
+                  [])
+        return out["loss"].clone()
 
 
 def make_eval_fn(cfg, *, attn_impl: str = "ring", loss_chunks: int = 0):
-    """(params, tokens, targets) -> held-out loss, no gradient."""
-
-    @torch.no_grad()
-    def eval_loss(params, tokens, targets):
-        return lm_loss(params, tokens, targets, cfg, attn_impl=attn_impl,
-                       loss_chunks=loss_chunks)
-
-    return eval_loss
+    """(params, tokens, targets) -> held-out loss, no gradient (`EvalLoss`)."""
+    return EvalLoss(cfg, attn_impl=attn_impl, loss_chunks=loss_chunks)

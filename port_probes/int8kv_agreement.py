@@ -3,13 +3,15 @@
 on the split and the simt decode route, on one GPU.
 
     python3 port_probes/int8kv_agreement.py            # from the repo root
-    ROUTES=split,split ONLY_OPEN=1 python3 port_probes/int8kv_agreement.py
+    ROUTES=split,split-eager ONLY_OPEN=1 python3 port_probes/int8kv_agreement.py
 
 Serves chip_smoke.py phase 9's 24 requests (the same prompts, arrivals and
 server flags) with --precision int8-kv --decode-impl cuda once per entry of
 ROUTES (default split,simt,split,simt,split,simt), the decode route forced
-by replacing `decode_route`, and prints chip_smoke's `Oracle.agreement`
-and the engine's prefill calls for each. Unless ONLY_OPEN is set it then
+by replacing `decode_route`; an entry ending in "-eager" serves with the
+engine run eagerly (its `_capture` hook) rather than from its captured
+graphs. Prints chip_smoke's `Oracle.agreement` and the engine's prefill
+calls for each. Unless ONLY_OPEN is set it then
 serves the same requests with no timing (8 at a time, in order, stepped to
 the end) on each route, and prints each route's error against a float64
 evaluation of the same function (codes x scales rounded to bf16, exact
@@ -40,8 +42,12 @@ def force(route):
     da.decode_route = (lambda *a: "simt") if route == "simt" else RULE
 
 
-def served_open_loop(prompts, arrivals):
-    srv, sched, eng = build_server(ARGS, log=lambda line: None)
+def served_open_loop(prompts, arrivals, eager=False):
+    args = [a for a in ARGS if a != "--warmup"] if eager else ARGS
+    srv, sched, eng = build_server(args, log=lambda line: None)
+    if eager:
+        eng._capture = False
+        eng.warmup()
     try:
         pre0 = eng.prefill_calls
         results = cs.open_loop(srv.port, prompts, arrivals)
@@ -103,12 +109,13 @@ def main() -> int:
     arrivals = np.cumsum(rng.exponential(1.0 / cs.RATE, size=cs.N_REQUESTS)).tolist()
     oracle = cs.Oracle(torch, tfm, prompts, dev)
     routes = os.environ.get("ROUTES", "split,simt,split,simt,split,simt").split(",")
-    for route in routes:
+    for entry in routes:
+        route, _, mode = entry.partition("-")
         force(route)
-        served, pre = served_open_loop(prompts, arrivals)
+        served, pre = served_open_loop(prompts, arrivals, eager=mode == "eager")
         force("split")
         strict, agree, stream = oracle.agreement(served)
-        print(f"open loop {route}: agree {agree:.4f} strict {strict:.4f} stream {stream:.4f} "
+        print(f"open loop {entry}: agree {agree:.4f} strict {strict:.4f} stream {stream:.4f} "
               f"prefill calls {pre}", flush=True)
     if os.environ.get("ONLY_OPEN"):
         return 0
