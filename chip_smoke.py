@@ -192,7 +192,26 @@ Phases (any failure exits non-zero and prints no result):
    step and eval (LM_GRAPH_CASES): 3 flash bf16 steps at full width, and
    4 steps each of int8, --accum-steps 2 and adam + cosine + clip at full
    width and 2 layers, eagerly and graphed: the losses, eval losses,
-   parameters and optimizer state bit for bit.
+   parameters and optimizer state bit for bit;
+21. the LM on the data axis (`port_probes/lm_dp_world.py`): `lm_train.main`
+   at LM_ARGS with --attn flash in one process (--dp 1: sgd, adam, 4 steps),
+   then one launch of 2 ranks sharing the card over gloo, each running
+   every case of phases 21-23 through `lm_train.main` (--dp 2; the counters
+   set to 0 before each run): sgd and adam, 4 steps: every step's loss
+   within LOSS_TOL relative of --dp 1's, the ranks' SUMMARY lines and
+   parameters equal, each rank's flash launches the formula, all on the
+   mma route; ms per step, tokens/s, 3 profiled steps' idle share (the
+   union of both ranks' device intervals), the collectives' time a step
+   (run alone on the step's buffers) and the collective form;
+22. --accum-steps 4 with --grad-sync end, overlap --bucket-mb 4 and 16 at
+   --dp 2, 3 steps: losses within LOSS_TOL of end, the bucket count
+   `plan_buckets`'s, ms per step; the CNN at phase 4's run with --sync-mode
+   step --grad-sync overlap (10 KB buckets) bitwise its end run, in one
+   process graphed and on 2 ranks x 2 workers over gloo;
+23. --optimizer zero and zero-adam at --dp 2, 4 steps: the parameters
+   bitwise phase 21's sgd / adam run's; each rank's zero-adam state
+   (`memory_allocated` around `init_lm_momentum`) within 1% of its shards'
+   bytes (half the replicated state plus the padding), beside adam's.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -2784,6 +2803,112 @@ def main() -> int:
         graphs_run["serving"] = serve_graphs_vs_eager(torch, prompts)
         graphs_run["lm"] = [lm_graphs_vs_eager(torch, *case) for case in LM_GRAPH_CASES]
 
+    dp_run = {}
+    with phase("21 LM data parallel, 2 ranks on the one card"):
+        from port_probes import lm_dp_world as W
+        from torch_rank_worker import busy_union, launch
+
+        # the one-process runs of the same global batch, then every run of
+        # phases 21-23 in one launch of the ranks (gloo: they share the card)
+        t0 = time.perf_counter()
+        ref = W.reference(LM_ARGS)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = W.run_world(2, os.path.join(ROOT, "chiprun_out", "lm_dp"), LM_ARGS, timeout=900)
+        dp_run = W.check(2, ranks, ref, LM_ARGS, flash_counts=flash_counts,
+                         mma_counts=mma_counts, busy_union=busy_union)
+        dp_run["one_process"] = ref
+        dp_run["seconds"] = {"one_process": t1 - t0, "ranks": time.perf_counter() - t1}
+        runs = dp_run["runs"]
+        form = runs["sgd"]["form"]
+        print(f"   one process (dp 1) {t1 - t0:.1f} s; 2 ranks, every run of phases 21-23, "
+              f"{time.perf_counter() - t1:.1f} s with start-up; backend "
+              f"{runs['sgd']['backend']}, {runs['sgd']['cards']} card")
+        print(f"   collective form: {form}")
+        for name in ("sgd", "adam"):
+            row = runs[name]
+            print(f"   {name} --dp 2: {row['ms_per_step']:.2f} ms per step, "
+                  f"{row['tokens_per_s']} tokens/s, MFU {row['mfu_pct']}% (1 card); losses "
+                  f"{[round(x, 5) for x in row['losses']]}, max relative difference from one "
+                  f"process {row['max_rel_vs_one_process']:.2e}; the ranks' SUMMARY lines "
+                  f"equal; flash launches per rank {row['launches_per_rank']} (all mma)")
+        prof = runs["sgd"]["profile"]
+        print(f"   sgd --dp 2, 3 profiled steps: wall {prof['wall_s']:.3f} s, the card's idle "
+              f"share over both ranks' device intervals {fmt(prof['idle_share'])}")
+        print(f"   the collectives alone, per step (ms, each rank): sgd "
+              f"{[fmt(x) for x in runs['sgd']['collective_ms']]}, zero "
+              f"{[fmt(x) for x in runs['zero']['collective_ms']]}; graph segments of a step: "
+              f"sgd {runs['sgd']['segments']}, zero {runs['zero']['segments']}")
+
+    with phase("22 grad sync: end and overlap"):
+        for name in ("end4", "overlap4", "overlap16"):
+            row = runs[name]
+            extra = (f", {row['n_buckets']} buckets (plan_buckets), losses within "
+                     f"{row['max_rel_vs_end']:.2e} of end" if "n_buckets" in row else "")
+            print(f"   --accum-steps 4 {name}: {row['ms_per_step']:.2f} ms per step, "
+                  f"{row['tokens_per_s']} tokens/s; the collectives alone "
+                  f"{[fmt(x) for x in row['collective_ms']]} ms per step; graph segments "
+                  f"{row['segments']}{extra}")
+        # the CNN at phase 4's shape, --sync-mode step, one gather per leaf
+        # bucket of 10 KB a replica against one for all: bitwise, in one
+        # process and on 2 ranks x 2 workers (gloo)
+        from distributed_neural_network_tpu_torch.data.cifar10 import load_split
+        from distributed_neural_network_tpu_torch.train.engine import Engine, TrainConfig
+
+        split4 = load_split(True, source="synthetic", synthetic_size=512, seed=3)
+        test4 = load_split(False, source="synthetic", synthetic_size=128, seed=3)
+        cnn = {}
+        for gs in ("end", "overlap"):
+            cfg = TrainConfig(**{**CNN_SMALL, "sync_mode": "step", "grad_sync": gs,
+                                 "bucket_mb": 0.01})
+            eng = Engine(cfg, split4, test4, device=dev)
+            cnn[gs] = ([eng.run_epoch(e) for e in range(2)],
+                       [p.detach().clone() for p in eng.params], len(eng._step.segments))
+            del eng
+        check(cnn["end"][0] == cnn["overlap"][0]
+              and all(torch.equal(a, b) for a, b in zip(cnn["end"][1], cnn["overlap"][1])),
+              f"CNN step sync in buckets differs from end: {cnn['end'][0]} / {cnn['overlap'][0]}")
+        out22 = os.path.join(ROOT, "chiprun_out", "ranks22")
+        os.makedirs(out22, exist_ok=True)
+        spec = {"device": "cuda", "out": out22, "runs": [
+            {"name": gs, "config": {**CNN_SMALL, "sync_mode": "step", "grad_sync": gs,
+                                    "bucket_mb": 0.01},
+             "train": {"size": 512, "seed": 3}, "test": {"size": 128, "seed": 3}}
+            for gs in ("end", "overlap")]}
+        for r, proc in enumerate(launch(2, spec, timeout=300)):
+            check(proc.returncode == 0, f"rank {r} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        segs = {}
+        for r in range(2):
+            got = {}
+            for gs in ("end", "overlap"):
+                with open(os.path.join(out22, f"{gs}_rank{r}.json")) as f:
+                    info = json.load(f)
+                got[gs] = (info["history"], dict(np.load(os.path.join(out22, f"{gs}_rank{r}.npz"))))
+                segs[gs] = info["segments"]
+            check(got["end"][0] == got["overlap"][0] and all(
+                np.array_equal(got["end"][1][k], got["overlap"][1][k]) for k in got["end"][1]),
+                f"rank {r}: the CNN's bucketed step sync differs from end")
+        dp_run["cnn"] = {"final_val_acc": cnn["end"][0][-1].val_acc, "segments_2x2": segs}
+        print(f"   CNN, phase 4's run with --sync-mode step: --grad-sync overlap (10 KB "
+              f"buckets) bitwise --grad-sync end in one process (graphed) and on 2 ranks x 2 "
+              f"workers over gloo; graphs and eager parts per program on the ranks: end "
+              f"{segs['end']}, overlap {segs['overlap']}")
+
+    with phase("23 ZeRO-1"):
+        for name in ("zero", "zero-adam"):
+            row = runs[name]
+            print(f"   --optimizer {name} --dp 2: parameters after 4 steps bitwise the "
+                  f"{'sgd' if name == 'zero' else 'adam'} run's; {row['ms_per_step']:.2f} ms "
+                  f"per step, {row['tokens_per_s']} tokens/s")
+        sb = dp_run["state_bytes"]
+        print(f"   optimizer state per rank (memory_allocated around init_lm_momentum): "
+              f"zero-adam {sb['per_rank']['zero-adam']['allocated']:,} B against adam "
+              f"{sb['replicated_adam']:,} B (ratio {sb['ratio']:.4f}; the shards hold "
+              f"{sb['zero_adam_want']:,} B; padding {sb['padding_floats']} floats over the "
+              f"ranks); zero "
+              f"{sb['per_rank']['zero']['allocated']:,} B against sgd "
+              f"{sb['per_rank']['sgd']['allocated']:,} B")
+
     designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
                                  f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
                "fused_mlp3_bwd": f"one launch for all replicas, a cluster of "
@@ -2827,7 +2952,7 @@ def main() -> int:
                    "lm_runs": lm_runs, "lm_checks": lm_checks, "learn": learn,
                    "lm_profile": lm_profile, "graphs": graphs_run, "across": across,
                    "stream": stream_run,
-                   "bf16": bf16_run}, f, indent=1)
+                   "bf16": bf16_run, "data_axis": dp_run}, f, indent=1, default=str)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

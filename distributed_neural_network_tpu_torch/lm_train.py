@@ -1,17 +1,35 @@
-"""Train the transformer LM on one device: the port of the JAX package's
-`lm_train.py`, with its flags, its per-step ``step N  loss X`` lines, its MFU
-line and its final ``SUMMARY {json}`` line (the same keys).
+"""Train the transformer LM: the port of the JAX package's `lm_train.py`,
+with its flags, its per-step ``step N  loss X`` lines, its MFU line and its
+final ``SUMMARY {json}`` line (the same keys).
 
     python -m distributed_neural_network_tpu_torch.lm_train --attn flash \\
         --dtype bfloat16 --steps 20 --batch-size 16 --seq-len 2048 \\
         --vocab 32768 --d-model 512 --n-layers 8 --n-heads 8 --d-ff 2048 --lr 0.01
 
+Data parallelism: ``--dp N`` is N ranks under torchrun, one a data shard,
+each joining the group through `parallel/distributed.py` `initialize`
+(NCCL when every rank has a card of its own, gloo when ranks share one, gloo
+on the CPU):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m distributed_neural_network_tpu_torch.lm_train --dp 2 [--optimizer zero] \\
+        [--grad-sync overlap --accum-steps 4 --bucket-mb 4] ...
+
+Every rank builds the same global batch and feeds the step its block of
+B/dp rows; the loss lines and the SUMMARY are the group's, the same on
+every rank (timings are the slowest rank's), each line written whole. MFU
+is taken over the peak times the number of cards the ranks run on (ranks
+that share a card count it once). ``--sharding manual`` (the rule table) or
+``rules:<file>`` (a JSON rule list, `parallel/rules.py`) gives the
+parameters' specs, which the data axis keeps replicated.
+
 Runs on the GPU unless ``--device cpu`` is given; there the train step (and
-the eval loss) is one CUDA graph, captured at the first step and replayed
-after. ``--generate`` decodes eagerly. ``--attn flash`` runs the
-hand-written flash kernels (`ops/flash_attention.py`; their plain versions on
-the CPU); ``--attn ring|ulysses|zigzag`` at ``--sp 1`` is the plain local
-attention, as the JAX `_attend` with no sequence axis. ``--precision
+the eval loss) is captured as CUDA graphs at the first step and replayed
+after (one graph, unless gloo collectives split the step). ``--generate``
+decodes eagerly. ``--attn flash`` runs the hand-written flash kernels
+(`ops/flash_attention.py`; their plain versions on the CPU); ``--attn
+ring|ulysses|zigzag`` at ``--sp 1`` is the plain local attention, as the
+JAX `_attend` with no sequence axis. ``--precision
 fp8|int8`` quantizes the attention forward. The task is the synthetic copy
 task (a `torch.Generator` stream, not `jax.random`'s) unless ``--data-path``
 names a token corpus. Flags of later slices raise `NotImplementedError`
@@ -22,17 +40,22 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
+import socket
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .device import resolve_device
 from .models import transformer as tfm
 from .ops.schedule import make_ema_update, warmup_cosine
+from .parallel.distributed import distribute_host_data, initialize, joined
 from .parallel.ring import PARALLEL_SLICE
 from .train import lm as lmtrain
+from .train.cli import SLICE5, say
 from .train.engine import SLICE4
 from .train.measure import model_flops_per_token, peak_flops
 
@@ -46,10 +69,8 @@ SUMMARY_KEYS = (
 
 # dest -> (flag, the slice that brings it); each is parsed with default None
 LATER_FLAGS = {
-    "sharding": ("--sharding", PARALLEL_SLICE),
     "microbatches": ("--microbatches", PARALLEL_SLICE),
     "pp_interleave": ("--pp-interleave", PARALLEL_SLICE),
-    "bucket_mb": ("--bucket-mb", PARALLEL_SLICE),
     "stop_at_step": ("--stop-at-step", SLICE4),
     "metrics_jsonl": ("--metrics-jsonl", SLICE4),
     "run_record": ("--run-record", SLICE4),
@@ -94,9 +115,15 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; asking for cuda without a GPU is an error")
-    for flag in ("--dp", "--sp", "--tp", "--pp"):
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks: run N processes under torchrun")
+    for flag in ("--sp", "--tp", "--pp"):
         p.add_argument(flag, type=int, default=1,
-                       help=f"must be 1: parallel axes come with {PARALLEL_SLICE}")
+                       help=f"must be 1: this axis comes with {PARALLEL_SLICE}")
+    p.add_argument("--sharding", default="manual", metavar="MODE",
+                   help="'manual' (default): the parameters' specs from the partition-rule "
+                   "table (parallel/rules.py); 'rules:<file>': a custom ordered [regex, spec] "
+                   f"JSON rule list (every leaf must match); 'auto' comes with {SLICE5}")
     p.add_argument("--attn", choices=("ring", "ulysses", "zigzag", "flash"), default="ring",
                    help="ring/ulysses/zigzag at --sp 1 = plain local attention; flash = the "
                    "hand-written flash kernels")
@@ -127,7 +154,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min-lr-frac", type=float, default=0.0)
     p.add_argument("--clip-norm", type=float, default=0.0)
     p.add_argument("--accum-steps", type=int, default=1)
-    p.add_argument("--grad-sync", choices=("end", "overlap"), default="end")
+    p.add_argument("--grad-sync", choices=("end", "overlap"), default="end",
+                   help="end = one all-reduce after the accumulation; overlap = one "
+                   "collective per micro-batch and leaf bucket (--bucket-mb)")
+    p.add_argument("--bucket-mb", type=float, default=4.0,
+                   help="gradient-bucket payload cap in MiB for --grad-sync overlap")
     p.add_argument("--ema-decay", type=float, default=0.0)
     p.add_argument("--weight-decay", type=float, default=0.0)
     p.add_argument("--momentum", type=float, default=0.9,
@@ -172,6 +203,21 @@ def validate(p: argparse.ArgumentParser, args) -> None:
         p.error(INT8_KV_MESSAGE)
     if args.n_heads < 1 or args.d_model % args.n_heads:
         p.error(f"--d-model {args.d_model} must divide by --n-heads {args.n_heads}")
+    if args.sharding not in ("manual", "auto") and not args.sharding.startswith("rules:"):
+        p.error(f"--sharding must be 'manual', 'auto', or 'rules:<file>', got {args.sharding!r}")
+    if args.sharding == "rules:":
+        p.error("--sharding rules: needs a file path (rules:<file>)")
+    if args.grad_sync == "overlap" and args.experts and args.dp > 1:
+        p.error("--grad-sync overlap psums gradient buckets over the data axis; expert-sharded "
+                "leaves (--experts with --dp > 1) vary over that axis - use --grad-sync end")
+    if args.bucket_mb <= 0:
+        p.error(f"--bucket-mb must be > 0, got {args.bucket_mb}")
+    if args.dp < 1:
+        p.error(f"--dp must be >= 1, got {args.dp}")
+    if args.batch_size % (args.dp * args.accum_steps):
+        p.error(f"--batch-size {args.batch_size} must divide by --dp x --accum-steps "
+                f"({args.dp} x {args.accum_steps}): each rank's rows split into the "
+                "micro-batches")
 
 
 def check_ported(args) -> None:
@@ -179,27 +225,69 @@ def check_ported(args) -> None:
     for dest, (flag, later) in LATER_FLAGS.items():
         if getattr(args, dest) is not None:
             raise NotImplementedError(f"{flag} is not ported yet; it comes with {later}")
-    for flag in ("dp", "sp", "tp", "pp"):
+    for flag in ("sp", "tp", "pp"):
         if getattr(args, flag) != 1:
-            raise NotImplementedError(f"--{flag} {getattr(args, flag)}: the port trains on one "
-                                      f"device; parallel axes come with {PARALLEL_SLICE}")
+            raise NotImplementedError(f"--{flag} {getattr(args, flag)}: the port has the data "
+                                      f"axis only; this one comes with {PARALLEL_SLICE}")
     if args.experts:
         raise NotImplementedError(f"--experts comes with {PARALLEL_SLICE}")
-    if args.optimizer.startswith("zero"):
-        raise NotImplementedError(f"--optimizer {args.optimizer} comes with {PARALLEL_SLICE}")
-    if args.grad_sync == "overlap":
-        raise NotImplementedError(f"--grad-sync overlap comes with {PARALLEL_SLICE}")
+    if args.sharding == "auto":
+        raise NotImplementedError(f"--sharding auto is not ported yet; it comes with {SLICE5}")
     if args.remat_policy:
         raise NotImplementedError(f"--remat-policy {args.remat_policy!r} comes with "
                                   f"{tfm.REMAT_POLICY_SLICE}")
 
 
-def main(argv=None, *, log=print) -> int:
+def _cards(mesh) -> int:
+    """The number of distinct devices the ranks run on (ranks that share a
+    card count it once); 1 off a group."""
+    if not mesh.joined:
+        return 1
+    where = [None] * mesh.dp
+    dist.all_gather_object(where, (socket.gethostname(), str(mesh.device)))
+    return len(set(where))
+
+
+def _group_max(x: float, mesh) -> float:
+    """The largest of the ranks' `x` (the group's time is its slowest rank's)."""
+    if not mesh.joined:
+        return x
+    t = torch.tensor([x], dtype=torch.float64,
+                     device=mesh.device if mesh.backend == "nccl" else "cpu")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t)
+
+
+def main(argv=None, *, log=say, result: dict | None = None) -> int:
+    """Run the CLI. Under torchrun it joins the process group (and leaves it
+    at the end, unless the caller had joined it). `result`, when given, is
+    filled with the run's per-step losses (the group's mean), its
+    parameter and optimizer-state tensors, the step and the mesh, for
+    callers that drive the entry point in-process."""
     p = build_parser()
     args = p.parse_args(argv)
     validate(p, args)
     check_ported(args)
     device = resolve_device(args.device)
+    owned = not joined()
+    try:
+        # before anything touches the card: it picks the rank's card and backend
+        initialize(device=device, log=log)
+        mesh = lmtrain.create_lm_mesh(args.dp, args.sp, args.tp, device=device)
+        if mesh.joined and owned:
+            log(f"(Multi-process: rank {mesh.rank}/{mesh.dp}, backend {mesh.backend}, device "
+                f"{mesh.device})")
+        _train(args, mesh, log, result)
+    finally:
+        if owned and joined():
+            # the step's graphs (and their NCCL collectives) go first
+            gc.collect()
+            dist.destroy_process_group()
+    return 0
+
+
+def _train(args, mesh, log, result) -> None:
+    device = mesh.device
     cfg = tfm.TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=args.d_ff,
@@ -207,19 +295,33 @@ def main(argv=None, *, log=print) -> int:
         remat=args.remat, remat_attn=args.remat_attn,
         attn_quant="" if args.precision == "bf16" else args.precision,
     )
-    params = tfm.init_params(args.seed, cfg, device)
-    mom = lmtrain.init_lm_momentum(params, args.optimizer)
+    rules = None
+    if args.sharding.startswith("rules:"):
+        from .parallel.rules import load_rules
+
+        rules_path = args.sharding[len("rules:"):]
+        rules = load_rules(rules_path)
+        log(f"(sharding rules: {rules_path}, {len(rules)} rule(s))")
+    params, _ = lmtrain.shard_params(tfm.init_params(args.seed, cfg), cfg, mesh, rules=rules)
+    mom = lmtrain.init_lm_momentum(params, args.optimizer, mesh)
+    cards = _cards(mesh)
     lr_schedule = None
     if args.lr_schedule == "cosine":
         lr_schedule = functools.partial(warmup_cosine, base_lr=args.lr, total_steps=args.steps,
                                         warmup_steps=args.warmup_steps,
                                         min_lr_frac=args.min_lr_frac)
     step = lmtrain.make_lm_train_step(
-        cfg, device=device, lr=args.lr, momentum=args.momentum, attn_impl=args.attn,
+        cfg, mesh=mesh, device=device, lr=args.lr, momentum=args.momentum, attn_impl=args.attn,
         optimizer=args.optimizer, loss_chunks=args.loss_chunks, lr_schedule=lr_schedule,
         clip_norm=args.clip_norm, accum_steps=args.accum_steps,
-        weight_decay=args.weight_decay,
+        weight_decay=args.weight_decay, grad_sync=args.grad_sync, bucket_mb=args.bucket_mb,
+        rules=rules,
     )
+
+    def rows(tok, tgt):
+        """This rank's block of the global batch (the batch itself at dp 1)."""
+        return (distribute_host_data(tok, mesh, device=device),
+                distribute_host_data(tgt, mesh, device=device))
 
     stream = batch_at = None
     if args.data_path:
@@ -232,21 +334,24 @@ def main(argv=None, *, log=print) -> int:
         def batch_at(i, split="train"):
             tok, tgt = sample_batch(stream, batch=args.batch_size, seq_len=args.seq_len,
                                     step=i, seed=args.seed, split=split)
-            return (torch.from_numpy(tok).long().to(device),
-                    torch.from_numpy(tgt).long().to(device))
+            return torch.from_numpy(tok).long(), torch.from_numpy(tgt).long()
 
-        tokens, targets = batch_at(0)
+        tokens, targets = rows(*batch_at(0))
     else:
-        tokens, targets = lmtrain.make_copy_task(
+        tokens, targets = rows(*lmtrain.make_copy_task(
             torch.Generator().manual_seed(args.seed + 1), batch=args.batch_size,
-            seq_len=args.seq_len, vocab=args.vocab, device=device)
+            seq_len=args.seq_len, vocab=args.vocab))
     eval_fn = None
     if args.eval_every:
         eval_fn = lmtrain.make_eval_fn(cfg, attn_impl=args.attn, loss_chunks=args.loss_chunks)
-    log(f"(LM {tfm.param_count(params):,} params, mesh single, "
+    sync = ""
+    if mesh.joined:
+        sync = f", collectives {step.collective_form}"
+    log(f"(LM {tfm.param_count(params):,} params, mesh {mesh.desc}, "
         f"attn={'flash' if args.attn == 'flash' else 'full'}, "
         + (f"precision={args.precision}, " if args.precision != "bf16" else "")
-        + f"experts=dense, optimizer={args.optimizer}, device={device})")
+        + f"experts=dense, optimizer={args.optimizer}, grad_sync={args.grad_sync}, "
+        f"device={device}{sync})")
 
     ema = ema_fn = None
     leaves = lmtrain.tree_leaves(params)
@@ -257,16 +362,21 @@ def main(argv=None, *, log=print) -> int:
     eval_s, timed_steps = 0.0, 0
     t_first = time.perf_counter()
     loss = None
+    losses = []
     for i in range(args.steps):
         if stream is not None:
-            tokens, targets = batch_at(i)
+            tokens, targets = rows(*batch_at(i))
         loss = step(params, mom, tokens, targets, i)
+        if result is not None:
+            losses.append(loss)
         if ema_fn is not None:
             ema_fn(ema, leaves)
         if eval_fn is not None and (i + 1) % args.eval_every == 0:
             t_ev = time.perf_counter()
             eval_params = lmtrain.tree_unflatten(params, ema) if ema is not None else params
-            ev = float(np.mean([float(eval_fn(eval_params, *batch_at(j, "eval")))
+            # every rank evaluates the whole held-out batch: the same value on each
+            ev = float(np.mean([float(eval_fn(eval_params, *(x.to(device) for x in
+                                                            batch_at(j, "eval"))))
                                 for j in range(args.eval_batches)]))
             if t0 is not None:
                 eval_s += time.perf_counter() - t_ev
@@ -285,17 +395,18 @@ def main(argv=None, *, log=print) -> int:
     final_loss = float(loss)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0 - eval_s if timed_steps else 0.0
+    dt = _group_max(time.perf_counter() - t0 - eval_s if timed_steps else 0.0, mesh)
     tok_s = args.batch_size * args.seq_len * timed_steps / dt if dt else 0.0
     flops_tok = model_flops_per_token(cfg, args.seq_len)
     model_flops_s = flops_tok * tok_s
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     peak = peak_flops(kind, args.dtype)
-    mfu = model_flops_s / peak * 100.0 if peak else None
+    mfu = model_flops_s / (peak * cards) * 100.0 if peak else None
     if mfu is not None:
         log(f"MFU {mfu:.1f}% = {model_flops_s / 1e12:.1f} model TFLOP/s / ({peak / 1e12:.0f} "
-            f"peak {'bf16' if args.dtype == 'bfloat16' else 'f32'} TFLOP/s x 1 dev, {kind}); "
-            f"FLOPs/token = 3*(L*(8d^2 + 4sd + 4d*ff) + 2d*V) = {flops_tok / 1e6:.1f}M")
+            f"peak {'bf16' if args.dtype == 'bfloat16' else 'f32'} TFLOP/s x {cards} dev, "
+            f"{kind}); FLOPs/token = 3*(L*(8d^2 + 4sd + 4d*ff) + 2d*V) = "
+            f"{flops_tok / 1e6:.1f}M")
     if args.generate > 0:
         gen_params = lmtrain.tree_unflatten(params, ema) if ema is not None else params
         ptoks, _ = lmtrain.make_copy_task(
@@ -311,7 +422,7 @@ def main(argv=None, *, log=print) -> int:
             log(f"gen[{j}] prompt={row[:half + 1]} completion={row[half + 1:]}")
     summary = dict.fromkeys(SUMMARY_KEYS)
     summary.update({
-        "mesh": "single", "steps": args.steps, "start_step": 0, "last_step": args.steps - 1,
+        "mesh": mesh.desc, "steps": args.steps, "start_step": 0, "last_step": args.steps - 1,
         "preempted": False, "guard": "off", "dtype": args.dtype, "grad_sync": args.grad_sync,
         "accum_steps": args.accum_steps,
         "data_source": stream.source if stream is not None else "copy-task",
@@ -321,7 +432,9 @@ def main(argv=None, *, log=print) -> int:
         "mfu_pct": round(mfu, 2) if mfu is not None else None,
     })
     log("SUMMARY " + json.dumps(summary))
-    return 0
+    if result is not None:
+        result.update(losses=[float(x) for x in losses], params=params, mom=mom, step=step,
+                      mesh=mesh, cards=cards)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,8 @@ step captured as a CUDA graph could not read the generator's state).
 decode kernel (`ops/decode_attention.py`) on a CUDA device and its plain
 version on the CPU. The port's seeded `init_params` and sampling draw from
 `torch.Generator`s, so they differ from the JAX package's for the same seed.
+`param_specs` / `param_skeleton` give the tree's partition specs from the
+rule table (`parallel/rules.py`).
 
 Not ported here (they raise `NotImplementedError`): mixture-of-experts and
 sequence-parallel attention over a device mesh, which come with the parallel
@@ -124,6 +126,27 @@ def init_params(seed: int, cfg: TransformerConfig, device="cpu"):
         },
     }
     return to_device(params, device)
+
+
+def param_skeleton(cfg: TransformerConfig):
+    """The parameter tree's structure (`init_params`' keys, placeholder
+    leaves): what the partition-rule matcher walks when no parameters
+    exist yet."""
+    return {"embed": 0, "lnf_scale": 0, "lnf_bias": 0, "head": 0,
+            "layers": dict.fromkeys(LAYER_KEYS, 0)}
+
+
+def param_specs(cfg: TransformerConfig, tp_axis: str | None = None,
+                ep_axis: str | None = None, rules=None):
+    """The parameter tree's `PartitionSpec`s from the partition-rule table
+    (`parallel/rules.py` `lm_partition_rules`), or from ``rules``, a custom
+    ordered ``(regex, PartitionSpec)`` list (``--sharding rules:<file>``),
+    which every leaf must match."""
+    from ..parallel.rules import lm_partition_rules, match_partition_rules
+
+    if rules is None:
+        rules = lm_partition_rules(tp_axis=tp_axis, ep_axis=ep_axis, n_experts=cfg.n_experts)
+    return match_partition_rules(rules, param_skeleton(cfg), skip_scalars=False)
 
 
 def to_device(params, device):

@@ -1,20 +1,35 @@
 """Learning-rate schedules and gradient transforms: the port of the JAX
-package's `ops/schedule.py` for one device.
+package's `ops/schedule.py`.
 
 Schedules return the lr as a Python float computed in float32, as the JAX
 package computes it in the step, so the optimizers see the same value.
 Gradient transforms act on lists of tensors (the parameter leaves in
 `tree_leaves` order) and update in place where the JAX functions return new
-trees. The mesh-aware forms (`specs`/`axes`) and the overlapped
-accumulation (`accumulate_fwd_bwd_overlap`) come with the parallel layouts.
+trees.
+
+The norms are mesh-aware as the JAX ones: with ``specs`` (leaf-aligned
+PartitionSpecs) and ``axes`` (the mesh's axis names in scope) a leaf's
+squared sum is all-reduced over the axes its spec shards it on. The port's
+process group is the data axis (`parallel/mesh.py` `ProcessMesh`; sequence
+and tensor axes are 1), so a leaf sharded over ``data`` is summed over the
+group and every other axis adds nothing. Replicated leaves, whose gradients
+the step has already summed over the ranks, count once.
+
+`accumulate_fwd_bwd_overlap` moves the gradient collective inside the
+accumulation loop (one reduction per micro-batch); `overlap_parts` is the
+same schedule as a list of program parts over a reducer's static buffers,
+split at its collectives, which is how the LM step runs it (`train/lm.py`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..parallel.ring import PARALLEL_SLICE
+from ..parallel.mesh import DATA_AXIS
+from ..parallel.partition import spec_axes
+from ..utils.tree import tree_leaves
 
 GRAD_SYNCS = ("end", "overlap")
 
@@ -48,15 +63,20 @@ def constant_lr(step, *, base_lr: float, **_) -> float:
 SCHEDULES = {"constant": constant_lr, "cosine": warmup_cosine}
 
 
-def _check_single(specs, axes) -> None:
-    if specs is not None or axes:
-        raise NotImplementedError(f"mesh-aware norms (specs/axes) come with {PARALLEL_SLICE}")
-
-
 def per_leaf_sq_norms(leaves, *, specs=None, axes=()):
-    """Per-leaf squared L2 norms (f32 0-d tensors)."""
-    _check_single(specs, axes)
-    return [g.float().square().sum() for g in leaves]
+    """Per-leaf global squared L2 norms (f32 0-d tensors): with `specs` and
+    `axes`, a leaf sharded over the data axis has its squared sum
+    all-reduced over the process group."""
+    sq = [g.float().square().sum() for g in leaves]
+    if specs is None or not axes:
+        return sq
+    spec_leaves = tree_leaves(specs)
+    if len(spec_leaves) != len(sq):
+        raise ValueError(f"{len(spec_leaves)} specs for {len(sq)} leaves")
+    for x, spec in zip(sq, spec_leaves):
+        if DATA_AXIS in axes and DATA_AXIS in spec_axes(spec) and dist.is_initialized():
+            dist.all_reduce(x)
+    return sq
 
 
 def global_norm(leaves, *, specs=None, axes=()):
@@ -117,9 +137,109 @@ def accumulate_fwd_bwd(fwd_bwd_one, accum_steps: int):
     return fwd_bwd
 
 
-def accumulate_fwd_bwd_overlap(*args, **kwargs):
-    raise NotImplementedError(f"grad_sync='overlap' (the collective inside the accumulation "
-                              f"loop) comes with {PARALLEL_SLICE}")
+def _check_overlap(accum_steps: int) -> None:
+    if accum_steps < 2:
+        raise ValueError(f"overlap accumulation needs accum_steps >= 2, got {accum_steps} (at "
+                         "k=1 the schedules coincide - use the end path, which is bitwise "
+                         "identical)")
+
+
+def _micro_batches(tokens, targets, accum_steps: int):
+    b = tokens.shape[0]
+    if b % accum_steps:
+        raise ValueError(f"per-device batch ({b}) must divide by accum_steps ({accum_steps})")
+    mb = b // accum_steps
+    return [(tokens[i * mb:(i + 1) * mb], targets[i * mb:(i + 1) * mb])
+            for i in range(accum_steps)]
+
+
+def accumulate_fwd_bwd_overlap(fwd_bwd_one, accum_steps: int, *, reduce_fn, finalize_fn):
+    """Gradient accumulation with the sync collective INSIDE the loop: each
+    micro-batch's gradients go straight to `reduce_fn` (a bucketed
+    all-reduce for plain dp, a bucketed reduce-scatter for the ZeRO shard
+    carry) and the loop accumulates the reduced form, so the collective of
+    micro-batch i can run while micro-batch i+1 computes; `finalize_fn` maps
+    the averaged reduced form back to a full gradient list (the identity's
+    unpack for all-reduced buckets, the all-gather for shards).
+
+    `fwd_bwd_one(tokens, targets)` -> loss, leaving the micro-batch's
+    gradients in the leaves' ``.grad`` (added into ``None``);
+    `reduce_fn(grads)` -> a list of tensors; `finalize_fn(avg)` -> the
+    gradients. Returns `fwd_bwd(leaves, tokens, targets)` -> (mean loss,
+    gradients), the leaves' ``.grad`` left ``None``. Matches the end
+    schedule up to float reassociation; needs accum_steps >= 2."""
+    _check_overlap(accum_steps)
+
+    def fwd_bwd(leaves, tokens, targets):
+        loss_sum, red_sum = None, None
+        for tok, tgt in _micro_batches(tokens, targets, accum_steps):
+            for p in leaves:
+                p.grad = None
+            loss = fwd_bwd_one(tok, tgt)
+            with torch.no_grad():
+                red = list(reduce_fn([p.grad for p in leaves]))
+                if red_sum is None:
+                    loss_sum, red_sum = loss, [r.clone() for r in red]
+                else:
+                    loss_sum = loss_sum + loss
+                    torch._foreach_add_(red_sum, red)
+        for p in leaves:
+            p.grad = None
+        with torch.no_grad():
+            torch._foreach_div_(red_sum, float(accum_steps))
+            return loss_sum / accum_steps, finalize_fn(red_sum)
+
+    return fwd_bwd
+
+
+def overlap_parts(fwd_bwd_one, accum_steps: int, leaves, tokens, targets, reducer, loss_out):
+    """`accumulate_fwd_bwd_overlap`'s schedule as program parts over static
+    buffers: [(fn, is_collective)], in order. Per micro-batch: its forward
+    and backward, the reducer's ``put`` of its gradients (one part), then
+    the reducer's ``reduce`` (the collective); the next part first adds the
+    reduced form into the accumulator (``accumulate``). After the last:
+    ``average(k)``, then the reducer's ``finalize`` collective, if it has
+    one. `loss_out` (a 0-d buffer) gets the mean local loss.
+
+    The reducer (`parallel/collectives.py` `BucketReducer`,
+    `parallel/zero.py` `ShardReducer`) owns the buffers: ``put(grads)``,
+    ``reduce()``, ``accumulate(first)``, ``average(k)``, ``finalize`` (None
+    or a collective) and ``grads`` (the gradients it leaves)."""
+    _check_overlap(accum_steps)
+    batches = _micro_batches(tokens, targets, accum_steps)
+
+    def compute(i):
+        tok, tgt = batches[i]
+
+        def part():
+            if i > 0:
+                reducer.accumulate(i == 1)
+            for p in leaves:
+                p.grad = None
+            loss = fwd_bwd_one(tok, tgt)
+            with torch.no_grad():
+                reducer.put([p.grad for p in leaves])
+                if i == 0:
+                    loss_out.copy_(loss)
+                else:
+                    loss_out.add_(loss)
+            for p in leaves:
+                p.grad = None
+
+        return part
+
+    def last():
+        reducer.accumulate(False)
+        reducer.average(accum_steps)
+        loss_out.div_(accum_steps)
+
+    parts = []
+    for i in range(accum_steps):
+        parts += [(compute(i), False), (reducer.reduce, True)]
+    parts.append((last, False))
+    if reducer.finalize is not None:
+        parts.append((reducer.finalize, True))
+    return parts
 
 
 def make_ema_update(decay: float):

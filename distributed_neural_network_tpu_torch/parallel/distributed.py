@@ -24,6 +24,11 @@ The backend follows the device (`backend_for`): gloo on the CPU; on the card
 NCCL when every local rank has a card of its own (rank r on
 ``cuda:LOCAL_RANK``), gloo when ranks share a card (as on a one-GPU machine:
 NCCL refuses two ranks on one GPU). The CLI prints the choice.
+
+`distribute_host_data` is the rank's share of a host batch along the data
+axis: the contiguous block of B/dp rows that the JAX package's ``P("data")``
+sharding gives device r, from a full copy of the batch or from this rank's
+rows alone.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import datetime
 import os
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -188,3 +194,22 @@ def _connect_with_retry(connect, kwargs, *, addr, max_retries, deadline_s, backo
         "DNN_TPU_COORDINATOR_RETRIES for slow starts. Last error: "
         f"{type(last).__name__ if last is not None else None}: {last}"
     ) from last
+
+
+def distribute_host_data(host_array, mesh, *, full_copy: bool = True, device=None):
+    """This rank's rows of a host batch along `mesh`'s data axis, as a tensor
+    on `device` (default the mesh's). ``full_copy=True``: `host_array` is
+    the whole batch (B, ...), the same on every rank, and rank r takes rows
+    ``[r*B/dp, (r+1)*B/dp)``; ``full_copy=False``: it is already this rank's
+    (B/dp, ...) rows. B must divide by dp."""
+    x = host_array if isinstance(host_array, torch.Tensor) else torch.from_numpy(
+        np.array(host_array))
+    dp, r = mesh.dp, mesh.rank
+    dev = mesh.device if device is None else torch.device(device)
+    if full_copy:
+        if x.shape[0] % dp:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split evenly over the "
+                             f"data axis of {dp} ranks; make --batch-size a multiple of --dp")
+        b = x.shape[0] // dp
+        x = x[r * b:(r + 1) * b]
+    return x.to(dev)

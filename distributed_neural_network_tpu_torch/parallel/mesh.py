@@ -9,6 +9,12 @@ contiguous block of global workers ``[r*N/w, (r+1)*N/w)``. `nb_proc` is the
 global group size, bounded by device memory, not by the number of devices,
 and must divide by the world size. The collectives
 (`parallel/collectives.py`) gather the ranks' blocks and reduce over all N.
+
+`ProcessMesh` is the LM's counterpart of the JAX package's (dp, sp, tp)
+device mesh (`train/lm.py` `create_lm_mesh`): the ranks of the process
+group along its data axis, one rank a data shard, on the rank's device
+(`parallel/distributed.py` `rank_device`). Only the data axis has more than
+one rank so far; the sequence and tensor axes are 1.
 """
 
 from __future__ import annotations
@@ -47,6 +53,50 @@ class ReplicaGroup:
     def workers(self) -> range:
         """Global indices of this rank's workers."""
         return range(self.first, self.first + self.local)
+
+
+DATA_AXIS, SEQ_AXIS, TP_AXIS = "data", "seq", "model"
+
+
+@dataclass(frozen=True)
+class ProcessMesh:
+    """`dp` ranks along the data axis (this process alone at dp 1, or the
+    ranks of its torch.distributed group), this one `rank` on `device`.
+    `shape` reads as the JAX `Mesh.shape`; `form` is the group's
+    collective form (`collectives.collective_form`), None when no group."""
+
+    dp: int
+    device: torch.device
+    rank: int = 0
+    joined: bool = False
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> ranks; the sequence and tensor axes are 1 so far."""
+        return {DATA_AXIS: self.dp, SEQ_AXIS: 1, TP_AXIS: 1}
+
+    @property
+    def desc(self) -> str:
+        """"single", or the axes above 1 as the JAX CLI writes them ("data2")."""
+        return "x".join(f"{k}{v}" for k, v in self.shape.items() if v > 1) or "single"
+
+    @property
+    def backend(self) -> str | None:
+        return dist.get_backend() if self.joined else None
+
+    @property
+    def form(self) -> str | None:
+        from .collectives import collective_form
+
+        return collective_form() if self.joined else None
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec with the mesh it refers to (the JAX `NamedSharding`)."""
+
+    mesh: ProcessMesh
+    spec: tuple
 
 
 def device_count(device: str | torch.device = "cuda") -> int:

@@ -82,7 +82,14 @@ def add_common_flags(p: argparse.ArgumentParser, *, epochs: int, batch_size: int
         "--no-momentum-reset", action="store_true",
         help="keep momentum across epochs (reference re-creates SGD per epoch)",
     )
-    p.add_argument("--grad-sync", choices=("end", "overlap"), default="end")
+    p.add_argument(
+        "--grad-sync", choices=("end", "overlap"), default="end",
+        help="per-step gradient-sync granularity under --sync-mode step: end = one "
+        "collective for every gradient; overlap = one per size-capped leaf bucket "
+        "(--bucket-mb); the same values either way (no effect in epoch mode)",
+    )
+    p.add_argument("--bucket-mb", type=float, default=4.0,
+                   help="gradient-bucket payload cap in MiB for --grad-sync overlap")
     p.add_argument(
         "--precision", choices=("bf16", "fp8", "int8", "int8-kv"), default="bf16",
         help="only bf16 (the full-precision contract) runs the CNN trainer",
@@ -177,6 +184,7 @@ def config_from_args(args, regime: str) -> TrainConfig:
         input_mode=args.input_mode,
         stream_prefetch=args.stream_prefetch,
         grad_sync=args.grad_sync,
+        bucket_mb=args.bucket_mb,
         compute_dtype=args.compute_dtype,
         dynamics=args.dynamics,
     )

@@ -17,7 +17,10 @@ devices). Per epoch:
 
 1. **train** - `sync_mode="epoch"`: every worker's local-SGD epoch (faithful
    local SGD; momentum reset per epoch when `reset_momentum`).
-   `sync_mode="step"`: the same steps with a gradient mean over the group.
+   `sync_mode="step"`: the same steps with a gradient mean over the group,
+   gathered in one buffer (``grad_sync="end"``) or one per leaf bucket of
+   at most ``bucket_mb`` MiB a replica (``"overlap"``, one collective
+   each); both give the same bits.
 2. **sync** - the fault-masked parameter mean over the group, and the global
    train loss as sum(loss sums)/sum(batch counts) over live workers.
 3. **eval** - over the test split padded to N equal per-worker partitions
@@ -79,7 +82,8 @@ from ..models.cnn import (
 )
 from ..ops import fused_head
 from ..ops.sgd import init_momentum
-from ..ops.train import apply_mean_grads, eval_epoch, grad_step, train_step
+from ..ops.schedule import GRAD_SYNCS
+from ..ops.train import GradSync, apply_mean_grads, eval_epoch, grad_step, train_step
 from ..parallel.collectives import (
     RowGather,
     effective_mask,
@@ -98,12 +102,10 @@ REGIMES = ("single", "data_parallel", "replication")
 SYNC_MODES = ("epoch", "step")
 INPUT_MODES = ("hbm", "stream")
 
-PARALLEL_LAYOUTS = "the parallel-layouts slice of the port (ROADMAP.md Queue 1 item 3)"
 SLICE4 = "slice 4, robustness + observability (ROADMAP.md Queue 1 item 4)"
 
 # TrainConfig fields this port leaves for later: (default, the item that brings it)
 LATER_FIELDS = {
-    "grad_sync": ("end", PARALLEL_LAYOUTS + ": bucketed gradient sync"),
     "dynamics": (False, SLICE4),
 }
 
@@ -128,7 +130,11 @@ class TrainConfig:
     reference_compat: bool = False  # True: N-1 workers as in the reference
     input_mode: str = "hbm"  # "stream": the train split stays in host RAM
     stream_prefetch: int = 2  # stream mode: batches assembled ahead on a thread
+    # sync_mode="step": "end" = one gather of every gradient, "overlap" = one
+    # per size-capped contiguous leaf bucket (ops/train.py GradSync); the
+    # same values either way; no effect in "epoch" mode
     grad_sync: str = "end"
+    bucket_mb: float = 4.0
     compute_dtype: str = "float32"  # "bfloat16": the convolutions in bf16
     dynamics: bool = False
 
@@ -138,6 +144,10 @@ class TrainConfig:
                               ("compute_dtype", tuple(COMPUTE_DTYPES))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)}")
+        if self.grad_sync not in GRAD_SYNCS:
+            raise ValueError(f"grad_sync must be one of {GRAD_SYNCS}, got {self.grad_sync}")
+        if self.bucket_mb <= 0:
+            raise ValueError(f"bucket_mb must be > 0, got {self.bucket_mb}")
         if self.stream_prefetch < 0:
             raise ValueError(f"stream_prefetch must be >= 0, got {self.stream_prefetch}")
         for name, (default, later) in LATER_FIELDS.items():
@@ -360,10 +370,10 @@ class Engine:
         # between the graphs under gloo, absent in one process
         graphable = g.joined and dist.get_backend() == "nccl"
 
-        def collective(gather):
+        def collective(*gathers):
             if not g.joined:
                 return ()
-            return (gather.reduce if graphable else Eager(gather.reduce),)
+            return tuple(x.reduce if graphable else Eager(x.reduce) for x in gathers)
 
         if c.input_mode == "stream":
             batch_x, batch_y, batch_w = self.batch
@@ -385,16 +395,17 @@ class Engine:
                 torch._foreach_zero_(mom)
 
         if c.sync_mode == "step":
-            grads = RowGather(g, (n_params,))
+            sync = GradSync(g, params, grad_sync=c.grad_sync,
+                            bucket_bytes=int(c.bucket_mb * 2**20))
 
             def step_grads():
-                loss_sums.add_(grad_step(net, *batch(), grads))
+                loss_sums.add_(grad_step(net, *batch(), sync))
 
             def step_apply():
-                apply_mean_grads(net, mom, grads.buf, lr=c.lr, momentum=c.momentum)
+                apply_mean_grads(net, mom, sync, lr=c.lr, momentum=c.momentum)
                 at.add_(1)
 
-            step_parts = (step_grads, *collective(grads), step_apply)
+            step_parts = (step_grads, *collective(*sync.gathers), step_apply)
         else:
             def step():
                 loss_sums.add_(train_step(net, mom, *batch(), lr=c.lr, momentum=c.momentum))

@@ -22,6 +22,8 @@ TINY = ["--synthetic-size", "96", "--epochs", "2", "--nb-proc", "2", "--lr", "0.
     ("single", ["--eval-every", "2", "--eval-batch-size", "7"]),
     ("data_parallel", ["--input-mode", "stream", "--stream-prefetch", "0", "--kernels", "cuda"]),
     ("replication", ["--compute-dtype", "bfloat16", "--sync-mode", "step"]),
+    ("data_parallel", ["--sync-mode", "step", "--grad-sync", "overlap", "--bucket-mb", "0.01",
+                       "--kernels", "cuda"]),
 ])
 def test_cpu_run_writes_logs_and_summary(tmp_path, regime, extra):
     lines = []
@@ -63,7 +65,7 @@ def test_default_device_is_cuda_and_fails_cleanly_without_it(tmp_path, monkeypat
 @pytest.mark.parametrize("flags", [
     ["--resume"], ["--checkpoint-dir", "ckpt"], ["--guard", "skip"], ["--trace-out", "t.json"],
     ["--step-stats"], ["--metrics-port", "0"], ["--sharding", "auto"],
-    ["--grad-sync", "overlap"], ["--dynamics"], ["--neptune"],
+    ["--dynamics"], ["--neptune"],
 ])
 def test_later_slice_flag_raises(flags):
     with pytest.raises(NotImplementedError, match="slice"):

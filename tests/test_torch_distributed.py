@@ -18,7 +18,8 @@ with gloo.
    run (one process, no group; every process at OMP_NUM_THREADS=1, since
    the CPU's reductions may split by thread); held to tests/oracle_numpy.py
    with the port's orders (train loss 5e-4, params max-rel 2e-3; per step
-   by the numpy `step_trajectory` below).
+   by the numpy `step_trajectory` below); and the step sync in leaf buckets
+   (--grad-sync overlap) bitwise the one-buffer (end) run.
 4. The CLI under `python -m torch.distributed.run --nproc-per-node 2`: both
    ranks' SUMMARY metrics equal, the backend printed, rank-suffixed files.
 
@@ -232,12 +233,15 @@ def test_workers_must_split_evenly_over_the_ranks():
 SIZE, TEST_SIZE, SEED, LR = 256, 64, 1, 0.05
 CASES = [(r, s, "hbm") for r in ("data_parallel", "replication") for s in ("epoch", "step")]
 CASES.append(("data_parallel", "epoch", "stream"))
+# the step sync in leaf buckets of at most 10 KB a replica (several buckets)
+CASES.append(("data_parallel", "step", "hbm", "overlap"))
 ENV = {"OMP_NUM_THREADS": "1"}
 
 
-def _config(regime, sync_mode, input_mode):
+def _config(regime, sync_mode, input_mode, grad_sync="end"):
     return dict(lr=LR, momentum=0.9, batch_size=8, epochs=2, nb_proc=4, regime=regime,
-                sync_mode=sync_mode, seed=SEED, kernels="cuda", input_mode=input_mode)
+                sync_mode=sync_mode, seed=SEED, kernels="cuda", input_mode=input_mode,
+                grad_sync=grad_sync, bucket_mb=0.01)
 
 
 def _name(case):
@@ -326,7 +330,7 @@ def step_trajectory(params0, images, labels, *, n_workers, batch_size, epochs, l
 
 @pytest.mark.parametrize("case", CASES, ids=_name)
 def test_engine_across_processes(runs, case):
-    regime, sync_mode, input_mode = case
+    regime, sync_mode, input_mode = case[:3]
     ref_hist, ref = _load(runs["w1"], case, 0)
     ranks = [_load(runs["w2"], case, r) for r in range(2)]
     for r, (hist, flat) in enumerate(ranks):
@@ -355,6 +359,16 @@ def test_engine_across_processes(runs, case):
                            / (np.abs(want[-1]["params"][l][k]) + 1e-3)))
               for l in final for k in final[l])
     assert rel < 2e-3
+
+
+def test_step_sync_in_buckets_across_ranks_is_bitwise_end(runs):
+    """--sync-mode step --grad-sync overlap on 2 ranks x 2 workers (one
+    gather per bucket, each its own collective) is the end run bit for bit."""
+    end, over = ("data_parallel", "step", "hbm"), ("data_parallel", "step", "hbm", "overlap")
+    for r in range(2):
+        (h_end, p_end), (h_over, p_over) = _load(runs["w2"], end, r), _load(runs["w2"], over, r)
+        assert h_over["history"] == h_end["history"]
+        assert all(np.array_equal(p_over[k], p_end[k]) for k in p_end)
 
 
 def test_cli_under_torchrun(tmp_path):

@@ -214,10 +214,29 @@ def test_fused_span_equals_per_epoch_path():
     assert all(torch.equal(p, q) for p, q in zip(a.params + a.mom, b.params + b.mom))
 
 
-@pytest.mark.parametrize("field,value", [("grad_sync", "overlap"), ("dynamics", True)])
+@pytest.mark.parametrize("field,value", [("dynamics", True)])
 def test_later_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="slice"):
         TrainConfig(**{field: value})
+
+
+def test_step_sync_in_buckets_is_bitwise_the_one_buffer_sync():
+    """sync_mode="step" with grad_sync="overlap" (a bucket cap that splits
+    the head's leaves) against "end": the same history and parameters, bit
+    for bit; a bad grad_sync or bucket_mb is refused."""
+    split = load_split(True, source="synthetic", synthetic_size=128, seed=2)
+    test = load_split(False, source="synthetic", synthetic_size=32, seed=2)
+    runs = []
+    for gs in ("end", "overlap"):
+        cfg = TrainConfig(nb_proc=4, lr=0.05, batch_size=8, epochs=2, seed=5, sync_mode="step",
+                          kernels="cuda", grad_sync=gs, bucket_mb=0.01)
+        eng = Engine(cfg, split, test, device="cpu")
+        runs.append(([eng.run_epoch(e) for e in range(2)], eng.params))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    for bad in ({"grad_sync": "later"}, {"bucket_mb": 0.0}):
+        with pytest.raises(ValueError):
+            TrainConfig(**bad)
 
 
 def _bf16_ulp(a) -> float:

@@ -23,6 +23,10 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "distributed_neural_network_tpu_torch.ops.fused_head" in mods
+    # the data axis's modules
+    for m in ("parallel.rules", "parallel.zero", "parallel.partition", "parallel.collectives",
+              "utils.tree"):
+        assert f"distributed_neural_network_tpu_torch.{m}" in mods
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'distributed_neural_network_tpu'):\n"

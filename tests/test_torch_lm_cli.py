@@ -3,7 +3,9 @@ distributed_neural_network_tpu_torch.lm_train`) on the CPU at a tiny width:
 its step lines, its MFU-less CPU summary with the JAX CLI's SUMMARY keys
 (read from the JAX script's source), the quantized route, the JAX CLI's
 argument errors, a NotImplementedError naming the slice for every flag of a
-later slice, and the flash launch formulas (the CPU runs each kernel's plain
+later slice, the data axis's flags in one process (zero, overlap, sharding
+rules; --dp N outside a group of N refused with the torchrun command), and
+the flash launch formulas (the CPU runs each kernel's plain
 version where the card launches the kernel, so counting the plain versions
 counts the launches the card makes)."""
 
@@ -115,10 +117,9 @@ def test_flash_launch_formulas(flags, tmp_path, monkeypatch):
 
 
 LATER = {
-    "--dp 2": "parallel-layouts", "--sp 2": "parallel-layouts", "--tp 2": "parallel-layouts",
-    "--pp 2": "parallel-layouts", "--optimizer zero": "parallel-layouts",
-    "--optimizer zero-adam": "parallel-layouts", "--grad-sync overlap": "parallel-layouts",
-    "--experts 4": "parallel-layouts", "--sharding auto": "parallel-layouts",
+    "--sp 2": "parallel-layouts", "--tp 2": "parallel-layouts",
+    "--pp 2": "parallel-layouts",
+    "--experts 4": "parallel-layouts", "--sharding auto": "item 6",
     "--microbatches 4": "parallel-layouts", "--guard warn": "slice 4",
     "--checkpoint-dir ck": "slice 4", "--resume": "slice 4", "--elastic": "slice 4",
     "--trace-out t.json": "slice 4", "--metrics-port 0": "slice 4",
@@ -135,12 +136,38 @@ def test_later_slice_flags_raise_naming_the_slice(flags):
         lm_train.main(TINY + flags.split(), log=lambda line: None)
 
 
+@pytest.mark.parametrize("extra", [
+    ["--optimizer", "zero"], ["--optimizer", "zero-adam", "--lr", "0.01"],
+    ["--grad-sync", "overlap", "--accum-steps", "2", "--bucket-mb", "0.001"],
+    ["--grad-sync", "overlap", "--accum-steps", "2", "--optimizer", "zero"],
+    ["--sharding", "manual"], ["--sharding", "rules"],
+])
+def test_data_axis_flags_run_in_one_process(tmp_path, extra):
+    """At dp 1 the zero optimizers hold one shard (bitwise sgd / adam), the
+    overlap schedule has nothing to sum over, and a rules file in the JAX
+    format drives the specs."""
+    if extra == ["--sharding", "rules"]:
+        from distributed_neural_network_tpu_torch.parallel import rules as R
+
+        path = R.save_rules(R.lm_partition_rules(), str(tmp_path / "rules.json"))
+        extra = ["--sharding", f"rules:{path}"]
+    lines = _run(TINY + extra)
+    summary = json.loads(lines[-1][8:])
+    assert summary["mesh"] == "single" and summary["final_loss"] < summary["first_loss"]
+
+
+def test_dp_outside_a_group_of_its_size_is_refused():
+    with pytest.raises(ValueError, match="torch.distributed.run --standalone --nproc-per-node 2"):
+        lm_train.main(TINY + ["--dp", "2"], log=lambda line: None)
+
+
 def test_argument_errors_match_the_jax_cli(capsys):
     with pytest.raises(SystemExit):
         lm_train.main(TINY + ["--precision", "int8-kv"])
     assert lm_train.INT8_KV_MESSAGE in capsys.readouterr().err
     for bad in (["--loss-chunks", "3"], ["--eval-every", "2"], ["--gen-top-k", "5"],
-                ["--steps", "0"]):
+                ["--steps", "0"], ["--bucket-mb", "0"], ["--sharding", "bogus"],
+                ["--sharding", "rules:"], ["--dp", "3"], ["--accum-steps", "3"]):
         with pytest.raises(SystemExit):
             lm_train.main(TINY + bad)
 

@@ -54,8 +54,15 @@ def test_norms_clip_and_health_match_jax(max_norm):
     jhealth = js.health_bundle(jnp.float32(2.5), jnorm)
     assert bool(health["all_finite"]) == bool(jhealth["all_finite"])
     assert not bool(ts.health_bundle(torch.tensor(float("nan")), norm)["all_finite"])
-    with pytest.raises(NotImplementedError, match="parallel-layouts"):
-        ts.global_norm(tg, specs={}, axes=("data",))
+    # mesh-aware: replicated specs on the data axis add nothing in one
+    # process (the step has already summed their gradients); the specs
+    # must align with the leaves
+    from distributed_neural_network_tpu_torch.parallel.partition import PartitionSpec as P
+
+    specs = [P()] * len(tg)
+    assert float(ts.global_norm(tg, specs=specs, axes=("data",))) == float(ts.global_norm(tg))
+    with pytest.raises(ValueError, match="specs"):
+        ts.global_norm(tg, specs=specs[:1], axes=("data",))
 
 
 def test_weight_decay_and_ema_match_jax():
@@ -99,5 +106,20 @@ def test_accumulation_matches_jax(k):
     loss = ts.accumulate_fwd_bwd(one, k)([w], torch.from_numpy(xs), torch.from_numpy(ys))
     assert float(loss) == pytest.approx(float(want_loss), rel=TOL)
     np.testing.assert_allclose(w.grad.numpy(), np.asarray(want_g), atol=TOL, rtol=TOL)
-    with pytest.raises(NotImplementedError, match="parallel-layouts"):
-        ts.accumulate_fwd_bwd_overlap(one, 2)
+    # the overlapped form (collective inside the loop; here the identity
+    # reduce of one device) against JAX's, and k = 1 refused by both
+    if k == 1:
+        with pytest.raises(ValueError, match="accum_steps >= 2"):
+            ts.accumulate_fwd_bwd_overlap(one, k, reduce_fn=list, finalize_fn=list)
+        with pytest.raises(ValueError, match="accum_steps >= 2"):
+            js.accumulate_fwd_bwd_overlap(None, k, reduce_fn=None, finalize_fn=None)
+        return
+    jl, jg = js.accumulate_fwd_bwd_overlap(
+        lambda w, x, y: jax.value_and_grad(jloss)(w, x, y), k, reduce_fn=lambda g: (g,),
+        finalize_fn=lambda r: r[0])(jnp.asarray(w0), jnp.asarray(xs), jnp.asarray(ys))
+    w.grad = None
+    loss, grads = ts.accumulate_fwd_bwd_overlap(one, k, reduce_fn=list, finalize_fn=list)(
+        [w], torch.from_numpy(xs), torch.from_numpy(ys))
+    assert w.grad is None
+    assert float(loss) == pytest.approx(float(jl), rel=TOL)
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(jg), atol=TOL, rtol=TOL)

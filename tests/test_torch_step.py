@@ -28,6 +28,7 @@ from distributed_neural_network_tpu_torch.models.cnn import (
 )
 from distributed_neural_network_tpu_torch.ops import losses, sgd
 from distributed_neural_network_tpu_torch.ops.train import (
+    GradSync,
     apply_mean_grads,
     eval_epoch,
     grad_step,
@@ -35,7 +36,6 @@ from distributed_neural_network_tpu_torch.ops.train import (
     train_step,
 )
 from distributed_neural_network_tpu_torch.parallel.collectives import (
-    RowGather,
     masked_mean,
     pack,
     unpack,
@@ -146,17 +146,18 @@ def test_local_sgd_epoch_matches_jax(n_devices, reset_momentum):
 
 def test_step_sync_takes_the_replica_mean(n_devices):
     """sync_mode="step": `grad_step` packs each replica's gradients into the
-    group's gather buffer and `apply_mean_grads` steps every replica with
-    their mean, JAX's `pmean` of the grads."""
+    group's gather buffer (`GradSync`, one buffer at grad_sync="end") and
+    `apply_mean_grads` steps every replica with their mean, JAX's `pmean`
+    of the grads."""
     params, x, y, net1 = _setup(32, seed=6)
     net = _replicas(params, 2)
     mom = [torch.zeros_like(p) for p in net.parameters()]
     idx = torch.tensor([list(range(16)), list(range(16, 32))])
     w = torch.ones(2, 16)
     images, labels = torch.from_numpy(x), torch.from_numpy(y).long()
-    gather = RowGather(create_mesh(2, "cpu"), (sum(p[0].numel() for p in net.parameters()),))
-    loss = grad_step(net, *gather_batch(images, labels, idx), w, gather)
-    apply_mean_grads(net, mom, gather.buf, lr=0.1, momentum=0.9)
+    sync = GradSync(create_mesh(2, "cpu"), list(net.parameters()))
+    loss = grad_step(net, *gather_batch(images, labels, idx), w, sync)
+    apply_mean_grads(net, mom, sync, lr=0.1, momentum=0.9)
     grads = [loss_and_grads(net1, images[None, 16 * d:16 * d + 16],
                             labels[None, 16 * d:16 * d + 16], torch.ones(1, 16))[1]
              for d in range(2)]

@@ -1,6 +1,7 @@
-"""One rank of a torch.distributed run of the port's CNN engine, and the
-launcher that starts the ranks (used by tests/test_torch_distributed.py on
-the CPU and by chip_smoke.py phase 17 on the card).
+"""One rank of a torch.distributed run of the port's CNN engine or LM
+train step, and the launcher that starts the ranks (used by
+tests/test_torch_distributed.py and tests/test_torch_lm_dp.py on the CPU and
+by chip_smoke.py phase 17 on the card).
 
     python tests/torch_rank_worker.py SPEC_JSON
 
@@ -25,7 +26,27 @@ in-process reference). The spec:
   "profile" (on the card) the last epoch runs under torch.profiler, and the
   json holds its span on the host's clock and the device's busy intervals
   relative to the trace's start (`_profiled_epoch`), so that the ranks'
-  traces can be merged where both clocks agree (`busy_union`).
+  traces can be merged where both clocks agree (`busy_union`);
+- ``lm`` (optional): {"params": an .npz of a parameter tree (keys
+  "layer/leaf" or "leaf"), "batches": an .npz of "tokens" and "targets"
+  (steps, B, S) global batches, "cfg": TransformerConfig fields, "cases":
+  [{"name", "kw" (make_lm_train_step arguments), "steps"}]}: each case
+  builds the mesh over the group (`create_lm_mesh(world)`), the optimizer
+  state and the step, feeds each step this rank's rows
+  (`distribute_host_data`) and writes ``lm_{name}_rank{r}.npz``: the
+  losses, the final parameters ("params/<path>") and optimizer state
+  ("state/<path>", this rank's shards under zero) and the step's bucket
+  count and collective count;
+- ``buckets`` (optional): {"seed", "cap"}: seeded leaves that differ by
+  rank (f32, and a bf16 run of leaves); writes ``buckets_rank{r}.npz``: the
+  bucketed mean (`bucketed_psum`), the per-leaf all-reduce mean, and the
+  reduce-scatter / all-gather round trip (`make_overlap_grad_reducers`:
+  `reduce_scatter_buckets`, `all_gather_buckets`) with this rank's shards;
+- ``zero`` (optional): {"seed"}: one summed gradient (the same on every
+  rank) and each rank's own partial gradients; writes ``zero_rank{r}.npz``:
+  the parameters and state after `zero_sgd_step_sharded`,
+  `zero_adam_step_sharded` (from summed and from partial gradients),
+  `zero_sgd_step`, and the replicated `sgd_step` / `adam_step`.
 
 Imports the port and numpy only (no JAX).
 """
@@ -102,6 +123,177 @@ def _sync_check(spec, rank, out):
         json.dump({"bitwise": equal, "world": group.world, "local": group.local}, f)
 
 
+def _lm_runs(spec, rank, out):
+    import numpy as np
+    import torch
+
+    from distributed_neural_network_tpu_torch.models import transformer as tfm
+    from distributed_neural_network_tpu_torch.parallel.distributed import distribute_host_data
+    from distributed_neural_network_tpu_torch.parallel.rules import named_leaves
+    from distributed_neural_network_tpu_torch.train import lm as tlm
+
+    flat = dict(np.load(spec["params"]))
+    tree = {}
+    for k, v in flat.items():
+        *path, leaf = k.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    batches = dict(np.load(spec["batches"]))
+    cfg = tfm.TransformerConfig(**spec["cfg"])
+    device = out["device"]
+    for case in spec["cases"]:
+        kw = dict(case["kw"])
+        mesh = tlm.create_lm_mesh(kw.pop("dp", None) or _world(), device=device)
+        params = tfm.from_jax_params(tree, device)
+        mom = tlm.init_lm_momentum(params, kw.get("optimizer", "sgd"), mesh)
+        step = tlm.make_lm_train_step(cfg, mesh=mesh, device=device, **kw)
+        losses = []
+        for i in range(case["steps"]):
+            tok, tgt = (distribute_host_data(torch.from_numpy(batches[k][i]).long(), mesh)
+                        for k in ("tokens", "targets"))
+            losses.append(float(step(params, mom, tok, tgt, i)))
+        state = {k: v for k, v in mom.items() if k != "t"} if isinstance(mom, dict) else mom
+        np.savez(os.path.join(out["dir"], f"lm_{case['name']}_rank{rank}.npz"),
+                 losses=np.asarray(losses, np.float64),
+                 n_buckets=step.layout.n_buckets if step.layout is not None else 0,
+                 n_collectives=len(step.collectives),
+                 **{"params/" + k: v.detach().cpu().numpy() for k, v in named_leaves(params)},
+                 **{f"state/{k}": v.detach().cpu().numpy() for k, v in named_leaves(state)})
+        del step
+
+
+BUCKET_SHAPES = [(3, 5), (7,), (4, 4, 2), (1,), (33,), (2, 9)]
+
+
+def bucket_leaves(seed: int, rank: int):
+    """The leaves rank `rank` reduces in the ``buckets`` check: f32, then
+    two bf16 leaves (a bucket never mixes dtypes)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng((seed, rank))
+    out = [torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in BUCKET_SHAPES]
+    out += [torch.from_numpy(rng.normal(size=s).astype(np.float32)).bfloat16()
+            for s in ((5,), (6,))]
+    return out
+
+
+def _bucket_check(spec, rank, out):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_neural_network_tpu_torch.parallel import collectives as C
+    from distributed_neural_network_tpu_torch.parallel.zero import make_overlap_grad_reducers
+    from distributed_neural_network_tpu_torch.train.lm import create_lm_mesh
+
+    n = dist.get_world_size()
+    leaves = bucket_leaves(spec["seed"], rank)
+    layout = C.plan_buckets(leaves, bucket_bytes=spec["cap"])
+    mean = C.bucketed_psum(leaves, layout, mean=True)
+    per_leaf = []
+    for x in leaves:
+        y = x.clone()
+        dist.all_reduce(y)
+        per_leaf.append(y.div_(n))
+    f32 = [x for x in leaves if x.dtype == torch.float32]
+    layout32 = C.plan_buckets(f32, bucket_bytes=spec["cap"])
+    # the ZeRO overlap's reducers: `reduce_scatter_buckets`, `all_gather_buckets`
+    reduce_fn, finalize_fn = make_overlap_grad_reducers(layout32, create_lm_mesh(n, device="cpu"))
+    shards = reduce_fn(f32)
+    gathered = finalize_fn(shards)
+    summed = C.bucketed_psum(f32, layout32)
+    as_np = lambda t: t.float().numpy()  # noqa: E731
+    np.savez(os.path.join(out["dir"], f"buckets_rank{rank}.npz"),
+             n_buckets=layout.n_buckets,
+             **{f"mean/{i}": as_np(x) for i, x in enumerate(mean)},
+             **{f"per_leaf/{i}": as_np(x) for i, x in enumerate(per_leaf)},
+             **{f"gathered/{i}": as_np(x) for i, x in enumerate(gathered)},
+             **{f"summed/{i}": as_np(x) for i, x in enumerate(summed)},
+             **{f"shard/{i}": as_np(x) for i, x in enumerate(shards)})
+
+
+ZERO_SHAPES = [(3, 5), (7,), (2, 4, 3), (1,)]
+
+
+def zero_inputs(seed: int, rank: int):
+    """(params, summed grads, this rank's partial grads) of the ``zero``
+    check: the partial grads of all ranks sum to the summed ones in float64
+    terms only, so the partial path is held to a tolerance."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    params = [rng.normal(size=s).astype(np.float32) for s in ZERO_SHAPES]
+    grads = [rng.normal(size=s).astype(np.float32) for s in ZERO_SHAPES]
+    part = np.random.default_rng((seed, rank))
+    partial = [part.normal(size=s).astype(np.float32) for s in ZERO_SHAPES]
+    t = lambda xs: [torch.from_numpy(x.copy()) for x in xs]  # noqa: E731
+    return t(params), t(grads), t(partial)
+
+
+def _zero_check(spec, rank, out):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_neural_network_tpu_torch.ops.adam import adam_step, init_adam
+    from distributed_neural_network_tpu_torch.ops.sgd import init_momentum, sgd_step
+    from distributed_neural_network_tpu_torch.parallel import zero as Z
+    from distributed_neural_network_tpu_torch.train.lm import create_lm_mesh
+
+    mesh = create_lm_mesh(dist.get_world_size(), device="cpu")
+    n = mesh.dp
+    res = {}
+    for steps in (1, 3):
+        p_rep, g, _ = zero_inputs(spec["seed"], rank)
+        mom = init_momentum(p_rep)
+        p_sh, _, _ = zero_inputs(spec["seed"], rank)
+        mom_sh = Z.init_zero_momentum_tree(p_sh, n)
+        p_flat, _, _ = zero_inputs(spec["seed"], rank)
+        mom_flat = torch.zeros(Z.zero_shard_size(p_flat, n))
+        for _ in range(steps):
+            sgd_step(p_rep, mom, g, 0.1, 0.9)
+            Z.zero_sgd_step_sharded(p_sh, mom_sh, g, 0.1, 0.9, mesh=mesh)
+            Z.zero_sgd_step(p_flat, mom_flat, g, 0.1, 0.9, mesh=mesh)
+        res.update({f"sgd{steps}/{i}": x.numpy() for i, x in enumerate(p_rep)})
+        res.update({f"zero{steps}/{i}": x.numpy() for i, x in enumerate(p_sh)})
+        res.update({f"flat{steps}/{i}": x.numpy() for i, x in enumerate(p_flat)})
+        res.update({f"zero_mom{steps}/{i}": x.numpy() for i, x in enumerate(mom_sh)})
+        res.update({f"sgd_mom{steps}/{i}": x.numpy() for i, x in enumerate(mom)})
+        res[f"flat_mom{steps}"] = mom_flat.numpy()
+        p_rep, g, _ = zero_inputs(spec["seed"], rank)
+        st = init_adam(p_rep)
+        p_sh, _, _ = zero_inputs(spec["seed"], rank)
+        st_sh = Z.init_zero_adam_tree(p_sh, n)
+        for _ in range(steps):
+            adam_step(p_rep, st, g, 0.01, weight_decay=0.01)
+            Z.zero_adam_step_sharded(p_sh, st_sh, g, 0.01, weight_decay=0.01, mesh=mesh)
+        res.update({f"adam{steps}/{i}": x.numpy() for i, x in enumerate(p_rep)})
+        res.update({f"zero_adam{steps}/{i}": x.numpy() for i, x in enumerate(p_sh)})
+        res.update({f"zero_adam_v{steps}/{i}": x.numpy() for i, x in enumerate(st_sh["v"])})
+    # the reduce-scatter of partial gradients against the slice of their sum
+    p_a, _, part = zero_inputs(spec["seed"], rank)
+    total = [x.clone() for x in part]
+    for x in total:
+        dist.all_reduce(x)
+    p_b, _, _ = zero_inputs(spec["seed"], rank)
+    m_a, m_b = Z.init_zero_momentum_tree(p_a, n), Z.init_zero_momentum_tree(p_b, n)
+    Z.zero_sgd_step_sharded(p_a, m_a, part, 0.1, 0.9, mesh=mesh, grads_presummed=False)
+    Z.zero_sgd_step_sharded(p_b, m_b, total, 0.1, 0.9, mesh=mesh)
+    res.update({f"partial/{i}": x.numpy() for i, x in enumerate(p_a)})
+    res.update({f"presummed/{i}": x.numpy() for i, x in enumerate(p_b)})
+    np.savez(os.path.join(out["dir"], f"zero_rank{rank}.npz"), **res)
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def main(spec_json: str) -> int:
     import numpy as np
     import torch
@@ -124,6 +316,12 @@ def main(spec_json: str) -> int:
     try:
         if spec.get("sync"):
             _sync_check(spec["sync"], rank, out)
+        if spec.get("lm"):
+            _lm_runs(spec["lm"], rank, out)
+        if spec.get("buckets"):
+            _bucket_check(spec["buckets"], rank, out)
+        if spec.get("zero"):
+            _zero_check(spec["zero"], rank, out)
         for run in spec.get("runs", []):
             cfg = TrainConfig(**run["config"])
             train = load_split(True, source="synthetic", synthetic_size=run["train"]["size"],
@@ -171,12 +369,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(world: int, spec: dict, *, timeout: float, joined: bool = True,
-           env: dict | None = None) -> list[subprocess.CompletedProcess]:
-    """Start `world` ranks of this worker on a free localhost port (or, with
-    `joined=False` and world 1, one process that joins no group), each
-    with its own `timeout`; every rank is killed if one overruns. Returns
-    the ranks' completed processes (stdout and stderr captured)."""
+def launch(world: int, spec, *, timeout: float, joined: bool = True,
+           env: dict | None = None, script: str | None = None) -> list[subprocess.CompletedProcess]:
+    """Start `world` ranks of this worker (or of `script`, given `spec` as
+    its argument) on a free localhost port (or, with `joined=False` and
+    world 1, one process that joins no group), each with its own `timeout`;
+    every rank is killed if one overruns. Returns the ranks' completed
+    processes (stdout and stderr captured)."""
     port = free_port()
     procs = []
     for rank in range(world):
@@ -189,7 +388,7 @@ def launch(world: int, spec: dict, *, timeout: float, joined: bool = True,
             e.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(world),
                      RANK=str(rank), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), json.dumps(spec)], env=e,
+            [sys.executable, script or os.path.abspath(__file__), json.dumps(spec)], env=e,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     deadline = time.monotonic() + timeout
     done = []
