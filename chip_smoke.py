@@ -106,17 +106,22 @@ Phases (any failure exits non-zero and prints no result):
    16}, causal and not, f32 and bf16, contiguous and a strided (B, S, H, D)
    view; bf16 at D 32 (the mma route) and D 40 (the simt route), and
    misaligned views (simt); and the main path's own shape FLASH_MAIN (16,
-   2048, 8, 64) causal bf16; each case, forward and backward, on the route
+   2048, 8, 64) causal bf16, and the mesh's FLASH_MESH ((16, 2048, 4, 64)
+   at --tp 2, (16, 2048, 2, 64) at --tp 4, (2, 2048, 4, 64) at --dp 2 --tp
+   2 --accum-steps 4, (8, 2048, 8, 64) at --dp 2; inputs from a generator
+   of their own); each case, forward and backward, on the route
    the stated rule gives it (`expected_route`, read from the route
    counters: FLASH_MAIN on mma; the forward's mma route is wgmma at D 48
    and 64, mma.sync at 16, 32 and 128);
    f32 atol = rtol = 1e-4, bf16 1.6e-2, lse 1e-4; and the quantized
-   forward (int8, fp8) on codes at the kernel's own k tile, at B 2 and at
-   FLASH_MAIN (int8 2e-2; fp8 mean error 1e-4 and max two e4m3 steps, see
+   forward (int8, fp8) on codes at the kernel's own k tile, at B 2, at
+   FLASH_MAIN and at --tp 2's (16, 2048, 4, 64) (int8 2e-2; fp8 mean error
+   1e-4 and max two e4m3 steps, see
    FP8_STEP), each on both of its routes (`quant_route`: the codes as they
    come on mma, the same codes 8 bytes off a 16-byte boundary on simt);
    every kernel gives the same bits on a second call. The kernel line's
-   max_abs_err is the one at FLASH_MAIN (the quantized kernel's on mma);
+   max_abs_err is the one at FLASH_MAIN, max_abs_err_mesh the largest at
+   FLASH_MESH (the quantized kernel's on mma, at --tp 2's shape);
 13. the LM training main path at full width through `lm_train.main`, the
    repo's flagship row lm_flash_d512_L8_seq2048_bf16 with nothing cut
    (d512/L8/H8/d_ff 2048/vocab 32768, batch 16, seq 2048, bf16, SGD lr 0.01
@@ -211,7 +216,30 @@ Phases (any failure exits non-zero and prints no result):
 23. --optimizer zero and zero-adam at --dp 2, 4 steps: the parameters
    bitwise phase 21's sgd / adam run's; each rank's zero-adam state
    (`memory_allocated` around `init_lm_momentum`) within 1% of its shards'
-   bytes (half the replicated state plus the padding), beside adam's.
+   bytes (half the replicated state plus the padding), beside adam's;
+24. the model axis (`port_probes/lm_mesh_world.py`, one launch of 2 ranks
+   sharing the card over gloo for phases 24-25, the counters set to 0
+   before each run): `lm_train.main` at LM_ARGS with --tp 2 --attn flash,
+   sgd and adam, 4 steps: every step's loss within LOSS_TOL relative of
+   the one-process run on the same route (phase 21's sgd and adam, run
+   again; and --precision int8 against its own one-process run: the
+   quantized forward's launches on the tp path), the parameter update
+   (gathered parameters minus the initial ones) within the probe's
+   UPDATE_TOL of the one-process run's in relative L2, leaf by leaf, the
+   ranks' SUMMARY lines, losses and gathered parameters (`gather_params`)
+   equal, each rank's flash launches the formula, all on the mma route,
+   every call at (16, 2048, 4, 64), a shape of phase 12's FLASH_MESH; ms per
+   step, tokens/s, MFU over the one card, the
+   collectives' time per step (the model axis's all-reduces each timed
+   alone at their shape, times their count) and the step's segments (the
+   forward and backward eager between graphs: gloo collectives inside);
+25. the sequence axis: --sp 2 with --attn ring, ulysses and zigzag at
+   global batch 8 (cut from 16: the one-process reference's plain
+   attention holds (B, H, S, S) scores), each within LOSS_TOL of the
+   one-process --attn ring run at batch 8 and its update within
+   UPDATE_TOL; and --dp 2 (phase 21's sgd run) through the same three-axis
+   mesh code, held the same way to the one-process run and compared with
+   phase 21's losses.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -224,6 +252,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -261,6 +290,11 @@ LM_ARGS = [a for k, v in LM_SHAPE.items() for a in ("--" + k.replace("_", "-"), 
 LM_STEPS, LM_LOG_EVERY = 20, 10
 # the attention inputs that LM_ARGS give each flash kernel: (B, S, H, D)
 FLASH_MAIN = (16, 2048, 8, 64)
+# those the mesh's axes give them (B / dp rows, H / tp heads a rank): --tp 2
+# (phase 24; --precision int8 there too), --tp 4 and --dp 2 --tp 2
+# --accum-steps 4 (port_probes/lm_mesh_world.py on four cards), --dp 2
+# (phases 21-23 and 25)
+FLASH_MESH = ((16, 2048, 4, 64), (16, 2048, 2, 64), (2, 2048, 4, 64), (8, 2048, 8, 64))
 # kernel route vs plain route from the same init and batches, bf16 (scores
 # and softmax in bf16 on the plain route, f32 in the kernels): the logged
 # losses (steps 0, 10, 19; the loss moves about 0.27 over the 20 steps;
@@ -839,16 +873,21 @@ def flash_vs_plain(torch, fa, dev):
     abs errors per kernel over all cases ("flash_dq mma bf16", ... per route
     too), and those at the main path's own shape (FLASH_MAIN: (B, S, H, D) =
     (16, 2048, 8, 64), causal, bf16, contiguous, on the mma route; int8 and
-    fp8 for the quantized kernel; "flash_fwd o": o's alone)."""
+    fp8 for the quantized kernel; "flash_fwd o": o's alone) and the largest
+    at the mesh's shapes (FLASH_MESH, the same way: "flash_fwd mesh", ...;
+    the quantized kernel at FLASH_MESH[0], --tp 2's)."""
     g = torch.Generator(dev).manual_seed(12)
+    g_mesh = torch.Generator(dev).manual_seed(24)
     worst, main, n = {}, {}, 0
-    mb, ms, mh, md = FLASH_MAIN
-    main_case = (mb, ms, mh, md, True, torch.bfloat16, "contiguous")
+    main_case = FLASH_MAIN + (True, torch.bfloat16, "contiguous")
+    mesh_cases = [shape + (True, torch.bfloat16, "contiguous") for shape in FLASH_MESH]
 
-    def record(name, err, is_main):
+    def record(name, err, is_main, is_mesh=False):
         worst[name] = max(worst.get(name, 0.0), err)
         if is_main:
             main[name] = max(main.get(name, 0.0), err)
+        if is_mesh:
+            main[f"{name} mesh"] = max(main.get(f"{name} mesh", 0.0), err)
 
     cases = [(b, s, h, d, causal, dtype, layout)
              for (b, h) in ((1, 1), (2, 8)) for s in (1, 64, 200, 2048) for d in (64, 128, 16)
@@ -861,12 +900,13 @@ def flash_vs_plain(torch, fa, dev):
               for layout in ("contiguous", "strided")]
     cases += [(2, s, 8, d, causal, torch.bfloat16, "misaligned")
               for s in (1, 200) for d in (64, 128) for causal in (True, False)]
-    cases.append(main_case)
+    cases += [main_case] + mesh_cases
     for case in cases:
         b, s, h, d, causal, dtype, layout = case
-        is_main = case == main_case
+        is_main, is_mesh = case == main_case, case in mesh_cases
         tol = 1e-4 if dtype == torch.float32 else 1.6e-2
-        q, k, v, do = flash_inputs(torch, b, s, h, d, dtype, layout, dev, g)
+        q, k, v, do = flash_inputs(torch, b, s, h, d, dtype, layout, dev,
+                                   g_mesh if is_mesh else g)
         where = f"B={b} S={s} H={h} D={d} causal={causal} {dtype} {layout}"
         route = fa.bwd_route(q, k, v, do)
         check(route == expected_route(torch, d, dtype, layout) == fa.fwd_route(q, k, v),
@@ -883,7 +923,7 @@ def flash_vs_plain(torch, fa, dev):
             check(ok, f"flash_fwd {name} max abs err {max_err(torch, x.float(), y.float())}: "
                   f"{where}")
         err_o = max_err(torch, o.float(), o_p.float())
-        record("flash_fwd", max(err_o, max_err(torch, lse, lse_p)), is_main)
+        record("flash_fwd", max(err_o, max_err(torch, lse, lse_p)), is_main, is_mesh)
         record(f"flash_fwd {route} {'f32' if dtype == torch.float32 else 'bf16'}", err_o, False)
         if is_main:
             main["flash_fwd o"] = err_o
@@ -908,17 +948,17 @@ def flash_vs_plain(torch, fa, dev):
                 "flash_dkv": max(max_err(torch, dk.float(), dk_p.float()),
                                  max_err(torch, dv.float(), dv_p.float()))}
         for name, err in errs.items():
-            record(name, err, is_main)
+            record(name, err, is_main, is_mesh)
             record(f"{name} {route} {'f32' if dtype == torch.float32 else 'bf16'}", err, False)
         n += 1
     # the quantized forward on codes, at the kernel's own k tile (BLOCK_K)
     qcases = [(fmt, 2, s, 8, d, causal, out, "strided" if s == 200 else "contiguous")
               for fmt in ("int8", "fp8") for s in (64, 200, 2048) for d in (64, 128)
               for causal in (True, False) for out in (torch.bfloat16, torch.float32)]
-    qcases += [(fmt,) + main_case for fmt in ("int8", "fp8")]
+    qcases += [(fmt,) + case for fmt in ("int8", "fp8") for case in (main_case, mesh_cases[0])]
     for fmt, *case in qcases:
         b, s, h, d, causal, out, layout = case
-        is_main = tuple(case) == main_case
+        is_main, is_mesh = tuple(case) == main_case, tuple(case) == mesh_cases[0]
         q, k, v, _ = flash_inputs(torch, b, s, h, d, out, layout, dev, g)
         qc, sq, kc, sk, vc, sv = fa.quantize_qkv(q, k, v, fmt)
         o_p, lse_p = fa.flash_fwd_quant_plain(qc, kc, vc, sq, sk, sv, causal=causal,
@@ -949,7 +989,7 @@ def flash_vs_plain(torch, fa, dev):
                   f"(lse {max_err(torch, lse, lse_p)}): {where}")
             record(f"flash_fwd_quant {route} {fmt}", err, False)
             if route == "mma":
-                record("flash_fwd_quant", err, is_main)
+                record("flash_fwd_quant", err, is_main, is_mesh)
                 if is_main:
                     main[f"flash_fwd_quant {fmt}"] = err
             n += 1
@@ -2200,9 +2240,11 @@ def main() -> int:
         flash_checks = {"cases": n, "worst": worst, "main": main_err}
         for name in ("flash_fwd", "flash_fwd_quant", "flash_dq", "flash_dkv"):
             kernels[name]["max_abs_err"] = main_err[name]
+            kernels[name]["max_abs_err_mesh"] = main_err[f"{name} mesh"]
         print(f"{n} cases within tolerance and bitwise reproducible; max abs err over all "
-              f"cases {worst}; at the main path's shape (B, S, H, D) = {FLASH_MAIN}, causal "
-              f"bf16 (the quantized kernel: the larger of int8 and fp8) {main_err}")
+              f"cases {worst}; at the main path's shape (B, S, H, D) = {FLASH_MAIN} and "
+              f"(\"... mesh\", the largest) at the mesh's {FLASH_MESH}, causal bf16 (the "
+              f"quantized kernel: the larger of int8 and fp8, at the first) {main_err}")
 
     lm_runs, lm_checks = {}, {}
     with phase("13 LM training main path, full width"):
@@ -2909,6 +2951,70 @@ def main() -> int:
               f"{sb['per_rank']['zero']['allocated']:,} B against sgd "
               f"{sb['per_rank']['sgd']['allocated']:,} B")
 
+    mesh_run = {}
+    with phase("24 LM tensor parallel, 2 ranks on the one card"):
+        from port_probes import lm_mesh_world as M
+
+        updates = os.path.join(ROOT, "runs", "lm_mesh_updates")
+        t0 = time.perf_counter()
+        try:
+            # the one-process runs again (sgd and adam as phase 21's), for their updates
+            ref = M.reference(LM_ARGS, ["flash-sgd", "flash-adam", "flash-int8", "ring-b8"],
+                              updates=updates)
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            ranks = M.run_world(2, os.path.join(ROOT, "chiprun_out", "lm_mesh"), LM_ARGS,
+                                updates, timeout=600)
+        finally:
+            shutil.rmtree(updates, ignore_errors=True)
+        mesh_run = {"runs": M.check(2, ranks, ref, LM_ARGS, flash_counts=flash_counts,
+                                    mma_counts=mma_counts,
+                                    flash_checked=(FLASH_MAIN,) + FLASH_MESH),
+                    "one_process": ref,
+                    "seconds": {"one_process": t1 - t0, "ranks": time.perf_counter() - t1},
+                    "cuts": {"sequence runs' global batch": "16 -> 8"}}
+        runs24 = mesh_run["runs"]
+        print(f"   one process (sgd, adam, --precision int8, --attn ring at batch 8) "
+              f"{t1 - t0:.1f} s; 2 ranks, every run of "
+              f"phases 24-25, {time.perf_counter() - t1:.1f} s with start-up; collective form: "
+              f"{runs24['tp2-sgd']['form']}")
+        for name in ("tp2-sgd", "tp2-adam", "tp2-int8"):
+            row = runs24[name]
+            coll = row["collective_ms"][0]
+            print(f"   {name} --tp 2 --attn flash: {row['ms_per_step']:.2f} ms per step, "
+                  f"{row['tokens_per_s']} tokens/s, MFU {row['mfu_pct']}% ({row['cards']} card); "
+                  f"losses {[round(x, 5) for x in row['losses']]}, max relative difference "
+                  f"from one process {row['max_rel_vs_one_process']:.2e}; parameter update "
+                  f"within {row['update_rel_max']:.2e} of one process's (relative L2, worst leaf "
+                  f"{row['update_rel_leaf']}); the ranks' SUMMARY "
+                  f"lines and gathered parameters equal; flash launches per rank "
+                  f"{row['launches_per_rank']} (all mma) at {row['flash_shapes']}; the "
+                  f"collectives alone per step (rank 0, ms): model-axis all-reduces "
+                  f"{fmt(coll.get('model', 0.0))}, sync {fmt(coll['sync'])}; segments: "
+                  f"{row['segments']}")
+
+    with phase("25 LM sequence parallel, 2 ranks on the one card"):
+        for name in ("sp2-ring", "sp2-ulysses", "sp2-zigzag"):
+            row = runs24[name]
+            coll = row["collective_ms"][0]
+            print(f"   {name} (batch 8): {row['ms_per_step']:.2f} ms per step, "
+                  f"{row['tokens_per_s']} tokens/s, MFU {row['mfu_pct']}%; losses "
+                  f"{[round(x, 5) for x in row['losses']]}, max relative difference from one "
+                  f"process --attn ring {row['max_rel_vs_one_process']:.2e}, parameter update "
+                  f"{row['update_rel_max']:.2e} (worst leaf {row['update_rel_leaf']}); the "
+                  f"collectives "
+                  f"alone per step (rank 0, ms): sequence axis {fmt(coll.get('seq', 0.0))}, "
+                  f"sync {fmt(coll['sync'])}; segments: {row['segments']}")
+        row = runs24["dp2"]
+        same = row["losses"] == dp_run["runs"]["sgd"]["losses"]
+        mesh_run["dp2_bitwise_phase21"] = same
+        print(f"   --dp 2 through create_lm_mesh(2, 1, 1): {row['ms_per_step']:.2f} ms per step, "
+              f"losses {[round(x, 5) for x in row['losses']]} within "
+              f"{row['max_rel_vs_one_process']:.2e} of one process (parameter update "
+              f"{row['update_rel_max']:.2e}); "
+              f"{'bitwise' if same else 'not bitwise'} phase 21's --dp 2 sgd losses; segments: "
+              f"{row['segments']}")
+
     designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
                                  f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
                "fused_mlp3_bwd": f"one launch for all replicas, a cluster of "
@@ -2952,7 +3058,8 @@ def main() -> int:
                    "lm_runs": lm_runs, "lm_checks": lm_checks, "learn": learn,
                    "lm_profile": lm_profile, "graphs": graphs_run, "across": across,
                    "stream": stream_run,
-                   "bf16": bf16_run, "data_axis": dp_run}, f, indent=1, default=str)
+                   "bf16": bf16_run, "data_axis": dp_run, "model_seq_axes": mesh_run}, f,
+                  indent=1, default=str)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

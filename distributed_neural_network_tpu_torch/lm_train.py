@@ -6,28 +6,37 @@ final ``SUMMARY {json}`` line (the same keys).
         --dtype bfloat16 --steps 20 --batch-size 16 --seq-len 2048 \\
         --vocab 32768 --d-model 512 --n-layers 8 --n-heads 8 --d-ff 2048 --lr 0.01
 
-Data parallelism: ``--dp N`` is N ranks under torchrun, one a data shard,
-each joining the group through `parallel/distributed.py` `initialize`
-(NCCL when every rank has a card of its own, gloo when ranks share one, gloo
-on the CPU):
+The mesh: ``--dp D --sp S --tp T`` is D*S*T ranks under torchrun, laid
+out as the JAX CLI's ``create_lm_mesh(D, S, T)`` (model axis fastest), each
+joining the group through `parallel/distributed.py` `initialize` (NCCL when
+every rank has a card of its own, gloo when ranks share one, gloo on the
+CPU):
 
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m distributed_neural_network_tpu_torch.lm_train --dp 2 --tp 2 [--attn flash] ...
     python -m torch.distributed.run --standalone --nproc-per-node 2 \\
-        -m distributed_neural_network_tpu_torch.lm_train --dp 2 [--optimizer zero] \\
-        [--grad-sync overlap --accum-steps 4 --bucket-mb 4] ...
+        -m distributed_neural_network_tpu_torch.lm_train --sp 2 --attn zigzag ...
 
-Every rank builds the same global batch and feeds the step its block of
-B/dp rows; the loss lines and the SUMMARY are the group's, the same on
-every rank (timings are the slowest rank's), each line written whole. MFU
-is taken over the peak times the number of cards the ranks run on (ranks
-that share a card count it once). ``--sharding manual`` (the rule table) or
-``rules:<file>`` (a JSON rule list, `parallel/rules.py`) gives the
-parameters' specs, which the data axis keeps replicated.
+Every rank builds the same global batch (under ``--attn zigzag`` with
+``--sp`` > 1 its sequence permuted into the zigzag layout) and feeds the
+step its block: B/dp rows and S/sp columns. ``--tp`` shards the heads and
+the MLP's hidden columns (``--n-heads`` must divide by it); ``--sp`` runs
+ring, Ulysses or zigzag attention (not flash, not a quantized
+``--precision``). The loss lines and the SUMMARY are the group's, the same
+on every rank (timings are the slowest rank's), each line written whole.
+MFU is taken over the peak times the number of cards the ranks run on
+(ranks that share a card count it once). ``--sharding manual`` (the rule
+table) or ``rules:<file>`` (a JSON rule list, `parallel/rules.py`) gives
+the parameters' specs. The log line names the collectives' form, and the
+line after the first step the step program's segments (one graph under
+NCCL).
 
 Runs on the GPU unless ``--device cpu`` is given; there the train step (and
 the eval loss) is captured as CUDA graphs at the first step and replayed
 after (one graph, unless gloo collectives split the step). ``--generate``
-decodes eagerly. ``--attn flash`` runs the hand-written flash kernels
-(`ops/flash_attention.py`; their plain versions on the CPU); ``--attn
+decodes eagerly (from the gathered parameters under ``--tp``). ``--attn
+flash`` runs the hand-written flash kernels (`ops/flash_attention.py`; their
+plain versions on the CPU; on H/tp heads under ``--tp``); ``--attn
 ring|ulysses|zigzag`` at ``--sp 1`` is the plain local attention, as the
 JAX `_attend` with no sequence axis. ``--precision
 fp8|int8`` quantizes the attention forward. The task is the synthetic copy
@@ -53,7 +62,7 @@ from .device import resolve_device
 from .models import transformer as tfm
 from .ops.schedule import make_ema_update, warmup_cosine
 from .parallel.distributed import distribute_host_data, initialize, joined
-from .parallel.ring import PARALLEL_SLICE
+from .parallel.ring import PARALLEL_SLICE, zigzag_order
 from .train import lm as lmtrain
 from .train.cli import SLICE5, say
 from .train.engine import SLICE4
@@ -115,11 +124,13 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; asking for cuda without a GPU is an error")
-    p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel ranks: run N processes under torchrun")
-    for flag in ("--sp", "--tp", "--pp"):
-        p.add_argument(flag, type=int, default=1,
-                       help=f"must be 1: this axis comes with {PARALLEL_SLICE}")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel axis size")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel axis size (ring/ulysses/zigzag attention)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel axis size; run dp*sp*tp processes under torchrun")
+    p.add_argument("--pp", type=int, default=1,
+                   help=f"must be 1: this axis comes with {PARALLEL_SLICE}")
     p.add_argument("--sharding", default="manual", metavar="MODE",
                    help="'manual' (default): the parameters' specs from the partition-rule "
                    "table (parallel/rules.py); 'rules:<file>': a custom ordered [regex, spec] "
@@ -197,10 +208,23 @@ def validate(p: argparse.ArgumentParser, args) -> None:
     if args.generate <= 0 and (args.gen_temperature > 0 or args.gen_top_k or args.gen_top_p):
         p.error("--gen-temperature/--gen-top-k/--gen-top-p configure --generate N, which was "
                 "not requested")
-    if args.loss_chunks > 1 and args.seq_len % args.loss_chunks:
-        p.error(f"--loss-chunks {args.loss_chunks} must divide --seq-len {args.seq_len}")
+    if args.loss_chunks > 1 and (args.seq_len // max(args.sp, 1)) % args.loss_chunks:
+        p.error(f"--loss-chunks {args.loss_chunks} must divide the per-shard sequence length "
+                f"{args.seq_len // max(args.sp, 1)} (--seq-len / --sp; the CE is chunked "
+                "along the local sequence axis)")
+    if args.attn == "zigzag" and args.sp > 1 and args.seq_len % (2 * args.sp):
+        p.error(f"--attn zigzag needs --seq-len divisible by 2*sp ({2 * args.sp}); got "
+                f"{args.seq_len}")
+    if args.attn == "flash" and args.sp > 1:
+        p.error("--attn flash is the local (per-device) kernel and composes with --dp/--tp "
+                "(own vma-typed Pallas kernels, round 4); a sequence axis needs --attn "
+                "ring/ulysses/zigzag")
     if args.precision == "int8-kv":
         p.error(INT8_KV_MESSAGE)
+    if args.precision != "bf16" and args.sp > 1:
+        p.error(f"--precision {args.precision} quantizes the LOCAL attention matmuls; a "
+                "sequence axis (ring/ulysses/zigzag) has no quantized path - drop --sp or "
+                "--precision")
     if args.n_heads < 1 or args.d_model % args.n_heads:
         p.error(f"--d-model {args.d_model} must divide by --n-heads {args.n_heads}")
     if args.sharding not in ("manual", "auto") and not args.sharding.startswith("rules:"):
@@ -212,8 +236,9 @@ def validate(p: argparse.ArgumentParser, args) -> None:
                 "leaves (--experts with --dp > 1) vary over that axis - use --grad-sync end")
     if args.bucket_mb <= 0:
         p.error(f"--bucket-mb must be > 0, got {args.bucket_mb}")
-    if args.dp < 1:
-        p.error(f"--dp must be >= 1, got {args.dp}")
+    for flag in ("dp", "sp", "tp"):
+        if getattr(args, flag) < 1:
+            p.error(f"--{flag} must be >= 1, got {getattr(args, flag)}")
     if args.batch_size % (args.dp * args.accum_steps):
         p.error(f"--batch-size {args.batch_size} must divide by --dp x --accum-steps "
                 f"({args.dp} x {args.accum_steps}): each rank's rows split into the "
@@ -225,10 +250,9 @@ def check_ported(args) -> None:
     for dest, (flag, later) in LATER_FLAGS.items():
         if getattr(args, dest) is not None:
             raise NotImplementedError(f"{flag} is not ported yet; it comes with {later}")
-    for flag in ("sp", "tp", "pp"):
-        if getattr(args, flag) != 1:
-            raise NotImplementedError(f"--{flag} {getattr(args, flag)}: the port has the data "
-                                      f"axis only; this one comes with {PARALLEL_SLICE}")
+    if args.pp != 1:
+        raise NotImplementedError(f"--pp {args.pp}: the pipeline axis comes with "
+                                  f"{PARALLEL_SLICE}")
     if args.experts:
         raise NotImplementedError(f"--experts comes with {PARALLEL_SLICE}")
     if args.sharding == "auto":
@@ -243,13 +267,14 @@ def _cards(mesh) -> int:
     card count it once); 1 off a group."""
     if not mesh.joined:
         return 1
-    where = [None] * mesh.dp
+    where = [None] * mesh.world
     dist.all_gather_object(where, (socket.gethostname(), str(mesh.device)))
     return len(set(where))
 
 
 def _group_max(x: float, mesh) -> float:
-    """The largest of the ranks' `x` (the group's time is its slowest rank's)."""
+    """The largest of the ranks' `x` over the whole mesh (the group's time
+    is its slowest rank's)."""
     if not mesh.joined:
         return x
     t = torch.tensor([x], dtype=torch.float64,
@@ -268,6 +293,8 @@ def main(argv=None, *, log=say, result: dict | None = None) -> int:
     args = p.parse_args(argv)
     validate(p, args)
     check_ported(args)
+    if args.n_heads % max(args.tp, 1):
+        raise SystemExit(f"--n-heads {args.n_heads} must divide by --tp {args.tp}")
     device = resolve_device(args.device)
     owned = not joined()
     try:
@@ -275,7 +302,7 @@ def main(argv=None, *, log=say, result: dict | None = None) -> int:
         initialize(device=device, log=log)
         mesh = lmtrain.create_lm_mesh(args.dp, args.sp, args.tp, device=device)
         if mesh.joined and owned:
-            log(f"(Multi-process: rank {mesh.rank}/{mesh.dp}, backend {mesh.backend}, device "
+            log(f"(Multi-process: rank {mesh.rank}/{mesh.world}, backend {mesh.backend}, device "
                 f"{mesh.device})")
         _train(args, mesh, log, result)
     finally:
@@ -302,7 +329,10 @@ def _train(args, mesh, log, result) -> None:
         rules_path = args.sharding[len("rules:"):]
         rules = load_rules(rules_path)
         log(f"(sharding rules: {rules_path}, {len(rules)} rule(s))")
-    params, _ = lmtrain.shard_params(tfm.init_params(args.seed, cfg), cfg, mesh, rules=rules)
+    whole = tfm.init_params(args.seed, cfg)
+    n_params = tfm.param_count(whole)
+    params, specs = lmtrain.shard_params(whole, cfg, mesh, rules=rules)
+    del whole
     mom = lmtrain.init_lm_momentum(params, args.optimizer, mesh)
     cards = _cards(mesh)
     lr_schedule = None
@@ -318,10 +348,21 @@ def _train(args, mesh, log, result) -> None:
         rules=rules,
     )
 
-    def rows(tok, tgt):
-        """This rank's block of the global batch (the batch itself at dp 1)."""
-        return (distribute_host_data(tok, mesh, device=device),
-                distribute_host_data(tgt, mesh, device=device))
+    zperm = None
+    if args.attn == "zigzag" and args.sp > 1:
+        # the zigzag layout: each sequence rank's shard holds one early and
+        # one late chunk; the loss is a mean over positions, so one
+        # permutation of tokens and targets leaves it unchanged
+        zperm = torch.from_numpy(zigzag_order(args.seq_len, args.sp)).long()
+
+    def rows(tok, tgt, whole_batch=False):
+        """This rank's block of the global batch (the batch itself at 1 x 1
+        x 1): its rows and sequence columns, or (`whole_batch`, an eval
+        batch) every row and its columns."""
+        if zperm is not None:
+            tok, tgt = tok[:, zperm], tgt[:, zperm]
+        return tuple(distribute_host_data(x, mesh, device=device, rows=not whole_batch)
+                     for x in (tok, tgt))
 
     stream = batch_at = None
     if args.data_path:
@@ -343,12 +384,13 @@ def _train(args, mesh, log, result) -> None:
             seq_len=args.seq_len, vocab=args.vocab))
     eval_fn = None
     if args.eval_every:
-        eval_fn = lmtrain.make_eval_fn(cfg, attn_impl=args.attn, loss_chunks=args.loss_chunks)
+        eval_fn = lmtrain.make_eval_fn(cfg, attn_impl=args.attn, loss_chunks=args.loss_chunks,
+                                       mesh=mesh)
     sync = ""
     if mesh.joined:
         sync = f", collectives {step.collective_form}"
-    log(f"(LM {tfm.param_count(params):,} params, mesh {mesh.desc}, "
-        f"attn={'flash' if args.attn == 'flash' else 'full'}, "
+    log(f"(LM {n_params:,} params, mesh {mesh.desc}, "
+        f"attn={args.attn if args.sp > 1 or args.attn == 'flash' else 'full'}, "
         + (f"precision={args.precision}, " if args.precision != "bf16" else "")
         + f"experts=dense, optimizer={args.optimizer}, grad_sync={args.grad_sync}, "
         f"device={device}{sync})")
@@ -375,8 +417,8 @@ def _train(args, mesh, log, result) -> None:
             t_ev = time.perf_counter()
             eval_params = lmtrain.tree_unflatten(params, ema) if ema is not None else params
             # every rank evaluates the whole held-out batch: the same value on each
-            ev = float(np.mean([float(eval_fn(eval_params, *(x.to(device) for x in
-                                                            batch_at(j, "eval"))))
+            ev = float(np.mean([float(eval_fn(eval_params, *rows(*batch_at(j, "eval"),
+                                                                whole_batch=True)))
                                 for j in range(args.eval_batches)]))
             if t0 is not None:
                 eval_s += time.perf_counter() - t_ev
@@ -387,6 +429,7 @@ def _train(args, mesh, log, result) -> None:
             first_loss = float(loss)  # waits for the step
             log(f"(first step incl. kernel build and graph capture: "
                 f"{time.perf_counter() - t_first:.1f}s)")
+            log(f"(step program: {step.segments})")
             t0 = time.perf_counter()
         else:
             timed_steps += 1
@@ -409,6 +452,8 @@ def _train(args, mesh, log, result) -> None:
             f"{flops_tok / 1e6:.1f}M")
     if args.generate > 0:
         gen_params = lmtrain.tree_unflatten(params, ema) if ema is not None else params
+        if mesh.tp > 1:
+            gen_params = lmtrain.gather_params(gen_params, specs, mesh)
         ptoks, _ = lmtrain.make_copy_task(
             torch.Generator().manual_seed(args.seed + 1), batch=args.batch_size,
             seq_len=args.seq_len, vocab=args.vocab, device=device)
@@ -434,7 +479,7 @@ def _train(args, mesh, log, result) -> None:
     log("SUMMARY " + json.dumps(summary))
     if result is not None:
         result.update(losses=[float(x) for x in losses], params=params, mom=mom, step=step,
-                      mesh=mesh, cards=cards)
+                      mesh=mesh, cards=cards, specs=specs)
 
 
 if __name__ == "__main__":

@@ -9,11 +9,18 @@ tree across in either direction.
 
 `apply_hidden` / `apply_with_aux` / `apply` are the teacher-forced forward,
 differentiable: the f32 master leaves are sliced per layer and cast to the
-model dtype inside the graph, so their gradients land in f32. Attention is
-the plain local attention (`parallel/ring.py` `attention`) for ``full``,
-``ring``, ``ulysses`` and ``zigzag`` (one device has no sequence axis, as in
-the JAX `_attend`), or the flash kernels (`ops/flash.py`) for ``flash``;
-``attn_quant`` quantizes the attention forward. ``remat`` checkpoints every
+model dtype inside the graph, so their gradients land in f32. Without a
+sequence axis, attention is the plain local attention (`parallel/ring.py`
+`attention`) for ``full``, ``ring``, ``ulysses`` and ``zigzag``, or the flash
+kernels (`ops/flash.py`) for ``flash``; ``attn_quant`` quantizes the
+attention forward. With a sequence axis (``seq_axis``, a `parallel/mesh.py`
+`Axis`) tokens are this rank's shard of the sequence, positions global, and
+attention is `ring_attention`, `ulysses_attention` or
+`zigzag_ring_attention` (the JAX `_attend`, with its two refusals). With a
+model axis (``tp_axis``) each rank holds H/tp heads and d_ff/tp hidden
+columns (`train/lm.py` `shard_params`): `copy_to_model` enters each
+sharded matmul and `reduce_from_model` sums the attention-out and MLP-out
+projections (the JAX ``psum(., "model")``). ``remat`` checkpoints every
 block, ``remat_attn`` the attention call alone (`torch.utils.checkpoint`,
 without stashing the RNG state: the model draws no random numbers, and a
 step captured as a CUDA graph could not read the generator's state).
@@ -24,10 +31,10 @@ version on the CPU. The port's seeded `init_params` and sampling draw from
 `param_specs` / `param_skeleton` give the tree's partition specs from the
 rule table (`parallel/rules.py`).
 
-Not ported here (they raise `NotImplementedError`): mixture-of-experts and
-sequence-parallel attention over a device mesh, which come with the parallel
-layouts, and named remat policies (`remat_policy`), which come with
-selective activation checkpointing in a later slice.
+Not ported here (they raise `NotImplementedError`): mixture-of-experts,
+which comes with a later step of the parallel layouts, and named remat
+policies (`remat_policy`), which come with selective activation
+checkpointing in a later slice.
 """
 
 from __future__ import annotations
@@ -47,13 +54,21 @@ from ..ops.decode_attention import (
     masked_decode_attention,
 )
 from ..ops.quant import QUANT_FORMATS, quantized_attention
-from ..parallel.ring import PARALLEL_SLICE, attention
+from ..parallel.collectives import copy_to_model, reduce_from_model
+from ..parallel.ring import (
+    PARALLEL_SLICE,
+    attention,
+    ring_attention,
+    ulysses_attention,
+    zigzag_positions,
+    zigzag_ring_attention,
+)
 
 LAYER_KEYS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
               "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 DECODE_IMPLS = ("auto", "torch", "cuda")
-# full/ring/ulysses/zigzag: plain local attention on one device; flash: the
-# flash kernels (ops/flash.py)
+# full/ring/ulysses/zigzag: plain local attention without a sequence axis,
+# the sequence-parallel forms with one; flash: the flash kernels (ops/flash.py)
 ATTN_IMPLS = ("full", "ring", "ulysses", "zigzag", "flash")
 REMAT_POLICY_SLICE = ("a later slice of the port (selective activation checkpointing, "
                       "ROADMAP.md Queue 1 item 3)")
@@ -212,11 +227,13 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_residual(x, lp, dt):
-    """x + MLP(LN2(x)), in the JAX package's order of operations."""
+def mlp_residual(x, lp, dt, tp_axis=None):
+    """x + MLP(LN2(x)), in the JAX package's order of operations; with
+    `tp_axis`, w1/b1 hold this rank's columns and w2 its rows, and the
+    output is summed over the model axis before b2 is added."""
     h = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"]).to(dt)
-    h = gelu(h @ lp["w1"] + lp["b1"])
-    return x + h @ lp["w2"] + lp["b2"]
+    h = gelu(copy_to_model(h, tp_axis) @ lp["w1"] + lp["b1"])
+    return x + reduce_from_model(h @ lp["w2"], tp_axis) + lp["b2"]
 
 
 def resolve_decode_impl(impl: str, device: torch.device) -> str:
@@ -234,13 +251,45 @@ def resolve_decode_impl(impl: str, device: torch.device) -> str:
 # ------------------------------------------------------------- the forward
 
 
-def _attend_fn(attn_impl: str, cfg: TransformerConfig):
-    """(q, k, v) (B, S, H, Dh) -> (B, S, H, Dh): the JAX `_attend` with no
-    sequence axis, wrapped in a checkpoint under ``remat_attn``."""
+def _positions(s_local: int, seq_axis, attn_impl: str, device):
+    """Global positions of this rank's rows (the JAX `_positions`)."""
+    if seq_axis is None:
+        return torch.arange(s_local, device=device)
+    if attn_impl == "zigzag":
+        return zigzag_positions(s_local, seq_axis, device=device)
+    return seq_axis.index * s_local + torch.arange(s_local, device=device)
+
+
+def _attend_fn(attn_impl: str, cfg: TransformerConfig, seq_axis=None):
+    """(q, k, v) (B, S_local, H_local, Dh) -> (B, S_local, H_local, Dh): the
+    JAX `_attend`, wrapped in a checkpoint under ``remat_attn``."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     quant = cfg.attn_quant or None
-    if attn_impl == "flash":
+    if seq_axis is not None:
+        if quant:
+            raise ValueError(
+                f"attn_quant={quant!r} is the local quantized path; a sequence axis "
+                "(ring/ulysses/zigzag) has no quantized attention - drop the seq axis or "
+                "attn_quant")
+        if attn_impl == "flash":
+            raise ValueError(
+                "attn impl 'flash' is the local kernel (no sequence axis); use "
+                "'ring'/'ulysses'/'zigzag' for sequence parallelism")
+        if attn_impl == "full":
+            raise ValueError(
+                f"with a sequence axis, attn impl must be 'ring', 'ulysses' or 'zigzag', got "
+                f"{attn_impl!r}")
+        if attn_impl == "ring":
+            def attend(q, k, v):
+                return ring_attention(q, k, v, seq_axis, causal=True)
+        elif attn_impl == "ulysses":
+            def attend(q, k, v):
+                return ulysses_attention(q, k, v, seq_axis, causal=True)
+        else:
+            def attend(q, k, v):
+                return zigzag_ring_attention(q, k, v, seq_axis)
+    elif attn_impl == "flash":
         from ..ops.flash import flash_local_attention
 
         def attend(q, k, v):
@@ -257,52 +306,66 @@ def _attend_fn(attn_impl: str, cfg: TransformerConfig):
     return attend
 
 
-def transformer_block(x, lp, cfg: TransformerConfig, attend):
-    """One pre-norm block on x (B, S, d) with the layer's params `lp` (weights
-    already in the model dtype), in the JAX package's order of operations."""
+def transformer_block(x, lp, cfg: TransformerConfig, attend, tp_axis=None):
+    """One pre-norm block on x (B, S_local, d) with the layer's params `lp`
+    (weights already in the model dtype), in the JAX package's order of
+    operations. The local head count comes from wq's columns (H/tp under a
+    model axis)."""
     dt = cfg.dtype
     b, s = x.shape[:2]
-    h_n, d_h = cfg.n_heads, cfg.head_dim
-    h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]).to(dt)
+    d_h = cfg.head_dim
+    h_n = lp["wq"].shape[-1] // d_h
+    h = copy_to_model(_layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]).to(dt), tp_axis)
     q = (h @ lp["wq"]).reshape(b, s, h_n, d_h)
     k = (h @ lp["wk"]).reshape(b, s, h_n, d_h)
     v = (h @ lp["wv"]).reshape(b, s, h_n, d_h)
     o = attend(q, k, v)
-    x = x + o.reshape(b, s, -1) @ lp["wo"]
-    return mlp_residual(x, lp, dt)
+    x = x + reduce_from_model(o.reshape(b, s, -1) @ lp["wo"], tp_axis)
+    return mlp_residual(x, lp, dt, tp_axis)
 
 
-def apply_hidden(params, tokens, cfg: TransformerConfig, *, attn_impl: str = "ring"):
-    """tokens (B, S) -> final-layer-norm hidden (B, S, d) in the model dtype.
+def apply_hidden(params, tokens, cfg: TransformerConfig, *, seq_axis=None, tp_axis=None,
+                 attn_impl: str = "ring"):
+    """tokens (B, S_local) -> final-layer-norm hidden (B, S_local, d) in the
+    model dtype. `seq_axis` / `tp_axis`: the mesh's sequence and model axes
+    (`ProcessMesh.seq_axis` / `.tp_axis`, None when 1), as the JAX
+    signature's axis names.
 
     Differentiable with respect to the f32 leaves of `params`. The vocab
     projection is left to the caller (the chunked loss never forms the
     whole (B, S, vocab) logits)."""
     dt = cfg.dtype
     s = tokens.shape[1]
-    attend = _attend_fn(attn_impl, cfg)
+    attend = _attend_fn(attn_impl, cfg, seq_axis)
     x = params["embed"][tokens].to(dt)
-    x = x + _sinusoid_pe(torch.arange(s, device=tokens.device), cfg.d_model, dt)[None]
+    x = x + _sinusoid_pe(_positions(s, seq_axis, attn_impl, tokens.device), cfg.d_model,
+                         dt)[None]
     for i in range(cfg.n_layers):
         if cfg.remat:
-            x = checkpoint(lambda x, i=i: transformer_block(x, _layer(params, i, dt), cfg, attend),
+            x = checkpoint(lambda x, i=i: transformer_block(x, _layer(params, i, dt), cfg, attend,
+                                                            tp_axis),
                            x, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = transformer_block(x, _layer(params, i, dt), cfg, attend)
+            x = transformer_block(x, _layer(params, i, dt), cfg, attend, tp_axis)
     return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)
 
 
-def apply_with_aux(params, tokens, cfg: TransformerConfig, *, attn_impl: str = "ring"):
-    """tokens (B, S) -> (logits (B, S, vocab) f32, aux): aux is the MoE
-    load-balancing loss of the JAX package, 0.0 for this dense model."""
-    x = apply_hidden(params, tokens, cfg, attn_impl=attn_impl)
+def apply_with_aux(params, tokens, cfg: TransformerConfig, *, seq_axis=None, tp_axis=None,
+                   attn_impl: str = "ring"):
+    """tokens (B, S_local) -> (logits (B, S_local, vocab) f32, aux): aux is
+    the MoE load-balancing loss of the JAX package, 0.0 for this dense
+    model."""
+    x = apply_hidden(params, tokens, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
+                     attn_impl=attn_impl)
     logits = (x @ params["head"].to(cfg.dtype)).float()
     return logits, torch.zeros((), device=logits.device)
 
 
-def apply(params, tokens, cfg: TransformerConfig, *, attn_impl: str = "ring"):
-    """tokens (B, S) int -> logits (B, S, vocab) f32."""
-    return apply_with_aux(params, tokens, cfg, attn_impl=attn_impl)[0]
+def apply(params, tokens, cfg: TransformerConfig, *, seq_axis=None, tp_axis=None,
+          attn_impl: str = "ring"):
+    """tokens (B, S_local) int -> logits (B, S_local, vocab) f32."""
+    return apply_with_aux(params, tokens, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
+                          attn_impl=attn_impl)[0]
 
 
 # --------------------------------------------------------------- inference

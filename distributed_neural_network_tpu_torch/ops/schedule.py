@@ -9,11 +9,12 @@ trees.
 
 The norms are mesh-aware as the JAX ones: with ``specs`` (leaf-aligned
 PartitionSpecs) and ``axes`` (the mesh's axis names in scope) a leaf's
-squared sum is all-reduced over the axes its spec shards it on. The port's
-process group is the data axis (`parallel/mesh.py` `ProcessMesh`; sequence
-and tensor axes are 1), so a leaf sharded over ``data`` is summed over the
-group and every other axis adds nothing. Replicated leaves, whose gradients
-the step has already summed over the ranks, count once.
+squared sum is all-reduced over the axes its spec shards it on, each over
+its group of the ``mesh`` (`parallel/mesh.py` `ProcessMesh`): a leaf
+sharded over ``model`` (tensor parallelism) is summed over the model axis's
+ranks. Replicated leaves, whose gradients the step has already summed over
+the ranks (and which `copy_to_model`'s backward made whole on every model
+rank), count once. Without a mesh (one process) nothing is summed.
 
 `accumulate_fwd_bwd_overlap` moves the gradient collective inside the
 accumulation loop (one reduction per micro-batch); `overlap_parts` is the
@@ -27,7 +28,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import DATA_AXIS
 from ..parallel.partition import spec_axes
 from ..utils.tree import tree_leaves
 
@@ -63,10 +63,10 @@ def constant_lr(step, *, base_lr: float, **_) -> float:
 SCHEDULES = {"constant": constant_lr, "cosine": warmup_cosine}
 
 
-def per_leaf_sq_norms(leaves, *, specs=None, axes=()):
+def per_leaf_sq_norms(leaves, *, specs=None, axes=(), mesh=None):
     """Per-leaf global squared L2 norms (f32 0-d tensors): with `specs` and
-    `axes`, a leaf sharded over the data axis has its squared sum
-    all-reduced over the process group."""
+    `axes`, a leaf's squared sum is all-reduced over each axis of `axes`
+    its spec shards it on, over that axis's group of `mesh`."""
     sq = [g.float().square().sum() for g in leaves]
     if specs is None or not axes:
         return sq
@@ -74,21 +74,23 @@ def per_leaf_sq_norms(leaves, *, specs=None, axes=()):
     if len(spec_leaves) != len(sq):
         raise ValueError(f"{len(spec_leaves)} specs for {len(sq)} leaves")
     for x, spec in zip(sq, spec_leaves):
-        if DATA_AXIS in axes and DATA_AXIS in spec_axes(spec) and dist.is_initialized():
-            dist.all_reduce(x)
+        for a in spec_axes(spec):
+            group = mesh.axis(a).group if mesh is not None and a in axes else None
+            if group is not None:
+                dist.all_reduce(x, group=group)
     return sq
 
 
-def global_norm(leaves, *, specs=None, axes=()):
+def global_norm(leaves, *, specs=None, axes=(), mesh=None):
     """Global L2 norm of a list of gradients (f32 0-d tensor)."""
-    return torch.stack(per_leaf_sq_norms(leaves, specs=specs, axes=axes)).sum().sqrt()
+    return torch.stack(per_leaf_sq_norms(leaves, specs=specs, axes=axes, mesh=mesh)).sum().sqrt()
 
 
 @torch.no_grad()
-def clip_by_global_norm(leaves, max_norm: float, *, specs=None, axes=()):
+def clip_by_global_norm(leaves, max_norm: float, *, specs=None, axes=(), mesh=None):
     """Scale `leaves` in place so their global norm is at most `max_norm`;
     returns the pre-clip norm."""
-    norm = global_norm(leaves, specs=specs, axes=axes)
+    norm = global_norm(leaves, specs=specs, axes=axes, mesh=mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     torch._foreach_mul_(leaves, scale)
     return norm
@@ -194,12 +196,14 @@ def accumulate_fwd_bwd_overlap(fwd_bwd_one, accum_steps: int, *, reduce_fn, fina
 
 def overlap_parts(fwd_bwd_one, accum_steps: int, leaves, tokens, targets, reducer, loss_out):
     """`accumulate_fwd_bwd_overlap`'s schedule as program parts over static
-    buffers: [(fn, is_collective)], in order. Per micro-batch: its forward
-    and backward, the reducer's ``put`` of its gradients (one part), then
-    the reducer's ``reduce`` (the collective); the next part first adds the
-    reduced form into the accumulator (``accumulate``). After the last:
-    ``average(k)``, then the reducer's ``finalize`` collective, if it has
-    one. `loss_out` (a 0-d buffer) gets the mean local loss.
+    buffers: [(fn, kind)], in order, kind "model" (a part that runs the
+    model's forward and backward), "collective" or "local". Per
+    micro-batch: its forward and backward, the reducer's ``put`` of its
+    gradients (one part), then the reducer's ``reduce`` (the collective);
+    the next part first adds the reduced form into the accumulator
+    (``accumulate``). After the last: ``average(k)``, then the reducer's
+    ``finalize`` collective, if it has one. `loss_out` (a 0-d buffer) gets
+    the mean local loss.
 
     The reducer (`parallel/collectives.py` `BucketReducer`,
     `parallel/zero.py` `ShardReducer`) owns the buffers: ``put(grads)``,
@@ -235,10 +239,10 @@ def overlap_parts(fwd_bwd_one, accum_steps: int, leaves, tokens, targets, reduce
 
     parts = []
     for i in range(accum_steps):
-        parts += [(compute(i), False), (reducer.reduce, True)]
-    parts.append((last, False))
+        parts += [(compute(i), "model"), (reducer.reduce, "collective")]
+    parts.append((last, "local"))
     if reducer.finalize is not None:
-        parts.append((reducer.finalize, True))
+        parts.append((reducer.finalize, "collective"))
     return parts
 
 

@@ -1,7 +1,8 @@
-"""Collectives over the replica group and the data axis (counterpart of the
-JAX package's `parallel/collectives.py`: `masked_pmean_tree`,
-`weighted_mean_scalar`, and the leaf buckets of the overlapped gradient
-sync).
+"""Collectives over the replica group and the axes of the LM's process mesh
+(counterpart of the JAX package's `parallel/collectives.py`:
+`masked_pmean_tree`, `weighted_mean_scalar`, and the leaf buckets of the
+overlapped gradient sync; and of the `jax.lax` collectives that its model
+and sequence axes use: `psum`, `ppermute`, `all_to_all`).
 
 The replicas' values are stacked on a leading axis and reduced there; the
 live mask is the group's global (N,) device tensor, so nothing here reads
@@ -94,53 +95,226 @@ class RowGather:
         dist.all_reduce(self.buf)
 
 
-# --------------------------------------------------- the data axis's forms
+# ------------------------------------------------------ the mesh's forms
 #
 # gloo has only `broadcast` and `all_reduce` on CUDA tensors, so the ranks
-# that share the one card (gloo) cannot call `reduce_scatter_tensor` or
-# `all_gather_into_tensor`. `collective_form` picks, in this one place and by
-# the group's backend, between two implementations of each collective, which
-# give the same values and never leave the card:
-# - "nccl": `reduce_scatter_tensor` and `all_gather_into_tensor`;
+# that share the one card (gloo) cannot call `reduce_scatter_tensor`,
+# `all_gather_into_tensor` or `all_to_all_single`. `collective_form` picks,
+# in this one place and by the group's backend, between two implementations
+# of each collective, which give the same values and never leave the card:
+# - "nccl": `reduce_scatter_tensor`, `all_gather_into_tensor`, and
+#   `all_to_all_single` for the all-to-all and for `ppermute` (each rank
+#   sends its whole block to its one destination, nothing to the others).
+#   `all_to_all_single` is an NCCL collective like `all_reduce` and is
+#   captured in the step's CUDA graph as one; point-to-point
+#   `batch_isend_irecv` is not used: its work objects are waited on from
+#   the host, which a capture cannot record.
 # - "gloo": the reduce-scatter as an `all_reduce` of the whole buffer and
-#   this rank's slice of it; the all-gather as an `all_reduce` of a
-#   zero-filled buffer holding this rank's shard in its place (each entry is
-#   one rank's value plus zeros: exact, as `RowGather`).
+#   this rank's slice of it; the all-gather, the all-to-all and `ppermute`
+#   as an `all_reduce` of a zero-filled buffer holding this rank's blocks in
+#   their places, then this rank's slice (each entry is one rank's value
+#   plus zeros: exact, as `RowGather`).
 # A failing collective raises; nothing falls back to the other form.
 
 COLLECTIVE_FORMS = {
-    "nccl": "nccl: all_reduce, reduce_scatter_tensor, all_gather_into_tensor",
-    "gloo": "gloo: all_reduce (reduce-scatter = all_reduce + own slice; all-gather = "
-            "all_reduce of a zero-filled buffer)",
+    "nccl": "nccl: all_reduce, reduce_scatter_tensor, all_gather_into_tensor, "
+            "all_to_all_single (all-to-all and ppermute)",
+    "gloo": "gloo: all_reduce (reduce-scatter = all_reduce + own slice; all-gather, "
+            "all-to-all and ppermute = all_reduce of a zero-filled buffer + own slice)",
 }
 
 
-def collective_form() -> str:
-    """"nccl" or "gloo": which implementation of reduce-scatter and
-    all-gather the group's backend takes."""
-    return "nccl" if dist.get_backend() == "nccl" else "gloo"
+def collective_form(group=None) -> str:
+    """"nccl" or "gloo": which implementation of reduce-scatter,
+    all-gather, all-to-all and ppermute the group's backend takes (the
+    default group's when `group` is None)."""
+    return "nccl" if dist.get_backend(group) == "nccl" else "gloo"
 
 
-def reduce_scatter(out: torch.Tensor, buf: torch.Tensor, *, rank: int, form: str) -> None:
+def reduce_scatter(out: torch.Tensor, buf: torch.Tensor, *, rank: int, form: str,
+                   group=None) -> None:
     """Sum the ranks' (n*S,) `buf` and write this rank's (S,) slice into
-    `out` (the gloo form overwrites `buf` with the whole sum)."""
+    `out` (the gloo form overwrites `buf` with the whole sum). `rank`:
+    this rank's index in `group`."""
     if form == "nccl":
-        dist.reduce_scatter_tensor(out, buf)
+        dist.reduce_scatter_tensor(out, buf, group=group)
     else:
         s = out.numel()
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=group)
         out.copy_(buf[rank * s:(rank + 1) * s])
 
 
-def all_gather(out: torch.Tensor, shard: torch.Tensor, *, rank: int, form: str) -> None:
+def all_gather(out: torch.Tensor, shard: torch.Tensor, *, rank: int, form: str,
+               group=None) -> None:
     """The ranks' (S,) shards side by side, rank-major, in (n*S,) `out`."""
     if form == "nccl":
-        dist.all_gather_into_tensor(out, shard)
+        dist.all_gather_into_tensor(out, shard, group=group)
     else:
         s = shard.numel()
         out.zero_()
         out[rank * s:(rank + 1) * s].copy_(shard)
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
+
+
+def gather_dim(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """The axis's ranks' `x` concatenated along `dim` in rank order (the
+    JAX ``all_gather(..., tiled=True)``); not differentiable."""
+    if axis is None or axis.group is None:
+        return x
+    n = axis.size
+    moved = x.movedim(dim, 0).contiguous()
+    out = torch.empty(n * moved.numel(), dtype=x.dtype, device=x.device)
+    all_gather(out, moved.reshape(-1), rank=axis.index, form=axis.form, group=axis.group)
+    full = out.view(n, *moved.shape)
+    return torch.cat(list(full.unbind(0)), 0).movedim(0, dim)
+
+
+def _exchange(blocks: dict, srcs, axis) -> dict:
+    """The block exchange behind `ppermute` and the all-to-all: this rank
+    sends ``blocks[d]`` (contiguous tensors of one shape) to rank ``d`` of
+    the axis and gets one block from each rank of `srcs`: {source: block}.
+    Every rank's destinations and sources agree (a permutation, or every
+    rank to every rank)."""
+    n, me = axis.size, axis.index
+    like = next(iter(blocks.values()))
+    if axis.form == "nccl":
+        size = like.numel()
+        send = torch.cat([blocks[d].reshape(-1) for d in sorted(blocks)])
+        recv = torch.empty(len(srcs) * size, dtype=like.dtype, device=like.device)
+        dist.all_to_all_single(recv, send, output_split_sizes=[size if j in srcs else 0
+                                                               for j in range(n)],
+                               input_split_sizes=[size if j in blocks else 0 for j in range(n)],
+                               group=axis.group)
+        parts = recv.view(len(srcs), *like.shape).unbind(0)
+        return dict(zip(sorted(srcs), parts))
+    if len(blocks) == 1 and len(srcs) == 1:
+        # a permutation: each destination slot has one writer
+        buf = torch.zeros(n, *like.shape, dtype=like.dtype, device=like.device)
+        (d, b), = blocks.items()
+        buf[d].copy_(b)
+        dist.all_reduce(buf, group=axis.group)
+        return {srcs[0]: buf[me]}
+    # [source, destination] slots; this rank fills its source row
+    buf = torch.zeros(n, n, *like.shape, dtype=like.dtype, device=like.device)
+    for d, b in blocks.items():
+        buf[me, d].copy_(b)
+    dist.all_reduce(buf, group=axis.group)
+    return {j: buf[j, me] for j in srcs}
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the model axis."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce over the model axis forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """`x`, replicated over the model axis, entering a tensor-sharded
+    computation: the identity forward, and backward the all-reduce of the
+    ranks' partial gradients (what JAX's typed autodiff inserts for an
+    invariant input of a varying computation). None or size 1: `x`."""
+    if axis is None or axis.group is None:
+        return x
+    return _CopyToModel.apply(x, axis.group)
+
+
+def reduce_from_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum over the model axis of the ranks' partial `x` (the JAX
+    ``psum(x, "model")`` after a row-sharded matmul); its gradient is the
+    identity."""
+    if axis is None or axis.group is None:
+        return x
+    return _ReduceFromModel.apply(x, axis.group)
+
+
+def _ppermute_raw(x, perm, axis):
+    """`perm` is a full permutation of the axis's ranks (`ppermute` checks)."""
+    me = axis.index
+    dest = next(d for s, d in perm if s == me)
+    src = next(s for s, d in perm if d == me)
+    return _exchange({dest: x.contiguous()}, [src], axis)[src].clone()
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, axis):
+        ctx.perm, ctx.axis = perm, axis
+        return _ppermute_raw(x, perm, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = [(d, s) for s, d in ctx.perm]
+        return _ppermute_raw(g, inv, ctx.axis), None, None
+
+
+def ppermute(x: torch.Tensor, perm, axis) -> torch.Tensor:
+    """`jax.lax.ppermute` for a full permutation (the ring shifts of
+    `parallel/ring.py`): rank ``s`` of the axis sends `x` to rank ``d`` for
+    each ``(s, d)`` of `perm`. Its gradient is the ppermute with the
+    inverse permutation. At size 1: `x`."""
+    if axis is None or axis.group is None:
+        return x
+    perm = tuple((int(a), int(b)) for a, b in perm)
+    if sorted(a for a, _ in perm) != list(range(axis.size)) or sorted(
+            b for _, b in perm) != list(range(axis.size)):
+        raise ValueError(f"ppermute takes a permutation of the axis's {axis.size} ranks, got "
+                         f"{perm}")
+    return _PPermute.apply(x, perm, axis)
+
+
+def _all_to_all_raw(x, split_dim, concat_dim, axis):
+    n = axis.size
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} ({x.shape[split_dim]}) does not split "
+                         f"over {n} ranks")
+    blocks = dict(enumerate(b.contiguous() for b in x.chunk(n, dim=split_dim)))
+    got = _exchange(blocks, list(range(n)), axis)
+    return torch.cat([got[j] for j in range(n)], dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, axis):
+        ctx.dims, ctx.axis = (split_dim, concat_dim), axis
+        return _all_to_all_raw(x, split_dim, concat_dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all_raw(g, concat_dim, split_dim, ctx.axis), None, None, None
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, axis) -> torch.Tensor:
+    """`jax.lax.all_to_all(..., tiled=True)`: `x` split into n blocks along
+    `split_dim`, block j sent to rank j, the blocks received concatenated
+    along `concat_dim` in source order. Its gradient is the inverse
+    all-to-all. At size 1: `x`."""
+    if axis is None or axis.group is None:
+        return x
+    return _AllToAll.apply(x, split_dim, concat_dim, axis)
 
 
 # --------------------------------------------------------- leaf bucketing
@@ -284,7 +458,7 @@ def bucketed_psum(tree, layout: BucketLayout, *, mean: bool = False):
 
 
 def reduce_scatter_buckets(tree, layout: BucketLayout, *, axis_size: int, rank: int,
-                           form: str) -> tuple:
+                           form: str, group=None) -> tuple:
     """Reduce-scatter each bucket over the group: one (S_b,) shard per
     bucket, the bucket ceil-padded to axis_size * S_b (layout order)."""
     out = []
@@ -292,18 +466,18 @@ def reduce_scatter_buckets(tree, layout: BucketLayout, *, axis_size: int, rank: 
         full = torch.zeros(s * axis_size, dtype=buf.dtype, device=buf.device)
         full[:buf.numel()].copy_(buf)
         sh = torch.empty(s, dtype=buf.dtype, device=buf.device)
-        reduce_scatter(sh, full, rank=rank, form=form)
+        reduce_scatter(sh, full, rank=rank, form=form, group=group)
         out.append(sh)
     return tuple(out)
 
 
 def all_gather_buckets(shards, layout: BucketLayout, *, axis_size: int, rank: int,
-                       form: str):
+                       form: str, group=None):
     """The full tree from `reduce_scatter_buckets` shards."""
     bufs = []
     for sh in shards:
         full = torch.empty(sh.numel() * axis_size, dtype=sh.dtype, device=sh.device)
-        all_gather(full, sh, rank=rank, form=form)
+        all_gather(full, sh, rank=rank, form=form, group=group)
         bufs.append(full)
     return unpack_buckets(layout, bufs)
 
@@ -312,11 +486,13 @@ class BucketReducer:
     """The all-reduce form of the overlapped gradient sync over static
     buffers (`ops/schedule.py` `overlap_parts`): ``put`` packs a
     micro-batch's gradients into one buffer per bucket, ``reduce`` sums each
-    over the mesh's ranks (one `all_reduce` per bucket), ``accumulate`` adds
-    the sums into the accumulator and ``average(k)`` makes it the mean:
-    each rank's gradients are of its own mean loss, so the sum over dp
-    ranks and k micro-batches is divided by k*dp. ``grads``: the
-    accumulator as leaf-shaped views. No finalizing collective."""
+    over the mesh's sync axis (data x seq; one `all_reduce` per bucket),
+    ``accumulate`` adds the sums into the accumulator and ``average(k)``
+    makes it the mean: each rank's gradients are of its own mean loss, so
+    the sum over the dp*sp ranks and k micro-batches is divided by k*dp*sp.
+    A tensor-sharded leaf's bucket holds this model rank's shard and is
+    summed over the same ranks. ``grads``: the accumulator as leaf-shaped
+    views. No finalizing collective."""
 
     finalize = None
 
@@ -331,9 +507,10 @@ class BucketReducer:
         pack_buckets(self.layout, grads, out=self.bufs)
 
     def reduce(self) -> None:
-        if self.mesh.joined:
+        group = self.mesh.sync.group
+        if group is not None:
             for b in self.bufs:
-                dist.all_reduce(b)
+                dist.all_reduce(b, group=group)
 
     @torch.no_grad()
     def accumulate(self, first: bool) -> None:
@@ -345,4 +522,4 @@ class BucketReducer:
 
     @torch.no_grad()
     def average(self, k: int) -> None:
-        torch._foreach_div_(self.acc, float(k * self.mesh.dp))
+        torch._foreach_div_(self.acc, float(k * self.mesh.sync.size))

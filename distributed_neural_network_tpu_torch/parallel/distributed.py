@@ -25,10 +25,11 @@ NCCL when every local rank has a card of its own (rank r on
 ``cuda:LOCAL_RANK``), gloo when ranks share a card (as on a one-GPU machine:
 NCCL refuses two ranks on one GPU). The CLI prints the choice.
 
-`distribute_host_data` is the rank's share of a host batch along the data
-axis: the contiguous block of B/dp rows that the JAX package's ``P("data")``
-sharding gives device r, from a full copy of the batch or from this rank's
-rows alone.
+`distribute_host_data` is the rank's share of a host batch on the mesh:
+the contiguous block of B/dp rows (and, with a sequence axis, of S/sp
+columns) that the JAX package's ``P("data", "seq")`` sharding gives the
+rank's device, from a full copy of the batch or from this rank's block
+alone.
 """
 
 from __future__ import annotations
@@ -196,20 +197,34 @@ def _connect_with_retry(connect, kwargs, *, addr, max_retries, deadline_s, backo
     ) from last
 
 
-def distribute_host_data(host_array, mesh, *, full_copy: bool = True, device=None):
-    """This rank's rows of a host batch along `mesh`'s data axis, as a tensor
-    on `device` (default the mesh's). ``full_copy=True``: `host_array` is
-    the whole batch (B, ...), the same on every rank, and rank r takes rows
-    ``[r*B/dp, (r+1)*B/dp)``; ``full_copy=False``: it is already this rank's
-    (B/dp, ...) rows. B must divide by dp."""
+def distribute_host_data(host_array, mesh, *, full_copy: bool = True, device=None,
+                         rows: bool = True):
+    """This rank's block of a host batch on `mesh`, as a tensor on `device`
+    (default the mesh's). ``full_copy=True``: `host_array` is the whole
+    batch (B, S, ...), the same on every rank, and the rank at data index d
+    takes rows ``[d*B/dp, (d+1)*B/dp)`` and, with a sequence axis, at seq
+    index s the columns ``[s*S/sp, (s+1)*S/sp)`` (``rows=False``: every row,
+    the columns only, as an eval batch); ``full_copy=False``: it is already
+    this rank's block. B must divide by dp, S by sp."""
     x = host_array if isinstance(host_array, torch.Tensor) else torch.from_numpy(
         np.array(host_array))
-    dp, r = mesh.dp, mesh.rank
+    sp = mesh.sp
     dev = mesh.device if device is None else torch.device(device)
     if full_copy:
-        if x.shape[0] % dp:
-            raise ValueError(f"a batch of {x.shape[0]} rows does not split evenly over the "
-                             f"data axis of {dp} ranks; make --batch-size a multiple of --dp")
-        b = x.shape[0] // dp
-        x = x[r * b:(r + 1) * b]
+        d, s, _ = mesh.coords
+        if rows:
+            dp = mesh.dp
+            if x.shape[0] % dp:
+                raise ValueError(f"a batch of {x.shape[0]} rows does not split evenly over "
+                                 f"the data axis of {dp} ranks; make --batch-size a multiple "
+                                 "of --dp")
+            b = x.shape[0] // dp
+            x = x[d * b:(d + 1) * b]
+        if sp > 1:
+            if x.shape[1] % sp:
+                raise ValueError(f"a sequence of {x.shape[1]} does not split evenly over the "
+                                 f"sequence axis of {sp} ranks; make --seq-len a multiple of "
+                                 "--sp")
+            c = x.shape[1] // sp
+            x = x[:, s * c:(s + 1) * c]
     return x.to(dev)

@@ -12,14 +12,18 @@ and must divide by the world size. The collectives
 
 `ProcessMesh` is the LM's counterpart of the JAX package's (dp, sp, tp)
 device mesh (`train/lm.py` `create_lm_mesh`): the ranks of the process
-group along its data axis, one rank a data shard, on the rank's device
-(`parallel/distributed.py` `rank_device`). Only the data axis has more than
-one rank so far; the sequence and tensor axes are 1.
+group laid out as JAX reshapes its devices, (dp, sp, tp) with the model
+axis fastest, so rank = (d*sp + s)*tp + t, each on its device
+(`parallel/distributed.py` `rank_device`). `Axis` is one axis as a rank
+sees it: its size, the rank's index along it and the torch.distributed
+group of the ranks that differ from this one only along it (the JAX axis
+name's collective scope). The sync axis is the (data, seq) pair that the
+gradients and the loss are summed over (JAX `sync_axes`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
@@ -56,28 +60,141 @@ class ReplicaGroup:
 
 
 DATA_AXIS, SEQ_AXIS, TP_AXIS = "data", "seq", "model"
+SYNC_AXES = (DATA_AXIS, SEQ_AXIS)
+
+
+@dataclass(frozen=True)
+class Axis:
+    """One axis of a `ProcessMesh` as this rank sees it: `size` ranks,
+    this one at `index`, and `group`, the torch.distributed group of the
+    ranks along it (None at size 1: no collective). `form` is the group's
+    collective form (`collectives.collective_form`)."""
+
+    name: str
+    size: int = 1
+    index: int = 0
+    group: object = None
+
+    @property
+    def form(self) -> str | None:
+        from .collectives import collective_form
+
+        return collective_form(self.group) if self.group is not None else None
+
+
+# the default group the cached axis groups were made in, and (dp, sp, tp)
+# -> those groups: a layout's groups are made once per process group
+_MADE = {"world": None}
+
+
+def make_axis_groups(dp: int, sp: int, tp: int, rank: int) -> dict:
+    """Axis name (and "sync", the (data, seq) pair) -> this rank's group
+    along it (None for an axis of one rank). Every rank of the world calls
+    `dist.new_group` once for every distinct slice of more than one rank,
+    in one fixed order, including the slices it is not in (torch.distributed
+    requires it); axes over the same ranks share the group (at sp 1 the
+    sync slices are the data slices). A slice that is the whole world is
+    the default group. Made once per process group and layout."""
+    if _MADE["world"] is not dist.group.WORLD:
+        _MADE.clear()
+        _MADE["world"] = dist.group.WORLD
+    if (dp, sp, tp) in _MADE:
+        return _MADE[dp, sp, tp]
+
+    def at(d, s, t):
+        return (d * sp + s) * tp + t
+
+    slices = {
+        DATA_AXIS: [[at(d, s, t) for d in range(dp)] for s in range(sp) for t in range(tp)],
+        SEQ_AXIS: [[at(d, s, t) for s in range(sp)] for d in range(dp) for t in range(tp)],
+        TP_AXIS: [[at(d, s, t) for t in range(tp)] for d in range(dp) for s in range(sp)],
+        "sync": [[at(d, s, t) for d in range(dp) for s in range(sp)] for t in range(tp)],
+    }
+    world = dp * sp * tp
+    made, out = {}, {}
+    for name, rank_lists in slices.items():
+        out[name] = None
+        for ranks in rank_lists:
+            if len(ranks) == 1:
+                continue
+            key = tuple(ranks)
+            if key not in made:
+                made[key] = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+            if rank in ranks:
+                out[name] = made[key]
+    _MADE[dp, sp, tp] = out
+    return out
 
 
 @dataclass(frozen=True)
 class ProcessMesh:
-    """`dp` ranks along the data axis (this process alone at dp 1, or the
-    ranks of its torch.distributed group), this one `rank` on `device`.
-    `shape` reads as the JAX `Mesh.shape`; `form` is the group's
-    collective form (`collectives.collective_form`), None when no group."""
+    """dp x sp x tp ranks (this process alone at 1 x 1 x 1, or the ranks of
+    its torch.distributed group), this one `rank` on `device`. `shape`
+    reads as the JAX `Mesh.shape`; `groups` holds this rank's group per
+    axis (`make_axis_groups`); `form` is the default group's collective
+    form, None when no group."""
 
     dp: int
     device: torch.device
     rank: int = 0
     joined: bool = False
+    sp: int = 1
+    tp: int = 1
+    groups: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def shape(self) -> dict:
-        """Axis name -> ranks; the sequence and tensor axes are 1 so far."""
-        return {DATA_AXIS: self.dp, SEQ_AXIS: 1, TP_AXIS: 1}
+        """Axis name -> ranks, in the JAX mesh's order."""
+        return {DATA_AXIS: self.dp, SEQ_AXIS: self.sp, TP_AXIS: self.tp}
+
+    @property
+    def world(self) -> int:
+        return self.dp * self.sp * self.tp
+
+    @property
+    def coords(self) -> tuple[int, int, int]:
+        """This rank's (data, seq, model) indices (the model axis fastest)."""
+        r, sp, tp = self.rank, self.sp, self.tp
+        return r // (sp * tp), r // tp % sp, r % tp
+
+    def axis(self, name: str) -> Axis:
+        """`DATA_AXIS`, `SEQ_AXIS`, `TP_AXIS` or "sync" (the (data, seq)
+        pair) as this rank sees it."""
+        d, s, t = self.coords
+        size, index = {DATA_AXIS: (self.dp, d), SEQ_AXIS: (self.sp, s), TP_AXIS: (self.tp, t),
+                       "sync": (self.dp * self.sp, d * self.sp + s)}[name]
+        return Axis(name, size, index, self.groups.get(name))
+
+    @property
+    def data(self) -> Axis:
+        return self.axis(DATA_AXIS)
+
+    @property
+    def seq(self) -> Axis:
+        return self.axis(SEQ_AXIS)
+
+    @property
+    def model(self) -> Axis:
+        return self.axis(TP_AXIS)
+
+    @property
+    def sync(self) -> Axis:
+        return self.axis("sync")
+
+    @property
+    def seq_axis(self) -> Axis | None:
+        """The sequence axis when it has more than one rank (JAX `sp`)."""
+        return self.seq if self.sp > 1 else None
+
+    @property
+    def tp_axis(self) -> Axis | None:
+        """The model axis when it has more than one rank (JAX `tp`)."""
+        return self.model if self.tp > 1 else None
 
     @property
     def desc(self) -> str:
-        """"single", or the axes above 1 as the JAX CLI writes them ("data2")."""
+        """"single", or the axes above 1 as the JAX CLI writes them
+        ("data2xmodel2")."""
         return "x".join(f"{k}{v}" for k, v in self.shape.items() if v > 1) or "single"
 
     @property

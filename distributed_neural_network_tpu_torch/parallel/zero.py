@@ -30,8 +30,11 @@ package's ravel-and-psum form of the SGD update (one flat vector, a one-hot
 all-reduce to reassemble it), kept as the plain version the tests hold the
 sharded path to; nothing on the main path calls it.
 
-A mesh here is `parallel/mesh.py` `ProcessMesh` (its ``dp``, ``rank``,
-``joined`` and ``form``); at dp 1 in one process the collectives are copies.
+A mesh here is `parallel/mesh.py` `ProcessMesh`: the shards are over its
+data axis (``mesh.data``: the size, this rank's index and the group), and
+with a sequence axis the gradients are first summed over it too (JAX
+`make_overlap_grad_reducers`' ``extra_axes``); at dp 1 the collectives are
+copies. ZeRO with a model axis is refused (`train/lm.py` `lm_wiring`).
 """
 
 from __future__ import annotations
@@ -83,7 +86,8 @@ class ZeroShards:
 
     def __init__(self, leaves, mesh):
         self.mesh = mesh
-        n, r = mesh.dp, mesh.rank
+        self.axis = ax = mesh.data
+        n, r = ax.size, ax.index
         dev = leaves[0].device
         self.sizes = [p.numel() for p in leaves]
         self.shards = [leaf_shard_size(d, n) for d in self.sizes]
@@ -112,12 +116,12 @@ class ZeroShards:
     def reduce_grads(self, grads) -> None:
         """Reduce-scatter each rank's own partial gradients into this rank's
         shards (each leaf padded to n shards)."""
-        n, m = self.mesh.dp, self.mesh
+        ax = self.axis
         for g, sh, s in zip(grads, self.g_sh, self.shards):
-            full = torch.zeros(n * s, dtype=g.dtype, device=g.device)
+            full = torch.zeros(ax.size * s, dtype=g.dtype, device=g.device)
             full[:g.numel()].copy_(g.reshape(-1))
-            if m.joined:
-                reduce_scatter(sh, full, rank=m.rank, form=m.form)
+            if ax.group is not None:
+                reduce_scatter(sh, full, rank=ax.index, form=ax.form, group=ax.group)
             else:
                 sh.copy_(full)
 
@@ -125,16 +129,16 @@ class ZeroShards:
     def gather(self) -> None:
         """All-gather every rank's updated shards into ``full`` (the
         collective)."""
-        m = self.mesh
-        if m.joined:
-            all_gather(self.full, self.own, rank=m.rank, form=m.form)
+        ax = self.axis
+        if ax.group is not None:
+            all_gather(self.full, self.own, rank=ax.index, form=ax.form, group=ax.group)
         else:
             self.full.copy_(self.own)
 
     @torch.no_grad()
     def put_params(self, leaves) -> None:
         """Copy the gathered parameters back into `leaves`."""
-        rows = self.full.view(self.mesh.dp, -1)
+        rows = self.full.view(self.axis.size, -1)
         for p, o, s, d in zip(leaves, self.offsets, self.shards, self.sizes):
             p.view(-1).copy_(rows[:, o:o + s].reshape(-1)[:d])
 
@@ -196,10 +200,16 @@ def make_overlap_grad_reducers(layout, mesh):
     the full gradient tree, which the per-leaf update then slices."""
     from .collectives import all_gather_buckets, reduce_scatter_buckets
 
-    kw = dict(axis_size=mesh.dp, rank=mesh.rank, form=mesh.form)
+    ax = mesh.data
+    kw = dict(axis_size=ax.size, rank=ax.index, form=ax.form, group=ax.group)
+    seq = mesh.seq.group
 
     def reduce_fn(grads):
-        return reduce_scatter_buckets(grads, layout, **kw)
+        shards = reduce_scatter_buckets(grads, layout, **kw)
+        if seq is not None:
+            for sh in shards:
+                dist.all_reduce(sh, group=seq)
+        return shards
 
     def finalize_fn(shards):
         return all_gather_buckets(shards, layout, **kw)
@@ -245,7 +255,8 @@ def zero_sgd_step(params, mom_shard: torch.Tensor, grads, lr, momentum: float, *
     vector reassembled by an all-reduce of zeros holding this rank's slice.
     `mom_shard` and the params are updated in place."""
     leaves = tree_leaves(params)
-    n, r = mesh.dp, mesh.rank
+    ax = mesh.data
+    n, r = ax.size, ax.index
     flat_p = torch.cat([p.detach().reshape(-1) for p in leaves])
     flat_g = torch.cat([g.reshape(-1) for g in tree_leaves(grads)])
     d = flat_p.numel()
@@ -258,16 +269,16 @@ def zero_sgd_step(params, mom_shard: torch.Tensor, grads, lr, momentum: float, *
         g_sh = flat_g[r * s:(r + 1) * s]
     else:
         g_sh = torch.empty(s, device=flat_g.device)
-        if mesh.joined:
-            reduce_scatter(g_sh, flat_g, rank=r, form=mesh.form)
+        if ax.group is not None:
+            reduce_scatter(g_sh, flat_g, rank=r, form=ax.form, group=ax.group)
         else:
             g_sh.copy_(flat_g)
     mom_shard.copy_(momentum * mom_shard + g_sh)
     p_sh = flat_p[r * s:(r + 1) * s] - lr * mom_shard
     flat_new = torch.zeros_like(flat_p)
     flat_new[r * s:(r + 1) * s] = p_sh
-    if mesh.joined:
-        dist.all_reduce(flat_new)
+    if ax.group is not None:
+        dist.all_reduce(flat_new, group=ax.group)
     at = 0
     for p in leaves:
         p.view(-1).copy_(flat_new[at:at + p.numel()])
@@ -279,16 +290,17 @@ class ShardReducer:
     shard carry) over static buffers (`ops/schedule.py` `overlap_parts`):
     ``put`` packs a micro-batch's gradients into one buffer per bucket
     (each padded to n shards), ``reduce`` reduce-scatters each into this
-    rank's (S_b,) shard, ``accumulate`` adds the shards into the
+    rank's (S_b,) shard over the data axis (then sums it over the sequence
+    axis, when there is one), ``accumulate`` adds the shards into the
     accumulator, which holds 1/n of the gradient; ``average(k)`` divides by
-    k*dp (each rank's gradients are of its own mean loss), and ``finalize``
+    k*dp*sp (each rank's gradients are of its own mean loss), and ``finalize``
     all-gathers the averaged shards back into the bucket buffers, whose
     leaf-shaped views are ``grads``: the gradients summed over the ranks,
     which the ZeRO update then slices."""
 
     def __init__(self, layout, mesh, device):
-        self.layout, self.mesh = layout, mesh
-        n = mesh.dp
+        self.layout, self.mesh, self.axis = layout, mesh, mesh.data
+        n = self.axis.size
         shards = layout.shard_sizes(n)
         self.bufs = [torch.zeros(s * n, device=device) for s in shards]
         self.tmp = [torch.zeros(s, device=device) for s in shards]
@@ -304,12 +316,14 @@ class ShardReducer:
         pack_buckets(self.layout, grads, out=self.bufs)
 
     def reduce(self) -> None:
-        m = self.mesh
+        ax, seq = self.axis, self.mesh.seq.group
         for t, b in zip(self.tmp, self.bufs):
-            if m.joined:
-                reduce_scatter(t, b, rank=m.rank, form=m.form)
+            if ax.group is not None:
+                reduce_scatter(t, b, rank=ax.index, form=ax.form, group=ax.group)
             else:
                 t.copy_(b)
+            if seq is not None:
+                dist.all_reduce(t, group=seq)
 
     @torch.no_grad()
     def accumulate(self, first: bool) -> None:
@@ -321,12 +335,12 @@ class ShardReducer:
 
     @torch.no_grad()
     def average(self, k: int) -> None:
-        torch._foreach_div_(self.acc, float(k * self.mesh.dp))
+        torch._foreach_div_(self.acc, float(k * self.mesh.sync.size))
 
     def finalize(self) -> None:
-        m = self.mesh
+        ax = self.axis
         for b, a in zip(self.bufs, self.acc):
-            if m.joined:
-                all_gather(b, a, rank=m.rank, form=m.form)
+            if ax.group is not None:
+                all_gather(b, a, rank=ax.index, form=ax.form, group=ax.group)
             else:
                 b.copy_(a)

@@ -52,10 +52,13 @@ import torch
 
 
 class Eager:
-    """A part of a `Program` that runs outside any graph (a gloo collective)."""
+    """A part of a `Program` that runs outside any graph (a gloo collective,
+    or a forward and backward that hold gloo collectives); `label` names
+    it in `Program.describe`."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, label: str = "eager"):
         self.fn = fn
+        self.label = label
 
 
 class Program:
@@ -70,12 +73,20 @@ class Program:
         self.name = name
         self.graphs = []
         self.segments = None  # after capture: graph replays and eager parts, in order
+        self.kinds = None  # after capture: "graph", or the eager part's label, per segment
         self.delta = None
 
     @property
     def graph(self):
         """The first captured graph (None before capture)."""
         return self.graphs[0] if self.graphs else None
+
+    def describe(self) -> str:
+        """The captured segments in order ("graph", or an eager part's
+        label), or that the parts run eagerly (not captured)."""
+        if self.kinds is None:
+            return "eager (not captured)"
+        return " + ".join(self.kinds)
 
     def fn(self) -> None:
         """One eager run of every part."""
@@ -97,7 +108,7 @@ class Program:
         """Record the parts as CUDA graphs on `stream`, in memory pool `pool`
         (None: a pool of their own); raises if they cannot be."""
         before = [dict(c) for c in self.counters]
-        segments, run = [], []
+        segments, kinds, run = [], [], []
         # no garbage collection inside a capture: freeing another graph
         # there (cyclic garbage) would invalidate this one
         gc.disable()
@@ -106,19 +117,22 @@ class Program:
                 if isinstance(p, Eager):
                     if run:
                         segments.append(self._record(run, stream, pool))
+                        kinds.append("graph")
                     segments.append(p.fn)
+                    kinds.append(p.label)
                     run = []
                 else:
                     run.append(p)
             if run:
                 segments.append(self._record(run, stream, pool))
+                kinds.append("graph")
         finally:
             gc.enable()
         # the eager parts did not run during the capture: only graphs count
         self.delta = [{k: c[k] - b[k] for k in c} for c, b in zip(self.counters, before)]
         for c, b in zip(self.counters, before):
             c.update(b)
-        self.segments = segments
+        self.segments, self.kinds = segments, kinds
 
     def __call__(self, times: int = 1) -> None:
         if self.segments is None:

@@ -2,7 +2,7 @@
 (`create_lm_mesh`, `shard_params`, `make_copy_task`, `auto_loss_chunks`,
 `_ce_sum_chunked`, `lm_loss`, `optimizer_state_specs`, `init_lm_momentum`,
 `lm_wiring`, `make_lm_shardings`, `make_lm_train_step`) for one device and
-for data parallelism over a process group.
+for a dp x sp x tp process mesh.
 
 Parameters are the transformer's dict of f32 master tensors
 (`models/transformer.py`); the optimizer state is a list per leaf in
@@ -11,13 +11,21 @@ tree carries across leaf by leaf), or, under ZeRO-1, this rank's shard of
 each padded leaf (`parallel/zero.py`). The step updates parameters and state
 in place, as the CNN port does, where the JAX step returns new trees.
 
-The data axis (`create_lm_mesh(dp)`, a `parallel/mesh.py` `ProcessMesh`):
-``--dp N`` is N ranks of one torch.distributed group, one rank a data shard
-(the JAX mesh over N devices). Each rank feeds the step its contiguous block
-of B/dp rows of the global batch (`parallel/distributed.py`
-`distribute_host_data`, the rows JAX's ``P("data")`` gives device r), takes
-the mean loss over it, and the gradients are averaged over the group; the
-loss the step returns is the group mean. Gradient sync:
+The mesh (`create_lm_mesh(dp, sp, tp)`, a `parallel/mesh.py` `ProcessMesh`):
+dp*sp*tp ranks of one torch.distributed group, laid out as the JAX mesh's
+devices (model axis fastest). Each rank feeds the step its block of the
+global batch (`parallel/distributed.py` `distribute_host_data`: the rows
+and sequence columns JAX's ``P("data", "seq")`` gives its device) and takes
+the mean loss over it; the gradients and the loss are averaged over the
+sync axis (data x seq; every rank holds the same number of tokens, so this
+is JAX's psum of the loss sum and token count over `sync_axes`). The model
+axis shards the attention heads and the MLP's hidden columns
+(`shard_params`, the rule table's ``model`` specs): the model's
+`copy_to_model` / `reduce_from_model` (`parallel/collectives.py`) make the
+replicated leaves' gradients whole on every model rank, so no leaf's
+gradient is summed over the model axis; a tensor-sharded leaf's is summed
+over the same sync ranks as a replicated one's. The sequence axis runs
+`parallel/ring.py`'s attention. Gradient sync:
 
 - ``grad_sync="end"``: after the last micro-batch the gradients (and the
   loss) are packed into one flat buffer and all-reduced once;
@@ -42,11 +50,15 @@ eval); on the CPU the same functions run eagerly. Collectives under NCCL
 are captured with the rest, so the step stays one graph; under gloo (ranks
 that share a card, and the CPU) a collective cannot be captured and runs
 eagerly between the graphs (`Eager` parts), one graph part per micro-batch
-under overlap. The host computes each step's lr and corrections in f32 and
+under overlap. With a model or sequence axis the forward and backward hold
+collectives themselves, so under gloo each micro-batch's forward and
+backward is one `Eager` part too (and the update, when its norm sums a
+tensor-sharded leaf over the model axis); `Program.describe` names the
+segments. The host computes each step's lr and corrections in f32 and
 writes them into their buffers; graph and eager give the same bits.
 `_capture = False` before the first call runs the program eagerly on the
-card too. Sequence, tensor and pipeline axes, MoE, the guard, fault plans
-and dynamics come later (ROADMAP Queue 1 items 3-4).
+card too. The pipeline axis, MoE, the guard, fault plans and dynamics come
+later (ROADMAP Queue 1 items 3-4).
 """
 
 from __future__ import annotations
@@ -70,8 +82,16 @@ from ..ops.schedule import (
 )
 from ..ops.sgd import init_momentum, sgd_step
 from ..parallel import zero
-from ..parallel.collectives import COLLECTIVE_FORMS, BucketReducer, plan_buckets
-from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, NamedSharding, ProcessMesh
+from ..parallel.collectives import COLLECTIVE_FORMS, BucketReducer, gather_dim, plan_buckets
+from ..parallel.mesh import (
+    DATA_AXIS,
+    SEQ_AXIS,
+    SYNC_AXES,
+    TP_AXIS,
+    NamedSharding,
+    ProcessMesh,
+    make_axis_groups,
+)
 from ..parallel.partition import PartitionSpec as P
 from ..parallel.partition import spec_axes, validate_spec_tree
 from ..parallel.ring import PARALLEL_SLICE
@@ -84,48 +104,88 @@ OPTIMIZERS = ("sgd", "adam", "zero", "zero-adam")
 
 def create_lm_mesh(dp: int = 1, sp: int = 1, tp: int = 1, *, device="cuda") -> ProcessMesh:
     """The (dp, sp, tp) layout over the process group this process joined
-    (`parallel/distributed.py` `initialize`), or over this process alone at
-    dp 1: dp must be the group's world size. Only the data axis is ported;
-    sp or tp above 1 raise."""
+    (`parallel/distributed.py` `initialize`), or this process alone at
+    1 x 1 x 1: dp*sp*tp must be the group's world size. The ranks lie as
+    JAX reshapes its devices, (dp, sp, tp) with the model axis fastest, and
+    each rank gets its group along each axis (`make_axis_groups`)."""
     from ..device import resolve_device
     from ..parallel.distributed import joined, rank_device
 
-    if sp != 1 or tp != 1:
-        raise NotImplementedError(f"a sequence or tensor axis (sp={sp}, tp={tp}) comes with "
-                                  f"{PARALLEL_SLICE}; the port's mesh has the data axis only")
-    if dp < 1:
-        raise ValueError(f"dp must be >= 1, got {dp}")
+    for name, n in (("dp", dp), ("sp", sp), ("tp", tp)):
+        if n < 1:
+            raise ValueError(f"{name} must be >= 1, got {n}")
     dev = resolve_device(device)
     world = dist.get_world_size() if joined() else 1
-    if dp != world:
+    n = dp * sp * tp
+    if n != world:
+        flags = " ".join(f"--{k} {v}" for k, v in (("dp", dp), ("sp", sp), ("tp", tp))
+                         if v > 1 or k == "dp")
         raise ValueError(
-            f"--dp {dp} needs a process group of {dp} ranks, one a data shard; this process is "
-            f"in a world of {world}. Start it as: python -m torch.distributed.run --standalone "
-            f"--nproc-per-node {dp} -m distributed_neural_network_tpu_torch.lm_train --dp {dp} "
-            "...")
+            f"{flags} needs a process group of {n} ranks (dp x sp x tp, one rank a shard); "
+            f"this process is in a world of {world}. Start it as: python -m "
+            f"torch.distributed.run --standalone --nproc-per-node {n} -m "
+            f"distributed_neural_network_tpu_torch.lm_train {flags} ...")
     if not joined():
         return ProcessMesh(1, dev)
-    return ProcessMesh(dp, rank_device(dev), rank=dist.get_rank(), joined=True)
+    rank = dist.get_rank()
+    return ProcessMesh(dp, rank_device(dev), rank=rank, joined=True, sp=sp, tp=tp,
+                       groups=make_axis_groups(dp, sp, tp, rank))
+
+
+def _local_shard(x, spec, mesh):
+    """This rank's block of the whole leaf `x` under `spec`: each sharded
+    dim cut into the axes' sizes, this rank's coordinates picking the
+    block (several axes on one dim: the first axis major, as in JAX)."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        size, index = 1, 0
+        for a in ((entry,) if isinstance(entry, str) else tuple(entry)):
+            ax = mesh.axis(a)
+            size, index = size * ax.size, index * ax.size + ax.index
+        chunk = x.shape[dim] // size
+        x = x.narrow(dim, index * chunk, chunk)
+    return x.contiguous().clone()
 
 
 def shard_params(params, cfg, mesh: ProcessMesh, rules=None):
-    """(params on the mesh's device, their specs): the replicated layout
-    the data axis keeps (`param_specs`, or ``rules``); a spec that shards a
-    leaf over an axis of more than one rank raises (tensor-sharded leaves
-    come with TP)."""
+    """(this rank's parameters on the mesh's device, their specs): the whole
+    tree (the same on every rank, e.g. from `from_jax_params`) cut by the
+    specs (`param_specs`, or ``rules``): under a model axis wq/wk/wv and w1
+    (with b1) by columns, wo and w2 by rows (`lm_partition_rules(tp_axis=
+    "model")`); every other leaf replicated. `gather_params` is the
+    inverse."""
     specs = _param_specs(cfg, mesh, rules)
-    return tfm.to_device(params, mesh.device), specs
+    params = tfm.to_device(params, mesh.device)
+    if mesh.tp > 1:
+        params = tree_map(lambda x, s: _local_shard(x, s, mesh), params, specs)
+    return params, specs
+
+
+def gather_params(params, specs, mesh: ProcessMesh):
+    """The whole parameter tree from every rank's `shard_params` block: each
+    tensor-sharded leaf all-gathered over the model axis (a collective
+    every rank of the axis must call); new tensors, detached."""
+    def whole(x, spec):
+        x = x.detach()
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                for a in ((entry,) if isinstance(entry, str) else tuple(entry)):
+                    x = gather_dim(x, dim, mesh.axis(a))
+        return x.clone()
+
+    return tree_map(whole, params, specs)
 
 
 def _param_specs(cfg, mesh, rules):
-    specs = tfm.param_specs(cfg, rules=rules)
+    specs = tfm.param_specs(cfg, tp_axis=TP_AXIS if mesh.tp > 1 else None, rules=rules)
     for path, spec in _named_specs(specs):
-        wide = [a for a in spec_axes(spec) if mesh.shape.get(a, 1) > 1]
+        wide = [a for a in spec_axes(spec) if a != TP_AXIS and mesh.shape.get(a, 1) > 1]
         if wide:
             raise NotImplementedError(
-                f"the partition rules shard {path!r} as {spec} over {wide}; sharded "
-                f"parameters come with tensor parallelism ({PARALLEL_SLICE}) - the data axis "
-                "keeps every leaf replicated")
+                f"the partition rules shard {path!r} as {spec} over {wide}; the port shards "
+                "parameters over the model axis only (tensor parallelism) - a leaf sharded "
+                f"over the data, sequence or an expert axis comes with {PARALLEL_SLICE}")
     return specs
 
 
@@ -181,11 +241,16 @@ def _ce_sum_chunked(x, head, targets, n_chunks: int):
     return total
 
 
-def lm_loss(params, tokens, targets, cfg, *, attn_impl: str = "ring", loss_chunks: int = 0):
-    """Mean next-token cross-entropy over the batch's tokens. loss_chunks > 1
-    chunks the CE along the sequence; 0 picks the chunking that bounds a
-    chunk's logits to ~64 MB; 1 is a single pass."""
-    x = tfm.apply_hidden(params, tokens, cfg, attn_impl=attn_impl)
+def lm_loss(params, tokens, targets, cfg, *, seq_axis=None, tp_axis=None,
+            attn_impl: str = "ring", loss_chunks: int = 0):
+    """Mean next-token cross-entropy over this rank's tokens (B_local,
+    S_local). loss_chunks > 1 chunks the CE along the local sequence; 0
+    picks the chunking that bounds a chunk's logits to ~64 MB; 1 is a single
+    pass. The step averages it over the sync axis (`LMTrainStep`): every
+    rank holds B/dp x S/sp tokens, so that is the JAX psum of the loss sum
+    and of the token count over (data, seq)."""
+    x = tfm.apply_hidden(params, tokens, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
+                         attn_impl=attn_impl)
     b, s = tokens.shape
     if loss_chunks == 0:
         loss_chunks = auto_loss_chunks(b, s, cfg.vocab_size)
@@ -226,7 +291,7 @@ def init_lm_momentum(params, optimizer: str = "sgd", mesh: ProcessMesh | None = 
         return init_momentum(leaves)
     if optimizer == "adam":
         return init_adam(leaves)
-    dp = mesh.dp if mesh is not None else 1
+    dp = mesh.data.size if mesh is not None else 1
     if optimizer == "zero":
         return zero.init_zero_momentum_tree(leaves, dp)
     return zero.init_zero_adam_tree(leaves, dp)
@@ -234,13 +299,23 @@ def init_lm_momentum(params, optimizer: str = "sgd", mesh: ProcessMesh | None = 
 
 def lm_wiring(cfg, mesh: ProcessMesh, optimizer: str = "sgd", rules=None):
     """(sp, tp, ep, sync_axes, specs, mom_spec, data_spec) for the mesh:
-    the one derivation of axes and specs the step uses. The parameters'
-    specs come from the rule table (or ``rules``, the ``--sharding
-    rules:<file>`` path) and every spec is checked against the mesh's axes
-    up front; the data axis keeps every leaf replicated, which the zero
-    optimizers require."""
+    the one derivation of axes and specs the step uses (sp / tp: the axis
+    name when it has more than one rank, else None; ep: None, no expert
+    axis). The parameters' specs come from the rule table (or ``rules``,
+    the ``--sharding rules:<file>`` path) and every spec is checked against
+    the mesh's axes up front; the zero optimizers need replicated specs, so
+    they refuse a model axis, as in JAX."""
     _check_optimizer(optimizer)
+    sp = SEQ_AXIS if mesh.sp > 1 else None
+    tp = TP_AXIS if mesh.tp > 1 else None
+    ep = None
     specs = _param_specs(cfg, mesh, rules)
+    if optimizer.startswith("zero") and (tp or ep):
+        raise ValueError(
+            f"optimizer={optimizer!r} shards the flat param vector over the data axis, which "
+            "requires params replicated across the mesh - not compatible with "
+            f"tp_axis={tp!r} / ep_axis={ep!r}; use 'sgd'/'adam' for tensor/expert-sharded "
+            "configs")
     if rules is not None and optimizer.startswith("zero"):
         sharded = [(path, s) for path, s in _named_specs(specs)
                    if any(e is not None for e in tuple(s))]
@@ -256,8 +331,7 @@ def lm_wiring(cfg, mesh: ProcessMesh, optimizer: str = "sgd", rules=None):
     validate_spec_tree(specs, axes, root="params")
     validate_spec_tree(mom_spec, axes, root="optimizer state")
     validate_spec_tree(data_spec, axes, root="tokens")
-    sync_axes = (DATA_AXIS, SEQ_AXIS)
-    return None, None, None, sync_axes, specs, mom_spec, data_spec
+    return sp, tp, ep, SYNC_AXES, specs, mom_spec, data_spec
 
 
 def make_lm_shardings(cfg, mesh: ProcessMesh, optimizer: str = "sgd", rules=None):
@@ -341,7 +415,7 @@ class LMTrainStep(_Captured):
         self.weight_decay, self.with_health = weight_decay, with_health
         self.overlap = grad_sync == "overlap" and accum_steps > 1
         self.bucket_bytes, self.specs = bucket_bytes, specs
-        # the data-axis path: a group to sync over, sharded state, or the
+        # the mesh path: a group to sync over, sharded state, or the
         # per-micro-batch collectives
         self.synced = mesh.joined or optimizer.startswith("zero") or self.overlap
         self.layout = None  # the bucket plan under overlap
@@ -354,11 +428,20 @@ class LMTrainStep(_Captured):
         """The collectives' form (`parallel/collectives.py`), None off a group."""
         return COLLECTIVE_FORMS[self.mesh.form] if self.mesh.joined else None
 
+    @property
+    def segments(self) -> str:
+        """The step program's segments in order (`Program.describe`): one
+        "graph" under NCCL; under gloo the graphs and the eager parts
+        between them."""
+        return self.program.describe() if self.program is not None else "not built"
+
     def _one(self, params):
         cfg, attn_impl, loss_chunks = self.cfg, self.attn_impl, self.loss_chunks
+        seq_axis, tp_axis = self.mesh.seq_axis, self.mesh.tp_axis
 
         def one(tok, tgt):
-            loss = lm_loss(params, tok, tgt, cfg, attn_impl=attn_impl, loss_chunks=loss_chunks)
+            loss = lm_loss(params, tok, tgt, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
+                           attn_impl=attn_impl, loss_chunks=loss_chunks)
             loss.backward()
             return loss.detach()
 
@@ -367,17 +450,21 @@ class LMTrainStep(_Captured):
     def _optimize(self):
         """`optimize(leaves, grads, mom)`: clip, then the replicated update
         (sgd or adam) of `leaves` with `grads`, in place; returns the health
-        norm (or None). It closes over values, not over this object."""
+        norm (or None). The norm sums a tensor-sharded leaf over the model
+        axis. It closes over values, not over this object."""
         optimizer, momentum, weight_decay = self.optimizer, self.momentum, self.weight_decay
         clip_norm, with_health = self.clip_norm, self.with_health
         lr_t, c1, c2 = self._scalars
+        mesh = self.mesh
+        spec_leaves = tree_leaves(self.specs)
+        norm_kw = dict(specs=spec_leaves, axes=tuple(mesh.shape), mesh=mesh)
 
         def optimize(leaves, grads, mom):
             norm = None
             if clip_norm > 0.0:
-                norm = clip_by_global_norm(grads, clip_norm)
+                norm = clip_by_global_norm(grads, clip_norm, **norm_kw)
             elif with_health:
-                norm = global_norm(grads)
+                norm = global_norm(grads, **norm_kw)
             if optimizer == "adam":
                 adam_leaf_update(leaves, grads, mom["m"], mom["v"], c1, c2, lr_t, momentum,
                                  B2, EPS, weight_decay)
@@ -416,13 +503,15 @@ class LMTrainStep(_Captured):
         return self._synced_parts(one, leaves, mom, tokens, targets, begin)
 
     def _synced_parts(self, one, leaves, mom, tokens, targets, begin):
-        """The data-axis step: [begin, the gradients and their collectives,
-        the update, (zero: the all-gather, the copy back)]."""
+        """The mesh step: [begin, the gradients and their collectives over
+        the sync axis, the update, (zero: the all-gather over the data axis,
+        the copy back)]."""
         mesh, dev, out = self.mesh, tokens.device, self._out
-        accum, dp = self.accum_steps, mesh.dp
+        accum, sync = self.accum_steps, mesh.sync
+        group, n_sync = sync.group, sync.size
         optimize, with_health = self._optimize(), self.with_health
         loss = torch.zeros((), device=dev)
-        sums = []  # (fn, is_collective)
+        sums = []  # (fn, kind): "model" (forward and backward), "collective", "local"
         if self.overlap:
             keys = [str(s) for s in tree_leaves(self.specs)]
             self.layout = layout = plan_buckets(leaves, bucket_bytes=self.bucket_bytes,
@@ -430,11 +519,12 @@ class LMTrainStep(_Captured):
             reducer = (zero.ShardReducer if self.optimizer.startswith("zero")
                        else BucketReducer)(layout, mesh, dev)
             sums += overlap_parts(one, accum, leaves, tokens, targets, reducer, loss)
-            sums.append((lambda: dist.all_reduce(loss) if mesh.joined else None, True))
+            if group is not None:
+                sums.append((lambda: dist.all_reduce(loss, group=group), "collective"))
             grads = reducer.grads
 
             def average():
-                loss.div_(dp)
+                loss.div_(n_sync)
         else:
             n = sum(p.numel() for p in leaves)
             flat = torch.zeros(n + 1, device=dev)  # the gradients, then the loss
@@ -450,11 +540,12 @@ class LMTrainStep(_Captured):
                 for p in leaves:
                     p.grad = None
 
-            sums += [(compute, False), (lambda: dist.all_reduce(flat) if mesh.joined else None,
-                                        True)]
+            sums.append((compute, "model"))
+            if group is not None:
+                sums.append((lambda: dist.all_reduce(flat, group=group), "collective"))
 
             def average():
-                flat.div_(dp)
+                flat.div_(n_sync)
                 loss.copy_(flat[n])
 
         zero_parts = ()
@@ -475,17 +566,33 @@ class LMTrainStep(_Captured):
             if with_health:
                 out["health"] = health_bundle(loss, norm)
 
-        sums.append((update, False))
+        # the norm of a tensor-sharded leaf is summed over the model axis
+        sums.append((update, "norm" if mesh.tp > 1 and (self.clip_norm > 0.0 or with_health)
+                     else "local"))
         if zero_parts:
-            sums += [(zero_parts[1], True), (zero_parts[2], False)]
-        # under NCCL a collective is captured with the rest; under gloo it
-        # runs eagerly between the graphs; off a group it is a copy or nothing
-        eager = mesh.joined and mesh.backend != "nccl"
-        parts, self.collectives = [begin], []
-        for fn, collective in sums:
-            if collective and mesh.joined:
+            sums += [(zero_parts[1], "collective" if mesh.data.group is not None else "local"),
+                     (zero_parts[2], "local")]
+        # Under NCCL every part is captured, collectives included: one graph.
+        # Under gloo (a host collective, which no graph can record) a
+        # collective runs eagerly between the graphs, and so does a part
+        # that holds one: the forward and backward under a model or
+        # sequence axis (copy_to_model, ring / all-to-all attention), the
+        # update whose norm sums over the model axis. Off a group (the CPU
+        # at 1 x 1 x 1) nothing is a collective.
+        gloo = mesh.joined and mesh.backend != "nccl"
+        inner = mesh.tp > 1 or mesh.sp > 1
+        labels = {"collective": "eager collective",
+                  "model": "eager forward+backward (model/seq collectives inside)",
+                  "norm": "eager update (model-axis norm)"}
+        # `begin` runs with the first part (so no graph of its own is empty)
+        (first, kind0), rest = sums[0], sums[1:]
+        sums = [(lambda: (begin(), first()), kind0)] + rest
+        parts, self.collectives = [], []
+        for fn, kind in sums:
+            if kind == "collective":
                 self.collectives.append(fn)
-            parts.append(Eager(fn) if collective and eager else fn)
+            eager = gloo and (kind in ("collective", "norm") or (kind == "model" and inner))
+            parts.append(Eager(fn, labels[kind]) if eager else fn)
         return parts
 
     def __call__(self, params, mom, tokens, targets, step_i=None):
@@ -554,7 +661,12 @@ def make_lm_train_step(cfg, *, mesh: ProcessMesh | None = None, device=None, lr:
         raise ValueError(f"bucket_mb must be > 0, got {bucket_mb}")
     if mesh is None:
         mesh = ProcessMesh(1, torch.device(device) if device is not None else torch.device("cpu"))
-    specs = lm_wiring(cfg, mesh, optimizer, rules=rules)[4]
+    wiring = lm_wiring(cfg, mesh, optimizer, rules=rules)
+    sp, specs = wiring[0], wiring[4]
+    if attn_impl == "flash" and sp is not None:
+        raise ValueError(
+            "attn_impl 'flash' is the local (per-device) kernel; with a sequence axis use "
+            "'ring'/'ulysses'/'zigzag' (flash composes with dp/tp meshes, not sp)")
     return LMTrainStep(cfg, mesh=mesh, device=device, lr=lr, momentum=momentum,
                        attn_impl=attn_impl, optimizer=optimizer, loss_chunks=loss_chunks,
                        lr_schedule=lr_schedule, clip_norm=clip_norm, accum_steps=accum_steps,
@@ -565,22 +677,37 @@ def make_lm_train_step(cfg, *, mesh: ProcessMesh | None = None, device=None, lr:
 class EvalLoss(_Captured):
     """(params, tokens, targets) -> held-out loss, no gradient: one program
     at the shape of its first call, bound to that call's parameter tensors
-    (the JAX CLI's jitted eval)."""
+    (the JAX CLI's jitted eval). On a mesh every rank passes the whole
+    batch's rows and its block of the sequence; the model axis runs its
+    collectives and the loss is averaged over the sequence axis (under
+    gloo with either axis the program is one eager part)."""
 
-    def __init__(self, cfg, *, attn_impl: str, loss_chunks: int):
-        super().__init__("the LM eval loss")
+    def __init__(self, cfg, *, attn_impl: str, loss_chunks: int, mesh: ProcessMesh | None = None):
+        super().__init__("the LM eval loss", None if mesh is None or not mesh.joined
+                         else mesh.device)
         self.cfg, self.attn_impl, self.loss_chunks = cfg, attn_impl, loss_chunks
+        self.mesh = mesh
         self._out = {}
 
     def __call__(self, params, tokens, targets):
         cfg, attn_impl, loss_chunks, out = self.cfg, self.attn_impl, self.loss_chunks, self._out
+        mesh = self.mesh
+        seq_axis = mesh.seq_axis if mesh is not None else None
+        tp_axis = mesh.tp_axis if mesh is not None else None
 
         def build(tok, tgt):
             @torch.no_grad()
             def fn():
-                out["loss"] = lm_loss(params, tok, tgt, cfg, attn_impl=attn_impl,
-                                      loss_chunks=loss_chunks)
+                loss = lm_loss(params, tok, tgt, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
+                               attn_impl=attn_impl, loss_chunks=loss_chunks)
+                if seq_axis is not None:
+                    dist.all_reduce(loss, group=seq_axis.group)
+                    loss.div_(seq_axis.size)
+                out["loss"] = loss
 
+            gloo = mesh is not None and mesh.joined and mesh.backend != "nccl"
+            if gloo and (seq_axis is not None or tp_axis is not None):
+                return [Eager(fn, "eager forward (model/seq collectives inside)")]
             return [fn]
 
         self._run(self._bind(tree_leaves(params), (tokens, targets), build), (tokens, targets),
@@ -588,6 +715,7 @@ class EvalLoss(_Captured):
         return out["loss"].clone()
 
 
-def make_eval_fn(cfg, *, attn_impl: str = "ring", loss_chunks: int = 0):
+def make_eval_fn(cfg, *, attn_impl: str = "ring", loss_chunks: int = 0,
+                 mesh: ProcessMesh | None = None):
     """(params, tokens, targets) -> held-out loss, no gradient (`EvalLoss`)."""
-    return EvalLoss(cfg, attn_impl=attn_impl, loss_chunks=loss_chunks)
+    return EvalLoss(cfg, attn_impl=attn_impl, loss_chunks=loss_chunks, mesh=mesh)

@@ -2,10 +2,11 @@
 distributed_neural_network_tpu_torch.lm_train`) on the CPU at a tiny width:
 its step lines, its MFU-less CPU summary with the JAX CLI's SUMMARY keys
 (read from the JAX script's source), the quantized route, the JAX CLI's
-argument errors, a NotImplementedError naming the slice for every flag of a
-later slice, the data axis's flags in one process (zero, overlap, sharding
-rules; --dp N outside a group of N refused with the torchrun command), and
-the flash launch formulas (the CPU runs each kernel's plain
+argument errors (those of the mesh's axes held to the JAX CLI's own text), a
+NotImplementedError naming the slice for every flag of a later slice, the
+data axis's flags in one process (zero, overlap, sharding rules; --dp N
+outside a group of N refused with the torchrun command), --dp 2 --tp 2 as
+four torchrun ranks, and the flash launch formulas (the CPU runs each kernel's plain
 version where the card launches the kernel, so counting the plain versions
 counts the launches the card makes)."""
 
@@ -117,7 +118,6 @@ def test_flash_launch_formulas(flags, tmp_path, monkeypatch):
 
 
 LATER = {
-    "--sp 2": "parallel-layouts", "--tp 2": "parallel-layouts",
     "--pp 2": "parallel-layouts",
     "--experts 4": "parallel-layouts", "--sharding auto": "item 6",
     "--microbatches 4": "parallel-layouts", "--guard warn": "slice 4",
@@ -177,3 +177,77 @@ def test_default_device_without_cuda_fails_cleanly(monkeypatch):
     args = [a for a in TINY if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="--device cpu"):
         lm_train.main(args, log=lambda line: None)
+
+
+def _jax_cli_error(monkeypatch, capsys, argv):
+    """The text the JAX lm_train.py exits with for `argv` (argparse's
+    "error: ..." line, or a SystemExit's message)."""
+    import importlib.util
+    import sys
+
+    spec = importlib.util.spec_from_file_location("jax_lm_train_cli",
+                                                  os.path.join(ROOT, "lm_train.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    monkeypatch.setattr(sys, "argv", ["lm_train.py"] + argv)
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as e:
+        cli.main()
+    return e.value.code if isinstance(e.value.code, str) else (
+        capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1])
+
+
+def _port_error(capsys, argv):
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as e:
+        lm_train.main(["--device", "cpu"] + argv, log=lambda line: None)
+    return e.value.code if isinstance(e.value.code, str) else (
+        capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1])
+
+
+# the JAX CLI's checks of the mesh's axes (lm_train.py), each with its port
+MESH_ERRORS = {
+    "n-heads % tp": ["--tp", "3"],
+    "loss chunks per shard": ["--sp", "2", "--loss-chunks", "16"],
+    "zigzag seq % 2sp": ["--sp", "3", "--attn", "zigzag", "--seq-len", "20"],
+    "flash with sp": ["--sp", "2", "--attn", "flash"],
+    "precision with sp": ["--sp", "2", "--precision", "int8"],
+}
+
+
+@pytest.mark.parametrize("name", list(MESH_ERRORS))
+def test_mesh_argument_errors_are_the_jax_cli_texts(n_devices, monkeypatch, capsys, name):
+    args = [a for a in TINY if a not in ("--device", "cpu")] + MESH_ERRORS[name]
+    want = _jax_cli_error(monkeypatch, capsys, args)
+    assert _port_error(capsys, args) == want
+
+
+def test_dp2_tp2_under_torchrun(tmp_path):
+    """--dp 2 --tp 2 as four gloo ranks on the CPU: every rank's SUMMARY
+    line the same, mesh data2xmodel2, the loss falling; the log line names
+    the collectives' form."""
+    import subprocess
+    import sys
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [ROOT, env.get("PYTHONPATH")]))
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+              "LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "4", "-m", "distributed_neural_network_tpu_torch.lm_train", "--device", "cpu",
+           "--dp", "2", "--tp", "2", "--attn", "flash", "--steps", "3", "--batch-size", "8",
+           "--seq-len", "16", "--vocab", "32", "--d-model", "32", "--n-heads", "4",
+           "--n-layers", "2", "--d-ff", "64", "--log-every", "1", "--lr", "0.3"]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=150, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    summaries = [line for line in lines if line.startswith("SUMMARY ")]
+    assert len(summaries) == 4 and len(set(summaries)) == 1
+    summary = json.loads(summaries[0][8:])
+    assert summary["mesh"] == "data2xmodel2" and summary["final_loss"] < summary["first_loss"]
+    for r in range(4):
+        assert f"(Multi-process: rank {r}/4, backend gloo, device cpu)" in lines
+    logs = [line for line in lines if line.startswith("(LM ")]
+    assert len(logs) == 4 and all("mesh data2xmodel2" in line and "collectives gloo:" in line
+                                  for line in logs)

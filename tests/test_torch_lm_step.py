@@ -125,11 +125,11 @@ def test_copy_task_and_chunking():
     assert int(toks.min()) >= 2 and int(toks.max()) < 20
     for b, s, v in ((16, 2048, 32768), (4, 16, 32), (2, 100, 50000)):
         assert tlm.auto_loss_chunks(b, s, v) == jlm.auto_loss_chunks(b, s, v)
-    # zero at dp 1 holds one shard, the whole of each leaf; the sequence and
-    # tensor axes still come later
+    # zero at dp 1 holds one shard, the whole of each leaf; a sequence axis
+    # needs a process group of its size (torchrun)
     params = tfm.init_params(0, CFG)
     assert [m.shape for m in tlm.init_lm_momentum(params, "zero")] == [
         (p.numel(),) for p in tlm.tree_leaves(params)]
     assert tlm.make_lm_train_step(CFG, grad_sync="overlap").overlap is False
-    with pytest.raises(NotImplementedError, match="parallel-layouts"):
+    with pytest.raises(ValueError, match="--nproc-per-node 2 .* --dp 1 --sp 2"):
         tlm.create_lm_mesh(1, 2, 1, device="cpu")

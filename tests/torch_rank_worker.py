@@ -30,13 +30,28 @@ in-process reference). The spec:
 - ``lm`` (optional): {"params": an .npz of a parameter tree (keys
   "layer/leaf" or "leaf"), "batches": an .npz of "tokens" and "targets"
   (steps, B, S) global batches, "cfg": TransformerConfig fields, "cases":
-  [{"name", "kw" (make_lm_train_step arguments), "steps"}]}: each case
-  builds the mesh over the group (`create_lm_mesh(world)`), the optimizer
-  state and the step, feeds each step this rank's rows
-  (`distribute_host_data`) and writes ``lm_{name}_rank{r}.npz``: the
-  losses, the final parameters ("params/<path>") and optimizer state
-  ("state/<path>", this rank's shards under zero) and the step's bucket
-  count and collective count;
+  [{"name", "kw" (make_lm_train_step arguments), "steps", optional "mesh"
+  [dp, sp, tp] (default [world, 1, 1]) and "cfg" (fields over the spec's)}]}:
+  each case builds the mesh over the group (`create_lm_mesh`), cuts the
+  parameters for this rank (`shard_params`), makes the optimizer state and
+  the step, feeds each step this rank's block (`distribute_host_data`;
+  under zigzag with sp > 1 the batch permuted first, as the CLI does) and
+  writes ``lm_{name}_rank{r}.npz``: the losses, the final parameters
+  ("params/<path>", gathered over the model axis: `gather_params`) and
+  optimizer state ("state/<path>", gathered likewise; this rank's shards
+  under zero), the step's bucket count, collective count and segments;
+- ``attn`` (optional): {"qkv": an .npz of (B, S, H, D) "q", "k", "v" and
+  the output weight "w", "cases": [{"name", "fn": "ring" | "ulysses" |
+  "zigzag", "causal", "heads" (optional: the first this many heads)}]}: the
+  sequence axis is the whole group; each rank takes its contiguous shard
+  of S (of the zigzag-ordered sequence for "zigzag"), runs the function
+  and the backward of sum(o * w) and writes ``attn_{name}_rank{r}.npz``
+  with its shard of o and of the q, k and v gradients, or "error" (the
+  text of a ValueError);
+- ``norms`` (optional): {"seed", "cfg"}: a seeded whole gradient tree of
+  the LM's shapes (`norm_inputs`), cut for this rank of create_lm_mesh(1,
+  1, world) by `shard_params`; writes ``norms_rank{r}.npz``: the
+  `per_leaf_sq_norms` and `global_norm` over the model-axis specs;
 - ``buckets`` (optional): {"seed", "cap"}: seeded leaves that differ by
   rank (f32, and a bf16 run of leaves); writes ``buckets_rank{r}.npz``: the
   bucketed mean (`bucketed_psum`), the per-leaf all-reduce mean, and the
@@ -129,6 +144,7 @@ def _lm_runs(spec, rank, out):
 
     from distributed_neural_network_tpu_torch.models import transformer as tfm
     from distributed_neural_network_tpu_torch.parallel.distributed import distribute_host_data
+    from distributed_neural_network_tpu_torch.parallel.ring import zigzag_order
     from distributed_neural_network_tpu_torch.parallel.rules import named_leaves
     from distributed_neural_network_tpu_torch.train import lm as tlm
 
@@ -141,27 +157,110 @@ def _lm_runs(spec, rank, out):
             node = node.setdefault(p, {})
         node[leaf] = v
     batches = dict(np.load(spec["batches"]))
-    cfg = tfm.TransformerConfig(**spec["cfg"])
     device = out["device"]
     for case in spec["cases"]:
         kw = dict(case["kw"])
-        mesh = tlm.create_lm_mesh(kw.pop("dp", None) or _world(), device=device)
-        params = tfm.from_jax_params(tree, device)
-        mom = tlm.init_lm_momentum(params, kw.get("optimizer", "sgd"), mesh)
+        cfg = tfm.TransformerConfig(**{**spec["cfg"], **case.get("cfg", {})})
+        dp, sp, tp = case.get("mesh") or (kw.pop("dp", None) or _world(), 1, 1)
+        mesh = tlm.create_lm_mesh(dp, sp, tp, device=device)
+        params, specs = tlm.shard_params(tfm.from_jax_params(tree), cfg, mesh)
+        opt = kw.get("optimizer", "sgd")
+        mom = tlm.init_lm_momentum(params, opt, mesh)
         step = tlm.make_lm_train_step(cfg, mesh=mesh, device=device, **kw)
+        perm = (torch.from_numpy(zigzag_order(batches["tokens"].shape[2], sp)).long()
+                if kw.get("attn_impl") == "zigzag" and sp > 1 else None)
         losses = []
         for i in range(case["steps"]):
-            tok, tgt = (distribute_host_data(torch.from_numpy(batches[k][i]).long(), mesh)
-                        for k in ("tokens", "targets"))
+            tok, tgt = (torch.from_numpy(batches[k][i]).long() for k in ("tokens", "targets"))
+            if perm is not None:
+                tok, tgt = tok[:, perm], tgt[:, perm]
+            tok, tgt = (distribute_host_data(x, mesh) for x in (tok, tgt))
             losses.append(float(step(params, mom, tok, tgt, i)))
         state = {k: v for k, v in mom.items() if k != "t"} if isinstance(mom, dict) else mom
+        if not opt.startswith("zero"):
+            leaf_specs = tlm.tree_leaves(specs)
+            state = (tlm.gather_params(state, leaf_specs, mesh) if isinstance(state, list) else
+                     {k: tlm.gather_params(v, leaf_specs, mesh) for k, v in state.items()})
+        whole = tlm.gather_params(params, specs, mesh)
         np.savez(os.path.join(out["dir"], f"lm_{case['name']}_rank{rank}.npz"),
                  losses=np.asarray(losses, np.float64),
                  n_buckets=step.layout.n_buckets if step.layout is not None else 0,
-                 n_collectives=len(step.collectives),
-                 **{"params/" + k: v.detach().cpu().numpy() for k, v in named_leaves(params)},
+                 n_collectives=len(step.collectives), segments=step.segments,
+                 **{"params/" + k: v.detach().cpu().numpy() for k, v in named_leaves(whole)},
                  **{f"state/{k}": v.detach().cpu().numpy() for k, v in named_leaves(state)})
         del step
+
+
+def _attn_runs(spec, rank, out):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_neural_network_tpu_torch.parallel import ring
+    from distributed_neural_network_tpu_torch.train import lm as tlm
+
+    n = dist.get_world_size()
+    axis = tlm.create_lm_mesh(1, n, 1, device="cpu").seq
+    data = dict(np.load(spec["qkv"]))
+    for case in spec["cases"]:
+        h = case.get("heads") or data["q"].shape[2]
+        s = data["q"].shape[1]
+        order = ring.zigzag_order(s, n) if case["fn"] == "zigzag" else np.arange(s)
+        c = s // n
+        mine = order[rank * c:(rank + 1) * c]
+        q, k, v, w = (torch.from_numpy(np.ascontiguousarray(data[x][:, mine, :h]))
+                      for x in ("q", "k", "v", "w"))
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        try:
+            if case["fn"] == "ring":
+                o = ring.ring_attention(q, k, v, axis, causal=case["causal"])
+            elif case["fn"] == "ulysses":
+                o = ring.ulysses_attention(q, k, v, axis, causal=case["causal"])
+            else:
+                o = ring.zigzag_ring_attention(q, k, v, axis)
+            (o * w).sum().backward()
+            res = {"o": o.detach().numpy(), "dq": q.grad.numpy(), "dk": k.grad.numpy(),
+                   "dv": v.grad.numpy()}
+        except ValueError as e:
+            res = {"error": str(e)}
+        np.savez(os.path.join(out["dir"], f"attn_{case['name']}_rank{rank}.npz"), **res)
+
+
+def norm_inputs(seed: int, cfg_kw):
+    """The ``norms`` check's whole gradient tree as numpy leaves, in
+    `tree_leaves` order: seeded normals of the LM's leaf shapes."""
+    import numpy as np
+
+    from distributed_neural_network_tpu_torch.models import transformer as tfm
+    from distributed_neural_network_tpu_torch.utils.tree import tree_leaves
+
+    rng = np.random.default_rng(seed)
+    shapes = [tuple(p.shape) for p in tree_leaves(tfm.init_params(0, tfm.TransformerConfig(
+        **cfg_kw)))]
+    return [rng.normal(size=s).astype(np.float32) for s in shapes]
+
+
+def _norm_check(spec, rank, out):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_neural_network_tpu_torch.models import transformer as tfm
+    from distributed_neural_network_tpu_torch.ops.schedule import global_norm, per_leaf_sq_norms
+    from distributed_neural_network_tpu_torch.train import lm as tlm
+
+    cfg = tfm.TransformerConfig(**spec["cfg"])
+    mesh = tlm.create_lm_mesh(1, 1, dist.get_world_size(), device="cpu")
+    like = tfm.init_params(0, cfg)
+    whole = tlm.tree_unflatten(like, [torch.from_numpy(x) for x in
+                                      norm_inputs(spec["seed"], spec["cfg"])])
+    mine, specs = tlm.shard_params(whole, cfg, mesh)
+    leaves, kw = tlm.tree_leaves(mine), dict(specs=tlm.tree_leaves(specs),
+                                              axes=tuple(mesh.shape), mesh=mesh)
+    np.savez(os.path.join(out["dir"], f"norms_rank{rank}.npz"),
+             per_leaf=np.asarray([float(x) for x in per_leaf_sq_norms(leaves, **kw)]),
+             **{"global": float(global_norm(leaves, **kw))})
 
 
 BUCKET_SHAPES = [(3, 5), (7,), (4, 4, 2), (1,), (33,), (2, 9)]
@@ -318,6 +417,10 @@ def main(spec_json: str) -> int:
             _sync_check(spec["sync"], rank, out)
         if spec.get("lm"):
             _lm_runs(spec["lm"], rank, out)
+        if spec.get("attn"):
+            _attn_runs(spec["attn"], rank, out)
+        if spec.get("norms"):
+            _norm_check(spec["norms"], rank, out)
         if spec.get("buckets"):
             _bucket_check(spec["buckets"], rank, out)
         if spec.get("zero"):
