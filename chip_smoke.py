@@ -109,7 +109,8 @@ Phases (any failure exits non-zero and prints no result):
    2048, 8, 64) causal bf16, and the mesh's FLASH_MESH ((16, 2048, 4, 64)
    at --tp 2, (16, 2048, 2, 64) at --tp 4, (2, 2048, 4, 64) at --dp 2 --tp
    2 --accum-steps 4, (8, 2048, 8, 64) at --dp 2; inputs from a generator
-   of their own); each case, forward and backward, on the route
+   of their own), and the remat runs' FLASH_REMAT (32, 2048, 4, 128) (phase
+   27; a generator of its own); each case, forward and backward, on the route
    the stated rule gives it (`expected_route`, read from the route
    counters: FLASH_MAIN on mma; the forward's mma route is wgmma at D 48
    and 64, mma.sync at 16, 32 and 128);
@@ -121,7 +122,8 @@ Phases (any failure exits non-zero and prints no result):
    come on mma, the same codes 8 bytes off a 16-byte boundary on simt);
    every kernel gives the same bits on a second call. The kernel line's
    max_abs_err is the one at FLASH_MAIN, max_abs_err_mesh the largest at
-   FLASH_MESH (the quantized kernel's on mma, at --tp 2's shape);
+   FLASH_MESH (the quantized kernel's on mma, at --tp 2's shape),
+   max_abs_err_remat the one at FLASH_REMAT (forward, dq, dkv);
 13. the LM training main path at full width through `lm_train.main`, the
    repo's flagship row lm_flash_d512_L8_seq2048_bf16 with nothing cut
    (d512/L8/H8/d_ff 2048/vocab 32768, batch 16, seq 2048, bf16, SGD lr 0.01
@@ -240,6 +242,23 @@ Phases (any failure exits non-zero and prints no result):
    UPDATE_TOL; and --dp 2 (phase 21's sgd run) through the same three-axis
    mesh code, held the same way to the one-process run and compared with
    phase 21's losses.
+26. the pipeline axis (`port_probes/pp_world.py`, one launch of 2 ranks
+   sharing the card over gloo): `lm_train.main` at LM_ARGS with --pp 2
+   --microbatches 4, GPipe and --pp-interleave 2, 4 steps (cut from 20),
+   each held to the one-process run on the plain attention (the pipeline's
+   blocks attend with it, as in JAX): every step's loss within LOSS_TOL,
+   the parameter update within UPDATE_TOL leaf by leaf, the ranks' SUMMARY
+   lines, losses and gathered parameters equal, the SUMMARY's mesh and
+   pp_bubble_frac the JAX CLI's, no flash launch; ms per step, 3 profiled
+   steps' idle share, pp_bubble_frac and each rank's peak memory;
+27. remat policies on the single-card graphed flash step
+   (`port_probes/remat_policies.py`) at batch 32, H 4, D 128 (FLASH_REMAT,
+   held in phase 12): --remat with no policy, dots_saveable,
+   dots_with_no_batch_dims_saveable, nothing_saveable, and no remat, 4
+   steps each: every policy's losses and parameters bitwise the no-policy
+   run's, the no-remat run within LOSS_TOL; the flash launches the formula
+   (the forward twice a layer under remat) on mma at FLASH_REMAT; each
+   run's peak memory, graphed ms per step and launches a step.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -295,6 +314,9 @@ FLASH_MAIN = (16, 2048, 8, 64)
 # --accum-steps 4 (port_probes/lm_mesh_world.py on four cards), --dp 2
 # (phases 21-23 and 25)
 FLASH_MESH = ((16, 2048, 4, 64), (16, 2048, 2, 64), (2, 2048, 4, 64), (8, 2048, 8, 64))
+# those of the remat-policy runs (phase 27: the JAX bench row
+# lm_flash_d512_L8_seq2048_bf16_hd128_dots_b32's batch 32, H 4, D 128)
+FLASH_REMAT = (32, 2048, 4, 128)
 # kernel route vs plain route from the same init and batches, bf16 (scores
 # and softmax in bf16 on the plain route, f32 in the kernels): the logged
 # losses (steps 0, 10, 19; the loss moves about 0.27 over the 20 steps;
@@ -875,19 +897,25 @@ def flash_vs_plain(torch, fa, dev):
     (16, 2048, 8, 64), causal, bf16, contiguous, on the mma route; int8 and
     fp8 for the quantized kernel; "flash_fwd o": o's alone) and the largest
     at the mesh's shapes (FLASH_MESH, the same way: "flash_fwd mesh", ...;
-    the quantized kernel at FLASH_MESH[0], --tp 2's)."""
+    the quantized kernel at FLASH_MESH[0], --tp 2's) and at the remat
+    runs' (FLASH_REMAT: "flash_fwd remat", "flash_dq remat", "flash_dkv
+    remat")."""
     g = torch.Generator(dev).manual_seed(12)
     g_mesh = torch.Generator(dev).manual_seed(24)
+    g_remat = torch.Generator(dev).manual_seed(27)
     worst, main, n = {}, {}, 0
     main_case = FLASH_MAIN + (True, torch.bfloat16, "contiguous")
     mesh_cases = [shape + (True, torch.bfloat16, "contiguous") for shape in FLASH_MESH]
+    remat_case = FLASH_REMAT + (True, torch.bfloat16, "contiguous")
 
-    def record(name, err, is_main, is_mesh=False):
+    def record(name, err, is_main, is_mesh=False, is_remat=False):
         worst[name] = max(worst.get(name, 0.0), err)
         if is_main:
             main[name] = max(main.get(name, 0.0), err)
         if is_mesh:
             main[f"{name} mesh"] = max(main.get(f"{name} mesh", 0.0), err)
+        if is_remat:
+            main[f"{name} remat"] = max(main.get(f"{name} remat", 0.0), err)
 
     cases = [(b, s, h, d, causal, dtype, layout)
              for (b, h) in ((1, 1), (2, 8)) for s in (1, 64, 200, 2048) for d in (64, 128, 16)
@@ -900,13 +928,13 @@ def flash_vs_plain(torch, fa, dev):
               for layout in ("contiguous", "strided")]
     cases += [(2, s, 8, d, causal, torch.bfloat16, "misaligned")
               for s in (1, 200) for d in (64, 128) for causal in (True, False)]
-    cases += [main_case] + mesh_cases
+    cases += [main_case] + mesh_cases + [remat_case]
     for case in cases:
         b, s, h, d, causal, dtype, layout = case
-        is_main, is_mesh = case == main_case, case in mesh_cases
+        is_main, is_mesh, is_remat = case == main_case, case in mesh_cases, case == remat_case
         tol = 1e-4 if dtype == torch.float32 else 1.6e-2
         q, k, v, do = flash_inputs(torch, b, s, h, d, dtype, layout, dev,
-                                   g_mesh if is_mesh else g)
+                                   g_remat if is_remat else g_mesh if is_mesh else g)
         where = f"B={b} S={s} H={h} D={d} causal={causal} {dtype} {layout}"
         route = fa.bwd_route(q, k, v, do)
         check(route == expected_route(torch, d, dtype, layout) == fa.fwd_route(q, k, v),
@@ -923,7 +951,7 @@ def flash_vs_plain(torch, fa, dev):
             check(ok, f"flash_fwd {name} max abs err {max_err(torch, x.float(), y.float())}: "
                   f"{where}")
         err_o = max_err(torch, o.float(), o_p.float())
-        record("flash_fwd", max(err_o, max_err(torch, lse, lse_p)), is_main, is_mesh)
+        record("flash_fwd", max(err_o, max_err(torch, lse, lse_p)), is_main, is_mesh, is_remat)
         record(f"flash_fwd {route} {'f32' if dtype == torch.float32 else 'bf16'}", err_o, False)
         if is_main:
             main["flash_fwd o"] = err_o
@@ -948,7 +976,7 @@ def flash_vs_plain(torch, fa, dev):
                 "flash_dkv": max(max_err(torch, dk.float(), dk_p.float()),
                                  max_err(torch, dv.float(), dv_p.float()))}
         for name, err in errs.items():
-            record(name, err, is_main, is_mesh)
+            record(name, err, is_main, is_mesh, is_remat)
             record(f"{name} {route} {'f32' if dtype == torch.float32 else 'bf16'}", err, False)
         n += 1
     # the quantized forward on codes, at the kernel's own k tile (BLOCK_K)
@@ -2241,10 +2269,13 @@ def main() -> int:
         for name in ("flash_fwd", "flash_fwd_quant", "flash_dq", "flash_dkv"):
             kernels[name]["max_abs_err"] = main_err[name]
             kernels[name]["max_abs_err_mesh"] = main_err[f"{name} mesh"]
+            if f"{name} remat" in main_err:
+                kernels[name]["max_abs_err_remat"] = main_err[f"{name} remat"]
         print(f"{n} cases within tolerance and bitwise reproducible; max abs err over all "
-              f"cases {worst}; at the main path's shape (B, S, H, D) = {FLASH_MAIN} and "
-              f"(\"... mesh\", the largest) at the mesh's {FLASH_MESH}, causal bf16 (the "
-              f"quantized kernel: the larger of int8 and fp8, at the first) {main_err}")
+              f"cases {worst}; at the main path's shape (B, S, H, D) = {FLASH_MAIN}, "
+              f"(\"... mesh\", the largest) at the mesh's {FLASH_MESH} and (\"... remat\") at "
+              f"the remat runs' {FLASH_REMAT}, causal bf16 (the quantized kernel: the larger of "
+              f"int8 and fp8, at the first) {main_err}")
 
     lm_runs, lm_checks = {}, {}
     with phase("13 LM training main path, full width"):
@@ -3015,6 +3046,57 @@ def main() -> int:
               f"{'bitwise' if same else 'not bitwise'} phase 21's --dp 2 sgd losses; segments: "
               f"{row['segments']}")
 
+    pp_run = {}
+    with phase("26 LM pipeline parallel, 2 ranks on the one card"):
+        from port_probes import pp_world as PW
+        from torch_rank_worker import busy_union
+
+        updates = os.path.join(ROOT, "runs", "pp_updates")
+        t0 = time.perf_counter()
+        try:
+            ref = PW.reference(LM_ARGS, ["plain"], updates=updates)
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            ranks = PW.run_world(2, os.path.join(ROOT, "chiprun_out", "pp"), LM_ARGS, updates,
+                                 timeout=600)
+        finally:
+            shutil.rmtree(updates, ignore_errors=True)
+        pp_run = {"runs": PW.check(2, ranks, ref, LM_ARGS, busy_union=busy_union),
+                  "one_process": ref,
+                  "seconds": {"one_process": t1 - t0, "ranks": time.perf_counter() - t1},
+                  "cuts": {"steps": f"{PW.STEPS}"}}
+        print(f"   one process (--attn ring, the plain attention the pipeline's blocks run) "
+              f"{t1 - t0:.1f} s; 2 ranks, both runs, {time.perf_counter() - t1:.1f} s with "
+              f"start-up")
+        for name, row in pp_run["runs"].items():
+            prof = row.get("profile") or {}
+            print(f"   {name}: {row['ms_per_step']:.2f} ms per step, {row['tokens_per_s']} "
+                  f"tokens/s, pp_bubble_frac {row['pp_bubble_frac']}, peak memory per rank "
+                  f"{[round(x, 2) for x in row['peak_mem_gib']]} GiB, idle share "
+                  f"{prof.get('idle_share')}; losses {[round(x, 5) for x in row['losses']]}, max "
+                  f"relative difference from one process {row['max_rel_vs_one_process']:.2e}, "
+                  f"parameter update {row['update_rel_max']:.2e} (worst leaf "
+                  f"{row['update_rel_leaf']}); no flash launch; segments: {row['segments']}")
+
+    remat_run = {}
+    with phase("27 remat policies, the graphed flash step"):
+        from port_probes import remat_policies as RP
+
+        remat_run = RP.run_policies(torch, LM_ARGS, flash_counts=flash_counts,
+                                    mma_counts=mma_counts, flash_remat=FLASH_REMAT,
+                                    loss_tol=LOSS_TOL)
+        for key in ("flash_fwd", "flash_dq", "flash_dkv"):
+            kernels[key]["launches_remat"] = int(
+                remat_run["dots_saveable"]["launches_per_step"][key] * RP.STEPS)
+        for name, row in remat_run.items():
+            held = ("" if "bitwise_vs_remat" not in row else
+                    f"; {'bitwise' if row['bitwise_vs_remat'] else 'not bitwise'} the --remat "
+                    f"run (losses within {row['max_rel_loss_vs_remat']:.2e}, parameters "
+                    f"{row['max_abs_param_vs_remat']:.2e})")
+            print(f"   {name} (batch 32, H 4, D 128): peak memory {row['peak_mem_gib']:.2f} GiB, "
+                  f"{row['ms_per_step']:.2f} ms per step graphed, {row['tokens_per_s']} "
+                  f"tokens/s, flash launches a step {row['launches_per_step']}{held}")
+
     designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
                                  f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
                "fused_mlp3_bwd": f"one launch for all replicas, a cluster of "
@@ -3058,7 +3140,8 @@ def main() -> int:
                    "lm_runs": lm_runs, "lm_checks": lm_checks, "learn": learn,
                    "lm_profile": lm_profile, "graphs": graphs_run, "across": across,
                    "stream": stream_run,
-                   "bf16": bf16_run, "data_axis": dp_run, "model_seq_axes": mesh_run}, f,
+                   "bf16": bf16_run, "data_axis": dp_run, "model_seq_axes": mesh_run,
+                   "pipeline": pp_run, "remat_policies": remat_run}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": table}))
     print(smi)

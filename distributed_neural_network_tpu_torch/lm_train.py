@@ -7,7 +7,10 @@ final ``SUMMARY {json}`` line (the same keys).
         --vocab 32768 --d-model 512 --n-layers 8 --n-heads 8 --d-ff 2048 --lr 0.01
 
 The mesh: ``--dp D --sp S --tp T`` is D*S*T ranks under torchrun, laid
-out as the JAX CLI's ``create_lm_mesh(D, S, T)`` (model axis fastest), each
+out as the JAX CLI's ``create_lm_mesh(D, S, T)`` (model axis fastest), and
+``--pp P --dp D --tp T`` D*P*T ranks on its pipeline mesh
+``create_pp_mesh(D, P, T)`` (`parallel/pipeline.py`: the GPipe schedule of
+``--microbatches M``, the interleaved one with ``--pp-interleave v``), each
 joining the group through `parallel/distributed.py` `initialize` (NCCL when
 every rank has a card of its own, gloo when ranks share one, gloo on the
 CPU):
@@ -16,10 +19,13 @@ CPU):
         -m distributed_neural_network_tpu_torch.lm_train --dp 2 --tp 2 [--attn flash] ...
     python -m torch.distributed.run --standalone --nproc-per-node 2 \\
         -m distributed_neural_network_tpu_torch.lm_train --sp 2 --attn zigzag ...
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m distributed_neural_network_tpu_torch.lm_train --pp 4 --microbatches 4 ...
 
 Every rank builds the same global batch (under ``--attn zigzag`` with
 ``--sp`` > 1 its sequence permuted into the zigzag layout) and feeds the
-step its block: B/dp rows and S/sp columns. ``--tp`` shards the heads and
+step its block: B/dp rows and S/sp columns (every stage of a pipeline the
+same rows). ``--tp`` shards the heads and
 the MLP's hidden columns (``--n-heads`` must divide by it); ``--sp`` runs
 ring, Ulysses or zigzag attention (not flash, not a quantized
 ``--precision``). The loss lines and the SUMMARY are the group's, the same
@@ -27,14 +33,19 @@ on every rank (timings are the slowest rank's), each line written whole.
 MFU is taken over the peak times the number of cards the ranks run on
 (ranks that share a card count it once). ``--sharding manual`` (the rule
 table) or ``rules:<file>`` (a JSON rule list, `parallel/rules.py`) gives
-the parameters' specs. The log line names the collectives' form, and the
+the parameters' specs (under ``--pp`` only ``manual``). The pipeline's
+blocks attend with the plain local attention whatever ``--attn`` is, as the
+JAX pipeline's; its SUMMARY carries ``pp_bubble_frac``, (P-1)/(v*M+P-1). The log line names the collectives' form, and the
 line after the first step the step program's segments (one graph under
 NCCL).
 
 Runs on the GPU unless ``--device cpu`` is given; there the train step (and
 the eval loss) is captured as CUDA graphs at the first step and replayed
 after (one graph, unless gloo collectives split the step). ``--generate``
-decodes eagerly (from the gathered parameters under ``--tp``). ``--attn
+decodes eagerly (from the gathered parameters under ``--tp``; skipped under
+``--pp``, as the JAX CLI does). ``--remat --remat-policy NAME`` picks what a
+recomputed block keeps (a `jax.checkpoint_policies` name,
+`models/transformer.py` `REMAT_SAVES`). ``--attn
 flash`` runs the hand-written flash kernels (`ops/flash_attention.py`; their
 plain versions on the CPU; on H/tp heads under ``--tp``); ``--attn
 ring|ulysses|zigzag`` at ``--sp 1`` is the plain local attention, as the
@@ -62,7 +73,8 @@ from .device import resolve_device
 from .models import transformer as tfm
 from .ops.schedule import make_ema_update, warmup_cosine
 from .parallel.distributed import distribute_host_data, initialize, joined
-from .parallel.ring import PARALLEL_SLICE, zigzag_order
+from .parallel import pipeline as ppl
+from .parallel.ring import zigzag_order
 from .train import lm as lmtrain
 from .train.cli import SLICE5, say
 from .train.engine import SLICE4
@@ -78,8 +90,6 @@ SUMMARY_KEYS = (
 
 # dest -> (flag, the slice that brings it); each is parsed with default None
 LATER_FLAGS = {
-    "microbatches": ("--microbatches", PARALLEL_SLICE),
-    "pp_interleave": ("--pp-interleave", PARALLEL_SLICE),
     "stop_at_step": ("--stop-at-step", SLICE4),
     "metrics_jsonl": ("--metrics-jsonl", SLICE4),
     "run_record": ("--run-record", SLICE4),
@@ -130,11 +140,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel axis size; run dp*sp*tp processes under torchrun")
     p.add_argument("--pp", type=int, default=1,
-                   help=f"must be 1: this axis comes with {PARALLEL_SLICE}")
+                   help="pipeline stages (the dp x pp x tp mesh; exclusive with --sp; zero "
+                   "optimizers compose with --dp, not --tp)")
     p.add_argument("--sharding", default="manual", metavar="MODE",
                    help="'manual' (default): the parameters' specs from the partition-rule "
                    "table (parallel/rules.py); 'rules:<file>': a custom ordered [regex, spec] "
                    f"JSON rule list (every leaf must match); 'auto' comes with {SLICE5}")
+    p.add_argument("--microbatches", type=int, default=2)
+    p.add_argument("--pp-interleave", type=int, default=1,
+                   help="virtual pipeline stages per device (circular schedule): cuts the "
+                   "bubble from (P-1)/(M+P-1) to (P-1)/(v*M+P-1) at the cost of v-times-finer "
+                   "layer chunks; needs pp*v | layers and pp | microbatches")
     p.add_argument("--attn", choices=("ring", "ulysses", "zigzag", "flash"), default="ring",
                    help="ring/ulysses/zigzag at --sp 1 = plain local attention; flash = the "
                    "hand-written flash kernels")
@@ -156,7 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "budget, 1 = single pass)")
     p.add_argument("--remat", action="store_true", help="recompute every block in backward")
     p.add_argument("--remat-policy", default="",
-                   help="a jax.checkpoint_policies name in the JAX CLI; only '' here")
+                   help="with --remat: a jax.checkpoint_policies name (dots_saveable, "
+                   "dots_with_no_batch_dims_saveable, nothing_saveable, everything_saveable "
+                   "and their checkpoint_dots* aliases); '' recomputes the whole block")
     p.add_argument("--remat-attn", action="store_true",
                    help="recompute only the attention call in backward")
     p.add_argument("--lr", type=float, default=0.1)
@@ -195,7 +213,9 @@ def validate(p: argparse.ArgumentParser, args) -> None:
     if args.steps < 1:
         p.error("--steps must be >= 1")
     if args.remat_policy and not args.remat:
-        p.error("--remat-policy only applies with --remat")
+        p.error("--remat-policy only applies with --remat (the policy picks WHAT checkpointed "
+                "blocks save); the name is validated against jax.checkpoint_policies after "
+                "startup")
     if args.eval_every and not args.data_path:
         p.error("--eval-every requires --data-path (the held-out split is the token "
                 "stream's tail)")
@@ -234,15 +254,30 @@ def validate(p: argparse.ArgumentParser, args) -> None:
     if args.grad_sync == "overlap" and args.experts and args.dp > 1:
         p.error("--grad-sync overlap psums gradient buckets over the data axis; expert-sharded "
                 "leaves (--experts with --dp > 1) vary over that axis - use --grad-sync end")
+    if args.sharding != "manual" and args.pp > 1:
+        p.error("--sharding auto/rules:<file> drive the dp x sp x tp mesh path's partition "
+                "layer (parallel/rules.py); the pipeline path's stage sharding is fixed by "
+                "--pp - drop --pp or use --sharding manual")
+    if args.ema_decay and args.pp > 1:
+        p.error("--ema-decay is unused under --pp (the pipeline path has no "
+                "--eval-every/--generate consumer for the averaged weights); drop it or use "
+                "the dp x sp x tp mesh")
+    if args.precision != "bf16" and args.pp > 1:
+        p.error(f"--precision {args.precision} is wired through the dp x sp x tp mesh step; "
+                "the pipeline path does not thread attn_quant - drop --pp or --precision")
     if args.bucket_mb <= 0:
         p.error(f"--bucket-mb must be > 0, got {args.bucket_mb}")
-    for flag in ("dp", "sp", "tp"):
+    for flag in ("dp", "sp", "tp", "pp", "microbatches", "pp_interleave"):
         if getattr(args, flag) < 1:
-            p.error(f"--{flag} must be >= 1, got {getattr(args, flag)}")
+            p.error(f"--{flag.replace('_', '-')} must be >= 1, got {getattr(args, flag)}")
     if args.batch_size % (args.dp * args.accum_steps):
         p.error(f"--batch-size {args.batch_size} must divide by --dp x --accum-steps "
                 f"({args.dp} x {args.accum_steps}): each rank's rows split into the "
                 "micro-batches")
+    if args.pp > 1 and args.batch_size % (args.dp * args.accum_steps * args.microbatches):
+        p.error(f"--batch-size {args.batch_size} must divide by --dp x --accum-steps x "
+                f"--microbatches ({args.dp} x {args.accum_steps} x {args.microbatches}) under "
+                "--pp: each schedule pass splits its rows into the microbatches")
 
 
 def check_ported(args) -> None:
@@ -250,16 +285,10 @@ def check_ported(args) -> None:
     for dest, (flag, later) in LATER_FLAGS.items():
         if getattr(args, dest) is not None:
             raise NotImplementedError(f"{flag} is not ported yet; it comes with {later}")
-    if args.pp != 1:
-        raise NotImplementedError(f"--pp {args.pp}: the pipeline axis comes with "
-                                  f"{PARALLEL_SLICE}")
     if args.experts:
-        raise NotImplementedError(f"--experts comes with {PARALLEL_SLICE}")
+        raise NotImplementedError(f"--experts comes with {tfm.MOE_SLICE}")
     if args.sharding == "auto":
         raise NotImplementedError(f"--sharding auto is not ported yet; it comes with {SLICE5}")
-    if args.remat_policy:
-        raise NotImplementedError(f"--remat-policy {args.remat_policy!r} comes with "
-                                  f"{tfm.REMAT_POLICY_SLICE}")
 
 
 def _cards(mesh) -> int:
@@ -293,14 +322,31 @@ def main(argv=None, *, log=say, result: dict | None = None) -> int:
     args = p.parse_args(argv)
     validate(p, args)
     check_ported(args)
+    if args.remat_policy and args.remat_policy not in tfm.REMAT_POLICIES:
+        raise SystemExit(f"--remat-policy {args.remat_policy!r} is not a "
+                         "jax.checkpoint_policies name")
     if args.n_heads % max(args.tp, 1):
         raise SystemExit(f"--n-heads {args.n_heads} must divide by --tp {args.tp}")
+    if args.pp > 1:
+        if args.sp > 1:
+            raise SystemExit(
+                "--pp composes with --dp/--tp/--experts and any --optimizer (zero/zero-adam "
+                "shard state over dp per stage; not with --experts or --tp); --sp runs on the "
+                "dp x sp x tp mesh (drop --pp)")
+        if args.optimizer.startswith("zero") and args.tp > 1:
+            raise SystemExit(
+                "--pp with zero optimizers composes with --dp only (tensor- and "
+                "expert-sharded leaves are out of the per-leaf ZeRO layout's scope, same rule "
+                "as the mesh path; --experts with --dp 1 keeps experts replicated and is fine)")
     device = resolve_device(args.device)
     owned = not joined()
     try:
         # before anything touches the card: it picks the rank's card and backend
         initialize(device=device, log=log)
-        mesh = lmtrain.create_lm_mesh(args.dp, args.sp, args.tp, device=device)
+        if args.pp > 1:
+            mesh = ppl.create_pp_mesh(args.dp, args.pp, args.tp, device=device)
+        else:
+            mesh = lmtrain.create_lm_mesh(args.dp, args.sp, args.tp, device=device)
         if mesh.joined and owned:
             log(f"(Multi-process: rank {mesh.rank}/{mesh.world}, backend {mesh.backend}, device "
                 f"{mesh.device})")
@@ -319,7 +365,7 @@ def _train(args, mesh, log, result) -> None:
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=args.d_ff,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
-        remat=args.remat, remat_attn=args.remat_attn,
+        remat=args.remat, remat_policy=args.remat_policy, remat_attn=args.remat_attn,
         attn_quant="" if args.precision == "bf16" else args.precision,
     )
     rules = None
@@ -329,24 +375,39 @@ def _train(args, mesh, log, result) -> None:
         rules_path = args.sharding[len("rules:"):]
         rules = load_rules(rules_path)
         log(f"(sharding rules: {rules_path}, {len(rules)} rule(s))")
+    pipe = args.pp > 1
     whole = tfm.init_params(args.seed, cfg)
     n_params = tfm.param_count(whole)
-    params, specs = lmtrain.shard_params(whole, cfg, mesh, rules=rules)
+    if pipe:
+        params, specs = ppl.shard_pp_params(whole, cfg, mesh, interleave=args.pp_interleave)
+    else:
+        params, specs = lmtrain.shard_params(whole, cfg, mesh, rules=rules)
     del whole
-    mom = lmtrain.init_lm_momentum(params, args.optimizer, mesh)
+    if pipe and args.optimizer.startswith("zero"):
+        mom = ppl.init_pp_zero_state(params, mesh, args.optimizer)
+    else:
+        mom = lmtrain.init_lm_momentum(params, args.optimizer, mesh)
     cards = _cards(mesh)
     lr_schedule = None
     if args.lr_schedule == "cosine":
         lr_schedule = functools.partial(warmup_cosine, base_lr=args.lr, total_steps=args.steps,
                                         warmup_steps=args.warmup_steps,
                                         min_lr_frac=args.min_lr_frac)
-    step = lmtrain.make_lm_train_step(
-        cfg, mesh=mesh, device=device, lr=args.lr, momentum=args.momentum, attn_impl=args.attn,
-        optimizer=args.optimizer, loss_chunks=args.loss_chunks, lr_schedule=lr_schedule,
-        clip_norm=args.clip_norm, accum_steps=args.accum_steps,
-        weight_decay=args.weight_decay, grad_sync=args.grad_sync, bucket_mb=args.bucket_mb,
-        rules=rules,
-    )
+    if pipe:
+        step = ppl.make_pp_train_step(
+            cfg, mesh, device=device, n_microbatches=args.microbatches, lr=args.lr,
+            momentum=args.momentum, loss_chunks=args.loss_chunks,
+            interleave=args.pp_interleave, lr_schedule=lr_schedule, clip_norm=args.clip_norm,
+            weight_decay=args.weight_decay, optimizer=args.optimizer,
+            accum_steps=args.accum_steps, grad_sync=args.grad_sync, bucket_mb=args.bucket_mb)
+    else:
+        step = lmtrain.make_lm_train_step(
+            cfg, mesh=mesh, device=device, lr=args.lr, momentum=args.momentum,
+            attn_impl=args.attn, optimizer=args.optimizer, loss_chunks=args.loss_chunks,
+            lr_schedule=lr_schedule, clip_norm=args.clip_norm, accum_steps=args.accum_steps,
+            weight_decay=args.weight_decay, grad_sync=args.grad_sync, bucket_mb=args.bucket_mb,
+            rules=rules,
+        )
 
     zperm = None
     if args.attn == "zigzag" and args.sp > 1:
@@ -358,7 +419,8 @@ def _train(args, mesh, log, result) -> None:
     def rows(tok, tgt, whole_batch=False):
         """This rank's block of the global batch (the batch itself at 1 x 1
         x 1): its rows and sequence columns, or (`whole_batch`, an eval
-        batch) every row and its columns."""
+        batch off the pipeline) every row and its columns. The pipeline's
+        eval takes its data shard's rows, as its step."""
         if zperm is not None:
             tok, tgt = tok[:, zperm], tgt[:, zperm]
         return tuple(distribute_host_data(x, mesh, device=device, rows=not whole_batch)
@@ -383,7 +445,11 @@ def _train(args, mesh, log, result) -> None:
             torch.Generator().manual_seed(args.seed + 1), batch=args.batch_size,
             seq_len=args.seq_len, vocab=args.vocab))
     eval_fn = None
-    if args.eval_every:
+    if args.eval_every and pipe:
+        eval_fn = ppl.make_pp_eval_fn(cfg, mesh, n_microbatches=args.microbatches,
+                                      loss_chunks=args.loss_chunks,
+                                      interleave=args.pp_interleave)
+    elif args.eval_every:
         eval_fn = lmtrain.make_eval_fn(cfg, attn_impl=args.attn, loss_chunks=args.loss_chunks,
                                        mesh=mesh)
     sync = ""
@@ -418,7 +484,7 @@ def _train(args, mesh, log, result) -> None:
             eval_params = lmtrain.tree_unflatten(params, ema) if ema is not None else params
             # every rank evaluates the whole held-out batch: the same value on each
             ev = float(np.mean([float(eval_fn(eval_params, *rows(*batch_at(j, "eval"),
-                                                                whole_batch=True)))
+                                                                whole_batch=not pipe)))
                                 for j in range(args.eval_batches)]))
             if t0 is not None:
                 eval_s += time.perf_counter() - t_ev
@@ -450,7 +516,10 @@ def _train(args, mesh, log, result) -> None:
             f"peak {'bf16' if args.dtype == 'bfloat16' else 'f32'} TFLOP/s x {cards} dev, "
             f"{kind}); FLOPs/token = 3*(L*(8d^2 + 4sd + 4d*ff) + 2d*V) = "
             f"{flops_tok / 1e6:.1f}M")
-    if args.generate > 0:
+    if args.generate > 0 and pipe:
+        log("(--generate skipped: decode needs the non-pipeline param layout; rerun without "
+            "--pp)")
+    elif args.generate > 0:
         gen_params = lmtrain.tree_unflatten(params, ema) if ema is not None else params
         if mesh.tp > 1:
             gen_params = lmtrain.gather_params(gen_params, specs, mesh)
@@ -468,7 +537,11 @@ def _train(args, mesh, log, result) -> None:
     summary = dict.fromkeys(SUMMARY_KEYS)
     summary.update({
         "mesh": mesh.desc, "steps": args.steps, "start_step": 0, "last_step": args.steps - 1,
-        "preempted": False, "guard": "off", "dtype": args.dtype, "grad_sync": args.grad_sync,
+        "preempted": False, "guard": "off", "dtype": args.dtype,
+        # (P-1)/(v*M+P-1) of tick-time processes garbage
+        "pp_bubble_frac": (round((args.pp - 1) / (args.pp_interleave * args.microbatches
+                                                 + args.pp - 1), 4) if pipe else None),
+        "grad_sync": args.grad_sync,
         "accum_steps": args.accum_steps,
         "data_source": stream.source if stream is not None else "copy-task",
         "eval": last_eval, "first_loss": first_loss, "final_loss": final_loss,

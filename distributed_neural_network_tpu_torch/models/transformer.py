@@ -21,9 +21,19 @@ model axis (``tp_axis``) each rank holds H/tp heads and d_ff/tp hidden
 columns (`train/lm.py` `shard_params`): `copy_to_model` enters each
 sharded matmul and `reduce_from_model` sums the attention-out and MLP-out
 projections (the JAX ``psum(., "model")``). ``remat`` checkpoints every
-block, ``remat_attn`` the attention call alone (`torch.utils.checkpoint`,
-without stashing the RNG state: the model draws no random numbers, and a
-step captured as a CUDA graph could not read the generator's state).
+block (`remat_block`), ``remat_attn`` the attention call alone
+(`torch.utils.checkpoint`, without stashing the RNG state: the model draws
+no random numbers, and a step captured as a CUDA graph could not read the
+generator's state). ``remat_policy`` names what a checkpointed block keeps
+(a `jax.checkpoint_policies` name, `REMAT_POLICIES`): torch's selective
+activation checkpointing saves the outputs of the matmuls (``aten.mm`` /
+``addmm``, and ``bmm`` / ``baddbmm`` under the dots policies that keep
+batched products) and recomputes the rest; ``nothing_saveable`` (and no
+policy) recomputes the whole block, ``everything_saveable`` recomputes
+nothing. The hand-written flash kernels launch outside the dispatcher, so
+a policy sees only their outputs' allocations and they are recomputed
+under every policy but ``everything_saveable`` (as a JAX dots policy does
+not save a ``pallas_call``).
 `generate` is the offline cached decode, whose per-step attention runs the
 decode kernel (`ops/decode_attention.py`) on a CUDA device and its plain
 version on the CPU. The port's seeded `init_params` and sampling draw from
@@ -31,14 +41,13 @@ version on the CPU. The port's seeded `init_params` and sampling draw from
 `param_specs` / `param_skeleton` give the tree's partition specs from the
 rule table (`parallel/rules.py`).
 
-Not ported here (they raise `NotImplementedError`): mixture-of-experts,
-which comes with a later step of the parallel layouts, and named remat
-policies (`remat_policy`), which come with selective activation
-checkpointing in a later slice.
+Not ported here (it raises `NotImplementedError`): mixture-of-experts,
+which comes with step 8 of the parallel layouts (`MOE_SLICE`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -46,7 +55,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..ops.decode_attention import (
     decode_cache_attention,
@@ -70,8 +83,36 @@ DECODE_IMPLS = ("auto", "torch", "cuda")
 # full/ring/ulysses/zigzag: plain local attention without a sequence axis,
 # the sequence-parallel forms with one; flash: the flash kernels (ops/flash.py)
 ATTN_IMPLS = ("full", "ring", "ulysses", "zigzag", "flash")
-REMAT_POLICY_SLICE = ("a later slice of the port (selective activation checkpointing, "
-                      "ROADMAP.md Queue 1 item 3)")
+MOE_SLICE = f"{PARALLEL_SLICE}, step 8 (parallel/moe.py)"
+# the attributes of jax.checkpoint_policies (JAX 0.9), kept here: the port
+# imports no JAX
+REMAT_POLICIES = (
+    "checkpoint_dots", "checkpoint_dots_with_no_batch_dims", "dots_saveable",
+    "dots_with_no_batch_dims_saveable", "everything_saveable", "nothing_saveable",
+    "offload_dot_with_no_batch_dims", "save_and_offload_only_these_names",
+    "save_any_names_but_these", "save_anything_except_these_names", "save_from_both_policies",
+    "save_only_these_names",
+)
+# the policies the port maps -> what a checkpointed block saves: "dots" (every
+# matmul's output), "dots_no_batch" (the products without batch dimensions:
+# the 2-D ones; the attention's batched einsums are bmm), "none" (recompute
+# the block), "all" (recompute nothing). checkpoint_dots* are JAX's aliases
+# of dots_saveable / dots_with_no_batch_dims_saveable.
+REMAT_SAVES = {
+    "dots_saveable": "dots", "checkpoint_dots": "dots",
+    "dots_with_no_batch_dims_saveable": "dots_no_batch",
+    "checkpoint_dots_with_no_batch_dims": "dots_no_batch",
+    "nothing_saveable": "none", "everything_saveable": "all",
+}
+# the rest are factories (they take names or memory spaces and return a
+# policy); the JAX package, given one bare as a policy, calls it with a
+# primitive's parameters and fails at the first step with a TypeError
+REMAT_FACTORIES = tuple(n for n in REMAT_POLICIES if n not in REMAT_SAVES)
+_aten = torch.ops.aten
+_SAVED_OPS = {
+    "dots": {_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default},
+    "dots_no_batch": {_aten.mm.default, _aten.addmm.default},
+}
 
 
 @dataclass(frozen=True)
@@ -94,11 +135,9 @@ class TransformerConfig:
 
     def __post_init__(self):
         if self.n_experts:
-            raise NotImplementedError(f"mixture-of-experts layers come with {PARALLEL_SLICE}")
+            raise NotImplementedError(f"mixture-of-experts layers come with {MOE_SLICE}")
         if self.remat_policy:
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} (a jax.checkpoint_policies name) comes "
-                f"with {REMAT_POLICY_SLICE}; remat=True alone recomputes whole blocks")
+            check_remat_policy(self.remat_policy)
         if self.attn_quant and self.attn_quant not in QUANT_FORMATS:
             raise ValueError(f"attn_quant must be '' or one of {tuple(QUANT_FORMATS)}, "
                              f"got {self.attn_quant!r}")
@@ -107,6 +146,41 @@ class TransformerConfig:
     def head_dim(self) -> int:
         assert self.d_model % self.n_heads == 0
         return self.d_model // self.n_heads
+
+
+def check_remat_policy(name: str) -> None:
+    """Raise for a name the port does not map: ValueError when it is no
+    `jax.checkpoint_policies` name, TypeError for a policy factory."""
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {name!r} is not a jax.checkpoint_policies name "
+                         f"(one of {REMAT_POLICIES})")
+    if name in REMAT_FACTORIES:
+        raise TypeError(
+            f"remat_policy {name!r} is a jax.checkpoint_policies factory: it takes names (or "
+            "memory spaces) and returns a policy, and used bare as a policy the JAX package "
+            "fails at its first step (TypeError: an unexpected keyword argument); use one of "
+            f"{tuple(REMAT_SAVES)}")
+
+
+def _saving_policy(saved, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_block(fn, x, cfg: TransformerConfig):
+    """`fn(x)` with its activations recomputed in backward as
+    ``cfg.remat_policy`` says (`REMAT_SAVES`; "" = "nothing_saveable"):
+    `torch.utils.checkpoint` (no RNG state stashed), with torch's selective
+    activation checkpointing saving the matmuls' outputs under the dots
+    policies; under "everything_saveable" nothing is recomputed."""
+    saves = REMAT_SAVES[cfg.remat_policy or "nothing_saveable"]
+    if saves == "all":
+        return fn(x)
+    kw = {}
+    if saves != "none":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_saving_policy, _SAVED_OPS[saves]))
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def init_params(seed: int, cfg: TransformerConfig, device="cpu"):
@@ -342,9 +416,8 @@ def apply_hidden(params, tokens, cfg: TransformerConfig, *, seq_axis=None, tp_ax
                          dt)[None]
     for i in range(cfg.n_layers):
         if cfg.remat:
-            x = checkpoint(lambda x, i=i: transformer_block(x, _layer(params, i, dt), cfg, attend,
-                                                            tp_axis),
-                           x, use_reentrant=False, preserve_rng_state=False)
+            x = remat_block(lambda x, i=i: transformer_block(x, _layer(params, i, dt), cfg,
+                                                             attend, tp_axis), x, cfg)
         else:
             x = transformer_block(x, _layer(params, i, dt), cfg, attend, tp_axis)
     return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)

@@ -486,18 +486,23 @@ class BucketReducer:
     """The all-reduce form of the overlapped gradient sync over static
     buffers (`ops/schedule.py` `overlap_parts`): ``put`` packs a
     micro-batch's gradients into one buffer per bucket, ``reduce`` sums each
-    over the mesh's sync axis (data x seq; one `all_reduce` per bucket),
-    ``accumulate`` adds the sums into the accumulator and ``average(k)``
-    makes it the mean: each rank's gradients are of its own mean loss, so
-    the sum over the dp*sp ranks and k micro-batches is divided by k*dp*sp.
-    A tensor-sharded leaf's bucket holds this model rank's shard and is
-    summed over the same ranks. ``grads``: the accumulator as leaf-shaped
-    views. No finalizing collective."""
+    over its group (one `all_reduce` per bucket; by default the mesh's sync
+    axis, data x seq), ``accumulate`` adds the sums into the accumulator and
+    ``average(k)`` makes it the mean: each rank's gradients are of its own
+    mean loss, so the sum over the dp*sp ranks and k micro-batches is
+    divided by k*dp*sp (`divisor`, by default the sync axis's size). A
+    tensor-sharded leaf's bucket holds this model rank's shard and is summed
+    over the same ranks. `groups`: one group per bucket, where the buckets
+    sum over different ranks (the pipeline's: `parallel/pipeline.py`).
+    ``grads``: the accumulator as leaf-shaped views. No finalizing
+    collective."""
 
     finalize = None
 
-    def __init__(self, layout: BucketLayout, mesh, device):
+    def __init__(self, layout: BucketLayout, mesh, device, *, groups=None, divisor=None):
         self.layout, self.mesh = layout, mesh
+        self.groups = list(groups) if groups is not None else [mesh.sync.group] * layout.n_buckets
+        self.divisor = mesh.sync.size if divisor is None else divisor
         self.bufs = [torch.zeros(e, device=device) for e in layout.bucket_elems()]
         self.acc = [torch.zeros_like(b) for b in self.bufs]
         self.grads = tree_leaves(unpack_buckets(layout, self.acc))
@@ -507,9 +512,8 @@ class BucketReducer:
         pack_buckets(self.layout, grads, out=self.bufs)
 
     def reduce(self) -> None:
-        group = self.mesh.sync.group
-        if group is not None:
-            for b in self.bufs:
+        for b, group in zip(self.bufs, self.groups):
+            if group is not None:
                 dist.all_reduce(b, group=group)
 
     @torch.no_grad()
@@ -522,4 +526,4 @@ class BucketReducer:
 
     @torch.no_grad()
     def average(self, k: int) -> None:
-        torch._foreach_div_(self.acc, float(k * self.mesh.sync.size))
+        torch._foreach_div_(self.acc, float(k * self.divisor))

@@ -11,14 +11,19 @@ and must divide by the world size. The collectives
 (`parallel/collectives.py`) gather the ranks' blocks and reduce over all N.
 
 `ProcessMesh` is the LM's counterpart of the JAX package's (dp, sp, tp)
-device mesh (`train/lm.py` `create_lm_mesh`): the ranks of the process
-group laid out as JAX reshapes its devices, (dp, sp, tp) with the model
-axis fastest, so rank = (d*sp + s)*tp + t, each on its device
-(`parallel/distributed.py` `rank_device`). `Axis` is one axis as a rank
-sees it: its size, the rank's index along it and the torch.distributed
-group of the ranks that differ from this one only along it (the JAX axis
-name's collective scope). The sync axis is the (data, seq) pair that the
-gradients and the loss are summed over (JAX `sync_axes`).
+device mesh (`train/lm.py` `create_lm_mesh`) and of its (dp, pp, tp)
+pipeline mesh (`parallel/pipeline.py` `create_pp_mesh`): the ranks of the
+process group laid out as JAX reshapes its devices, (dp, sp, tp) or (dp,
+pp, tp) with the model axis fastest, so rank = (d*sp + s)*tp + t, or
+(d*pp + p)*tp + t, each on its device (`parallel/distributed.py`
+`rank_device`); sp and pp are never both above 1. `Axis` is one axis as a
+rank sees it: its size, the rank's index along it and the
+torch.distributed group of the ranks that differ from this one only along
+it (the JAX axis name's collective scope). The sync axis is the (data,
+seq) pair that the gradients and the loss are summed over (JAX
+`sync_axes`; the data axis alone on a pipeline mesh); "data_pipe" is the
+(data, pipe) pair over which the leaves replicated over the pipe axis
+(embed, head, the final norm) sum their gradients.
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ class ReplicaGroup:
         return range(self.first, self.first + self.local)
 
 
-DATA_AXIS, SEQ_AXIS, TP_AXIS = "data", "seq", "model"
+DATA_AXIS, SEQ_AXIS, PIPE_AXIS, TP_AXIS = "data", "seq", "pipe", "model"
 SYNC_AXES = (DATA_AXIS, SEQ_AXIS)
 
 
@@ -82,37 +87,51 @@ class Axis:
         return collective_form(self.group) if self.group is not None else None
 
 
-# the default group the cached axis groups were made in, and (dp, sp, tp)
-# -> those groups: a layout's groups are made once per process group
+# the default group the cached axis groups were made in, and (dp, sp, pp,
+# tp) -> those groups: a layout's groups are made once per process group
 _MADE = {"world": None}
 
 
-def make_axis_groups(dp: int, sp: int, tp: int, rank: int) -> dict:
-    """Axis name (and "sync", the (data, seq) pair) -> this rank's group
-    along it (None for an axis of one rank). Every rank of the world calls
-    `dist.new_group` once for every distinct slice of more than one rank,
-    in one fixed order, including the slices it is not in (torch.distributed
-    requires it); axes over the same ranks share the group (at sp 1 the
-    sync slices are the data slices). A slice that is the whole world is
-    the default group. Made once per process group and layout."""
+def _rank_at(sp: int, pp: int, tp: int):
+    """(d, s, p, t) -> rank: the model axis fastest, then pipe, seq, data."""
+    return lambda d, s, p, t: ((d * sp + s) * pp + p) * tp + t
+
+
+def make_axis_groups(dp: int, sp: int, tp: int, rank: int, pp: int = 1) -> dict:
+    """Axis name (and "sync", the (data, seq) pair, and "data_pipe", the
+    (data, pipe) pair) -> this rank's group along it (None for an axis of
+    one rank). Every rank of the world calls `dist.new_group` once for
+    every distinct slice of more than one rank, in one fixed order,
+    including the slices it is not in (torch.distributed requires it); axes
+    over the same ranks share the group (at sp 1 the sync slices are the
+    data slices, at pp 1 the data_pipe slices too). A slice that is the
+    whole world is the default group. Made once per process group and
+    layout."""
+    if sp > 1 and pp > 1:
+        raise ValueError(f"a mesh has a sequence or a pipeline axis, not both (sp {sp}, pp {pp})")
     if _MADE["world"] is not dist.group.WORLD:
         _MADE.clear()
         _MADE["world"] = dist.group.WORLD
-    if (dp, sp, tp) in _MADE:
-        return _MADE[dp, sp, tp]
+    if (dp, sp, pp, tp) in _MADE:
+        return _MADE[dp, sp, pp, tp]
+    at = _rank_at(sp, pp, tp)
+    every = [(d, s, p, t) for d in range(dp) for s in range(sp) for p in range(pp)
+             for t in range(tp)]
 
-    def at(d, s, t):
-        return (d * sp + s) * tp + t
+    def slices(free):
+        """The rank lists of the ranks that differ only in the `free`
+        coordinates (indices into (d, s, p, t)), in a fixed order."""
+        out = {}
+        for c in every:
+            key = tuple(x for i, x in enumerate(c) if i not in free)
+            out.setdefault(key, []).append(at(*c))
+        return list(out.values())
 
-    slices = {
-        DATA_AXIS: [[at(d, s, t) for d in range(dp)] for s in range(sp) for t in range(tp)],
-        SEQ_AXIS: [[at(d, s, t) for s in range(sp)] for d in range(dp) for t in range(tp)],
-        TP_AXIS: [[at(d, s, t) for t in range(tp)] for d in range(dp) for s in range(sp)],
-        "sync": [[at(d, s, t) for d in range(dp) for s in range(sp)] for t in range(tp)],
-    }
-    world = dp * sp * tp
+    named = {DATA_AXIS: slices((0,)), SEQ_AXIS: slices((1,)), TP_AXIS: slices((3,)),
+             "sync": slices((0, 1)), PIPE_AXIS: slices((2,)), "data_pipe": slices((0, 2))}
+    world = dp * sp * pp * tp
     made, out = {}, {}
-    for name, rank_lists in slices.items():
+    for name, rank_lists in named.items():
         out[name] = None
         for ranks in rank_lists:
             if len(ranks) == 1:
@@ -122,17 +141,17 @@ def make_axis_groups(dp: int, sp: int, tp: int, rank: int) -> dict:
                 made[key] = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
             if rank in ranks:
                 out[name] = made[key]
-    _MADE[dp, sp, tp] = out
+    _MADE[dp, sp, pp, tp] = out
     return out
 
 
 @dataclass(frozen=True)
 class ProcessMesh:
-    """dp x sp x tp ranks (this process alone at 1 x 1 x 1, or the ranks of
-    its torch.distributed group), this one `rank` on `device`. `shape`
-    reads as the JAX `Mesh.shape`; `groups` holds this rank's group per
-    axis (`make_axis_groups`); `form` is the default group's collective
-    form, None when no group."""
+    """dp x sp x tp, or dp x pp x tp, ranks (this process alone at 1 x 1 x
+    1, or the ranks of its torch.distributed group), this one `rank` on
+    `device`. `shape` reads as the JAX `Mesh.shape`; `groups` holds this
+    rank's group per axis (`make_axis_groups`); `form` is the default
+    group's collective form, None when no group."""
 
     dp: int
     device: torch.device
@@ -141,28 +160,42 @@ class ProcessMesh:
     sp: int = 1
     tp: int = 1
     groups: dict = field(default_factory=dict, compare=False, repr=False)
+    pp: int = 1
+
+    def __post_init__(self):
+        if self.sp > 1 and self.pp > 1:
+            raise ValueError(f"a mesh has a sequence or a pipeline axis, not both (sp {self.sp}, "
+                             f"pp {self.pp})")
 
     @property
     def shape(self) -> dict:
-        """Axis name -> ranks, in the JAX mesh's order."""
+        """Axis name -> ranks, in the JAX mesh's order: (data, seq, model),
+        or (data, pipe, model) on a pipeline mesh."""
+        if self.pp > 1:
+            return {DATA_AXIS: self.dp, PIPE_AXIS: self.pp, TP_AXIS: self.tp}
         return {DATA_AXIS: self.dp, SEQ_AXIS: self.sp, TP_AXIS: self.tp}
 
     @property
     def world(self) -> int:
-        return self.dp * self.sp * self.tp
+        return self.dp * self.sp * self.pp * self.tp
 
     @property
     def coords(self) -> tuple[int, int, int]:
-        """This rank's (data, seq, model) indices (the model axis fastest)."""
-        r, sp, tp = self.rank, self.sp, self.tp
-        return r // (sp * tp), r // tp % sp, r % tp
+        """This rank's indices in `shape`'s order: (data, seq, model), or
+        (data, pipe, model) on a pipeline mesh (the model axis fastest)."""
+        r, mid, tp = self.rank, self.sp * self.pp, self.tp
+        return r // (mid * tp), r // tp % mid, r % tp
 
     def axis(self, name: str) -> Axis:
-        """`DATA_AXIS`, `SEQ_AXIS`, `TP_AXIS` or "sync" (the (data, seq)
-        pair) as this rank sees it."""
-        d, s, t = self.coords
-        size, index = {DATA_AXIS: (self.dp, d), SEQ_AXIS: (self.sp, s), TP_AXIS: (self.tp, t),
-                       "sync": (self.dp * self.sp, d * self.sp + s)}[name]
+        """`DATA_AXIS`, `SEQ_AXIS`, `PIPE_AXIS`, `TP_AXIS`, "sync" (the
+        (data, seq) pair) or "data_pipe" (the (data, pipe) pair) as this rank
+        sees it."""
+        d, m, t = self.coords
+        s, p = (m, 0) if self.pp == 1 else (0, m)
+        size, index = {DATA_AXIS: (self.dp, d), SEQ_AXIS: (self.sp, s),
+                       PIPE_AXIS: (self.pp, p), TP_AXIS: (self.tp, t),
+                       "sync": (self.dp * self.sp, d * self.sp + s),
+                       "data_pipe": (self.dp * self.pp, d * self.pp + p)}[name]
         return Axis(name, size, index, self.groups.get(name))
 
     @property
@@ -174,12 +207,20 @@ class ProcessMesh:
         return self.axis(SEQ_AXIS)
 
     @property
+    def pipe(self) -> Axis:
+        return self.axis(PIPE_AXIS)
+
+    @property
     def model(self) -> Axis:
         return self.axis(TP_AXIS)
 
     @property
     def sync(self) -> Axis:
         return self.axis("sync")
+
+    @property
+    def data_pipe(self) -> Axis:
+        return self.axis("data_pipe")
 
     @property
     def seq_axis(self) -> Axis | None:
@@ -194,7 +235,7 @@ class ProcessMesh:
     @property
     def desc(self) -> str:
         """"single", or the axes above 1 as the JAX CLI writes them
-        ("data2xmodel2")."""
+        ("data2xmodel2", "data2xpipe2")."""
         return "x".join(f"{k}{v}" for k, v in self.shape.items() if v > 1) or "single"
 
     @property

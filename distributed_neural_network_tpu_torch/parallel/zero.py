@@ -290,16 +290,20 @@ class ShardReducer:
     shard carry) over static buffers (`ops/schedule.py` `overlap_parts`):
     ``put`` packs a micro-batch's gradients into one buffer per bucket
     (each padded to n shards), ``reduce`` reduce-scatters each into this
-    rank's (S_b,) shard over the data axis (then sums it over the sequence
-    axis, when there is one), ``accumulate`` adds the shards into the
-    accumulator, which holds 1/n of the gradient; ``average(k)`` divides by
-    k*dp*sp (each rank's gradients are of its own mean loss), and ``finalize``
+    rank's (S_b,) shard over the data axis (then sums it over the bucket's
+    `extra` group: by default the sequence axis, when there is one; on a
+    pipeline mesh the pipe axis for the buckets of pipe-replicated leaves),
+    ``accumulate`` adds the shards into the accumulator, which holds 1/n of
+    the gradient; ``average(k)`` divides by k*`divisor` (by default k*dp*sp:
+    each rank's gradients are of its own mean loss), and ``finalize``
     all-gathers the averaged shards back into the bucket buffers, whose
     leaf-shaped views are ``grads``: the gradients summed over the ranks,
     which the ZeRO update then slices."""
 
-    def __init__(self, layout, mesh, device):
+    def __init__(self, layout, mesh, device, *, extra=None, divisor=None):
         self.layout, self.mesh, self.axis = layout, mesh, mesh.data
+        self.extra = list(extra) if extra is not None else [mesh.seq.group] * layout.n_buckets
+        self.divisor = mesh.sync.size if divisor is None else divisor
         n = self.axis.size
         shards = layout.shard_sizes(n)
         self.bufs = [torch.zeros(s * n, device=device) for s in shards]
@@ -316,14 +320,14 @@ class ShardReducer:
         pack_buckets(self.layout, grads, out=self.bufs)
 
     def reduce(self) -> None:
-        ax, seq = self.axis, self.mesh.seq.group
-        for t, b in zip(self.tmp, self.bufs):
+        ax = self.axis
+        for t, b, extra in zip(self.tmp, self.bufs, self.extra):
             if ax.group is not None:
                 reduce_scatter(t, b, rank=ax.index, form=ax.form, group=ax.group)
             else:
                 t.copy_(b)
-            if seq is not None:
-                dist.all_reduce(t, group=seq)
+            if extra is not None:
+                dist.all_reduce(t, group=extra)
 
     @torch.no_grad()
     def accumulate(self, first: bool) -> None:
@@ -335,7 +339,7 @@ class ShardReducer:
 
     @torch.no_grad()
     def average(self, k: int) -> None:
-        torch._foreach_div_(self.acc, float(k * self.mesh.sync.size))
+        torch._foreach_div_(self.acc, float(k * self.divisor))
 
     def finalize(self) -> None:
         ax = self.axis

@@ -57,8 +57,10 @@ tensor-sharded leaf over the model axis); `Program.describe` names the
 segments. The host computes each step's lr and corrections in f32 and
 writes them into their buffers; graph and eager give the same bits.
 `_capture = False` before the first call runs the program eagerly on the
-card too. The pipeline axis, MoE, the guard, fault plans and dynamics come
-later (ROADMAP Queue 1 items 3-4).
+card too. The pipeline axis's step is this one with its own loss and sync
+sets (`parallel/pipeline.py` `PPTrainStep`: `_one`, `_sync_sets`,
+`_reducer`). MoE, the guard, fault plans and dynamics come later (ROADMAP
+Queue 1 items 3-4).
 """
 
 from __future__ import annotations
@@ -420,6 +422,14 @@ class LMTrainStep(_Captured):
         self.synced = mesh.joined or optimizer.startswith("zero") or self.overlap
         self.layout = None  # the bucket plan under overlap
         self.collectives = []  # the step's collective parts, in order
+        # each rank's gradients are of its own mean loss: their sum over
+        # the sync axis is divided by its size (the pipeline's are of its
+        # share of the global mean: no division)
+        self.divisor = mesh.sync.size
+        # the forward and backward hold collectives (model or sequence axis)
+        self.inner = mesh.tp > 1 or mesh.sp > 1
+        # the clip / health norm sums a sharded leaf over an axis
+        self.norm_collective = mesh.tp > 1
         self._out = {}
         self._scalars = None
 
@@ -502,13 +512,25 @@ class LMTrainStep(_Captured):
             return [fn]
         return self._synced_parts(one, leaves, mom, tokens, targets, begin)
 
+    def _sync_sets(self, n_leaves: int):
+        """[(axis, leaf indices)]: the leaves whose gradients are summed
+        over each axis, the loss with the first set's (every leaf over the
+        sync axis here; the pipeline splits them)."""
+        return [(self.mesh.sync, list(range(n_leaves)))]
+
+    def _reducer(self, layout, dev):
+        """The overlap schedule's reducer over `layout`'s buckets."""
+        return (zero.ShardReducer if self.optimizer.startswith("zero")
+                else BucketReducer)(layout, self.mesh, dev)
+
     def _synced_parts(self, one, leaves, mom, tokens, targets, begin):
         """The mesh step: [begin, the gradients and their collectives over
-        the sync axis, the update, (zero: the all-gather over the data axis,
-        the copy back)]."""
+        the sync sets' axes, the update, (zero: the all-gather over the data
+        axis, the copy back)]."""
         mesh, dev, out = self.mesh, tokens.device, self._out
-        accum, sync = self.accum_steps, mesh.sync
-        group, n_sync = sync.group, sync.size
+        accum, divisor = self.accum_steps, self.divisor
+        sets = self._sync_sets(len(leaves))
+        loss_group = sets[0][0].group
         optimize, with_health = self._optimize(), self.with_health
         loss = torch.zeros((), device=dev)
         sums = []  # (fn, kind): "model" (forward and backward), "collective", "local"
@@ -516,37 +538,46 @@ class LMTrainStep(_Captured):
             keys = [str(s) for s in tree_leaves(self.specs)]
             self.layout = layout = plan_buckets(leaves, bucket_bytes=self.bucket_bytes,
                                                 group_keys=keys)
-            reducer = (zero.ShardReducer if self.optimizer.startswith("zero")
-                       else BucketReducer)(layout, mesh, dev)
+            reducer = self._reducer(layout, dev)
             sums += overlap_parts(one, accum, leaves, tokens, targets, reducer, loss)
-            if group is not None:
-                sums.append((lambda: dist.all_reduce(loss, group=group), "collective"))
+            if loss_group is not None:
+                sums.append((lambda: dist.all_reduce(loss, group=loss_group), "collective"))
             grads = reducer.grads
 
             def average():
-                loss.div_(n_sync)
+                if divisor != 1:
+                    loss.div_(divisor)
         else:
-            n = sum(p.numel() for p in leaves)
-            flat = torch.zeros(n + 1, device=dev)  # the gradients, then the loss
-            grads, at = [], 0
-            for p in leaves:
-                grads.append(flat[at:at + p.numel()].view(p.shape))
-                at += p.numel()
+            # one flat buffer per set: its gradients, then (the first) the loss
+            flats, grads = [], [None] * len(leaves)
+            for j, (_, idx) in enumerate(sets):
+                flat = torch.zeros(sum(leaves[i].numel() for i in idx) + (j == 0), device=dev)
+                at = 0
+                for i in idx:
+                    grads[i] = flat[at:at + leaves[i].numel()].view(leaves[i].shape)
+                    at += leaves[i].numel()
+                flats.append(flat)
 
             def compute():
                 mean = accumulate_fwd_bwd(one, accum)(leaves, tokens, targets)
                 with torch.no_grad():
-                    torch.cat([p.grad.reshape(-1) for p in leaves] + [mean.reshape(1)], out=flat)
+                    for j, ((_, idx), flat) in enumerate(zip(sets, flats)):
+                        torch.cat([leaves[i].grad.reshape(-1) for i in idx]
+                                  + ([mean.reshape(1)] if j == 0 else []), out=flat)
                 for p in leaves:
                     p.grad = None
 
             sums.append((compute, "model"))
-            if group is not None:
-                sums.append((lambda: dist.all_reduce(flat, group=group), "collective"))
+            for (axis, _), flat in zip(sets, flats):
+                if axis.group is not None:
+                    sums.append((lambda flat=flat, group=axis.group:
+                                 dist.all_reduce(flat, group=group), "collective"))
 
             def average():
-                flat.div_(n_sync)
-                loss.copy_(flat[n])
+                if divisor != 1:
+                    for flat in flats:
+                        flat.div_(divisor)
+                loss.copy_(flats[0][-1])
 
         zero_parts = ()
         if self.optimizer.startswith("zero"):
@@ -566,8 +597,9 @@ class LMTrainStep(_Captured):
             if with_health:
                 out["health"] = health_bundle(loss, norm)
 
-        # the norm of a tensor-sharded leaf is summed over the model axis
-        sums.append((update, "norm" if mesh.tp > 1 and (self.clip_norm > 0.0 or with_health)
+        # the norm of a tensor- or stage-sharded leaf is summed over its axis
+        sums.append((update, "norm" if self.norm_collective and (self.clip_norm > 0.0
+                                                                  or with_health)
                      else "local"))
         if zero_parts:
             sums += [(zero_parts[1], "collective" if mesh.data.group is not None else "local"),
@@ -575,15 +607,16 @@ class LMTrainStep(_Captured):
         # Under NCCL every part is captured, collectives included: one graph.
         # Under gloo (a host collective, which no graph can record) a
         # collective runs eagerly between the graphs, and so does a part
-        # that holds one: the forward and backward under a model or
-        # sequence axis (copy_to_model, ring / all-to-all attention), the
-        # update whose norm sums over the model axis. Off a group (the CPU
-        # at 1 x 1 x 1) nothing is a collective.
+        # that holds one: the forward and backward under a model, sequence
+        # or pipeline axis (copy_to_model, ring / all-to-all attention, the
+        # pipeline's ppermute and all-to-all), the update whose norm sums
+        # over the model or pipe axis. Off a group (the CPU at 1 x 1 x 1)
+        # nothing is a collective.
         gloo = mesh.joined and mesh.backend != "nccl"
-        inner = mesh.tp > 1 or mesh.sp > 1
+        inner = self.inner
         labels = {"collective": "eager collective",
-                  "model": "eager forward+backward (model/seq collectives inside)",
-                  "norm": "eager update (model-axis norm)"}
+                  "model": "eager forward+backward (model/seq/pipe collectives inside)",
+                  "norm": "eager update (model/pipe-axis norm)"}
         # `begin` runs with the first part (so no graph of its own is empty)
         (first, kind0), rest = sums[0], sums[1:]
         sums = [(lambda: (begin(), first()), kind0)] + rest

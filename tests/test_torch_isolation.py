@@ -1,6 +1,7 @@
 """The port stands alone: every module of `distributed_neural_network_tpu_torch`
-imports with `jax`, `flax` and the JAX package blocked, and no source line of
-the port imports them."""
+(the pipeline's `parallel/pipeline.py` among them) and the probes of
+`port_probes/` import with `jax`, `flax` and the JAX package blocked, and no
+source line of the port, of `chip_smoke.py` or of a probe imports them."""
 
 import os
 import pkgutil
@@ -25,7 +26,7 @@ def test_every_module_imports_with_jax_blocked():
     assert "distributed_neural_network_tpu_torch.ops.fused_head" in mods
     # the data axis's modules
     for m in ("parallel.rules", "parallel.zero", "parallel.partition", "parallel.collectives",
-              "utils.tree"):
+              "parallel.pipeline", "utils.tree"):
         assert f"distributed_neural_network_tpu_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -61,3 +62,33 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     assert not offenders, offenders
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         assert not [l for l in f if pattern.search(l)]
+
+
+PROBES = os.path.join(ROOT, "port_probes")
+
+
+def test_probes_import_with_jax_blocked_and_name_no_jax():
+    """`port_probes/pp_world.py` and `remat_policies.py` (chip_smoke.py phases
+    26-27 and the four-card pipeline run), like every probe, import with
+    the JAX package blocked, and no line of theirs imports it."""
+    probes = sorted(f[:-3] for f in os.listdir(PROBES) if f.endswith(".py"))
+    assert "pp_world" in probes and "remat_policies" in probes
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'distributed_neural_network_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path[:0] = [{ROOT!r}, {PROBES!r}, {os.path.join(ROOT, 'tests')!r}]\n"
+        "import importlib\n"
+        f"for m in {probes!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|distributed_neural_network_tpu)(\b(?!_torch)|\.)"
+    )
+    for name in probes:
+        with open(os.path.join(PROBES, name + ".py")) as f:
+            assert not [line for line in f if pattern.search(line)], name

@@ -4,7 +4,9 @@ its step lines, its MFU-less CPU summary with the JAX CLI's SUMMARY keys
 (read from the JAX script's source), the quantized route, the JAX CLI's
 argument errors (those of the mesh's axes held to the JAX CLI's own text), a
 NotImplementedError naming the slice for every flag of a later slice, the
-data axis's flags in one process (zero, overlap, sharding rules; --dp N
+pipeline's and remat policy's flags in one process (--pp N outside a group
+of N refused with the torchrun command), the data axis's flags in one
+process (zero, overlap, sharding rules; --dp N
 outside a group of N refused with the torchrun command), --dp 2 --tp 2 as
 four torchrun ranks, and the flash launch formulas (the CPU runs each kernel's plain
 version where the card launches the kernel, so counting the plain versions
@@ -118,15 +120,13 @@ def test_flash_launch_formulas(flags, tmp_path, monkeypatch):
 
 
 LATER = {
-    "--pp 2": "parallel-layouts",
     "--experts 4": "parallel-layouts", "--sharding auto": "item 6",
-    "--microbatches 4": "parallel-layouts", "--guard warn": "slice 4",
+    "--guard warn": "slice 4",
     "--checkpoint-dir ck": "slice 4", "--resume": "slice 4", "--elastic": "slice 4",
     "--trace-out t.json": "slice 4", "--metrics-port 0": "slice 4",
     "--metrics-jsonl m.jsonl": "slice 4", "--run-record r.json": "slice 4",
     "--step-stats": "slice 4", "--dynamics": "slice 4", "--profile-dir p": "slice 4",
     "--watchdog on": "slice 4", "--chaos-nan-step 1": "slice 4",
-    "--remat --remat-policy dots_saveable": "selective activation checkpointing",
 }
 
 
@@ -134,6 +134,23 @@ LATER = {
 def test_later_slice_flags_raise_naming_the_slice(flags):
     with pytest.raises(NotImplementedError, match=LATER[flags]):
         lm_train.main(TINY + flags.split(), log=lambda line: None)
+
+
+@pytest.mark.parametrize("flags", ["--microbatches 4", "--pp-interleave 2",
+                                   "--remat --remat-policy dots_saveable"])
+def test_pipeline_and_remat_policy_flags_run_in_one_process(flags):
+    """Flags that raised before the pipeline axis and the remat policies
+    were ported: at --pp 1 the schedule flags are unused (as in the JAX
+    CLI), and a remat policy trains (tests/test_torch_remat.py holds its
+    numbers)."""
+    lines = _run(TINY + flags.split())
+    summary = json.loads(next(line for line in lines if line.startswith("SUMMARY "))[8:])
+    assert summary["pp_bubble_frac"] is None and summary["mesh"] == "single"
+
+
+def test_pp_outside_a_group_names_the_torchrun_command():
+    with pytest.raises(ValueError, match="torch.distributed.run --standalone --nproc-per-node 2"):
+        lm_train.main(TINY + ["--pp", "2"], log=lambda line: None)
 
 
 @pytest.mark.parametrize("extra", [

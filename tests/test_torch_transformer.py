@@ -112,8 +112,13 @@ def test_sampling_is_seeded_and_filters_hold(params):
 def test_later_slice_features_raise(params):
     with pytest.raises(NotImplementedError, match="parallel-layouts slice"):
         tfm.TransformerConfig(n_experts=2)
-    with pytest.raises(NotImplementedError, match="selective activation checkpointing"):
-        tfm.TransformerConfig(remat=True, remat_policy="dots_saveable")
+    # named remat policies run now (tests/test_torch_remat.py); a factory name
+    # or a name jax.checkpoint_policies lacks is refused
+    tfm.TransformerConfig(remat=True, remat_policy="dots_saveable")
+    with pytest.raises(TypeError, match="factory"):
+        tfm.TransformerConfig(remat=True, remat_policy="save_only_these_names")
+    with pytest.raises(ValueError, match="not a jax.checkpoint_policies name"):
+        tfm.TransformerConfig(remat=True, remat_policy="bogus")
     with pytest.raises(ValueError, match="attn impl"):
         tfm.apply(params, torch.zeros(1, 4, dtype=torch.long), CFG, attn_impl="sharded")
     with pytest.raises(ValueError, match="CUDA device"):

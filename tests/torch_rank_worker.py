@@ -40,6 +40,23 @@ in-process reference). The spec:
   ("params/<path>", gathered over the model axis: `gather_params`) and
   optimizer state ("state/<path>", gathered likewise; this rank's shards
   under zero), the step's bucket count, collective count and segments;
+- ``pp`` (optional): {"params": {key: an .npz of a parameter tree},
+  "batches": an .npz of "tokens" and "targets" (steps, B, S), "cases":
+  [{"name", "kind": "loss" | "grads" | "train", "mesh": [dp, pp, tp],
+  "params" (a key of "params"), "cfg" (TransformerConfig fields), "m"
+  (microbatches), "v" (interleave), "rows" (the global batch's first rows),
+  "kw" (make_pp_train_step arguments), "steps"}]}: each case builds
+  `create_pp_mesh`, cuts this rank's stage with `shard_pp_params` and feeds
+  its data shard: "loss" runs `pipeline_lm_loss` without gradient and sums
+  the shares over (data, pipe); "grads" also runs the backward and sums the
+  gradients as the step does (layer leaves over data, the others over
+  (data, pipe)), gathered over every axis (`gather_params`: the layer axis
+  in the interleaved order); "train" runs the step. Writes
+  ``pp_{name}_rank{r}.npz``: the losses, "grads/<path>" or the gathered
+  "params/<path>" and "state/<path>" (this rank's shards under zero), the
+  number of block exchanges (`collectives._exchange`: ppermute and
+  all-to-all, forward and backward) and the head's calls and rows
+  (`pipeline.head_ce`) of the last forward;
 - ``attn`` (optional): {"qkv": an .npz of (B, S, H, D) "q", "k", "v" and
   the output weight "w", "cases": [{"name", "fn": "ring" | "ulysses" |
   "zigzag", "causal", "heads" (optional: the first this many heads)}]}: the
@@ -148,14 +165,7 @@ def _lm_runs(spec, rank, out):
     from distributed_neural_network_tpu_torch.parallel.rules import named_leaves
     from distributed_neural_network_tpu_torch.train import lm as tlm
 
-    flat = dict(np.load(spec["params"]))
-    tree = {}
-    for k, v in flat.items():
-        *path, leaf = k.split("/")
-        node = tree
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = v
+    tree = _tree(spec["params"])
     batches = dict(np.load(spec["batches"]))
     device = out["device"]
     for case in spec["cases"]:
@@ -189,6 +199,114 @@ def _lm_runs(spec, rank, out):
                  **{"params/" + k: v.detach().cpu().numpy() for k, v in named_leaves(whole)},
                  **{f"state/{k}": v.detach().cpu().numpy() for k, v in named_leaves(state)})
         del step
+
+
+def _pp_runs(spec, rank, out):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_neural_network_tpu_torch.models import transformer as tfm
+    from distributed_neural_network_tpu_torch.parallel import collectives as C
+    from distributed_neural_network_tpu_torch.parallel import pipeline as ppl
+    from distributed_neural_network_tpu_torch.parallel.distributed import distribute_host_data
+    from distributed_neural_network_tpu_torch.parallel.rules import named_leaves
+    from distributed_neural_network_tpu_torch.train import lm as tlm
+
+    trees = {key: _tree(path) for key, path in spec["params"].items()}
+    batches = dict(np.load(spec["batches"]))
+    device = out["device"]
+    counts = {"exchanges": 0, "head_calls": 0, "head_rows": 0}
+    exchange, head_ce = C._exchange, ppl.head_ce
+
+    def counted_exchange(*a, **k):
+        counts["exchanges"] += 1
+        return exchange(*a, **k)
+
+    def counted_head(h, *a, **k):
+        counts["head_calls"] += 1
+        counts["head_rows"] += h.shape[0]
+        return head_ce(h, *a, **k)
+
+    C._exchange, ppl.head_ce = counted_exchange, counted_head
+    try:
+        for case in spec["cases"]:
+            cfg = tfm.TransformerConfig(**case["cfg"])
+            dp, pp, tp = case["mesh"]
+            m, v, rows = case.get("m", 2), case.get("v", 1), case["rows"]
+            mesh = ppl.create_pp_mesh(dp, pp, tp, device=device)
+            params, specs = ppl.shard_pp_params(tfm.from_jax_params(trees[case["params"]]), cfg,
+                                                mesh, interleave=v)
+
+            def batch(i):
+                return tuple(distribute_host_data(torch.from_numpy(batches[k][i][:rows]).long(),
+                                                  mesh) for k in ("tokens", "targets"))
+
+            res = {}
+            counts.update(exchanges=0, head_calls=0, head_rows=0)
+            if case["kind"] in ("loss", "grads"):
+                leaves = tlm.tree_leaves(params)
+                grad = case["kind"] == "grads"
+                for x in leaves:
+                    x.requires_grad_(grad)
+                with torch.set_grad_enabled(grad):
+                    loss = ppl.pipeline_lm_loss(params, *batch(0), cfg, mesh=mesh,
+                                                n_microbatches=m, interleave=v)
+                if grad:
+                    loss.backward()
+                    grads = []
+                    for x, s in zip(leaves, tlm.tree_leaves(specs)):
+                        g = x.grad if x.grad is not None else torch.zeros_like(x)
+                        axis = mesh.data if ppl.PIPE_AXIS in tuple(s) else mesh.data_pipe
+                        if axis.group is not None:
+                            dist.all_reduce(g, group=axis.group)
+                        grads.append(g)
+                    whole = tlm.gather_params(tlm.tree_unflatten(params, grads), specs, mesh)
+                    res.update({"grads/" + k: g.numpy() for k, g in named_leaves(whole)})
+                loss = loss.detach()
+                if mesh.data_pipe.group is not None:
+                    dist.all_reduce(loss, group=mesh.data_pipe.group)
+                res["losses"] = np.asarray([float(loss)])
+            else:
+                kw = dict(case.get("kw", {}))
+                opt = kw.get("optimizer", "sgd")
+                mom = (ppl.init_pp_zero_state(params, mesh, opt) if opt.startswith("zero")
+                       else tlm.init_lm_momentum(params, opt))
+                step = ppl.make_pp_train_step(cfg, mesh, device=device, n_microbatches=m,
+                                              interleave=v, **kw)
+                losses = [float(step(params, mom, *batch(i), i)) for i in range(case["steps"])]
+                state = {k: x for k, x in mom.items() if k != "t"} if isinstance(mom, dict) \
+                    else mom
+                if not opt.startswith("zero"):
+                    leaf_specs = tlm.tree_leaves(specs)
+                    state = (tlm.gather_params(state, leaf_specs, mesh) if isinstance(state, list)
+                             else {k: tlm.gather_params(x, leaf_specs, mesh)
+                                   for k, x in state.items()})
+                whole = tlm.gather_params(params, specs, mesh)
+                res.update(losses=np.asarray(losses, np.float64), segments=step.segments,
+                           n_buckets=step.layout.n_buckets if step.layout is not None else 0,
+                           **{"params/" + k: x.numpy() for k, x in named_leaves(whole)},
+                           **{"state/" + k: x.detach().numpy() for k, x in named_leaves(state)})
+                del step
+            np.savez(os.path.join(out["dir"], f"pp_{case['name']}_rank{rank}.npz"),
+                     exchanges=counts["exchanges"], head_calls=counts["head_calls"],
+                     head_rows=counts["head_rows"], **res)
+    finally:
+        C._exchange, ppl.head_ce = exchange, head_ce
+
+
+def _tree(path):
+    """A parameter tree from an .npz of "layer/leaf" (or "leaf") keys."""
+    import numpy as np
+
+    tree = {}
+    for k, v in dict(np.load(path)).items():
+        *parts, leaf = k.split("/")
+        node = tree
+        for p in parts:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
 
 
 def _attn_runs(spec, rank, out):
@@ -417,6 +535,8 @@ def main(spec_json: str) -> int:
             _sync_check(spec["sync"], rank, out)
         if spec.get("lm"):
             _lm_runs(spec["lm"], rank, out)
+        if spec.get("pp"):
+            _pp_runs(spec["pp"], rank, out)
         if spec.get("attn"):
             _attn_runs(spec["attn"], rank, out)
         if spec.get("norms"):
