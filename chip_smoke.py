@@ -258,7 +258,32 @@ Phases (any failure exits non-zero and prints no result):
    steps each: every policy's losses and parameters bitwise the no-policy
    run's, the no-remat run within LOSS_TOL; the flash launches the formula
    (the forward twice a layer under remat) on mma at FLASH_REMAT; each
-   run's peak memory, graphed ms per step and launches a step.
+   run's peak memory, graphed ms per step and launches a step;
+28. mixture of experts (`parallel/moe.py`): (a) `lm_train.main` at LM_ARGS
+   with --experts 8 at the JAX defaults (top-2, capacity factor 2.0, sort
+   dispatch, z-loss weight 0.1), 4 steps graphed, --attn flash and the
+   plain route (--attn ring): tokens/s, ms per step, MFU (the top-2
+   experts counted), peak memory, flash launches a step; gates: the flash
+   counters at their formula, all on mma, none on the plain route; the
+   logged losses within LOSS_TOL of the plain route and every weight's
+   step-0 gradient within GRAD_TOL, each token routed to the plain route's
+   experts on both routes (`pinned_routing`; why: port_probes/moe_route_noise.py);
+   3 steps and 2 eval batches graphed bitwise eager (phase 20's check);
+   one eager step under the profiler (its kernels' device time by group:
+   routing, index_add, gather, matmuls, flash); (b) `moe_ffn` sort against dense on
+   the card at T 64 (f32, d 512, d_ff 2048, 8 experts, top-2) at the
+   no-drop capacity and at 4: output and aux within 1e-5, gradients within
+   2e-4; (c) --dp 2 (the experts over the data axis, ep 2) on 2 ranks
+   sharing the card over gloo at depth 2 (`port_probes/moe_world.py`): the
+   losses within LOSS_TOL of one process, the update within UPDATE_TOL
+   leaf by leaf (the expert leaves printed), the ranks' SUMMARY lines and
+   gathered parameters equal, each rank's flash launches the formula, the
+   collectives' time a step (the gradient sync and the all-to-alls); (d)
+   the MoE `generate` (dense dispatch, capacity = batch) of 16 prompts of
+   64 tokens, 32 new, greedy, on the decode kernel's route: its decode
+   launches the formula, all on the split route, and its tokens against
+   decode_impl="torch" per token (after the same history, as phase 9) at
+   >= 0.99.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -328,6 +353,10 @@ GRAD_TOL = 5e-2
 # the launch-formula runs of phase 13 (--remat, --remat-attn, --accum-steps,
 # eval) take this many steps at full width
 FORMULA_STEPS = 4
+# phase 28: the flagship row with --experts 8 at the JAX defaults (top-2,
+# capacity factor 2.0, sort dispatch, z-loss weight 0.1), this many steps
+MOE_EXPERTS, MOE_STEPS = 8, 4
+MOE_ARGS = ["--experts", str(MOE_EXPERTS)]
 SERVE_ARGS = ["--device", "cuda", "--port", "0", "--d-model", "512", "--n-layers", "8",
               "--n-heads", "8", "--d-ff", "2048", "--vocab", "256", "--dtype", "bfloat16",
               "--seed", "0", "--max-batch", "8", "--num-blocks", "129", "--block-size", "16",
@@ -739,10 +768,11 @@ class Oracle:
     route (decode kernel "cuda", plain "torch"): its streams for the served
     prompts, and how far the served streams agree with them."""
 
-    def __init__(self, torch, tfm, prompts, dev):
+    def __init__(self, torch, tfm, prompts, dev, cfg=None):
         self.torch, self.tfm, self.prompts, self.dev = torch, tfm, prompts, dev
-        self.cfg = tfm.TransformerConfig(vocab_size=256, d_model=512, n_heads=8, n_layers=8,
-                                         d_ff=2048, dtype=torch.bfloat16)
+        # the served model (phase 9), or `cfg` (phase 28's MoE model)
+        self.cfg = cfg or tfm.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                                                n_layers=8, d_ff=2048, dtype=torch.bfloat16)
         self.params = tfm.init_params(0, self.cfg, dev)
         self.routes = {"cuda": self.route_streams("cuda")}
 
@@ -768,7 +798,7 @@ class Oracle:
         torch, n_close, n = self.torch, 0, 0
         for p, want in zip(self.prompts, self.routes["cuda"]):
             toks = torch.tensor([p + want], device=self.dev)
-            h = self.tfm.apply_hidden(self.params, toks, self.cfg)[0, len(p) - 1: -1]
+            h = self.tfm.apply_hidden(self.params, toks, self.cfg)[0][0, len(p) - 1: -1]
             # f32 logits, as the engine and generate() form them
             logits = h.float() @ self.params["head"].to(self.cfg.dtype).float()
             top2 = logits.topk(2, dim=-1).values
@@ -1154,41 +1184,77 @@ def named_grads(params, grads):
     return out
 
 
-def route_grad_errs(torch, tfm, lmtrain, dev):
+ROUTES = {"plain": ("ring", ""), "flash": ("flash", ""), "int8": ("flash", "int8"),
+          "fp8": ("flash", "fp8")}
+
+
+@contextmanager
+def pinned_routing(moe, chosen):
+    """Inside, every `sort_route` call records its experts (T, k) into
+    `chosen` (a list) or, once `chosen` holds a run's calls, takes them from
+    it in call order: the gates and slots then follow from the probabilities
+    of the run at hand (`route_coordinates`), so the gradients flow as
+    usual, but no token is routed otherwise than in the recorded run."""
+    sort_route, replay = moe.sort_route, bool(chosen)
+    at = iter(list(chosen))
+
+    def route(probs, top_k, capacity):
+        if not replay:
+            chosen.append(probs.topk(top_k, dim=-1, sorted=True).indices)
+        experts = next(at) if replay else chosen[-1]
+        return moe.route_coordinates(probs, probs.gather(1, experts), experts, capacity)
+
+    moe.sort_route = route
+    try:
+        yield
+    finally:
+        moe.sort_route = sort_route
+
+
+def route_grad_errs(torch, tfm, lmtrain, dev, routes=("flash", "int8", "fp8"), experts=0):
     """The relative L2 error of every weight's step-0 gradient (the flagship
-    model and seed, the copy-task batch lm_train makes) on each kernel route
-    (flash, int8, fp8) against the plain route: {route: {name: err}}."""
+    model and seed, the copy-task batch lm_train makes; with `experts`, its
+    mixture of that many experts) on each kernel route of `routes` against
+    the plain route: {route: {name: err}}. With experts, every route routes
+    each token to the plain route's experts (`pinned_routing`; why:
+    port_probes/moe_route_noise.py)."""
+    from distributed_neural_network_tpu_torch.parallel import moe
+
+    chosen = []
     sh = LM_SHAPE
     toks, tgts = lmtrain.make_copy_task(torch.Generator().manual_seed(1), batch=sh["batch_size"],
                                         seq_len=sh["seq_len"], vocab=sh["vocab"], device=dev)
     params = None
     grads = {}
-    for route, attn, quant in (("plain", "ring", ""), ("flash", "flash", ""),
-                               ("int8", "flash", "int8"), ("fp8", "flash", "fp8")):
+    for route in ("plain",) + tuple(routes):
+        attn, quant = ROUTES[route]
         cfg = tfm.TransformerConfig(vocab_size=sh["vocab"], d_model=sh["d_model"],
                                     n_heads=sh["n_heads"], n_layers=sh["n_layers"],
-                                    d_ff=sh["d_ff"], dtype=torch.bfloat16, attn_quant=quant)
+                                    d_ff=sh["d_ff"], dtype=torch.bfloat16, attn_quant=quant,
+                                    n_experts=experts)
         if params is None:
             params = tfm.init_params(0, cfg, dev)
             leaves = lmtrain.tree_leaves(params)
             for x in leaves:
                 x.requires_grad_(True)
-        loss = lmtrain.lm_loss(params, toks, tgts, cfg, attn_impl=attn)
-        grads[route] = named_grads(params, torch.autograd.grad(loss, leaves))
+        with pinned_routing(moe, chosen) if experts else nullcontext():
+            loss = lmtrain.lm_loss(params, toks, tgts, cfg, attn_impl=attn)
+            grads[route] = named_grads(params, torch.autograd.grad(loss, leaves))
     ref = grads.pop("plain")
     return {route: {name: float((g[name] - ref[name]).norm() / ref[name].norm().clamp_min(1e-30))
                     for name in ref} for route, g in grads.items()}
 
 
-def route_compare(torch, fa, tfm, lmtrain, dev, kernel_rows, plain_row):
+def route_compare(torch, fa, tfm, lmtrain, dev, kernel_rows, plain_row, experts=0):
     """The kernel routes (`kernel_rows`: {"flash" | "int8" | "fp8": an
     `lm_run` row}) against the plain route: the logged losses and the
-    step-0 gradients. Prints every reading before it gates any (LOSS_TOL,
-    GRAD_TOL on every kernel route)."""
+    step-0 gradients (of the model with `experts` experts). Prints every
+    reading before it gates any (LOSS_TOL, GRAD_TOL on every kernel
+    route)."""
     d_loss = {route: max(abs(row["losses"][i] - plain_row["losses"][i])
                          for i in plain_row["losses"]) for route, row in kernel_rows.items()}
     with uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):  # not the main path's launches
-        errs = route_grad_errs(torch, tfm, lmtrain, dev)
+        errs = route_grad_errs(torch, tfm, lmtrain, dev, tuple(kernel_rows), experts)
     worst = {route: max(e.items(), key=lambda kv: kv[1]) for route, e in errs.items()}
     print(f"   kernel routes vs plain route: logged losses (steps {sorted(plain_row['losses'])}) "
           f"max |difference| " + ", ".join(f"{r} {x:.6f}" for r, x in d_loss.items())
@@ -1371,6 +1437,7 @@ def lm_graphs_vs_eager(torch, name, n_layers, steps, opts):
     sh, dev = LM_SHAPE, torch.device("cuda")
     opts = dict(opts)
     quant = opts.pop("quant", "")
+    experts = opts.pop("experts", 0)
     if opts.get("lr_schedule") == "cosine":
         opts["lr_schedule"] = functools.partial(warmup_cosine, base_lr=opts["lr"],
                                                 total_steps=steps, warmup_steps=1,
@@ -1378,7 +1445,7 @@ def lm_graphs_vs_eager(torch, name, n_layers, steps, opts):
     opts.setdefault("lr", 0.01)
     cfg = tfm.TransformerConfig(vocab_size=sh["vocab"], d_model=sh["d_model"],
                                 n_heads=sh["n_heads"], n_layers=n_layers, d_ff=sh["d_ff"],
-                                dtype=torch.bfloat16, attn_quant=quant)
+                                dtype=torch.bfloat16, attn_quant=quant, n_experts=experts)
     g = torch.Generator().manual_seed(20)
     batches = [lmtrain.make_copy_task(g, batch=sh["batch_size"], seq_len=sh["seq_len"],
                                       vocab=sh["vocab"], device=dev) for _ in range(steps)]
@@ -1426,6 +1493,187 @@ def lm_graphs_vs_eager(torch, name, n_layers, steps, opts):
           f"{e['eager']}")
     torch.cuda.empty_cache()
     return row
+
+
+# phase 28's profile: kernel-name substrings -> group, a kernel in the first
+# group it matches (the rest: elementwise chains, reductions, copies, the
+# loss)
+MOE_KERNEL_GROUPS = {
+    "routing (top-k, scan)": ("topk", "TopK", "scan", "radix", "bitonic"),
+    "index_add (dispatch; combine backward)": ("indexFunc",),
+    "gather (combine; dispatch backward)": ("indexSelect", "gather"),
+    "matmuls (cuBLAS)": ("nvjet", "gemm", "cutlass", "sm90_"),
+    "flash kernels": ("flash_",),
+}
+
+
+def moe_step_profile(torch, tfm, lmtrain, dev) -> dict:
+    """One eager step of the flagship row with MOE_EXPERTS experts (flash)
+    under torch.profiler, after a warm-up step: the device time of its
+    kernels, by MOE_KERNEL_GROUPS and the top kernels (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sh = LM_SHAPE
+    cfg = tfm.TransformerConfig(vocab_size=sh["vocab"], d_model=sh["d_model"],
+                                n_heads=sh["n_heads"], n_layers=sh["n_layers"], d_ff=sh["d_ff"],
+                                dtype=torch.bfloat16, n_experts=MOE_EXPERTS)
+    params = tfm.init_params(0, cfg, dev)
+    mom = lmtrain.init_lm_momentum(params)
+    step = lmtrain.make_lm_train_step(cfg, device=dev, attn_impl="flash", lr=0.01)
+    step._capture = False
+    toks, tgts = lmtrain.make_copy_task(torch.Generator().manual_seed(1), batch=sh["batch_size"],
+                                        seq_len=sh["seq_len"], vocab=sh["vocab"], device=dev)
+    step(params, mom, toks, tgts, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, mom, toks, tgts, 1)
+        torch.cuda.synchronize()
+    rows = sorted(profile_rows(prof, DeviceType), key=lambda r: -r[1])
+    total = sum(r[1] for r in rows) / 1e3
+    groups = dict.fromkeys(MOE_KERNEL_GROUPS, 0.0)
+    for name, us, _ in rows:
+        g = next((g for g, keys in MOE_KERNEL_GROUPS.items() if any(k in name for k in keys)),
+                 None)
+        if g is not None:
+            groups[g] += us / 1e3
+    del step, params, mom
+    torch.cuda.empty_cache()
+    return {"device_ms": total, "groups_ms": groups,
+            "top": [(name[:120], us / 1e3, n) for name, us, n in rows[:16]]}
+
+
+def moe_phase(torch, fa, da, kernels, dev) -> dict:
+    """Phase 28 (module docstring): the MoE path's runs and gates; adds the
+    MoE path's launches to `kernels` and returns what it measured."""
+    from distributed_neural_network_tpu_torch import lm_train
+    from distributed_neural_network_tpu_torch.models import transformer as tfm
+    from distributed_neural_network_tpu_torch.parallel.moe import expert_capacity, moe_ffn
+    from distributed_neural_network_tpu_torch.train import lm as lmtrain
+    from port_probes import moe_world as MW
+
+    moe_run, part_s, t_part = {}, {}, time.perf_counter()
+    # (a) the flagship row with 8 experts at the JAX defaults, one process,
+    # graphed: the kernel route (flash) and the plain route (--attn ring)
+    moe_rows = {}
+    for name, attn in (("flash", "flash"), ("plain", "ring")):
+        row = lm_run(torch, fa, lm_train, MOE_STEPS, ["--attn", attn] + MOE_ARGS)
+        moe_rows[name] = row
+        counts = row["launches"]
+        print(f"   MoE {name}: {row['tokens_per_s']} tokens/s, {row['ms_per_step']:.2f} ms per "
+              f"step (first step {row['first_step_s']:.2f} s), MFU {row['mfu_pct']}% of the "
+              f"bf16 dense peak (top-2 experts counted), losses {row['losses']}, peak memory "
+              f"{row['peak_mem_gib']:.2f} GiB, flash launches a step "
+              f"{ {k: v / MOE_STEPS for k, v in counts.items()} }, by route "
+              f"{row['routes']}", flush=True)
+        want = (flash_counts(MOE_STEPS) if name == "flash"
+                else dict.fromkeys(counts, 0))
+        check(counts == want, f"MoE {name}: flash launches {counts} != expected {want}")
+        check(row["routes"] == mma_counts(want),
+              f"MoE {name}: launches by route {row['routes']} != {mma_counts(want)}")
+    for key in ("flash_fwd", "flash_dq", "flash_dkv"):
+        kernels[key]["launches_moe"] = moe_rows["flash"]["launches"][key]
+    moe_run["runs"] = moe_rows
+    moe_run["route"] = route_compare(torch, fa, tfm, lmtrain, dev, {"flash": moe_rows["flash"]},
+                                     moe_rows["plain"], experts=MOE_EXPERTS)
+    with uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):
+        moe_run["graphs"] = lm_graphs_vs_eager(torch, "MoE", LM_SHAPE["n_layers"], 3,
+                                               {"experts": MOE_EXPERTS})
+        prof = moe_run["profile"] = moe_step_profile(torch, tfm, lmtrain, dev)
+    print(f"   one eager MoE flash step under the profiler: {prof['device_ms']:.2f} ms of kernels; "
+          f"by group (ms) { {g: round(v, 3) for g, v in prof['groups_ms'].items()} }; top kernels "
+          f"{[(n[:90], round(ms, 3), c) for n, ms, c in prof['top']]}", flush=True)
+    part_s["a"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (b) the two dispatch forms on the card, f32 at T 64 (full-width
+    # d, d_ff and experts), at the no-drop capacity and at a binding one
+    g = torch.Generator().manual_seed(28)
+    t_, d_, f_ = 64, LM_SHAPE["d_model"], LM_SHAPE["d_ff"]
+    shapes = ((t_, d_), (d_, MOE_EXPERTS), (MOE_EXPERTS, d_, f_), (MOE_EXPERTS, f_),
+              (MOE_EXPERTS, f_, d_), (MOE_EXPERTS, d_), (t_, d_))
+    scales = (1.0, d_ ** -0.5, d_ ** -0.5, 0.1, f_ ** -0.5, 0.1, 1.0)
+    base = [(torch.randn(sh, generator=g) * k).to(dev) for sh, k in zip(shapes, scales)]
+    w_out = base.pop()
+    moe_run["dispatch"] = {}
+    for cap in (expert_capacity(t_, MOE_EXPERTS, 2, 2.0), 4):
+        got = {}
+        for impl in ("sort", "dense"):
+            ins = [t.clone().requires_grad_() for t in base]
+            y, aux = moe_ffn(*ins, top_k=2, capacity=cap, dispatch_impl=impl,
+                             z_loss_weight=0.1)
+            ((y * w_out).sum() + aux).backward()
+            got[impl] = (y.detach(), aux.detach(), [t.grad for t in ins])
+        (ys, auxs, gs), (yd, auxd, gd) = got["sort"], got["dense"]
+        err_y = max(max_err(torch, ys, yd), abs(float(auxs - auxd)))
+        err_g = max(float(((a - b).abs() / (b.abs() + 1.0)).max()) for a, b in zip(gs, gd))
+        moe_run["dispatch"][cap] = {"out": err_y, "grads": err_g}
+        print(f"   moe_ffn sort against dense at T {t_}, capacity {cap}: output and aux max "
+              f"abs err {err_y:.3e} (tolerance 1e-5), gradients max err {err_g:.3e} "
+              f"(|a - b| / (|b| + 1); tolerance 2e-4)", flush=True)
+        check(err_y <= 1e-5, f"moe_ffn sort vs dense at capacity {cap}: output {err_y}")
+        check(err_g <= 2e-4, f"moe_ffn sort vs dense at capacity {cap}: gradients {err_g}")
+    part_s["b"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (c) --dp 2 (ep 2) on 2 ranks sharing the card over gloo, depth 2
+    updates = os.path.join(ROOT, "runs", "moe_updates")
+    t0 = time.perf_counter()
+    try:
+        ref = MW.reference(LM_ARGS, ["moe-L2"], updates=updates)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = MW.run_world(2, os.path.join(ROOT, "chiprun_out", "moe"), LM_ARGS, updates,
+                             timeout=600)
+    finally:
+        shutil.rmtree(updates, ignore_errors=True)
+    moe_run["ranks"] = MW.check(2, ranks, ref, LM_ARGS, mma_counts=mma_counts)
+    moe_run["seconds"] = {"one_process": t1 - t0, "ranks": time.perf_counter() - t1}
+    for name, row in moe_run["ranks"].items():
+        coll = row["collective_ms"]
+        print(f"   {name} (2 layers): {row['ms_per_step']:.2f} ms per step, "
+              f"{row['tokens_per_s']} tokens/s; losses {[round(x, 5) for x in row['losses']]}, "
+              f"max relative difference from one process {row['max_rel_vs_one_process']:.2e}; "
+              f"parameter update within {row['update_rel_max']:.2e} of one process's (worst "
+              f"leaf {row['update_rel_leaf']}; expert leaves "
+              f"{ {k: round(v, 4) for k, v in row['update_rel_experts'].items()} }); the "
+              f"ranks' SUMMARY lines and gathered parameters equal; the collectives alone per "
+              f"step (ms, each rank): gradient sync {[fmt(c['sync']) for c in coll]}, "
+              f"all-to-alls {[fmt(c['all_to_all']) for c in coll]}; segments: "
+              f"{row['segments']}; one process {t1 - t0:.1f} s, 2 ranks "
+              f"{time.perf_counter() - t1:.1f} s with start-up", flush=True)
+
+    # (d) MoE generate (the dense dispatch at a capacity of the batch) on
+    # the decode kernel's route, against decode_impl="torch"
+    cfg_moe = tfm.TransformerConfig(vocab_size=LM_SHAPE["vocab"], d_model=LM_SHAPE["d_model"],
+                                    n_heads=LM_SHAPE["n_heads"],
+                                    n_layers=LM_SHAPE["n_layers"], d_ff=LM_SHAPE["d_ff"],
+                                    dtype=torch.bfloat16, n_experts=MOE_EXPERTS)
+    part_s["c"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    ptoks, _ = lmtrain.make_copy_task(torch.Generator().manual_seed(28), batch=16,
+                                      seq_len=64, vocab=LM_SHAPE["vocab"])
+    for counters in (da.LAUNCHES, da.ROUTE_LAUNCHES):
+        for key in counters:
+            counters[key] = 0
+    oracle = Oracle(torch, tfm, ptoks.tolist(), dev, cfg=cfg_moe)
+    launches, routes = dict(da.LAUNCHES), dict(da.ROUTE_LAUNCHES)
+    want = (64 + MAX_NEW - 1) * LM_SHAPE["n_layers"]  # one launch a layer and position
+    with uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
+        per_token, _, zipped = oracle.agreement(oracle.routes["cuda"], impl="torch")
+    kernels["decode_attention"]["launches_moe"] = launches["decode_attention"]
+    moe_run["generate"] = {"per_token": per_token, "zipped": zipped, "launches": launches,
+                           "routes": routes}
+    print(f"   MoE generate (16 prompts of 64 tokens, {MAX_NEW} new, greedy): the decode "
+          f"kernel's stream against decode_impl='torch' per token {per_token:.4f} (gate "
+          f">= 0.99), zipped {zipped:.4f}; decode launches {launches} (formula {want}), by "
+          f"route {routes}", flush=True)
+    check(launches["decode_attention"] == want and launches["decode_attention_q8"] == 0,
+          f"MoE generate: decode launches {launches} != {want}")
+    check(routes.get("decode_attention_split") == want,
+          f"MoE generate: launches by route {routes}")
+    check(per_token >= 0.99, f"MoE generate: per-token agreement {per_token} < 0.99")
+    part_s["d"] = time.perf_counter() - t_part
+    moe_run["part_s"] = part_s
+    print(f"   seconds by part: {part_s}")
+    return moe_run
 
 
 # -------------------------------------------------------------------- phases
@@ -3097,6 +3345,10 @@ def main() -> int:
                   f"{row['ms_per_step']:.2f} ms per step graphed, {row['tokens_per_s']} "
                   f"tokens/s, flash launches a step {row['launches_per_step']}{held}")
 
+    moe_run = {}
+    with phase("28 LM mixture of experts"):
+        moe_run = moe_phase(torch, fa, da, kernels, dev)
+
     designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
                                  f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
                "fused_mlp3_bwd": f"one launch for all replicas, a cluster of "
@@ -3141,7 +3393,7 @@ def main() -> int:
                    "lm_profile": lm_profile, "graphs": graphs_run, "across": across,
                    "stream": stream_run,
                    "bf16": bf16_run, "data_axis": dp_run, "model_seq_axes": mesh_run,
-                   "pipeline": pp_run, "remat_policies": remat_run}, f,
+                   "pipeline": pp_run, "remat_policies": remat_run, "moe": moe_run}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": table}))
     print(smi)

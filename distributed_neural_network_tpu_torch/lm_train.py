@@ -42,8 +42,12 @@ NCCL).
 Runs on the GPU unless ``--device cpu`` is given; there the train step (and
 the eval loss) is captured as CUDA graphs at the first step and replayed
 after (one graph, unless gloo collectives split the step). ``--generate``
-decodes eagerly (from the gathered parameters under ``--tp``; skipped under
-``--pp``, as the JAX CLI does). ``--remat --remat-policy NAME`` picks what a
+decodes eagerly (from the gathered parameters under ``--tp`` or expert
+parallelism; skipped under ``--pp``, as the JAX CLI does). ``--experts N``
+makes every block's MLP a mixture of N experts (`parallel/moe.py`: top-2,
+capacity factor 2, sort dispatch, z-loss weight 0.1, the JAX defaults);
+with ``--dp`` > 1 the experts are sharded over the data axis (N must divide
+by it), on the pipeline's stages too. ``--remat --remat-policy NAME`` picks what a
 recomputed block keeps (a `jax.checkpoint_policies` name,
 `models/transformer.py` `REMAT_SAVES`). ``--attn
 flash`` runs the hand-written flash kernels (`ops/flash_attention.py`; their
@@ -285,8 +289,6 @@ def check_ported(args) -> None:
     for dest, (flag, later) in LATER_FLAGS.items():
         if getattr(args, dest) is not None:
             raise NotImplementedError(f"{flag} is not ported yet; it comes with {later}")
-    if args.experts:
-        raise NotImplementedError(f"--experts comes with {tfm.MOE_SLICE}")
     if args.sharding == "auto":
         raise NotImplementedError(f"--sharding auto is not ported yet; it comes with {SLICE5}")
 
@@ -333,7 +335,7 @@ def main(argv=None, *, log=say, result: dict | None = None) -> int:
                 "--pp composes with --dp/--tp/--experts and any --optimizer (zero/zero-adam "
                 "shard state over dp per stage; not with --experts or --tp); --sp runs on the "
                 "dp x sp x tp mesh (drop --pp)")
-        if args.optimizer.startswith("zero") and args.tp > 1:
+        if args.optimizer.startswith("zero") and (args.tp > 1 or (args.experts and args.dp > 1)):
             raise SystemExit(
                 "--pp with zero optimizers composes with --dp only (tensor- and "
                 "expert-sharded leaves are out of the per-leaf ZeRO layout's scope, same rule "
@@ -366,7 +368,7 @@ def _train(args, mesh, log, result) -> None:
         n_layers=args.n_layers, d_ff=args.d_ff,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         remat=args.remat, remat_policy=args.remat_policy, remat_attn=args.remat_attn,
-        attn_quant="" if args.precision == "bf16" else args.precision,
+        n_experts=args.experts, attn_quant="" if args.precision == "bf16" else args.precision,
     )
     rules = None
     if args.sharding.startswith("rules:"):
@@ -419,8 +421,9 @@ def _train(args, mesh, log, result) -> None:
     def rows(tok, tgt, whole_batch=False):
         """This rank's block of the global batch (the batch itself at 1 x 1
         x 1): its rows and sequence columns, or (`whole_batch`, an eval
-        batch off the pipeline) every row and its columns. The pipeline's
-        eval takes its data shard's rows, as its step."""
+        batch off the pipeline and off expert parallelism) every row and
+        its columns. The pipeline's eval, and the eval under expert
+        parallelism, take their data shard's rows, as their step."""
         if zperm is not None:
             tok, tgt = tok[:, zperm], tgt[:, zperm]
         return tuple(distribute_host_data(x, mesh, device=device, rows=not whole_batch)
@@ -452,13 +455,15 @@ def _train(args, mesh, log, result) -> None:
     elif args.eval_every:
         eval_fn = lmtrain.make_eval_fn(cfg, attn_impl=args.attn, loss_chunks=args.loss_chunks,
                                        mesh=mesh)
+    whole_eval = not pipe and not (eval_fn is not None and eval_fn.sharded_rows)
     sync = ""
     if mesh.joined:
         sync = f", collectives {step.collective_form}"
     log(f"(LM {n_params:,} params, mesh {mesh.desc}, "
         f"attn={args.attn if args.sp > 1 or args.attn == 'flash' else 'full'}, "
         + (f"precision={args.precision}, " if args.precision != "bf16" else "")
-        + f"experts=dense, optimizer={args.optimizer}, grad_sync={args.grad_sync}, "
+        + f"experts={args.experts or 'dense'}, optimizer={args.optimizer}, "
+        f"grad_sync={args.grad_sync}, "
         f"device={device}{sync})")
 
     ema = ema_fn = None
@@ -482,9 +487,10 @@ def _train(args, mesh, log, result) -> None:
         if eval_fn is not None and (i + 1) % args.eval_every == 0:
             t_ev = time.perf_counter()
             eval_params = lmtrain.tree_unflatten(params, ema) if ema is not None else params
-            # every rank evaluates the whole held-out batch: the same value on each
+            # the same value on every rank (the whole held-out batch on each, or
+            # the shards' mean)
             ev = float(np.mean([float(eval_fn(eval_params, *rows(*batch_at(j, "eval"),
-                                                                whole_batch=not pipe)))
+                                                                whole_batch=whole_eval)))
                                 for j in range(args.eval_batches)]))
             if t0 is not None:
                 eval_s += time.perf_counter() - t_ev
@@ -521,7 +527,7 @@ def _train(args, mesh, log, result) -> None:
             "--pp)")
     elif args.generate > 0:
         gen_params = lmtrain.tree_unflatten(params, ema) if ema is not None else params
-        if mesh.tp > 1:
+        if mesh.tp > 1 or lmtrain.expert_axis(cfg, mesh):
             gen_params = lmtrain.gather_params(gen_params, specs, mesh)
         ptoks, _ = lmtrain.make_copy_task(
             torch.Generator().manual_seed(args.seed + 1), batch=args.batch_size,

@@ -41,8 +41,15 @@ version on the CPU. The port's seeded `init_params` and sampling draw from
 `param_specs` / `param_skeleton` give the tree's partition specs from the
 rule table (`parallel/rules.py`).
 
-Not ported here (it raises `NotImplementedError`): mixture-of-experts,
-which comes with step 8 of the parallel layouts (`MOE_SLICE`).
+Mixture of experts (``n_experts`` > 0, `parallel/moe.py`): every block's
+MLP is a routed expert FFN, the leaves ``wr`` (d, E), ``w1`` (E, d, F),
+``b1`` (E, F), ``w2`` (E, F, d), ``b2`` (E, d) stacked on the layer axis.
+Each rank's capacity comes from its own B x S_local tokens; with an expert
+axis (``ep_axis``, the data axis when it has more than one rank) each rank
+holds E/dp experts and the tokens cross it by all-to-all. `apply_hidden`
+returns the mean over the layers of the blocks' aux losses (0 for a dense
+model). `generate` routes through the dense dispatch with a capacity of
+the batch, so decoding drops no token, as in JAX.
 """
 
 from __future__ import annotations
@@ -68,8 +75,8 @@ from ..ops.decode_attention import (
 )
 from ..ops.quant import QUANT_FORMATS, quantized_attention
 from ..parallel.collectives import copy_to_model, reduce_from_model
+from ..parallel.moe import DISPATCH_IMPLS, expert_capacity, moe_ffn
 from ..parallel.ring import (
-    PARALLEL_SLICE,
     attention,
     ring_attention,
     ulysses_attention,
@@ -79,11 +86,12 @@ from ..parallel.ring import (
 
 LAYER_KEYS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
               "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
+# a mixture-of-experts layer adds the router
+MOE_LAYER_KEYS = LAYER_KEYS + ("wr",)
 DECODE_IMPLS = ("auto", "torch", "cuda")
 # full/ring/ulysses/zigzag: plain local attention without a sequence axis,
 # the sequence-parallel forms with one; flash: the flash kernels (ops/flash.py)
 ATTN_IMPLS = ("full", "ring", "ulysses", "zigzag", "flash")
-MOE_SLICE = f"{PARALLEL_SLICE}, step 8 (parallel/moe.py)"
 # the attributes of jax.checkpoint_policies (JAX 0.9), kept here: the port
 # imports no JAX
 REMAT_POLICIES = (
@@ -129,13 +137,22 @@ class TransformerConfig:
     remat_policy: str = ""
     # checkpoint only the attention call (ignored with remat)
     remat_attn: bool = False
+    # mixture-of-experts FFN in every block (0 = dense); the capacity factor
+    # sizes the static slots per expert (parallel/moe.py)
     n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    # "sort" (add and gather by coordinates) or "dense" (the one-hot oracle)
+    moe_dispatch: str = "sort"
     # low-precision attention forward: "" (off), "int8" or "fp8"
     attn_quant: str = ""
+    # the router z-loss's weight relative to the load-balancing aux (the
+    # loss adds train/lm.py AUX_WEIGHT * (switch_aux + moe_z_weight * mean(lse^2)))
+    moe_z_weight: float = 0.1
 
     def __post_init__(self):
-        if self.n_experts:
-            raise NotImplementedError(f"mixture-of-experts layers come with {MOE_SLICE}")
+        if self.moe_dispatch not in DISPATCH_IMPLS:
+            raise ValueError(f"moe_dispatch must be 'sort' or 'dense', got {self.moe_dispatch!r}")
         if self.remat_policy:
             check_remat_policy(self.remat_policy)
         if self.attn_quant and self.attn_quant not in QUANT_FORMATS:
@@ -194,26 +211,27 @@ def init_params(seed: int, cfg: TransformerConfig, device="cpu"):
     def dense(shape, s):
         return torch.randn(shape, generator=g) * s
 
-    params = {
-        "embed": dense((v, d), 1.0),
-        "lnf_scale": torch.ones(d),
-        "lnf_bias": torch.zeros(d),
-        "head": dense((d, v), scale),
-        "layers": {
-            "ln1_scale": torch.ones(n_l, d),
-            "ln1_bias": torch.zeros(n_l, d),
-            "wq": dense((n_l, d, d), scale),
-            "wk": dense((n_l, d, d), scale),
-            "wv": dense((n_l, d, d), scale),
-            "wo": dense((n_l, d, d), scale / np.sqrt(2 * n_l)),
-            "ln2_scale": torch.ones(n_l, d),
-            "ln2_bias": torch.zeros(n_l, d),
-            "w1": dense((n_l, d, f), scale),
-            "b1": torch.zeros(n_l, f),
-            "w2": dense((n_l, f, d), w2_scale),
-            "b2": torch.zeros(n_l, d),
-        },
+    e = cfg.n_experts
+    ex = (e,) if e else ()  # the expert axis of a MoE layer's FFN leaves
+    embed, head = dense((v, d), 1.0), dense((d, v), scale)
+    layers = {
+        "ln1_scale": torch.ones(n_l, d),
+        "ln1_bias": torch.zeros(n_l, d),
+        "wq": dense((n_l, d, d), scale),
+        "wk": dense((n_l, d, d), scale),
+        "wv": dense((n_l, d, d), scale),
+        "wo": dense((n_l, d, d), scale / np.sqrt(2 * n_l)),
+        "ln2_scale": torch.ones(n_l, d),
+        "ln2_bias": torch.zeros(n_l, d),
+        "w1": dense((n_l, *ex, d, f), scale),
+        "b1": torch.zeros(n_l, *ex, f),
+        "w2": dense((n_l, *ex, f, d), w2_scale),
+        "b2": torch.zeros(n_l, *ex, d),
     }
+    if e:
+        layers["wr"] = dense((n_l, d, e), scale)
+    params = {"embed": embed, "lnf_scale": torch.ones(d), "lnf_bias": torch.zeros(d),
+              "head": head, "layers": layers}
     return to_device(params, device)
 
 
@@ -222,7 +240,7 @@ def param_skeleton(cfg: TransformerConfig):
     leaves): what the partition-rule matcher walks when no parameters
     exist yet."""
     return {"embed": 0, "lnf_scale": 0, "lnf_bias": 0, "head": 0,
-            "layers": dict.fromkeys(LAYER_KEYS, 0)}
+            "layers": dict.fromkeys(MOE_LAYER_KEYS if cfg.n_experts else LAYER_KEYS, 0)}
 
 
 def param_specs(cfg: TransformerConfig, tp_axis: str | None = None,
@@ -271,8 +289,9 @@ def layer_params(params, cfg: TransformerConfig) -> list[dict]:
 
 
 def _layer(params, i: int, dt):
-    """Layer i's params, its weight matrices cast to the model dtype."""
-    lp = {k: params["layers"][k][i] for k in LAYER_KEYS}
+    """Layer i's params, its weight matrices cast to the model dtype (a MoE
+    router ``wr`` stays f32: routing runs in f32)."""
+    lp = {k: x[i] for k, x in params["layers"].items()}
     for k in ("wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2"):
         lp[k] = lp[k].to(dt)
     return lp
@@ -308,6 +327,20 @@ def mlp_residual(x, lp, dt, tp_axis=None):
     h = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"]).to(dt)
     h = gelu(copy_to_model(h, tp_axis) @ lp["w1"] + lp["b1"])
     return x + reduce_from_model(h @ lp["w2"], tp_axis) + lp["b2"]
+
+
+def moe_residual(x, lp, cfg: TransformerConfig, *, capacity: int, ep_axis=None, tp_axis=None,
+                 dispatch_impl: str | None = None, z_loss_weight: float | None = None):
+    """(x + MoE(LN2(x)), aux) for x (..., d): the block's routed FFN
+    (`parallel/moe.py` `moe_ffn`) over the flattened tokens, with the
+    config's top-k, dispatch and z-loss weight unless given."""
+    h = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"]).to(cfg.dtype)
+    y, aux = moe_ffn(
+        h.reshape(-1, cfg.d_model), lp["wr"], lp["w1"], lp["b1"], lp["w2"], lp["b2"],
+        top_k=cfg.moe_top_k, capacity=capacity, ep_axis=ep_axis, tp_axis=tp_axis,
+        dispatch_impl=dispatch_impl or cfg.moe_dispatch,
+        z_loss_weight=cfg.moe_z_weight if z_loss_weight is None else z_loss_weight)
+    return x + y.reshape(x.shape), aux
 
 
 def resolve_decode_impl(impl: str, device: torch.device) -> str:
@@ -380,11 +413,14 @@ def _attend_fn(attn_impl: str, cfg: TransformerConfig, seq_axis=None):
     return attend
 
 
-def transformer_block(x, lp, cfg: TransformerConfig, attend, tp_axis=None):
+def transformer_block(x, lp, cfg: TransformerConfig, attend, tp_axis=None, ep_axis=None,
+                      capacity: int | None = None):
     """One pre-norm block on x (B, S_local, d) with the layer's params `lp`
     (weights already in the model dtype), in the JAX package's order of
-    operations. The local head count comes from wq's columns (H/tp under a
-    model axis)."""
+    operations: (x, aux), aux the MoE block's load-balancing loss (None for
+    a dense block). The local head count comes from wq's columns (H/tp
+    under a model axis); a MoE block routes its B x S_local tokens into
+    `capacity` slots an expert."""
     dt = cfg.dtype
     b, s = x.shape[:2]
     d_h = cfg.head_dim
@@ -395,50 +431,57 @@ def transformer_block(x, lp, cfg: TransformerConfig, attend, tp_axis=None):
     v = (h @ lp["wv"]).reshape(b, s, h_n, d_h)
     o = attend(q, k, v)
     x = x + reduce_from_model(o.reshape(b, s, -1) @ lp["wo"], tp_axis)
-    return mlp_residual(x, lp, dt, tp_axis)
+    if cfg.n_experts:
+        return moe_residual(x, lp, cfg, capacity=capacity, ep_axis=ep_axis, tp_axis=tp_axis)
+    return mlp_residual(x, lp, dt, tp_axis), None
 
 
 def apply_hidden(params, tokens, cfg: TransformerConfig, *, seq_axis=None, tp_axis=None,
-                 attn_impl: str = "ring"):
-    """tokens (B, S_local) -> final-layer-norm hidden (B, S_local, d) in the
-    model dtype. `seq_axis` / `tp_axis`: the mesh's sequence and model axes
-    (`ProcessMesh.seq_axis` / `.tp_axis`, None when 1), as the JAX
-    signature's axis names.
+                 ep_axis=None, attn_impl: str = "ring"):
+    """tokens (B, S_local) -> (final-layer-norm hidden (B, S_local, d) in the
+    model dtype, aux): aux the mean over the layers of the MoE blocks'
+    load-balancing losses (0-d f32; 0 for a dense model). `seq_axis` /
+    `tp_axis` / `ep_axis`: the mesh's sequence, model and expert axes
+    (`ProcessMesh` axes, None when 1), as the JAX signature's axis names.
 
     Differentiable with respect to the f32 leaves of `params`. The vocab
     projection is left to the caller (the chunked loss never forms the
     whole (B, S, vocab) logits)."""
     dt = cfg.dtype
-    s = tokens.shape[1]
+    b, s = tokens.shape
     attend = _attend_fn(attn_impl, cfg, seq_axis)
+    cap = (expert_capacity(b * s, cfg.n_experts, cfg.moe_top_k, cfg.moe_capacity_factor)
+           if cfg.n_experts else None)
     x = params["embed"][tokens].to(dt)
     x = x + _sinusoid_pe(_positions(s, seq_axis, attn_impl, tokens.device), cfg.d_model,
                          dt)[None]
+    auxes = []
     for i in range(cfg.n_layers):
-        if cfg.remat:
-            x = remat_block(lambda x, i=i: transformer_block(x, _layer(params, i, dt), cfg,
-                                                             attend, tp_axis), x, cfg)
-        else:
-            x = transformer_block(x, _layer(params, i, dt), cfg, attend, tp_axis)
-    return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)
+        def block(x, i=i):
+            return transformer_block(x, _layer(params, i, dt), cfg, attend, tp_axis, ep_axis, cap)
+
+        x, aux = remat_block(block, x, cfg) if cfg.remat else block(x)
+        auxes.append(aux)
+    aux = (torch.stack(auxes).mean() if cfg.n_experts
+           else torch.zeros((), device=tokens.device))
+    return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(dt), aux
 
 
 def apply_with_aux(params, tokens, cfg: TransformerConfig, *, seq_axis=None, tp_axis=None,
-                   attn_impl: str = "ring"):
-    """tokens (B, S_local) -> (logits (B, S_local, vocab) f32, aux): aux is
-    the MoE load-balancing loss of the JAX package, 0.0 for this dense
-    model."""
-    x = apply_hidden(params, tokens, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
-                     attn_impl=attn_impl)
+                   ep_axis=None, attn_impl: str = "ring"):
+    """tokens (B, S_local) -> (logits (B, S_local, vocab) f32, aux): aux the
+    mean MoE load-balancing loss over the layers (0.0 for a dense model)."""
+    x, aux = apply_hidden(params, tokens, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
+                          ep_axis=ep_axis, attn_impl=attn_impl)
     logits = (x @ params["head"].to(cfg.dtype)).float()
-    return logits, torch.zeros((), device=logits.device)
+    return logits, aux
 
 
 def apply(params, tokens, cfg: TransformerConfig, *, seq_axis=None, tp_axis=None,
-          attn_impl: str = "ring"):
+          ep_axis=None, attn_impl: str = "ring"):
     """tokens (B, S_local) int -> logits (B, S_local, vocab) f32."""
     return apply_with_aux(params, tokens, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
-                          attn_impl=attn_impl)[0]
+                          ep_axis=ep_axis, attn_impl=attn_impl)[0]
 
 
 # --------------------------------------------------------------- inference
@@ -549,7 +592,13 @@ def generate(
                     live = live & (cols[None, :] >= offsets[:, None])
                 o = masked_decode_attention(q, ck, cv, live)
             x = x + o.reshape(b, -1) @ lp["wo"]
-            x = mlp_residual(x, lp, dt)
+            if cfg.n_experts:
+                # the dense dispatch at a capacity of the batch: decoding
+                # never drops a token (the teacher-forced forward can)
+                x = moe_residual(x, lp, cfg, capacity=b, dispatch_impl="dense",
+                                 z_loss_weight=0.0)[0]
+            else:
+                x = mlp_residual(x, lp, dt)
         if pos < s_p - 1:
             continue  # a prompt position: its prediction is discarded
         h = _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)

@@ -25,6 +25,12 @@ NCCL when every local rank has a card of its own (rank r on
 ``cuda:LOCAL_RANK``), gloo when ranks share a card (as on a one-GPU machine:
 NCCL refuses two ranks on one GPU). The CLI prints the choice.
 
+`create_hybrid_mesh` is the JAX package's DCN x ICI mesh as a rank layout
+(`RankMesh`): its outer ("dcn") axes cross hosts, its inner ("ici") axes
+stay within one host, ranks grouped by host as JAX groups devices by
+``slice_index``; on one host it is the flat rank order. A layout, not a
+launcher: no entry point takes it (none does in JAX either).
+
 `distribute_host_data` is the rank's share of a host batch on the mesh:
 the contiguous block of B/dp rows (and, with a sequence axis, of S/sp
 columns) that the JAX package's ``P("data", "seq")`` sharding gives the
@@ -36,7 +42,9 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -195,6 +203,85 @@ def _connect_with_retry(connect, kwargs, *, addr, max_retries, deadline_s, backo
         "DNN_TPU_COORDINATOR_RETRIES for slow starts. Last error: "
         f"{type(last).__name__ if last is not None else None}: {last}"
     ) from last
+
+
+@dataclass(frozen=True)
+class RankMesh:
+    """Named axes over process ranks: ``ranks`` (*sizes) holds the rank at
+    each coordinate (the JAX `Mesh`'s device array, ranks for devices)."""
+
+    axis_names: tuple
+    ranks: np.ndarray
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.ranks.shape))
+
+
+def _rank_hosts() -> list:
+    """Each rank's host name, in rank order (this process alone off a group)."""
+    if not joined():
+        return [socket.gethostname()]
+    hosts = [None] * dist.get_world_size()
+    dist.all_gather_object(hosts, socket.gethostname())
+    return hosts
+
+
+def create_hybrid_mesh(ici_axes: dict, dcn_axes: dict | None = None, *,
+                       ranks=None) -> RankMesh:
+    """Mesh with the DCN axes outermost and the ICI axes inner (the JAX
+    `create_hybrid_mesh`): the layout's axis order is (*dcn, *ici), so
+    per-step collectives (put their axes in ``ici_axes``) stay within a
+    host and low-frequency ones cross hosts. ``ranks`` (default: the
+    process group's, or this process alone) are the ranks to lay out, each
+    on the host its process reports; on one host the flat rank order is
+    used."""
+    dcn_axes = dcn_axes or {}
+    names = (*dcn_axes, *ici_axes)
+    sizes = (*dcn_axes.values(), *ici_axes.values())
+    if any(s <= 0 for s in sizes):
+        raise ValueError(f"axis sizes must be positive: {dict(zip(names, sizes))}")
+    if ranks is None:
+        ranks = list(range(dist.get_world_size() if joined() else 1))
+    ranks = list(ranks)
+    total = int(np.prod(sizes))
+    if total > len(ranks):
+        raise ValueError(f"mesh {dict(zip(names, sizes))} needs {total} ranks, have "
+                         f"{len(ranks)}")
+    every = _rank_hosts() if joined() else None
+    hosts = [every[r] for r in ranks] if every else [0] * len(ranks)
+    arr = _hybrid_rank_array(ranks, hosts, tuple(dcn_axes.values()),
+                             tuple(ici_axes.values()))
+    return RankMesh(names, arr)
+
+
+def _hybrid_rank_array(ranks, hosts, dcn_sizes: tuple, ici_sizes: tuple) -> np.ndarray:
+    """(*dcn, *ici)-shaped rank array with host boundaries on the dcn axes
+    (the JAX `_hybrid_device_array`, hosts for slices). Across hosts the
+    ranks are grouped by host (in order of first appearance); the dcn axes
+    must cover the host count exactly and each host gives its first
+    ici-total ranks, so every dcn hop crosses hosts and every ici hop stays
+    inside one. One host: the flat rank order."""
+    dcn_total = int(np.prod(dcn_sizes)) if dcn_sizes else 1
+    ici_total = int(np.prod(ici_sizes)) if ici_sizes else 1
+    shape = (*dcn_sizes, *ici_sizes)
+    groups: dict = {}
+    for r, h in zip(ranks, hosts):
+        groups.setdefault(h, []).append(r)
+    if len(groups) <= 1:
+        return np.asarray(ranks[: dcn_total * ici_total]).reshape(shape)
+    if len(groups) != dcn_total:
+        raise ValueError(
+            f"dcn axes {dcn_sizes} multiply to {dcn_total} but {len(groups)} hosts are present "
+            "(host count mismatch): the dcn axes must exactly cover the hosts, or pass an "
+            "explicit `ranks=` subset to deliberately leave hosts idle")
+    ordered = []
+    for h, g in groups.items():
+        if len(g) < ici_total:
+            raise ValueError(f"host {h} has {len(g)} ranks, ici axes {ici_sizes} need "
+                             f"{ici_total} (uneven hosts cannot form this mesh)")
+        ordered.append(np.asarray(g[:ici_total]).reshape(ici_sizes))
+    return np.stack(ordered).reshape(shape)
 
 
 def distribute_host_data(host_array, mesh, *, full_copy: bool = True, device=None,

@@ -45,9 +45,18 @@ each block of a chunk (`models/transformer.py` `remat_block`). Under NCCL
 the step, every tick's ppermute and the all-to-all included, is one CUDA
 graph; under gloo a collective runs on the host, so each accumulation
 pass's forward and backward is one eager part (`train/lm.py`
-`LMTrainStep.segments`). Mixture-of-experts blocks are not ported (step 8:
-`models/transformer.py` `TransformerConfig` refuses them, `MOE_SLICE`). Left out, with the static analysis
-(ROADMAP Queue 1 item 6): `abstract_pp_state` and `pp_step_program`.
+`LMTrainStep.segments`). Left out, with the static analysis (ROADMAP Queue
+1 item 6): `abstract_pp_state` and `pp_step_program`.
+
+Mixture-of-experts blocks route each microbatch's tokens (capacity from
+the microbatch, `parallel/moe.py`); with a data axis of more than one rank
+the experts are sharded over it (`train/lm.py` `expert_axis`) and every tick
+runs their all-to-alls over the data group, bubble ticks included: the
+ranks of one data group share a stage and run the same ticks. A tick's aux
+(the chunk's layers summed) counts only on the ticks that carry a
+microbatch (the JAX mask), normalized over m x L x dp. The expert leaves'
+gradients are not summed at all (`PPTrainStep._sync_sets`); ZeRO and the
+overlapped sync refuse an expert axis, with the JAX texts.
 """
 
 from __future__ import annotations
@@ -64,7 +73,8 @@ from ..train import lm as lmtrain
 from ..utils.tree import tree_leaves, tree_map
 from . import zero
 from .collectives import BucketReducer, all_to_all, ppermute
-from .mesh import DATA_AXIS, PIPE_AXIS, TP_AXIS, ProcessMesh, make_axis_groups
+from .mesh import DATA_AXIS, PIPE_AXIS, TP_AXIS, Axis, ProcessMesh, make_axis_groups
+from .moe import expert_capacity
 from .partition import PartitionSpec as P
 from .partition import validate_spec_tree
 from .ring import attention
@@ -112,11 +122,13 @@ def pp_wiring(cfg, mesh: ProcessMesh):
     """(tp, ep, sync_axes, specs) of a pipeline mesh: the one derivation the
     step, the eval and the placement share. The gradients sync over the
     data axis (the pipe-replicated leaves also over the pipe axis, which
-    `PPTrainStep` adds); ep is None: no expert axis is ported."""
+    `PPTrainStep` adds); ep is the data axis for a MoE model with dp > 1
+    (`train/lm.py` `expert_axis`)."""
     tp = TP_AXIS if mesh.tp > 1 else None
-    specs = pp_param_specs(cfg, tp_axis=tp)
+    ep = getattr(lmtrain.expert_axis(cfg, mesh), "name", None)
+    specs = pp_param_specs(cfg, tp_axis=tp, ep_axis=ep)
     validate_spec_tree(specs, mesh.shape, root="params")
-    return tp, None, (DATA_AXIS,), specs
+    return tp, ep, (DATA_AXIS,), specs
 
 
 def pp_optimizer_state_specs(optimizer: str, specs):
@@ -203,8 +215,7 @@ def shard_pp_params(params, cfg, mesh: ProcessMesh, *, interleave: int = 1):
 
 def _check_schedule(cfg, mesh: ProcessMesh, n_microbatches: int, interleave: int) -> None:
     """The JAX `make_pp_train_step` checks of the layer count and the
-    interleaved schedule (a MoE config is refused where it is made,
-    `TransformerConfig`, naming step 8)."""
+    interleaved schedule."""
     pp, v = mesh.pp, interleave
     if v < 1:
         raise ValueError(f"interleave must be >= 1, got {v}")
@@ -248,9 +259,11 @@ def pipeline_lm_loss(params, tokens, targets, cfg, *, mesh: ProcessMesh, n_micro
                      loss_chunks: int = 0, interleave: int = 1):
     """This rank's share of the mean next-token cross-entropy through the
     microbatch schedule: the CE sum of the microbatches dealt to this stage
-    over the global token count (every data shard's tokens). Its sum over
-    the (data, pipe) ranks is the JAX `pipeline_lm_loss`; every rank of the
-    mesh must call it (its ppermutes and all-to-all are collectives).
+    over the global token count (every data shard's tokens), plus, for a
+    MoE model, `train/lm.py` `AUX_WEIGHT` x the aux of this rank's
+    microbatch ticks over m x L x dp. Its sum over the (data, pipe) ranks is the JAX
+    `pipeline_lm_loss`; every rank of the mesh must call it (its ppermutes
+    and all-to-alls are collectives).
 
     tokens / targets: this data shard's (B_local, S) rows; params: this
     rank's stage (and model) shard (`shard_pp_params`). `loss_chunks`: the
@@ -273,25 +286,33 @@ def pipeline_lm_loss(params, tokens, targets, cfg, *, mesh: ProcessMesh, n_micro
     pe = tfm._sinusoid_pe(torch.arange(s, device=tokens.device), cfg.d_model, dt)[None]
     n_local = params["layers"]["wq"].shape[0]
     cl = n_local // v
+    ep_axis = lmtrain.expert_axis(cfg, mesh)
+    cap = (expert_capacity(mb * s, cfg.n_experts, cfg.moe_top_k, cfg.moe_capacity_factor)
+           if cfg.n_experts else None)
 
     def attend(q, k, v_):
         return attention(q, k, v_, causal=True)
 
     def chunk_blocks(x, lap):
         """This rank's layer chunk of the given lap (the local leaves are
-        (v, L/(v*P)) stacked lap-major)."""
+        (v, L/(v*P)) stacked lap-major): (x, the MoE aux summed over the
+        chunk's layers, None for a dense model)."""
+        auxes = []
         for i in range(lap * cl, (lap + 1) * cl):
             def block(x, i=i):
-                return tfm.transformer_block(x, tfm._layer(params, i, dt), cfg, attend, tp_axis)
+                return tfm.transformer_block(x, tfm._layer(params, i, dt), cfg, attend, tp_axis,
+                                             ep_axis, cap)
 
-            x = tfm.remat_block(block, x, cfg) if cfg.remat else block(x)
-        return x
+            x, aux = tfm.remat_block(block, x, cfg) if cfg.remat else block(x)
+            auxes.append(aux)
+        return x, (torch.stack(auxes).sum() if cfg.n_experts else None)
 
     # exit blocks: microbatch j = g*P + mm finishes its last lap on the last
     # stage at tick g*v*P + mm + v*P - 1 (garbage on the other stages)
     j = np.arange(m)
     exit_ticks = (j // n_pipe) * (v * n_pipe) + j % n_pipe + v * n_pipe - 1
     exits = {}
+    aux_sum = torch.zeros((), device=tokens.device) if cfg.n_experts else None
     n_ticks = v * m + n_pipe - 1
     perm = [(i, (i + 1) % n_pipe) for i in range(n_pipe)]
     feed = torch.ones((), dtype=torch.bool, device=tokens.device)
@@ -313,7 +334,11 @@ def pipeline_lm_loss(params, tokens, targets, cfg, *, mesh: ProcessMesh, n_micro
             x = torch.where(feed, fresh, x_in)
         else:
             x = x_in
-        out = chunk_blocks(x, lap)
+        out, aux = chunk_blocks(x, lap)
+        if cfg.n_experts and 0 <= u < v * m:
+            # a bubble tick computes on garbage: its aux is masked as its
+            # output is discarded
+            aux_sum = aux_sum + aux
         if t in exit_ticks:
             exits[t] = out
         if t < n_ticks - 1:  # the last tick's rotation would feed nothing
@@ -341,7 +366,12 @@ def pipeline_lm_loss(params, tokens, targets, cfg, *, mesh: ProcessMesh, n_micro
     loss_sum = head_ce(h.reshape(rows, s, cfg.d_model), params["head"], my_tgt.reshape(rows, s),
                        my_w.repeat_interleave(mb), n_chunks)
     # the global token count: every data shard holds tokens.numel() tokens
-    return loss_sum / float(tokens.numel() * mesh.data.size)
+    loss = loss_sum / float(tokens.numel() * mesh.data.size)
+    if cfg.n_experts:
+        # summed over (data, pipe): every stage and lap of m microbatches on
+        # each data shard, m x L layer instances a shard
+        loss = loss + lmtrain.AUX_WEIGHT * aux_sum / float(m * cfg.n_layers * mesh.data.size)
+    return loss
 
 
 class PPTrainStep(lmtrain.LMTrainStep):
@@ -360,8 +390,9 @@ class PPTrainStep(lmtrain.LMTrainStep):
         mesh = self.mesh
         self.n_microbatches, self.interleave = n_microbatches, interleave
         self.divisor = 1
-        self.inner = mesh.pp > 1 or mesh.tp > 1
-        self.norm_collective = mesh.pp > 1 or mesh.tp > 1
+        ep = self.ep_axis is not None
+        self.inner = mesh.pp > 1 or mesh.tp > 1 or ep
+        self.norm_collective = mesh.pp > 1 or mesh.tp > 1 or ep
 
     def _one(self, params):
         cfg, mesh = self.cfg, self.mesh
@@ -389,8 +420,11 @@ class PPTrainStep(lmtrain.LMTrainStep):
 
     def _sync_sets(self, n_leaves: int):
         rep = self._replicated(n_leaves)
-        stage = [i for i in range(n_leaves) if i not in rep]
-        return [(self.mesh.data_pipe, rep), (self.mesh.data, stage)]
+        experts = lmtrain.expert_leaf_indices(self.specs) if self.ep_axis is not None else []
+        stage = [i for i in range(n_leaves) if i not in rep and i not in experts]
+        sets = [(self.mesh.data_pipe, rep), (self.mesh.data, stage)]
+        # the stage's expert leaves vary over the data axis: summed over nothing
+        return sets + [(Axis("experts"), experts)] if experts else sets
 
     def _bucket_replicated(self, layout, n_leaves: int) -> list:
         rep = set(self._replicated(n_leaves))
@@ -446,11 +480,21 @@ def make_pp_train_step(cfg, mesh: ProcessMesh, *, device=None, n_microbatches: i
         )
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    _, ep, _, specs = pp_wiring(cfg, mesh)
+    if optimizer.startswith("zero") and ep:
+        raise ValueError(
+            f"optimizer={optimizer!r} under --pp cannot combine with expert parallelism: "
+            "expert-sharded leaves vary over the data axis, which is exactly the axis the "
+            "per-leaf ZeRO layout shards state over (same rule as the mesh path)")
     if grad_sync not in GRAD_SYNCS:
         raise ValueError(f"unknown grad_sync {grad_sync!r} (use one of {GRAD_SYNCS})")
+    if grad_sync == "overlap" and ep:
+        raise ValueError(
+            "grad_sync='overlap' psums every gradient bucket over the data axis, but "
+            "expert-sharded leaves VARY over that axis - use grad_sync='end' with expert "
+            "parallelism (same rule as the mesh path)")
     if bucket_mb <= 0:
         raise ValueError(f"bucket_mb must be > 0, got {bucket_mb}")
-    specs = pp_wiring(cfg, mesh)[3]
     validate_spec_tree(pp_optimizer_state_specs(optimizer, specs), mesh.shape,
                        root="optimizer state")
     return PPTrainStep(cfg, n_microbatches=n_microbatches, interleave=interleave, mesh=mesh,

@@ -33,7 +33,6 @@ import torch
 from .collectives import all_to_all, ppermute
 
 NEG_BIG = -1e30  # large-negative mask value; avoids -inf NaN propagation
-PARALLEL_SLICE = "the parallel-layouts slice of the port (ROADMAP.md Queue 1 item 3)"
 
 
 def _size_index(axis) -> tuple[int, int]:

@@ -339,6 +339,9 @@ class ServeEngine:
     admission/cancel mutate the active set under `lock` between ticks."""
 
     def __init__(self, params, cfg: TransformerConfig, ecfg: EngineConfig):
+        if cfg.n_experts:
+            raise ValueError("the serving engine supports dense models; MoE decode routes "
+                             "through models/transformer.py generate()")
         self.cfg = cfg
         self.ecfg = ecfg
         self.kv = PagedKVCache(ecfg.kv())

@@ -59,8 +59,21 @@ writes them into their buffers; graph and eager give the same bits.
 `_capture = False` before the first call runs the program eagerly on the
 card too. The pipeline axis's step is this one with its own loss and sync
 sets (`parallel/pipeline.py` `PPTrainStep`: `_one`, `_sync_sets`,
-`_reducer`). MoE, the guard, fault plans and dynamics come later (ROADMAP
-Queue 1 items 3-4).
+`_reducer`). The guard, fault plans and dynamics come later (ROADMAP Queue
+1 item 4).
+
+Mixture of experts (``cfg.n_experts``): with a data axis of more than one
+rank the experts are sharded over it (`expert_axis`, the GShard convention):
+each rank holds E/dp experts of every layer (the rule table's expert specs,
+cut by `shard_params`) and routes its own tokens through them by
+all-to-all (`parallel/moe.py`). Each rank's loss adds `AUX_WEIGHT` x its aux
+(`lm_loss`), so the step's mean over the sync axis is JAX's ``pmean``. The
+expert leaves vary over the data axis: their gradients are not summed over
+it (the all-to-all's backward already brought every data rank's tokens to
+an expert's rank); they are summed over the sequence axis when it has more
+than one rank, and divided by the whole sync size as every other leaf
+(`_sync_sets`). ZeRO and the overlapped sync refuse an expert axis, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -90,18 +103,21 @@ from ..parallel.mesh import (
     SEQ_AXIS,
     SYNC_AXES,
     TP_AXIS,
+    Axis,
     NamedSharding,
     ProcessMesh,
     make_axis_groups,
 )
 from ..parallel.partition import PartitionSpec as P
 from ..parallel.partition import spec_axes, validate_spec_tree
-from ..parallel.ring import PARALLEL_SLICE
 # tree_leaves / tree_unflatten: the step's leaf order, which callers read here
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten  # noqa: F401
 from .graphs import Eager, Program, capture_all
 
 OPTIMIZERS = ("sgd", "adam", "zero", "zero-adam")
+# the MoE aux's weight in the loss (JAX `lm_loss`'s aux_weight), the mesh
+# step's and the pipeline's
+AUX_WEIGHT = 0.01
 
 
 def create_lm_mesh(dp: int = 1, sp: int = 1, tp: int = 1, *, device="cuda") -> ProcessMesh:
@@ -150,16 +166,30 @@ def _local_shard(x, spec, mesh):
     return x.contiguous().clone()
 
 
+def expert_axis(cfg, mesh: ProcessMesh) -> Axis | None:
+    """The expert axis: the mesh's data axis when the model has experts and
+    that axis more than one rank (the GShard convention), else None."""
+    dp = mesh.shape.get(DATA_AXIS, 1)
+    if cfg.n_experts and dp > 1:
+        if cfg.n_experts % dp:
+            raise ValueError(
+                f"n_experts ({cfg.n_experts}) must be divisible by the data-axis size ({dp}) "
+                f"for expert parallelism - use a multiple of {dp} experts or a dp that divides "
+                f"{cfg.n_experts}")
+        return mesh.data
+    return None
+
+
 def shard_params(params, cfg, mesh: ProcessMesh, rules=None):
     """(this rank's parameters on the mesh's device, their specs): the whole
     tree (the same on every rank, e.g. from `from_jax_params`) cut by the
     specs (`param_specs`, or ``rules``): under a model axis wq/wk/wv and w1
     (with b1) by columns, wo and w2 by rows (`lm_partition_rules(tp_axis=
-    "model")`); every other leaf replicated. `gather_params` is the
-    inverse."""
+    "model")`); under an expert axis the MoE leaves w1/b1/w2/b2 by experts;
+    every other leaf replicated. `gather_params` is the inverse."""
     specs = _param_specs(cfg, mesh, rules)
     params = tfm.to_device(params, mesh.device)
-    if mesh.tp > 1:
+    if mesh.tp > 1 or expert_axis(cfg, mesh):
         params = tree_map(lambda x, s: _local_shard(x, s, mesh), params, specs)
     return params, specs
 
@@ -179,16 +209,29 @@ def gather_params(params, specs, mesh: ProcessMesh):
     return tree_map(whole, params, specs)
 
 
+EXPERT_LEAVES = ("layers/w1", "layers/b1", "layers/w2", "layers/b2")
+
+
 def _param_specs(cfg, mesh, rules):
-    specs = tfm.param_specs(cfg, tp_axis=TP_AXIS if mesh.tp > 1 else None, rules=rules)
+    ep = getattr(expert_axis(cfg, mesh), "name", None)
+    specs = tfm.param_specs(cfg, tp_axis=TP_AXIS if mesh.tp > 1 else None, ep_axis=ep,
+                            rules=rules)
     for path, spec in _named_specs(specs):
-        wide = [a for a in spec_axes(spec) if a != TP_AXIS and mesh.shape.get(a, 1) > 1]
+        allowed = (TP_AXIS, ep) if ep and path in EXPERT_LEAVES else (TP_AXIS,)
+        wide = [a for a in spec_axes(spec) if a not in allowed and mesh.shape.get(a, 1) > 1]
         if wide:
             raise NotImplementedError(
                 f"the partition rules shard {path!r} as {spec} over {wide}; the port shards "
-                "parameters over the model axis only (tensor parallelism) - a leaf sharded "
-                f"over the data, sequence or an expert axis comes with {PARALLEL_SLICE}")
+                "parameters over the model axis (tensor parallelism) and a MoE model's expert "
+                "leaves over the data axis (expert parallelism), not another leaf over the "
+                "data or sequence axis")
     return specs
+
+
+def expert_leaf_indices(specs) -> list[int]:
+    """The `tree_leaves` indices of the leaves sharded over the data axis:
+    the expert leaves under expert parallelism."""
+    return [i for i, s in enumerate(tree_leaves(specs)) if DATA_AXIS in spec_axes(s)]
 
 
 def _named_specs(specs):
@@ -243,16 +286,17 @@ def _ce_sum_chunked(x, head, targets, n_chunks: int):
     return total
 
 
-def lm_loss(params, tokens, targets, cfg, *, seq_axis=None, tp_axis=None,
+def lm_loss(params, tokens, targets, cfg, *, seq_axis=None, tp_axis=None, ep_axis=None,
             attn_impl: str = "ring", loss_chunks: int = 0):
     """Mean next-token cross-entropy over this rank's tokens (B_local,
-    S_local). loss_chunks > 1 chunks the CE along the local sequence; 0
+    S_local), plus `AUX_WEIGHT` x this rank's MoE aux when the model has
+    experts. loss_chunks > 1 chunks the CE along the local sequence; 0
     picks the chunking that bounds a chunk's logits to ~64 MB; 1 is a single
     pass. The step averages it over the sync axis (`LMTrainStep`): every
     rank holds B/dp x S/sp tokens, so that is the JAX psum of the loss sum
-    and of the token count over (data, seq)."""
-    x = tfm.apply_hidden(params, tokens, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
-                         attn_impl=attn_impl)
+    and of the token count over (data, seq), and the JAX pmean of the aux."""
+    x, aux = tfm.apply_hidden(params, tokens, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
+                              ep_axis=ep_axis, attn_impl=attn_impl)
     b, s = tokens.shape
     if loss_chunks == 0:
         loss_chunks = auto_loss_chunks(b, s, cfg.vocab_size)
@@ -260,7 +304,10 @@ def lm_loss(params, tokens, targets, cfg, *, seq_axis=None, tp_axis=None,
         total = _ce_sum_chunked(x, params["head"], targets, loss_chunks)
     else:
         total = _chunk_ce(x, params["head"].to(cfg.dtype), targets)
-    return total / float(b * s)
+    loss = total / float(b * s)
+    if cfg.n_experts:
+        loss = loss + AUX_WEIGHT * aux
+    return loss
 
 
 def _check_optimizer(optimizer: str) -> None:
@@ -301,16 +348,17 @@ def init_lm_momentum(params, optimizer: str = "sgd", mesh: ProcessMesh | None = 
 
 def lm_wiring(cfg, mesh: ProcessMesh, optimizer: str = "sgd", rules=None):
     """(sp, tp, ep, sync_axes, specs, mom_spec, data_spec) for the mesh:
-    the one derivation of axes and specs the step uses (sp / tp: the axis
-    name when it has more than one rank, else None; ep: None, no expert
-    axis). The parameters' specs come from the rule table (or ``rules``,
-    the ``--sharding rules:<file>`` path) and every spec is checked against
-    the mesh's axes up front; the zero optimizers need replicated specs, so
-    they refuse a model axis, as in JAX."""
+    the one derivation of axes and specs the step uses (sp / tp / ep: the
+    axis name when it has more than one rank, else None; ep is the data
+    axis for a MoE model, `expert_axis`). The parameters' specs come from the
+    rule table (or ``rules``, the ``--sharding rules:<file>`` path) and
+    every spec is checked against the mesh's axes up front; the zero
+    optimizers need replicated specs, so they refuse a model or expert
+    axis, as in JAX."""
     _check_optimizer(optimizer)
     sp = SEQ_AXIS if mesh.sp > 1 else None
     tp = TP_AXIS if mesh.tp > 1 else None
-    ep = None
+    ep = getattr(expert_axis(cfg, mesh), "name", None)
     specs = _param_specs(cfg, mesh, rules)
     if optimizer.startswith("zero") and (tp or ep):
         raise ValueError(
@@ -426,10 +474,14 @@ class LMTrainStep(_Captured):
         # the sync axis is divided by its size (the pipeline's are of its
         # share of the global mean: no division)
         self.divisor = mesh.sync.size
-        # the forward and backward hold collectives (model or sequence axis)
-        self.inner = mesh.tp > 1 or mesh.sp > 1
+        # the expert axis (the data axis of a MoE model)
+        self.ep_axis = expert_axis(cfg, mesh)
+        ep = self.ep_axis is not None
+        # the forward and backward hold collectives (model or sequence axis,
+        # the experts' all-to-alls)
+        self.inner = mesh.tp > 1 or mesh.sp > 1 or ep
         # the clip / health norm sums a sharded leaf over an axis
-        self.norm_collective = mesh.tp > 1
+        self.norm_collective = mesh.tp > 1 or ep
         self._out = {}
         self._scalars = None
 
@@ -447,11 +499,11 @@ class LMTrainStep(_Captured):
 
     def _one(self, params):
         cfg, attn_impl, loss_chunks = self.cfg, self.attn_impl, self.loss_chunks
-        seq_axis, tp_axis = self.mesh.seq_axis, self.mesh.tp_axis
+        seq_axis, tp_axis, ep_axis = self.mesh.seq_axis, self.mesh.tp_axis, self.ep_axis
 
         def one(tok, tgt):
             loss = lm_loss(params, tok, tgt, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
-                           attn_impl=attn_impl, loss_chunks=loss_chunks)
+                           ep_axis=ep_axis, attn_impl=attn_impl, loss_chunks=loss_chunks)
             loss.backward()
             return loss.detach()
 
@@ -514,9 +566,16 @@ class LMTrainStep(_Captured):
 
     def _sync_sets(self, n_leaves: int):
         """[(axis, leaf indices)]: the leaves whose gradients are summed
-        over each axis, the loss with the first set's (every leaf over the
-        sync axis here; the pipeline splits them)."""
-        return [(self.mesh.sync, list(range(n_leaves)))]
+        over each axis, the loss with the first set's: every leaf over the
+        sync axis, but under expert parallelism the expert leaves (which
+        vary over the data axis) over the sequence axis alone (no group at
+        sp 1). Every set is divided by the sync size. The pipeline splits
+        them its own way."""
+        if self.ep_axis is None:
+            return [(self.mesh.sync, list(range(n_leaves)))]
+        experts = expert_leaf_indices(self.specs)
+        rest = [i for i in range(n_leaves) if i not in experts]
+        return [(self.mesh.sync, rest), (self.mesh.seq, experts)]
 
     def _reducer(self, layout, dev):
         """The overlap schedule's reducer over `layout`'s buckets."""
@@ -695,7 +754,12 @@ def make_lm_train_step(cfg, *, mesh: ProcessMesh | None = None, device=None, lr:
     if mesh is None:
         mesh = ProcessMesh(1, torch.device(device) if device is not None else torch.device("cpu"))
     wiring = lm_wiring(cfg, mesh, optimizer, rules=rules)
-    sp, specs = wiring[0], wiring[4]
+    sp, ep, specs = wiring[0], wiring[2], wiring[4]
+    if grad_sync == "overlap" and ep:
+        raise ValueError(
+            "grad_sync='overlap' psums every gradient bucket over the data axis, but "
+            f"expert-sharded leaves VARY over that axis (ep_axis={ep!r}) - their gradients must "
+            "stay local; use grad_sync='end' with expert parallelism")
     if attn_impl == "flash" and sp is not None:
         raise ValueError(
             "attn_impl 'flash' is the local (per-device) kernel; with a sequence axis use "
@@ -710,36 +774,48 @@ def make_lm_train_step(cfg, *, mesh: ProcessMesh | None = None, device=None, lr:
 class EvalLoss(_Captured):
     """(params, tokens, targets) -> held-out loss, no gradient: one program
     at the shape of its first call, bound to that call's parameter tensors
-    (the JAX CLI's jitted eval). On a mesh every rank passes the whole
-    batch's rows and its block of the sequence; the model axis runs its
-    collectives and the loss is averaged over the sequence axis (under
-    gloo with either axis the program is one eager part)."""
+    (the JAX CLI's jitted eval; for a MoE model it holds the aux, as the JAX
+    eval does). On a mesh every rank passes the whole batch's rows and its
+    block of the sequence, and the loss is averaged over the sequence axis;
+    under expert parallelism (`sharded_rows`) every rank passes its block of
+    rows too, so that it routes its own tokens as in training, and the loss
+    is averaged over the sync axis. The model axis and the experts run their
+    collectives (under gloo with any of these axes the program is one eager
+    part)."""
 
     def __init__(self, cfg, *, attn_impl: str, loss_chunks: int, mesh: ProcessMesh | None = None):
         super().__init__("the LM eval loss", None if mesh is None or not mesh.joined
                          else mesh.device)
         self.cfg, self.attn_impl, self.loss_chunks = cfg, attn_impl, loss_chunks
         self.mesh = mesh
+        self.ep_axis = expert_axis(cfg, mesh) if mesh is not None else None
         self._out = {}
+
+    @property
+    def sharded_rows(self) -> bool:
+        """Each rank passes its block of the batch's rows (expert
+        parallelism), not all of them."""
+        return self.ep_axis is not None
 
     def __call__(self, params, tokens, targets):
         cfg, attn_impl, loss_chunks, out = self.cfg, self.attn_impl, self.loss_chunks, self._out
-        mesh = self.mesh
+        mesh, ep_axis = self.mesh, self.ep_axis
         seq_axis = mesh.seq_axis if mesh is not None else None
         tp_axis = mesh.tp_axis if mesh is not None else None
+        mean_over = mesh.sync if ep_axis is not None else seq_axis
 
         def build(tok, tgt):
             @torch.no_grad()
             def fn():
                 loss = lm_loss(params, tok, tgt, cfg, seq_axis=seq_axis, tp_axis=tp_axis,
-                               attn_impl=attn_impl, loss_chunks=loss_chunks)
-                if seq_axis is not None:
-                    dist.all_reduce(loss, group=seq_axis.group)
-                    loss.div_(seq_axis.size)
+                               ep_axis=ep_axis, attn_impl=attn_impl, loss_chunks=loss_chunks)
+                if mean_over is not None:
+                    dist.all_reduce(loss, group=mean_over.group)
+                    loss.div_(mean_over.size)
                 out["loss"] = loss
 
             gloo = mesh is not None and mesh.joined and mesh.backend != "nccl"
-            if gloo and (seq_axis is not None or tp_axis is not None):
+            if gloo and (mean_over is not None or tp_axis is not None):
                 return [Eager(fn, "eager forward (model/seq collectives inside)")]
             return [fn]
 

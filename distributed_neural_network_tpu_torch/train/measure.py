@@ -30,8 +30,10 @@ def peak_flops(device_kind: str, dtype: str = "bfloat16") -> float | None:
 def model_flops_per_token(cfg, seq_len: int) -> float:
     """Model FLOPs per trained token (forward + 2x backward), PaLM-appendix
     style: per layer 8 d^2 (QKV and out projections) + 4 seq d (attention
-    scores and values, causal not halved) + 4 d ff (MLP), plus 2 d vocab for
-    the head. Rematerialisation is not counted."""
+    scores and values, causal not halved) + 4 d ff (MLP; for MoE, the top-k
+    activated experts), plus 2 d vocab for the head. Rematerialisation is
+    not counted."""
     d, f, v, n_l = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
-    per_layer = 8 * d * d + 4 * seq_len * d + 4 * d * f
+    mlp = 4 * d * f * (cfg.moe_top_k if cfg.n_experts else 1)
+    per_layer = 8 * d * d + 4 * seq_len * d + mlp
     return 3.0 * (n_l * per_layer + 2 * d * v)

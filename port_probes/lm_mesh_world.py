@@ -116,7 +116,7 @@ def _update(whole, argv) -> dict:
 
     a = lm_train.build_parser().parse_args(argv)
     cfg = tfm.TransformerConfig(vocab_size=a.vocab, d_model=a.d_model, n_heads=a.n_heads,
-                                n_layers=a.n_layers, d_ff=a.d_ff)
+                                n_layers=a.n_layers, d_ff=a.d_ff, n_experts=a.experts)
     init = dict(named_leaves(tfm.init_params(a.seed, cfg)))
     return {path: x.detach().float().cpu() - init[path] for path, x in named_leaves(whole)}
 

@@ -26,7 +26,7 @@ def test_every_module_imports_with_jax_blocked():
     assert "distributed_neural_network_tpu_torch.ops.fused_head" in mods
     # the data axis's modules
     for m in ("parallel.rules", "parallel.zero", "parallel.partition", "parallel.collectives",
-              "parallel.pipeline", "utils.tree"):
+              "parallel.pipeline", "parallel.moe", "utils.tree"):
         assert f"distributed_neural_network_tpu_torch.{m}" in mods
     code = (
         "import sys\n"

@@ -3,7 +3,8 @@ distributed_neural_network_tpu_torch.lm_train`) on the CPU at a tiny width:
 its step lines, its MFU-less CPU summary with the JAX CLI's SUMMARY keys
 (read from the JAX script's source), the quantized route, the JAX CLI's
 argument errors (those of the mesh's axes held to the JAX CLI's own text), a
-NotImplementedError naming the slice for every flag of a later slice, the
+NotImplementedError naming the slice for every flag of a later slice,
+--experts training a mixture of experts, the
 pipeline's and remat policy's flags in one process (--pp N outside a group
 of N refused with the torchrun command), the data axis's flags in one
 process (zero, overlap, sharding rules; --dp N
@@ -120,7 +121,7 @@ def test_flash_launch_formulas(flags, tmp_path, monkeypatch):
 
 
 LATER = {
-    "--experts 4": "parallel-layouts", "--sharding auto": "item 6",
+    "--sharding auto": "item 6",
     "--guard warn": "slice 4",
     "--checkpoint-dir ck": "slice 4", "--resume": "slice 4", "--elastic": "slice 4",
     "--trace-out t.json": "slice 4", "--metrics-port 0": "slice 4",
@@ -134,6 +135,24 @@ LATER = {
 def test_later_slice_flags_raise_naming_the_slice(flags):
     with pytest.raises(NotImplementedError, match=LATER[flags]):
         lm_train.main(TINY + flags.split(), log=lambda line: None)
+
+
+def test_experts_flag_trains():
+    """--experts 4 trains a mixture of 4 experts: the log line names them,
+    the loss is finite and the MFU's FLOPs count the top-2 experts
+    (train/measure.py)."""
+    from distributed_neural_network_tpu_torch.models import transformer as tfm
+    from distributed_neural_network_tpu_torch.train.measure import model_flops_per_token
+
+    lines = _run(TINY + ["--experts", "4", "--attn", "flash", "--generate", "2"])
+    assert any("experts=4, optimizer=sgd" in line for line in lines)
+    summary = json.loads(lines[-1][8:])
+    assert summary["final_loss"] == summary["final_loss"]
+    assert sum(line.startswith("gen[") for line in lines) == 2
+    kw = dict(vocab_size=32, d_model=32, n_heads=4, n_layers=2, d_ff=64)
+    dense = model_flops_per_token(tfm.TransformerConfig(**kw), 16)
+    moe = model_flops_per_token(tfm.TransformerConfig(**kw, n_experts=4), 16)
+    assert moe - dense == 3.0 * 2 * 4 * 32 * 64  # one more expert's MLP a layer
 
 
 @pytest.mark.parametrize("flags", ["--microbatches 4", "--pp-interleave 2",

@@ -28,8 +28,8 @@ replicated optimizer's. Plus: every rank issues the same number of block
 exchanges (ppermute and all-to-all, forward and backward: 2(T-1) + 2 for T
 ticks), the backward completing under the launch's timeout; the head runs
 once a forward on ceil(M/P) microbatches of rows per stage, never per tick;
-the JAX errors for indivisible layers, the interleave checks and zero with
-tp; MoE raises NotImplementedError naming step 8.
+the JAX errors for indivisible layers, the interleave checks, zero with
+tp, and zero or the overlapped sync with MoE experts over the data axis.
 """
 
 import numpy as np
@@ -341,7 +341,7 @@ def test_head_runs_once_per_microbatch_never_per_tick(ranks, case):
 def test_schedule_and_optimizer_errors_are_the_jax_texts(n_devices):
     """The JAX make_pp_train_step errors, with its texts: layers not
     divisible by pp x v, the interleaved schedule's whole groups, an unknown
-    optimizer, zero with a model axis; MoE names step 8."""
+    optimizer, zero with a model axis, zero and overlap with an expert axis."""
     import torch
 
     from distributed_neural_network_tpu_torch.models import transformer as tfm
@@ -368,8 +368,13 @@ def test_schedule_and_optimizer_errors_are_the_jax_texts(n_devices):
     both(j8, jpp.create_pp_mesh(1, 4, 1), cfg8, ProcessMesh(1, cpu, pp=4), optimizer="rmsprop")
     both(j4, jpp.create_pp_mesh(2, 2, 2), cfg4, ProcessMesh(2, cpu, pp=2, tp=2),
          optimizer="zero-adam")
-    with pytest.raises(NotImplementedError, match="step 8"):
-        tfm.TransformerConfig(**KW4, n_experts=4)
+    # MoE runs under the pipeline now (tests/test_torch_lm_moe.py); with the
+    # experts over the data axis, ZeRO and the overlapped sync are the JAX errors
+    moe, jmoe = tfm.TransformerConfig(**KW4, n_experts=4), jtfm.TransformerConfig(**KW4,
+                                                                                  n_experts=4)
+    both(jmoe, jpp.create_pp_mesh(2, 2, 1), moe, ProcessMesh(2, cpu, pp=2), optimizer="zero")
+    both(jmoe, jpp.create_pp_mesh(2, 2, 1), moe, ProcessMesh(2, cpu, pp=2),
+         grad_sync="overlap", accum_steps=2)
     with pytest.raises(ValueError, match="not both"):
         ProcessMesh(1, cpu, sp=2, pp=2)
 

@@ -5,9 +5,10 @@ corpus and --generate, which the pipeline skips as the JAX CLI does), and
 --dp 2 --pp 2 --pp-interleave 2 as four; every rank's SUMMARY line the
 same, its mesh name and pp_bubble_frac those of the JAX CLI's own SUMMARY
 line for the same flags (the JAX lm_train.py run in this process on the
-virtual CPU devices); the JAX CLI's --pp errors with its own texts; the
-port's batch check under --pp; MoE with --pp refused naming step 8; the
-guard flags still refused naming their slice.
+virtual CPU devices); the JAX CLI's --pp errors with its own texts (zero with
+experts among them); the port's batch check under --pp; --pp 2 --experts 2
+as two ranks, as the JAX CLI's SUMMARY; the guard flags still refused
+naming their slice.
 """
 
 import json
@@ -28,6 +29,8 @@ ARGS = ["--steps", "3", "--batch-size", "8", "--seq-len", "16", "--vocab", "32",
 # name -> (ranks, the flags both CLIs take)
 RUNS = {
     "pp2": (2, ["--pp", "2", "--microbatches", "2"]),
+    # MoE under --pp: the experts replicated at dp 1
+    "pp2-experts": (2, ["--pp", "2", "--microbatches", "2", "--experts", "2"]),
     "dp2pp2-v2": (4, ["--dp", "2", "--pp", "2", "--pp-interleave", "2", "--microbatches", "2"]),
 }
 
@@ -104,6 +107,7 @@ PP_ERRORS = {
     "precision": ["--pp", "2", "--precision", "int8"],
     "sp": ["--pp", "2", "--sp", "2"],
     "zero with tp": ["--pp", "2", "--tp", "2", "--optimizer", "zero"],
+    "zero with experts": ["--pp", "2", "--dp", "2", "--experts", "2", "--optimizer", "zero"],
 }
 
 
@@ -119,8 +123,7 @@ def test_pp_batch_must_split_into_the_microbatches(capsys):
     assert "--dp x --accum-steps x --microbatches (2 x 1 x 3)" in err
 
 
-@pytest.mark.parametrize("flags,match", [(["--experts", "2"], "step 8"),
-                                         (["--guard", "warn"], "slice 4")])
+@pytest.mark.parametrize("flags,match", [(["--guard", "warn"], "slice 4")])
 def test_pp_later_features_raise_naming_their_step(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         lm_train.main(["--device", "cpu"] + ARGS + ["--pp", "2"] + flags, log=lambda line: None)

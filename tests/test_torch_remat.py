@@ -110,7 +110,7 @@ def _forward_bytes(policy):
         x.requires_grad_(True)
     toks = torch.randint(0, 32, (B, 2 * S), generator=torch.Generator().manual_seed(0))
     with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
-        x = tfm.apply_hidden(params, toks, cfg, attn_impl="ring")
+        x, _ = tfm.apply_hidden(params, toks, cfg, attn_impl="ring")
     held = sum(e.self_cpu_memory_usage for e in prof.events())
     x.float().sum().backward()
     return held
@@ -142,7 +142,7 @@ def test_saved_tensor_hooks_see_only_the_checkpoint_input():
             return t
 
         with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-            y = tfm.remat_block(lambda x: tfm.transformer_block(
+            y, _ = tfm.remat_block(lambda x: tfm.transformer_block(
                 x, tfm._layer(params, 0, cfg.dtype), cfg,
                 lambda q, k, v: tfm.attention(q, k, v, causal=True)), x, cfg)
         y.sum().backward()

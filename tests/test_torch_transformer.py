@@ -110,8 +110,15 @@ def test_sampling_is_seeded_and_filters_hold(params):
 
 
 def test_later_slice_features_raise(params):
-    with pytest.raises(NotImplementedError, match="parallel-layouts slice"):
-        tfm.TransformerConfig(n_experts=2)
+    # a config with experts (tests/test_torch_lm_moe.py) takes the JAX MoE
+    # defaults and the JAX parameter skeleton
+    moe = tfm.TransformerConfig(n_experts=2)
+    jmoe = jtfm.TransformerConfig(n_experts=2)
+    for f in ("moe_top_k", "moe_capacity_factor", "moe_dispatch", "moe_z_weight"):
+        assert getattr(moe, f) == getattr(jmoe, f), f
+    assert tfm.param_skeleton(moe) == jtfm.param_skeleton(jmoe)
+    with pytest.raises(ValueError, match="moe_dispatch"):
+        tfm.TransformerConfig(n_experts=2, moe_dispatch="scatter")
     # named remat policies run now (tests/test_torch_remat.py); a factory name
     # or a name jax.checkpoint_policies lacks is refused
     tfm.TransformerConfig(remat=True, remat_policy="dots_saveable")

@@ -31,15 +31,19 @@ in-process reference). The spec:
   "layer/leaf" or "leaf"), "batches": an .npz of "tokens" and "targets"
   (steps, B, S) global batches, "cfg": TransformerConfig fields, "cases":
   [{"name", "kw" (make_lm_train_step arguments), "steps", optional "mesh"
-  [dp, sp, tp] (default [world, 1, 1]) and "cfg" (fields over the spec's)}]}:
-  each case builds the mesh over the group (`create_lm_mesh`), cuts the
-  parameters for this rank (`shard_params`), makes the optimizer state and
-  the step, feeds each step this rank's block (`distribute_host_data`;
-  under zigzag with sp > 1 the batch permuted first, as the CLI does) and
-  writes ``lm_{name}_rank{r}.npz``: the losses, the final parameters
-  ("params/<path>", gathered over the model axis: `gather_params`) and
-  optimizer state ("state/<path>", gathered likewise; this rank's shards
-  under zero), the step's bucket count, collective count and segments;
+  [dp, sp, tp] (default [world, 1, 1]), "cfg" (fields over the spec's)
+  and "eval" (true: also the eval loss)}]}: each case builds the mesh over
+  the group (`create_lm_mesh`), cuts the parameters for this rank
+  (`shard_params`), with "eval" runs `make_eval_fn` on each step's batch
+  at the initial parameters (each rank passing the rows lm_train.py gives
+  it), makes the optimizer state and the step, feeds each step this rank's
+  block (`distribute_host_data`; under zigzag with sp > 1 the batch
+  permuted first, as the CLI does) and writes ``lm_{name}_rank{r}.npz``:
+  the losses, the eval losses ("eval", empty without "eval"), the final
+  parameters ("params/<path>", gathered over the model axis:
+  `gather_params`) and optimizer state ("state/<path>", gathered
+  likewise; this rank's shards under zero), the step's bucket count,
+  collective count and segments;
 - ``pp`` (optional): {"params": {key: an .npz of a parameter tree},
   "batches": an .npz of "tokens" and "targets" (steps, B, S), "cases":
   [{"name", "kind": "loss" | "grads" | "train", "mesh": [dp, pp, tp],
@@ -50,8 +54,9 @@ in-process reference). The spec:
   its data shard: "loss" runs `pipeline_lm_loss` without gradient and sums
   the shares over (data, pipe); "grads" also runs the backward and sums the
   gradients as the step does (layer leaves over data, the others over
-  (data, pipe)), gathered over every axis (`gather_params`: the layer axis
-  in the interleaved order); "train" runs the step. Writes
+  (data, pipe), expert leaves under expert parallelism not at all),
+  gathered over every axis (`gather_params`: the layer axis in the
+  interleaved order); "train" runs the step. Writes
   ``pp_{name}_rank{r}.npz``: the losses, "grads/<path>" or the gathered
   "params/<path>" and "state/<path>" (this rank's shards under zero), the
   number of block exchanges (`collectives._exchange`: ppermute and
@@ -65,6 +70,15 @@ in-process reference). The spec:
   and the backward of sum(o * w) and writes ``attn_{name}_rank{r}.npz``
   with its shard of o and of the q, k and v gradients, or "error" (the
   text of a ValueError);
+- ``moe`` (optional): {"inputs": an .npz of the whole "x" (T, d), router
+  "wr" (d, E), experts "w1" (E, d, F), "b1", "w2", "b2" and output weights
+  "w" (T, d), "cases": [{"name", "mesh": [dp, tp], "top_k", "capacity",
+  "impl", "z"}]}: on create_lm_mesh(dp, 1, tp) each rank takes its block of
+  the tokens and of the experts (data axis) and of the hidden columns
+  (model axis), runs `moe_ffn` with the data axis as the expert axis and
+  the backward of sum(y * w) + aux, and writes ``moe_{name}_rank{r}.npz``:
+  its y, aux and the gradients (the router's summed over the data axis,
+  the rest this rank's blocks);
 - ``norms`` (optional): {"seed", "cfg"}: a seeded whole gradient tree of
   the LM's shapes (`norm_inputs`), cut for this rank of create_lm_mesh(1,
   1, world) by `shard_params`; writes ``norms_rank{r}.npz``: the
@@ -174,18 +188,25 @@ def _lm_runs(spec, rank, out):
         dp, sp, tp = case.get("mesh") or (kw.pop("dp", None) or _world(), 1, 1)
         mesh = tlm.create_lm_mesh(dp, sp, tp, device=device)
         params, specs = tlm.shard_params(tfm.from_jax_params(tree), cfg, mesh)
-        opt = kw.get("optimizer", "sgd")
-        mom = tlm.init_lm_momentum(params, opt, mesh)
-        step = tlm.make_lm_train_step(cfg, mesh=mesh, device=device, **kw)
         perm = (torch.from_numpy(zigzag_order(batches["tokens"].shape[2], sp)).long()
                 if kw.get("attn_impl") == "zigzag" and sp > 1 else None)
-        losses = []
-        for i in range(case["steps"]):
+
+        def batch(i, rows=True):
             tok, tgt = (torch.from_numpy(batches[k][i]).long() for k in ("tokens", "targets"))
             if perm is not None:
                 tok, tgt = tok[:, perm], tgt[:, perm]
-            tok, tgt = (distribute_host_data(x, mesh) for x in (tok, tgt))
-            losses.append(float(step(params, mom, tok, tgt, i)))
+            return (distribute_host_data(x, mesh, rows=rows) for x in (tok, tgt))
+
+        evals = []
+        if case.get("eval"):
+            ev = tlm.make_eval_fn(cfg, attn_impl=kw.get("attn_impl", "ring"), mesh=mesh)
+            evals = [float(ev(params, *batch(i, rows=ev.sharded_rows)))
+                     for i in range(case["steps"])]
+            del ev
+        opt = kw.get("optimizer", "sgd")
+        mom = tlm.init_lm_momentum(params, opt, mesh)
+        step = tlm.make_lm_train_step(cfg, mesh=mesh, device=device, **kw)
+        losses = [float(step(params, mom, *batch(i), i)) for i in range(case["steps"])]
         state = {k: v for k, v in mom.items() if k != "t"} if isinstance(mom, dict) else mom
         if not opt.startswith("zero"):
             leaf_specs = tlm.tree_leaves(specs)
@@ -193,7 +214,7 @@ def _lm_runs(spec, rank, out):
                      {k: tlm.gather_params(v, leaf_specs, mesh) for k, v in state.items()})
         whole = tlm.gather_params(params, specs, mesh)
         np.savez(os.path.join(out["dir"], f"lm_{case['name']}_rank{rank}.npz"),
-                 losses=np.asarray(losses, np.float64),
+                 losses=np.asarray(losses, np.float64), eval=np.asarray(evals, np.float64),
                  n_buckets=step.layout.n_buckets if step.layout is not None else 0,
                  n_collectives=len(step.collectives), segments=step.segments,
                  **{"params/" + k: v.detach().cpu().numpy() for k, v in named_leaves(whole)},
@@ -255,10 +276,11 @@ def _pp_runs(spec, rank, out):
                 if grad:
                     loss.backward()
                     grads = []
-                    for x, s in zip(leaves, tlm.tree_leaves(specs)):
+                    experts = set(tlm.expert_leaf_indices(specs))
+                    for j, (x, s) in enumerate(zip(leaves, tlm.tree_leaves(specs))):
                         g = x.grad if x.grad is not None else torch.zeros_like(x)
                         axis = mesh.data if ppl.PIPE_AXIS in tuple(s) else mesh.data_pipe
-                        if axis.group is not None:
+                        if axis.group is not None and j not in experts:
                             dist.all_reduce(g, group=axis.group)
                         grads.append(g)
                     whole = tlm.gather_params(tlm.tree_unflatten(params, grads), specs, mesh)
@@ -343,6 +365,43 @@ def _attn_runs(spec, rank, out):
         except ValueError as e:
             res = {"error": str(e)}
         np.savez(os.path.join(out["dir"], f"attn_{case['name']}_rank{rank}.npz"), **res)
+
+
+def _moe_runs(spec, rank, out):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_neural_network_tpu_torch.parallel.moe import moe_ffn
+    from distributed_neural_network_tpu_torch.train import lm as tlm
+
+    data = dict(np.load(spec["inputs"]))
+    for case in spec["cases"]:
+        dp, tp = case["mesh"]
+        mesh = tlm.create_lm_mesh(dp, 1, tp, device="cpu")
+        d_i, _, t_i = mesh.coords
+
+        def block(x, dim, n, i):
+            c = x.shape[dim] // n
+            return np.ascontiguousarray(np.take(x, range(i * c, (i + 1) * c), axis=dim))
+
+        x, w = (block(data[k], 0, dp, d_i) for k in ("x", "w"))
+        w1 = block(block(data["w1"], 0, dp, d_i), 2, tp, t_i)
+        b1 = block(block(data["b1"], 0, dp, d_i), 1, tp, t_i)
+        w2 = block(block(data["w2"], 0, dp, d_i), 1, tp, t_i)
+        b2 = block(data["b2"], 0, dp, d_i)
+        ins = [torch.from_numpy(a).requires_grad_() for a in (x, data["wr"], w1, b1, w2, b2)]
+        y, aux = moe_ffn(*ins, top_k=case["top_k"], capacity=case["capacity"],
+                         ep_axis=mesh.data if dp > 1 else None, tp_axis=mesh.tp_axis,
+                         dispatch_impl=case["impl"], z_loss_weight=case["z"])
+        ((y * torch.from_numpy(w)).sum() + aux).backward()
+        grads = [t.grad for t in ins]
+        if mesh.data.group is not None:
+            dist.all_reduce(grads[1], group=mesh.data.group)
+        np.savez(os.path.join(out["dir"], f"moe_{case['name']}_rank{rank}.npz"),
+                 y=y.detach().numpy(), aux=float(aux),
+                 **{"grad_" + k: g.numpy() for k, g in zip(("x", "wr", "w1", "b1", "w2", "b2"),
+                                                           grads)})
 
 
 def norm_inputs(seed: int, cfg_kw):
@@ -539,6 +598,8 @@ def main(spec_json: str) -> int:
             _pp_runs(spec["pp"], rank, out)
         if spec.get("attn"):
             _attn_runs(spec["attn"], rank, out)
+        if spec.get("moe"):
+            _moe_runs(spec["moe"], rank, out)
         if spec.get("norms"):
             _norm_check(spec["norms"], rank, out)
         if spec.get("buckets"):
