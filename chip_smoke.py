@@ -283,7 +283,32 @@ Phases (any failure exits non-zero and prints no result):
    64 tokens, 32 new, greedy, on the decode kernel's route: its decode
    launches the formula, all on the split route, and its tokens against
    decode_impl="torch" per token (after the same history, as phase 9) at
-   >= 0.99.
+   >= 0.99;
+29. checkpoint, resume, trace, run record (`resume_phase`): (a) the CNN
+   main path at full width with --fused --kernels cuda and
+   --failure-probability 0.5, 4 epochs against 2 with --checkpoint-dir and a
+   --resume to 4: per-epoch metrics, params and momentum (the final
+   checkpoints) bitwise, the resumed run's head launches the formula of its
+   2 epochs; (b) the flagship LM row with --attn flash, Adam and a cosine
+   schedule, graphed, 6 steps against --stop-at-step 3 and a --resume to 6:
+   losses, params and Adam state bitwise, the resumed step one graph, every
+   run's flash launches the formula of the steps it ran, all on mma; (c) the
+   same run as a subprocess sent SIGTERM once step 2 is logged: an emergency
+   checkpoint and exit 0, and the resume from it bitwise (b)'s uninterrupted
+   run; (d) --trace-out, --step-stats and --run-record on (a) and on a 6-step
+   LM run (bitwise the untraced one; ms per step tracer off / on in the same
+   call): tools/trace_summary.py reads the traces with rc 0, the records
+   read back through `utils/goodput.py` (tools/goodput.py imports the JAX
+   package, so it needs flax, which the card's machine lacks; the CPU tests
+   run it on the port's records), conserve and hold the build and captures under compile; the
+   checkpoints' save and restore seconds and bytes; a full-width server under
+   --trace-out answering 4 requests on the decode kernel, its trace (request
+   lanes and the serve record inside) read the same ways; (e) --dp 2 on
+   2 ranks sharing the card over gloo at depth 2 (`port_probes/ckpt_world.py`'s flow):
+   the resume bitwise the uninterrupted run on both ranks, the flash
+   launches the formula, the ranks' trace shards merged by
+   tools/trace_merge.py. `python3 chip_smoke.py --resume-check` runs the
+   build and this phase alone.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -357,6 +382,15 @@ FORMULA_STEPS = 4
 # capacity factor 2.0, sort dispatch, z-loss weight 0.1), this many steps
 MOE_EXPERTS, MOE_STEPS = 8, 4
 MOE_ARGS = ["--experts", str(MOE_EXPERTS)]
+# phase 29: the LM resume's optimizer and schedule (Adam's counter and the
+# schedule's step are in the checkpoint), and the CNN main path's run with
+# --fused and a fault mask (the cursor: seed and epoch)
+LM_RESUME = ["--attn", "flash", "--optimizer", "adam", "--lr-schedule", "cosine",
+             "--warmup-steps", "1"]
+RESUME_WORLD_LAYERS = 2  # phase 29(e)'s depth
+CNN_RESUME = ["--regime", "data_parallel", "--nb-proc", "4", "--kernels", "cuda", "--fused",
+              "--data", "synthetic", "--synthetic-size", "50000", "--batch-size", "16",
+              "--lr", "0.01", "--failure-probability", "0.5", "--seed", "3", "--device", "cuda"]
 SERVE_ARGS = ["--device", "cuda", "--port", "0", "--d-model", "512", "--n-layers", "8",
               "--n-heads", "8", "--d-ff", "2048", "--vocab", "256", "--dtype", "bfloat16",
               "--seed", "0", "--max-batch", "8", "--num-blocks", "129", "--block-size", "16",
@@ -507,6 +541,19 @@ def fmt(t):
 
 def ceil(a, b):
     return -(-a // b)
+
+
+def head_launches(batch, epochs):
+    """The head kernels' launches of a full-width CNN run (4 workers, 50,000
+    rows, 10,000 test rows): per epoch one forward and one backward launch
+    per step for all 4 replicas, one forward per eval batch, the reduce per
+    step where a replica's batch forms more than one group."""
+    from distributed_neural_network_tpu_torch.ops import fused_head as fh
+
+    steps = ceil(50_000 // 4, batch) * epochs
+    evals = ceil(ceil(10_000, 4), batch) * epochs
+    return {"fused_mlp3_fwd": steps + evals, "fused_mlp3_bwd": steps,
+            "fused_mlp3_bwd_reduce": steps if fh.bwd_groups(batch) > 1 else 0}
 
 
 def bound_ms(bytes_moved, flops, peak_flops=PEAK_F32_FLOPS):
@@ -1676,6 +1723,328 @@ def moe_phase(torch, fa, da, kernels, dev) -> dict:
     return moe_run
 
 
+# ------------------------------------------------------------ phase 29 helpers
+
+
+def _tool(*argv) -> subprocess.CompletedProcess:
+    """One of the repo's stdlib tools (tools/*.py) on a file of this run."""
+    return subprocess.run([sys.executable, os.path.join(ROOT, "tools", argv[0]), *argv[1:]],
+                          capture_output=True, text=True, timeout=120)
+
+
+def _record_conserves(rec) -> bool:
+    """The run record's buckets sum to its wall clock within the ledger's
+    own check (`GoodputLedger.finalize`)."""
+    total = rec["goodput_s"] + sum(rec["badput_s"].values())
+    return abs(total - rec["wall_s"]) <= max(1e-6 * max(rec["wall_s"], 1.0), 1e-9)
+
+
+def _read_record(record, what):
+    """A run record through the readers of `utils/goodput.py` (the port's
+    copy of those tools/goodput.py uses; the tool imports the JAX package,
+    so it needs flax, which the card's machine lacks): validated, rendered,
+    held to itself by `check_record`, and conserving."""
+    from distributed_neural_network_tpu_torch.utils import goodput as gp
+
+    rec = gp.read_record(record)
+    check(gp.render_record(rec) and gp.check_record(rec, rec) == [] and _record_conserves(rec),
+          f"{what}: the run record does not read back or does not conserve")
+    return rec
+
+
+def _telemetry_check(trace, record, what):
+    """A trace read by tools/trace_summary.py with rc 0 and a run record
+    read back (`_read_record`) whose compile bucket (the kernels' build and
+    the graphs' capture) is not empty."""
+    proc = _tool("trace_summary.py", trace)
+    check(proc.returncode == 0, f"{what}: tools/trace_summary.py exited {proc.returncode}: "
+          f"{proc.stderr[-1500:]}")
+    rec = _read_record(record, what)
+    check(rec["final"] and rec["badput_s"]["compile"] > 0,
+          f"{what}: no compile time in the run record")
+    return rec
+
+
+def resume_phase(torch, fa, fh, da, kernels, dev) -> dict:
+    """Phase 29 (module docstring): checkpoint, exact resume, SIGTERM,
+    telemetry and two ranks; adds the resumed paths' launches to `kernels`
+    and returns what it measured."""
+    import gc
+    import signal
+
+    import numpy as np
+
+    from distributed_neural_network_tpu_torch import lm_train
+    from distributed_neural_network_tpu_torch.serve.http import build_server, shutdown
+    from distributed_neural_network_tpu_torch.train import cli
+    from distributed_neural_network_tpu_torch.utils.checkpoint import _NpzBackend
+    from port_probes import ckpt_world as CW
+
+    out = os.path.join(ROOT, "chiprun_out", "resume")
+    ck = os.path.join(ROOT, "runs", "resume_ckpt")  # gigabytes: removed below
+    shutil.rmtree(ck, ignore_errors=True)
+    os.makedirs(out, exist_ok=True)
+    res, part_s, t_part = {}, {}, time.perf_counter()
+
+    def same_checkpoint(a, b, step):
+        """Two checkpoints' meta equal and their leaves equal bit for bit."""
+        (la, ma), (lb, mb) = (_NpzBackend(d, 3).restore(step) for d in (a, b))
+        return ma == mb and len(la) == len(lb) and all(
+            x.dtype == y.dtype and x.tobytes() == y.tobytes() for x, y in zip(la, lb))
+
+    try:
+        # (a) the CNN at full width, fused, with a fault mask: 4 epochs
+        # against 2 and a resume to 4
+        def cnn(name, epochs, *extra):
+            lines = []
+            for k in fh.LAUNCHES:
+                fh.LAUNCHES[k] = 0
+            rc = cli.main(CNN_RESUME + ["--epochs", str(epochs), "--log-dir",
+                                        os.path.join(out, "log"), "--checkpoint-dir",
+                                        os.path.join(ck, name), *extra], log=lines.append)
+            check(rc == 0, f"29(a) {name}: cli.main returned {rc}")
+            return ([l for l in lines if l.startswith(("Global", "Validation"))], lines,
+                    dict(fh.LAUNCHES))
+
+        trace_a, rec_a = os.path.join(out, "cnn_trace.json"), os.path.join(out, "cnn_record.json")
+        whole, _, _ = cnn("cnn_whole", 4)
+        first, lines_b, _ = cnn("cnn_resumed", 2, "--trace-out", trace_a, "--step-stats",
+                                "--run-record", rec_a)
+        rest, lines_c, launches_c = cnn("cnn_resumed", 4, "--resume")
+        check(first + rest == whole, f"29(a): the resumed CNN's metrics differ: {first + rest} "
+              f"/ {whole}")
+        check(same_checkpoint(os.path.join(ck, "cnn_whole"), os.path.join(ck, "cnn_resumed"), 3),
+              "29(a): the resumed CNN's params, momentum or history differ")
+        want = head_launches(16, 2)
+        check(launches_c == want, f"29(a): the resumed run's launches {launches_c} != {want}")
+        for name, count in launches_c.items():
+            kernels[name]["launches_resume"] = count
+        rec = _telemetry_check(trace_a, rec_a, "29(a)")
+        restored = next(l for l in lines_c if l.startswith("(Resumed from checkpoint"))
+        saved = next(l for l in lines_b if l.startswith("(Last checkpoint"))
+        res["cnn"] = {"bitwise": True, "launches_resumed": launches_c,
+                      "restore": restored, "save": saved,
+                      "save_events": rec["events"].get("checkpoint_save"),
+                      "record_badput": rec["badput_s"], "goodput_ratio": rec["goodput_ratio"],
+                      "step_stats": [l for l in lines_b if l.startswith("  ")]}
+        print(f"   (a) CNN, 4 epochs against 2 + --resume to 4 (50,000 rows, --fused, "
+              f"--failure-probability 0.5): per-epoch metrics, params and momentum bitwise; "
+              f"the resumed run's head launches {launches_c}; {saved}; {restored}; "
+              f"checkpoint_save events {rec['events'].get('checkpoint_save')}")
+        part_s["a"] = time.perf_counter() - t_part
+
+        # (b) the flagship LM row, flash, Adam, cosine, graphed: 6 steps
+        # against 3 and a resume to 6; (d) the same 6 steps traced
+        def lm(name, *extra):
+            lines, result = [], {}
+            for c in (fa.LAUNCHES, fa.ROUTE_LAUNCHES):
+                c.update(dict.fromkeys(c, 0))
+            rc = lm_train.main(["--device", "cuda", "--steps", str(CW.STEPS), "--log-every", "1",
+                                *LM_ARGS, *LM_RESUME, *extra], log=lines.append, result=result)
+            check(rc == 0, f"29 {name}: lm_train.main returned {rc}")
+            summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
+            row = {"losses": result["losses"], "launches": dict(fa.LAUNCHES),
+                   "routes": dict(fa.ROUTE_LAUNCHES), "summary": summary,
+                   "checkpoint": result["checkpoint"], "segments": result["step"].segments,
+                   "state": [x.detach().clone() for x in (
+                       *lm_tree(result["params"]), *result["mom"]["m"], *result["mom"]["v"])],
+                   "t": result["mom"]["t"]}
+            row["ms_per_step"] = 1e3 * summary["wall_s_post_compile"] / max(
+                summary["last_step"] - summary["start_step"], 1)
+            del result
+            gc.collect()
+            torch.cuda.empty_cache()
+            return row
+
+        def lm_tree(params):
+            from distributed_neural_network_tpu_torch.utils.tree import tree_leaves
+
+            return tree_leaves(params)
+
+        def same_state(a, b):
+            return a["t"] == b["t"] and all(torch.equal(x, y) for x, y in zip(a["state"],
+                                                                               b["state"]))
+
+        def launches_ok(row, steps, what):
+            want = flash_counts(steps)
+            check(row["launches"] == want and row["routes"] == mma_counts(want),
+                  f"{what}: flash launches {row['launches']} / {row['routes']}, want {want}")
+
+        trace_t = os.path.join(out, "lm_trace.json")
+        rec_t = os.path.join(out, "lm_record.json")
+        rows = {"whole": lm("whole")}
+        rows["traced"] = lm("traced", "--trace-out", trace_t, "--step-stats", "--run-record",
+                            rec_t)
+        rows["stopped"] = lm("stopped", "--checkpoint-dir", os.path.join(ck, "lm"),
+                             "--stop-at-step", str(CW.STOP))
+        rows["resumed"] = lm("resumed", "--checkpoint-dir", os.path.join(ck, "lm"), "--resume",
+                             "--stop-at-step", str(CW.STEPS))
+        whole_l = rows["whole"]["losses"]
+        check(rows["traced"]["losses"] == whole_l and same_state(rows["traced"], rows["whole"]),
+              "29(d): the traced LM run differs from the untraced one")
+        check(rows["stopped"]["losses"] == whole_l[:CW.STOP]
+              and rows["resumed"]["losses"] == whole_l[CW.STOP:],
+              f"29(b): losses {rows['stopped']['losses']} + {rows['resumed']['losses']} / "
+              f"{whole_l}")
+        check(same_state(rows["resumed"], rows["whole"]),
+              "29(b): the resumed LM's params or Adam state differ")
+        check(rows["resumed"]["segments"] == "graph", f"29(b): the resumed step is "
+              f"{rows['resumed']['segments']}")
+        for name, steps in (("whole", CW.STEPS), ("traced", CW.STEPS), ("stopped", CW.STOP),
+                            ("resumed", CW.STEPS - CW.STOP)):
+            launches_ok(rows[name], steps, f"29(b) {name}")
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            kernels[name]["launches_resume"] = rows["resumed"]["launches"][name]
+        rec = _telemetry_check(trace_t, rec_t, "29(d) LM")
+        res["lm"] = {"losses": whole_l, "bitwise": True,
+                     "save": rows["stopped"]["checkpoint"]["save"],
+                     "restore": rows["resumed"]["checkpoint"]["restore"],
+                     "ms_per_step": {k: rows[k]["ms_per_step"] for k in ("whole", "traced")},
+                     "record_badput": rec["badput_s"], "goodput_ratio": rec["goodput_ratio"],
+                     "launches_resumed": rows["resumed"]["launches"]}
+        sv, rs = res["lm"]["save"], res["lm"]["restore"]
+        print(f"   (b) LM flagship row, flash, Adam, cosine, graphed: 6 steps against 3 + "
+              f"--resume to 6: losses, params and Adam state bitwise, the resumed step one "
+              f"graph; flash launches at the formula of the steps run, all mma (resumed "
+              f"{rows['resumed']['launches']}); checkpoint save {sv[1]:,} B in {sv[0]:.3f} s, "
+              f"restore {rs[1]:,} B in {rs[0]:.3f} s")
+        print(f"   (d) LM tracer off / on (--trace-out --step-stats --run-record), same call: "
+              f"{rows['whole']['ms_per_step']:.2f} / {rows['traced']['ms_per_step']:.2f} ms per "
+              f"step; the traced run bitwise the untraced one; its record: goodput ratio "
+              f"{rec['goodput_ratio']}, badput {rec['badput_s']}")
+        part_s["b+d"] = time.perf_counter() - t_part - sum(part_s.values())
+
+        # (c) SIGTERM to the LM entry point as a subprocess after step 2
+        cdir = os.path.join(ck, "sigterm")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+            ROOT, os.environ.get("PYTHONPATH")])))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distributed_neural_network_tpu_torch.lm_train", "--device",
+             "cuda", "--steps", str(CW.STEPS), "--log-every", "1", *LM_ARGS, *LM_RESUME,
+             "--checkpoint-dir", cdir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+                if line.startswith("step     2"):
+                    proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        with open(os.path.join(out, "sigterm.log"), "w") as f:
+            f.write("\n".join(lines))
+        check(rc == 0, f"29(c): the preempted run exited {rc}: {lines[-20:]}")
+        summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
+        stop = summary["last_step"]
+        check(summary["preempted"] and stop < CW.STEPS - 1
+              and any(l.startswith(f"(emergency checkpoint at step {stop}") for l in lines),
+              f"29(c): no emergency checkpoint: {summary}")
+        row = lm("sigterm-resumed", "--checkpoint-dir", cdir, "--resume", "--stop-at-step",
+                 str(CW.STEPS))
+        check(row["losses"] == whole_l[stop + 1:] and same_state(row, rows["whole"]),
+              f"29(c): the resume after SIGTERM differs: {row['losses']} / {whole_l}")
+        launches_ok(row, CW.STEPS - stop - 1, "29(c) resumed")
+        res["sigterm"] = {"stopped_after": stop, "bitwise": True}
+        print(f"   (c) SIGTERM after step 2 was logged: emergency checkpoint at step {stop}, exit "
+              f"0; the resume from it bitwise the uninterrupted run")
+        del rows, row
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["c"] = time.perf_counter() - t_part - sum(part_s.values())
+
+        # (d) serving with --trace-out: a few requests through the decode kernel
+        trace_s = os.path.join(out, "serve_trace.json")
+        for c in (da.LAUNCHES, da.ROUTE_LAUNCHES):
+            c.update(dict.fromkeys(c, 0))
+        srv, sched, _ = build_server(SERVE_ARGS + ["--precision", "bf16", "--decode-impl",
+                                                   "cuda", "--trace-out", trace_s],
+                                     log=lambda line: None)
+        rng = np.random.default_rng(29)
+        try:
+            results = open_loop(srv.port, [rng.integers(0, 256, size=n).tolist()
+                                           for n in (16, 64, 128, 16)], [0.0, 0.05, 0.1, 0.15])
+        finally:
+            record = shutdown(srv, sched)
+        check(all(r["status"] == 200 and len(r["tokens"]) == MAX_NEW for r in results),
+              "29(d) serving: a request failed")
+        with open(trace_s) as f:
+            doc = json.load(f)
+        rec_s = os.path.join(out, "serve_record.json")
+        with open(rec_s, "w") as f:
+            json.dump(doc["goodput"], f)
+        proc = _tool("trace_summary.py", trace_s)
+        check(proc.returncode == 0, f"29(d) serving: tools/trace_summary.py: "
+              f"{proc.stderr[-1500:]}")
+        _read_record(rec_s, "29(d) serving")
+        lanes = {e["args"]["name"] for e in doc["traceEvents"] if e["name"] == "thread_name"}
+        decode = dict(da.LAUNCHES)
+        check(decode["decode_attention"] > 0 and record["taxonomy"] == "serve",
+              f"29(d) serving: decode launches {decode}")
+        kernels["decode_attention"]["launches_resume"] = decode["decode_attention"]
+        res["serve"] = {"lanes": sorted(lanes), "decode_launches": decode,
+                        "goodput_ratio": record["goodput_ratio"]}
+        print(f"   (d) serving, 4 requests under --trace-out: {len(lanes)} request lanes, the "
+              f"serve record embedded (goodput ratio {record['goodput_ratio']}), the trace read "
+              f"by tools/trace_summary.py, the record read back; decode launches {decode}")
+        part_s["d serve"] = time.perf_counter() - t_part - sum(part_s.values())
+
+        # (e) two ranks on the one card over gloo, --dp 2, through
+        # port_probes/ckpt_world.py's flow, at depth 2 (cut from 8: every
+        # collective crosses host memory, and each rank is a fresh process)
+        wout = os.path.join(ROOT, "runs", "ckpt_world2")
+        depth = LM_SHAPE["n_layers"] // RESUME_WORLD_LAYERS
+        ranks = CW.run_world(2, wout, LM_ARGS + ["--n-layers", str(RESUME_WORLD_LAYERS)],
+                             CW.RUNS[2], timeout=600)
+        world = CW.check(ranks, CW.RUNS[2], wout, launches=lambda name, steps: {
+            k: v // depth for k, v in flash_counts(steps).items()})
+        for name in world:
+            shutil.copy(os.path.join(wout, f"{name}_trace_merged.json"), out)
+        res["world2"] = world
+        row = world["dp2"]
+        print(f"   (e) --dp 2 on 2 ranks sharing the card (gloo), {RESUME_WORLD_LAYERS} layers: "
+              f"the resume bitwise the "
+              f"uninterrupted run on both ranks; save (s, B) per rank {row['save']}, restore "
+              f"{row['restore']}; the ranks' trace shards merged; segments "
+              f"{row['segments_resumed']}")
+        part_s["e"] = time.perf_counter() - t_part - sum(part_s.values())
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+        shutil.rmtree(os.path.join(ROOT, "runs", "ckpt_world2"), ignore_errors=True)
+    res["seconds"] = part_s
+    print(f"   parts (s): {json.dumps({k: round(v, 1) for k, v in part_s.items()})}")
+    return res
+
+
+def resume_check() -> int:
+    """`python3 chip_smoke.py --resume-check`: phase 29 alone (after the
+    kernels' build), for iterating on it; exits 1 when a gate fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    from distributed_neural_network_tpu_torch.ops import decode_attention as da
+    from distributed_neural_network_tpu_torch.ops import flash_attention as fa
+    from distributed_neural_network_tpu_torch.ops import fused_head as fh
+
+    print(run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
+    for m in (fh, da, fa):
+        m.build()
+    kernels = {k: {} for k in ("fused_mlp3_fwd", "fused_mlp3_bwd", "fused_mlp3_bwd_reduce",
+                               "flash_fwd", "flash_dq", "flash_dkv", "decode_attention")}
+    try:
+        res = resume_phase(torch, fa, fh, da, kernels, torch.device("cuda"))
+    except SmokeFailure as e:
+        print(f"resume check FAILED: {e}")
+        return 1
+    print(json.dumps({"kernels": kernels, "seconds": res["seconds"]}))
+    print("resume check passed")
+    return 0
+
+
 # -------------------------------------------------------------------- phases
 
 
@@ -1976,15 +2345,6 @@ def main() -> int:
             check(summary["final_val_acc"] is not None and summary["final_val_acc"] >= 50.0,
                   f"final_val_acc {summary['final_val_acc']} < 50")
             return r
-
-        def head_launches(batch, epochs):
-            # per epoch: one forward and one backward launch per step for all
-            # 4 replicas, one forward per eval batch, the reduce per step
-            # where a replica's batch forms more than one group
-            steps = ceil(50_000 // 4, batch) * epochs
-            evals = ceil(ceil(10_000, 4), batch) * epochs
-            return {"fused_mlp3_fwd": steps + evals, "fused_mlp3_bwd": steps,
-                    "fused_mlp3_bwd_reduce": steps if fh.bwd_groups(batch) > 1 else 0}
 
         # the checked main-path run first, then torch, then both fused
         want = head_launches(16, 2)
@@ -3349,6 +3709,10 @@ def main() -> int:
     with phase("28 LM mixture of experts"):
         moe_run = moe_phase(torch, fa, da, kernels, dev)
 
+    resume_run = {}
+    with phase("29 checkpoint, resume, trace, run record"):
+        resume_run = resume_phase(torch, fa, fh, da, kernels, dev)
+
     designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
                                  f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
                "fused_mlp3_bwd": f"one launch for all replicas, a cluster of "
@@ -3393,7 +3757,8 @@ def main() -> int:
                    "lm_profile": lm_profile, "graphs": graphs_run, "across": across,
                    "stream": stream_run,
                    "bf16": bf16_run, "data_axis": dp_run, "model_seq_axes": mesh_run,
-                   "pipeline": pp_run, "remat_policies": remat_run, "moe": moe_run}, f,
+                   "pipeline": pp_run, "remat_policies": remat_run, "moe": moe_run,
+                   "resume": resume_run}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": table}))
     print(smi)
@@ -3404,4 +3769,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(route_check() if sys.argv[1:] == ["--route-check"] else main())
+    sys.exit(route_check() if sys.argv[1:] == ["--route-check"]
+             else resume_check() if sys.argv[1:] == ["--resume-check"] else main())

@@ -58,14 +58,31 @@ fp8|int8`` quantizes the attention forward. The task is the synthetic copy
 task (a `torch.Generator` stream, not `jax.random`'s) unless ``--data-path``
 names a token corpus. Flags of later slices raise `NotImplementedError`
 naming the slice; ``--compilation-cache-dir`` is JAX-only and not a flag here.
+
+Checkpoints, as the JAX CLI's: ``--checkpoint-dir D`` saves every
+``--checkpoint-every`` steps and at the end (`utils/checkpoint.py`
+`TreeCheckpointer`, the JAX npz layout of ``{"params", "mom"}``: every rank
+gathers the whole tree, rank 0 writes); ``--resume`` restores the newest
+checkpoint into the step's own tensors and continues bit for bit (the same
+flags, the same mesh; a non-empty directory without ``--resume`` is
+refused); ``--stop-at-step N`` ends the run before step N; ``--on-sigterm
+checkpoint`` (the default) turns SIGTERM / SIGINT into an emergency
+checkpoint at the next step boundary that every rank agrees on, and a clean
+exit. Telemetry: ``--trace-out`` (one fenced ``train_step`` span a step,
+per-rank shards under torchrun), ``--step-stats``, ``--run-record`` (the
+goodput record; the GOODPUT line is printed either way) and
+``--metrics-jsonl`` (the ``train/loss`` series, and ``step/*`` with
+``--step-stats``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
+import os
 import socket
 import time
 
@@ -82,7 +99,10 @@ from .parallel.ring import zigzag_order
 from .train import lm as lmtrain
 from .train.cli import SLICE5, say
 from .train.engine import SLICE4
+from .train.guard import PreemptionGuard, check_cursor, resume_cursor
 from .train.measure import model_flops_per_token, peak_flops
+from .utils import tracing as TR
+from .utils.goodput import LEDGER, RUN_RECORD_ENV
 
 # the keys of the JAX CLI's SUMMARY line, in its order
 SUMMARY_KEYS = (
@@ -92,13 +112,17 @@ SUMMARY_KEYS = (
     "mfu_pct",
 )
 
+# the checkpoint's momentum-layout version (the JAX CLI's MOM_FORMAT)
+MOM_FORMAT = "tree"
+# the arguments that do not shape the computation: left out of the run
+# record's config fingerprint (the JAX CLI's list, and --device)
+VOLATILE_ARGS = {
+    "run_record", "metrics_port", "metrics_linger", "trace_out", "profile_dir", "metrics_jsonl",
+    "checkpoint_dir", "log_every", "device",
+}
+
 # dest -> (flag, the slice that brings it); each is parsed with default None
 LATER_FLAGS = {
-    "stop_at_step": ("--stop-at-step", SLICE4),
-    "metrics_jsonl": ("--metrics-jsonl", SLICE4),
-    "run_record": ("--run-record", SLICE4),
-    "trace_out": ("--trace-out", SLICE4),
-    "step_stats": ("--step-stats", SLICE4),
     "dynamics": ("--dynamics", SLICE4),
     "dynamics_jsonl": ("--dynamics-jsonl", SLICE4),
     "metrics_port": ("--metrics-port", SLICE4),
@@ -106,15 +130,11 @@ LATER_FLAGS = {
     "profile_dir": ("--profile-dir", SLICE4),
     "watchdog": ("--watchdog", SLICE4),
     "watchdog_escalate": ("--watchdog-escalate", SLICE4),
-    "checkpoint_dir": ("--checkpoint-dir", SLICE4),
-    "checkpoint_every": ("--checkpoint-every", SLICE4),
-    "resume": ("--resume", SLICE4),
     "elastic": ("--elastic", SLICE4),
     "guard": ("--guard", SLICE4),
     "guard_spike_zscore": ("--guard-spike-zscore", SLICE4),
     "snapshot_every": ("--snapshot-every", SLICE4),
     "max_retries": ("--max-retries", SLICE4),
-    "on_sigterm": ("--on-sigterm", SLICE4),
     "chaos_nan_step": ("--chaos-nan-step", SLICE4),
     "chaos_nan_layer": ("--chaos-nan-layer", SLICE4),
     "chaos_spike_step": ("--chaos-spike-step", SLICE4),
@@ -206,6 +226,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gen-top-p", type=float, default=0.0)
     p.add_argument("--generate", type=int, default=0, metavar="N",
                    help="after training, decode N tokens from the first two prompts")
+    p.add_argument("--stop-at-step", type=int, default=None, metavar="N",
+                   help="stop before step N (absolute, resume-aware) instead of after "
+                   "--steps more steps; the lr schedule still spans --steps")
+    p.add_argument("--metrics-jsonl", default=None,
+                   help="append the train/loss (+ val/loss on --eval-every) series to this "
+                   "JSONL file (utils/metrics.py), and step/* with --step-stats")
+    p.add_argument("--run-record", default=None, metavar="RECORD.json",
+                   help="write the goodput run record here (utils/goodput.py: goodput ratio "
+                   "+ per-cause badput seconds, config fingerprint, mesh, step/token "
+                   "counts; written through during the run; render/diff/gate with "
+                   f"tools/goodput.py). Defaults to the {RUN_RECORD_ENV} environment "
+                   "variable; the breakdown is printed as a GOODPUT line either way")
+    p.add_argument("--trace-out", default=None, metavar="TRACE.json",
+                   help="write a Chrome trace-event JSON of the run (one train_step span "
+                   "per step, fenced: the card is waited for at each step); per-rank "
+                   "shards under torchrun; summarize with tools/trace_summary.py")
+    p.add_argument("--step-stats", action="store_true",
+                   help="collect per-step StepStats (compile vs steady step time, "
+                   "tokens/s, device memory, collective bytes, MFU from the analytic "
+                   "FLOPs), print the summary, and emit step/* series to --metrics-jsonl")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save params+momentum every --checkpoint-every steps")
+    p.add_argument("--checkpoint-every", type=int, default=50)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in --checkpoint-dir")
+    p.add_argument("--on-sigterm", choices=("checkpoint", "ignore"), default="checkpoint",
+                   help="checkpoint = on SIGTERM/SIGINT finish the current step, write an "
+                   "emergency checkpoint (when --checkpoint-dir is set) and exit cleanly; "
+                   "resume replays from the exact batch, bit-identical. ignore = default "
+                   "signal behavior")
     for dest, (flag, later) in LATER_FLAGS.items():
         p.add_argument(flag, dest=dest, nargs="?", const=True, default=None,
                        help=f"not ported yet: {later}")
@@ -216,6 +266,12 @@ def validate(p: argparse.ArgumentParser, args) -> None:
     """The JAX CLI's argument checks that apply on one device."""
     if args.steps < 1:
         p.error("--steps must be >= 1")
+    if args.checkpoint_every < 1:
+        p.error("--checkpoint-every must be >= 1")
+    if args.resume and not args.checkpoint_dir:
+        p.error("--resume requires --checkpoint-dir")
+    if args.stop_at_step is not None and args.stop_at_step < 1:
+        p.error(f"--stop-at-step must be >= 1, got {args.stop_at_step}")
     if args.remat_policy and not args.remat:
         p.error("--remat-policy only applies with --remat (the policy picks WHAT checkpointed "
                 "blocks save); the name is validated against jax.checkpoint_policies after "
@@ -324,6 +380,13 @@ def main(argv=None, *, log=say, result: dict | None = None) -> int:
     args = p.parse_args(argv)
     validate(p, args)
     check_ported(args)
+    # the goodput wall clock starts before the rendezvous and the kernels'
+    # build (the init bucket holds them); one ledger per run
+    LEDGER.reset()
+    LEDGER.start()
+    record = args.run_record or os.environ.get(RUN_RECORD_ENV)
+    if record:
+        LEDGER.arm(record)
     if args.remat_policy and args.remat_policy not in tfm.REMAT_POLICIES:
         raise SystemExit(f"--remat-policy {args.remat_policy!r} is not a "
                          "jax.checkpoint_policies name")
@@ -466,20 +529,175 @@ def _train(args, mesh, log, result) -> None:
         f"grad_sync={args.grad_sync}, "
         f"device={device}{sync})")
 
+    rank = mesh.rank if mesh.joined else None
+    LEDGER.rank = rank
+    LEDGER.describe(
+        config={k: v for k, v in sorted(vars(args).items()) if k not in VOLATILE_ARGS},
+        mesh={"axes": dict(mesh.shape), "devices": mesh.world, "desc": mesh.desc,
+              "optimizer": args.optimizer},
+    )
+    tracer = TR.Tracer(enabled=bool(args.trace_out))
+    trace_out = args.trace_out
+    if rank is not None:
+        # rank-stamped process lanes and one trace shard per rank
+        tracer.set_process(rank=rank, hostname=socket.gethostname())
+        if trace_out:
+            trace_out = TR.rank_trace_path(trace_out, rank)
+            log(f"(per-rank trace shard: {trace_out})")
+    preempt = PreemptionGuard(log=log).install() if args.on_sigterm == "checkpoint" else None
+    try:
+        _steps(args, mesh, log, result, cfg=cfg, params=params, mom=mom, specs=specs,
+               step=step, rows=rows, stream=stream, batch_at=batch_at, tokens=tokens,
+               targets=targets, eval_fn=eval_fn, whole_eval=whole_eval, cards=cards,
+               tracer=tracer, trace_out=trace_out, preempt=preempt)
+    finally:
+        if preempt is not None:
+            preempt.uninstall()
+
+
+def _restore(args, ck, mesh, log, *, params, mom, specs, mom_specs) -> int:
+    """Resume from the newest checkpoint in `ck` into the step's own tensors
+    (the JAX CLI's checks of the layout and the cursor); the step to
+    continue at (0 without a checkpoint)."""
+    peek = ck.latest_meta(log=log)
+    if peek is None:
+        log(f"(WARNING: --resume found no checkpoint in {args.checkpoint_dir}; starting "
+            "from scratch)")
+        return 0
+    # the layout's checks on the newest meta, before any array is read:
+    # mom_format guards against a ZeRO layout from before the per-leaf
+    # trees; interleave permutes the layer axis, so a checkpoint of another
+    # v holds another layer order (no key: written at v 1)
+    meta = peek[1]
+    checks = [("mesh", mesh.desc), ("optimizer", args.optimizer)]
+    if args.optimizer.startswith("zero"):
+        checks.append(("mom_format", MOM_FORMAT))
+    if args.pp > 1:
+        meta.setdefault("pp_interleave", 1)
+        checks.append(("pp_interleave", args.pp_interleave))
+    for key, want in checks:
+        if meta.get(key) != want:
+            raise SystemExit(
+                f"checkpoint was written with {key}={meta.get(key)!r}, this run has "
+                f"{want!r} - momentum/param shards don't map across layouts; resume with "
+                "the original flags, or pass --elastic to reshard the checkpoint onto "
+                "this run's layout (parallel/reshard.py)"
+                + (" (or restart training: this checkpoint predates the current momentum "
+                   "layout)" if key == "mom_format" else ""))
+    template = lmtrain.checkpoint_template(params, mom, specs, mom_specs, mesh, args.optimizer)
+    state, meta, last = ck.restore_latest(template, log=log)
+    try:
+        check_cursor(meta, seed=args.seed)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    lmtrain.load_checkpoint_state(state, params, mom, specs, mom_specs, mesh, args.optimizer)
+    log(f"(Resumed from step {last}; continuing at {last + 1})")
+    return last + 1
+
+
+def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stream, batch_at,
+           tokens, targets, eval_fn, whole_eval, cards, tracer, trace_out, preempt) -> None:
+    """The training loop with its checkpoints, telemetry and close-out."""
+    from .train.elastic import lm_mesh_meta
+    from .utils.metrics import init_run
+
+    device, pipe = mesh.device, args.pp > 1
+    mom_specs = (ppl.pp_optimizer_state_specs(args.optimizer, specs) if pipe
+                 else lmtrain.optimizer_state_specs(args.optimizer, specs))
+
+    def ckpt_meta(i: int, loss_val: float) -> dict:
+        """The JAX CLI's checkpoint meta, with the exact-resume cursor (every
+        batch is a function of (seed, step)) and the save-time topology."""
+        return {"mesh": mesh.desc, "optimizer": args.optimizer, "mom_format": MOM_FORMAT,
+                "loss": loss_val, "pp_interleave": args.pp_interleave,
+                "mesh_meta": lm_mesh_meta(mesh, specs, args.optimizer, batch=args.batch_size,
+                                          accum_steps=args.accum_steps,
+                                          pp_interleave=args.pp_interleave),
+                **resume_cursor(step=i, seed=args.seed)}
+
+    def save(i: int, loss) -> None:
+        ck.save(i, lmtrain.checkpoint_state(params, mom, specs, mom_specs, mesh,
+                                            args.optimizer), ckpt_meta(i, float(loss)))
+
+    ck = None
+    step0 = 0
+    if args.checkpoint_dir:
+        from .utils.checkpoint import TreeCheckpointer
+
+        ck = TreeCheckpointer(args.checkpoint_dir)
+        if not args.resume and ck.latest_step() is not None:
+            raise SystemExit(
+                f"--checkpoint-dir {args.checkpoint_dir} already contains checkpoints "
+                f"(latest step {ck.latest_step()}); pass --resume to continue that run or "
+                "use a fresh directory (saves at existing step numbers would be silently "
+                "skipped)")
+        if args.resume:
+            step0 = _restore(args, ck, mesh, log, params=params, mom=mom, specs=specs,
+                             mom_specs=mom_specs)
+
+    run = init_run(jsonl_path=args.metrics_jsonl, rank=mesh.rank if mesh.joined else None)
+    run["parameters"] = {
+        "mesh": mesh.desc, "optimizer": args.optimizer, "lr": args.lr,
+        "lr_schedule": args.lr_schedule, "batch_size": args.batch_size,
+        "seq_len": args.seq_len, "d_model": args.d_model, "n_layers": args.n_layers,
+        "dtype": args.dtype,
+    }
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    tokens_per_step = args.batch_size * args.seq_len
+    stats = None
+    if args.trace_out or args.step_stats:
+        from .parallel.collectives import plan_buckets
+
+        # the gradient sync rides the (data, seq) axes
+        n_sync = mesh.dp * mesh.sp
+        overlap = args.grad_sync == "overlap" and args.accum_steps > 1
+        bucket_bytes = None
+        if overlap:
+            layout = plan_buckets(lmtrain.tree_leaves(params),
+                                  bucket_bytes=int(args.bucket_mb * 2**20),
+                                  group_keys=[str(x) for x in lmtrain.tree_leaves(specs)])
+            bucket_bytes = [int(b) for b in layout.bucket_bytes()]
+            comm = TR.overlapped_collective_bytes(bucket_bytes, n_sync, args.accum_steps)
+        else:
+            comm = TR.collective_bytes_per_sync(params, n_sync)
+        stats = TR.StepStats(
+            item_label="tokens", sink=run if args.step_stats else None, n_devices=cards,
+            comm_bytes_per_step=comm, grad_sync=args.grad_sync, comm_bucket_bytes=bucket_bytes,
+            flops_per_step=model_flops_per_token(cfg, args.seq_len) * tokens_per_step,
+            flops_source="analytic", peak_flops_per_device=peak_flops(kind, args.dtype))
+        if overlap and tracer.enabled:
+            TR.record_bucket_plan(
+                tracer, bucket_bytes, schedule="overlap", axis_size=n_sync,
+                op="reduce_scatter" if args.optimizer.startswith("zero") else "psum",
+                accum_steps=args.accum_steps)
+    # telemetered: every step fenced and recorded; the bare path attributes
+    # its window coarsely at the end (fencing each step would change it)
+    telemetered = stats is not None
+    run_step = (lmtrain.make_traced_step(step, tracer=tracer, step_stats=stats,
+                                         items_per_step=tokens_per_step, first_step=step0)
+                if telemetered else step)
+
     ema = ema_fn = None
     leaves = lmtrain.tree_leaves(params)
     if args.ema_decay:
+        # from the restored parameters: the average is not checkpointed
         ema_fn = make_ema_update(args.ema_decay)
         ema = [x.detach().clone() for x in leaves]
+    end_step = args.stop_at_step if args.stop_at_step is not None else step0 + args.steps
     first_loss = t0 = last_eval = None
     eval_s, timed_steps = 0.0, 0
     t_first = time.perf_counter()
     loss = None
     losses = []
-    for i in range(args.steps):
+    preempted = False
+    last_step = step0 - 1
+    saved_at = None
+    for i in range(step0, end_step):
         if stream is not None:
-            tokens, targets = rows(*batch_at(i))
-        loss = step(params, mom, tokens, targets, i)
+            # host-side sampling blocks the loop: data_wait
+            with LEDGER.interval("data_wait"):
+                tokens, targets = rows(*batch_at(i))
+        loss = run_step(params, mom, tokens, targets, i)
         if result is not None:
             losses.append(loss)
         if ema_fn is not None:
@@ -487,17 +705,22 @@ def _train(args, mesh, log, result) -> None:
         if eval_fn is not None and (i + 1) % args.eval_every == 0:
             t_ev = time.perf_counter()
             eval_params = lmtrain.tree_unflatten(params, ema) if ema is not None else params
-            # the same value on every rank (the whole held-out batch on each, or
-            # the shards' mean)
-            ev = float(np.mean([float(eval_fn(eval_params, *rows(*batch_at(j, "eval"),
-                                                                whole_batch=whole_eval)))
-                                for j in range(args.eval_batches)]))
+            # the eval program's capture is compile time
+            with (LEDGER.interval("compile") if eval_fn.program is None
+                  else contextlib.nullcontext()):
+                # the same value on every rank (the whole held-out batch on
+                # each, or the shards' mean)
+                ev = float(np.mean([float(eval_fn(eval_params,
+                                                  *rows(*batch_at(j, "eval"),
+                                                        whole_batch=whole_eval)))
+                                    for j in range(args.eval_batches)]))
             if t0 is not None:
                 eval_s += time.perf_counter() - t_ev
             last_eval = {"step": i, "eval_loss": round(ev, 4),
                          "ppl": round(float(np.exp(min(ev, 30.0))), 2)}
             log(f"step {i:>5}  eval_loss {ev:.4f}  ppl {last_eval['ppl']:.2f}")
-        if i == 0:
+            run.append("val/loss", ev)
+        if i == step0:
             first_loss = float(loss)  # waits for the step
             log(f"(first step incl. kernel build and graph capture: "
                 f"{time.perf_counter() - t_first:.1f}s)")
@@ -505,16 +728,53 @@ def _train(args, mesh, log, result) -> None:
             t0 = time.perf_counter()
         else:
             timed_steps += 1
-        if i % args.log_every == 0 or i == args.steps - 1:
+        if (i - step0) % args.log_every == 0 or i == end_step - 1:
             log(f"step {i:>5}  loss {float(loss):.4f}")
+            run.append("train/loss", float(loss))
+        if ck is not None and (i + 1) % args.checkpoint_every == 0:
+            save(i, loss)
+            saved_at = i
+        last_step = i
+        if preempt is not None and preempt.agreed():
+            preempted = True
+            if ck is not None:
+                if saved_at != i:
+                    save(i, loss)
+                    saved_at = i
+                log(f"(emergency checkpoint at step {i}; resume with --resume to continue "
+                    "bit-exactly)")
+            else:
+                log(f"({preempt.signame}: stopping after step {i}; no --checkpoint-dir, "
+                    "progress is lost)")
+            break
+    if loss is None:
+        # resumed at or past the stop step: nothing to train
+        log(f"(stop-at-step {end_step} already reached - resumed at step {step0}; nothing "
+            "to do)")
+        if ck is not None:
+            ck.close()
+        run.stop()
+        LEDGER.finalize(metrics={"last_step": step0 - 1, "nothing_to_do": True})
+        return
     final_loss = float(loss)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    if not telemetered and t0 is not None:
+        # the bare path's coarse attribution: the first step (the kernels'
+        # build and the capture) as compile, the rest as a steady fill that
+        # the checkpoint saves inside it carve out of
+        now_l, pc = LEDGER.now(), time.perf_counter()
+        LEDGER.add("compile", now_l - (pc - t_first), now_l - (pc - t0))
+        LEDGER.fill_ending_now("steady_step", max(pc - t0 - eval_s, 0.0))
+        LEDGER.note_steps(timed_steps, tokens=float(tokens_per_step * timed_steps))
+    if ck is not None:
+        if not preempted and saved_at != last_step:
+            save(last_step, loss)
+        ck.close()
     dt = _group_max(time.perf_counter() - t0 - eval_s if timed_steps else 0.0, mesh)
-    tok_s = args.batch_size * args.seq_len * timed_steps / dt if dt else 0.0
+    tok_s = tokens_per_step * timed_steps / dt if dt else 0.0
     flops_tok = model_flops_per_token(cfg, args.seq_len)
     model_flops_s = flops_tok * tok_s
-    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     peak = peak_flops(kind, args.dtype)
     mfu = model_flops_s / (peak * cards) * 100.0 if peak else None
     if mfu is not None:
@@ -540,10 +800,32 @@ def _train(args, mesh, log, result) -> None:
                        if args.gen_temperature > 0 else None))
         for j, row in enumerate(out.tolist()):
             log(f"gen[{j}] prompt={row[:half + 1]} completion={row[half + 1:]}")
+    # goodput close-out: conservation asserted, the record written when armed
+    goodput_rec = LEDGER.finalize(metrics={
+        "final_loss": final_loss, "first_loss": first_loss, "last_step": last_step,
+        "preempted": preempted, "tokens_per_s": round(tok_s),
+        "mfu_pct": round(mfu, 2) if mfu is not None else None,
+    })
+    if stats is not None:
+        stats.capture_memory(tracer)
+        if args.step_stats:
+            for line in stats.report().splitlines():
+                log(line)
+    if trace_out:
+        tracer.export(trace_out, step_stats=stats, goodput=goodput_rec)
+        log(f"(Chrome trace written to {trace_out}; open in Perfetto / chrome://tracing, or "
+            "summarize with tools/trace_summary.py)")
+    run.stop()
+    log("GOODPUT " + json.dumps({
+        "goodput_ratio": goodput_rec["goodput_ratio"], "wall_s": goodput_rec["wall_s"],
+        "goodput_s": goodput_rec["goodput_s"],
+        "badput_s": {k: v for k, v in goodput_rec["badput_s"].items() if v > 0},
+        "steps": goodput_rec["steps"], "record": LEDGER.path,
+    }))
     summary = dict.fromkeys(SUMMARY_KEYS)
     summary.update({
-        "mesh": mesh.desc, "steps": args.steps, "start_step": 0, "last_step": args.steps - 1,
-        "preempted": False, "guard": "off", "dtype": args.dtype,
+        "mesh": mesh.desc, "steps": args.steps, "start_step": step0, "last_step": last_step,
+        "preempted": preempted, "guard": "off", "dtype": args.dtype,
         # (P-1)/(v*M+P-1) of tick-time processes garbage
         "pp_bubble_frac": (round((args.pp - 1) / (args.pp_interleave * args.microbatches
                                                  + args.pp - 1), 4) if pipe else None),
@@ -558,7 +840,9 @@ def _train(args, mesh, log, result) -> None:
     log("SUMMARY " + json.dumps(summary))
     if result is not None:
         result.update(losses=[float(x) for x in losses], params=params, mom=mom, step=step,
-                      mesh=mesh, cards=cards, specs=specs)
+                      mesh=mesh, cards=cards, specs=specs, start_step=step0,
+                      checkpoint=None if ck is None else {"save": ck.last_save,
+                                                          "restore": ck.last_restore})
 
 
 if __name__ == "__main__":

@@ -46,10 +46,12 @@ def live_mask(seed: int, epoch: int, n_workers: int, failure_probability: float,
 
 
 def straggler_sleep(mask_host, failure_duration: float, *, workers=None,
-                    log=print) -> None:
+                    log=print, tracer=None) -> None:
     """Optional host-side sleep keeping the reference's straggler timing:
     one sleep per epoch in which one of `workers` (global indices; default
-    all) failed, and the same fail/wake lines per such worker."""
+    all) failed, and the same fail/wake lines per such worker. `tracer`
+    (`utils/tracing.py`) records the sleep as a ``straggler`` span on the
+    ``fault`` track."""
     if failure_duration <= 0.0:
         return
     workers = range(len(mask_host)) if workers is None else workers
@@ -58,6 +60,10 @@ def straggler_sleep(mask_host, failure_duration: float, *, workers=None,
         return
     for d in failed:
         log(f"Device {d} failed! Sleeping for {failure_duration} seconds.")
-    time.sleep(failure_duration)
+    if tracer is None:
+        from ..utils.tracing import NULL_TRACER as tracer
+    with tracer.span("straggler", track="fault", failed_devices=failed,
+                     duration_s=float(failure_duration)):
+        time.sleep(failure_duration)
     for d in failed:
         log(f"Device {d} woke up!")

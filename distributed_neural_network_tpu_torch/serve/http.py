@@ -31,6 +31,7 @@ import argparse
 import json
 import os
 import signal
+import socket
 import sys
 import threading
 from urllib.parse import parse_qs, urlsplit
@@ -40,6 +41,7 @@ import torch
 from ..device import resolve_device
 from ..models.transformer import TransformerConfig, init_params
 from ..utils.obs import MetricsRegistry, ObsServer
+from ..utils.tracing import Tracer
 from .engine import EngineConfig, ServeEngine
 from .scheduler import (
     AdmissionError,
@@ -78,6 +80,8 @@ class ServeServer:
         replica_id: str | None = None,
     ):
         self.scheduler = scheduler
+        # where `shutdown` writes the scheduler's Chrome trace (--trace-out)
+        self.trace_out: str | None = None
         self.registry = registry
         self.replica_id = replica_id
         self.obs = ObsServer(
@@ -374,7 +378,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="write the serving goodput record here (default "
                    "$DNN_TPU_RUN_RECORD)")
     p.add_argument("--trace-out", default=None,
-                   help="Chrome trace of request lanes (a later slice)")
+                   help="export a Chrome trace of per-request lifecycle lanes (one slot "
+                   "track per concurrent request, spans per cause) with the serve record "
+                   "embedded, at shutdown; summarize with tools/trace_summary.py, render "
+                   "the record with tools/goodput.py")
     p.add_argument("--request-ring", type=int, default=256,
                    help="finalized per-request records kept for "
                    "GET /v1/requests")
@@ -411,8 +418,6 @@ def build_server(argv=None, *, log=print):
         raise NotImplementedError(f"--precision int8-w (int8 weights) comes with {later}")
     if args.spec_decode:
         raise NotImplementedError(f"--spec-decode comes with {later}")
-    if args.trace_out:
-        raise NotImplementedError(f"--trace-out comes with {later} (utils/tracing.py)")
     if args.heartbeat_file:
         raise NotImplementedError(f"--heartbeat-file comes with the fleet slice, {later}")
 
@@ -433,6 +438,10 @@ def build_server(argv=None, *, log=print):
         n = engine.warmup()
         log(f"(warmup: {n} bucket programs {'captured' if engine._capture else 'run'})")
     registry = MetricsRegistry()
+    tracer = None
+    if args.trace_out:
+        tracer = Tracer().set_process(hostname=socket.gethostname(),
+                                      label=f"serve:{args.port}")
     scheduler = ServeScheduler(
         engine,
         SchedulerConfig(
@@ -443,11 +452,13 @@ def build_server(argv=None, *, log=print):
             request_ring=args.request_ring,
         ),
         registry=registry,
+        tracer=tracer,
     ).start()
     server = ServeServer(
         scheduler, registry, port=args.port, host=args.host,
         replica_id=args.replica_id,
     )
+    server.trace_out = args.trace_out
     log(
         f"serving on {server.url} "
         f"(model d{args.d_model}/L{args.n_layers}/H{args.n_heads} "
@@ -462,6 +473,19 @@ def build_server(argv=None, *, log=print):
     return server, scheduler, engine
 
 
+def shutdown(server, scheduler) -> dict:
+    """Stop the stack built by `build_server`: the scheduler (its ledger
+    finalized, every open request sealed), then the server; with
+    ``--trace-out`` the Chrome trace of the request lanes is written with
+    the serve record embedded (`Tracer.export(goodput=...)`). Returns the
+    record."""
+    record = scheduler.close()
+    server.close()
+    if server.trace_out:
+        scheduler.tracer.export(server.trace_out, goodput=record)
+    return record
+
+
 def main(argv=None) -> int:
     server, scheduler, engine = build_server(
         argv, log=lambda line: print(line, flush=True))
@@ -474,8 +498,9 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, _stop)
     while not stop.wait(0.2):
         pass
-    record = scheduler.close()
-    server.close()
+    record = shutdown(server, scheduler)
+    if server.trace_out:
+        print(f"(request trace lanes -> {server.trace_out})", flush=True)
     print("SERVE_SUMMARY " + json.dumps({
         "requests_completed": int(
             server.registry.counter("serve_requests_total")

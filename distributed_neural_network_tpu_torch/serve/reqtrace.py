@@ -1,10 +1,11 @@
 """Per-request lifecycle tracing: latency attribution for every
 request the serving stack touches.
 
-A copy of the JAX package's `serve/reqtrace.py` (stdlib only) without its
-Chrome-trace lanes and its percentile helpers, which come with the port's
-tracing (`utils/tracing.py`) and fleet slices. What follows is that
-module's note.
+A copy of the JAX package's `serve/reqtrace.py` (stdlib only): the
+records, their Chrome-trace lanes (one ``slot{N}`` track per concurrent
+request, through `utils/tracing.py`'s ``complete`` / ``instant_at``) and
+the percentile helpers (`percentile`, `clipped_causes`, `decompose`).
+What follows is that module's note.
 
 The serving ledger (`scheduler.py` + `utils/goodput.py` taxonomy
 "serve") partitions the SERVER's wall clock - it can say "the fleet
@@ -257,9 +258,10 @@ class RequestRecord:
 
 class RequestTraceRecorder:
     """Event-sources request lifecycles; bounded ring of finalized
-    records."""
+    records; optional Chrome-trace lane emission."""
 
-    def __init__(self, *, ring: int = 256, clock=time.monotonic):
+    def __init__(self, *, ring: int = 256, clock=time.monotonic,
+                 tracer=None):
         self._clock = clock
         self._lock = threading.Lock()
         self._open: dict[int, RequestRecord] = {}
@@ -270,6 +272,14 @@ class RequestTraceRecorder:
         self._by_state: dict[str, int] = {}
         self.finalized_total = 0
         self.evicted_total = 0
+        self._tracer = tracer if (
+            tracer is not None and getattr(tracer, "enabled", False)
+        ) else None
+        # recorder-clock -> tracer-clock offset (both monotonic; the
+        # delta is fixed at construction)
+        self._trace_off = (
+            self._tracer.now_s() - clock() if self._tracer else 0.0
+        )
         # per-request trace lane: lowest free slot index, freed on
         # finalize - requests stack onto slot lanes like engine slots
         self._free_lanes: list[int] = []
@@ -437,6 +447,7 @@ class RequestTraceRecorder:
                 self._by_id.pop(old.req_id, None)
                 self.evicted_total += 1
             heapq.heappush(self._free_lanes, rec.lane)
+            self._emit_trace(rec)
             return rec.detail()
 
     def finalize_all(self) -> int:
@@ -541,3 +552,82 @@ class RequestTraceRecorder:
                 f"attributed {attributed:.9f}s != lifetime {total:.9f}s "
                 f"(tolerance {tol:.2e}; spans {rec.spans!r})"
             )
+
+    def _emit_trace(self, rec: RequestRecord) -> None:
+        tr = self._tracer
+        if tr is None:
+            return
+        track = f"slot{rec.lane}"
+        off = self._trace_off
+        for cause, t0, t1 in rec.spans:
+            tr.complete(
+                cause, t0 + off, t1 + off, track=track,
+                req_id=rec.req_id, tenant=rec.tenant, state=rec.state,
+            )
+        for ep in rec.episodes:
+            tr.instant_at(
+                "preempt", rec.t_arrival + ep["t_rel"] + off, track=track,
+                req_id=rec.req_id, tokens_held=ep["tokens_held"],
+            )
+
+
+# ------------------------------------- percentile decomposition (shared)
+#
+# The canonical TTFT/E2E percentile decomposition over finalized request
+# records - ONE implementation consumed by three readers: the fleet
+# SLO readout / autoscaler (serve/fleet.py slo_readout), the offline
+# report + gates (tools/request_trace.py mirrors it stdlib-side, no
+# package import), and the serve-mode digital twin
+# (analysis/fleetsim.py), which must decompose its SIMULATED records
+# with the very arithmetic the measured ones are judged by.
+
+
+def percentile(xs, q: float):
+    """Nearest-rank percentile over unsorted samples (None if empty)."""
+    if not xs:
+        return None
+    import math
+
+    s = sorted(xs)
+    return s[max(0, math.ceil(q * len(s)) - 1)]
+
+
+def clipped_causes(rec: dict, metric: str) -> dict:
+    """Per-cause seconds of one record's spans, clipped at first-token
+    time for ``metric="ttft"`` (unclipped for ``"e2e"``). Records that
+    never produced a token have no TTFT decomposition ({})."""
+    if metric == "ttft":
+        hi = rec.get("t_first_token_rel")
+        if hi is None:
+            return {}
+    else:
+        hi = float("inf")
+    out: dict = {}
+    for cause, t0, t1 in rec.get("spans") or ():
+        lo, up = float(t0), min(float(t1), hi)
+        if up > lo:
+            out[cause] = out.get(cause, 0.0) + (up - lo)
+    return out
+
+
+def decompose(records, metric: str, q: float):
+    """Decompose one latency percentile by cause over the TAIL (records
+    at or beyond the percentile value): ``{"value", "shares",
+    "dominant"}`` or None when no record carries the metric."""
+    vals = [
+        (r, v) for r in records
+        if (v := r.get("ttft_s" if metric == "ttft" else "e2e_s"))
+        is not None
+    ]
+    if not vals:
+        return None
+    pv = percentile([v for _, v in vals], q)
+    tail = [r for r, v in vals if v >= pv - 1e-12]
+    acc: dict = {}
+    for r in tail:
+        for cause, s in clipped_causes(r, metric).items():
+            acc[cause] = acc.get(cause, 0.0) + s
+    total = sum(acc.values())
+    shares = {c: acc[c] / total for c in acc} if total > 0 else {}
+    dominant = max(shares, key=shares.get) if shares else None
+    return {"value": pv, "shares": shares, "dominant": dominant}

@@ -176,11 +176,14 @@ class ServeScheduler:
         *,
         registry=NULL_REGISTRY,
         clock=time.monotonic,
+        tracer=None,
     ):
         self.engine = engine
         self.cfg = cfg or SchedulerConfig()
         self.registry = registry
         self._clock = clock
+        # `utils/tracing.py` Tracer: each finalized request's lane
+        self.tracer = tracer
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._tenants: dict[str, deque] = {}
@@ -197,6 +200,7 @@ class ServeScheduler:
         # two accountings reconcile (tools/request_trace.py --ledger)
         self.reqtrace = RequestTraceRecorder(
             ring=self.cfg.request_ring, clock=self.ledger.now,
+            tracer=tracer,
         )
         if self.cfg.run_record:
             self.ledger.arm(self.cfg.run_record)

@@ -14,6 +14,19 @@ in host RAM and streams its batches (``--stream-prefetch`` steps ahead);
 feature this port has not reached yet are accepted and raise
 `NotImplementedError` naming the item that brings them.
 
+Checkpoints and telemetry, as the JAX CLI's: ``--checkpoint-dir D`` saves
+the engine's state every ``--checkpoint-every`` epochs (the last
+``--checkpoint-keep``; `utils/checkpoint.py`, the JAX npz layout) and
+``--resume`` continues from the newest one bit for bit; ``--on-sigterm
+checkpoint`` (the default) turns SIGTERM / SIGINT into an emergency
+checkpoint at the next epoch boundary and a clean exit. ``--trace-out``
+writes a Chrome trace (`utils/tracing.py`; per rank ``*_rank{r}.json``
+under torchrun, merged by `tools/trace_merge.py`), ``--step-stats`` prints
+the StepStats summary and streams ``step/*`` series into
+``--metrics-jsonl``, ``--run-record`` writes the goodput run record
+(`utils/goodput.py`, read by `tools/goodput.py`); the GOODPUT line is
+printed either way.
+
 Across processes, one per rank under torchrun, which sets the rendezvous
 environment (`parallel/distributed.py`):
 
@@ -29,9 +42,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import socket
 import sys
 import time
 
+import torch
 import torch.distributed as dist
 
 from ..data.cifar10 import load_split
@@ -39,26 +55,21 @@ from ..device import resolve_device
 from ..ops import fused_head
 from ..parallel.distributed import initialize, joined, rank_device
 from ..utils import timers as T
+from ..utils import tracing as TR
+from ..utils.goodput import LEDGER, RUN_RECORD_ENV
 from ..utils.logfiles import write_phase_logs
 from ..utils.metrics import init_run
 from .engine import SLICE4, Engine, TrainConfig
+from .guard import PreemptionGuard
 
 SLICE5 = "slice 5, static analysis (ROADMAP.md Queue 1 item 6)"
 
 # dest -> (flag, the slice that brings it); each is parsed with default None
 LATER_FLAGS = {
-    "checkpoint_dir": ("--checkpoint-dir", SLICE4),
-    "checkpoint_every": ("--checkpoint-every", SLICE4),
-    "checkpoint_keep": ("--checkpoint-keep", SLICE4),
-    "checkpoint_backend": ("--checkpoint-backend", SLICE4),
-    "resume": ("--resume", SLICE4),
     "elastic": ("--elastic", SLICE4),
     "guard": ("--guard", SLICE4),
-    "trace_out": ("--trace-out", SLICE4),
-    "step_stats": ("--step-stats", SLICE4),
     "metrics_port": ("--metrics-port", SLICE4),
     "profile_dir": ("--profile-dir", SLICE4),
-    "run_record": ("--run-record", SLICE4),
     "neptune": ("--neptune", SLICE4),
 }
 
@@ -137,6 +148,40 @@ def add_common_flags(p: argparse.ArgumentParser, *, epochs: int, batch_size: int
         "interleave between epochs) or --input-mode stream",
     )
     p.add_argument("--dynamics", action="store_true")
+    p.add_argument(
+        "--run-record", default=None, metavar="RECORD.json",
+        help="write the goodput run record here (utils/goodput.py: goodput ratio + per-cause "
+        "badput seconds; written through during the run; render/diff/gate with "
+        f"tools/goodput.py). Defaults to the {RUN_RECORD_ENV} environment variable; a "
+        "GOODPUT summary line is printed either way",
+    )
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save params+momentum+history at epoch edges")
+    p.add_argument("--checkpoint-every", type=int, default=1, help="epochs between saves")
+    p.add_argument("--checkpoint-keep", type=int, default=3, help="checkpoints retained")
+    p.add_argument("--checkpoint-backend", choices=("auto", "orbax", "npz"), default="auto",
+                   help="auto = npz (the JAX package's npz layout); orbax is not available "
+                   "to the port")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in --checkpoint-dir")
+    p.add_argument(
+        "--on-sigterm", choices=("checkpoint", "ignore"), default="checkpoint",
+        help="checkpoint = on SIGTERM/SIGINT finish the current epoch, write an emergency "
+        "checkpoint (when --checkpoint-dir is set) and exit cleanly for exact resume; "
+        "ignore = default signal behavior",
+    )
+    p.add_argument(
+        "--trace-out", default=None, metavar="TRACE.json",
+        help="write a Chrome trace-event JSON of the run (span per train_step/sync/eval, one "
+        "track per phase) - open in Perfetto or chrome://tracing, summarize with "
+        "tools/trace_summary.py",
+    )
+    p.add_argument(
+        "--step-stats", action="store_true",
+        help="collect per-step StepStats (compile vs steady-state step time, images/s, device "
+        "memory, collective bytes, MFU), print the summary, and emit step/* series to "
+        "--metrics-jsonl",
+    )
     for dest, (flag, later) in LATER_FLAGS.items():
         p.add_argument(flag, dest=dest, nargs="?", const=True, default=None,
                        help=f"not ported yet: {later}")
@@ -214,8 +259,18 @@ def say(line: str) -> None:
 
 def run_training(args, regime: str, *, log=say) -> Engine:
     """Join the process group if torchrun started this process, load data,
-    train, write phase logs and print the SUMMARY line."""
+    train (resuming and checkpointing as asked), write phase logs and the
+    trace, and print the GOODPUT and SUMMARY lines."""
     check_ported(args)
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
+    # the goodput wall clock starts before the rendezvous and the data load
+    # (the init bucket holds them); one ledger per run
+    LEDGER.reset()
+    LEDGER.start()
+    record = args.run_record or os.environ.get(RUN_RECORD_ENV)
+    if record:
+        LEDGER.arm(record)
     cfg = config_from_args(args, regime)
     device = resolve_device(args.device)
     rank = None
@@ -224,9 +279,31 @@ def run_training(args, regime: str, *, log=say) -> Engine:
         device, rank = rank_device(device), dist.get_rank()
         log(f"(Multi-process: rank {rank}/{dist.get_world_size()}, backend "
             f"{dist.get_backend()}, device {device})")
+    LEDGER.rank = rank
+    tracer = TR.Tracer(enabled=bool(args.trace_out))
+    trace_out = args.trace_out
+    if rank is not None:
+        # rank-stamped process lanes and one trace shard per rank
+        tracer.set_process(rank=rank, hostname=socket.gethostname())
+        if trace_out:
+            trace_out = TR.rank_trace_path(trace_out, rank)
+            log(f"(per-rank trace shard: {trace_out})")
+    preemption = None
+    if args.on_sigterm == "checkpoint":
+        preemption = PreemptionGuard(log=log).install()
+    try:
+        return _run_training_body(args, regime, log=log, cfg=cfg, device=device, rank=rank,
+                                  tracer=tracer, trace_out=trace_out, preemption=preemption)
+    finally:
+        if preemption is not None:
+            preemption.uninstall()
+
+
+def _run_training_body(args, regime, *, log, cfg, device, rank, tracer, trace_out,
+                       preemption) -> Engine:
     timers = T.PhaseTimers(device)
     syn = args.synthetic_size
-    with timers.phase(T.DATA_LOADING):
+    with tracer.span(TR.DATA_LOADING, track="host"), timers.phase(T.DATA_LOADING):
         train_split = load_split(
             True, root=args.data_root, source=args.data, seed=args.seed,
             synthetic_size=syn,
@@ -259,10 +336,105 @@ def run_training(args, regime: str, *, log=say) -> Engine:
     }
 
     t0 = time.perf_counter()
-    engine = Engine(cfg, train_split, test_split, device=device)
-    engine.run(timers=timers, run=run, log=log, eval_every=args.eval_every,
-               fused=args.fused)
+    engine = Engine(cfg, train_split, test_split, device=device, tracer=tracer)
+    LEDGER.describe(
+        config={
+            "regime": regime, "epochs": cfg.epochs, "batch_size": cfg.batch_size,
+            "lr": cfg.lr, "nb_proc": cfg.nb_proc, "sync_mode": cfg.sync_mode,
+            "seed": cfg.seed, "compute_dtype": cfg.compute_dtype,
+            "input_mode": cfg.input_mode, "kernels": cfg.kernels,
+        },
+        mesh={"axes": {"data": engine.n_workers}, "devices": engine.mesh.world,
+              "desc": f"data{engine.n_workers}", "optimizer": "sgd"},
+    )
+    stats = None
+    if args.step_stats or trace_out:
+        from .measure import peak_flops
+
+        flops, flops_src = engine.flops_per_epoch()
+        # one worker's parameters, detached: a view that tracks gradients would
+        # keep the parameters' AccumulateGrad nodes alive into the capture
+        one = [p[0].detach() for p in engine.params]
+        kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+        stats = TR.StepStats(
+            item_label="images",
+            # step/* series ride the metrics sink; without --step-stats the
+            # trace still embeds the summary
+            sink=run if args.step_stats else None,
+            n_devices=engine.mesh.world,
+            comm_bytes_per_step=TR.collective_bytes_per_sync(one, engine.n_workers),
+            flops_per_step=flops,
+            flops_source=flops_src,
+            peak_flops_per_device=peak_flops(kind, cfg.compute_dtype),
+            grad_sync=cfg.grad_sync if cfg.sync_mode == "step" else None,
+        )
+        engine.step_stats = stats
+        if cfg.sync_mode == "step" and cfg.grad_sync == "overlap":
+            # the bucket plan in-band in the trace (the collectives run
+            # inside the captured step, where no span sees them)
+            from ..parallel.collectives import plan_buckets
+
+            layout = plan_buckets(one, bucket_bytes=int(cfg.bucket_mb * 2**20))
+            stats.comm_bucket_bytes = [int(b) for b in layout.bucket_bytes()]
+            TR.record_bucket_plan(tracer, stats.comm_bucket_bytes, schedule="overlap",
+                                  op="pmean", axis_size=engine.n_workers)
+
+    checkpointer = None
+    start_epoch = 0
+    if args.checkpoint_dir:
+        from ..utils.checkpoint import Checkpointer
+
+        checkpointer = Checkpointer(args.checkpoint_dir, every=args.checkpoint_every,
+                                    keep=args.checkpoint_keep,
+                                    backend=args.checkpoint_backend)
+        if args.resume:
+            start_epoch = checkpointer.restore_latest(engine, log=log)
+            if start_epoch:
+                secs, nbytes = checkpointer.last_restore
+                log(f"(Resumed from checkpoint: next epoch {start_epoch}; read {nbytes:,} B "
+                    f"in {secs:.3f} s)")
+            else:
+                log(
+                    f"(WARNING: --resume found no checkpoint in "
+                    f"{args.checkpoint_dir} [backend={checkpointer.backend_name}]; "
+                    "starting from scratch - check the dir and "
+                    "--checkpoint-backend match the original run)"
+                )
+    try:
+        engine.run(timers=timers, run=run, log=log, eval_every=args.eval_every,
+                   fused=args.fused, checkpointer=checkpointer, start_epoch=start_epoch,
+                   preemption=preemption)
+    finally:
+        if checkpointer is not None:
+            checkpointer.close()
     wall = time.perf_counter() - t0
+    if checkpointer is not None and checkpointer.last_save is not None:
+        secs, nbytes = checkpointer.last_save
+        log(f"(Last checkpoint: {nbytes:,} B written in {secs:.3f} s)")
+    preempted = bool(preemption.requested) if preemption else False
+
+    # goodput close-out: the conservation-checked breakdown and the run record
+    goodput_rec = LEDGER.finalize(metrics={
+        "final_train_loss": engine.history[-1].train_loss if engine.history else None,
+        "final_val_acc": engine.history[-1].val_acc if engine.history else None,
+        "epochs": cfg.epochs,
+        "preempted": preempted,
+    })
+    log("GOODPUT " + json.dumps({
+        "goodput_ratio": goodput_rec["goodput_ratio"],
+        "wall_s": goodput_rec["wall_s"],
+        "goodput_s": goodput_rec["goodput_s"],
+        "badput_s": {k: v for k, v in goodput_rec["badput_s"].items() if v > 0},
+        "steps": goodput_rec["steps"],
+        "record": LEDGER.path,
+    }))
+    if stats is not None and args.step_stats:
+        for line in stats.report().splitlines():
+            log(line)
+    if trace_out:
+        tracer.export(trace_out, step_stats=stats, goodput=goodput_rec)
+        log(f"(Chrome trace written to {trace_out}; open in Perfetto / chrome://tracing, or "
+            "summarize with tools/trace_summary.py)")
     run.stop()
 
     for line in timers.report().splitlines():
@@ -289,7 +461,7 @@ def run_training(args, regime: str, *, log=say) -> Engine:
         "regime": regime,
         "epochs": cfg.epochs,
         "guard": "off",
-        "preempted": False,
+        "preempted": preempted,
         "final_train_loss": engine.history[-1].train_loss if engine.history else None,
         "final_val_acc": engine.history[-1].val_acc if engine.history else None,
         "best_val_acc": best.val_acc if best else None,

@@ -63,6 +63,7 @@ package's; `orders` and `masks` hooks let a caller inject any.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -96,6 +97,7 @@ from ..parallel.fault import live_mask, straggler_sleep
 from ..parallel.mesh import create_mesh, device_count
 from ..parallel.partition import shard_size
 from ..utils import timers as T
+from ..utils import tracing as TR
 from .graphs import Eager, Program, capture_all
 
 REGIMES = ("single", "data_parallel", "replication")
@@ -178,13 +180,26 @@ class Engine:
     """`orders(epoch, worker)` returns that worker's row order for the epoch
     (a permutation of its local rows; `worker` is the global index);
     `masks(epoch)` returns the epoch's global live mask. Both default to the
-    port's own streams; in stream mode the stream's shuffle is the order."""
+    port's own streams; in stream mode the stream's shuffle is the order.
+
+    Telemetry (the JAX engine's): `tracer` (`utils/tracing.py`) gets the
+    ``train_step`` / ``train_span``, ``sync``, ``eval`` and ``straggler``
+    spans on their tracks, each closed after the phase's fence;
+    `step_stats` one record per epoch or span (the first, which builds the
+    kernels and captures the graphs, the compile step); `ledger` (the
+    process's `utils/goodput.py` LEDGER by default, a no-op until started)
+    one step span per epoch or span, train and sync."""
 
     def __init__(self, config: TrainConfig, train_split: Split,
                  test_split: Split | None, *, device="cuda", orders=None,
-                 masks=None):
+                 masks=None, tracer=None, step_stats=None, ledger=None):
         self.config = c = config
         self.device = resolve_device(device)
+        self.tracer = tracer if tracer is not None else TR.NULL_TRACER
+        self.step_stats = step_stats
+        if ledger is None:
+            from ..utils.goodput import LEDGER as ledger
+        self.ledger = ledger
         # cuDNN runs float32 convolutions in TF32 by default (about three
         # decimal digits); the port's numbers are held to the float32
         # numpy oracle, so both TF32 switches stay off. Deterministic cuDNN
@@ -339,20 +354,56 @@ class Engine:
 
     def state_tree(self):
         """{"params", "mom"} in the JAX engine's tree form with numpy
-        leaves: the synced params (the first local worker's) and this
-        rank's workers' momentum stacked on a leading axis."""
+        leaves: the synced params (the first local worker's) and every
+        worker's momentum stacked on a leading axis (N, ...). Across ranks
+        each rank's rows are gathered (a collective: every rank calls it)."""
         state = self.net.state_dict()
         names = list(state)
         return {"params": to_jax_params({k: v[0] for k, v in state.items()}),
-                "mom": to_jax_params(dict(zip(names, self.mom)))}
+                "mom": to_jax_params(dict(zip(names, map(self._all_rows, self.mom))))}
+
+    def _all_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """This rank's (N/w, ...) rows gathered into the (N, ...) stack."""
+        g = self.mesh
+        if not g.joined:
+            return local
+        from ..parallel.collectives import all_gather, collective_form
+
+        out = torch.empty(g.size * local[0].numel(), dtype=local.dtype, device=local.device)
+        all_gather(out, local.reshape(-1), rank=g.rank, form=collective_form())
+        return out.view(g.size, *local.shape[1:])
 
     def load_state_tree(self, tree) -> None:
-        """Install a JAX-form state tree (inverse of `state_tree`)."""
+        """Install a JAX-form state tree (inverse of `state_tree`): the
+        params into every worker, and from an (N, ...) momentum stack this
+        rank's workers' rows."""
         params, mom = from_jax_params(tree["params"]), from_jax_params(tree["mom"])
+        rows = self.mesh.workers
         with torch.no_grad():
             for (name, p), m in zip(self.net.named_parameters(), self.mom):
                 p.copy_(params[name].expand_as(p))
-                m.copy_(mom[name])
+                m.copy_(mom[name][rows.start:rows.stop])
+
+    def mesh_meta(self) -> dict:
+        """The checkpoint meta's save-time topology (`parallel/reshard.py`
+        `mesh_topology`): the workers as the data axis."""
+        from ..parallel.reshard import mesh_topology
+
+        return mesh_topology(self.mesh, n_workers=self.n_workers)
+
+    @property
+    def images_per_epoch(self) -> int:
+        """Images trained on per epoch over all workers (each trains its
+        rows once; replication counts every replica's pass)."""
+        return self.local_train_rows * self.n_workers
+
+    def flops_per_epoch(self) -> tuple[float, str]:
+        """(FLOPs of one train epoch, source): the analytic LeNet count
+        (`models/cnn.py` `flops_per_image`, forward + 2x backward); PyTorch
+        has no compiled cost analysis to read instead."""
+        from ..models.cnn import flops_per_image
+
+        return 3.0 * flops_per_image() * self.images_per_epoch, "analytic"
 
     # ------------------------------------------------------------ programs
 
@@ -472,32 +523,52 @@ class Engine:
             self._step(self.steps)
             return
         # stream: each batch from pinned host memory into the static
-        # buffers, queued on the stream that then replays the step
-        for batch in self._stream_batches(epoch):
-            for dst, src in zip(self.batch, batch):
-                dst.copy_(src, non_blocking=True)
-            self._step()
+        # buffers, queued on the stream that then replays the step; the
+        # per-batch spans are not fenced (host assembly and queueing)
+        for i, batch in enumerate(self._stream_batches(epoch)):
+            with self.tracer.span(TR.TRAIN_STEP, track="train", step=i, epoch=epoch,
+                                  input_mode="stream", fenced=False,
+                                  rows=int(batch[0].shape[1])):
+                for dst, src in zip(self.batch, batch):
+                    dst.copy_(src, non_blocking=True)
+                self._step()
 
     # --------------------------------------------------------------- epochs
 
     def run_epoch(self, epoch: int, *, timers: T.PhaseTimers | None = None,
                   do_eval: bool = True, log=print) -> EpochMetrics:
         timers = timers if timers is not None else T.PhaseTimers(self.device)
+        tracer, c = self.tracer, self.config
         mask = self.epoch_mask(epoch)
-        straggler_sleep(mask, self.config.failure_duration, workers=self.mesh.workers, log=log)
-        self.compile()
-        if self._host_train is None:
-            self._load(*self.epoch_plan(epoch), torch.tensor(mask))
-        else:
-            self.mask.copy_(torch.tensor(mask))
-        with timers.phase(T.TRAINING):
-            self._train(epoch)
-        with timers.phase(T.COMMUNICATION):
-            self._sync()
+        straggler_sleep(mask, c.failure_duration, workers=self.mesh.workers, log=log,
+                        tracer=tracer)
+        # the span and the step's wall close after the phase's fence; the
+        # first epoch's hold the graphs' capture (and the kernels' build)
+        t_step = time.perf_counter()
+        with tracer.span("train_epoch" if self._host_train is not None else TR.TRAIN_STEP,
+                         track="train", step=epoch, regime=c.regime, input_mode=c.input_mode):
+            self.compile()
+            if self._host_train is None:
+                self._load(*self.epoch_plan(epoch), torch.tensor(mask))
+            else:
+                self.mask.copy_(torch.tensor(mask))
+            with timers.phase(T.TRAINING):
+                self._train(epoch)
+        if self.step_stats is not None:
+            self.step_stats.record(epoch, time.perf_counter() - t_step,
+                                   items=self.images_per_epoch)
+        with tracer.span(TR.SYNC, track="sync", step=epoch):
+            with timers.phase(T.COMMUNICATION):
+                self._sync()
+        # goodput: train and sync are the epoch's progress; eval falls to idle_other
+        self.ledger.step_span(epoch, time.perf_counter() - t_step, tokens=self.images_per_epoch)
         do_eval = do_eval and self._eval is not None
         if do_eval:
-            with timers.phase(T.EVALUATION):
-                self._eval()
+            with tracer.span(TR.EVAL, track="eval", step=epoch):
+                with timers.phase(T.EVALUATION):
+                    self._eval()
+        if self.step_stats is not None:
+            self.step_stats.capture_memory(tracer)
         train_loss, _, val_loss, val_acc = self.metrics.tolist()
         m = EpochMetrics(epoch, train_loss, val_loss if do_eval else None,
                          val_acc if do_eval else None, int(mask.sum()))
@@ -526,15 +597,24 @@ class Engine:
         w = torch.stack([w for _, w in plans]).to(self.device)
         masks_dev = torch.from_numpy(masks).to(self.device)
         out = torch.zeros(span, 4, device=self.device)
-        self.compile()
-        with timers.phase(T.TRAINING):
-            for i in range(span):
-                self._load(idx[i], w[i], masks_dev[i])
-                self._train(epochs[i])
-                self._sync()
-                if eval_inside:
-                    self._eval()
-                out[i].copy_(self.metrics)
+        t_step = time.perf_counter()
+        with self.tracer.span(TR.TRAIN_SPAN, track="train", epoch0=epoch0, span=span,
+                              eval_inside=eval_inside):
+            self.compile()
+            with timers.phase(T.TRAINING):
+                for i in range(span):
+                    self._load(idx[i], w[i], masks_dev[i])
+                    self._train(epochs[i])
+                    self._sync()
+                    if eval_inside:
+                        self._eval()
+                    out[i].copy_(self.metrics)
+        wall = time.perf_counter() - t_step
+        # one span is one record and one ledger step over its epochs
+        if self.step_stats is not None:
+            self.step_stats.record(epoch0, wall, items=span * self.images_per_epoch)
+            self.step_stats.capture_memory(self.tracer)
+        self.ledger.step_span(epoch0 + span - 1, wall, tokens=span * self.images_per_epoch)
         metrics = [
             EpochMetrics(e, tl, vl if eval_inside else None, va if eval_inside else None,
                          int(nl))
@@ -546,13 +626,20 @@ class Engine:
     # ------------------------------------------------------------------ run
 
     def run(self, *, timers: T.PhaseTimers | None = None, run=None, log=print,
-            eval_every: int = 1, fused: bool = False) -> list[EpochMetrics]:
+            eval_every: int = 1, fused: bool = False, checkpointer=None,
+            start_epoch: int = 0, preemption=None) -> list[EpochMetrics]:
         """Full training run; `run` is a MetricsRun-like sink
         (`utils/metrics.py`). `fused=True` runs multi-epoch spans
-        (`run_span`, split only at eval boundaries) instead of one read per
-        epoch; stream mode (no HBM-resident data) and straggler sleeps
-        (`failure_duration`, which can only fall between epochs) force the
-        per-epoch path, each with a line saying so."""
+        (`run_span`, split at checkpoint and eval boundaries) instead of one
+        read per epoch; stream mode (no HBM-resident data) and straggler
+        sleeps (`failure_duration`, which can only fall between epochs)
+        force the per-epoch path, each with a line saying so.
+        `checkpointer` (`utils/checkpoint.py` `Checkpointer`) saves at epoch
+        edges; `start_epoch` > 0 resumes a restored run. `preemption`
+        (`train/guard.py` `PreemptionGuard`): when its flag is up on any
+        rank at an epoch (or span) boundary, an emergency checkpoint of the
+        completed epochs is written (with a `checkpointer`) and the run
+        returns early; a resume replays the remaining epochs exactly."""
         if fused and self.config.input_mode == "stream":
             log("(fused mode needs HBM-resident data; input_mode=stream uses the "
                 "per-epoch path)")
@@ -564,32 +651,60 @@ class Engine:
             )
             fused = False
         if fused:
-            return self._run_fused(timers=timers, run=run, log=log, eval_every=eval_every)
-        for epoch in range(self.config.epochs):
+            return self._run_fused(timers=timers, run=run, log=log, eval_every=eval_every,
+                                   checkpointer=checkpointer, start_epoch=start_epoch,
+                                   preemption=preemption)
+        for epoch in range(start_epoch, self.config.epochs):
+            if preemption is not None and preemption.agreed():
+                self._emergency_save(epoch - 1, checkpointer, preemption, log)
+                break
             log(f"Starting epoch  {epoch}")
             do_eval = eval_every > 0 and (epoch + 1) % eval_every == 0
             m = self.run_epoch(epoch, timers=timers, do_eval=do_eval, log=log)
             self._log_epoch(m, run, log, start=False)
+            if checkpointer is not None:
+                checkpointer.maybe_save(epoch, self)
         return self.history
 
-    def _run_fused(self, *, timers, run, log, eval_every: int) -> list[EpochMetrics]:
+    def _emergency_save(self, last_epoch, checkpointer, preemption, log) -> None:
+        name = preemption.signame
+        if last_epoch >= 0 and checkpointer is not None:
+            checkpointer.save(last_epoch, self)
+            log(f"({name}: emergency checkpoint written at epoch {last_epoch}; resume with "
+                "--resume to continue bit-exactly)")
+        else:
+            log(f"({name}: stopping before the next epoch"
+                + ("; no checkpointer configured - progress since the last checkpoint is "
+                   "lost)" if checkpointer is None else "; nothing completed yet)"))
+
+    def _run_fused(self, *, timers, run, log, eval_every: int, checkpointer,
+                   start_epoch: int, preemption) -> list[EpochMetrics]:
         epochs = self.config.epochs
         timers = timers if timers is not None else T.PhaseTimers(self.device)
         eval_in = eval_every == 1 and self._eval is not None
-        e = 0
+        e = start_epoch
         while e < epochs:
+            if preemption is not None and preemption.agreed():
+                # span boundaries are the fused path's step boundaries
+                self._emergency_save(e - 1, checkpointer, preemption, log)
+                break
             span = epochs - e
+            if checkpointer is not None and checkpointer.every > 0:
+                span = min(span, checkpointer.every - (e % checkpointer.every))
             if eval_every > 1 and self._eval is not None:
                 span = min(span, eval_every - (e % eval_every))
             metrics = self.run_span(e, span, eval_inside=eval_in, timers=timers)
             e += span
             last = metrics[-1]
             if not eval_in and self._eval is not None and eval_every > 0 and e % eval_every == 0:
-                with timers.phase(T.EVALUATION):
-                    self._eval()
+                with self.tracer.span(TR.EVAL, track="eval", step=e - 1):
+                    with timers.phase(T.EVALUATION):
+                        self._eval()
                 last.val_loss, last.val_acc = self.metrics[2:].tolist()
             for m in metrics:
                 self._log_epoch(m, run, log, start=True)
+            if checkpointer is not None:
+                checkpointer.maybe_save(e - 1, self)
         return self.history
 
     @staticmethod

@@ -59,8 +59,9 @@ writes them into their buffers; graph and eager give the same bits.
 `_capture = False` before the first call runs the program eagerly on the
 card too. The pipeline axis's step is this one with its own loss and sync
 sets (`parallel/pipeline.py` `PPTrainStep`: `_one`, `_sync_sets`,
-`_reducer`). The guard, fault plans and dynamics come later (ROADMAP Queue
-1 item 4).
+`_reducer`). `make_traced_step` wraps either in the trace's spans,
+StepStats and the goodput ledger. The guard, fault plans and dynamics come
+later (ROADMAP Queue 1 item 4).
 
 Mixture of experts (``cfg.n_experts``): with a data axis of more than one
 rank the experts are sharded over it (`expert_axis`, the GShard convention):
@@ -78,6 +79,7 @@ JAX.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -209,6 +211,81 @@ def gather_params(params, specs, mesh: ProcessMesh):
     return tree_map(whole, params, specs)
 
 
+def _spec_axes_by_dim(spec):
+    """(dim, axis names) of each sharded dim of `spec`, the names major first."""
+    return [(dim, (entry,) if isinstance(entry, str) else tuple(entry))
+            for dim, entry in enumerate(spec) if entry is not None]
+
+
+def _checkpoint_trees(params, mom, specs, mom_specs, optimizer: str):
+    """({"mom", "params"} in the JAX trainer's form, its specs): the
+    optimizer state as trees shaped like the parameters (Adam's {"m", "t",
+    "v"} with the host counter as "t")."""
+    def form(state):
+        return tree_unflatten(params, state)
+
+    mom_tree = (form(mom) if optimizer in ("sgd", "zero")
+                else {"m": form(mom["m"]), "t": mom["t"], "v": form(mom["v"])})
+    return {"mom": mom_tree, "params": params}, {"mom": mom_specs, "params": specs}
+
+
+def checkpoint_state(params, mom, specs, mom_specs, mesh: ProcessMesh, optimizer: str) -> dict:
+    """The whole {"mom", "params"} tree a checkpoint holds, the JAX
+    trainer's (`lm_train.py` saves `{"params", "mom"}` as its host tree):
+    every sharded leaf gathered over its spec's axes (a dim over several
+    axes gathered minor axis first: the inverse of `_local_shard`), in the
+    collectives' form (`gather_dim`), so every rank must call it; Adam's
+    counter as an int32 scalar. New tensors on the mesh's device (the
+    pipeline's layers in the interleaved order, as in JAX)."""
+    def whole(x, spec):
+        if not isinstance(x, torch.Tensor):
+            return np.asarray(x, np.int32)  # Adam's counter
+        x = x.detach()
+        for dim, names in _spec_axes_by_dim(spec):
+            for a in reversed(names):
+                x = gather_dim(x, dim, mesh.axis(a))
+        return x
+
+    tree, spec_tree = _checkpoint_trees(params, mom, specs, mom_specs, optimizer)
+    return tree_map(whole, tree, spec_tree)
+
+
+def checkpoint_template(params, mom, specs, mom_specs, mesh: ProcessMesh, optimizer: str):
+    """The whole tree's leaves by shape and dtype (`utils/checkpoint.py`
+    `LeafSpec`), for a restore to validate against; no collective."""
+    from ..utils.checkpoint import LeafSpec, host_leaf
+
+    def like(x, spec):
+        if not isinstance(x, torch.Tensor):
+            return LeafSpec((), np.dtype(np.int32))
+        shape = list(x.shape)
+        for dim, names in _spec_axes_by_dim(spec):
+            for a in names:
+                shape[dim] *= mesh.axis(a).size
+        return LeafSpec(tuple(shape), host_leaf(x.detach().reshape(-1)[:0]).dtype)
+
+    tree, spec_tree = _checkpoint_trees(params, mom, specs, mom_specs, optimizer)
+    return tree_map(like, tree, spec_tree)
+
+
+@torch.no_grad()
+def load_checkpoint_state(state, params, mom, specs, mom_specs, mesh: ProcessMesh,
+                          optimizer: str) -> None:
+    """Copy a restored whole tree (numpy leaves, `checkpoint_state`'s form)
+    into this rank's parameter and optimizer-state tensors, each cut to its
+    block (`_local_shard`): the tensors a step's program was (or will be)
+    captured over stay the same objects. Adam's counter is set on the
+    host."""
+    from ..utils.checkpoint import to_torch
+
+    tree, spec_tree = _checkpoint_trees(params, mom, specs, mom_specs, optimizer)
+    for dst, src, spec in zip(tree_leaves(tree), tree_leaves(state), tree_leaves(spec_tree)):
+        if isinstance(dst, torch.Tensor):
+            dst.copy_(_local_shard(to_torch(src).to(dst.device), spec, mesh))
+    if optimizer in ("adam", "zero-adam"):
+        mom["t"] = int(state["mom"]["t"])
+
+
 EXPERT_LEAVES = ("layers/w1", "layers/b1", "layers/w2", "layers/b2")
 
 
@@ -238,6 +315,51 @@ def _named_specs(specs):
     from ..parallel.rules import named_leaves
 
     return named_leaves(specs, is_leaf=lambda s: isinstance(s, P))
+
+
+def make_traced_step(step_fn, *, tracer, step_stats=None, items_per_step: float = 0.0,
+                     fence: bool = True, first_step: int = 0, compile_first: bool = True,
+                     ledger=None):
+    """Wrap a train step (`LMTrainStep`, `PPTrainStep`: same arguments and
+    return) with span tracing, StepStats and the goodput ledger (the JAX
+    `make_traced_step`; its live-metrics registry comes with the monitor,
+    ROADMAP Queue 1 item 4, step 5).
+
+    Each call is one ``train_step`` span on the ``train`` track, step
+    numbers counted from `first_step`: a graph replay is one span.
+    ``fence=True`` waits for the card (`torch.cuda.synchronize` on the
+    loss's device) before the span closes, so the span is device time, not
+    queueing time; ``fence=False`` keeps the host ahead of the card and the
+    spans carry ``fenced: false``. `step_stats` records each call's wall
+    (the first, which builds the kernels and captures the step's graph, as
+    the compile step unless ``compile_first=False``); `ledger` (the
+    process's `utils/goodput.py` LEDGER by default) gets it as a compile /
+    steady_step interval."""
+    import itertools
+    import time
+
+    from ..utils import goodput as _goodput
+    from ..utils import tracing as _tracing
+    from ..utils.timers import fence as _fence
+
+    counter = itertools.count(first_step)
+    led = ledger if ledger is not None else _goodput.LEDGER
+    is_compile = None if compile_first else False
+
+    def traced_step(*args, **kwargs):
+        i = next(counter)
+        t0 = time.perf_counter()
+        with tracer.span(_tracing.TRAIN_STEP, track="train", step=i, fenced=fence):
+            out = step_fn(*args, **kwargs)
+            if fence:
+                _fence((out[0] if isinstance(out, tuple) else out).device)
+        dt = time.perf_counter() - t0
+        if step_stats is not None:
+            step_stats.record(i, dt, items=items_per_step, is_compile=is_compile)
+        led.step_span(i, dt, tokens=items_per_step, is_compile=is_compile)
+        return out
+
+    return traced_step
 
 
 def make_copy_task(generator: torch.Generator, *, batch: int, seq_len: int, vocab: int,

@@ -1,7 +1,8 @@
 """The port's command line (`train/cli.py`) on the CPU: a tiny synthetic run
 writes the reference's two phase-log files and a parseable SUMMARY line; the
 default device is CUDA and asking for it without a GPU fails cleanly; a flag
-of a later slice raises NotImplementedError naming the slice; `--fused` runs
+of a later slice raises NotImplementedError naming the slice, and the
+checkpoint and telemetry flags run; `--fused` runs
 multi-epoch spans with the JAX CLI's lines, and downgrades to the per-epoch
 path under `--failure-duration` with the JAX message."""
 
@@ -63,13 +64,49 @@ def test_default_device_is_cuda_and_fails_cleanly_without_it(tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume"], ["--checkpoint-dir", "ckpt"], ["--guard", "skip"], ["--trace-out", "t.json"],
-    ["--step-stats"], ["--metrics-port", "0"], ["--sharding", "auto"],
+    ["--guard", "skip"], ["--metrics-port", "0"], ["--sharding", "auto"],
     ["--dynamics"], ["--neptune"],
 ])
 def test_later_slice_flag_raises(flags):
     with pytest.raises(NotImplementedError, match="slice"):
         cli.main(["--device", "cpu", *TINY, *flags], log=lambda _: None)
+
+
+@pytest.mark.parametrize("flag", ["--resume", "--checkpoint-dir", "--trace-out",
+                                  "--step-stats"])
+def test_checkpoint_and_telemetry_flags_run(tmp_path, flag):
+    """The flags that raised until the checkpoint and tracing modules came
+    run: --checkpoint-dir writes one checkpoint an epoch; --resume over an
+    empty directory says so and trains from scratch (without the
+    directory it is the JAX CLI's error); --trace-out writes a strict
+    Chrome trace with the engine's spans; --step-stats prints the summary
+    and streams step/* series."""
+    ck, trace, jsonl = tmp_path / "ck", tmp_path / "t.json", tmp_path / "m.jsonl"
+    extra = {"--resume": ["--checkpoint-dir", str(ck), "--resume"],
+             "--checkpoint-dir": ["--checkpoint-dir", str(ck)],
+             "--trace-out": ["--trace-out", str(trace)],
+             "--step-stats": ["--step-stats", "--metrics-jsonl", str(jsonl)]}[flag]
+    lines = []
+    assert cli.main(["--device", "cpu", "--log-dir", str(tmp_path / "log"), *TINY, *extra],
+                    log=lines.append) == 0
+    assert any(l.startswith("GOODPUT ") for l in lines)
+    if flag == "--resume":
+        assert any(l.startswith("(WARNING: --resume found no checkpoint") for l in lines)
+        with pytest.raises(SystemExit, match="--resume requires --checkpoint-dir"):
+            cli.main(["--device", "cpu", *TINY, "--resume"], log=lambda _: None)
+    if flag in ("--resume", "--checkpoint-dir"):
+        assert sorted(os.listdir(ck)) == ["step_0", "step_1"]
+        meta = json.loads((ck / "step_1" / "meta.json").read_text())
+        assert meta["epoch"] == 1 and meta["n_workers"] == 2 and len(meta["history"]) == 2
+    if flag == "--trace-out":
+        doc = json.loads(trace.read_text())
+        names = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+        assert {"data_loading", "train_step", "sync", "eval"} <= names
+        assert doc["stepStats"]["steps"] == 2 and doc["goodput"]["taxonomy"] == "train"
+    if flag == "--step-stats":
+        assert any(l.startswith("Step stats (2 steps") for l in lines)
+        series = [json.loads(l)["series"] for l in jsonl.read_text().splitlines()]
+        assert series.count("step/wall_s") == 2 and "step/images_per_s" in series
 
 
 def test_quantized_precision_is_refused():

@@ -1,5 +1,6 @@
 """The port stands alone: every module of `distributed_neural_network_tpu_torch`
-(the pipeline's `parallel/pipeline.py` among them) and the probes of
+(the pipeline's `parallel/pipeline.py`, the checkpoints' and the tracing's
+among them) and the probes of
 `port_probes/` import with `jax`, `flax` and the JAX package blocked, and no
 source line of the port, of `chip_smoke.py` or of a probe imports them."""
 
@@ -26,7 +27,10 @@ def test_every_module_imports_with_jax_blocked():
     assert "distributed_neural_network_tpu_torch.ops.fused_head" in mods
     # the data axis's modules
     for m in ("parallel.rules", "parallel.zero", "parallel.partition", "parallel.collectives",
-              "parallel.pipeline", "parallel.moe", "utils.tree"):
+              "parallel.pipeline", "parallel.moe", "utils.tree",
+              # checkpoints, tracing, the goodput record, preemption
+              "utils.checkpoint", "utils.tracing", "utils.goodput", "train.guard",
+              "parallel.reshard", "train.elastic"):
         assert f"distributed_neural_network_tpu_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -72,7 +76,7 @@ def test_probes_import_with_jax_blocked_and_name_no_jax():
     26-27 and the four-card pipeline run), like every probe, import with
     the JAX package blocked, and no line of theirs imports it."""
     probes = sorted(f[:-3] for f in os.listdir(PROBES) if f.endswith(".py"))
-    assert "pp_world" in probes and "remat_policies" in probes
+    assert "pp_world" in probes and "remat_policies" in probes and "ckpt_world" in probes
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'distributed_neural_network_tpu'):\n"

@@ -3,7 +3,8 @@ distributed_neural_network_tpu_torch.lm_train`) on the CPU at a tiny width:
 its step lines, its MFU-less CPU summary with the JAX CLI's SUMMARY keys
 (read from the JAX script's source), the quantized route, the JAX CLI's
 argument errors (those of the mesh's axes held to the JAX CLI's own text), a
-NotImplementedError naming the slice for every flag of a later slice,
+NotImplementedError naming the slice for every flag of a later slice, the
+checkpoint and telemetry flags running,
 --experts training a mixture of experts, the
 pipeline's and remat policy's flags in one process (--pp N outside a group
 of N refused with the torchrun command), the data axis's flags in one
@@ -123,10 +124,8 @@ def test_flash_launch_formulas(flags, tmp_path, monkeypatch):
 LATER = {
     "--sharding auto": "item 6",
     "--guard warn": "slice 4",
-    "--checkpoint-dir ck": "slice 4", "--resume": "slice 4", "--elastic": "slice 4",
-    "--trace-out t.json": "slice 4", "--metrics-port 0": "slice 4",
-    "--metrics-jsonl m.jsonl": "slice 4", "--run-record r.json": "slice 4",
-    "--step-stats": "slice 4", "--dynamics": "slice 4", "--profile-dir p": "slice 4",
+    "--elastic": "slice 4", "--metrics-port 0": "slice 4",
+    "--dynamics": "slice 4", "--profile-dir p": "slice 4",
     "--watchdog on": "slice 4", "--chaos-nan-step 1": "slice 4",
 }
 
@@ -135,6 +134,64 @@ LATER = {
 def test_later_slice_flags_raise_naming_the_slice(flags):
     with pytest.raises(NotImplementedError, match=LATER[flags]):
         lm_train.main(TINY + flags.split(), log=lambda line: None)
+
+
+@pytest.mark.parametrize("flags", ["--checkpoint-dir ck", "--resume", "--trace-out t.json",
+                                   "--metrics-jsonl m.jsonl", "--run-record r.json",
+                                   "--step-stats"])
+def test_checkpoint_and_telemetry_flags_run(tmp_path, flags):
+    """The flags that raised until the checkpoint and tracing modules came
+    run: --checkpoint-dir saves at the end (step 2, the JAX meta keys);
+    --resume continues from it (without the directory, the JAX CLI's
+    error); --trace-out writes a strict trace of one train_step span a
+    step; --metrics-jsonl the train/loss series; --run-record the goodput
+    record; --step-stats the summary."""
+    import subprocess
+    import sys
+
+    flag, *value = flags.split()
+    path = str(tmp_path / value[0]) if value else None
+    ck = str(tmp_path / "ck")
+    args = {"--resume": ["--checkpoint-dir", ck], "--step-stats": ["--step-stats"]}.get(
+        flag, [flag, path])
+    lines = _run(TINY + args)
+    assert any(line.startswith("GOODPUT ") for line in lines)
+    summary = json.loads(next(line for line in lines if line.startswith("SUMMARY "))[8:])
+    if flag in ("--checkpoint-dir", "--resume"):
+        with open(os.path.join(ck, "step_2", "meta.json")) as f:
+            meta = json.load(f)
+        assert {"mesh", "optimizer", "mom_format", "loss", "pp_interleave", "mesh_meta",
+                "cursor"} <= set(meta) and meta["cursor"]["step"] == 2
+    if flag == "--resume":
+        with pytest.raises(SystemExit):
+            lm_train.main(TINY + ["--resume"], log=lambda line: None)
+        more = _run(TINY + ["--checkpoint-dir", ck, "--resume"])
+        assert "(Resumed from step 2; continuing at 3)" in more
+        again = json.loads(next(line for line in more if line.startswith("SUMMARY "))[8:])
+        assert again["start_step"] == 3 and again["last_step"] == 5
+    if flag == "--trace-out":
+        with open(path) as f:
+            doc = json.load(f)
+        steps = [e["args"]["step"] for e in doc["traceEvents"] if e["name"] == "train_step"]
+        assert steps == [0, 1, 2] and doc["stepStats"]["compile_steps"] == 1
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "trace_summary.py"),
+                               path], capture_output=True, text=True, timeout=60)
+        assert proc.returncode == 0, proc.stderr
+    if flag == "--metrics-jsonl":
+        with open(path) as f:
+            rows = [json.loads(line) for line in f]
+        loss = [r["value"] for r in rows if r["series"] == "train/loss"]
+        assert len(loss) == 3 and loss[0] == summary["first_loss"]
+        assert loss[-1] == summary["final_loss"]
+    if flag == "--run-record":
+        with open(path) as f:
+            rec = json.load(f)
+        # the bare path counts the steady steps (the first is the compile window)
+        assert rec["final"] and rec["taxonomy"] == "train" and rec["steps"] == 2
+        assert rec["badput_s"]["compile"] > 0 and rec["goodput_s"] > 0
+        assert rec["goodput_s"] + sum(rec["badput_s"].values()) == pytest.approx(rec["wall_s"])
+    if flag == "--step-stats":
+        assert any(line.startswith("Step stats (3 steps") for line in lines)
 
 
 def test_experts_flag_trains():

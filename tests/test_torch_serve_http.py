@@ -12,6 +12,7 @@ serving run record conserves and passes the JAX package's
 
 import http.client
 import json
+import os
 import threading
 
 import numpy as np
@@ -196,10 +197,47 @@ def test_run_record_passes_the_jax_validator(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--spec-decode", "2"], ["--precision", "int8-w"],
-                                   ["--trace-out", "t.json"], ["--heartbeat-file", "hb.json"]])
+                                   ["--heartbeat-file", "hb.json"]])
 def test_later_slice_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="slice"):
         build_server(_argv("--num-blocks", "32", *flags), log=lambda line: None)
+
+
+def test_trace_out_writes_request_lanes_with_the_record(tmp_path):
+    """--trace-out: at shutdown the Chrome trace holds a lane per concurrent
+    request (the lifecycle causes as spans) and the serve record, which
+    the JAX tools read: tools/trace_summary.py and tools/goodput.py (the
+    record taken out of the trace) exit 0."""
+    import subprocess
+    import sys
+
+    from distributed_neural_network_tpu_torch.serve.http import shutdown
+
+    path = tmp_path / "serve_trace.json"
+    srv, sched, _ = build_server(_argv("--num-blocks", "32", "--trace-out", str(path)),
+                                 log=lambda line: None)
+    try:
+        reqs = [sched.submit(ServeRequest(prompt=_prompt(700 + i, 5), max_new_tokens=4))
+                for i in range(3)]
+        for r in reqs:
+            while r.events.get(timeout=60)[0] != "done":
+                pass
+    finally:
+        rec = shutdown(srv, sched)
+    doc = json.loads(path.read_text())
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    assert {e["args"]["req_id"] for e in spans} == {r.req_id for r in reqs}
+    assert {"queue_wait", "prefill", "decode"} <= {e["name"] for e in spans}
+    lanes = {e["args"]["name"] for e in doc["traceEvents"] if e["name"] == "thread_name"}
+    assert lanes and all(name.startswith("slot") for name in lanes)
+    assert doc["goodput"] == json.loads(json.dumps(rec))
+    record = tmp_path / "record.json"
+    record.write_text(json.dumps(doc["goodput"]))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for tool, arg in (("trace_summary.py", path), ("goodput.py", record)):
+        proc = subprocess.run([sys.executable, os.path.join(root, "tools", tool), str(arg)],
+                              capture_output=True, text=True, timeout=60)
+        assert proc.returncode == 0, proc.stderr
 
 
 def test_default_device_is_cuda(monkeypatch):
