@@ -1732,23 +1732,16 @@ def _tool(*argv) -> subprocess.CompletedProcess:
                           capture_output=True, text=True, timeout=120)
 
 
-def _record_conserves(rec) -> bool:
-    """The run record's buckets sum to its wall clock within the ledger's
-    own check (`GoodputLedger.finalize`)."""
-    total = rec["goodput_s"] + sum(rec["badput_s"].values())
-    return abs(total - rec["wall_s"]) <= max(1e-6 * max(rec["wall_s"], 1.0), 1e-9)
-
-
 def _read_record(record, what):
     """A run record through the readers of `utils/goodput.py` (the port's
     copy of those tools/goodput.py uses; the tool imports the JAX package,
-    so it needs flax, which the card's machine lacks): validated, rendered,
-    held to itself by `check_record`, and conserving."""
+    so it needs flax, which the card's machine lacks): validated and
+    rendered. Its buckets sum to its wall: `GoodputLedger.finalize` asserts
+    that before it writes."""
     from distributed_neural_network_tpu_torch.utils import goodput as gp
 
     rec = gp.read_record(record)
-    check(gp.render_record(rec) and gp.check_record(rec, rec) == [] and _record_conserves(rec),
-          f"{what}: the run record does not read back or does not conserve")
+    check(bool(gp.render_record(rec)), f"{what}: the run record does not read back")
     return rec
 
 
@@ -1777,7 +1770,6 @@ def resume_phase(torch, fa, fh, da, kernels, dev) -> dict:
     from distributed_neural_network_tpu_torch import lm_train
     from distributed_neural_network_tpu_torch.serve.http import build_server, shutdown
     from distributed_neural_network_tpu_torch.train import cli
-    from distributed_neural_network_tpu_torch.utils.checkpoint import _NpzBackend
     from port_probes import ckpt_world as CW
 
     out = os.path.join(ROOT, "chiprun_out", "resume")
@@ -1786,11 +1778,13 @@ def resume_phase(torch, fa, fh, da, kernels, dev) -> dict:
     os.makedirs(out, exist_ok=True)
     res, part_s, t_part = {}, {}, time.perf_counter()
 
-    def same_checkpoint(a, b, step):
-        """Two checkpoints' meta equal and their leaves equal bit for bit."""
-        (la, ma), (lb, mb) = (_NpzBackend(d, 3).restore(step) for d in (a, b))
-        return ma == mb and len(la) == len(lb) and all(
-            x.dtype == y.dtype and x.tobytes() == y.tobytes() for x, y in zip(la, lb))
+    def same_checkpoint(a, b):
+        """Two checkpoints' leaves equal bit for bit and their meta equal."""
+        metas = []
+        for d in (a, b):
+            with open(os.path.join(d, "meta.json")) as f:
+                metas.append(json.load(f))
+        return CW._same_checkpoint(a, b) and metas[0] == metas[1]
 
     try:
         # (a) the CNN at full width, fused, with a fault mask: 4 epochs
@@ -1813,7 +1807,8 @@ def resume_phase(torch, fa, fh, da, kernels, dev) -> dict:
         rest, lines_c, launches_c = cnn("cnn_resumed", 4, "--resume")
         check(first + rest == whole, f"29(a): the resumed CNN's metrics differ: {first + rest} "
               f"/ {whole}")
-        check(same_checkpoint(os.path.join(ck, "cnn_whole"), os.path.join(ck, "cnn_resumed"), 3),
+        check(same_checkpoint(*(os.path.join(ck, n, "step_3") for n in ("cnn_whole",
+                                                                         "cnn_resumed"))),
               "29(a): the resumed CNN's params, momentum or history differ")
         want = head_launches(16, 2)
         check(launches_c == want, f"29(a): the resumed run's launches {launches_c} != {want}")

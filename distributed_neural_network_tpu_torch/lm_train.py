@@ -698,6 +698,9 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
             with LEDGER.interval("data_wait"):
                 tokens, targets = rows(*batch_at(i))
         loss = run_step(params, mom, tokens, targets, i)
+        # the ranks agree on a stop while the card runs the step just
+        # launched (a host-side all-reduce: it waits for no card)
+        stop = preempt is not None and preempt.agreed()
         if result is not None:
             losses.append(loss)
         if ema_fn is not None:
@@ -735,7 +738,7 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
             save(i, loss)
             saved_at = i
         last_step = i
-        if preempt is not None and preempt.agreed():
+        if stop:
             preempted = True
             if ck is not None:
                 if saved_at != i:

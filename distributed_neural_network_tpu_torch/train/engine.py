@@ -98,6 +98,7 @@ from ..parallel.mesh import create_mesh, device_count
 from ..parallel.partition import shard_size
 from ..utils import timers as T
 from ..utils import tracing as TR
+from ..utils.goodput import LEDGER
 from .graphs import Eager, Program, capture_all
 
 REGIMES = ("single", "data_parallel", "replication")
@@ -184,22 +185,19 @@ class Engine:
 
     Telemetry (the JAX engine's): `tracer` (`utils/tracing.py`) gets the
     ``train_step`` / ``train_span``, ``sync``, ``eval`` and ``straggler``
-    spans on their tracks, each closed after the phase's fence;
-    `step_stats` one record per epoch or span (the first, which builds the
-    kernels and captures the graphs, the compile step); `ledger` (the
-    process's `utils/goodput.py` LEDGER by default, a no-op until started)
-    one step span per epoch or span, train and sync."""
+    spans on their tracks, each closed after the phase's fence; a
+    `StepStats` set as ``engine.step_stats`` one record per epoch or span
+    (the first, which builds the kernels and captures the graphs, the
+    compile step); the process's `utils/goodput.py` LEDGER (a no-op until
+    started) one step span per epoch or span, train and sync."""
 
     def __init__(self, config: TrainConfig, train_split: Split,
                  test_split: Split | None, *, device="cuda", orders=None,
-                 masks=None, tracer=None, step_stats=None, ledger=None):
+                 masks=None, tracer=None):
         self.config = c = config
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else TR.NULL_TRACER
-        self.step_stats = step_stats
-        if ledger is None:
-            from ..utils.goodput import LEDGER as ledger
-        self.ledger = ledger
+        self.step_stats = None
         # cuDNN runs float32 convolutions in TF32 by default (about three
         # decimal digits); the port's numbers are held to the float32
         # numpy oracle, so both TF32 switches stay off. Deterministic cuDNN
@@ -561,7 +559,7 @@ class Engine:
             with timers.phase(T.COMMUNICATION):
                 self._sync()
         # goodput: train and sync are the epoch's progress; eval falls to idle_other
-        self.ledger.step_span(epoch, time.perf_counter() - t_step, tokens=self.images_per_epoch)
+        LEDGER.step_span(epoch, time.perf_counter() - t_step, tokens=self.images_per_epoch)
         do_eval = do_eval and self._eval is not None
         if do_eval:
             with tracer.span(TR.EVAL, track="eval", step=epoch):
@@ -614,7 +612,7 @@ class Engine:
         if self.step_stats is not None:
             self.step_stats.record(epoch0, wall, items=span * self.images_per_epoch)
             self.step_stats.capture_memory(self.tracer)
-        self.ledger.step_span(epoch0 + span - 1, wall, tokens=span * self.images_per_epoch)
+        LEDGER.step_span(epoch0 + span - 1, wall, tokens=span * self.images_per_epoch)
         metrics = [
             EpochMetrics(e, tl, vl if eval_inside else None, va if eval_inside else None,
                          int(nl))

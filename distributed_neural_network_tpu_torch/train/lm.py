@@ -318,23 +318,19 @@ def _named_specs(specs):
 
 
 def make_traced_step(step_fn, *, tracer, step_stats=None, items_per_step: float = 0.0,
-                     fence: bool = True, first_step: int = 0, compile_first: bool = True,
-                     ledger=None):
+                     first_step: int = 0):
     """Wrap a train step (`LMTrainStep`, `PPTrainStep`: same arguments and
     return) with span tracing, StepStats and the goodput ledger (the JAX
     `make_traced_step`; its live-metrics registry comes with the monitor,
     ROADMAP Queue 1 item 4, step 5).
 
     Each call is one ``train_step`` span on the ``train`` track, step
-    numbers counted from `first_step`: a graph replay is one span.
-    ``fence=True`` waits for the card (`torch.cuda.synchronize` on the
-    loss's device) before the span closes, so the span is device time, not
-    queueing time; ``fence=False`` keeps the host ahead of the card and the
-    spans carry ``fenced: false``. `step_stats` records each call's wall
-    (the first, which builds the kernels and captures the step's graph, as
-    the compile step unless ``compile_first=False``); `ledger` (the
-    process's `utils/goodput.py` LEDGER by default) gets it as a compile /
-    steady_step interval."""
+    numbers counted from `first_step`: a graph replay is one span. The span
+    closes after a wait for the card (`torch.cuda.synchronize` on the
+    loss's device), so it is device time, not queueing time. `step_stats`
+    records each call's wall (the first, which builds the kernels and
+    captures the step's graph, as the compile step), and the process's
+    `utils/goodput.py` LEDGER gets it as a compile / steady_step interval."""
     import itertools
     import time
 
@@ -343,20 +339,17 @@ def make_traced_step(step_fn, *, tracer, step_stats=None, items_per_step: float 
     from ..utils.timers import fence as _fence
 
     counter = itertools.count(first_step)
-    led = ledger if ledger is not None else _goodput.LEDGER
-    is_compile = None if compile_first else False
 
     def traced_step(*args, **kwargs):
         i = next(counter)
         t0 = time.perf_counter()
-        with tracer.span(_tracing.TRAIN_STEP, track="train", step=i, fenced=fence):
+        with tracer.span(_tracing.TRAIN_STEP, track="train", step=i, fenced=True):
             out = step_fn(*args, **kwargs)
-            if fence:
-                _fence((out[0] if isinstance(out, tuple) else out).device)
+            _fence((out[0] if isinstance(out, tuple) else out).device)
         dt = time.perf_counter() - t0
         if step_stats is not None:
-            step_stats.record(i, dt, items=items_per_step, is_compile=is_compile)
-        led.step_span(i, dt, tokens=items_per_step, is_compile=is_compile)
+            step_stats.record(i, dt, items=items_per_step)
+        _goodput.LEDGER.step_span(i, dt, tokens=items_per_step)
         return out
 
     return traced_step

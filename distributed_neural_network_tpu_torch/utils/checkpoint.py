@@ -83,6 +83,14 @@ def host_leaf(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def tree_nbytes(leaves) -> int:
+    """The bytes a checkpoint of these leaves holds (a bf16 leaf two an
+    element, as `host_leaf` stores it), read off the leaves without a copy:
+    the ranks that do not write count their save by it."""
+    return sum(int(x.nbytes) if hasattr(x, "nbytes") else np.asarray(x).nbytes
+               for x in leaves)
+
+
 def _template_dtype(ref) -> np.dtype:
     """The numpy dtype a leaf of the template's is stored as."""
     import torch
@@ -311,12 +319,12 @@ class TreeCheckpointer:
         # the whole save (host copies + write) blocks the step loop:
         # checkpoint_save badput on the goodput ledger
         t0 = time.perf_counter()
+        leaves = tree_leaves(state)
         with ledger_interval("checkpoint_save"):
-            leaves = [host_leaf(x) for x in tree_leaves(state)]
             if _is_writer_rank():
-                self._b.save(step, leaves, meta or {})
+                self._b.save(step, [host_leaf(x) for x in leaves], meta or {})
             _barrier()
-        self.last_save = (time.perf_counter() - t0, sum(x.nbytes for x in leaves))
+        self.last_save = (time.perf_counter() - t0, tree_nbytes(leaves))
         self._metrics.saved(step)
 
     def latest_step(self):
@@ -393,7 +401,7 @@ class Checkpointer:
 
         t0 = time.perf_counter()
         with ledger_interval("checkpoint_save"):
-            leaves = [host_leaf(x) for x in tree_leaves(engine.state_tree())]
+            leaves = tree_leaves(engine.state_tree())
             meta = {
                 "epoch": epoch,
                 "n_workers": engine.n_workers,
@@ -407,9 +415,9 @@ class Checkpointer:
                 **resume_cursor(step=epoch, seed=engine.config.seed),
             }
             if _is_writer_rank():
-                self._b.save(epoch, leaves, meta)
+                self._b.save(epoch, [host_leaf(x) for x in leaves], meta)
             _barrier()
-        self.last_save = (time.perf_counter() - t0, sum(x.nbytes for x in leaves))
+        self.last_save = (time.perf_counter() - t0, tree_nbytes(leaves))
         self._metrics.saved(epoch)
 
     # --------------------------------------------------------------- restore

@@ -22,7 +22,9 @@ equal leaf for leaf; the resumed run's mesh and start step; optionally each
 rank's flash launches at a formula. Per run: the checkpoint's save and
 restore seconds and bytes (rank 0), the step's segments after the restore,
 and the stopped run's per-rank trace shards, merged by
-`tools/trace_merge.py`.
+`tools/trace_merge.py`. WORLD 4 then times AB_RUNS with the ranks agreeing
+on the preemption flag at every step and without (`check_ab`: the losses
+equal, ms a step by mode).
 
 Prints the cards' names and power limits first; exits 1 if a check fails.
 The rank side is this file run with a JSON spec (`rank_main`). Its flow
@@ -52,6 +54,17 @@ RUNS = {
         ("dp2pp2-v2", ["--dp", "2", "--pp", "2", "--pp-interleave", "2", "--microbatches", "4",
                        "--attn", "ring"] + ADAM)),
 }
+
+
+# world 4 also times a step with the ranks agreeing on the preemption flag
+# at every step (--on-sigterm checkpoint, the default) and without (ignore),
+# in the order on, off, off, on, at the rows of lm_dp_world.py (dp 4),
+# lm_mesh_world.py (tp 4) and pp_world.py (pp 4, M 4); at their --log-every
+AB_STEPS = 21
+AB_ORDER = ("checkpoint", "ignore", "ignore", "checkpoint")
+AB_RUNS = (("dp4", ["--dp", "4", "--attn", "flash"]),
+           ("tp4", ["--tp", "4", "--attn", "flash"]),
+           ("pp4-m4", ["--pp", "4", "--microbatches", "4", "--attn", "ring"]))
 
 
 def _argv(lm_args, device, extra, *more):
@@ -97,6 +110,21 @@ def rank_main(spec: dict) -> int:
                     os.path.join(dirs["whole"], f"step_{STEPS - 1}"),
                     os.path.join(dirs["stopped"], f"step_{STEPS - 1}"))
             info["runs"][name] = rec
+        info["ab"] = {}
+        for name, extra in spec.get("ab", ()):
+            rows = []
+            for mode in AB_ORDER:
+                lines, res = [], {}
+                lm_train.main(["--device", device, "--steps", str(AB_STEPS), "--log-every", "10",
+                               *spec["lm_args"], *extra, "--on-sigterm", mode],
+                              log=lines.append, result=res)
+                summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
+                rows.append({"on_sigterm": mode, "losses": res["losses"],
+                             "ms_per_step": 1e3 * summary["wall_s_post_compile"]
+                             / (AB_STEPS - 1)})
+                del res
+                gc.collect()
+            info["ab"][name] = rows
     finally:
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(info, f)
@@ -114,14 +142,17 @@ def _same_checkpoint(a: str, b: str) -> bool:
             x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes() for k in x.files)
 
 
-def run_world(world: int, out: str, lm_args, runs, *, device="cuda", timeout=900, env=None):
-    """Launch the ranks (tests/torch_rank_worker.py `launch`) over `runs`:
-    every rank's record, or a RuntimeError with the failing rank's errors."""
+def run_world(world: int, out: str, lm_args, runs, *, device="cuda", timeout=900, env=None,
+              ab=()):
+    """Launch the ranks (tests/torch_rank_worker.py `launch`) over `runs`
+    (and the A/B runs `ab`): every rank's record, or a RuntimeError with
+    the failing rank's errors."""
     from torch_rank_worker import launch
 
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
-    spec = {"device": device, "out": out, "lm_args": list(lm_args), "runs": [list(r) for r in runs]}
+    spec = {"device": device, "out": out, "lm_args": list(lm_args), "runs": [list(r) for r in runs],
+            "ab": [list(r) for r in ab]}
     procs = launch(world, spec, timeout=timeout, env=env, script=os.path.abspath(__file__))
     for r, p in enumerate(procs):
         with open(os.path.join(out, f"rank{r}.log"), "w") as f:
@@ -179,6 +210,20 @@ def check(ranks, runs, out, *, launches=None, one_graph=False) -> dict:
     return result
 
 
+def check_ab(ranks) -> dict:
+    """The A/B runs: every rank's losses the same in every run of a row
+    (the flag changes no number); returns each row's ms a step by mode, in
+    run order (the SUMMARY wall is the slowest rank's, so rank 0's)."""
+    result = {}
+    for name, rows in ranks[0]["ab"].items():
+        for r in ranks:
+            assert all(row["losses"] == rows[0]["losses"] for row in r["ab"][name]), (
+                f"A/B {name}: the losses differ between runs or ranks")
+        result[name] = {mode: [row["ms_per_step"] for row in rows if row["on_sigterm"] == mode]
+                        for mode in dict.fromkeys(AB_ORDER)}
+    return result
+
+
 def main(world: int) -> int:
     from chip_smoke import LM_ARGS
 
@@ -187,8 +232,11 @@ def main(world: int) -> int:
     out = os.path.join(ROOT, "chiprun_out", f"ckpt_world{world}")
     t0 = time.perf_counter()
     try:
-        ranks = run_world(world, out, LM_ARGS, RUNS[world], timeout=1500)
+        ab = AB_RUNS if world == 4 else ()
+        ranks = run_world(world, out, LM_ARGS, RUNS[world], timeout=1500, ab=ab)
         res = check(ranks, RUNS[world], out, one_graph=world == 4)
+        if ab:
+            res["on_sigterm_ab"] = check_ab(ranks)
     except (AssertionError, RuntimeError) as e:
         print(f"FAILED: {e}")
         return 1

@@ -386,8 +386,10 @@ def test_lm_cli_stop_and_resume_is_bitwise(tmp_path):
 
 def test_sigterm_writes_an_emergency_checkpoint_and_the_resume_is_exact(tmp_path):
     """A real SIGTERM, delivered to this process as step 1 is logged: the
-    loop finishes the step, writes an emergency checkpoint and stops; the
-    resume continues the uninterrupted run bit for bit."""
+    flag is read when the next step is launched (the ranks agree on it
+    while the card runs that step), so the loop finishes step 2, writes an
+    emergency checkpoint and stops; the resume continues the uninterrupted
+    run bit for bit."""
     whole, _ = _lm()
 
     def kill_at_step_1(line):
@@ -397,7 +399,7 @@ def test_sigterm_writes_an_emergency_checkpoint_and_the_resume_is_exact(tmp_path
     handler = signal.getsignal(signal.SIGTERM)
     first, s1 = _lm("--checkpoint-dir", str(tmp_path), log=kill_at_step_1)
     assert signal.getsignal(signal.SIGTERM) is handler  # put back
-    assert s1["preempted"] and s1["last_step"] == 1 and os.listdir(tmp_path) == ["step_1"]
+    assert s1["preempted"] and s1["last_step"] == 2 and os.listdir(tmp_path) == ["step_2"]
     rest, s2 = _lm("--checkpoint-dir", str(tmp_path), "--resume", "--stop-at-step", "4")
     assert not s2["preempted"] and first["losses"] + rest["losses"] == whole["losses"]
     assert _same_run(rest, whole)

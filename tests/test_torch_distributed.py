@@ -244,6 +244,14 @@ def _config(regime, sync_mode, input_mode, grad_sync="end"):
                 grad_sync=grad_sync, bucket_mb=0.01)
 
 
+# checkpoint and resume: 4 epochs against 2 + 2, faults on (the mask's
+# cursor), the momentum carried over epochs so that the resumed run reads
+# the restored rows
+RESUME = {"name": "resume", "resume": {"stop": 2},
+          "config": dict(_config("data_parallel", "epoch", "hbm"), epochs=4,
+                         failure_probability=0.5, reset_momentum=False)}
+
+
 def _name(case):
     return "_".join(case)
 
@@ -252,8 +260,9 @@ def _name(case):
 def runs(tmp_path_factory):
     """Every case at world 2 (2 ranks x 2 workers) and in one process
     (4 workers, no group), and the sync check at world 2 and world 4."""
-    spec_runs = [{"name": _name(c), "config": _config(*c), "train": {"size": SIZE, "seed": 3},
-                  "test": {"size": TEST_SIZE, "seed": 3}} for c in CASES]
+    spec_runs = [{"name": _name(c), "config": _config(*c)} for c in CASES] + [RESUME]
+    for r in spec_runs:
+        r.update(train={"size": SIZE, "seed": 3}, test={"size": TEST_SIZE, "seed": 3})
     out = {}
     for label in ("w2", "w1", "w4"):
         out[label] = tmp_path_factory.mktemp(label)
@@ -359,6 +368,34 @@ def test_engine_across_processes(runs, case):
                            / (np.abs(want[-1]["params"][l][k]) + 1e-3)))
               for l in final for k in final[l])
     assert rel < 2e-3
+
+
+def test_engine_checkpoint_resume_across_processes(runs):
+    """2 ranks x 2 workers through `Checkpointer` (rank 0 writes the rows
+    gathered from both ranks; each rank restores its own rows): 2 + 2
+    epochs are the uninterrupted 4 bit for bit, on every rank and in one
+    process; the final checkpoints of both runs on 2 ranks and of the
+    one-process run hold the same leaves, and each rank restored the
+    one-process run's momentum rows of its workers."""
+    ref = json.loads((runs["w1"] / "resume_rank0.json").read_text())
+    ref_mom = dict(np.load(runs["w1"] / "resume_rank0.npz"))
+    assert ref["resumed"]["start"] == 2 and len(ref["whole"]["history"]) == 4
+    assert ref["resumed"]["history"] == ref["whole"]["history"]
+    assert ref["stopped"]["history"] == ref["whole"]["history"][:2]
+    assert any(h["n_live"] < 4 for h in ref["whole"]["history"])  # faults were drawn
+    # the workers' momentum rows differ, so a row taken from the wrong
+    # worker shows
+    assert all(not np.array_equal(m[0], m[2]) for m in ref_mom.values())
+    for r in range(2):
+        assert json.loads((runs["w2"] / f"resume_rank{r}.json").read_text()) == ref, r
+        mom = np.load(runs["w2"] / f"resume_rank{r}.npz")
+        assert sorted(mom.files) == sorted(ref_mom)
+        assert all(np.array_equal(mom[k], ref_mom[k][2 * r:2 * r + 2]) for k in ref_mom), r
+    final = [dict(np.load(runs[w] / f"resume_{d}" / "step_3" / "state.npz"))
+             for w, d in (("w1", "whole"), ("w2", "whole"), ("w2", "stopped"))]
+    for other in final[1:]:
+        assert sorted(other) == sorted(final[0])
+        assert all(np.array_equal(other[k], final[0][k]) for k in final[0])
 
 
 def test_step_sync_in_buckets_across_ranks_is_bitwise_end(runs):

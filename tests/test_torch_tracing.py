@@ -185,36 +185,38 @@ def test_record_bucket_plan_events_are_the_jax():
     assert [(e.name, e.args) for e in got.events()] == [(e.name, e.args) for e in want.events()]
 
 
-@pytest.mark.parametrize("fence,compile_first", [(True, True), (False, False)])
-def test_traced_lm_step_spans_stats_and_ledger(fence, compile_first):
-    """make_traced_step around the port's step: one train_step span a call
-    (counted from first_step, fenced or marked unfenced), the first the
-    compile record unless compile_first is off, the ledger's steps compile
-    then steady, the same losses as the bare step."""
+@pytest.mark.parametrize("first_step", [0, 5], ids=["fresh", "resumed"])
+def test_traced_lm_step_spans_stats_and_ledger(first_step):
+    """make_traced_step around the port's step: one fenced train_step span a
+    call, counted from first_step (a resumed run's), the first call the
+    compile record, the process ledger's steps compile then steady, the
+    same losses as the bare step."""
     cfg = tfm.TransformerConfig(vocab_size=32, d_model=32, n_heads=4, n_layers=2, d_ff=64)
     toks, tgts = tlm.make_copy_task(torch.Generator().manual_seed(0), batch=4, seq_len=16,
                                     vocab=32)
     runs = []
-    for traced in (False, True):
-        params = tfm.init_params(0, cfg)
-        mom = tlm.init_lm_momentum(params)
-        step = tlm.make_lm_train_step(cfg, lr=0.1)
-        tracer, stats = tr.Tracer(), tr.StepStats(item_label="tokens")
-        ledger = gp.GoodputLedger().start()
-        if traced:
-            step = tlm.make_traced_step(step, tracer=tracer, step_stats=stats,
-                                        items_per_step=64, first_step=5, ledger=ledger,
-                                        fence=fence, compile_first=compile_first)
-        runs.append([float(step(params, mom, toks, tgts, i)) for i in range(3)])
+    gp.LEDGER.reset()
+    try:
+        for traced in (False, True):
+            params = tfm.init_params(0, cfg)
+            mom = tlm.init_lm_momentum(params)
+            step = tlm.make_lm_train_step(cfg, lr=0.1)
+            tracer, stats = tr.Tracer(), tr.StepStats(item_label="tokens")
+            if traced:
+                gp.LEDGER.start()
+                step = tlm.make_traced_step(step, tracer=tracer, step_stats=stats,
+                                            items_per_step=64, first_step=first_step)
+            runs.append([float(step(params, mom, toks, tgts, i)) for i in range(3)])
+        rec = gp.LEDGER.finalize()
+    finally:
+        gp.LEDGER.reset()
     assert runs[0] == runs[1]
     spans = [e for e in tracer.events() if e.name == "train_step"]
-    assert [(e.args["step"], e.args["fenced"]) for e in spans] == [(5, fence), (6, fence),
-                                                                    (7, fence)]
-    assert [r.is_compile for r in stats.records] == [compile_first, False, False]
-    rec = ledger.finalize()
-    steady = 2 if compile_first else 3
-    assert rec["steps"] == 3 and rec["goodput_steps"] == steady
-    assert rec["tokens"] == 64.0 * steady
+    assert [(e.args["step"], e.args["fenced"]) for e in spans] == [
+        (first_step + k, True) for k in range(3)]
+    assert [r.is_compile for r in stats.records] == [True, False, False]
+    assert rec["steps"] == 3 and rec["goodput_steps"] == 2
+    assert rec["tokens"] == 64.0 * 2
 
 
 def test_cnn_trace_is_read_by_trace_summary(tmp_path):

@@ -26,7 +26,15 @@ in-process reference). The spec:
   "profile" (on the card) the last epoch runs under torch.profiler, and the
   json holds its span on the host's clock and the device's busy intervals
   relative to the trace's start (`_profiled_epoch`), so that the ranks'
-  traces can be merged where both clocks agree (`busy_union`);
+  traces can be merged where both clocks agree (`busy_union`). With
+  "resume": {"stop"} the run is trained three times through `Engine.run`
+  with a `utils/checkpoint.py` `Checkpointer` (a checkpoint every epoch,
+  rank 0 writing into ``{name}_{whole|stopped}/`` under "out"):
+  uninterrupted for its epochs, to "stop" epochs, then restored
+  (`restore_latest`) and run to its epochs; writes
+  ``{name}_rank{r}.json`` with each leg's history and the resumed leg's
+  start epoch and this rank's momentum rows right after the restore
+  (``{name}_rank{r}.npz``, "mom/layer/leaf");
 - ``lm`` (optional): {"params": an .npz of a parameter tree (keys
   "layer/leaf" or "leaf"), "batches": an .npz of "tokens" and "targets"
   (steps, B, S) global batches, "cfg": TransformerConfig fields, "cases":
@@ -564,6 +572,35 @@ def _zero_check(spec, rank, out):
     np.savez(os.path.join(out["dir"], f"zero_rank{rank}.npz"), **res)
 
 
+def _resume_run(run, cfg, train, test, rank, out):
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_neural_network_tpu_torch.train.engine import Engine
+    from distributed_neural_network_tpu_torch.utils.checkpoint import Checkpointer
+
+    stop, quiet = run["resume"]["stop"], (lambda _: None)
+    legs, mom = {}, {}
+    for leg, epochs, ck_dir in (("whole", cfg.epochs, "whole"), ("stopped", stop, "stopped"),
+                                ("resumed", cfg.epochs, "stopped")):
+        eng = Engine(dataclasses.replace(cfg, epochs=epochs), train, test, device=out["device"])
+        ck = Checkpointer(os.path.join(out["dir"], f"{run['name']}_{ck_dir}"))
+        start = 0
+        if leg == "resumed":
+            start = ck.restore_latest(eng, log=quiet)
+            names = [n for n, _ in eng.net.named_parameters()]
+            mom = {"mom/" + k: v.detach().cpu().numpy() for k, v in zip(names, eng.mom)}
+        eng.run(log=quiet, checkpointer=ck, start_epoch=start)
+        ck.close()
+        legs[leg] = {"history": [vars(m) for m in eng.history], "start": start}
+        del eng
+    name = f"{run['name']}_rank{rank}"
+    np.savez(os.path.join(out["dir"], name + ".npz"), **mom)
+    with open(os.path.join(out["dir"], name + ".json"), "w") as f:
+        json.dump(legs, f)
+
+
 def _world() -> int:
     import torch.distributed as dist
 
@@ -613,6 +650,9 @@ def main(spec_json: str) -> int:
                                normalize_images=cfg.input_mode != "stream")
             test = load_split(False, source="synthetic", synthetic_size=run["test"]["size"],
                               seed=run["test"]["seed"])
+            if run.get("resume"):
+                _resume_run(run, cfg, train, test, rank, out)
+                continue
             eng = Engine(cfg, train, test, device=device)
             params0 = flat_params(eng.state_tree()["params"])
             profiled = cfg.epochs - 1 if run.get("profile") else None
