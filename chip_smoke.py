@@ -178,7 +178,8 @@ Phases (any failure exits non-zero and prints no result):
    the loss falling and validation accuracy >= 50% on each rank; epoch wall
    time and images/s beside phase 5's one-process run; (d) the 2 x 2 run at
    full width with its second epoch under the profiler on each rank: the
-   card's idle share over the union of both ranks' device intervals;
+   card's idle share over the union of both ranks' device intervals ((a),
+   (d) and phase 22's 2 x 2 runs in one launch of the ranks);
 18. streaming: the native batcher built (`native.available()`); full width
    with --input-mode stream --kernels cuda per epoch: launches as phase 5,
    the loss falling, accuracy >= 50%; images/s and a profiled stream
@@ -203,8 +204,8 @@ Phases (any failure exits non-zero and prints no result):
 21. the LM on the data axis (`port_probes/lm_dp_world.py`): `lm_train.main`
    at LM_ARGS with --attn flash in one process (--dp 1: sgd, adam, 4 steps),
    then one launch of 2 ranks sharing the card over gloo, each running
-   every case of phases 21-23 through `lm_train.main` (--dp 2; the counters
-   set to 0 before each run): sgd and adam, 4 steps: every step's loss
+   every case of phases 21-23 (and then 29(e)'s) through `lm_train.main`
+   (--dp 2; the counters set to 0 before each run): sgd and adam, 4 steps: every step's loss
    within LOSS_TOL relative of --dp 1's, the ranks' SUMMARY lines and
    parameters equal, each rank's flash launches the formula, all on the
    mma route; ms per step, tokens/s, 3 profiled steps' idle share (the
@@ -214,14 +215,15 @@ Phases (any failure exits non-zero and prints no result):
    --dp 2, 3 steps: losses within LOSS_TOL of end, the bucket count
    `plan_buckets`'s, ms per step; the CNN at phase 4's run with --sync-mode
    step --grad-sync overlap (10 KB buckets) bitwise its end run, in one
-   process graphed and on 2 ranks x 2 workers over gloo;
+   process graphed and on 2 ranks x 2 workers over gloo (run in phase 17's
+   launch of the ranks);
 23. --optimizer zero and zero-adam at --dp 2, 4 steps: the parameters
    bitwise phase 21's sgd / adam run's; each rank's zero-adam state
    (`memory_allocated` around `init_lm_momentum`) within 1% of its shards'
    bytes (half the replicated state plus the padding), beside adam's;
 24. the model axis (`port_probes/lm_mesh_world.py`, one launch of 2 ranks
-   sharing the card over gloo for phases 24-25, the counters set to 0
-   before each run): `lm_train.main` at LM_ARGS with --tp 2 --attn flash,
+   sharing the card over gloo for phases 24-26 and 28(c), the counters set
+   to 0 before each run): `lm_train.main` at LM_ARGS with --tp 2 --attn flash,
    sgd and adam, 4 steps: every step's loss within LOSS_TOL relative of
    the one-process run on the same route (phase 21's sgd and adam, run
    again; and --precision int8 against its own one-process run: the
@@ -242,8 +244,8 @@ Phases (any failure exits non-zero and prints no result):
    UPDATE_TOL; and --dp 2 (phase 21's sgd run) through the same three-axis
    mesh code, held the same way to the one-process run and compared with
    phase 21's losses.
-26. the pipeline axis (`port_probes/pp_world.py`, one launch of 2 ranks
-   sharing the card over gloo): `lm_train.main` at LM_ARGS with --pp 2
+26. the pipeline axis (`port_probes/pp_world.py`, 2 ranks sharing the
+   card over gloo, run by phase 24's launch of the ranks): `lm_train.main` at LM_ARGS with --pp 2
    --microbatches 4, GPipe and --pp-interleave 2, 4 steps (cut from 20),
    each held to the one-process run on the plain attention (the pipeline's
    blocks attend with it, as in JAX): every step's loss within LOSS_TOL,
@@ -274,7 +276,8 @@ Phases (any failure exits non-zero and prints no result):
    the card at T 64 (f32, d 512, d_ff 2048, 8 experts, top-2) at the
    no-drop capacity and at 4: output and aux within 1e-5, gradients within
    2e-4; (c) --dp 2 (the experts over the data axis, ep 2) on 2 ranks
-   sharing the card over gloo at depth 2 (`port_probes/moe_world.py`): the
+   sharing the card over gloo at depth 2 (`port_probes/moe_world.py`, run
+   by phase 24's launch of the ranks): the
    losses within LOSS_TOL of one process, the update within UPDATE_TOL
    leaf by leaf (the expert leaves printed), the ranks' SUMMARY lines and
    gathered parameters equal, each rank's flash launches the formula, the
@@ -293,9 +296,10 @@ Phases (any failure exits non-zero and prints no result):
    schedule, graphed, 6 steps against --stop-at-step 3 and a --resume to 6:
    losses, params and Adam state bitwise, the resumed step one graph, every
    run's flash launches the formula of the steps it ran, all on mma; (c) the
-   same run as a subprocess sent SIGTERM once step 2 is logged: an emergency
-   checkpoint and exit 0, and the resume from it bitwise (b)'s uninterrupted
-   run; (d) --trace-out, --step-stats and --run-record on (a) and on a 6-step
+   same run with --chaos-sigterm-after 2, a real SIGTERM to this process
+   (the flag read at the next step's launch): an emergency checkpoint at
+   step 3 and a clean return, and the resume from it bitwise (b)'s
+   uninterrupted run; (d) --trace-out, --step-stats and --run-record on (a) and on a 6-step
    LM run (bitwise the untraced one; ms per step tracer off / on in the same
    call): tools/trace_summary.py reads the traces with rc 0, the records
    read back through `utils/goodput.py` (tools/goodput.py imports the JAX
@@ -304,11 +308,37 @@ Phases (any failure exits non-zero and prints no result):
    checkpoints' save and restore seconds and bytes; a full-width server under
    --trace-out answering 4 requests on the decode kernel, its trace (request
    lanes and the serve record inside) read the same ways; (e) --dp 2 on
-   2 ranks sharing the card over gloo at depth 2 (`port_probes/ckpt_world.py`'s flow):
+   2 ranks sharing the card over gloo at depth 2 (`port_probes/ckpt_world.py`'s flow,
+   run by phase 21's launch of the ranks):
    the resume bitwise the uninterrupted run on both ranks, the flash
    launches the formula, the ranks' trace shards merged by
    tools/trace_merge.py. `python3 chip_smoke.py --resume-check` runs the
-   build and this phase alone.
+   build and this phase alone (with its own launch of the ranks);
+30. the training guard and its chaos (`guard_phase`), in process through
+   `lm_train.main` and `train.cli.main`: (a) the flagship LM row with
+   --attn flash, Adam and a cosine schedule, GUARD_STEPS steps, --guard
+   off, warn, warn, off in one call: the warn runs' losses, parameters and
+   Adam state bitwise the off runs', ms per step of each; (b) --guard skip
+   --chaos-nan-step 2 --stop-at-step 3: parameters, m, v and t bitwise an
+   unguarded --stop-at-step 2 run, the skip logged and counted; the whole
+   skip run one graph (captured once), finite after the skip, its flash
+   launches the formula, all on mma; (c) --guard rollback
+   --chaos-spike-step GUARD_SPIKE --snapshot-every GUARD_SNAPSHOT with
+   --trace-out and --run-record: one rollback, lr_scale 0.5, the losses
+   before the snapshot bitwise (a)'s off run's, the step captured once (the
+   backed-off lr read from its buffer), the flash launches those of the
+   steps run (replays included), the record's rollback_recompute above 0,
+   tools/trace_summary.py's guard events table with the spike and the
+   restore; the snapshots' and the restore's seconds and bytes; (d) --guard
+   abort --chaos-nan-step 1: GuardAbort with the JAX text; (e) the CNN main
+   path per epoch (phase 29's run without --fused, 3 epochs): --guard warn
+   --fused (the per-epoch fallback line) bitwise the unguarded run, head
+   launches the formula; `Engine.run(guard=)` with a rollback guard whose
+   observation of epoch 2 is multiplied by CNN_SPIKE once: the epoch-0
+   snapshot restored bitwise, the lr halved, the programs built and
+   captured again, the head launches the formula of the 6 epochs run.
+   `python3 chip_smoke.py --guard-check` runs the build and this phase
+   alone.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -388,9 +418,21 @@ MOE_ARGS = ["--experts", str(MOE_EXPERTS)]
 LM_RESUME = ["--attn", "flash", "--optimizer", "adam", "--lr-schedule", "cosine",
              "--warmup-steps", "1"]
 RESUME_WORLD_LAYERS = 2  # phase 29(e)'s depth
+# phase 29(e)'s records and checkpoints (gigabytes; removed in phase 29),
+# written by the ranks phase 21 starts
+RESUME_WORLD_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                                "ckpt_world2")
 CNN_RESUME = ["--regime", "data_parallel", "--nb-proc", "4", "--kernels", "cuda", "--fused",
               "--data", "synthetic", "--synthetic-size", "50000", "--batch-size", "16",
               "--lr", "0.01", "--failure-probability", "0.5", "--seed", "3", "--device", "cuda"]
+# phase 30: the guard's LM runs (LM_ARGS + LM_RESUME) take GUARD_STEPS
+# steps; the skip run's gradients are NaN at GUARD_NAN; the rollback run's
+# observed loss is spiked at GUARD_SPIKE (the spike detector arms after the
+# guard's 10 warm-up observations), with a snapshot every GUARD_SNAPSHOT
+# steps; the CNN runs are phase 29's main path per epoch (--fused falls back)
+GUARD_STEPS, GUARD_NAN, GUARD_SPIKE, GUARD_SNAPSHOT = 14, 2, 12, 5
+CNN_GUARD = [a for a in CNN_RESUME if a != "--fused"]
+CNN_GUARD_EPOCHS, CNN_SPIKE = 3, 1e6
 SERVE_ARGS = ["--device", "cuda", "--port", "0", "--d-model", "512", "--n-layers", "8",
               "--n-heads", "8", "--d-ff", "2048", "--vocab", "256", "--dtype", "bfloat16",
               "--seed", "0", "--max-batch", "8", "--num-blocks", "129", "--block-size", "16",
@@ -1590,9 +1632,11 @@ def moe_step_profile(torch, tfm, lmtrain, dev) -> dict:
             "top": [(name[:120], us / 1e3, n) for name, us, n in rows[:16]]}
 
 
-def moe_phase(torch, fa, da, kernels, dev) -> dict:
+def moe_phase(torch, fa, da, kernels, dev, ranks_c) -> dict:
     """Phase 28 (module docstring): the MoE path's runs and gates; adds the
-    MoE path's launches to `kernels` and returns what it measured."""
+    MoE path's launches to `kernels` and returns what it measured. `ranks_c`:
+    (c)'s ranks' records, its one-process reference and that reference's
+    seconds (the ranks run in phase 24's launch)."""
     from distributed_neural_network_tpu_torch import lm_train
     from distributed_neural_network_tpu_torch.models import transformer as tfm
     from distributed_neural_network_tpu_torch.parallel.moe import expert_capacity, moe_ffn
@@ -1661,19 +1705,11 @@ def moe_phase(torch, fa, da, kernels, dev) -> dict:
         check(err_g <= 2e-4, f"moe_ffn sort vs dense at capacity {cap}: gradients {err_g}")
     part_s["b"], t_part = time.perf_counter() - t_part, time.perf_counter()
 
-    # (c) --dp 2 (ep 2) on 2 ranks sharing the card over gloo, depth 2
-    updates = os.path.join(ROOT, "runs", "moe_updates")
-    t0 = time.perf_counter()
-    try:
-        ref = MW.reference(LM_ARGS, ["moe-L2"], updates=updates)
-        torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        ranks = MW.run_world(2, os.path.join(ROOT, "chiprun_out", "moe"), LM_ARGS, updates,
-                             timeout=600)
-    finally:
-        shutil.rmtree(updates, ignore_errors=True)
+    # (c) --dp 2 (ep 2) on 2 ranks sharing the card over gloo, depth 2: the
+    # ranks ran in phase 24's launch
+    ranks, ref, ref_s = ranks_c
     moe_run["ranks"] = MW.check(2, ranks, ref, LM_ARGS, mma_counts=mma_counts)
-    moe_run["seconds"] = {"one_process": t1 - t0, "ranks": time.perf_counter() - t1}
+    moe_run["seconds"] = {"one_process": ref_s}
     for name, row in moe_run["ranks"].items():
         coll = row["collective_ms"]
         print(f"   {name} (2 layers): {row['ms_per_step']:.2f} ms per step, "
@@ -1685,8 +1721,8 @@ def moe_phase(torch, fa, da, kernels, dev) -> dict:
               f"ranks' SUMMARY lines and gathered parameters equal; the collectives alone per "
               f"step (ms, each rank): gradient sync {[fmt(c['sync']) for c in coll]}, "
               f"all-to-alls {[fmt(c['all_to_all']) for c in coll]}; segments: "
-              f"{row['segments']}; one process {t1 - t0:.1f} s, 2 ranks "
-              f"{time.perf_counter() - t1:.1f} s with start-up", flush=True)
+              f"{row['segments']}; one process {ref_s:.1f} s, 2 ranks in phase 24's launch",
+              flush=True)
 
     # (d) MoE generate (the dense dispatch at a capacity of the batch) on
     # the decode kernel's route, against decode_impl="torch"
@@ -1839,7 +1875,7 @@ def resume_phase(torch, fa, fh, da, kernels, dev) -> dict:
             check(rc == 0, f"29 {name}: lm_train.main returned {rc}")
             summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
             row = {"losses": result["losses"], "launches": dict(fa.LAUNCHES),
-                   "routes": dict(fa.ROUTE_LAUNCHES), "summary": summary,
+                   "routes": dict(fa.ROUTE_LAUNCHES), "summary": summary, "lines": lines,
                    "checkpoint": result["checkpoint"], "segments": result["step"].segments,
                    "state": [x.detach().clone() for x in (
                        *lm_tree(result["params"]), *result["mom"]["m"], *result["mom"]["v"])],
@@ -1909,41 +1945,31 @@ def resume_phase(torch, fa, fh, da, kernels, dev) -> dict:
               f"{rec['goodput_ratio']}, badput {rec['badput_s']}")
         part_s["b+d"] = time.perf_counter() - t_part - sum(part_s.values())
 
-        # (c) SIGTERM to the LM entry point as a subprocess after step 2
+        # (c) a real SIGTERM to this process after step 2, delivered by the
+        # entry point's chaos monkey (--chaos-sigterm-after): the flag is read
+        # at the next step's launch, so the emergency checkpoint is at step 3
         cdir = os.path.join(ck, "sigterm")
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
-            ROOT, os.environ.get("PYTHONPATH")])))
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "distributed_neural_network_tpu_torch.lm_train", "--device",
-             "cuda", "--steps", str(CW.STEPS), "--log-every", "1", *LM_ARGS, *LM_RESUME,
-             "--checkpoint-dir", cdir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        lines = []
-        try:
-            for line in proc.stdout:
-                lines.append(line.rstrip("\n"))
-                if line.startswith("step     2"):
-                    proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=300)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
+        handler = signal.getsignal(signal.SIGTERM)
+        row = lm("sigterm", "--checkpoint-dir", cdir, "--chaos-sigterm-after", "2")
+        lines, summary = row["lines"], row["summary"]
         with open(os.path.join(out, "sigterm.log"), "w") as f:
             f.write("\n".join(lines))
-        check(rc == 0, f"29(c): the preempted run exited {rc}: {lines[-20:]}")
-        summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
+        check(signal.getsignal(signal.SIGTERM) is handler, "29(c): the handler was not put back")
         stop = summary["last_step"]
-        check(summary["preempted"] and stop < CW.STEPS - 1
-              and any(l.startswith(f"(emergency checkpoint at step {stop}") for l in lines),
+        check(summary["preempted"] and stop == 3 and "(chaos: delivering SIGTERM after step 2)"
+              in lines and any(l.startswith(f"(emergency checkpoint at step {stop}")
+                               for l in lines),
               f"29(c): no emergency checkpoint: {summary}")
+        check(row["losses"] == whole_l[:stop + 1], f"29(c): losses {row['losses']} / {whole_l}")
         row = lm("sigterm-resumed", "--checkpoint-dir", cdir, "--resume", "--stop-at-step",
                  str(CW.STEPS))
         check(row["losses"] == whole_l[stop + 1:] and same_state(row, rows["whole"]),
               f"29(c): the resume after SIGTERM differs: {row['losses']} / {whole_l}")
         launches_ok(row, CW.STEPS - stop - 1, "29(c) resumed")
         res["sigterm"] = {"stopped_after": stop, "bitwise": True}
-        print(f"   (c) SIGTERM after step 2 was logged: emergency checkpoint at step {stop}, exit "
-              f"0; the resume from it bitwise the uninterrupted run")
+        print(f"   (c) SIGTERM to this process after step 2 (--chaos-sigterm-after 2): emergency "
+              f"checkpoint at step {stop}, a clean return; the resume from it bitwise the "
+              f"uninterrupted run")
         del rows, row
         gc.collect()
         torch.cuda.empty_cache()
@@ -1987,11 +2013,15 @@ def resume_phase(torch, fa, fh, da, kernels, dev) -> dict:
 
         # (e) two ranks on the one card over gloo, --dp 2, through
         # port_probes/ckpt_world.py's flow, at depth 2 (cut from 8: every
-        # collective crosses host memory, and each rank is a fresh process)
-        wout = os.path.join(ROOT, "runs", "ckpt_world2")
+        # collective crosses host memory); its runs were made by phase 21's
+        # launch of the ranks (a fresh rank process costs seconds)
+        wout = RESUME_WORLD_OUT
         depth = LM_SHAPE["n_layers"] // RESUME_WORLD_LAYERS
-        ranks = CW.run_world(2, wout, LM_ARGS + ["--n-layers", str(RESUME_WORLD_LAYERS)],
-                             CW.RUNS[2], timeout=600)
+        if os.path.exists(os.path.join(wout, "rank1.json")):
+            ranks = CW.read_ranks(2, wout)
+        else:  # phase 29 alone (--resume-check): its own launch
+            ranks = CW.run_world(2, wout, LM_ARGS + ["--n-layers", str(RESUME_WORLD_LAYERS)],
+                                 CW.RUNS[2], timeout=600)
         world = CW.check(ranks, CW.RUNS[2], wout, launches=lambda name, steps: {
             k: v // depth for k, v in flash_counts(steps).items()})
         for name in world:
@@ -2006,7 +2036,7 @@ def resume_phase(torch, fa, fh, da, kernels, dev) -> dict:
         part_s["e"] = time.perf_counter() - t_part - sum(part_s.values())
     finally:
         shutil.rmtree(ck, ignore_errors=True)
-        shutil.rmtree(os.path.join(ROOT, "runs", "ckpt_world2"), ignore_errors=True)
+        shutil.rmtree(RESUME_WORLD_OUT, ignore_errors=True)
     res["seconds"] = part_s
     print(f"   parts (s): {json.dumps({k: round(v, 1) for k, v in part_s.items()})}")
     return res
@@ -2037,6 +2067,328 @@ def resume_check() -> int:
         return 1
     print(json.dumps({"kernels": kernels, "seconds": res["seconds"]}))
     print("resume check passed")
+    return 0
+
+
+# ------------------------------------------------------------ phase 30 helpers
+
+
+class _SpikedGuard:
+    """A `train/guard.py` TrainingGuard whose observed loss at `epoch` is
+    multiplied by `scale` once (the ChaosMonkey.perturb pattern), keeping a
+    copy of every snapshot it takes."""
+
+    def __init__(self, guard, epoch, scale=100.0):
+        self.guard, self.epoch, self.scale, self.fired = guard, epoch, scale, False
+        self.snapshots = []
+
+    def observe(self, step, loss, **kw):
+        if step == self.epoch and not self.fired:
+            self.fired = True
+            loss = loss * self.scale
+        return self.guard.observe(step, loss, **kw)
+
+    def maybe_snapshot(self, step, state, **kw):
+        taken = self.guard.maybe_snapshot(step, state, **kw)
+        if taken:
+            snap_step, tree = self.guard.peek_snapshot()
+            self.snapshots.append((snap_step, tree))
+        return taken
+
+    def __getattr__(self, name):
+        return getattr(self.guard, name)
+
+
+def guard_phase(torch, fa, fh, kernels, dev) -> dict:
+    """Phase 30 (module docstring): the training guard and its chaos on the
+    LM and CNN entry points; adds the guarded paths' launches to `kernels`
+    and returns what it measured."""
+    import gc
+
+    import numpy as np
+
+    from distributed_neural_network_tpu_torch import lm_train
+    from distributed_neural_network_tpu_torch.data.cifar10 import load_split
+    from distributed_neural_network_tpu_torch.train import cli
+    from distributed_neural_network_tpu_torch.train import guard as G
+    from distributed_neural_network_tpu_torch.train import lm as lmtrain
+    from distributed_neural_network_tpu_torch.train.engine import Engine, TrainConfig
+    from distributed_neural_network_tpu_torch.utils.tree import tree_leaves
+    from port_probes import ckpt_world as CW
+
+    out = os.path.join(ROOT, "chiprun_out", "guard")
+    ck = os.path.join(ROOT, "runs", "guard_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    os.makedirs(out, exist_ok=True)
+    res, part_s, t_part = {}, {}, time.perf_counter()
+    captures, capture_all = [], lmtrain.capture_all
+
+    def counted(*a, **kw):
+        captures.append(1)
+        return capture_all(*a, **kw)
+
+    def lm(name, *extra):
+        """One `lm_train.main` run at LM_ARGS + LM_RESUME, GUARD_STEPS steps,
+        the flash counters set to 0 just before it, the step's captures
+        counted: its losses, launches, lines, SUMMARY, segments, guard
+        record and a copy of its state."""
+        lines, result = [], {}
+        for c in (fa.LAUNCHES, fa.ROUTE_LAUNCHES):
+            c.update(dict.fromkeys(c, 0))
+        captures.clear()
+        lmtrain.capture_all = counted
+        try:
+            rc = lm_train.main(["--device", "cuda", "--steps", str(GUARD_STEPS), "--log-every",
+                                "1", *LM_ARGS, *LM_RESUME, *extra], log=lines.append,
+                               result=result)
+        finally:
+            lmtrain.capture_all = capture_all
+        check(rc == 0, f"30 {name}: lm_train.main returned {rc}")
+        summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
+        row = {"losses": result["losses"], "launches": dict(fa.LAUNCHES),
+               "routes": dict(fa.ROUTE_LAUNCHES), "summary": summary, "lines": lines,
+               "segments": result["step"].segments, "captures": len(captures),
+               "guard": result["guard"], "t": result["mom"]["t"],
+               "state": [x.detach().clone() for x in (
+                   *tree_leaves(result["params"]), *result["mom"]["m"], *result["mom"]["v"])],
+               "ms_per_step": 1e3 * summary["wall_s_post_compile"] / max(
+                   summary["last_step"] - summary["start_step"], 1)}
+        del result
+        gc.collect()
+        torch.cuda.empty_cache()
+        return row
+
+    def same_state(a, b):
+        return a["t"] == b["t"] and all(torch.equal(x, y) for x, y in zip(a["state"],
+                                                                           b["state"]))
+
+    def launches_ok(row, steps, what):
+        want = flash_counts(steps)
+        check(row["launches"] == want and row["routes"] == mma_counts(want),
+              f"30{what}: flash launches {row['launches']} / {row['routes']}, want {want}")
+
+    try:
+        # (a) off, warn, warn, off in one call: the health output only observes
+        order = (("off", "off"), ("warn", "warn"), ("warn2", "warn"), ("off2", "off"))
+        rows = {name: lm(name, "--guard", g) for name, g in order}
+        for name, _ in order:
+            check(rows[name]["losses"] == rows["off"]["losses"]
+                  and same_state(rows[name], rows["off"]),
+                  f"30(a): the {name} run's losses or state differ from the unguarded run's")
+            launches_ok(rows[name], GUARD_STEPS, f"(a) {name}")
+        ms = {name: rows[name]["ms_per_step"] for name, _ in order}
+        off_ms = (ms["off"] + ms["off2"]) / 2
+        warn_ms = (ms["warn"] + ms["warn2"]) / 2
+        res["off_warn"] = {"ms_per_step": ms, "warn_over_off": warn_ms / off_ms - 1.0}
+        print(f"   (a) LM flagship row, flash, Adam, cosine, {GUARD_STEPS} steps, --guard off, "
+              f"warn, warn, off: losses, params and Adam state bitwise; ms per step "
+              f"{ms['off']:.2f}, {ms['warn']:.2f}, {ms['warn2']:.2f}, {ms['off2']:.2f} (warn "
+              f"over off {100 * res['off_warn']['warn_over_off']:+.2f}%)")
+        reference = rows["off"]
+        for name in ("warn", "warn2", "off2"):
+            del rows[name]
+        part_s["a"] = time.perf_counter() - t_part
+
+        # (b) skip: the NaN step leaves everything as it was, counter too
+        s3 = lm("skip-stop3", "--guard", "skip", "--chaos-nan-step", str(GUARD_NAN),
+                "--stop-at-step", str(GUARD_NAN + 1))
+        p2 = lm("stop2", "--stop-at-step", str(GUARD_NAN))
+        check(s3["losses"][:GUARD_NAN] == p2["losses"] and same_state(s3, p2)
+              and s3["t"] == GUARD_NAN,
+              f"30(b): the skipped step changed the state (t {s3['t']} / {p2['t']})")
+        check(any(f"step {GUARD_NAN} nonfinite -> skip" in l for l in s3["lines"])
+              and s3["summary"]["guard_summary"]["skipped"] == 1,
+              f"30(b): no skip: {s3['summary']['guard_summary']}")
+        launches_ok(s3, GUARD_NAN + 1, "(b) stop 3")
+        whole = lm("skip", "--guard", "skip", "--chaos-nan-step", str(GUARD_NAN))
+        check(whole["segments"] == "graph" and whole["captures"] == 1,
+              f"30(b): the guarded step is {whole['segments']}, captured {whole['captures']}x")
+        check(all(math.isfinite(x) for x in whole["losses"][GUARD_NAN + 1:])
+              and whole["summary"]["guard_summary"]["skipped"] == 1,
+              f"30(b): losses after the skip {whole['losses']}")
+        launches_ok(whole, GUARD_STEPS, "(b) whole")
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            kernels[name]["launches_guard"] = whole["launches"][name]
+        res["skip"] = {"bitwise": True, "segments": whole["segments"],
+                       "losses": whole["losses"], "launches": whole["launches"],
+                       "ms_per_step": whole["ms_per_step"]}
+        print(f"   (b) --guard skip --chaos-nan-step {GUARD_NAN} --stop-at-step {GUARD_NAN + 1}: "
+              f"params, m, v and t bitwise an unguarded --stop-at-step {GUARD_NAN} run; the "
+              f"{GUARD_STEPS}-step skip run one graph ({whole['segments']}, captured once), "
+              f"finite after the skip, {whole['ms_per_step']:.2f} ms per step (the gated "
+              f"update), flash launches {whole['launches']} (all mma)")
+        del s3, p2, whole
+        part_s["b"] = time.perf_counter() - t_part - sum(part_s.values())
+
+        # (c) rollback: the snapshot restored into the captured step, the lr
+        # backed off in its buffer, the replay in the run record
+        trace, record = os.path.join(out, "rollback_trace.json"), os.path.join(
+            out, "rollback_record.json")
+        rb = lm("rollback", "--guard", "rollback", "--chaos-spike-step", str(GUARD_SPIKE),
+                "--snapshot-every", str(GUARD_SNAPSHOT), "--trace-out", trace,
+                "--run-record", record)
+        snap_at = GUARD_SPIKE // GUARD_SNAPSHOT * GUARD_SNAPSHOT
+        gs = rb["summary"]["guard_summary"]
+        check(gs["rollbacks"] == 1 and gs["lr_scale"] == 0.5 and any(
+            l.startswith(f"(guard: resuming from step {snap_at} at lr_scale=0.5")
+            for l in rb["lines"]), f"30(c): {gs}")
+        check(rb["losses"][:snap_at] == reference["losses"][:snap_at]
+              and len(rb["losses"]) == GUARD_STEPS
+              and all(math.isfinite(x) for x in rb["losses"]),
+              f"30(c): losses {rb['losses']} / {reference['losses']}")
+        check(rb["captures"] == 1 and rb["segments"] == "graph",
+              f"30(c): the step captured {rb['captures']}x ({rb['segments']})")
+        # the spike's verdict is read after the next step's launch: the steps
+        # from the snapshot to that one run twice
+        replayed = GUARD_SPIKE + 2 - snap_at
+        launches_ok(rb, GUARD_STEPS + replayed, "(c)")
+        rec = _telemetry_check(trace, record, "30(c)")
+        check(rec["badput_s"]["rollback_recompute"] > 0,
+              f"30(c): no rollback_recompute in {rec['badput_s']}")
+        proc = _tool("trace_summary.py", trace)
+        table = next((l for l in proc.stdout.splitlines() if l.startswith("Guard events:")), "")
+        check("restore=1" in table and "rollback=1" in table and "spikes=1" in table,
+              f"30(c): guard events table {table!r}")
+        snaps, restores = rb["guard"]["snapshots"], rb["guard"]["restores"]
+        res["rollback"] = {"losses": rb["losses"], "guard": gs, "table": table,
+                           "snapshots": snaps, "restores": restores,
+                           "rollback_recompute_s": rec["badput_s"]["rollback_recompute"],
+                           "captured_again": rb["captures"] > 1}
+        print(f"   (c) --guard rollback --chaos-spike-step {GUARD_SPIKE} --snapshot-every "
+              f"{GUARD_SNAPSHOT}: one rollback to step {snap_at}, lr_scale 0.5, the losses before "
+              f"it bitwise the unguarded run's; step program captured again: no (one capture, "
+              f"{rb['segments']}); snapshots (step, s, B) "
+              f"{[(st, round(sec, 3), b) for st, sec, b in snaps]}; restore "
+              f"{[round(sec, 3) for sec in restores]} s; run record rollback_recompute "
+              f"{rec['badput_s']['rollback_recompute']:.3f} s; {table}")
+        del rb, reference, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["c"] = time.perf_counter() - t_part - sum(part_s.values())
+
+        # (d) abort: GuardAbort with the JAX text, no return
+        lines = []
+        try:
+            lm_train.main(["--device", "cuda", "--steps", str(GUARD_STEPS), "--log-every", "1",
+                           *LM_ARGS, *LM_RESUME, "--guard", "abort", "--chaos-nan-step", "1"],
+                          log=lines.append)
+            check(False, "30(d): lm_train.main returned under --guard abort")
+        except G.GuardAbort as e:
+            text = str(e)
+        check(text.startswith("guard policy 'abort': non-finite step") and "--guard warn" in text,
+              f"30(d): {text}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["abort"] = text
+        print(f"   (d) --guard abort --chaos-nan-step 1: GuardAbort ({text[:60]}...)")
+        part_s["d"] = time.perf_counter() - t_part - sum(part_s.values())
+
+        # (e) the CNN main path per epoch: warn (through --fused's fallback)
+        # bitwise the unguarded run; a rollback through Engine.run(guard=)
+        def cnn(name, *extra):
+            lines = []
+            for k in fh.LAUNCHES:
+                fh.LAUNCHES[k] = 0
+            rc = cli.main(CNN_GUARD + ["--epochs", str(CNN_GUARD_EPOCHS), "--log-dir",
+                                       os.path.join(out, "log"), "--checkpoint-dir",
+                                       os.path.join(ck, name), *extra], log=lines.append)
+            check(rc == 0, f"30(e) {name}: cli.main returned {rc}")
+            return lines, dict(fh.LAUNCHES)
+
+        plain, _ = cnn("cnn_plain")
+        warn, launches = cnn("cnn_warn", "--guard", "warn", "--fused")
+        check("(fused mode cannot observe per-epoch health inside one dispatch; --guard uses "
+              "the per-epoch path)" in warn, "30(e): no per-epoch fallback line")
+        metrics = [[l for l in ls if l.startswith(("Global", "Validation"))] for ls in (plain,
+                                                                                       warn)]
+        last = f"step_{CNN_GUARD_EPOCHS - 1}"
+        check(metrics[0] == metrics[1] and CW._same_checkpoint(
+            os.path.join(ck, "cnn_plain", last), os.path.join(ck, "cnn_warn", last)),
+            "30(e): the warn run's metrics, params or momentum differ from the unguarded run's")
+        want = head_launches(16, CNN_GUARD_EPOCHS)
+        check(launches == want, f"30(e): warn head launches {launches} != {want}")
+        for name, count in launches.items():
+            kernels[name]["launches_guard"] = count
+        i = CNN_GUARD.index
+        cfg = TrainConfig(lr=0.01, momentum=0.9, batch_size=16, epochs=CNN_GUARD_EPOCHS,
+                          nb_proc=4, regime="data_parallel", kernels="cuda",
+                          seed=int(CNN_GUARD[i("--seed") + 1]),
+                          failure_probability=float(CNN_GUARD[i("--failure-probability") + 1]))
+        split = load_split(True, source="synthetic", synthetic_size=50_000, seed=cfg.seed)
+        test = load_split(False, source="synthetic", synthetic_size=10_000, seed=cfg.seed)
+        for k in fh.LAUNCHES:
+            fh.LAUNCHES[k] = 0
+        eng = Engine(cfg, split, test, device=dev)
+        # the snapshot at epoch 0 only; the detector armed after two epochs
+        # (after one, its variance is 0 and any rise is a spike); epoch 2's
+        # loss spiked (x1e6: at this width it falls from about 0.25 to 2e-5
+        # in one epoch, so x100 would sit below the running mean)
+        guard = _SpikedGuard(G.TrainingGuard(G.GuardConfig(
+            policy="rollback", warmup_steps=2, snapshot_every=CNN_GUARD_EPOCHS),
+            log=lambda _: None), epoch=CNN_GUARD_EPOCHS - 1, scale=CNN_SPIKE)
+        t0 = time.perf_counter()
+        hist = eng.run(log=lambda _: None, guard=guard)
+        cnn_s = time.perf_counter() - t0
+        launches = dict(fh.LAUNCHES)
+        ran = 2 * CNN_GUARD_EPOCHS  # every epoch, then all of them again
+        summ = guard.summary()
+        (s0, first), (s1, again) = guard.snapshots
+        check(summ["rollbacks"] == 1 and summ["lr_scale"] == 0.5 and eng.config.lr == 0.005
+              and s0 == s1 == 0 and all(np.array_equal(a, b) for a, b in zip(
+                  tree_leaves(first), tree_leaves(again))),
+              f"30(e) rollback: {summ}, lr {eng.config.lr}, snapshots at {s0}, {s1}")
+        check([m.epoch for m in hist] == list(range(CNN_GUARD_EPOCHS))
+              and launches == head_launches(16, ran),
+              f"30(e) rollback: history {[m.epoch for m in hist]}, launches {launches} != "
+              f"{head_launches(16, ran)}")
+        res["cnn"] = {"bitwise": True, "launches_warn": want, "rollback": summ,
+                      "rollback_launches": launches, "rollback_run_s": cnn_s,
+                      "final_val_acc": hist[-1].val_acc}
+        print(f"   (e) CNN main path per epoch, {CNN_GUARD_EPOCHS} epochs: --guard warn (--fused "
+              f"falls back, with the JAX line) bitwise the unguarded run, head launches {want}; "
+              f"Engine.run(guard=) with epoch {CNN_GUARD_EPOCHS - 1}'s loss spiked "
+              f"x{CNN_SPIKE:g}: one "
+              f"rollback to the epoch-0 snapshot (restored bitwise), lr 0.01 -> 0.005, the "
+              f"programs built and captured again, {ran} epochs run, head launches {launches} "
+              f"({cnn_s:.1f} s)")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["e"] = time.perf_counter() - t_part - sum(part_s.values())
+    finally:
+        lmtrain.capture_all = capture_all
+        shutil.rmtree(ck, ignore_errors=True)
+    res["seconds"] = part_s
+    print(f"   parts (s): {json.dumps({k: round(v, 1) for k, v in part_s.items()})}")
+    return res
+
+
+def guard_check() -> int:
+    """`python3 chip_smoke.py --guard-check`: phase 30 alone (after the
+    kernels' build), for iterating on it; exits 1 when a gate fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    from distributed_neural_network_tpu_torch.ops import flash_attention as fa
+    from distributed_neural_network_tpu_torch.ops import fused_head as fh
+
+    print(run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
+    for m in (fh, fa):
+        m.build()
+    kernels = {k: {} for k in ("fused_mlp3_fwd", "fused_mlp3_bwd", "fused_mlp3_bwd_reduce",
+                               "flash_fwd", "flash_dq", "flash_dkv")}
+    t0 = time.perf_counter()
+    try:
+        res = guard_phase(torch, fa, fh, kernels, torch.device("cuda"))
+    except SmokeFailure as e:
+        print(f"guard check FAILED: {e}")
+        return 1
+    print(json.dumps({"kernels": kernels, "seconds": res["seconds"],
+                      "total_s": time.perf_counter() - t0, "off_warn": res["off_warn"]}))
+    print("guard check passed")
     return 0
 
 
@@ -3189,14 +3541,23 @@ def main() -> int:
         check(TrainConfig(**CNN_SMALL) == p4["cfg"], "phase 4's configuration moved")
         split4 = load_split(True, source="synthetic", synthetic_size=512, seed=3)
         test4 = load_split(False, source="synthetic", synthetic_size=128, seed=3)
-        # (a) 2 ranks x 2 workers under gloo on the one card, phase 4's run
+        # (a) 2 ranks x 2 workers under gloo on the one card, phase 4's run;
+        # the same launch of the ranks runs (d)'s profiled full-width run and
+        # phase 22's step-sync runs (a fresh rank process costs seconds)
         out17 = os.path.join(ROOT, "chiprun_out", "ranks17")
         os.makedirs(out17, exist_ok=True)
         spec = {"device": "cuda", "out": out17, "sync": {"n": 4, "p": 62_006 + 1, "seed": 0},
                 "runs": [{"name": "phase4", "config": CNN_SMALL,
-                          "train": {"size": 512, "seed": 3}, "test": {"size": 128, "seed": 3}}]}
+                          "train": {"size": 512, "seed": 3}, "test": {"size": 128, "seed": 3}},
+                         {"name": "full", "profile": True, "config": CNN_SMALL,
+                          "train": {"size": 50_000, "seed": 0},
+                          "test": {"size": 10_000, "seed": 0}}]
+                + [{"name": gs, "config": {**CNN_SMALL, "sync_mode": "step", "grad_sync": gs,
+                                           "bucket_mb": 0.01},
+                    "train": {"size": 512, "seed": 3}, "test": {"size": 128, "seed": 3}}
+                   for gs in ("end", "overlap")]}
         t0 = time.perf_counter()
-        procs = launch(2, spec, timeout=300)
+        procs = launch(2, spec, timeout=600)
         across["gloo_2x2_s"] = time.perf_counter() - t0
         for r, proc in enumerate(procs):
             check(proc.returncode == 0, f"rank {r} exited {proc.returncode}: {proc.stderr[-3000:]}")
@@ -3229,8 +3590,8 @@ def main() -> int:
                     for l in final for k in final[l])
         across["gloo_2x2"] = {"oracle_params_max_rel": rel, "d_loss_vs_in_process": d_loss,
                               "d_params_vs_in_process": d_par, "history": hist["history"]}
-        print(f"(a) 2 ranks x 2 workers, gloo on one card ({across['gloo_2x2_s']:.1f} s with "
-              f"start-up): histories equal on both ranks; the gathered sync bitwise the "
+        print(f"(a) 2 ranks x 2 workers, gloo on one card (the launch with (d) and phase 22's "
+              f"runs {across['gloo_2x2_s']:.1f} s with start-up): histories equal on both ranks; the gathered sync bitwise the "
               f"in-process one (5 masks); oracle: params max-rel {rel:.2e}; largest difference "
               f"from phase 4's in-process run: loss {d_loss:.3e}, params {d_par:.3e}")
         # (b) one rank over NCCL holding all 4 workers: the all-reduce is
@@ -3312,17 +3673,9 @@ def main() -> int:
               f"{across['torchrun']['epoch_wall_s']:.3f} s and "
               f"{across['torchrun']['images_per_s']:.1f} images/s, against phase 5's one "
               f"process {base['epoch_wall_s']:.3f} s and {base['images_per_s']:.1f} images/s")
-        # (d) the 2 x 2 run at full width once more, its second epoch under
-        # the profiler on each rank: the card's idle share over the union of
-        # both ranks' device intervals
-        spec = {"device": "cuda", "out": out17,
-                "runs": [{"name": "full", "profile": True,
-                          "config": CNN_SMALL,
-                          "train": {"size": 50_000, "seed": 0},
-                          "test": {"size": 10_000, "seed": 0}}]}
-        procs = launch(2, spec, timeout=400)
-        for r, proc in enumerate(procs):
-            check(proc.returncode == 0, f"rank {r} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        # (d) the 2 x 2 run at full width once more (in (a)'s launch), its
+        # second epoch under the profiler on each rank: the card's idle share
+        # over the union of both ranks' device intervals
         traces = []
         for r in range(2):
             with open(os.path.join(out17, f"full_rank{r}.json")) as f:
@@ -3490,15 +3843,21 @@ def main() -> int:
         ref = W.reference(LM_ARGS)
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        ranks = W.run_world(2, os.path.join(ROOT, "chiprun_out", "lm_dp"), LM_ARGS, timeout=900)
+        from port_probes import ckpt_world as CW
+
+        # phase 29(e)'s runs (port_probes/ckpt_world.py at depth 2) in the same ranks
+        ckpt = CW.make_spec(RESUME_WORLD_OUT, LM_ARGS + ["--n-layers", str(RESUME_WORLD_LAYERS)],
+                            CW.RUNS[2])
+        ranks = W.run_world(2, os.path.join(ROOT, "chiprun_out", "lm_dp"), LM_ARGS, timeout=1200,
+                            then=[("ckpt_world", ckpt)])
         dp_run = W.check(2, ranks, ref, LM_ARGS, flash_counts=flash_counts,
                          mma_counts=mma_counts, busy_union=busy_union)
         dp_run["one_process"] = ref
         dp_run["seconds"] = {"one_process": t1 - t0, "ranks": time.perf_counter() - t1}
         runs = dp_run["runs"]
         form = runs["sgd"]["form"]
-        print(f"   one process (dp 1) {t1 - t0:.1f} s; 2 ranks, every run of phases 21-23, "
-              f"{time.perf_counter() - t1:.1f} s with start-up; backend "
+        print(f"   one process (dp 1) {t1 - t0:.1f} s; 2 ranks, every run of phases 21-23 and "
+              f"29(e), {time.perf_counter() - t1:.1f} s with start-up; backend "
               f"{runs['sgd']['backend']}, {runs['sgd']['cards']} card")
         print(f"   collective form: {form}")
         for name in ("sgd", "adam"):
@@ -3544,15 +3903,8 @@ def main() -> int:
         check(cnn["end"][0] == cnn["overlap"][0]
               and all(torch.equal(a, b) for a, b in zip(cnn["end"][1], cnn["overlap"][1])),
               f"CNN step sync in buckets differs from end: {cnn['end'][0]} / {cnn['overlap'][0]}")
-        out22 = os.path.join(ROOT, "chiprun_out", "ranks22")
-        os.makedirs(out22, exist_ok=True)
-        spec = {"device": "cuda", "out": out22, "runs": [
-            {"name": gs, "config": {**CNN_SMALL, "sync_mode": "step", "grad_sync": gs,
-                                    "bucket_mb": 0.01},
-             "train": {"size": 512, "seed": 3}, "test": {"size": 128, "seed": 3}}
-            for gs in ("end", "overlap")]}
-        for r, proc in enumerate(launch(2, spec, timeout=300)):
-            check(proc.returncode == 0, f"rank {r} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        # the 2 ranks x 2 workers runs came with phase 17's launch of the ranks
+        out22 = out17
         segs = {}
         for r in range(2):
             got = {}
@@ -3589,18 +3941,38 @@ def main() -> int:
     with phase("24 LM tensor parallel, 2 ranks on the one card"):
         from port_probes import lm_mesh_world as M
 
+        from port_probes import moe_world as MW
+        from port_probes import pp_world as PW
+
         updates = os.path.join(ROOT, "runs", "lm_mesh_updates")
+        pp_updates = os.path.join(ROOT, "runs", "pp_updates")
+        moe_updates = os.path.join(ROOT, "runs", "moe_updates")
+        pp_out = os.path.join(ROOT, "chiprun_out", "pp")
+        moe_out = os.path.join(ROOT, "chiprun_out", "moe")
         t0 = time.perf_counter()
         try:
-            # the one-process runs again (sgd and adam as phase 21's), for their updates
+            # the one-process runs again (sgd and adam as phase 21's), for
+            # their updates; and those of phases 26 and 28(c), whose ranks run
+            # in this launch (a fresh rank process costs seconds)
             ref = M.reference(LM_ARGS, ["flash-sgd", "flash-adam", "flash-int8", "ring-b8"],
                               updates=updates)
+            t_pp = time.perf_counter()
+            pp_ref = PW.reference(LM_ARGS, ["plain"], updates=pp_updates)
+            t_moe = time.perf_counter()
+            moe_ref = MW.reference(LM_ARGS, ["moe-L2"], updates=moe_updates)
             torch.cuda.empty_cache()
             t1 = time.perf_counter()
             ranks = M.run_world(2, os.path.join(ROOT, "chiprun_out", "lm_mesh"), LM_ARGS,
-                                updates, timeout=600)
+                                updates, timeout=1200, then=[
+                                    ("pp_world", PW.make_spec(2, pp_out, LM_ARGS, pp_updates)),
+                                    ("moe_world", MW.make_spec(2, moe_out, LM_ARGS,
+                                                               moe_updates))])
         finally:
-            shutil.rmtree(updates, ignore_errors=True)
+            for d in (updates, pp_updates, moe_updates):
+                shutil.rmtree(d, ignore_errors=True)
+        # phases 26 and 28(c) read their records from this launch
+        later_ranks = {"pp": (PW.read_ranks(2, pp_out), pp_ref, t_moe - t_pp),
+                       "moe": (MW.read_ranks(2, moe_out), moe_ref, t1 - t_moe)}
         mesh_run = {"runs": M.check(2, ranks, ref, LM_ARGS, flash_counts=flash_counts,
                                     mma_counts=mma_counts,
                                     flash_checked=(FLASH_MAIN,) + FLASH_MESH),
@@ -3609,8 +3981,8 @@ def main() -> int:
                     "cuts": {"sequence runs' global batch": "16 -> 8"}}
         runs24 = mesh_run["runs"]
         print(f"   one process (sgd, adam, --precision int8, --attn ring at batch 8) "
-              f"{t1 - t0:.1f} s; 2 ranks, every run of "
-              f"phases 24-25, {time.perf_counter() - t1:.1f} s with start-up; collective form: "
+              f"{t_pp - t0:.1f} s; 2 ranks, every run of "
+              f"phases 24-26 and 28(c), {time.perf_counter() - t1:.1f} s with start-up; collective form: "
               f"{runs24['tp2-sgd']['form']}")
         for name in ("tp2-sgd", "tp2-adam", "tp2-int8"):
             row = runs24[name]
@@ -3654,23 +4026,13 @@ def main() -> int:
         from port_probes import pp_world as PW
         from torch_rank_worker import busy_union
 
-        updates = os.path.join(ROOT, "runs", "pp_updates")
-        t0 = time.perf_counter()
-        try:
-            ref = PW.reference(LM_ARGS, ["plain"], updates=updates)
-            torch.cuda.empty_cache()
-            t1 = time.perf_counter()
-            ranks = PW.run_world(2, os.path.join(ROOT, "chiprun_out", "pp"), LM_ARGS, updates,
-                                 timeout=600)
-        finally:
-            shutil.rmtree(updates, ignore_errors=True)
+        # the ranks ran in phase 24's launch
+        ranks, ref, ref_s = later_ranks["pp"]
         pp_run = {"runs": PW.check(2, ranks, ref, LM_ARGS, busy_union=busy_union),
-                  "one_process": ref,
-                  "seconds": {"one_process": t1 - t0, "ranks": time.perf_counter() - t1},
+                  "one_process": ref, "seconds": {"one_process": ref_s},
                   "cuts": {"steps": f"{PW.STEPS}"}}
         print(f"   one process (--attn ring, the plain attention the pipeline's blocks run) "
-              f"{t1 - t0:.1f} s; 2 ranks, both runs, {time.perf_counter() - t1:.1f} s with "
-              f"start-up")
+              f"{ref_s:.1f} s; 2 ranks, both runs, in phase 24's launch")
         for name, row in pp_run["runs"].items():
             prof = row.get("profile") or {}
             print(f"   {name}: {row['ms_per_step']:.2f} ms per step, {row['tokens_per_s']} "
@@ -3702,11 +4064,15 @@ def main() -> int:
 
     moe_run = {}
     with phase("28 LM mixture of experts"):
-        moe_run = moe_phase(torch, fa, da, kernels, dev)
+        moe_run = moe_phase(torch, fa, da, kernels, dev, later_ranks["moe"])
 
     resume_run = {}
     with phase("29 checkpoint, resume, trace, run record"):
         resume_run = resume_phase(torch, fa, fh, da, kernels, dev)
+
+    guard_run = {}
+    with phase("30 training guard and chaos"):
+        guard_run = guard_phase(torch, fa, fh, kernels, dev)
 
     designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
                                  f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
@@ -3753,7 +4119,7 @@ def main() -> int:
                    "stream": stream_run,
                    "bf16": bf16_run, "data_axis": dp_run, "model_seq_axes": mesh_run,
                    "pipeline": pp_run, "remat_policies": remat_run, "moe": moe_run,
-                   "resume": resume_run}, f,
+                   "resume": resume_run, "guard": guard_run}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": table}))
     print(smi)
@@ -3765,4 +4131,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(route_check() if sys.argv[1:] == ["--route-check"]
-             else resume_check() if sys.argv[1:] == ["--resume-check"] else main())
+             else resume_check() if sys.argv[1:] == ["--resume-check"]
+             else guard_check() if sys.argv[1:] == ["--guard-check"] else main())

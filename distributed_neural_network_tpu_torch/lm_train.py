@@ -73,6 +73,20 @@ per-rank shards under torchrun), ``--step-stats``, ``--run-record`` (the
 goodput record; the GOODPUT line is printed either way) and
 ``--metrics-jsonl`` (the ``train/loss`` series, and ``step/*`` with
 ``--step-stats``).
+
+The training guard, as the JAX CLI's (`train/guard.py`): ``--guard
+warn|skip|rollback|abort`` reads each step's health (loss, global gradient
+norm, all-finite flag) one step late, after the next step's launch;
+``skip`` drops a non-finite update inside the step (on the device: the
+step stays one CUDA graph); ``rollback`` restores the rolling host snapshot
+(every ``--snapshot-every`` steps, or the newest checkpoint) and retries at
+a backed-off lr (the captured step is kept: it reads its lr from a buffer),
+at most ``--max-retries`` times; ``abort`` raises `GuardAbort`. Fault
+injection (`parallel/fault.py`): ``--chaos-nan-step N`` (NaN gradients in
+the step, ``--chaos-nan-layer`` to restrict them), ``--chaos-spike-step``
+(the observed loss x100, once), ``--chaos-sigterm-after`` (a real SIGTERM)
+and ``--chaos-stall-step`` / ``--chaos-stall-seconds`` /
+``--chaos-stall-rank`` (a host sleep). Mesh path only (not ``--pp``).
 """
 
 from __future__ import annotations
@@ -99,6 +113,7 @@ from .parallel.ring import zigzag_order
 from .train import lm as lmtrain
 from .train.cli import SLICE5, say
 from .train.engine import SLICE4
+from .train import guard as G
 from .train.guard import PreemptionGuard, check_cursor, resume_cursor
 from .train.measure import model_flops_per_token, peak_flops
 from .utils import tracing as TR
@@ -131,17 +146,6 @@ LATER_FLAGS = {
     "watchdog": ("--watchdog", SLICE4),
     "watchdog_escalate": ("--watchdog-escalate", SLICE4),
     "elastic": ("--elastic", SLICE4),
-    "guard": ("--guard", SLICE4),
-    "guard_spike_zscore": ("--guard-spike-zscore", SLICE4),
-    "snapshot_every": ("--snapshot-every", SLICE4),
-    "max_retries": ("--max-retries", SLICE4),
-    "chaos_nan_step": ("--chaos-nan-step", SLICE4),
-    "chaos_nan_layer": ("--chaos-nan-layer", SLICE4),
-    "chaos_spike_step": ("--chaos-spike-step", SLICE4),
-    "chaos_sigterm_after": ("--chaos-sigterm-after", SLICE4),
-    "chaos_stall_step": ("--chaos-stall-step", SLICE4),
-    "chaos_stall_seconds": ("--chaos-stall-seconds", SLICE4),
-    "chaos_stall_rank": ("--chaos-stall-rank", SLICE4),
     "chaos_shrink_at_step": ("--chaos-shrink-at-step", SLICE4),
     "chaos_shrink_to": ("--chaos-shrink-to", SLICE4),
 }
@@ -256,6 +260,45 @@ def build_parser() -> argparse.ArgumentParser:
                    "emergency checkpoint (when --checkpoint-dir is set) and exit cleanly; "
                    "resume replays from the exact batch, bit-identical. ignore = default "
                    "signal behavior")
+    p.add_argument("--guard", choices=G.POLICIES, default="off",
+                   help="self-healing step guard (train/guard.py): the step emits a health "
+                   "bundle (loss, global grad-norm, all-finite flag) observed one step behind "
+                   "the launches. warn = count/log anomalies; skip = additionally drop "
+                   "non-finite updates inside the step on the device (params/momentum pass "
+                   "through unchanged); rollback = restore the rolling in-memory snapshot (or "
+                   "newest checkpoint) and retry with LR backoff; abort = stop with an "
+                   "actionable error. Mesh path only (not --pp)")
+    p.add_argument("--guard-spike-zscore", type=float, default=6.0,
+                   help="loss-spike threshold in EMA standard deviations; non-finite steps "
+                   "always count as anomalies")
+    p.add_argument("--snapshot-every", type=int, default=50,
+                   help="steps between the guard's rolling host snapshots (one host copy of "
+                   "params+optimizer state each; a rollback rewinds at most this many steps)")
+    p.add_argument("--max-retries", type=int, default=3,
+                   help="guard rollback budget before abort (refills after a stretch of "
+                   "healthy steps)")
+    p.add_argument("--chaos-nan-step", type=int, action="append", default=None, metavar="N",
+                   help="fault injection (parallel/fault.py): NaN the gradients at step N "
+                   "inside the step (repeatable); exercises the guard's in-step skip path")
+    p.add_argument("--chaos-nan-layer", default=None, metavar="REGEX",
+                   help="restrict --chaos-nan-step to gradient leaves whose /-joined tree "
+                   "path matches this regex (parallel/fault.py nan_layer; e.g. 'layers/w1')")
+    p.add_argument("--chaos-spike-step", type=int, action="append", default=None, metavar="N",
+                   help="fault injection: multiply the OBSERVED loss at step N by 100 "
+                   "(host-side, fires once, so a rollback replay sees a healthy step)")
+    p.add_argument("--chaos-sigterm-after", type=int, default=None, metavar="N",
+                   help="fault injection: deliver a real SIGTERM to this process after step N "
+                   "completes (drives the emergency-checkpoint -> exact-resume path end to "
+                   "end; acted on at the next step's boundary)")
+    p.add_argument("--chaos-stall-step", type=int, action="append", default=None, metavar="N",
+                   help="fault injection: sleep --chaos-stall-seconds on the host after step "
+                   "N completes (repeatable; host-side, works under --pp too)")
+    p.add_argument("--chaos-stall-seconds", type=float, default=2.0, metavar="SEC",
+                   help="stall duration for --chaos-stall-step")
+    p.add_argument("--chaos-stall-rank", type=int, default=None, metavar="R",
+                   help="restrict --chaos-stall-step to process rank R of a multi-process "
+                   "group (every rank runs the same argv, so without this the whole group "
+                   "stalls in lockstep); single-process runs treat their rank as 0")
     for dest, (flag, later) in LATER_FLAGS.items():
         p.add_argument(flag, dest=dest, nargs="?", const=True, default=None,
                        help=f"not ported yet: {later}")
@@ -334,6 +377,23 @@ def validate(p: argparse.ArgumentParser, args) -> None:
         p.error(f"--batch-size {args.batch_size} must divide by --dp x --accum-steps "
                 f"({args.dp} x {args.accum_steps}): each rank's rows split into the "
                 "micro-batches")
+    # --chaos-stall-step is not in this set: a host-side sleep, it works under --pp
+    chaos_injected = bool(args.chaos_nan_step or args.chaos_spike_step
+                          or args.chaos_sigterm_after is not None)
+    if args.pp > 1 and (args.guard != "off" or chaos_injected):
+        p.error("--guard / --chaos-* are wired through the dp x sp x tp mesh step's health "
+                "bundle (train/lm.py make_lm_train_step); the pipeline path has no health "
+                "output yet - drop --pp or the guard flags")
+    if args.chaos_stall_seconds <= 0:
+        p.error(f"--chaos-stall-seconds must be > 0, got {args.chaos_stall_seconds}")
+    if args.chaos_stall_rank is not None and not args.chaos_stall_step:
+        p.error("--chaos-stall-rank restricts --chaos-stall-step, which was not given")
+    if args.chaos_nan_layer is not None and not args.chaos_nan_step:
+        p.error("--chaos-nan-layer restricts --chaos-nan-step, which was not given")
+    if args.snapshot_every < 1:
+        p.error(f"--snapshot-every must be >= 1, got {args.snapshot_every}")
+    if args.max_retries < 0:
+        p.error(f"--max-retries must be >= 0, got {args.max_retries}")
     if args.pp > 1 and args.batch_size % (args.dp * args.accum_steps * args.microbatches):
         p.error(f"--batch-size {args.batch_size} must divide by --dp x --accum-steps x "
                 f"--microbatches ({args.dp} x {args.accum_steps} x {args.microbatches}) under "
@@ -347,6 +407,25 @@ def check_ported(args) -> None:
             raise NotImplementedError(f"{flag} is not ported yet; it comes with {later}")
     if args.sharding == "auto":
         raise NotImplementedError(f"--sharding auto is not ported yet; it comes with {SLICE5}")
+
+
+def schedule_at(args, lr_scale: float):
+    """The lr schedule at ``--lr`` x `lr_scale` (the guard's backoff scales
+    the schedule's base lr, as the JAX CLI's rebuilt step does), or None for
+    a constant lr."""
+    if args.lr_schedule != "cosine":
+        return None
+    return functools.partial(warmup_cosine, base_lr=args.lr * lr_scale, total_steps=args.steps,
+                             warmup_steps=args.warmup_steps, min_lr_frac=args.min_lr_frac)
+
+
+def fault_plan(args):
+    """The in-step fault plan of ``--chaos-nan-step`` (None without one)."""
+    if not args.chaos_nan_step:
+        return None
+    from .parallel.fault import StepFaultPlan
+
+    return StepFaultPlan(nan_grads_at=tuple(args.chaos_nan_step), nan_layer=args.chaos_nan_layer)
 
 
 def _cards(mesh) -> int:
@@ -415,7 +494,16 @@ def main(argv=None, *, log=say, result: dict | None = None) -> int:
         if mesh.joined and owned:
             log(f"(Multi-process: rank {mesh.rank}/{mesh.world}, backend {mesh.backend}, device "
                 f"{mesh.device})")
-        _train(args, mesh, log, result)
+        abort = None
+        try:
+            _train(args, mesh, log, result)
+        except G.GuardAbort as e:
+            # every rank judged the same health and raises at the same step;
+            # the exception's frames (and with them the step's graphs) are
+            # let go before the group is torn down below
+            abort = str(e)
+        if abort is not None:
+            raise G.GuardAbort(abort)
     finally:
         if owned and joined():
             # the step's graphs (and their NCCL collectives) go first
@@ -453,11 +541,7 @@ def _train(args, mesh, log, result) -> None:
     else:
         mom = lmtrain.init_lm_momentum(params, args.optimizer, mesh)
     cards = _cards(mesh)
-    lr_schedule = None
-    if args.lr_schedule == "cosine":
-        lr_schedule = functools.partial(warmup_cosine, base_lr=args.lr, total_steps=args.steps,
-                                        warmup_steps=args.warmup_steps,
-                                        min_lr_frac=args.min_lr_frac)
+    lr_schedule = schedule_at(args, 1.0)
     if pipe:
         step = ppl.make_pp_train_step(
             cfg, mesh, device=device, n_microbatches=args.microbatches, lr=args.lr,
@@ -471,7 +555,8 @@ def _train(args, mesh, log, result) -> None:
             attn_impl=args.attn, optimizer=args.optimizer, loss_chunks=args.loss_chunks,
             lr_schedule=lr_schedule, clip_norm=args.clip_norm, accum_steps=args.accum_steps,
             weight_decay=args.weight_decay, grad_sync=args.grad_sync, bucket_mb=args.bucket_mb,
-            rules=rules,
+            rules=rules, with_health=args.guard != "off", skip_nonfinite=args.guard == "skip",
+            fault_plan=fault_plan(args),
         )
 
     zperm = None
@@ -673,9 +758,39 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
     # telemetered: every step fenced and recorded; the bare path attributes
     # its window coarsely at the end (fencing each step would change it)
     telemetered = stats is not None
-    run_step = (lmtrain.make_traced_step(step, tracer=tracer, step_stats=stats,
-                                         items_per_step=tokens_per_step, first_step=step0)
-                if telemetered else step)
+
+    def wrap_step(first_step: int):
+        """The step with its spans, StepStats and ledger intervals, step
+        numbers counted from `first_step` (again after a rollback)."""
+        if not telemetered:
+            return step
+        return lmtrain.make_traced_step(step, tracer=tracer, step_stats=stats,
+                                        items_per_step=tokens_per_step, first_step=first_step)
+
+    run_step = wrap_step(step0)
+
+    # the self-healing layer (train/guard.py) and its fault injection
+    rank = mesh.rank if mesh.joined else None
+    monkey = None
+    stall_at = tuple(args.chaos_stall_step or ())
+    if stall_at and args.chaos_stall_rank is not None and (rank or 0) != args.chaos_stall_rank:
+        stall_at = ()  # this rank is not the designated straggler
+    if args.chaos_spike_step or stall_at or args.chaos_sigterm_after is not None:
+        from .parallel.fault import ChaosMonkey
+
+        monkey = ChaosMonkey(spike_at=tuple(args.chaos_spike_step or ()),
+                             sigterm_after=args.chaos_sigterm_after, stall_at=stall_at,
+                             stall_s=args.chaos_stall_seconds, preempt=preempt, tracer=tracer,
+                             log=log)
+    guard = hpipe = None
+    if args.guard != "off":
+        guard = G.TrainingGuard(
+            G.GuardConfig(policy=args.guard, spike_zscore=args.guard_spike_zscore,
+                          snapshot_every=args.snapshot_every, max_retries=args.max_retries),
+            tracer=tracer, step_stats=stats, log=log)
+        hpipe = G.HealthPipe(guard, perturb=monkey.perturb if monkey is not None else None)
+    # the guard's snapshot and restore costs (seconds, bytes), for callers
+    guard_io = {"snapshots": [], "restores": []}
 
     ema = ema_fn = None
     leaves = lmtrain.tree_leaves(params)
@@ -692,15 +807,80 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
     preempted = False
     last_step = step0 - 1
     saved_at = None
-    for i in range(step0, end_step):
+
+    def snapshot_tree():
+        # the checkpoint's whole tree (a gather every rank makes)
+        return lmtrain.checkpoint_state(params, mom, specs, mom_specs, mesh, args.optimizer)
+
+    def handle_verdict(v) -> bool:
+        """Apply a guard verdict; True = rolled back (the loop continues at
+        the snapshot's step, the step's lr backed off)."""
+        nonlocal run_step, i
+        if v is None or v.action in ("ok", "warn", "skip"):
+            return False
+        # at_step sizes the ledger's rollback_recompute window; raises
+        # GuardAbort when the retry budget is spent
+        rb = guard.rollback(at_step=i)
+        if rb is None and ck is not None:
+            # no snapshot yet: the newest checkpoint on disk (the same
+            # exact-resume contract)
+            restored = ck.restore_latest(lmtrain.checkpoint_template(
+                params, mom, specs, mom_specs, mesh, args.optimizer), log=log)
+            if restored is not None:
+                state, _meta, last = restored
+                rb = (last + 1, state)
+                if i > last + 1:
+                    LEDGER.mark_recompute(i - (last + 1))
+                log(f"(guard: no snapshot yet; restored the on-disk checkpoint at step {last})")
+        if rb is None:
+            raise G.GuardAbort(
+                "guard rollback requested before any snapshot or on-disk checkpoint exists - "
+                "lower the LR, enable --checkpoint-dir, or start with --guard warn to observe "
+                "first")
+        snap_step, state = rb
+        t_r = time.perf_counter()
+        # into the step's own tensors: its captured program is kept
+        lmtrain.load_checkpoint_state(state, params, mom, specs, mom_specs, mesh,
+                                      args.optimizer)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        guard_io["restores"].append(time.perf_counter() - t_r)
+        # the lr backoff: the step reads its lr from a buffer at every call,
+        # so the schedule's base lr is scaled and the program kept
+        step.lr = args.lr * guard.lr_scale
+        step.lr_schedule = schedule_at(args, guard.lr_scale)
+        run_step = wrap_step(snap_step)
+        log(f"(guard: resuming from step {snap_step} at lr_scale={guard.lr_scale:g} "
+            "[the captured step kept, its lr buffer rescaled])")
+        hpipe.clear()
+        del losses[max(snap_step - step0, 0):]
+        i = snap_step
+        return True
+
+    i = step0
+    while i < end_step:
+        if guard is not None and (i - step0) % args.snapshot_every == 0:
+            # settle the observation in flight before the snapshot, so that
+            # it only ever holds state the guard has judged
+            if handle_verdict(hpipe.flush()):
+                continue
+            t_s = time.perf_counter()
+            if guard.maybe_snapshot(i, snapshot_tree, first_step=step0):
+                guard_io["snapshots"].append((i, time.perf_counter() - t_s, sum(
+                    x.nbytes if isinstance(x, np.ndarray) else x.numel() * x.element_size()
+                    for x in lmtrain.tree_leaves(guard.peek_snapshot()[1]))))
         if stream is not None:
             # host-side sampling blocks the loop: data_wait
             with LEDGER.interval("data_wait"):
                 tokens, targets = rows(*batch_at(i))
-        loss = run_step(params, mom, tokens, targets, i)
+        out = run_step(params, mom, tokens, targets, i)
+        loss = out[0] if guard is not None else out
         # the ranks agree on a stop while the card runs the step just
         # launched (a host-side all-reduce: it waits for no card)
         stop = preempt is not None and preempt.agreed()
+        # the previous step's health, read now that this one is launched
+        if hpipe is not None and handle_verdict(hpipe.push(i, out[1])):
+            continue
         if result is not None:
             losses.append(loss)
         if ema_fn is not None:
@@ -723,13 +903,13 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
                          "ppl": round(float(np.exp(min(ev, 30.0))), 2)}
             log(f"step {i:>5}  eval_loss {ev:.4f}  ppl {last_eval['ppl']:.2f}")
             run.append("val/loss", ev)
-        if i == step0:
+        if i == step0 and first_loss is None:
             first_loss = float(loss)  # waits for the step
             log(f"(first step incl. kernel build and graph capture: "
                 f"{time.perf_counter() - t_first:.1f}s)")
             log(f"(step program: {step.segments})")
             t0 = time.perf_counter()
-        else:
+        elif t0 is not None:
             timed_steps += 1
         if (i - step0) % args.log_every == 0 or i == end_step - 1:
             log(f"step {i:>5}  loss {float(loss):.4f}")
@@ -738,6 +918,8 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
             save(i, loss)
             saved_at = i
         last_step = i
+        if monkey is not None:
+            monkey.after_step(i)
         if stop:
             preempted = True
             if ck is not None:
@@ -750,6 +932,12 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
                 log(f"({preempt.signame}: stopping after step {i}; no --checkpoint-dir, "
                     "progress is lost)")
             break
+        i += 1
+    if hpipe is not None:
+        # the last step's verdict (the counters and the trace complete; a
+        # final-step rollback has nothing left to run again, and the abort
+        # policy still raises from here)
+        hpipe.flush()
     if loss is None:
         # resumed at or past the stop step: nothing to train
         log(f"(stop-at-step {end_step} already reached - resumed at step {step0}; nothing "
@@ -819,6 +1007,8 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
         log(f"(Chrome trace written to {trace_out}; open in Perfetto / chrome://tracing, or "
             "summarize with tools/trace_summary.py)")
     run.stop()
+    if guard is not None:
+        log("(guard summary: " + json.dumps(guard.summary()) + ")")
     log("GOODPUT " + json.dumps({
         "goodput_ratio": goodput_rec["goodput_ratio"], "wall_s": goodput_rec["wall_s"],
         "goodput_s": goodput_rec["goodput_s"],
@@ -828,7 +1018,8 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
     summary = dict.fromkeys(SUMMARY_KEYS)
     summary.update({
         "mesh": mesh.desc, "steps": args.steps, "start_step": step0, "last_step": last_step,
-        "preempted": preempted, "guard": "off", "dtype": args.dtype,
+        "preempted": preempted, "guard": args.guard,
+        "guard_summary": guard.summary() if guard is not None else None, "dtype": args.dtype,
         # (P-1)/(v*M+P-1) of tick-time processes garbage
         "pp_bubble_frac": (round((args.pp - 1) / (args.pp_interleave * args.microbatches
                                                  + args.pp - 1), 4) if pipe else None),
@@ -841,14 +1032,28 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
         "mfu_pct": round(mfu, 2) if mfu is not None else None,
     })
     log("SUMMARY " + json.dumps(summary))
+    if isinstance(mom, dict) and "t" in mom:
+        mom["t"] = lmtrain.adam_count(mom)  # the exact count, for callers
     if result is not None:
         result.update(losses=[float(x) for x in losses], params=params, mom=mom, step=step,
                       mesh=mesh, cards=cards, specs=specs, start_step=step0,
+                      guard=None if guard is None else {**guard.summary(), **guard_io},
                       checkpoint=None if ck is None else {"save": ck.last_save,
                                                           "restore": ck.last_restore})
+
+
+def cli() -> int:
+    """`main` on ``sys.argv``, a guard abort turned into one line and a
+    nonzero exit (the JAX CLI's)."""
+    try:
+        return main()
+    except G.GuardAbort as e:
+        # one actionable line instead of a traceback: the message says what
+        # happened and what to do next
+        raise SystemExit(f"GUARD ABORT: {e}")
 
 
 if __name__ == "__main__":
     import sys
 
-    sys.exit(main())
+    sys.exit(cli())

@@ -66,8 +66,11 @@ SCHEDULES = {"constant": constant_lr, "cosine": warmup_cosine}
 def per_leaf_sq_norms(leaves, *, specs=None, axes=(), mesh=None):
     """Per-leaf global squared L2 norms (f32 0-d tensors): with `specs` and
     `axes`, a leaf's squared sum is all-reduced over each axis of `axes`
-    its spec shards it on, over that axis's group of `mesh`."""
-    sq = [g.float().square().sum() for g in leaves]
+    its spec shards it on, over that axis's group of `mesh`. One
+    multi-tensor pass reads each leaf once (no squared copy of the
+    gradients): the guard's health norm is paid at every step."""
+    norms = torch._foreach_norm([g.float() for g in leaves])
+    sq = torch._foreach_mul(norms, norms)
     if specs is None or not axes:
         return sq
     spec_leaves = tree_leaves(specs)

@@ -42,9 +42,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..ops.adam import B2, EPS, adam_leaf_update, bias_corrections
+from ..ops.adam import B2, EPS, adam_leaf_update, bias_corrections, guarded_adam_leaf_update
 from ..ops.schedule import apply_decoupled_weight_decay
-from ..ops.sgd import sgd_step
+from ..ops.sgd import guarded_sgd_step, sgd_step
 from ..utils.tree import tree_leaves, tree_map
 from .collectives import all_gather, reduce_scatter
 
@@ -218,7 +218,7 @@ def make_overlap_grad_reducers(layout, mesh):
 
 
 def make_zero_split_step(leaves, grads, state, *, mesh, optimizer: str, lr_t, momentum: float,
-                         weight_decay: float = 0.0, corrections=None):
+                         weight_decay: float = 0.0, corrections=None, ok=None):
     """The optimizer half of the ZeRO-1 LM step over static buffers:
     (update, gather, put), to run in that order after the gradients'
     collective. `grads`: leaf-shaped tensors holding the gradients summed
@@ -228,7 +228,10 @@ def make_zero_split_step(leaves, grads, state, *, mesh, optimizer: str, lr_t, mo
     shards and update them (a graph part); gather: the all-gather (the
     collective, captured under NCCL, eager under gloo); put: the copy back
     into the parameters (a graph part). The parts hold their buffers (a
-    `ZeroShards`)."""
+    `ZeroShards`). `ok`, a 0-d bool tensor the step writes before the
+    update (the guard's skip), gates the shard update: where it is false
+    the shards keep their values, so the all-gather brings back the old
+    parameters."""
     sh = ZeroShards(leaves, mesh)
 
     @torch.no_grad()
@@ -237,11 +240,18 @@ def make_zero_split_step(leaves, grads, state, *, mesh, optimizer: str, lr_t, mo
         sh.take_grads(grads)
         if optimizer == "zero-adam":
             c1, c2 = corrections
-            adam_leaf_update(sh.p_sh, sh.g_sh, state["m"], state["v"], c1, c2, lr_t, momentum,
-                             B2, EPS, weight_decay)
-        else:
+            if ok is None:
+                adam_leaf_update(sh.p_sh, sh.g_sh, state["m"], state["v"], c1, c2, lr_t,
+                                 momentum, B2, EPS, weight_decay)
+            else:
+                guarded_adam_leaf_update(sh.p_sh, sh.g_sh, state["m"], state["v"], c1, c2,
+                                         lr_t, momentum, B2, EPS, weight_decay, ok=ok)
+        elif ok is None:
             sgd_step(sh.p_sh, state, sh.g_sh, lr_t, momentum)
             apply_decoupled_weight_decay(sh.p_sh, lr_t, weight_decay)
+        else:
+            guarded_sgd_step(sh.p_sh, state, sh.g_sh, lr_t, momentum, ok=ok,
+                             weight_decay=weight_decay)
 
     return update, sh.gather, lambda: sh.put_params(leaves)
 

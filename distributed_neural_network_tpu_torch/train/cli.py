@@ -27,6 +27,12 @@ the StepStats summary and streams ``step/*`` series into
 (`utils/goodput.py`, read by `tools/goodput.py`); the GOODPUT line is
 printed either way.
 
+The per-epoch training guard, as the JAX CLI's (`train/guard.py`): ``--guard
+warn|skip|rollback|abort`` observes each epoch's global train loss (the
+per-epoch path: a ``--fused`` span cannot be observed inside it);
+``--guard-spike-zscore``, ``--snapshot-every`` (epochs between the rolling
+host snapshots) and ``--max-retries`` as the JAX flags.
+
 Across processes, one per rank under torchrun, which sets the rendezvous
 environment (`parallel/distributed.py`):
 
@@ -60,14 +66,13 @@ from ..utils.goodput import LEDGER, RUN_RECORD_ENV
 from ..utils.logfiles import write_phase_logs
 from ..utils.metrics import init_run
 from .engine import SLICE4, Engine, TrainConfig
-from .guard import PreemptionGuard
+from .guard import POLICIES, GuardAbort, GuardConfig, PreemptionGuard, TrainingGuard
 
 SLICE5 = "slice 5, static analysis (ROADMAP.md Queue 1 item 6)"
 
 # dest -> (flag, the slice that brings it); each is parsed with default None
 LATER_FLAGS = {
     "elastic": ("--elastic", SLICE4),
-    "guard": ("--guard", SLICE4),
     "metrics_port": ("--metrics-port", SLICE4),
     "profile_dir": ("--profile-dir", SLICE4),
     "neptune": ("--neptune", SLICE4),
@@ -169,6 +174,27 @@ def add_common_flags(p: argparse.ArgumentParser, *, epochs: int, batch_size: int
         help="checkpoint = on SIGTERM/SIGINT finish the current epoch, write an emergency "
         "checkpoint (when --checkpoint-dir is set) and exit cleanly for exact resume; "
         "ignore = default signal behavior",
+    )
+    p.add_argument(
+        "--guard", choices=POLICIES, default="off",
+        help="per-epoch training guard: warn = count/log anomalies (non-finite loss, EMA loss "
+        "spikes); skip = drop an anomalous epoch's update (pre-epoch snapshot restored); "
+        "rollback = restore the rolling snapshot and retry with LR backoff (bounded by "
+        "--max-retries); abort = stop with an actionable error",
+    )
+    p.add_argument(
+        "--guard-spike-zscore", type=float, default=6.0,
+        help="loss-spike threshold in EMA standard deviations (anomaly when loss > mean + "
+        "z*sigma; non-finite always counts)",
+    )
+    p.add_argument(
+        "--snapshot-every", type=int, default=1,
+        help="epochs between the guard's rolling in-memory host snapshots (a rollback "
+        "rewinds at most this far)",
+    )
+    p.add_argument(
+        "--max-retries", type=int, default=3,
+        help="guard rollback budget before abort (refills after a stretch of healthy epochs)",
     )
     p.add_argument(
         "--trace-out", default=None, metavar="TRACE.json",
@@ -400,14 +426,27 @@ def _run_training_body(args, regime, *, log, cfg, device, rank, tracer, trace_ou
                     "starting from scratch - check the dir and "
                     "--checkpoint-backend match the original run)"
                 )
+    # the per-epoch policy guard; the preemption guard was installed by
+    # run_training
+    guard = None
+    if args.guard != "off":
+        guard = TrainingGuard(
+            GuardConfig(policy=args.guard, spike_zscore=args.guard_spike_zscore,
+                        snapshot_every=args.snapshot_every, max_retries=args.max_retries,
+                        # one observation an epoch: arm the spike detector
+                        # after a few epochs rather than the step-scale default
+                        warmup_steps=3),
+            tracer=tracer, step_stats=stats, log=log)
     try:
         engine.run(timers=timers, run=run, log=log, eval_every=args.eval_every,
                    fused=args.fused, checkpointer=checkpointer, start_epoch=start_epoch,
-                   preemption=preemption)
+                   preemption=preemption, guard=guard)
     finally:
         if checkpointer is not None:
             checkpointer.close()
     wall = time.perf_counter() - t0
+    if guard is not None:
+        log(f"(guard summary: {json.dumps(guard.summary())})")
     if checkpointer is not None and checkpointer.last_save is not None:
         secs, nbytes = checkpointer.last_save
         log(f"(Last checkpoint: {nbytes:,} B written in {secs:.3f} s)")
@@ -460,7 +499,7 @@ def _run_training_body(args, regime, *, log, cfg, device, rank, tracer, trace_ou
     summary = {
         "regime": regime,
         "epochs": cfg.epochs,
-        "guard": "off",
+        "guard": args.guard,
         "preempted": preempted,
         "final_train_loss": engine.history[-1].train_loss if engine.history else None,
         "final_val_acc": engine.history[-1].val_acc if engine.history else None,
@@ -507,7 +546,16 @@ def main(argv=None, *, log=say) -> int:
     parser.set_defaults(data="synthetic", synthetic_size=2048)
     args = parser.parse_args(argv)
     try:
-        run_training(args, args.regime, log=log)
+        abort = None
+        try:
+            run_training(args, args.regime, log=log)
+        except GuardAbort as e:
+            # every rank observed the same loss and raises at the same epoch;
+            # the exception's frames (and with them the engine's graphs) are
+            # let go before the group is torn down below
+            abort = str(e)
+        if abort is not None:
+            raise GuardAbort(abort)
     finally:
         if joined():
             dist.destroy_process_group()

@@ -64,6 +64,7 @@ package's; `orders` and `masks` hooks let a caller inject any.
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 
 import numpy as np
@@ -224,6 +225,7 @@ class Engine:
         self._build_state()
         self._build_programs()
         self._capture = self.device.type == "cuda"
+        self._recaptured = False
         self.history: list[EpochMetrics] = []
 
     # ---------------------------------------------------------------- data
@@ -545,7 +547,10 @@ class Engine:
         t_step = time.perf_counter()
         with tracer.span("train_epoch" if self._host_train is not None else TR.TRAIN_STEP,
                          track="train", step=epoch, regime=c.regime, input_mode=c.input_mode):
-            self.compile()
+            # a rebuild's capture is compile time, not this epoch's step
+            with LEDGER.interval("compile") if self._recaptured else nullcontext():
+                self.compile()
+            self._recaptured = False
             if self._host_train is None:
                 self._load(*self.epoch_plan(epoch), torch.tensor(mask))
             else:
@@ -625,19 +630,29 @@ class Engine:
 
     def run(self, *, timers: T.PhaseTimers | None = None, run=None, log=print,
             eval_every: int = 1, fused: bool = False, checkpointer=None,
-            start_epoch: int = 0, preemption=None) -> list[EpochMetrics]:
+            start_epoch: int = 0, preemption=None, guard=None) -> list[EpochMetrics]:
         """Full training run; `run` is a MetricsRun-like sink
         (`utils/metrics.py`). `fused=True` runs multi-epoch spans
         (`run_span`, split at checkpoint and eval boundaries) instead of one
-        read per epoch; stream mode (no HBM-resident data) and straggler
-        sleeps (`failure_duration`, which can only fall between epochs)
-        force the per-epoch path, each with a line saying so.
+        read per epoch; stream mode (no HBM-resident data), straggler
+        sleeps (`failure_duration`, which can only fall between epochs) and
+        the guard force the per-epoch path, each with a line saying so.
         `checkpointer` (`utils/checkpoint.py` `Checkpointer`) saves at epoch
         edges; `start_epoch` > 0 resumes a restored run. `preemption`
         (`train/guard.py` `PreemptionGuard`): when its flag is up on any
         rank at an epoch (or span) boundary, an emergency checkpoint of the
         completed epochs is written (with a `checkpointer`) and the run
-        returns early; a resume replays the remaining epochs exactly."""
+        returns early; a resume replays the remaining epochs exactly.
+
+        `guard` (`train/guard.py` `TrainingGuard`) checks the run at epoch
+        granularity, as the JAX engine's: one epoch is one step here, so the
+        guard observes each epoch's global train loss. 'warn' counts and
+        logs; 'skip' drops an anomalous epoch's whole update (the pre-epoch
+        snapshot restored, training goes on at the next epoch); 'rollback'
+        restores the rolling snapshot, scales the lr down (the programs,
+        which hold the lr as a constant, are built and captured again) and
+        runs again from the snapshot's epoch; 'abort' raises GuardAbort.
+        Every rank observes the same global loss, so the ranks agree."""
         if fused and self.config.input_mode == "stream":
             log("(fused mode needs HBM-resident data; input_mode=stream uses the "
                 "per-epoch path)")
@@ -648,21 +663,66 @@ class Engine:
                 "sleeps; using the per-epoch path)"
             )
             fused = False
+        if fused and guard is not None:
+            log("(fused mode cannot observe per-epoch health inside one dispatch; --guard "
+                "uses the per-epoch path)")
+            fused = False
         if fused:
             return self._run_fused(timers=timers, run=run, log=log, eval_every=eval_every,
                                    checkpointer=checkpointer, start_epoch=start_epoch,
                                    preemption=preemption)
-        for epoch in range(start_epoch, self.config.epochs):
+        base_lr = self.config.lr
+        epoch = start_epoch
+        while epoch < self.config.epochs:
             if preemption is not None and preemption.agreed():
                 self._emergency_save(epoch - 1, checkpointer, preemption, log)
                 break
+            if guard is not None:
+                guard.maybe_snapshot(epoch, self.state_tree, first_step=start_epoch)
             log(f"Starting epoch  {epoch}")
             do_eval = eval_every > 0 and (epoch + 1) % eval_every == 0
             m = self.run_epoch(epoch, timers=timers, do_eval=do_eval, log=log)
+            if guard is not None:
+                v = guard.observe(epoch, m.train_loss)
+                if v.action == "skip" and guard.has_snapshot:
+                    # drop this epoch's whole update: the pre-epoch params and
+                    # momentum back (the metrics stay in history: they say
+                    # what happened)
+                    snap_epoch, state = guard.peek_snapshot()
+                    self.load_state_tree(state)
+                    log(f"(guard: epoch {epoch} update dropped; params restored to epoch "
+                        f"{snap_epoch} snapshot)")
+                elif v.action == "rollback":
+                    rb = guard.rollback(at_step=epoch + 1)  # raises GuardAbort on budget
+                    if rb is not None:
+                        snap_epoch, state = rb
+                        self.load_state_tree(state)
+                        # the lr is a constant of the captured programs: build
+                        # them again at the scaled lr, captured at the next epoch
+                        self.config.lr = base_lr * guard.lr_scale
+                        self.rebuild_programs()
+                        self.history = [h for h in self.history if h.epoch < snap_epoch]
+                        epoch = snap_epoch
+                        continue
+                    log("(guard: rollback requested but no snapshot yet; continuing with a "
+                        "warning)")
             self._log_epoch(m, run, log, start=False)
             if checkpointer is not None:
                 checkpointer.maybe_save(epoch, self)
+            epoch += 1
         return self.history
+
+    def rebuild_programs(self) -> None:
+        """Build the programs again (after a change of `config.lr`, which
+        they hold as a constant); the old graphs are freed before the next
+        capture (a graph the collector frees during another capture spoils
+        it), and that capture counts as compile time in the ledger."""
+        import gc
+
+        self._begin = self._step = self._sync = self._eval = None
+        gc.collect()
+        self._build_programs()
+        self._recaptured = True
 
     def _emergency_save(self, last_epoch, checkpointer, preemption, log) -> None:
         name = preemption.signame

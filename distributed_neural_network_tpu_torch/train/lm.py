@@ -60,8 +60,21 @@ writes them into their buffers; graph and eager give the same bits.
 card too. The pipeline axis's step is this one with its own loss and sync
 sets (`parallel/pipeline.py` `PPTrainStep`: `_one`, `_sync_sets`,
 `_reducer`). `make_traced_step` wraps either in the trace's spans,
-StepStats and the goodput ledger. The guard, fault plans and dynamics come
-later (ROADMAP Queue 1 item 4).
+StepStats and the goodput ledger.
+
+The guard's hooks (`train/guard.py`, JAX `make_lm_train_step`'s):
+``with_health`` returns the health bundle (loss, global gradient norm,
+all-finite flag: three 0-d device tensors) beside the loss and changes no
+value; ``skip_nonfinite`` gates the whole update (parameters, optimizer
+state, Adam's counter) on the finite flag inside the program
+(`ops/sgd.py` `guarded_sgd_step`, `ops/adam.py` `guarded_adam_step`), so
+the step stays one graph; ``fault_plan`` (`parallel/fault.py`
+`StepFaultPlan`) injects NaN gradients or a loss spike at chosen steps,
+read from a 0-d step-index buffer written before each run. Under
+``skip_nonfinite`` with Adam the counter lives on the device (the host
+learns of a skip one step late, after the next step has read its
+corrections): `DeviceCount` is the host's view of it in ``mom["t"]``.
+Dynamics come later (ROADMAP Queue 1 item 4).
 
 Mixture of experts (``cfg.n_experts``): with a data axis of more than one
 rank the experts are sharded over it (`expert_axis`, the GShard convention):
@@ -87,7 +100,17 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models import transformer as tfm
 from ..ops import flash_attention as fa
-from ..ops.adam import B2, EPS, adam_leaf_update, bias_corrections, init_adam
+from ..ops.adam import (
+    B2,
+    EPS,
+    adam_leaf_update,
+    advance_counter,
+    bias_corrections,
+    correction_table,
+    guarded_adam_leaf_update,
+    init_adam,
+    table_corrections,
+)
 from ..ops.schedule import (
     GRAD_SYNCS,
     accumulate_fwd_bwd,
@@ -97,7 +120,7 @@ from ..ops.schedule import (
     health_bundle,
     overlap_parts,
 )
-from ..ops.sgd import init_momentum, sgd_step
+from ..ops.sgd import guarded_sgd_step, init_momentum, sgd_step
 from ..parallel import zero
 from ..parallel.collectives import COLLECTIVE_FORMS, BucketReducer, gather_dim, plan_buckets
 from ..parallel.mesh import (
@@ -225,7 +248,7 @@ def _checkpoint_trees(params, mom, specs, mom_specs, optimizer: str):
         return tree_unflatten(params, state)
 
     mom_tree = (form(mom) if optimizer in ("sgd", "zero")
-                else {"m": form(mom["m"]), "t": mom["t"], "v": form(mom["v"])})
+                else {"m": form(mom["m"]), "t": int(adam_count(mom)), "v": form(mom["v"])})
     return {"mom": mom_tree, "params": params}, {"mom": mom_specs, "params": specs}
 
 
@@ -281,9 +304,34 @@ def load_checkpoint_state(state, params, mom, specs, mom_specs, mesh: ProcessMes
     tree, spec_tree = _checkpoint_trees(params, mom, specs, mom_specs, optimizer)
     for dst, src, spec in zip(tree_leaves(tree), tree_leaves(state), tree_leaves(spec_tree)):
         if isinstance(dst, torch.Tensor):
-            dst.copy_(_local_shard(to_torch(src).to(dst.device), spec, mesh))
+            src = src if isinstance(src, torch.Tensor) else to_torch(src)
+            dst.copy_(_local_shard(src.to(dst.device), spec, mesh))
     if optimizer in ("adam", "zero-adam"):
+        # a plain int: a step that counts on the device takes it from here
         mom["t"] = int(state["mom"]["t"])
+
+
+class DeviceCount(int):
+    """Adam's counter as the host sees it when the step counts on the
+    device (``skip_nonfinite``): an int holding the count as if no step had
+    been skipped, and the device counter, which `adam_count` reads for the
+    exact value. A plain int put into ``mom["t"]`` (a restore) is taken by
+    the step's next call as the device counter's new value. It holds the
+    counter tensor, not the step: the step's program closes over ``mom``, so
+    a reference back to the step would make a cycle, and a step in a cycle
+    is freed by the collector, maybe during another capture."""
+
+    def __new__(cls, value: int, device_t):
+        obj = super().__new__(cls, value)
+        obj.device_t = device_t
+        return obj
+
+
+def adam_count(mom) -> int:
+    """Adam's exact step counter from ``mom["t"]``: the device counter's
+    value (one read) when the step counts there, else the host's int."""
+    t = mom["t"]
+    return int(t.device_t) if isinstance(t, DeviceCount) else t
 
 
 EXPERT_LEAVES = ("layers/w1", "layers/b1", "layers/w2", "layers/b2")
@@ -571,13 +619,18 @@ class LMTrainStep(_Captured):
 
     def __init__(self, cfg, *, mesh, device, lr, momentum, attn_impl, optimizer, loss_chunks,
                  lr_schedule, clip_norm, accum_steps, weight_decay, with_health, grad_sync,
-                 bucket_bytes, specs):
+                 bucket_bytes, specs, skip_nonfinite=False, fault_plan=None):
         super().__init__("the LM train step", device if device is not None else
                          (mesh.device if mesh.joined else None))
         self.cfg, self.mesh, self.lr, self.momentum = cfg, mesh, lr, momentum
         self.attn_impl, self.optimizer, self.loss_chunks = attn_impl, optimizer, loss_chunks
         self.lr_schedule, self.clip_norm, self.accum_steps = lr_schedule, clip_norm, accum_steps
-        self.weight_decay, self.with_health = weight_decay, with_health
+        # skip_nonfinite implies the health output, as JAX's want_health
+        self.weight_decay, self.with_health = weight_decay, with_health or skip_nonfinite
+        self.skip_nonfinite = skip_nonfinite
+        self.fault_plan = fault_plan if fault_plan else None  # an empty plan injects nothing
+        # Adam under skip counts on the device (`DeviceCount`)
+        self.device_count = skip_nonfinite and optimizer in ("adam", "zero-adam")
         self.overlap = grad_sync == "overlap" and accum_steps > 1
         self.bucket_bytes, self.specs = bucket_bytes, specs
         # the mesh path: a group to sync over, sharded state, or the
@@ -599,6 +652,10 @@ class LMTrainStep(_Captured):
         self.norm_collective = mesh.tp > 1 or ep
         self._out = {}
         self._scalars = None
+        # the guard's device buffers: the finite flag the gated update reads,
+        # the step index a fault plan fires on, Adam's device counter and
+        # its corrections table (made at the first call)
+        self._ok = self._step_i = self._count = self._table = None
 
     @property
     def collective_form(self) -> str | None:
@@ -624,31 +681,63 @@ class LMTrainStep(_Captured):
 
         return one
 
-    def _optimize(self):
-        """`optimize(leaves, grads, mom)`: clip, then the replicated update
-        (sgd or adam) of `leaves` with `grads`, in place; returns the health
-        norm (or None). The norm sums a tensor-sharded leaf over the model
-        axis. It closes over values, not over this object."""
+    def _optimize(self, params):
+        """`optimize(leaves, grads, mom, loss)`, in the JAX order: the fault
+        plan's injection, clip (the health norm is the pre-clip one), the
+        health bundle, then the replicated update (sgd or adam) of `leaves`
+        with `grads` in place, gated on the finite flag under
+        `skip_nonfinite`; returns (loss, health or None). The norm sums a
+        tensor-sharded leaf over the model axis. It closes over values, not
+        over this object."""
         optimizer, momentum, weight_decay = self.optimizer, self.momentum, self.weight_decay
-        clip_norm, with_health = self.clip_norm, self.with_health
+        clip_norm, with_health, skip = self.clip_norm, self.with_health, self.skip_nonfinite
         lr_t, c1, c2 = self._scalars
+        ok, count, table = self._ok, self._count, self._table
+        plan, step_i = self.fault_plan, self._step_i
+        at = None
+        if plan is not None:
+            from ..parallel.fault import fault_masks
+
+            at = fault_masks(plan, lr_t.device)
         mesh = self.mesh
         spec_leaves = tree_leaves(self.specs)
         norm_kw = dict(specs=spec_leaves, axes=tuple(mesh.shape), mesh=mesh)
 
-        def optimize(leaves, grads, mom):
-            norm = None
+        def optimize(leaves, grads, mom, loss):
+            if plan is not None:
+                from ..parallel.fault import inject_step_faults
+
+                loss = inject_step_faults(step_i, loss, tree_unflatten(params, grads), plan,
+                                          at=at)[0]
+            norm = health = None
             if clip_norm > 0.0:
                 norm = clip_by_global_norm(grads, clip_norm, **norm_kw)
             elif with_health:
                 norm = global_norm(grads, **norm_kw)
-            if optimizer == "adam":
+            if with_health:
+                health = health_bundle(loss, norm)
+            if skip:
+                ok.copy_(health["all_finite"])
+            if count is not None:
+                # this step's corrections from the device counter
+                n1, n2 = table_corrections(table, count + 1)
+                c1.copy_(n1)
+                c2.copy_(n2)
+            if optimizer == "adam" and skip:
+                guarded_adam_leaf_update(leaves, grads, mom["m"], mom["v"], c1, c2, lr_t,
+                                         momentum, B2, EPS, weight_decay, ok=ok)
+            elif optimizer == "adam":
                 adam_leaf_update(leaves, grads, mom["m"], mom["v"], c1, c2, lr_t, momentum,
                                  B2, EPS, weight_decay)
+            elif optimizer == "sgd" and skip:
+                guarded_sgd_step(leaves, mom, grads, lr_t, momentum, ok=ok,
+                                 weight_decay=weight_decay)
             elif optimizer == "sgd":
                 sgd_step(leaves, mom, grads, lr_t, momentum)
                 apply_decoupled_weight_decay(leaves, lr_t, weight_decay)
-            return norm
+            if count is not None:
+                advance_counter(count, ok)
+            return loss, health
 
         return optimize
 
@@ -657,7 +746,7 @@ class LMTrainStep(_Captured):
         reference to this object: a dropped step frees its graphs at once)."""
         leaves = tree_leaves(params)
         one, accum, out = self._one(params), self.accum_steps, self._out
-        optimize, with_health = self._optimize(), self.with_health
+        optimize = self._optimize(params)
 
         def begin():
             for p in leaves:
@@ -669,15 +758,12 @@ class LMTrainStep(_Captured):
                 begin()
                 loss = accumulate_fwd_bwd(one, accum)(leaves, tokens, targets)
                 grads = [p.grad for p in leaves]
-                norm = optimize(leaves, grads, mom)
+                out["loss"], out["health"] = optimize(leaves, grads, mom, loss)
                 for p in leaves:
                     p.grad = None
-                out["loss"] = loss
-                if with_health:
-                    out["health"] = health_bundle(loss, norm)
 
             return [fn]
-        return self._synced_parts(one, leaves, mom, tokens, targets, begin)
+        return self._synced_parts(one, leaves, mom, tokens, targets, begin, optimize)
 
     def _sync_sets(self, n_leaves: int):
         """[(axis, leaf indices)]: the leaves whose gradients are summed
@@ -697,7 +783,7 @@ class LMTrainStep(_Captured):
         return (zero.ShardReducer if self.optimizer.startswith("zero")
                 else BucketReducer)(layout, self.mesh, dev)
 
-    def _synced_parts(self, one, leaves, mom, tokens, targets, begin):
+    def _synced_parts(self, one, leaves, mom, tokens, targets, begin, optimize):
         """The mesh step: [begin, the gradients and their collectives over
         the sync sets' axes, the update, (zero: the all-gather over the data
         axis, the copy back)]."""
@@ -705,7 +791,7 @@ class LMTrainStep(_Captured):
         accum, divisor = self.accum_steps, self.divisor
         sets = self._sync_sets(len(leaves))
         loss_group = sets[0][0].group
-        optimize, with_health = self._optimize(), self.with_health
+        with_health = self.with_health
         loss = torch.zeros((), device=dev)
         sums = []  # (fn, kind): "model" (forward and backward), "collective", "local"
         if self.overlap:
@@ -759,17 +845,17 @@ class LMTrainStep(_Captured):
             state = mom if self.optimizer == "zero" else {"m": mom["m"], "v": mom["v"]}
             zero_parts = zero.make_zero_split_step(
                 leaves, grads, state, mesh=mesh, optimizer=self.optimizer, lr_t=lr_t,
-                momentum=self.momentum, weight_decay=self.weight_decay, corrections=(c1, c2))
+                momentum=self.momentum, weight_decay=self.weight_decay, corrections=(c1, c2),
+                ok=self._ok if self.skip_nonfinite else None)
 
         @torch.no_grad()
         def update():
             average()
-            norm = optimize(leaves, grads, mom)
+            # after the sync: every rank injects the same fault into the
+            # same gradients, and spikes the mean loss
+            out["loss"], out["health"] = optimize(leaves, grads, mom, loss)
             if zero_parts:
                 zero_parts[0]()
-            out["loss"] = loss
-            if with_health:
-                out["health"] = health_bundle(loss, norm)
 
         # the norm of a tensor- or stage-sharded leaf is summed over its axis
         sums.append((update, "norm" if self.norm_collective and (self.clip_norm > 0.0
@@ -806,24 +892,55 @@ class LMTrainStep(_Captured):
         leaves = tree_leaves(params)
         adam = self.optimizer in ("adam", "zero-adam")
         bound = leaves + (mom["m"] + mom["v"] if adam else mom)
+        if self.fault_plan is not None and step_i is None:
+            raise ValueError("a step with a fault plan fires on the step index: pass step_i")
         if self._scalars is None:
-            self._scalars = [torch.zeros((), device=self.device or leaves[0].device)
-                             for _ in range(3)]
+            dev = self.device or leaves[0].device
+            self._scalars = [torch.zeros((), device=dev) for _ in range(3)]
+            self._ok = torch.ones((), dtype=torch.bool, device=dev)
+            self._step_i = torch.zeros((), dtype=torch.int64, device=dev)
+            if self.device_count:
+                self._count = torch.zeros((), dtype=torch.int32, device=dev)
+                self._table = correction_table(self.momentum, B2, device=dev)
         first = self._bind(bound, (tokens, targets),
                            lambda tok, tgt: self._build(params, mom, tok, tgt))
         lr_t, c1, c2 = self._scalars
         # the host's f32 values, written into the buffers the updates read
         lr_t.fill_(self.lr if self.lr_schedule is None else self.lr_schedule(step_i))
-        if adam:
+        if step_i is not None:
+            self._step_i.fill_(int(step_i))
+        if self.device_count:
+            t = mom["t"]
+            if not (isinstance(t, DeviceCount) and t.device_t is self._count):
+                # the host set the counter (the first call, a restore)
+                self._count.fill_(int(t))
+        elif adam:
             for buf, c in zip((c1, c2), bias_corrections(mom["t"] + 1, self.momentum, B2)):
                 buf.fill_(c)
-        self._run(first, (tokens, targets), bound)
-        if adam:
+        # the capture's warm-up puts back what the step writes: the state,
+        # and the device counter when the step counts there
+        self._run(first, (tokens, targets),
+                  bound + ([self._count] if self._count is not None else []))
+        if self.device_count:
+            mom["t"] = DeviceCount(mom["t"] + 1, self._count)
+        elif adam:
             mom["t"] += 1
         loss = self._out["loss"].clone()
-        if self.with_health:
-            return loss, {k: v.clone() for k, v in self._out["health"].items()}
-        return loss
+        if not self.with_health:
+            return loss
+        health = self._out["health"]
+        if not health["loss"].is_cuda:
+            return loss, {k: v.clone() for k, v in health.items()}
+        # copied to pinned host memory now, queued behind this step alone:
+        # a read after the next step's launch (`train/guard.py` HealthPipe)
+        # waits on `ready`, where reading a device tensor would wait for
+        # everything queued on the stream, the next step too
+        host = {k: torch.empty((), dtype=v.dtype, pin_memory=True) for k, v in health.items()}
+        for k, v in health.items():
+            host[k].copy_(v, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return loss, {**host, "ready": ready}
 
 
 def make_lm_train_step(cfg, *, mesh: ProcessMesh | None = None, device=None, lr: float = 0.1,
@@ -831,10 +948,11 @@ def make_lm_train_step(cfg, *, mesh: ProcessMesh | None = None, device=None, lr:
                        loss_chunks: int = 0, lr_schedule=None, clip_norm: float = 0.0,
                        accum_steps: int = 1, weight_decay: float = 0.0,
                        with_health: bool = False, grad_sync: str = "end",
-                       bucket_mb: float = 4.0, rules=None):
+                       bucket_mb: float = 4.0, rules=None, skip_nonfinite: bool = False,
+                       fault_plan=None):
     """`step(params, mom, tokens, targets, step_i=None)` -> loss (0-d f32
-    tensor), or (loss, health) with `with_health`; params and optimizer
-    state are updated in place.
+    tensor), or (loss, health) with `with_health` or `skip_nonfinite`;
+    params and optimizer state are updated in place.
 
     The JAX package's step in its order: forward + backward (accumulated
     over `accum_steps` micro-batches of B/k rows, mean gradient), the
@@ -858,6 +976,19 @@ def make_lm_train_step(cfg, *, mesh: ProcessMesh | None = None, device=None, lr:
     tensors and the token shape of its first call (a call with others
     raises), and on the card CUDA graphs (one, unless gloo collectives
     split it).
+
+    Guard hooks (`train/guard.py`; off by default, and then the program is
+    the unguarded one): `with_health` returns {loss, grad_norm, all_finite}
+    (0-d tensors; the norm the clip computes, or one global norm) and
+    changes no value; on the card they are pinned host tensors filled
+    behind the step, valid once the bundle's ``ready`` CUDA event has
+    completed (`HealthPipe` waits on it); `skip_nonfinite` gates the whole update - parameters,
+    optimizer state, ZeRO's shards before their all-gather, Adam's counter -
+    on the finite flag on the device, so a NaN gradient costs one wasted
+    forward and backward; with Adam the counter then counts on the device
+    (``mom["t"]`` a `DeviceCount`, `adam_count` its exact value);
+    `fault_plan` (`parallel/fault.py` `StepFaultPlan`) injects its faults
+    after the gradient sync, firing on `step_i` (required then).
     """
     _check_optimizer(optimizer)
     if grad_sync not in GRAD_SYNCS:
@@ -883,7 +1014,8 @@ def make_lm_train_step(cfg, *, mesh: ProcessMesh | None = None, device=None, lr:
                        attn_impl=attn_impl, optimizer=optimizer, loss_chunks=loss_chunks,
                        lr_schedule=lr_schedule, clip_norm=clip_norm, accum_steps=accum_steps,
                        weight_decay=weight_decay, with_health=with_health, grad_sync=grad_sync,
-                       bucket_bytes=max(int(bucket_mb * 2**20), 1), specs=specs)
+                       bucket_bytes=max(int(bucket_mb * 2**20), 1), specs=specs,
+                       skip_nonfinite=skip_nonfinite, fault_plan=fault_plan)
 
 
 class EvalLoss(_Captured):

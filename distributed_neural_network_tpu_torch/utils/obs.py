@@ -1,12 +1,15 @@
-"""Live observability for the serving stack: an in-process metrics
-registry rendered as Prometheus text, and the HTTP server that carries
-``/metrics``, ``/healthz`` and the serving routes.
+"""Live observability: an in-process metrics registry rendered as
+Prometheus text, the HTTP server that carries ``/metrics``, ``/healthz``
+and the serving routes, and the crash flight recorder.
 
-A copy of the parts of the JAX package's `utils/obs.py` that the serving
-path uses (stdlib only): ``MetricsRegistry``, ``NullRegistry`` /
-``NULL_REGISTRY``, ``parse_prom_samples`` and ``ObsServer``. The metric
-names and the exposition format are the same, so the JAX package's
-dashboards and parsers read the port's ``/metrics`` unchanged.
+A copy of the parts of the JAX package's `utils/obs.py` that the port uses
+(stdlib only): ``MetricsRegistry``, ``NullRegistry`` / ``NULL_REGISTRY``,
+``parse_prom_samples``, ``ObsServer``, and ``FLIGHT_ENV``,
+``FlightRecorder``, ``FLIGHT``, ``flight_event`` and ``read_flight_dump``
+(the training guard and the chaos injectors record their events there).
+The metric names, the exposition format and the flight dump's schema are
+the same, so the JAX package's dashboards and parsers read the port's
+output unchanged.
 """
 
 from __future__ import annotations
@@ -14,9 +17,15 @@ from __future__ import annotations
 import http.server
 import json
 import math
+import os
+import socket
 import threading
 import time
 from collections import deque
+
+# env var naming the per-worker flight-recorder dump file (the JAX
+# package's name, so a supervisor exports one path for either package)
+FLIGHT_ENV = "DNN_TPU_FLIGHT_FILE"
 
 # default histogram bucket bounds (seconds) for step-time histograms:
 # spans 1 ms compiled CPU smoke steps to multi-minute fused spans
@@ -465,6 +474,165 @@ class NullRegistry:
 
 
 NULL_REGISTRY = NullRegistry()
+
+
+# ------------------------------------------------------- flight recorder
+
+
+def _hostname() -> str:
+    try:
+        return socket.gethostname()
+    except OSError:  # pragma: no cover - defensive
+        return "unknown"
+
+
+def _json_safe(x):
+    """Sanitize a flight event for strict JSON: non-finite floats become
+    None, anything non-serializable becomes its repr."""
+    if isinstance(x, float):
+        return x if math.isfinite(x) else None
+    if isinstance(x, dict):
+        return {str(k): _json_safe(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_json_safe(v) for v in x]
+    if isinstance(x, (str, int, bool)) or x is None:
+        return x
+    return repr(x)
+
+
+class FlightRecorder:
+    """Crash flight recorder: a bounded in-memory ring of structured events
+    (guard anomalies, rollbacks, chaos injections, preemptions) with an
+    atomic write-through dump.
+
+    A hard-killed worker gets no exit path, so the last-seconds record must
+    already be on disk. Events are therefore low-rate by contract
+    (step-boundary anomalies and lifecycle transitions, never per-step
+    hot-path publishes), which makes write-through affordable: every
+    ``record()`` on a configured recorder rewrites the dump file atomically
+    (tmp + rename), so the file on disk is always the whole current ring.
+    ``DNN_TPU_FLIGHT_FILE`` (`FLIGHT_ENV`) names the dump path a supervisor
+    hands each worker.
+
+    Unconfigured (no path, the default), the ring still records in memory:
+    one deque append per event, dumpable on demand. The module-level
+    ``FLIGHT`` is the process's recorder; call sites use
+    ``flight_event(kind, step=..., **fields)``.
+    """
+
+    def __init__(self, capacity: int = 256):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        self._events: deque = deque(maxlen=self.capacity)
+        self._lock = threading.Lock()
+        self.dropped = 0
+        self.path: str | None = None
+        self.rank: int | None = None
+        self.hostname = _hostname()
+        self.started_unix = time.time()
+
+    def configure(self, path: str, *, rank: int | None = None,
+                  hostname: str | None = None) -> None:
+        """Arm write-through dumping to ``path`` (an immediate dump marks
+        the recorder live). Without ``rank``, torchrun's ``RANK`` names it."""
+        self.path = os.path.abspath(path)
+        if rank is not None:
+            self.rank = int(rank)
+        elif self.rank is None:
+            env_rank = os.environ.get("RANK")
+            try:
+                self.rank = int(env_rank) if env_rank is not None else None
+            except ValueError:
+                self.rank = None
+        if hostname is not None:
+            self.hostname = hostname
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        self.dump()
+
+    def record(self, kind: str, /, *, step: int | None = None, **fields) -> dict:
+        """Append one structured event (and write through when armed).
+        ``kind`` is positional-only so a field may also be named kind; the
+        reserved keys (t, kind) shadow rather than being shadowed."""
+        ev = {"t": round(time.time(), 3), "kind": str(kind)}
+        if step is not None:
+            ev["step"] = int(step)
+        for k, v in fields.items():
+            k = str(k)
+            if k in ("t", "kind"):
+                k = f"arg_{k}"
+            ev[k] = _json_safe(v)
+        with self._lock:
+            if len(self._events) == self.capacity:
+                self.dropped += 1
+            self._events.append(ev)
+        if self.path is not None:
+            self.dump()
+        return ev
+
+    def events(self) -> list[dict]:
+        with self._lock:
+            return list(self._events)
+
+    def snapshot(self, *, cause: str | None = None) -> dict:
+        """The dump document (the JAX package's schema, version 1)."""
+        with self._lock:
+            events = list(self._events)
+            dropped = self.dropped
+        return {
+            "version": 1, "pid": os.getpid(), "rank": self.rank, "hostname": self.hostname,
+            "started_unix": self.started_unix, "written_unix": time.time(), "cause": cause,
+            "capacity": self.capacity, "dropped": dropped, "events": events,
+        }
+
+    def dump(self, *, cause: str | None = None, path: str | None = None):
+        """Atomically write the ring to ``path`` (default the configured
+        one); returns the path, or None when there is nowhere to write.
+        Never raises: a full disk must not kill the run being recorded."""
+        p = path or self.path
+        if p is None:
+            return None
+        doc = self.snapshot(cause=cause)
+        tmp = f"{p}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(doc, f, allow_nan=False)
+            os.replace(tmp, p)
+        except (OSError, ValueError):
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            return None
+        return p
+
+    def reset(self) -> None:
+        """Clear the ring and the configuration (for the shared singleton
+        between runs in one process)."""
+        with self._lock:
+            self._events.clear()
+            self.dropped = 0
+        self.path = None
+        self.rank = None
+
+
+FLIGHT = FlightRecorder()
+
+
+def flight_event(kind: str, /, *, step: int | None = None, **fields) -> dict:
+    """Record one event on the process flight recorder (`FLIGHT`): a deque
+    append, plus one small atomic file write when a dump path is armed."""
+    return FLIGHT.record(kind, step=step, **fields)
+
+
+def read_flight_dump(path: str) -> dict | None:
+    """Parse one flight-recorder dump; None when absent or torn."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return None
+    return doc if isinstance(doc, dict) else None
 
 
 def parse_prom_samples(text: str) -> dict:

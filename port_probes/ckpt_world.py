@@ -27,9 +27,10 @@ on the preemption flag at every step and without (`check_ab`: the losses
 equal, ms a step by mode).
 
 Prints the cards' names and power limits first; exits 1 if a check fails.
-The rank side is this file run with a JSON spec (`rank_main`). Its flow
-dry-runs on the CPU at a tiny width: `run_world(world, out, lm_args, runs,
-device="cpu")` and `check(ranks, runs)`.
+The rank side is this file run with a JSON spec (`rank_main`, the runs in
+`rank_runs`). Its flow dry-runs on the CPU at a tiny width:
+`run_world(world, out, lm_args, runs, device="cpu")` and `check(ranks,
+runs)`.
 """
 
 import gc
@@ -75,13 +76,27 @@ def _argv(lm_args, device, extra, *more):
 def rank_main(spec: dict) -> int:
     import torch.distributed as dist
 
-    from distributed_neural_network_tpu_torch import lm_train
-    from distributed_neural_network_tpu_torch.ops import flash_attention as fa
     from distributed_neural_network_tpu_torch.parallel.distributed import initialize
 
-    device, out = spec["device"], spec["out"]
-    initialize(device=device, log=lambda line: None)
+    initialize(device=spec["device"], log=lambda line: None)
     rank = dist.get_rank()
+    try:
+        rank_runs(spec, rank)
+    finally:
+        gc.collect()
+        dist.destroy_process_group()
+    return 0
+
+
+def rank_runs(spec: dict, rank: int) -> dict:
+    """This rank's part of `spec`'s runs (and A/B runs) in the process group
+    it has joined; writes its record as ``rank{r}.json`` under the spec's
+    ``out`` (also when a run fails) and returns it (also in another probe's
+    ranks: `torch_rank_worker.run_then`)."""
+    from distributed_neural_network_tpu_torch import lm_train
+    from distributed_neural_network_tpu_torch.ops import flash_attention as fa
+
+    device, out = spec["device"], spec["out"]
     info = {"rank": rank, "runs": {}}
     try:
         for name, extra in spec["runs"]:
@@ -128,9 +143,7 @@ def rank_main(spec: dict) -> int:
     finally:
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(info, f)
-        gc.collect()
-        dist.destroy_process_group()
-    return 0
+    return info
 
 
 def _same_checkpoint(a: str, b: str) -> bool:
@@ -149,16 +162,26 @@ def run_world(world: int, out: str, lm_args, runs, *, device="cuda", timeout=900
     the failing rank's errors."""
     from torch_rank_worker import launch
 
-    shutil.rmtree(out, ignore_errors=True)
-    os.makedirs(out)
-    spec = {"device": device, "out": out, "lm_args": list(lm_args), "runs": [list(r) for r in runs],
-            "ab": [list(r) for r in ab]}
+    spec = make_spec(out, lm_args, runs, device=device, ab=ab)
     procs = launch(world, spec, timeout=timeout, env=env, script=os.path.abspath(__file__))
     for r, p in enumerate(procs):
         with open(os.path.join(out, f"rank{r}.log"), "w") as f:
             f.write(p.stdout + "\n" + p.stderr)
         if p.returncode:
             raise RuntimeError(f"rank {r} exited {p.returncode}:\n{p.stderr[-3000:]}")
+    return read_ranks(world, out)
+
+
+def make_spec(out: str, lm_args, runs, *, device="cuda", ab=()) -> dict:
+    """The ranks' spec of `runs` (and `ab`) over a fresh `out` directory."""
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    return {"device": device, "out": out, "lm_args": list(lm_args),
+            "runs": [list(r) for r in runs], "ab": [list(r) for r in ab]}
+
+
+def read_ranks(world: int, out: str) -> list:
+    """Every rank's record (`rank_runs`) from `out`."""
     ranks = []
     for r in range(world):
         with open(os.path.join(out, f"rank{r}.json")) as f:

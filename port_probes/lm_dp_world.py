@@ -37,7 +37,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-for _p in (ROOT, os.path.join(ROOT, "tests")):
+for _p in (ROOT, os.path.join(ROOT, "tests"), os.path.join(ROOT, "port_probes")):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
@@ -152,6 +152,7 @@ def rank_main(spec: dict) -> int:
     )
     from distributed_neural_network_tpu_torch.parallel.zero import leaf_shard_size
     from distributed_neural_network_tpu_torch.train import lm as lmtrain
+    from torch_rank_worker import run_then
 
     device, world, lm_args = spec["device"], spec["world"], spec["lm_args"]
     initialize(device=device, log=lambda line: None)
@@ -212,6 +213,8 @@ def rank_main(spec: dict) -> int:
             sizes = [p.numel() for p in lmtrain.tree_leaves(tfm.init_params(0, cfg))]
             info["shard_floats"] = sum(leaf_shard_size(d, world) for d in sizes)
             info["param_floats"] = sum(sizes)
+        # other probes' runs in this launch of the ranks (`run_world(then=)`)
+        run_then(spec, rank)
     finally:
         with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
             json.dump(info, f)
@@ -220,13 +223,18 @@ def rank_main(spec: dict) -> int:
     return 0
 
 
-def run_world(world: int, out: str, lm_args, *, device="cuda", timeout=900, env=None):
+def run_world(world: int, out: str, lm_args, *, device="cuda", timeout=900, env=None,
+              then=()):
     """Launch the ranks (tests/torch_rank_worker.py `launch`): every rank's
-    record, or a RuntimeError with the failing rank's errors."""
+    record, or a RuntimeError with the failing rank's errors. `then`: [(a
+    probe module, its `make_spec`)] run by the same ranks after these
+    (`torch_rank_worker.run_then`); their records are read with the
+    module's `read_ranks`."""
     from torch_rank_worker import launch
 
     os.makedirs(out, exist_ok=True)
-    spec = {"device": device, "world": world, "lm_args": list(lm_args), "out": out}
+    spec = {"device": device, "world": world, "lm_args": list(lm_args), "out": out,
+            "then": [list(t) for t in then]}
     procs = launch(world, spec, timeout=timeout, env=env, script=os.path.abspath(__file__))
     for r, p in enumerate(procs):
         with open(os.path.join(out, f"rank{r}.log"), "w") as f:

@@ -206,6 +206,7 @@ def rank_main(spec: dict) -> int:
     from distributed_neural_network_tpu_torch.ops import flash_attention as fa
     from distributed_neural_network_tpu_torch.parallel.distributed import initialize
     from distributed_neural_network_tpu_torch.train import lm as lmtrain
+    from torch_rank_worker import run_then
 
     device, world, lm_args = spec["device"], spec["world"], spec["lm_args"]
     initialize(device=device, log=lambda line: None)
@@ -254,6 +255,9 @@ def rank_main(spec: dict) -> int:
             gc.collect()
             if cuda:
                 torch.cuda.empty_cache()
+        flash.flash_mha = inner
+        # other probes' runs in this launch of the ranks (`run_world(then=)`)
+        run_then(spec, rank)
     finally:
         flash.flash_mha = inner
         with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
@@ -263,15 +267,19 @@ def rank_main(spec: dict) -> int:
     return 0
 
 
-def run_world(world: int, out: str, lm_args, updates, *, device="cuda", timeout=900, env=None):
+def run_world(world: int, out: str, lm_args, updates, *, device="cuda", timeout=900, env=None,
+              then=()):
     """Launch the ranks (tests/torch_rank_worker.py `launch`) against the
     one-process updates saved in `updates` (`reference`): every rank's
-    record, or a RuntimeError with the failing rank's errors."""
+    record, or a RuntimeError with the failing rank's errors. `then`:
+    [(a probe module, its `make_spec`)] run by the same ranks after these
+    (`torch_rank_worker.run_then`); their records are read with the
+    module's `read_ranks`."""
     from torch_rank_worker import launch
 
     os.makedirs(out, exist_ok=True)
     spec = {"device": device, "world": world, "lm_args": list(lm_args), "out": out,
-            "updates": updates}
+            "updates": updates, "then": [list(t) for t in then]}
     procs = launch(world, spec, timeout=timeout, env=env, script=os.path.abspath(__file__))
     for r, p in enumerate(procs):
         with open(os.path.join(out, f"rank{r}.log"), "w") as f:

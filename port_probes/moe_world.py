@@ -209,24 +209,40 @@ def route_reading(torch, argv, mesh) -> dict:
 
 
 def rank_main(spec: dict) -> int:
+    import torch.distributed as dist
+
+    from distributed_neural_network_tpu_torch.parallel.distributed import initialize, joined
+
+    initialize(device=spec["device"], log=lambda line: None)
+    try:
+        rank_runs(spec, dist.get_rank() if joined() else 0)
+    finally:
+        gc.collect()
+        if joined():
+            dist.destroy_process_group()
+    return 0
+
+
+def rank_runs(spec: dict, rank: int) -> dict:
+    """This rank's part of `spec` (its runs, or one point of the ep sweep)
+    in the process group it has joined, if any; writes its record as
+    ``rank{r}.json`` under the spec's ``out`` (also when a run fails) and
+    returns it."""
     import torch
     import torch.distributed as dist
 
     from distributed_neural_network_tpu_torch import lm_train
     from distributed_neural_network_tpu_torch.ops import flash_attention as fa
-    from distributed_neural_network_tpu_torch.parallel.distributed import initialize, joined
     from distributed_neural_network_tpu_torch.train import lm as lmtrain
 
     device = spec["device"]
-    initialize(device=device, log=lambda line: None)
-    rank = dist.get_rank() if joined() else 0
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     info = {"rank": rank, "runs": {}}
     try:
         if spec.get("ep") is not None:
             info["ep_point"] = _ep_point(torch, device, spec["ep"])
-            return 0
+            return info
         world, lm_args = spec["world"], spec["lm_args"]
         runs = RUNS[world]
         if spec.get("gap"):
@@ -274,10 +290,7 @@ def rank_main(spec: dict) -> int:
     finally:
         with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
             json.dump(info, f)
-        gc.collect()
-        if joined():
-            dist.destroy_process_group()
-    return 0
+    return info
 
 
 def _launch(world, spec, out, timeout, env=None, joined=True):
@@ -291,6 +304,19 @@ def _launch(world, spec, out, timeout, env=None, joined=True):
             f.write(p.stdout + "\n" + p.stderr)
         if p.returncode:
             raise RuntimeError(f"rank {r} exited {p.returncode}:\n{p.stderr[-3000:]}")
+    return read_ranks(world, out)
+
+
+def make_spec(world: int, out: str, lm_args, updates, *, device="cuda") -> dict:
+    """The ranks' spec of RUNS[world] against the one-process updates saved
+    in `updates` (`reference`), their records to `out`."""
+    os.makedirs(out, exist_ok=True)
+    return {"device": device, "world": world, "lm_args": list(lm_args), "updates": updates,
+            "out": out}
+
+
+def read_ranks(world: int, out: str) -> list:
+    """Every rank's record (`rank_runs`) from `out`."""
     ranks = []
     for r in range(world):
         with open(os.path.join(out, f"rank{r}.json")) as f:

@@ -131,20 +131,31 @@ def reference(lm_args, names, device="cuda", updates=None):
 
 
 def rank_main(spec: dict) -> int:
-    import torch
     import torch.distributed as dist
+
+    from distributed_neural_network_tpu_torch.parallel.distributed import initialize
+
+    initialize(device=spec["device"], log=lambda line: None)
+    try:
+        rank_runs(spec, dist.get_rank())
+    finally:
+        gc.collect()
+        dist.destroy_process_group()
+    return 0
+
+
+def rank_runs(spec: dict, rank: int) -> dict:
+    """This rank's part of `spec`'s runs in the process group it has joined
+    (`make_spec`); writes its record as ``rank{r}.json`` under the spec's
+    ``out`` (also when a run fails) and returns it."""
+    import torch
 
     from distributed_neural_network_tpu_torch import lm_train
     from distributed_neural_network_tpu_torch.ops import flash_attention as fa
-    from distributed_neural_network_tpu_torch.parallel.distributed import (
-        distribute_host_data,
-        initialize,
-    )
+    from distributed_neural_network_tpu_torch.parallel.distributed import distribute_host_data
     from distributed_neural_network_tpu_torch.train import lm as lmtrain
 
     device, world, lm_args = spec["device"], spec["world"], spec["lm_args"]
-    initialize(device=device, log=lambda line: None)
-    rank = dist.get_rank()
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     info = {"rank": rank, "runs": {}, "bubble": []}
@@ -203,9 +214,24 @@ def rank_main(spec: dict) -> int:
     finally:
         with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
             json.dump(info, f)
-        gc.collect()
-        dist.destroy_process_group()
-    return 0
+    return info
+
+
+def make_spec(world: int, out: str, lm_args, updates, *, device="cuda") -> dict:
+    """The ranks' spec against the one-process updates saved in `updates`
+    (`reference`), their records to `out`."""
+    os.makedirs(out, exist_ok=True)
+    return {"device": device, "world": world, "lm_args": list(lm_args), "out": out,
+            "updates": updates}
+
+
+def read_ranks(world: int, out: str) -> list:
+    """Every rank's record (`rank_runs`) from `out`."""
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
 
 
 def run_world(world: int, out: str, lm_args, updates, *, device="cuda", timeout=900, env=None):
@@ -214,20 +240,14 @@ def run_world(world: int, out: str, lm_args, updates, *, device="cuda", timeout=
     record, or a RuntimeError with the failing rank's errors."""
     from torch_rank_worker import launch
 
-    os.makedirs(out, exist_ok=True)
-    spec = {"device": device, "world": world, "lm_args": list(lm_args), "out": out,
-            "updates": updates}
+    spec = make_spec(world, out, lm_args, updates, device=device)
     procs = launch(world, spec, timeout=timeout, env=env, script=os.path.abspath(__file__))
     for r, p in enumerate(procs):
         with open(os.path.join(out, f"rank{r}.log"), "w") as f:
             f.write(p.stdout + "\n" + p.stderr)
         if p.returncode:
             raise RuntimeError(f"rank {r} exited {p.returncode}:\n{p.stderr[-3000:]}")
-    ranks = []
-    for r in range(world):
-        with open(os.path.join(out, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    return ranks
+    return read_ranks(world, out)
 
 
 def check(world, ranks, ref, lm_args, *, busy_union):

@@ -52,7 +52,9 @@ def test_bias_corrections_and_guard():
         assert (c1, c2) == pytest.approx((float(j1), float(j2)), rel=1e-7)
     params = [torch.ones(3)]
     state = ta.init_adam(params)
+    # the guarded step counts on the device: its counter is a 0-d tensor
+    state["t"] = torch.zeros((), dtype=torch.int32)
     ta.guarded_adam_step(params, state, [torch.ones(3)], 0.1, ok=torch.tensor(False))
-    assert state["t"] == 0 and torch.equal(params[0], torch.ones(3))
+    assert int(state["t"]) == 0 and torch.equal(params[0], torch.ones(3))
     ta.guarded_adam_step(params, state, [torch.ones(3)], 0.1, ok=True)
-    assert state["t"] == 1 and not torch.equal(params[0], torch.ones(3))
+    assert int(state["t"]) == 1 and not torch.equal(params[0], torch.ones(3))

@@ -2,7 +2,7 @@
 writes the reference's two phase-log files and a parseable SUMMARY line; the
 default device is CUDA and asking for it without a GPU fails cleanly; a flag
 of a later slice raises NotImplementedError naming the slice, and the
-checkpoint and telemetry flags run; `--fused` runs
+checkpoint and telemetry flags run (the guard's: tests/test_torch_guard.py); `--fused` runs
 multi-epoch spans with the JAX CLI's lines, and downgrades to the per-epoch
 path under `--failure-duration` with the JAX message."""
 
@@ -64,8 +64,7 @@ def test_default_device_is_cuda_and_fails_cleanly_without_it(tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("flags", [
-    ["--guard", "skip"], ["--metrics-port", "0"], ["--sharding", "auto"],
-    ["--dynamics"], ["--neptune"],
+    ["--metrics-port", "0"], ["--sharding", "auto"], ["--dynamics"], ["--neptune"],
 ])
 def test_later_slice_flag_raises(flags):
     with pytest.raises(NotImplementedError, match="slice"):

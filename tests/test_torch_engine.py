@@ -16,6 +16,10 @@ reference algorithm (tests/oracle_numpy.py) and against the JAX Engine.
 4. One epoch at `compute_dtype="bfloat16"` against the JAX Engine's, per
    epoch and per step, with either head: the losses as in 2, every
    parameter within 2 bf16 ulps of its leaf's largest magnitude.
+5. `run(guard=...)` against the JAX Engine's with a guard whose observation
+   of epoch 2 is replaced once (warn, skip, rollback): the histories and
+   final params within the bounds of 1 and 3; warn bitwise the unguarded
+   run.
 
 The engine keeps the N workers stacked on a leading axis; on the CPU its
 programs run eagerly.
@@ -198,6 +202,71 @@ def test_fused_span_matches_jax_engine(n_devices, eval_inside):
             assert g.val_loss is None and w.val_loss is None
     rel = _max_rel_err(eng.state_tree()["params"], jax.tree.map(np.asarray, jeng.params))
     assert rel < 2e-3
+
+
+def _quiet(*_):
+    pass
+
+
+class _SpikingGuard:
+    """A guard whose observed loss at `epoch` is replaced once (the
+    ChaosMonkey.perturb pattern), for the JAX guard or the port's."""
+
+    def __init__(self, mod, policy, epoch, value):
+        self.g = mod.TrainingGuard(mod.GuardConfig(policy=policy, warmup_steps=2),
+                                   log=_quiet)
+        self.epoch, self.value, self.fired = epoch, value, False
+
+    def observe(self, epoch, loss, **kw):
+        if epoch == self.epoch and not self.fired:
+            self.fired = True
+            loss = loss * self.value if self.value > 1 else self.value
+        return self.g.observe(epoch, loss, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.g, name)
+
+
+@pytest.mark.parametrize("policy,value", [("warn", 1.0), ("skip", float("nan")),
+                                          ("rollback", 100.0)])
+def test_engine_guard_matches_the_jax_engine(n_devices, policy, value):
+    """`Engine.run(guard=...)` on the port and the JAX engine, the same
+    orders, masks and initial state, the guard's observation of epoch 2
+    replaced once (warn: nothing; skip: NaN, the epoch's update dropped;
+    rollback: x100, the snapshot restored and the lr halved): the histories
+    and final parameters within test_torch_engine.py's bounds; warn is
+    bitwise the unguarded run."""
+    from distributed_neural_network_tpu.train import guard as JG
+    from distributed_neural_network_tpu_torch.train import guard as G
+
+    kw = dict(lr=0.05, momentum=0.9, batch_size=16, epochs=4, nb_proc=N_WORKERS,
+              regime="data_parallel", seed=1)
+    size = dict(source="synthetic", synthetic_size=128, seed=1)
+    jeng = JaxEngine(JaxConfig(**kw), jax_load_split(True, **size), None)
+    state0 = jax.tree.map(np.asarray, jeng.state_tree())
+
+    def port():
+        eng = Engine(TrainConfig(**kw), load_split(True, **size), None, device="cpu",
+                     orders=lambda e, d: _jax_order(1, e, d, 128 // N_WORKERS))
+        eng.load_state_tree(state0)
+        return eng
+
+    jguard, guard = _SpikingGuard(JG, policy, 2, value), _SpikingGuard(G, policy, 2, value)
+    want = jeng.run(log=_quiet, guard=jguard)
+    eng = port()
+    got = eng.run(log=_quiet, guard=guard)
+    assert [m.epoch for m in got] == [m.epoch for m in want]
+    for g, w in zip(got, want):
+        assert abs(g.train_loss - w.train_loss) < 5e-4
+    assert guard.summary() == jguard.summary()
+    assert eng.config.lr == jeng.config.lr == (0.025 if policy == "rollback" else 0.05)
+    rel = _max_rel_err(eng.state_tree()["params"], jax.tree.map(np.asarray, jeng.params))
+    assert rel < 2e-3
+    if policy == "warn":
+        plain = port()
+        assert plain.run(log=_quiet) == got
+        assert all(torch.equal(a, b) for a, b in zip(plain.params + plain.mom,
+                                                     eng.params + eng.mom))
 
 
 def test_fused_span_equals_per_epoch_path():

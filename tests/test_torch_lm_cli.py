@@ -4,7 +4,8 @@ its step lines, its MFU-less CPU summary with the JAX CLI's SUMMARY keys
 (read from the JAX script's source), the quantized route, the JAX CLI's
 argument errors (those of the mesh's axes held to the JAX CLI's own text), a
 NotImplementedError naming the slice for every flag of a later slice, the
-checkpoint and telemetry flags running,
+checkpoint and telemetry flags running (the guard's and chaos flags:
+tests/test_torch_guard.py),
 --experts training a mixture of experts, the
 pipeline's and remat policy's flags in one process (--pp N outside a group
 of N refused with the torchrun command), the data axis's flags in one
@@ -123,10 +124,9 @@ def test_flash_launch_formulas(flags, tmp_path, monkeypatch):
 
 LATER = {
     "--sharding auto": "item 6",
-    "--guard warn": "slice 4",
     "--elastic": "slice 4", "--metrics-port 0": "slice 4",
     "--dynamics": "slice 4", "--profile-dir p": "slice 4",
-    "--watchdog on": "slice 4", "--chaos-nan-step 1": "slice 4",
+    "--watchdog on": "slice 4", "--chaos-shrink-at-step 1": "slice 4",
 }
 
 

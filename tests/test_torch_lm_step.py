@@ -9,6 +9,11 @@ version (the CPU route of the same autograd Function).
 Tolerances (f32): the loss of every step within 2e-5 relative; every
 parameter after three steps within atol = rtol = 2e-5 (two float stacks
 summing in other orders, compounded over three updates).
+
+The guard's step (`skip_nonfinite` with a `StepFaultPlan` NaN-ing step 1's
+gradients) is held the same way against the JAX step with the same
+arguments, for every optimizer; the skipped step must leave the state and
+Adam's counter as they were, bit for bit.
 """
 
 import functools
@@ -84,6 +89,59 @@ def test_three_steps_match_jax(n_devices, jparams_np, case):
     assert len(got) == len(want)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam", "zero", "zero-adam"])
+def test_skip_step_matches_jax_and_freezes_the_skipped_step(n_devices, jparams_np,
+                                                             optimizer):
+    """The guarded step with NaN gradients at step 1, three steps, against
+    JAX `make_lm_train_step` with the same arguments: the losses, the health
+    and the parameters within TOL; step 1 leaves the parameters, the
+    optimizer state and Adam's counter as they were, bit for bit."""
+    from distributed_neural_network_tpu.parallel.fault import StepFaultPlan as JPlan
+    from distributed_neural_network_tpu_torch.parallel.fault import StepFaultPlan
+
+    mesh = jlm.create_lm_mesh(1, 1, 1)
+    jcfg = JCFG
+    jparams, _ = jlm.shard_params(jax.tree.map(jnp.asarray, jparams_np), jcfg, mesh)
+    jmom = jlm.init_lm_momentum(jparams, mesh, optimizer)
+    lr = 0.01 if "adam" in optimizer else 0.1
+    jstep = jlm.make_lm_train_step(jcfg, mesh, lr=lr, optimizer=optimizer, skip_nonfinite=True,
+                                   fault_plan=JPlan(nan_grads_at=(1,)))
+    params = tfm.from_jax_params(jparams_np)
+    mom = tlm.init_lm_momentum(params, optimizer)
+    step = tlm.make_lm_train_step(CFG, device="cpu", lr=lr, optimizer=optimizer,
+                                  skip_nonfinite=True,
+                                  fault_plan=StepFaultPlan(nan_grads_at=(1,)))
+    for i in range(3):
+        toks, tgts = _batch(seed=i)
+        jparams, jmom, jloss, jh = jstep(jparams, jmom, jnp.asarray(toks), jnp.asarray(tgts),
+                                         jnp.int32(i))
+        before = _guarded_state(params, mom)
+        t_before = tlm.adam_count(mom) if isinstance(mom, dict) else None
+        loss, h = step(params, mom, torch.from_numpy(toks).long(),
+                       torch.from_numpy(tgts).long(), i)
+        assert float(loss) == pytest.approx(float(jloss), rel=TOL)
+        assert bool(h["all_finite"]) == bool(jh["all_finite"]) == (i != 1)
+        if i == 1:
+            assert all(torch.equal(a, b) for a, b in zip(before, _guarded_state(params, mom)))
+            if t_before is not None:
+                assert tlm.adam_count(mom) == t_before == 1
+        else:
+            assert float(h["grad_norm"]) == pytest.approx(float(jh["grad_norm"]), rel=1e-4)
+    if isinstance(mom, dict):
+        assert tlm.adam_count(mom) == int(jmom["t"]) == 2
+    want = jax.tree.leaves(jax.tree.map(np.asarray, jparams))
+    got = [p.detach().numpy() for p in tlm.tree_leaves(params)]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, atol=TOL, rtol=TOL)
+
+
+def _guarded_state(params, mom):
+    state = mom if isinstance(mom, list) else mom["m"] + mom["v"]
+    return [x.detach().clone() for x in tlm.tree_leaves(params) + state]
+
+
 
 
 @pytest.mark.parametrize("remat", ["remat", "remat_attn"])

@@ -7,8 +7,8 @@ same, its mesh name and pp_bubble_frac those of the JAX CLI's own SUMMARY
 line for the same flags (the JAX lm_train.py run in this process on the
 virtual CPU devices); the JAX CLI's --pp errors with its own texts (zero with
 experts among them); the port's batch check under --pp; --pp 2 --experts 2
-as two ranks, as the JAX CLI's SUMMARY; the guard flags still refused
-naming their slice.
+as two ranks, as the JAX CLI's SUMMARY; the guard flags refused under --pp
+with the JAX CLI's text (the pipeline has no health output).
 """
 
 import json
@@ -123,7 +123,9 @@ def test_pp_batch_must_split_into_the_microbatches(capsys):
     assert "--dp x --accum-steps x --microbatches (2 x 1 x 3)" in err
 
 
-@pytest.mark.parametrize("flags,match", [(["--guard", "warn"], "slice 4")])
-def test_pp_later_features_raise_naming_their_step(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        lm_train.main(["--device", "cpu"] + ARGS + ["--pp", "2"] + flags, log=lambda line: None)
+@pytest.mark.parametrize("flags,match", [(["--guard", "warn"], "the pipeline path has no health "
+                                                                "output yet")])
+def test_pp_later_features_raise_naming_their_step(n_devices, monkeypatch, capsys, flags, match):
+    args = ARGS + ["--pp", "2"] + flags
+    want = _jax_cli_error(monkeypatch, capsys, args)
+    assert _port_error(capsys, args) == want and match in want

@@ -693,6 +693,17 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def run_then(spec: dict, rank: int) -> None:
+    """Run a probe spec's ``then`` entries in this rank's process group, in
+    order: [(a `port_probes/` module, its spec)], each through the module's
+    `rank_runs(spec, rank)`. One launch of the ranks then serves several
+    probes (a fresh rank process costs seconds before its first step)."""
+    import importlib
+
+    for module, sub in spec.get("then") or ():
+        importlib.import_module(module).rank_runs(sub, rank)
+
+
 def launch(world: int, spec, *, timeout: float, joined: bool = True,
            env: dict | None = None, script: str | None = None) -> list[subprocess.CompletedProcess]:
     """Start `world` ranks of this worker (or of `script`, given `spec` as
