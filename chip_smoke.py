@@ -336,9 +336,40 @@ Phases (any failure exits non-zero and prints no result):
    launches the formula; `Engine.run(guard=)` with a rollback guard whose
    observation of epoch 2 is multiplied by CNN_SPIKE once: the epoch-0
    snapshot restored bitwise, the lr halved, the programs built and
-   captured again, the head launches the formula of the 6 epochs run.
-   `python3 chip_smoke.py --guard-check` runs the build and this phase
-   alone.
+   captured again, the head launches the formula of the 6 epochs run, and
+   the recompile detector on the engine's step program (`_step`) counting no
+   recompile. `python3 chip_smoke.py --guard-check` runs the build and this
+   phase alone;
+31. the monitor (`monitor_phase`, `train/monitor.py`), in process through
+   `lm_train.main` and `train.cli.main`: (a) the flagship LM row of phase 30
+   (flash, Adam, cosine, graphed), MONITOR_STEPS steps, bare / full stack /
+   full stack / bare in one call (the full stack: --metrics-port 0 with the
+   registry, server and watchdog, and the heartbeat file, flight dump and run
+   record armed by their environment variables): the monitored step within
+   1% of the bare step, the losses, parameters and Adam state bitwise, one
+   graph a step, the flash launches the formula (all mma), recompiles_total
+   and watchdog_stall_total 0, the heartbeat at the last step, the flight
+   dump from run_start to run_end, the record read back; (b) a
+   MONITOR_STALL_S host stall after step MONITOR_STALL_AT
+   (--chaos-stall-step) with the watchdog at poll 0.05 s and a 0.2 s floor
+   and --watchdog-escalate preempt: the stall flagged once (its heartbeat
+   age against the adaptive threshold), its watchdog/stall instant and the
+   escalation in --trace-out, stall badput in the run record, the flight
+   dump's events, the run stopped after the next step at an emergency
+   checkpoint, its losses bitwise the bare run's; (c) the resume from it with
+   GET /profile?steps=2 over HTTP as it starts: bitwise the bare run
+   (params, Adam state and the profiled steps' losses), one torch.profiler
+   capture of the two steps after the first beat, a Chrome trace holding one
+   cudaGraphLaunch a step (whether the flash kernels show by name is
+   printed); (d) recompiles_total 0 in those LM runs and in phase 30(e)'s
+   CNN rollback; (e) the CNN main path --fused with --metrics-port 0, 2
+   epochs in one span: the epochs' metrics bitwise the unmonitored run's,
+   the head launches the formula, phase_seconds_total and train_steps_total
+   in the registry's export. `python3 chip_smoke.py --monitor-check` runs
+   the build and this phase alone.
+
+The phases' in-process runs share one copy of each synthetic CIFAR-10
+split (`memoize_synthetic`).
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -348,6 +379,7 @@ from __future__ import annotations
 
 import http.client
 import json
+import functools
 import math
 import os
 import re
@@ -433,6 +465,11 @@ CNN_RESUME = ["--regime", "data_parallel", "--nb-proc", "4", "--kernels", "cuda"
 GUARD_STEPS, GUARD_NAN, GUARD_SPIKE, GUARD_SNAPSHOT = 14, 2, 12, 5
 CNN_GUARD = [a for a in CNN_RESUME if a != "--fused"]
 CNN_GUARD_EPOCHS, CNN_SPIKE = 3, 1e6
+# phase 31: the monitor's LM runs (LM_ARGS + LM_RESUME) take MONITOR_STEPS
+# steps; the stalled run sleeps MONITOR_STALL_S on the host after step
+# MONITOR_STALL_AT; the CNN runs are phase 29's main path (--fused) for
+# MONITOR_CNN_EPOCHS epochs
+MONITOR_STEPS, MONITOR_STALL_AT, MONITOR_STALL_S, MONITOR_CNN_EPOCHS = 20, 9, 2.0, 2
 SERVE_ARGS = ["--device", "cuda", "--port", "0", "--d-model", "512", "--n-layers", "8",
               "--n-heads", "8", "--d-ff", "2048", "--vocab", "256", "--dtype", "bfloat16",
               "--seed", "0", "--max-batch", "8", "--num-blocks", "129", "--block-size", "16",
@@ -2319,6 +2356,12 @@ def guard_phase(torch, fa, fh, kernels, dev) -> dict:
         for k in fh.LAUNCHES:
             fh.LAUNCHES[k] = 0
         eng = Engine(cfg, split, test, device=dev)
+        # the CLI's recompile detector on the epoch's step program: the
+        # rollback's rebuild re-baselines it, so it counts no recompile
+        from distributed_neural_network_tpu_torch.train.monitor import RecompileDetector
+        from distributed_neural_network_tpu_torch.utils.obs import MetricsRegistry
+
+        eng.recompiles = RecompileDetector(eng._step, registry=MetricsRegistry())
         # the snapshot at epoch 0 only; the detector armed after two epochs
         # (after one, its variance is 0 and any rise is a spike); epoch 2's
         # loss spiked (x1e6: at this width it falls from about 0.25 to 2e-5
@@ -2341,16 +2384,20 @@ def guard_phase(torch, fa, fh, kernels, dev) -> dict:
               and launches == head_launches(16, ran),
               f"30(e) rollback: history {[m.epoch for m in hist]}, launches {launches} != "
               f"{head_launches(16, ran)}")
+        recompiles = eng.recompiles.counter.value
+        check(recompiles == 0 and eng._step._cache_size() == 1,
+              f"30(e) rollback: recompiles_total {recompiles}, the rebuilt step program built "
+              f"{eng._step._cache_size()}x")
         res["cnn"] = {"bitwise": True, "launches_warn": want, "rollback": summ,
                       "rollback_launches": launches, "rollback_run_s": cnn_s,
-                      "final_val_acc": hist[-1].val_acc}
+                      "final_val_acc": hist[-1].val_acc, "recompiles_total": recompiles}
         print(f"   (e) CNN main path per epoch, {CNN_GUARD_EPOCHS} epochs: --guard warn (--fused "
               f"falls back, with the JAX line) bitwise the unguarded run, head launches {want}; "
               f"Engine.run(guard=) with epoch {CNN_GUARD_EPOCHS - 1}'s loss spiked "
               f"x{CNN_SPIKE:g}: one "
               f"rollback to the epoch-0 snapshot (restored bitwise), lr 0.01 -> 0.005, the "
-              f"programs built and captured again, {ran} epochs run, head launches {launches} "
-              f"({cnn_s:.1f} s)")
+              f"programs built and captured again, {ran} epochs run, head launches {launches}, "
+              f"recompiles_total {recompiles:g} ({cnn_s:.1f} s)")
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -2392,6 +2439,381 @@ def guard_check() -> int:
     return 0
 
 
+def _flight_kinds(path):
+    with open(path) as f:
+        return [e["kind"] for e in json.load(f)["events"]]
+
+
+def monitor_phase(torch, fa, fh, kernels, dev, guard_run=None) -> dict:
+    """Phase 31 (module docstring): the monitor on the LM and CNN entry
+    points, in process; adds the monitored paths' launches to `kernels` and
+    returns what it measured."""
+    import functools
+    import gc
+    import urllib.request
+
+    from distributed_neural_network_tpu_torch import lm_train
+    from distributed_neural_network_tpu_torch.train import cli
+    from distributed_neural_network_tpu_torch.train import lm as lmtrain
+    from distributed_neural_network_tpu_torch.train import monitor as MON
+    from distributed_neural_network_tpu_torch.utils import obs
+    from distributed_neural_network_tpu_torch.utils.goodput import RUN_RECORD_ENV
+    from distributed_neural_network_tpu_torch.utils.tree import tree_leaves
+
+    out = os.path.join(ROOT, "chiprun_out", "monitor")
+    ck = os.path.join(ROOT, "runs", "monitor_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    res, part_s, t_part = {}, {}, time.perf_counter()
+    captures, capture_all = [], lmtrain.capture_all
+    monitors, attach = [], MON.attach_monitor
+    env_keys = ("DNN_TPU_HEARTBEAT_FILE", obs.FLIGHT_ENV, RUN_RECORD_ENV)
+    env_saved = {k: os.environ.get(k) for k in env_keys}
+
+    def counted(*a, **kw):
+        captures.append(1)
+        return capture_all(*a, **kw)
+
+    def attached(**kw):
+        monitors.append(attach(**kw))
+        return monitors[-1]
+
+    def full_stack(name):
+        """The supervisor's files (heartbeat, flight dump, run record) armed
+        by their environment variables, as a supervised worker has them."""
+        files = {k: os.path.join(out, f"{name}_{stem}.json") for k, stem in zip(
+            env_keys, ("heartbeat", "flight", "record"))}
+        os.environ.update(files)
+        obs.FLIGHT.reset()
+        return files
+
+    def lm(name, *extra, on_line=None):
+        """One `lm_train.main` run at LM_ARGS + LM_RESUME, MONITOR_STEPS
+        steps, the flash counters set to 0 just before it, its captures and
+        monitor kept."""
+        lines, result = [], {}
+
+        def log(line):
+            lines.append(line)
+            if on_line is not None:
+                on_line(line)
+
+        for c in (fa.LAUNCHES, fa.ROUTE_LAUNCHES):
+            c.update(dict.fromkeys(c, 0))
+        captures.clear()
+        monitors.clear()
+        lmtrain.capture_all, MON.attach_monitor = counted, attached
+        try:
+            rc = lm_train.main(["--device", "cuda", "--steps", str(MONITOR_STEPS),
+                                "--log-every", "1", *LM_ARGS, *LM_RESUME, *extra], log=log,
+                               result=result)
+        finally:
+            lmtrain.capture_all, MON.attach_monitor = capture_all, attach
+            for k in env_keys:
+                os.environ.pop(k, None)
+        check(rc == 0, f"31 {name}: lm_train.main returned {rc}")
+        summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
+        mon = monitors[0]
+        row = {"losses": result["losses"], "launches": dict(fa.LAUNCHES),
+               "routes": dict(fa.ROUTE_LAUNCHES), "summary": summary, "lines": lines,
+               "segments": result["step"].segments, "captures": len(captures),
+               "t": result["mom"]["t"], "monitor": mon,
+               "samples": obs.parse_prom_samples(mon.registry.render()),
+               "recompiles": None if mon.recompiles is None else mon.recompiles.counter.value,
+               "state": [x.detach().clone() for x in (
+                   *tree_leaves(result["params"]), *result["mom"]["m"], *result["mom"]["v"])],
+               "ms_per_step": 1e3 * summary["wall_s_post_compile"] / max(
+                   summary["last_step"] - summary["start_step"], 1)}
+        del result
+        gc.collect()
+        torch.cuda.empty_cache()
+        return row
+
+    def same_state(a, b):
+        return a["t"] == b["t"] and all(torch.equal(x, y) for x, y in zip(a["state"],
+                                                                           b["state"]))
+
+    def one_graph(row, steps, what):
+        want = flash_counts(steps)
+        check(row["segments"] == "graph" and row["captures"] == 1,
+              f"31{what}: the step is {row['segments']}, captured {row['captures']}x")
+        check(row["launches"] == want and row["routes"] == mma_counts(want),
+              f"31{what}: flash launches {row['launches']} / {row['routes']}, want {want}")
+
+    try:
+        # (a) bare, full stack, full stack, bare in one call
+        order = (("bare", False), ("full", True), ("full2", True), ("bare2", False))
+        rows = {}
+        for name, full in order:
+            files = full_stack(name) if full else None
+            rows[name] = lm(name, *(["--metrics-port", "0"] if full else []))
+            rows[name]["files"] = files
+        ref = rows["bare"]
+        for name, full in order:
+            row = rows[name]
+            check(row["losses"] == ref["losses"] and same_state(row, ref),
+                  f"31(a): the {name} run's losses or state differ from the bare run's")
+            one_graph(row, MONITOR_STEPS, f"(a) {name}")
+            mon = row["monitor"]
+            if not full:
+                check(mon.server is None and mon.registry is obs.NULL_REGISTRY,
+                      f"31(a): the {name} run has a monitor")
+                continue
+            smp = row["samples"]
+            check(mon.watchdog is not None and mon.heartbeat is not None
+                  and smp["train_steps_total"][()] == MONITOR_STEPS
+                  and row["recompiles"] == 0
+                  and smp.get("watchdog_stall_total", {}).get((), 0) == 0,
+                  f"31(a) {name}: steps {smp.get('train_steps_total')}, recompiles "
+                  f"{row['recompiles']}, stalls {smp.get('watchdog_stall_total')}")
+            with open(row["files"]["DNN_TPU_HEARTBEAT_FILE"]) as f:
+                hb = json.load(f)
+            kinds = _flight_kinds(row["files"][obs.FLIGHT_ENV])
+            rec = _read_record(row["files"][RUN_RECORD_ENV], f"31(a) {name}")
+            check(hb["step"] == MONITOR_STEPS - 1 and kinds[0] == "run_start"
+                  and kinds[-2:] == ["goodput_final", "run_end"] and rec["final"]
+                  and rec["steps"] == MONITOR_STEPS,
+                  f"31(a) {name}: heartbeat {hb}, flight {kinds}, record steps {rec['steps']}")
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            kernels[name]["launches_monitor"] = rows["full"]["launches"][name]
+        ms = {name: rows[name]["ms_per_step"] for name, _ in order}
+        bare_ms = (ms["bare"] + ms["bare2"]) / 2
+        full_ms = (ms["full"] + ms["full2"]) / 2
+        over = full_ms / bare_ms - 1.0
+        check(over <= 0.01, f"31(a): the monitored step costs {100 * over:+.2f}% (> 1%): {ms}")
+        res["overhead"] = {"ms_per_step": ms, "full_over_bare": over,
+                           "final_loss": ref["losses"][-1]}
+        print(f"   (a) LM flagship row, flash, Adam, cosine, {MONITOR_STEPS} steps, bare / full "
+              f"stack (registry, server, watchdog, heartbeat file, flight recorder, run "
+              f"record) / full / bare: ms per step {ms['bare']:.2f}, {ms['full']:.2f}, "
+              f"{ms['full2']:.2f}, {ms['bare2']:.2f} (full over bare {100 * over:+.2f}%); "
+              f"losses (final {ref['losses'][-1]!r}), params and Adam state bitwise; one "
+              f"graph a step (captured once); flash launches {rows['full']['launches']} (all "
+              f"mma); recompiles_total 0, watchdog_stall_total 0; heartbeat, flight dump and "
+              f"record written")
+        bare = {k: ref[k] for k in ("losses", "state", "t")}
+        del rows, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["a"] = time.perf_counter() - t_part
+
+        # (b) a 2 s host stall after step MONITOR_STALL_AT, the watchdog at
+        # poll 0.05 s and a 0.2 s floor, escalating: the run stops after the
+        # next step at an emergency checkpoint; the resume is (c)'s run
+        cdir = os.path.join(ck, "stall")
+        trace = os.path.join(out, "stall_trace.json")
+        cfg = MON.WatchdogConfig
+        MON.WatchdogConfig = functools.partial(cfg, poll_interval_s=0.05, min_stall_s=0.2)
+        try:
+            files = full_stack("stall")
+            row = lm("stall", "--metrics-port", "0", "--watchdog-escalate", "preempt",
+                     "--chaos-stall-step", str(MONITOR_STALL_AT), "--chaos-stall-seconds",
+                     str(MONITOR_STALL_S), "--checkpoint-dir", cdir, "--trace-out", trace)
+        finally:
+            MON.WatchdogConfig = cfg
+        stop = MONITOR_STALL_AT + 1
+        smp, summary = row["samples"], row["summary"]
+        check(summary["preempted"] and summary["last_step"] == stop
+              and f"(emergency checkpoint at step {stop}; resume with --resume to continue "
+              "bit-exactly)" in row["lines"] and row["recompiles"] == 0,
+              f"31(b): {summary}")
+        check(row["losses"] == bare["losses"][:stop + 1],
+              f"31(b): losses {row['losses']} / {bare['losses']}")
+        with open(files[obs.FLIGHT_ENV]) as f:
+            events = json.load(f)["events"]
+        kinds = [e["kind"] for e in events]
+        # the stall is flagged once; the emergency checkpoint's save after
+        # the next step (705 MB, about 1.4 s against a threshold of about
+        # 1 s) may be flagged as an episode of its own
+        flags = [e for e in events if e["kind"] == "watchdog_stall"]
+        flag = flags[0] if flags else {}
+        check([e["step"] for e in flags][:1] == [MONITOR_STALL_AT]
+              and [e["step"] for e in flags].count(MONITOR_STALL_AT) == 1
+              and smp["watchdog_stall_total"][()] == len(flags)
+              and {"chaos", "watchdog_escalate", "preempt", "checkpoint_save",
+                   "run_end"} <= set(kinds), f"31(b): flight events {events}")
+        rec = _read_record(files[RUN_RECORD_ENV], "31(b)")
+        check(rec["badput_s"]["stall"] > 0, f"31(b): no stall badput in {rec['badput_s']}")
+        with open(trace) as f:
+            instants = [e for e in json.load(f)["traceEvents"] if e["name"] == "watchdog/stall"
+                        and e["args"].get("step") == MONITOR_STALL_AT]
+        check(len(instants) == 2 and instants[1]["args"].get("action") == "escalate",
+              f"31(b): the trace's watchdog/stall instants at step {MONITOR_STALL_AT}: "
+              f"{instants}")
+        one_graph(row, stop + 1, "(b)")
+        res["stall"] = {"heartbeat_age_s": flag["heartbeat_age_s"],
+                        "threshold_s": flag["threshold_s"], "flags": flags,
+                        "flag_after_threshold_s": flag["heartbeat_age_s"] - flag["threshold_s"],
+                        "stall_badput_s": rec["badput_s"]["stall"], "stopped_after": stop}
+        print(f"   (b) a {MONITOR_STALL_S:g} s host stall after step {MONITOR_STALL_AT} "
+              f"(--chaos-stall-step), the watchdog at poll 0.05 s, floor 0.2 s, escalating: "
+              f"flagged once at heartbeat age {flag['heartbeat_age_s']} s against the adaptive "
+              f"threshold {flag['threshold_s']} s (10 x the steady p95), a watchdog/stall "
+              f"instant and its escalation in the trace, stall badput "
+              f"{rec['badput_s']['stall']} s in the run record, the flight dump {kinds}; the run "
+              f"stopped after step {stop} at an emergency checkpoint; stall episodes flagged at "
+              f"steps {[e['step'] for e in flags]}")
+        del row
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["b"] = time.perf_counter() - t_part - sum(part_s.values())
+
+        # (c) the resume, with GET /profile?steps=2 over HTTP as it starts: the
+        # capture takes the two steps after the first beat
+        pdir = os.path.join(out, "profile")
+        asked = []
+
+        def ask(line):
+            if line.startswith("(metrics server: "):
+                url = line.split()[2].rsplit("/metrics", 1)[0]
+                with urllib.request.urlopen(url + "/profile?steps=2", timeout=10) as r:
+                    asked.append((r.status, json.loads(r.read())))
+
+        row = lm("resumed", "--metrics-port", "0", "--profile-dir", pdir, "--checkpoint-dir",
+                 cdir, "--resume", "--stop-at-step", str(MONITOR_STEPS), on_line=ask)
+        check(asked and asked[0][0] == 200 and asked[0][1]["ok"], f"31(c): /profile {asked}")
+        check(row["losses"] == bare["losses"][stop + 1:]
+              and same_state(row, bare) and row["recompiles"] == 0,
+              f"31(c): the profiled resume differs: {row['losses']} / {bare['losses']}")
+        prof = row["monitor"].profiler
+        first = stop + 1
+        want_dir = os.path.join(pdir, f"profile_step{first}_x2")
+        check(prof.captures == 1 and prof.last_dir == want_dir,
+              f"31(c): captures {prof.captures} in {prof.last_dir}, error {prof.error}")
+        with open(os.path.join(want_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        launches = [e for e in events if e.get("name", "").startswith("cudaGraphLaunch")]
+        names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+        flash = sorted(n for n in names if "flash" in n)
+        check(len(launches) == 2, f"31(c): {len(launches)} graph launches in the profile, want 2")
+        one_graph(row, MONITOR_STEPS - first, "(c)")
+        stalls = row["samples"].get("watchdog_stall_total", {}).get((), 0)
+        res["profile"] = {"dir": want_dir, "graph_launches": len(launches),
+                          "kernel_names": len(names), "flash_kernels_by_name": flash,
+                          "events": len(events), "watchdog_stall_total": stalls,
+                          "bytes": os.path.getsize(os.path.join(want_dir, "trace.json"))}
+        print(f"   (c) --resume with GET /profile?steps=2 at its start: the resume bitwise the "
+              f"bare run (losses of the profiled steps included, params, Adam state); one "
+              f"capture, {os.path.relpath(want_dir, ROOT)}/trace.json (Chrome JSON, "
+              f"{len(events)} events, {res['profile']['bytes']:,} B) holds {len(launches)} "
+              f"cudaGraphLaunch (one a step) and {len(names)} kernel names; the flash kernels "
+              f"{'by name: ' + ', '.join(flash) if flash else 'not by name (the graph replay only)'}"
+              f"; watchdog_stall_total in that run {stalls:g}")
+        del row
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["c"] = time.perf_counter() - t_part - sum(part_s.values())
+
+        # (d) no recompile: the LM runs above, and phase 30(e)'s CNN rollback
+        cnn_rb = (guard_run or {}).get("cnn", {}).get("recompiles_total")
+        res["recompiles"] = {"lm": 0, "cnn_rollback": cnn_rb}
+        print(f"   (d) recompiles_total 0 in every LM run above; phase 30(e)'s CNN rollback "
+              f"(the programs built and captured again): "
+              f"{'not run here' if cnn_rb is None else f'{cnn_rb:g}'}")
+
+        # (e) the CNN main path --fused with --metrics-port 0, in process,
+        # against the same run unmonitored
+        def cnn(name, *extra):
+            lines = []
+            for k in fh.LAUNCHES:
+                fh.LAUNCHES[k] = 0
+            monitors.clear()
+            MON.attach_monitor = attached
+            try:
+                rc = cli.main(CNN_RESUME + ["--epochs", str(MONITOR_CNN_EPOCHS), "--log-dir",
+                                            os.path.join(out, "log"), *extra], log=lines.append)
+            finally:
+                MON.attach_monitor = attach
+            check(rc == 0, f"31(e) {name}: cli.main returned {rc}")
+            return ([l for l in lines if l.startswith(("Global", "Validation"))],
+                    dict(fh.LAUNCHES), monitors[0])
+
+        plain, want, _ = cnn("plain")
+        lines, launches, mon = cnn("monitored", "--metrics-port", "0")
+        smp = obs.parse_prom_samples(mon.registry.render())
+        phases = {dict(k)["phase"] for k in smp.get("phase_seconds_total", {})}
+        check(lines == plain and launches == want == head_launches(16, MONITOR_CNN_EPOCHS),
+              f"31(e): the monitored epochs {lines} / {plain}, launches {launches} / {want}")
+        check(phases >= {"data_loading", "training"}
+              and smp["train_steps_total"][()] == MONITOR_CNN_EPOCHS
+              and mon.recompiles.counter.value == 0,
+              f"31(e): phases {phases}, steps {smp.get('train_steps_total')}")
+        for name, count in launches.items():
+            kernels[name]["launches_monitor"] = count
+        res["cnn"] = {"phases": sorted(phases), "launches": launches, "bitwise": True}
+        print(f"   (e) CNN main path --fused --metrics-port 0, {MONITOR_CNN_EPOCHS} epochs in one "
+              f"span: the epochs' metrics bitwise the unmonitored run's, head launches "
+              f"{launches} (unchanged), phase_seconds_total for {sorted(phases)}, "
+              f"train_steps_total {smp['train_steps_total'][()]:g}, recompiles_total 0")
+        part_s["e"] = time.perf_counter() - t_part - sum(part_s.values())
+    finally:
+        lmtrain.capture_all, MON.attach_monitor = capture_all, attach
+        for k, v in env_saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        obs.FLIGHT.reset()
+        shutil.rmtree(ck, ignore_errors=True)
+    res["seconds"] = part_s
+    print(f"   parts (s): {json.dumps({k: round(v, 1) for k, v in part_s.items()})}")
+    return res
+
+
+def monitor_check() -> int:
+    """`python3 chip_smoke.py --monitor-check`: phase 31 alone (after the
+    kernels' build), for iterating on it; exits 1 when a gate fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    from distributed_neural_network_tpu_torch.ops import flash_attention as fa
+    from distributed_neural_network_tpu_torch.ops import fused_head as fh
+
+    print(run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
+    for m in (fh, fa):
+        m.build()
+    memoize_synthetic()
+    kernels = {k: {} for k in ("fused_mlp3_fwd", "fused_mlp3_bwd", "fused_mlp3_bwd_reduce",
+                               "flash_fwd", "flash_dq", "flash_dkv")}
+    t0 = time.perf_counter()
+    try:
+        res = monitor_phase(torch, fa, fh, kernels, torch.device("cuda"))
+    except SmokeFailure as e:
+        print(f"monitor check FAILED: {e}")
+        return 1
+    print(json.dumps({"kernels": kernels, "seconds": res["seconds"],
+                      "total_s": time.perf_counter() - t0, "overhead": res["overhead"],
+                      "stall": res["stall"], "profile": res["profile"]}))
+    print("monitor check passed")
+    return 0
+
+
+def memoize_synthetic() -> None:
+    """Make the port's synthetic CIFAR-10 splits once per process: the
+    phases' many in-process CLI runs and engines at 50,000 rows then share
+    one copy of each (seeded, so the same bits; nothing writes into a
+    split) instead of generating it again each time."""
+    from distributed_neural_network_tpu_torch.data import cifar10
+    from distributed_neural_network_tpu_torch.train import cli
+
+    load, memo = cifar10.load_split, {}
+
+    @functools.wraps(load)
+    def load_split(train, **kw):
+        if kw.get("source") != "synthetic":
+            return load(train, **kw)
+        key = (train, tuple(sorted(kw.items())))
+        if key not in memo:
+            memo[key] = load(train, **kw)
+        return memo[key]
+
+    cifar10.load_split = cli.load_split = load_split
+
+
 # -------------------------------------------------------------------- phases
 
 
@@ -2410,6 +2832,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    memoize_synthetic()
     kernels = {
         "fused_mlp3_fwd": {"route": "cuda", "replaces":
                            "distributed_neural_network_tpu/ops/pallas_kernels.py:62"},
@@ -4074,6 +4497,10 @@ def main() -> int:
     with phase("30 training guard and chaos"):
         guard_run = guard_phase(torch, fa, fh, kernels, dev)
 
+    monitor_run = {}
+    with phase("31 monitor"):
+        monitor_run = monitor_phase(torch, fa, fh, kernels, dev, guard_run)
+
     designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
                                  f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
                "fused_mlp3_bwd": f"one launch for all replicas, a cluster of "
@@ -4119,7 +4546,7 @@ def main() -> int:
                    "stream": stream_run,
                    "bf16": bf16_run, "data_axis": dp_run, "model_seq_axes": mesh_run,
                    "pipeline": pp_run, "remat_policies": remat_run, "moe": moe_run,
-                   "resume": resume_run, "guard": guard_run}, f,
+                   "resume": resume_run, "guard": guard_run, "monitor": monitor_run}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": table}))
     print(smi)
@@ -4132,4 +4559,5 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit(route_check() if sys.argv[1:] == ["--route-check"]
              else resume_check() if sys.argv[1:] == ["--resume-check"]
-             else guard_check() if sys.argv[1:] == ["--guard-check"] else main())
+             else guard_check() if sys.argv[1:] == ["--guard-check"]
+             else monitor_check() if sys.argv[1:] == ["--monitor-check"] else main())

@@ -74,6 +74,16 @@ goodput record; the GOODPUT line is printed either way) and
 ``--metrics-jsonl`` (the ``train/loss`` series, and ``step/*`` with
 ``--step-stats``).
 
+The monitor, as the JAX CLI's (`train/monitor.py`): ``--metrics-port P``
+serves ``/metrics`` (Prometheus text), ``/healthz`` and, with
+``--profile-dir`` (or next to ``--trace-out``), ``/profile?steps=N`` (a
+`torch.profiler` Chrome trace of the next N steps); ``--watchdog on`` (the
+default) flags stalls, recompile storms and stale checkpoints,
+``--watchdog-escalate preempt`` turns a persistent stall into the emergency
+checkpoint; ``--metrics-linger S`` keeps the server up after the run. The
+supervisor's ``DNN_TPU_HEARTBEAT_FILE`` and ``DNN_TPU_FLIGHT_FILE`` arm the
+heartbeat file and the flight recorder's dump.
+
 The training guard, as the JAX CLI's (`train/guard.py`): ``--guard
 warn|skip|rollback|abort`` reads each step's health (loss, global gradient
 norm, all-finite flag) one step late, after the next step's launch;
@@ -140,11 +150,6 @@ VOLATILE_ARGS = {
 LATER_FLAGS = {
     "dynamics": ("--dynamics", SLICE4),
     "dynamics_jsonl": ("--dynamics-jsonl", SLICE4),
-    "metrics_port": ("--metrics-port", SLICE4),
-    "metrics_linger": ("--metrics-linger", SLICE4),
-    "profile_dir": ("--profile-dir", SLICE4),
-    "watchdog": ("--watchdog", SLICE4),
-    "watchdog_escalate": ("--watchdog-escalate", SLICE4),
     "elastic": ("--elastic", SLICE4),
     "chaos_shrink_at_step": ("--chaos-shrink-at-step", SLICE4),
     "chaos_shrink_to": ("--chaos-shrink-to", SLICE4),
@@ -250,6 +255,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="collect per-step StepStats (compile vs steady step time, "
                    "tokens/s, device memory, collective bytes, MFU from the analytic "
                    "FLOPs), print the summary, and emit step/* series to --metrics-jsonl")
+    p.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                   help="serve live Prometheus metrics on http://127.0.0.1:PORT/metrics plus a "
+                   "/healthz JSON liveness/readiness endpoint (0 = ephemeral port, printed at "
+                   "startup); also starts the stall/recompile/checkpoint watchdog unless "
+                   "--watchdog off (utils/obs.py, train/monitor.py; watch live with "
+                   "tools/live_top.py http://127.0.0.1:PORT)")
+    p.add_argument("--metrics-linger", type=float, default=0.0, metavar="SEC",
+                   help="keep the metrics server up this many seconds after the run finishes "
+                   "(final scrape window)")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="with --metrics-port: serve /profile?steps=N - an on-demand "
+                   "torch.profiler capture of the next N steps, written under DIR (default: "
+                   "next to --trace-out when set; without either the endpoint answers 501)")
+    p.add_argument("--watchdog", choices=("on", "off"), default="on",
+                   help="with --metrics-port: background watchdog flagging stalled steps (no "
+                   "heartbeat for N x steady p95 step time), recompile storms, and checkpoint "
+                   "staleness as watchdog/* trace events + watchdog_*_total counters")
+    p.add_argument("--watchdog-escalate", choices=("none", "preempt"), default="none",
+                   help="preempt = a persistent stall requests the cooperative preemption path "
+                   "(emergency checkpoint at the next step boundary every rank agrees on, clean "
+                   "exit); requires --on-sigterm checkpoint")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save params+momentum every --checkpoint-every steps")
     p.add_argument("--checkpoint-every", type=int, default=50)
@@ -390,6 +416,9 @@ def validate(p: argparse.ArgumentParser, args) -> None:
         p.error("--chaos-stall-rank restricts --chaos-stall-step, which was not given")
     if args.chaos_nan_layer is not None and not args.chaos_nan_step:
         p.error("--chaos-nan-layer restricts --chaos-nan-step, which was not given")
+    if args.watchdog_escalate == "preempt" and args.on_sigterm != "checkpoint":
+        p.error("--watchdog-escalate preempt rides the cooperative preemption path; it "
+                "requires --on-sigterm checkpoint")
     if args.snapshot_every < 1:
         p.error(f"--snapshot-every must be >= 1, got {args.snapshot_every}")
     if args.max_retries < 0:
@@ -630,12 +659,28 @@ def _train(args, mesh, log, result) -> None:
             trace_out = TR.rank_trace_path(trace_out, rank)
             log(f"(per-rank trace shard: {trace_out})")
     preempt = PreemptionGuard(log=log).install() if args.on_sigterm == "checkpoint" else None
+    # the live monitor (train/monitor.py): registry, server, watchdog,
+    # heartbeat file, flight recorder, on-demand profiler
+    from .train import monitor as MON
+
+    monitor = MON.attach_monitor(
+        metrics_port=args.metrics_port, tracer=tracer, preemption=preempt,
+        watchdog=args.watchdog == "on",
+        config=MON.WatchdogConfig(escalate_after_polls=(
+            5 if args.watchdog_escalate == "preempt" and preempt is not None else 0)),
+        profile_dir=args.profile_dir or (os.path.dirname(os.path.abspath(trace_out))
+                                         if trace_out else None),
+        rank=rank, device=device, log=log)
     try:
         _steps(args, mesh, log, result, cfg=cfg, params=params, mom=mom, specs=specs,
                step=step, rows=rows, stream=stream, batch_at=batch_at, tokens=tokens,
                targets=targets, eval_fn=eval_fn, whole_eval=whole_eval, cards=cards,
-               tracer=tracer, trace_out=trace_out, preempt=preempt)
+               tracer=tracer, trace_out=trace_out, preempt=preempt, monitor=monitor)
+        if monitor.server is not None and args.metrics_linger > 0:
+            log(f"(metrics server lingering {args.metrics_linger:g}s for final scrapes)")
+            time.sleep(args.metrics_linger)
     finally:
+        monitor.close()
         if preempt is not None:
             preempt.uninstall()
 
@@ -681,12 +726,16 @@ def _restore(args, ck, mesh, log, *, params, mom, specs, mom_specs) -> int:
 
 
 def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stream, batch_at,
-           tokens, targets, eval_fn, whole_eval, cards, tracer, trace_out, preempt) -> None:
+           tokens, targets, eval_fn, whole_eval, cards, tracer, trace_out, preempt,
+           monitor) -> None:
     """The training loop with its checkpoints, telemetry and close-out."""
     from .train.elastic import lm_mesh_meta
     from .utils.metrics import init_run
+    from .utils.obs import flight_event
 
     device, pipe = mesh.device, args.pp > 1
+    registry = monitor.registry
+    m_loss_gauge = registry.gauge("train_loss", "Training loss at the last logged step")
     mom_specs = (ppl.pp_optimizer_state_specs(args.optimizer, specs) if pipe
                  else lmtrain.optimizer_state_specs(args.optimizer, specs))
 
@@ -709,7 +758,7 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
     if args.checkpoint_dir:
         from .utils.checkpoint import TreeCheckpointer
 
-        ck = TreeCheckpointer(args.checkpoint_dir)
+        ck = TreeCheckpointer(args.checkpoint_dir, registry=registry)
         if not args.resume and ck.latest_step() is not None:
             raise SystemExit(
                 f"--checkpoint-dir {args.checkpoint_dir} already contains checkpoints "
@@ -749,23 +798,30 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
             item_label="tokens", sink=run if args.step_stats else None, n_devices=cards,
             comm_bytes_per_step=comm, grad_sync=args.grad_sync, comm_bucket_bytes=bucket_bytes,
             flops_per_step=model_flops_per_token(cfg, args.seq_len) * tokens_per_step,
-            flops_source="analytic", peak_flops_per_device=peak_flops(kind, args.dtype))
+            flops_source="analytic", peak_flops_per_device=peak_flops(kind, args.dtype),
+            registry=registry)
         if overlap and tracer.enabled:
             TR.record_bucket_plan(
                 tracer, bucket_bytes, schedule="overlap", axis_size=n_sync,
                 op="reduce_scatter" if args.optimizer.startswith("zero") else "psum",
                 accum_steps=args.accum_steps)
-    # telemetered: every step fenced and recorded; the bare path attributes
-    # its window coarsely at the end (fencing each step would change it)
-    telemetered = stats is not None
+    # telemetered (a trace, StepStats, a metrics server or a heartbeat
+    # file): every step fenced and recorded; the bare path attributes its
+    # window coarsely at the end (fencing each step would change it)
+    telemetered = (stats is not None or monitor.server is not None
+                   or monitor.heartbeat is not None)
 
     def wrap_step(first_step: int):
-        """The step with its spans, StepStats and ledger intervals, step
-        numbers counted from `first_step` (again after a rollback)."""
+        """The step with its spans, StepStats, ledger intervals and live
+        metrics, step numbers counted from `first_step` (again after a
+        rollback); the recompile detector re-baselined on it first."""
+        if monitor.recompiles is not None:
+            monitor.recompiles.swap(step)
         if not telemetered:
             return step
         return lmtrain.make_traced_step(step, tracer=tracer, step_stats=stats,
-                                        items_per_step=tokens_per_step, first_step=first_step)
+                                        items_per_step=tokens_per_step, first_step=first_step,
+                                        registry=registry, recompiles=monitor.recompiles)
 
     run_step = wrap_step(step0)
 
@@ -787,7 +843,7 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
         guard = G.TrainingGuard(
             G.GuardConfig(policy=args.guard, spike_zscore=args.guard_spike_zscore,
                           snapshot_every=args.snapshot_every, max_retries=args.max_retries),
-            tracer=tracer, step_stats=stats, log=log)
+            tracer=tracer, step_stats=stats, registry=registry, log=log)
         hpipe = G.HealthPipe(guard, perturb=monkey.perturb if monkey is not None else None)
     # the guard's snapshot and restore costs (seconds, bytes), for callers
     guard_io = {"snapshots": [], "restores": []}
@@ -912,8 +968,10 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
         elif t0 is not None:
             timed_steps += 1
         if (i - step0) % args.log_every == 0 or i == end_step - 1:
-            log(f"step {i:>5}  loss {float(loss):.4f}")
-            run.append("train/loss", float(loss))
+            loss_val = float(loss)
+            log(f"step {i:>5}  loss {loss_val:.4f}")
+            run.append("train/loss", loss_val)
+            m_loss_gauge.set(loss_val)
         if ck is not None and (i + 1) % args.checkpoint_every == 0:
             save(i, loss)
             saved_at = i
@@ -1032,6 +1090,7 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
         "mfu_pct": round(mfu, 2) if mfu is not None else None,
     })
     log("SUMMARY " + json.dumps(summary))
+    flight_event("run_end", step=last_step, preempted=preempted)
     if isinstance(mom, dict) and "t" in mom:
         mom["t"] = lmtrain.adam_count(mom)  # the exact count, for callers
     if result is not None:

@@ -33,6 +33,14 @@ per-epoch path: a ``--fused`` span cannot be observed inside it);
 ``--guard-spike-zscore``, ``--snapshot-every`` (epochs between the rolling
 host snapshots) and ``--max-retries`` as the JAX flags.
 
+The monitor, as the JAX CLI's (`train/monitor.py`): ``--metrics-port P``
+serves ``/metrics`` (``train_steps_total`` counts epochs, and at the end
+``phase_seconds_total{phase=...}`` the phase timers), ``/healthz`` and,
+next to ``--trace-out``, ``/profile?steps=N``; ``--watchdog`` and
+``--watchdog-escalate`` as the JAX flags; ``--metrics-linger S`` keeps the
+server up after the run. ``--profile-dir D`` writes one `torch.profiler`
+Chrome trace of the run (``D/trace.json``).
+
 Across processes, one per rank under torchrun, which sets the rendezvous
 environment (`parallel/distributed.py`):
 
@@ -65,6 +73,7 @@ from ..utils import tracing as TR
 from ..utils.goodput import LEDGER, RUN_RECORD_ENV
 from ..utils.logfiles import write_phase_logs
 from ..utils.metrics import init_run
+from ..utils.obs import flight_event, publish_phase_timers
 from .engine import SLICE4, Engine, TrainConfig
 from .guard import POLICIES, GuardAbort, GuardConfig, PreemptionGuard, TrainingGuard
 
@@ -73,8 +82,6 @@ SLICE5 = "slice 5, static analysis (ROADMAP.md Queue 1 item 6)"
 # dest -> (flag, the slice that brings it); each is parsed with default None
 LATER_FLAGS = {
     "elastic": ("--elastic", SLICE4),
-    "metrics_port": ("--metrics-port", SLICE4),
-    "profile_dir": ("--profile-dir", SLICE4),
     "neptune": ("--neptune", SLICE4),
 }
 
@@ -208,6 +215,35 @@ def add_common_flags(p: argparse.ArgumentParser, *, epochs: int, batch_size: int
         "memory, collective bytes, MFU), print the summary, and emit step/* series to "
         "--metrics-jsonl",
     )
+    p.add_argument(
+        "--profile-dir", default=None,
+        help="capture a torch.profiler trace of the training run into this dir (a Chrome "
+        "trace, trace.json; CPU and, on the card, CUDA activity)",
+    )
+    # the live monitor (utils/obs.py + train/monitor.py)
+    p.add_argument(
+        "--metrics-port", type=int, default=None, metavar="PORT",
+        help="serve live Prometheus metrics on http://127.0.0.1:PORT/metrics plus a /healthz "
+        "JSON liveness/readiness endpoint (0 = ephemeral port, printed at startup); also "
+        "starts the stall/recompile/checkpoint watchdog unless --watchdog off",
+    )
+    p.add_argument(
+        "--metrics-linger", type=float, default=0.0, metavar="SEC",
+        help="keep the metrics server up this many seconds after the run finishes (final "
+        "scrape window for CI / external scrapers)",
+    )
+    p.add_argument(
+        "--watchdog", choices=("on", "off"), default="on",
+        help="with --metrics-port: background watchdog flagging stalled steps (no heartbeat "
+        "for N x steady p95 step time), recompile storms, and checkpoint staleness as "
+        "watchdog/* trace events + watchdog_*_total counters (train/monitor.py)",
+    )
+    p.add_argument(
+        "--watchdog-escalate", choices=("none", "preempt"), default="none",
+        help="preempt = a persistent stall requests the cooperative SIGTERM-style preemption "
+        "path (emergency checkpoint at the next epoch boundary, then clean exit) instead of "
+        "burning the reservation wedged; requires --on-sigterm checkpoint",
+    )
     for dest, (flag, later) in LATER_FLAGS.items():
         p.add_argument(flag, dest=dest, nargs="?", const=True, default=None,
                        help=f"not ported yet: {later}")
@@ -317,16 +353,34 @@ def run_training(args, regime: str, *, log=say) -> Engine:
     preemption = None
     if args.on_sigterm == "checkpoint":
         preemption = PreemptionGuard(log=log).install()
+    from . import monitor as MON
+
+    monitor = MON.attach_monitor(
+        metrics_port=args.metrics_port, tracer=tracer, preemption=preemption,
+        watchdog=args.watchdog == "on",
+        config=MON.WatchdogConfig(escalate_after_polls=(
+            5 if args.watchdog_escalate == "preempt" and preemption is not None else 0)),
+        # on-demand /profile captures land next to the Chrome trace; the
+        # whole-run --profile-dir capture is a separate path
+        profile_dir=os.path.dirname(os.path.abspath(trace_out)) if trace_out else None,
+        rank=rank, device=device, log=log)
     try:
-        return _run_training_body(args, regime, log=log, cfg=cfg, device=device, rank=rank,
-                                  tracer=tracer, trace_out=trace_out, preemption=preemption)
+        engine = _run_training_body(args, regime, log=log, cfg=cfg, device=device, rank=rank,
+                                    tracer=tracer, trace_out=trace_out, preemption=preemption,
+                                    monitor=monitor)
+        if monitor.server is not None and args.metrics_linger > 0:
+            log(f"(metrics server lingering {args.metrics_linger:g}s for final scrapes)")
+            time.sleep(args.metrics_linger)
+        return engine
     finally:
+        monitor.close()
         if preemption is not None:
             preemption.uninstall()
 
 
 def _run_training_body(args, regime, *, log, cfg, device, rank, tracer, trace_out,
-                       preemption) -> Engine:
+                       preemption, monitor) -> Engine:
+    registry = monitor.registry
     timers = T.PhaseTimers(device)
     syn = args.synthetic_size
     with tracer.span(TR.DATA_LOADING, track="host"), timers.phase(T.DATA_LOADING):
@@ -362,7 +416,8 @@ def _run_training_body(args, regime, *, log, cfg, device, rank, tracer, trace_ou
     }
 
     t0 = time.perf_counter()
-    engine = Engine(cfg, train_split, test_split, device=device, tracer=tracer)
+    engine = Engine(cfg, train_split, test_split, device=device, tracer=tracer,
+                    registry=registry)
     LEDGER.describe(
         config={
             "regime": regime, "epochs": cfg.epochs, "batch_size": cfg.batch_size,
@@ -393,6 +448,7 @@ def _run_training_body(args, regime, *, log, cfg, device, rank, tracer, trace_ou
             flops_source=flops_src,
             peak_flops_per_device=peak_flops(kind, cfg.compute_dtype),
             grad_sync=cfg.grad_sync if cfg.sync_mode == "step" else None,
+            registry=registry,
         )
         engine.step_stats = stats
         if cfg.sync_mode == "step" and cfg.grad_sync == "overlap":
@@ -412,7 +468,7 @@ def _run_training_body(args, regime, *, log, cfg, device, rank, tracer, trace_ou
 
         checkpointer = Checkpointer(args.checkpoint_dir, every=args.checkpoint_every,
                                     keep=args.checkpoint_keep,
-                                    backend=args.checkpoint_backend)
+                                    backend=args.checkpoint_backend, registry=registry)
         if args.resume:
             start_epoch = checkpointer.restore_latest(engine, log=log)
             if start_epoch:
@@ -436,12 +492,35 @@ def _run_training_body(args, regime, *, log, cfg, device, rank, tracer, trace_ou
                         # one observation an epoch: arm the spike detector
                         # after a few epochs rather than the step-scale default
                         warmup_steps=3),
-            tracer=tracer, step_stats=stats, log=log)
+            tracer=tracer, step_stats=stats, registry=registry, log=log)
+    if monitor.recompiles is not None:
+        # the epoch's step program: the watchdog turns a burst of its
+        # rebuilds into the recompile-storm flag
+        monitor.recompiles.swap(engine._step)
+        engine.recompiles = monitor.recompiles
+    prof = None
+    if args.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        if device.type == "cuda":
+            # the programs are captured before the profiler starts: it never
+            # runs across a CUDA graph capture
+            with LEDGER.interval("compile"):
+                engine.compile()
+        os.makedirs(args.profile_dir, exist_ok=True)
+        prof = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+        prof.start()
     try:
         engine.run(timers=timers, run=run, log=log, eval_every=args.eval_every,
                    fused=args.fused, checkpointer=checkpointer, start_epoch=start_epoch,
                    preemption=preemption, guard=guard)
     finally:
+        if prof is not None:
+            prof.stop()
+            path = os.path.join(args.profile_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            log(f"(Profiler trace written to {path})")
         if checkpointer is not None:
             checkpointer.close()
     wall = time.perf_counter() - t0
@@ -475,6 +554,9 @@ def _run_training_body(args, regime, *, log, cfg, device, rank, tracer, trace_ou
         log(f"(Chrome trace written to {trace_out}; open in Perfetto / chrome://tracing, or "
             "summarize with tools/trace_summary.py)")
     run.stop()
+    # the reference's phase accumulators, live on /metrics as
+    # phase_seconds_total{phase=...}, not only in the phase log files
+    publish_phase_timers(registry, timers)
 
     for line in timers.report().splitlines():
         log(line)
@@ -517,6 +599,8 @@ def _run_training_body(args, regime, *, log, cfg, device, rank, tracer, trace_ou
         "head_launches": dict(fused_head.LAUNCHES),
     }
     log("SUMMARY " + json.dumps(summary))
+    flight_event("run_end", step=engine.history[-1].epoch if engine.history else None,
+                 preempted=preempted)
     return engine
 
 

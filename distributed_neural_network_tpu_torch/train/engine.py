@@ -100,6 +100,7 @@ from ..parallel.partition import shard_size
 from ..utils import timers as T
 from ..utils import tracing as TR
 from ..utils.goodput import LEDGER
+from ..utils.obs import NULL_REGISTRY
 from .graphs import Eager, Program, capture_all
 
 REGIMES = ("single", "data_parallel", "replication")
@@ -190,15 +191,33 @@ class Engine:
     `StepStats` set as ``engine.step_stats`` one record per epoch or span
     (the first, which builds the kernels and captures the graphs, the
     compile step); the process's `utils/goodput.py` LEDGER (a no-op until
-    started) one step span per epoch or span, train and sync."""
+    started) one step span per epoch or span, train and sync.
+
+    `registry` (`utils/obs.py`, ``--metrics-port``; None: off) gets the JAX
+    engine's live metrics: one heartbeat per epoch dispatch (per span on
+    the fused path, at its last epoch), ``train_steps_total`` (epochs),
+    ``train_step_seconds``, ``train_loss`` and ``train_epoch``, from values
+    the engine already reads on the host. `recompiles` (`train/monitor.py`
+    `RecompileDetector`, set by the caller on the step program ``_step``,
+    the JAX engine's ``_train_fn``) is observed once per dispatch and
+    re-baselined when a rollback builds the programs again."""
 
     def __init__(self, config: TrainConfig, train_split: Split,
                  test_split: Split | None, *, device="cuda", orders=None,
-                 masks=None, tracer=None):
+                 masks=None, tracer=None, registry=None):
         self.config = c = config
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else TR.NULL_TRACER
         self.step_stats = None
+        self.registry = registry if registry is not None else NULL_REGISTRY
+        self._m_steps = self.registry.counter(
+            "train_steps_total", "Completed training steps (epoch dispatches for the CNN engine)")
+        self._m_step_time = self.registry.histogram(
+            "train_step_seconds", "Fenced wall time per training step")
+        self._m_loss = self.registry.gauge(
+            "train_loss", "Global average training loss of the last step")
+        self._m_epoch = self.registry.gauge("train_epoch", "Last completed epoch")
+        self.recompiles = None
         # cuDNN runs float32 convolutions in TF32 by default (about three
         # decimal digits); the port's numbers are held to the float32
         # numpy oracle, so both TF32 switches stay off. Deterministic cuDNN
@@ -557,9 +576,9 @@ class Engine:
                 self.mask.copy_(torch.tensor(mask))
             with timers.phase(T.TRAINING):
                 self._train(epoch)
+        train_wall = time.perf_counter() - t_step
         if self.step_stats is not None:
-            self.step_stats.record(epoch, time.perf_counter() - t_step,
-                                   items=self.images_per_epoch)
+            self.step_stats.record(epoch, train_wall, items=self.images_per_epoch)
         with tracer.span(TR.SYNC, track="sync", step=epoch):
             with timers.phase(T.COMMUNICATION):
                 self._sync()
@@ -576,6 +595,15 @@ class Engine:
         m = EpochMetrics(epoch, train_loss, val_loss if do_eval else None,
                          val_acc if do_eval else None, int(mask.sum()))
         self.history.append(m)
+        # live metrics and the heartbeat: one epoch dispatch is one step here
+        self.registry.beat(epoch)
+        self._m_steps.inc()
+        self.registry.mark_ready()
+        self._m_step_time.observe(train_wall)
+        self._m_loss.set(m.train_loss)
+        self._m_epoch.set(epoch)
+        if self.recompiles is not None:
+            self.recompiles.observe(epoch)
         return m
 
     def run_span(self, epoch0: int, span: int, *, eval_inside: bool = True,
@@ -617,13 +645,24 @@ class Engine:
         if self.step_stats is not None:
             self.step_stats.record(epoch0, wall, items=span * self.images_per_epoch)
             self.step_stats.capture_memory(self.tracer)
-        LEDGER.step_span(epoch0 + span - 1, wall, tokens=span * self.images_per_epoch)
+        last = epoch0 + span - 1
+        LEDGER.step_span(last, wall, tokens=span * self.images_per_epoch)
+        # one span is one heartbeat (the watchdog's threshold follows the
+        # run's own cadence)
+        self.registry.beat(last)
+        self._m_steps.inc(span)
+        self.registry.mark_ready()
+        self._m_step_time.observe(wall)
+        self._m_epoch.set(last)
         metrics = [
             EpochMetrics(e, tl, vl if eval_inside else None, va if eval_inside else None,
                          int(nl))
             for e, (tl, nl, vl, va) in zip(epochs, out.tolist())
         ]
         self.history.extend(metrics)
+        self._m_loss.set(metrics[-1].train_loss)
+        if self.recompiles is not None:
+            self.recompiles.observe(last)
         return metrics
 
     # ------------------------------------------------------------------ run
@@ -720,9 +759,14 @@ class Engine:
         import gc
 
         self._begin = self._step = self._sync = self._eval = None
+        if self.recompiles is not None:
+            self.recompiles.swap(None)  # lets the old step program go too
         gc.collect()
         self._build_programs()
         self._recaptured = True
+        if self.recompiles is not None:
+            # a deliberate rebuild: re-baselined, so it is no miss
+            self.recompiles.swap(self._step)
 
     def _emergency_save(self, last_epoch, checkpointer, preemption, log) -> None:
         name = preemption.signame

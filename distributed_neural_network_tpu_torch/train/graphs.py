@@ -65,7 +65,10 @@ class Program:
     """Its parts run in order, `times` times per call: eagerly, or as
     replays of the graphs `capture` recorded (one per run of parts between
     `Eager` ones, which run eagerly between the replays). `counters` are
-    dicts of launch counts; `name` says what it is in a capture's error."""
+    dicts of launch counts; `name` says what it is in a capture's error.
+    `_cache_size()` is 1 once the program is captured (or, never captured,
+    has run once eagerly): the count `train/monitor.py` `RecompileDetector`
+    reads."""
 
     def __init__(self, *parts, counters=(), name: str = "a program"):
         self.parts = parts
@@ -75,6 +78,10 @@ class Program:
         self.segments = None  # after capture: graph replays and eager parts, in order
         self.kinds = None  # after capture: "graph", or the eager part's label, per segment
         self.delta = None
+        self._builds = 0
+
+    def _cache_size(self) -> int:
+        return self._builds
 
     @property
     def graph(self):
@@ -133,9 +140,11 @@ class Program:
         for c, b in zip(self.counters, before):
             c.update(b)
         self.segments, self.kinds = segments, kinds
+        self._builds += 1
 
     def __call__(self, times: int = 1) -> None:
         if self.segments is None:
+            self._builds = self._builds or 1
             for _ in range(times):
                 self.fn()
             return

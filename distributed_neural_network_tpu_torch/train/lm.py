@@ -366,11 +366,10 @@ def _named_specs(specs):
 
 
 def make_traced_step(step_fn, *, tracer, step_stats=None, items_per_step: float = 0.0,
-                     first_step: int = 0):
+                     first_step: int = 0, registry=None, recompiles=None):
     """Wrap a train step (`LMTrainStep`, `PPTrainStep`: same arguments and
-    return) with span tracing, StepStats and the goodput ledger (the JAX
-    `make_traced_step`; its live-metrics registry comes with the monitor,
-    ROADMAP Queue 1 item 4, step 5).
+    return) with span tracing, StepStats, the goodput ledger and the live
+    registry (the JAX `make_traced_step`).
 
     Each call is one ``train_step`` span on the ``train`` track, step
     numbers counted from `first_step`: a graph replay is one span. The span
@@ -378,18 +377,35 @@ def make_traced_step(step_fn, *, tracer, step_stats=None, items_per_step: float 
     loss's device), so it is device time, not queueing time. `step_stats`
     records each call's wall (the first, which builds the kernels and
     captures the step's graph, as the compile step), and the process's
-    `utils/goodput.py` LEDGER gets it as a compile / steady_step interval."""
+    `utils/goodput.py` LEDGER gets it as a compile / steady_step interval.
+
+    `registry` (`utils/obs.py` `MetricsRegistry`; None: off) marks each
+    step begun before the launch (`begin_step`) and, after the fence, beats
+    it, counts ``train_steps_total``, observes the ``train_step_seconds``
+    histogram, flips readiness after the first call and sets
+    ``train_throughput_items_per_s`` from the second call on. `recompiles`
+    (`train/monitor.py` `RecompileDetector`) is then observed once a call:
+    one ``_cache_size()`` read. All of it is host floats."""
     import itertools
     import time
 
     from ..utils import goodput as _goodput
     from ..utils import tracing as _tracing
+    from ..utils.obs import NULL_REGISTRY
     from ..utils.timers import fence as _fence
 
     counter = itertools.count(first_step)
+    reg = registry if registry is not None else NULL_REGISTRY
+    m_steps = reg.counter("train_steps_total", "Completed training steps")
+    m_wall = reg.histogram("train_step_seconds", "Fenced wall time per training step")
+    m_thr = reg.gauge("train_throughput_items_per_s",
+                      "Per-step training throughput (tokens/s for the LM paths)")
 
     def traced_step(*args, **kwargs):
         i = next(counter)
+        # begun before the launch: a rank wedged on the host never begins
+        # the next step while its peers have (utils/obs.py begin_step)
+        reg.begin_step(i)
         t0 = time.perf_counter()
         with tracer.span(_tracing.TRAIN_STEP, track="train", step=i, fenced=True):
             out = step_fn(*args, **kwargs)
@@ -398,6 +414,14 @@ def make_traced_step(step_fn, *, tracer, step_stats=None, items_per_step: float 
         if step_stats is not None:
             step_stats.record(i, dt, items=items_per_step)
         _goodput.LEDGER.step_span(i, dt, tokens=items_per_step)
+        reg.beat(i)
+        m_steps.inc()
+        m_wall.observe(dt)
+        reg.mark_ready()
+        if items_per_step and dt > 0 and reg.ready and i != first_step:
+            m_thr.set(items_per_step / dt)
+        if recompiles is not None:
+            recompiles.observe(i)
         return out
 
     return traced_step
@@ -561,7 +585,9 @@ class _Captured:
     bound to that call's parameter (and optimizer-state) tensors; captured
     there when `_capture` holds (by default: when the buffers are on the
     card). A capture that fails raises and keeps nothing, so the next call
-    starts afresh."""
+    starts afresh. `_cache_size()` counts the programs built and (on the
+    card) captured: 1 after the first call, more only if one was built
+    again (`train/monitor.py` `RecompileDetector` reads it)."""
 
     def __init__(self, name: str, device=None):
         self.name = name
@@ -570,6 +596,10 @@ class _Captured:
         self.program = None
         self._bound = None
         self._inputs = None
+        self._builds = 0
+
+    def _cache_size(self) -> int:
+        return self._builds
 
     def _bind(self, bound, inputs, build) -> bool:
         """At the first call make the static buffers and the program
@@ -609,6 +639,8 @@ class _Captured:
             except Exception:
                 self.program = self._bound = self._inputs = None
                 raise
+        if first:
+            self._builds += 1
         self.program()
 
 

@@ -277,7 +277,8 @@ def _make_backend(backend: str, directory: str, keep: int):
 class _CkptMetrics:
     """Live metrics of both checkpointers (`utils/obs.py`; registry=None is
     a no-op): saves, the last save's time (what a staleness watchdog ages
-    against) and its step."""
+    against) and its step; each save is a ``checkpoint_save`` flight
+    event."""
 
     def __init__(self, registry=None):
         if registry is None:
@@ -296,9 +297,12 @@ class _CkptMetrics:
         )
 
     def saved(self, step: int) -> None:
+        from .obs import flight_event
+
         self.saves.inc()
         self.last_save.set(time.time())
         self.last_step.set(int(step))
+        flight_event("checkpoint_save", step=int(step))
 
 
 class TreeCheckpointer:

@@ -20,9 +20,8 @@ coarse stall window and the fill intervals), and ``finalize()`` asserts the
 buckets sum to the wall clock. A record's ``wall_s`` is the sum of its
 rounded buckets, so it conserves at its own precision. While a run is live
 the ledger writes its record through at a bounded cadence (atomic tmp +
-rename), so a killed worker's accounting is on disk. The flight recorder
-(`utils/obs.py` in the JAX package) is not in the port yet: the ledger
-publishes no flight events.
+rename), so a killed worker's accounting is on disk. ``finalize()``
+records a ``goodput_final`` event on the flight recorder (`utils/obs.py`).
 """
 
 from __future__ import annotations
@@ -598,6 +597,13 @@ class GoodputLedger:
         rec = self._record(buckets, total, final=True)
         if self.path is not None:
             _atomic_write_json(self.path, rec)
+        try:
+            from .obs import flight_event
+
+            flight_event("goodput_final", goodput_ratio=rec["goodput_ratio"],
+                         wall_s=rec["wall_s"])
+        except Exception:
+            pass
         return rec
 
     def _event_stats(self) -> dict:

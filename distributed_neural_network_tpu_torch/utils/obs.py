@@ -1,15 +1,21 @@
 """Live observability: an in-process metrics registry rendered as
-Prometheus text, the HTTP server that carries ``/metrics``, ``/healthz``
-and the serving routes, and the crash flight recorder.
+Prometheus text, the HTTP server that carries ``/metrics``, ``/healthz``,
+``/profile`` and the serving routes, the heartbeat file a supervisor
+watches, and the crash flight recorder.
 
-A copy of the parts of the JAX package's `utils/obs.py` that the port uses
-(stdlib only): ``MetricsRegistry``, ``NullRegistry`` / ``NULL_REGISTRY``,
-``parse_prom_samples``, ``ObsServer``, and ``FLIGHT_ENV``,
-``FlightRecorder``, ``FLIGHT``, ``flight_event`` and ``read_flight_dump``
-(the training guard and the chaos injectors record their events there).
-The metric names, the exposition format and the flight dump's schema are
-the same, so the JAX package's dashboards and parsers read the port's
-output unchanged.
+A copy of the JAX package's `utils/obs.py` (stdlib only): ``MetricsRegistry``,
+``NullRegistry`` / ``NULL_REGISTRY``, ``HeartbeatFileWriter``,
+``publish_phase_timers``, ``parse_prom_samples``, ``ObsServer`` (with the
+``/profile?steps=N`` route that arms `train/monitor.py` `ProfileController`),
+and ``FLIGHT_ENV``, ``FlightRecorder``, ``FLIGHT``, ``flight_event`` and
+``read_flight_dump``. The metric names, the exposition format, the
+heartbeat file's and the flight dump's schemas and the ``/profile`` bodies
+are the same, so the JAX package's dashboards, supervisor and parsers read
+the port's output unchanged. Where the JAX copy reads the process rank from
+``JAX_PROCESS_ID``, this one reads torchrun's ``RANK``.
+
+Nothing here makes a CUDA call: the server's, the heartbeat writer's and
+the watchdog's threads read host floats the step loop published.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import os
 import socket
 import threading
 import time
+import urllib.parse
 from collections import deque
 
 # env var naming the per-worker flight-recorder dump file (the JAX
@@ -476,6 +483,91 @@ class NullRegistry:
 NULL_REGISTRY = NullRegistry()
 
 
+def _env_rank() -> int | None:
+    """torchrun's ``RANK`` (None when unset or not an integer)."""
+    env_rank = os.environ.get("RANK")
+    try:
+        return int(env_rank) if env_rank is not None else None
+    except ValueError:
+        return None
+
+
+class HeartbeatFileWriter:
+    """Daemon thread mirroring a registry's heartbeat state into a small
+    JSON file: the per-worker liveness channel an elastic supervisor
+    watches across the process boundary.
+
+    Schema (the JAX package's): ``{"t": <writer wall time>, "beat_unix":
+    <last training-step heartbeat or null while compiling>, "step": <last
+    heartbeat step or null>, "begin_step": <last begun step or null>,
+    "pid": ..., "rank": <process rank or null>, "hostname": ...,
+    "metrics_url": <this worker's /metrics base URL or null>, "role":
+    <"serve" for a serving replica, else null>}``. Without ``rank`` the
+    writer reads torchrun's ``RANK`` (the JAX copy reads
+    ``JAX_PROCESS_ID``). Written atomically (tmp + rename) every
+    ``interval_s``, so a reader never sees a torn file, and at once on
+    creation (the worker's "rendezvous done" signal). A write that fails
+    (a full disk) is dropped: it must never kill the training loop.
+    """
+
+    def __init__(self, registry, path: str, *, interval_s: float = 0.5,
+                 rank: int | None = None, hostname: str | None = None,
+                 metrics_url: str | None = None, role: str | None = None):
+        self.registry = registry
+        self.path = os.path.abspath(path)
+        self.interval_s = float(interval_s)
+        self.role = role
+        self.rank = rank if rank is not None else _env_rank()
+        self.hostname = hostname if hostname is not None else _hostname()
+        self.metrics_url = metrics_url
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="heartbeat-file", daemon=True)
+        self._write()  # the rendezvous-done marker, before the first tick
+        self._thread.start()
+
+    def _write(self) -> None:
+        age = self.registry.heartbeat_age()
+        doc = {
+            "t": time.time(),
+            "beat_unix": (time.time() - age) if age is not None else None,
+            "step": self.registry.last_step(),
+            "begin_step": self.registry.last_begin_step(),
+            "pid": os.getpid(),
+            "rank": self.rank,
+            "hostname": self.hostname,
+            "metrics_url": self.metrics_url,
+            "role": self.role,
+        }
+        tmp = f"{self.path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(doc, f)
+            os.replace(tmp, self.path)
+        except OSError:
+            pass  # a full disk must never kill the training loop
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self._write()
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._write()  # the final state (the supervisor sees the last step)
+
+
+def publish_phase_timers(registry, timers) -> None:
+    """Export `utils/timers.py` `PhaseTimers` totals as
+    ``phase_seconds_total{phase=...}``: the reference's epoch-phase
+    accumulators on /metrics as well as in the phase log files. Monotonic
+    (`set_max`): republishing can never regress the counter."""
+    c = registry.counter("phase_seconds_total",
+                         "Accumulated wall-clock per phase (utils/timers.py)")
+    for phase, seconds in timers.summary().items():
+        c.labels(phase=phase).set_max(seconds)
+
+
 # ------------------------------------------------------- flight recorder
 
 
@@ -540,11 +632,7 @@ class FlightRecorder:
         if rank is not None:
             self.rank = int(rank)
         elif self.rank is None:
-            env_rank = os.environ.get("RANK")
-            try:
-                self.rank = int(env_rank) if env_rank is not None else None
-            except ValueError:
-                self.rank = None
+            self.rank = _env_rank()
         if hostname is not None:
             self.hostname = hostname
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
@@ -741,7 +829,11 @@ class _ObsHandler(http.server.BaseHTTPRequestHandler):
         if self._dispatch_route("GET"):
             return
         reg = self.server.registry  # type: ignore[attr-defined]
-        path = self.path.split("?", 1)[0]
+        parts = self.path.split("?", 1)
+        path = parts[0]
+        if path == "/profile":
+            self._do_profile(parts[1] if len(parts) > 1 else "")
+            return
         if path == "/metrics":
             body = reg.render().encode()
             self.send_response(200)
@@ -759,8 +851,9 @@ class _ObsHandler(http.server.BaseHTTPRequestHandler):
             self.send_header("Content-Type", "application/json")
         elif path == "/":
             text = (
-                "distributed_neural_network_tpu_torch server\n"
-                "endpoints: /metrics (Prometheus), /healthz (JSON)\n"
+                "distributed_neural_network_tpu_torch run\n"
+                "endpoints: /metrics (Prometheus), /healthz (JSON), "
+                "/profile?steps=N (on-demand torch.profiler capture)\n"
             )
             # mounted route-table endpoints (the serving layer's /v1/*)
             # listed dynamically so the index never goes stale
@@ -776,6 +869,40 @@ class _ObsHandler(http.server.BaseHTTPRequestHandler):
             body = b"not found\n"
             self.send_response(404)
             self.send_header("Content-Type", "text/plain")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _do_profile(self, query: str) -> None:
+        """GET /profile?steps=N -> arm an on-demand profiler capture of the
+        next N steps (`train/monitor.py` `ProfileController`): 501 when the
+        run has no profile directory, 400 on a bad N, 409 while a capture is
+        pending or running, else 200 (the JAX package's bodies)."""
+        prof = getattr(self.server, "profiler", None)
+        if prof is None:
+            doc, code = {
+                "ok": False,
+                "error": "profiling not wired: start the run with "
+                "--metrics-port and a profile directory (--profile-dir, "
+                "or --trace-out whose directory is reused)",
+            }, 501
+        else:
+            qs = urllib.parse.parse_qs(query)
+            try:
+                steps = int(qs.get("steps", ["10"])[0])
+            except ValueError:
+                steps = -1
+            if steps < 1:
+                doc, code = {
+                    "ok": False,
+                    "error": "steps must be a positive integer (/profile?steps=N)",
+                }, 400
+            else:
+                doc = prof.request(steps)
+                code = 200 if doc.get("ok") else 409
+        body = (json.dumps(doc) + "\n").encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
@@ -808,6 +935,7 @@ class ObsServer:
         port: int = 0,
         host: str = "127.0.0.1",
         stall_after_s: float = 300.0,
+        profiler=None,
         routes: dict | None = None,
     ):
         self.registry = registry
@@ -815,6 +943,9 @@ class ObsServer:
         self._httpd.daemon_threads = True
         self._httpd.registry = registry  # type: ignore[attr-defined]
         self._httpd.stall_after_s = stall_after_s  # type: ignore
+        # the /profile target (train/monitor.py ProfileController; None:
+        # the endpoint answers 501 with the wiring hint)
+        self._httpd.profiler = profiler  # type: ignore[attr-defined]
         # extra {(method, path): fn(handler)} routes (serve/http.py)
         self._httpd.routes = dict(routes or {})  # type: ignore
         self.host = host

@@ -51,6 +51,9 @@ class PhaseTimers:
     def get(self, name: str) -> float:
         return self.totals.get(name, 0.0)
 
+    def summary(self) -> dict[str, float]:
+        return dict(self.totals)
+
     def report(self) -> str:
         """Canonical phases first in the reference's order and phrasing, then
         any extra phases alphabetically as ``<name>: <seconds>``."""

@@ -2,7 +2,7 @@
 writes the reference's two phase-log files and a parseable SUMMARY line; the
 default device is CUDA and asking for it without a GPU fails cleanly; a flag
 of a later slice raises NotImplementedError naming the slice, and the
-checkpoint and telemetry flags run (the guard's: tests/test_torch_guard.py); `--fused` runs
+checkpoint, telemetry and monitor flags run (the guard's: tests/test_torch_guard.py); `--fused` runs
 multi-epoch spans with the JAX CLI's lines, and downgrades to the per-epoch
 path under `--failure-duration` with the JAX message."""
 
@@ -64,7 +64,7 @@ def test_default_device_is_cuda_and_fails_cleanly_without_it(tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("flags", [
-    ["--metrics-port", "0"], ["--sharding", "auto"], ["--dynamics"], ["--neptune"],
+    ["--elastic"], ["--sharding", "auto"], ["--dynamics"], ["--neptune"],
 ])
 def test_later_slice_flag_raises(flags):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -106,6 +106,56 @@ def test_checkpoint_and_telemetry_flags_run(tmp_path, flag):
         assert any(l.startswith("Step stats (2 steps") for l in lines)
         series = [json.loads(l)["series"] for l in jsonl.read_text().splitlines()]
         assert series.count("step/wall_s") == 2 and "step/images_per_s" in series
+
+
+def test_monitor_flags_run(tmp_path, monkeypatch):
+    """The monitor's flags, which raised until the monitor came, run in
+    process: --metrics-port 0 serves the JAX CLI's export (read from the
+    run's registry after the run: train_steps_total the epochs,
+    phase_seconds_total for the reference's phases (its five accumulators,
+    the two of communication merged), no recompile), --metrics-linger
+    waits, --watchdog on starts the watchdog, --watchdog-escalate preempt
+    arms its escalation, --profile-dir writes one torch.profiler trace of
+    the run, and the flight recorder (armed by DNN_TPU_FLIGHT_FILE) ends
+    with run_end at the last epoch."""
+    from distributed_neural_network_tpu_torch.train import monitor as MON
+    from distributed_neural_network_tpu_torch.utils import obs
+
+    made = []
+
+    def attach(**kw):
+        made.append(attach_monitor(**kw))
+        return made[-1]
+
+    attach_monitor = MON.attach_monitor
+    monkeypatch.setattr(MON, "attach_monitor", attach)
+    monkeypatch.setenv(obs.FLIGHT_ENV, str(tmp_path / "flight.json"))
+    obs.FLIGHT.reset()
+    lines = []
+    try:
+        assert cli.main(["--device", "cpu", "--log-dir", str(tmp_path / "log"), *TINY,
+                         "--metrics-port", "0", "--metrics-linger", "0.05", "--watchdog", "on",
+                         "--watchdog-escalate", "preempt", "--profile-dir",
+                         str(tmp_path / "prof")], log=lines.append) == 0
+    finally:
+        obs.FLIGHT.reset()
+    mon = made[0]
+    assert mon.watchdog is not None and mon.watchdog.cfg.escalate_after_polls == 5
+    assert mon.watchdog._thread is None and mon._closed  # stopped at the end
+    assert any(l.startswith("(metrics server: http://127.0.0.1:") for l in lines)
+    assert "(metrics server lingering 0.05s for final scrapes)" in lines
+    samples = obs.parse_prom_samples(mon.registry.render())
+    assert samples["train_steps_total"][()] == 2 and samples["train_epoch"][()] == 1
+    assert {dict(k)["phase"] for k in samples["phase_seconds_total"]} == {
+        "data_loading", "training", "evaluation", "communication"}
+    assert mon.recompiles.counter.value == 0 and "train_loss" in samples
+    with open(tmp_path / "prof" / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
+    with open(tmp_path / "flight.json") as f:
+        doc = json.load(f)
+    ends = [e for e in doc["events"] if e["kind"] == "run_end"]
+    assert doc["cause"] == "close" and ends == [{**ends[0], "step": 1, "preempted": False}]
+    assert doc["events"][0]["kind"] == "run_start"
 
 
 def test_quantized_precision_is_refused():

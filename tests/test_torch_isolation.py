@@ -30,7 +30,9 @@ def test_every_module_imports_with_jax_blocked():
               "parallel.pipeline", "parallel.moe", "utils.tree",
               # checkpoints, tracing, the goodput record, preemption
               "utils.checkpoint", "utils.tracing", "utils.goodput", "train.guard",
-              "parallel.reshard", "train.elastic"):
+              "parallel.reshard", "train.elastic",
+              # the monitor
+              "train.monitor", "utils.obs"):
         assert f"distributed_neural_network_tpu_torch.{m}" in mods
     code = (
         "import sys\n"

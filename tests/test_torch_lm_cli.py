@@ -5,7 +5,9 @@ its step lines, its MFU-less CPU summary with the JAX CLI's SUMMARY keys
 argument errors (those of the mesh's axes held to the JAX CLI's own text), a
 NotImplementedError naming the slice for every flag of a later slice, the
 checkpoint and telemetry flags running (the guard's and chaos flags:
-tests/test_torch_guard.py),
+tests/test_torch_guard.py), the monitor's flags (a live server over one
+subprocess run with a stall, the escalation to a checkpoint that resumes
+bitwise, the escalation's JAX argument error),
 --experts training a mixture of experts, the
 pipeline's and remat policy's flags in one process (--pp N outside a group
 of N refused with the torchrun command), the data axis's flags in one
@@ -18,6 +20,7 @@ counts the launches the card makes)."""
 import ast
 import json
 import os
+import time
 
 import pytest
 import torch
@@ -124,9 +127,9 @@ def test_flash_launch_formulas(flags, tmp_path, monkeypatch):
 
 LATER = {
     "--sharding auto": "item 6",
-    "--elastic": "slice 4", "--metrics-port 0": "slice 4",
-    "--dynamics": "slice 4", "--profile-dir p": "slice 4",
-    "--watchdog on": "slice 4", "--chaos-shrink-at-step 1": "slice 4",
+    "--elastic": "slice 4", "--dynamics-jsonl d.jsonl": "slice 4",
+    "--dynamics": "slice 4", "--chaos-shrink-to 1": "slice 4",
+    "--chaos-shrink-at-step 1": "slice 4",
 }
 
 
@@ -192,6 +195,139 @@ def test_checkpoint_and_telemetry_flags_run(tmp_path, flags):
         assert rec["goodput_s"] + sum(rec["badput_s"].values()) == pytest.approx(rec["wall_s"])
     if flag == "--step-stats":
         assert any(line.startswith("Step stats (3 steps") for line in lines)
+
+
+def _read_until(proc, prefix, lines, timeout=120):
+    """Lines of `proc`'s stdout until one starts with `prefix` (returned)."""
+    import select
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if select.select([proc.stdout], [], [], 1.0)[0]:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line.rstrip("\n"))
+            if line.startswith(prefix):
+                return line
+    raise AssertionError(f"no {prefix!r} line in {lines[-20:]}")
+
+
+def _get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.read().decode()
+
+
+def test_live_monitor_serves_flags_a_stall_and_writes_the_fleet_files(tmp_path):
+    """The monitor flags in one subprocess run, as the JAX CLI test
+    (`tests/test_cli.py` `test_lm_train_chaos_stall_is_flagged_by_watchdog`):
+    --metrics-port 0 serves Prometheus text whose train_steps_total
+    advances, /healthz ready; /profile?steps=2 writes a torch.profiler
+    trace under --profile-dir; --chaos-stall-step with --watchdog on (8 s
+    against the default 5 s floor) counts watchdog_stall_total and puts a
+    watchdog/stall instant in --trace-out; --metrics-linger keeps the server
+    up for the final scrape; DNN_TPU_HEARTBEAT_FILE gets the last step and
+    the rank key, DNN_TPU_FLIGHT_FILE the run's events from run_start to
+    run_end."""
+    import subprocess
+    import sys
+
+    from distributed_neural_network_tpu_torch.utils.obs import parse_prom_samples
+
+    trace, prof = tmp_path / "t.json", tmp_path / "prof"
+    env = dict(os.environ, DNN_TPU_HEARTBEAT_FILE=str(tmp_path / "hb.json"),
+               DNN_TPU_FLIGHT_FILE=str(tmp_path / "fl.json"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-u", "-m", "distributed_neural_network_tpu_torch.lm_train",
+           *TINY, "--steps", "30", "--log-every", "10", "--metrics-port", "0",
+           "--metrics-linger", "20", "--watchdog", "on", "--profile-dir", str(prof),
+           "--trace-out", str(trace), "--chaos-stall-step", "15", "--chaos-stall-seconds", "8"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=ROOT, env=env)
+    lines = []
+    try:
+        line = _read_until(proc, "(metrics server: ", lines)
+        url = line.split()[2].rsplit("/metrics", 1)[0]
+        first = parse_prom_samples(_get(url + "/metrics"))
+        _read_until(proc, "(watchdog: STALL - no step heartbeat for", lines)
+        # armed during the stall: the capture takes the two steps after it
+        assert json.loads(_get(url + "/profile?steps=2"))["ok"]
+        _read_until(proc, "(metrics server lingering 20s", lines)
+        body = _get(url + "/metrics")
+        health = json.loads(_get(url + "/healthz"))
+        hb_path, deadline = tmp_path / "hb.json", time.time() + 10
+        while json.loads(hb_path.read_text())["step"] != 29 and time.time() < deadline:
+            time.sleep(0.1)  # the writer's next tick (every 0.5 s)
+        proc.kill()  # in the linger's sleep; the files are written through
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.stdout.close()
+        proc.stderr.close()
+    last = parse_prom_samples(body)
+    assert last["train_steps_total"][()] == 30 > first.get("train_steps_total", {}).get((), 0)
+    assert last["watchdog_stall_total"][()] >= 1 and last["train_ready"][()] == 1
+    assert health["ready"] and health["step"] == 29
+    doc = json.loads(trace.read_text())
+    names = {e["name"] for e in doc["traceEvents"]}
+    assert {"watchdog/stall", "straggler", "train_step"} <= names
+    captured = [d for d in os.listdir(prof) if d.startswith("profile_step")]
+    assert captured == ["profile_step16_x2"]  # started at the first beat after the stall
+    assert json.loads((prof / captured[0] / "trace.json").read_text())["traceEvents"]
+    hb = json.loads((tmp_path / "hb.json").read_text())
+    assert hb["step"] == 29 and "rank" in hb and hb["metrics_url"] == url
+    kinds = [e["kind"] for e in json.loads((tmp_path / "fl.json").read_text())["events"]]
+    assert kinds[0] == "run_start" and kinds[-2:] == ["goodput_final", "run_end"]
+    assert {"chaos", "watchdog_stall", "profile_capture"} <= set(kinds)
+
+
+def test_watchdog_escalation_stops_at_a_checkpoint_that_resumes_bitwise(tmp_path, monkeypatch):
+    """--watchdog-escalate preempt (the watchdog at poll 0.05 s, its
+    threshold clamped to [0.2, 0.5] s): a 2 s stall after step 3 is flagged
+    and escalated while it lasts, the run stops after step 4 (the
+    flag is agreed at the next launch) with an emergency checkpoint, and
+    the resume from it is bitwise the uninterrupted run."""
+    import functools
+
+    from distributed_neural_network_tpu_torch.train import monitor as MON
+
+    # the threshold clamped to [0.2, 0.5] s: the CPU's step times vary
+    # under load, and the flag and its escalation must land well inside the
+    # stall
+    monkeypatch.setattr(MON, "WatchdogConfig", functools.partial(
+        MON.WatchdogConfig, poll_interval_s=0.05, min_stall_s=0.2, max_stall_s=0.5))
+    base = TINY + ["--steps", "8", "--optimizer", "adam"]
+    ck = str(tmp_path / "ck")
+    whole, stopped, resumed = {}, {}, {}
+    assert lm_train.main(base, log=lambda line: None, result=whole) == 0
+    lines = []
+    assert lm_train.main(base + ["--metrics-port", "0", "--watchdog-escalate", "preempt",
+                                 "--chaos-stall-step", "3", "--chaos-stall-seconds", "2",
+                                 "--checkpoint-dir", ck], log=lines.append,
+                         result=stopped) == 0
+    assert any(l.startswith("(watchdog: stall persists - requesting") for l in lines)
+    assert "(emergency checkpoint at step 4; resume with --resume to continue bit-exactly)" \
+        in lines
+    summary = json.loads(next(l for l in lines if l.startswith("SUMMARY "))[8:])
+    assert summary["preempted"] and summary["last_step"] == 4
+    assert lm_train.main(base + ["--checkpoint-dir", ck, "--resume", "--stop-at-step", "8"],
+                         log=lambda line: None,
+                         result=resumed) == 0
+    assert stopped["losses"] + resumed["losses"] == whole["losses"]
+    assert resumed["mom"]["t"] == whole["mom"]["t"] == 8
+    for a, b in zip(lm_train.lmtrain.tree_leaves(resumed["params"]),
+                    lm_train.lmtrain.tree_leaves(whole["params"])):
+        assert torch.equal(a, b)
+
+
+def test_escalation_needs_the_preemption_path(monkeypatch, capsys):
+    args = [a for a in TINY if a not in ("--device", "cpu")] + [
+        "--watchdog-escalate", "preempt", "--on-sigterm", "ignore"]
+    want = _jax_cli_error(monkeypatch, capsys, args)
+    assert want.startswith("--watchdog-escalate preempt rides the cooperative")
+    assert _port_error(capsys, args) == want
 
 
 def test_experts_flag_trains():
