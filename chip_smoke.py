@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc/triton versions;
-2. build every CUDA source of csrc/ (one nvcc each, started together) and
-   time the build; print each tensor-core flash instance's (forward, dq,
+2. build every CUDA source of csrc/ (one nvcc each, started together, the
+   stream's native batcher by g++ beside them) and time the build; print each tensor-core flash instance's (forward, dq,
    dkv, and the quantized forward's 8-bit ones) registers, spills, dynamic
    shared memory and blocks per SM, the head forward's and backward's
    cluster instances' registers, shared memory, blocks per SM and clusters
@@ -74,7 +74,9 @@ Phases (any failure exits non-zero and prints no result):
    127.0.0.1:0;
    24 greedy requests over HTTP/SSE (prompts of 16/64/128 tokens, 32 new
    each) sent open loop at 4 req/s, for --precision bf16 and int8-kv, each
-   with --decode-impl cuda and torch. Gates: 24/24 complete; >= 99%
+   with --decode-impl cuda and torch. Gates: 24/24 complete; the prefill
+   calls the prompts' whole chunks (each prompt but its last token in
+   chunks of 16 on the chunk grid, whatever the arrivals' overlap); >= 99%
    per-token agreement with the port's offline bf16 generate() (each served
    token against generate's choice after the same served history, where a
    choice that generate's two routes make differently is a tie: see
@@ -183,7 +185,8 @@ Phases (any failure exits non-zero and prints no result):
 18. streaming: the native batcher built (`native.available()`); full width
    with --input-mode stream --kernels cuda per epoch: launches as phase 5,
    the loss falling, accuracy >= 50%; images/s and a profiled stream
-   epoch's idle share beside the hbm run (phases 5, 7); at 512 rows the
+   epoch's idle share (its graphs captured by `Engine.compile()` before it)
+   beside the hbm run (phases 5, 7); at 512 rows the
    stream engine within the oracle bounds on the stream's own orders, and
    beside the hbm engine fed those orders;
 19. bf16: full width with --compute-dtype bfloat16, --kernels cuda (launches
@@ -202,9 +205,11 @@ Phases (any failure exits non-zero and prints no result):
    width and 2 layers, eagerly and graphed: the losses, eval losses,
    parameters and optimizer state bit for bit;
 21. the LM on the data axis (`port_probes/lm_dp_world.py`): `lm_train.main`
-   at LM_ARGS with --attn flash in one process (--dp 1: sgd, adam, 4 steps),
-   then one launch of 2 ranks sharing the card over gloo, each running
-   every case of phases 21-23 (and then 29(e)'s) through `lm_train.main`
+   at LM_ARGS with --attn flash in one process (--dp 1: sgd, adam, 4 steps;
+   `port_probes/lm_mesh_world.py`'s flash-sgd and flash-adam, whose updates
+   phase 24 reads), then one launch of 2 ranks sharing the card over gloo,
+   each running every case of phases 21-23 (and then 29(e)'s and 32's)
+   through `lm_train.main`
    (--dp 2; the counters set to 0 before each run): sgd and adam, 4 steps: every step's loss
    within LOSS_TOL relative of --dp 1's, the ranks' SUMMARY lines and
    parameters equal, each rank's flash launches the formula, all on the
@@ -225,8 +230,8 @@ Phases (any failure exits non-zero and prints no result):
    sharing the card over gloo for phases 24-26 and 28(c), the counters set
    to 0 before each run): `lm_train.main` at LM_ARGS with --tp 2 --attn flash,
    sgd and adam, 4 steps: every step's loss within LOSS_TOL relative of
-   the one-process run on the same route (phase 21's sgd and adam, run
-   again; and --precision int8 against its own one-process run: the
+   the one-process run on the same route (phase 21's sgd and adam and
+   their updates; and --precision int8 against its own one-process run: the
    quantized forward's launches on the tp path), the parameter update
    (gathered parameters minus the initial ones) within the probe's
    UPDATE_TOL of the one-process run's in relative L2, leaf by leaf, the
@@ -366,7 +371,28 @@ Phases (any failure exits non-zero and prints no result):
    epochs in one span: the epochs' metrics bitwise the unmonitored run's,
    the head launches the formula, phase_seconds_total and train_steps_total
    in the registry's export. `python3 chip_smoke.py --monitor-check` runs
-   the build and this phase alone.
+   the build and this phase alone;
+32. elastic resume (`elastic_phase`, `port_probes/elastic_world.py`'s flow
+   at the flagship width, --attn flash): (a) --dp 2 --optimizer zero-adam on
+   2 ranks sharing the card over gloo (run by phase 21's launch of the
+   ranks), its checkpoint after step 1 (written by both ranks: (b)'s
+   hand-off) resumed in this process
+   with --resume --elastic --dp 1 --optimizer adam: the resume log names
+   the data axis and the optimizer layout, accum 1 -> 2, the continued
+   losses within 1e-3 of the uninterrupted run (phase 23's zero-adam run, the
+   same flags), the resumed step one graph, the flash launches the formula
+   (all mma); reshard_seconds and the bytes read; (b) --chaos-shrink-at-step
+   1 --chaos-shrink-to 1 on those 2 ranks: rank 1 leaves with exit 0, rank
+   0 finishes every step single (dp 1) with accum 2, steps 0-1 bitwise the
+   uninterrupted run's and the rest within 1e-3, its step captured again as
+   one graph, both ranks' flash launches the formula of the steps each ran;
+   ms a step before and after; (c) the CNN: phase 29(a)'s 4-worker
+   checkpoint restored at 2 workers (`Checkpointer.restore_latest(elastic=
+   True)`: the surviving momentum rows and the params bitwise the saved
+   ones), then --resume --elastic --fused at --nb-proc 2 for 2 epochs
+   through `train.cli.main`: the head launches the formula at 2 workers.
+   `python3 chip_smoke.py --elastic-check` runs the build and this phase
+   alone (with its own launch of the ranks).
 
 The phases' in-process runs share one copy of each synthetic CIFAR-10
 split (`memoize_synthetic`).
@@ -454,6 +480,14 @@ RESUME_WORLD_LAYERS = 2  # phase 29(e)'s depth
 # written by the ranks phase 21 starts
 RESUME_WORLD_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
                                 "ckpt_world2")
+# phase 32's records and checkpoints (gigabytes; removed in phase 32): the LM
+# runs' written by the ranks phase 21 starts, the CNN's copied from phase 29(a)
+ELASTIC_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "elastic_world2")
+ELASTIC_CNN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "elastic_cnn")
+# the one-process LM runs' parameter updates (~236 MB each), written in phase
+# 21 and 24, read by phase 24's ranks, removed in phase 24
+MESH_UPDATES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                            "lm_mesh_updates")
 CNN_RESUME = ["--regime", "data_parallel", "--nb-proc", "4", "--kernels", "cuda", "--fused",
               "--data", "synthetic", "--synthetic-size", "50000", "--batch-size", "16",
               "--lr", "0.01", "--failure-probability", "0.5", "--seed", "3", "--device", "cuda"]
@@ -622,15 +656,15 @@ def ceil(a, b):
     return -(-a // b)
 
 
-def head_launches(batch, epochs):
+def head_launches(batch, epochs, workers=4):
     """The head kernels' launches of a full-width CNN run (4 workers, 50,000
     rows, 10,000 test rows): per epoch one forward and one backward launch
-    per step for all 4 replicas, one forward per eval batch, the reduce per
+    per step for all the replicas, one forward per eval batch, the reduce per
     step where a replica's batch forms more than one group."""
     from distributed_neural_network_tpu_torch.ops import fused_head as fh
 
-    steps = ceil(50_000 // 4, batch) * epochs
-    evals = ceil(ceil(10_000, 4), batch) * epochs
+    steps = ceil(50_000 // workers, batch) * epochs
+    evals = ceil(ceil(10_000, workers), batch) * epochs
     return {"fused_mlp3_fwd": steps + evals, "fused_mlp3_bwd": steps,
             "fused_mlp3_bwd_reduce": steps if fh.bwd_groups(batch) > 1 else 0}
 
@@ -1885,6 +1919,9 @@ def resume_phase(torch, fa, fh, da, kernels, dev) -> dict:
               "29(a): the resumed CNN's params, momentum or history differ")
         want = head_launches(16, 2)
         check(launches_c == want, f"29(a): the resumed run's launches {launches_c} != {want}")
+        # phase 32(c) resumes this 4-worker checkpoint at 2 workers
+        shutil.rmtree(ELASTIC_CNN, ignore_errors=True)
+        shutil.copytree(os.path.join(ck, "cnn_resumed"), ELASTIC_CNN)
         for name, count in launches_c.items():
             kernels[name]["launches_resume"] = count
         rec = _telemetry_check(trace_a, rec_a, "29(a)")
@@ -2792,6 +2829,171 @@ def monitor_check() -> int:
     return 0
 
 
+# ------------------------------------------------------------ phase 32 helpers
+
+
+def elastic_phase(torch, fa, fh, kernels, dev, ranks=None, whole=None) -> dict:
+    """Phase 32 (module docstring): the LM's elastic resume and in-process
+    shrink, and the CNN's --elastic resume; adds the paths' launches to
+    `kernels` and returns what it measured. `ranks`: the records of
+    ELASTIC_OUT's runs, made by phase 21's launch of the ranks, and `whole`
+    the uninterrupted run's losses (phase 23's zero-adam run); without
+    them (``--elastic-check``) the phase launches its own 2 ranks."""
+    import numpy as np
+
+    from distributed_neural_network_tpu_torch.data.cifar10 import load_split
+    from distributed_neural_network_tpu_torch.train import cli
+    from distributed_neural_network_tpu_torch.train.engine import Engine, TrainConfig
+    from distributed_neural_network_tpu_torch.utils.checkpoint import Checkpointer
+    from port_probes import elastic_world as EW
+
+    res, part_s, t_part = {}, {}, time.perf_counter()
+    try:
+        if ranks is None:
+            shutil.rmtree(ELASTIC_OUT, ignore_errors=True)
+            ranks = EW.run_world(2, ELASTIC_OUT, LM_ARGS,
+                                 EW.world_runs(2, ELASTIC_OUT, stopped=False), timeout=900)
+            whole = ranks[0]["runs"]["whole"]["losses"]
+            part_s["ranks"] = time.perf_counter() - t_part
+        # (a) the dp-2 ZeRO-Adam checkpoint (the shrink's hand-off, written by
+        # both ranks) resumed in this process at dp 1 with Adam: the data axis
+        # 2 -> 1, the optimizer's layout, accum 1 -> 2
+        t_a = time.perf_counter()
+        EW.take_stopped(ELASTIC_OUT)
+        r1 = EW.run_one(LM_ARGS, "cuda", "r1", EW.resume_runs(ELASTIC_OUT, 1, "adam")[0][1])
+        part_s["a"] = time.perf_counter() - t_a
+        try:
+            world = EW.check(2, ranks, whole=whole,
+                             resumed=[("r1", r1, 2, 1, 1, "adam", 2)])
+        except AssertionError as e:
+            raise SmokeFailure(f"32: {e}") from e
+        a, b = world["r1"], world["shrink"]
+        check(a["segments"] == "graph", f"32(a): the resumed step is {a['segments']}, not one "
+              "graph")
+        want_a = flash_counts(EW.STEPS - EW.STOP, accum=2)
+        check(r1["launches"] == want_a and r1["routes"] == mma_counts(want_a),
+              f"32(a): flash launches {r1['launches']} / {r1['routes']} != {want_a}")
+        (ra,) = a["reshards"]
+        print(f"   (a) --dp 2 --optimizer zero-adam (2 ranks, gloo) checkpointed after step "
+              f"{EW.STOP - 1}, --resume --elastic --dp 1 --optimizer adam in one process: "
+              f"{'; '.join(x for x in r1['log'] if 'elastic' in x)}; losses "
+              f"{a['losses']} against the uninterrupted {whole[EW.STOP:]} (within "
+              f"{EW.LOSS_TOL:g}); reshard_seconds {ra['seconds']:.3f} s, {ra['bytes']:,} B read; "
+              f"the resumed step one graph; flash launches {r1['launches']} (all mma)")
+        # (b) the in-process shrink 2 -> 1 (run by the ranks)
+        survivor = ranks[0]["runs"]["shrink"]
+        want_b = {k: v + w for (k, v), w in zip(
+            flash_counts(EW.SHRINK_AT + 1).items(),
+            flash_counts(EW.STEPS - EW.SHRINK_AT - 1, accum=2).values())}
+        want_left = flash_counts(EW.SHRINK_AT + 1)
+        check(survivor["launches"] == want_b and survivor["routes"] == mma_counts(want_b),
+              f"32(b): the survivor's flash launches {survivor['launches']} != {want_b}")
+        check(ranks[1]["runs"]["shrink"]["launches"] == want_left,
+              f"32(b): the leaving rank's flash launches {ranks[1]['runs']['shrink']['launches']}"
+              f" != {want_left}")
+        check(b["segments"] == "graph", f"32(b): the survivor's step is {b['segments']}")
+        (rb,) = b["reshards"]
+        print(f"   (b) --chaos-shrink-at-step {EW.SHRINK_AT} --chaos-shrink-to 1 on 2 ranks: "
+              f"rank 1 exited 0 ({b['left_log'][0][-1]}); rank 0 finished every step on mesh "
+              f"{b['mesh']} with accum {b['accum_steps']}: losses {b['losses']}, steps 0-"
+              f"{EW.SHRINK_AT} bitwise the uninterrupted run's, the rest within "
+              f"{EW.LOSS_TOL:g}; reshard_seconds {rb['seconds']:.3f} s, {rb['bytes']:,} B read; "
+              f"ms a step before / after the shrink {b['ms_before']} / {b['ms_after']}; the "
+              f"survivor's step one graph; flash launches {survivor['launches']} (the leaving "
+              f"rank {ranks[1]['runs']['shrink']['launches']})")
+        for k in want_a:
+            if k in kernels:
+                kernels[k]["launches_elastic"] = {"resume": r1["launches"][k],
+                                                  "shrink": survivor["launches"][k]}
+        res["lm"] = {"resume": a, "shrink": b, "whole": whole}
+        # (c) the CNN: phase 29(a)'s 4-worker checkpoint resumed at 2 workers
+        t_c = time.perf_counter()
+        if not os.path.isdir(ELASTIC_CNN):
+            rc = cli.main(CNN_RESUME + ["--epochs", "2", "--log-dir", os.path.join(
+                ELASTIC_OUT, "log"), "--checkpoint-dir", ELASTIC_CNN], log=lambda line: None)
+            check(rc == 0, f"32(c): the 4-worker CNN run returned {rc}")
+        ck = Checkpointer(ELASTIC_CNN)
+        last = ck.latest_epoch()
+        with np.load(os.path.join(ELASTIC_CNN, f"step_{last}", "state.npz")) as z:
+            saved = [z[k] for k in sorted(z.files, key=lambda k: int(k.split("_")[1]))]
+        train = load_split(True, source="synthetic", synthetic_size=50_000, seed=3)
+        test = load_split(False, source="synthetic", synthetic_size=10_000, seed=3)
+        with uncounted(fh.LAUNCHES):
+            eng = Engine(TrainConfig(lr=0.01, batch_size=16, nb_proc=2, kernels="cuda",
+                                     regime="data_parallel", failure_probability=0.5, seed=3),
+                         train, test, device=dev)
+            lines = []
+            nxt = ck.restore_latest(eng, elastic=True, log=lines.append)
+            from distributed_neural_network_tpu_torch.utils.tree import tree_leaves
+
+            got = [np.asarray(x) for x in tree_leaves(eng.state_tree())]
+            del eng
+        n_params = len(got) // 2
+        mom_saved, mom_got = saved[:n_params], got[:n_params]
+        check(nxt == last + 1 and all(np.array_equal(g, s[:2]) for g, s in zip(mom_got,
+                                                                               mom_saved))
+              and all(np.array_equal(g, s) for g, s in zip(got[n_params:], saved[n_params:])),
+              "32(c): the restored momentum rows or params are not the saved ones")
+        check(any("momentum stack resharded 4 -> 2" in l for l in lines), f"32(c): {lines}")
+        fh.LAUNCHES.update(dict.fromkeys(fh.LAUNCHES, 0))
+        out_lines = []
+        rc = cli.main([*CNN_RESUME[:CNN_RESUME.index("--nb-proc")], "--nb-proc", "2",
+                       *CNN_RESUME[CNN_RESUME.index("--nb-proc") + 2:], "--epochs",
+                       str(last + 3), "--log-dir", os.path.join(ELASTIC_OUT, "log"),
+                       "--checkpoint-dir", ELASTIC_CNN, "--resume", "--elastic"],
+                      log=out_lines.append)
+        launches_c = dict(fh.LAUNCHES)
+        check(rc == 0, f"32(c): cli.main returned {rc}")
+        want_c = head_launches(16, 2, workers=2)
+        check(launches_c == want_c, f"32(c): head launches {launches_c} != {want_c}")
+        for name, count in launches_c.items():
+            kernels[name]["launches_elastic"] = count
+        summary = json.loads(next(l for l in out_lines if l.startswith("SUMMARY "))[8:])
+        part_s["c"] = time.perf_counter() - t_c
+        res["cnn"] = {"log": lines, "launches": launches_c, "summary": summary}
+        print(f"   (c) CNN, phase 29(a)'s 4-worker checkpoint (epoch {last}) --resume --elastic "
+              f"at 2 workers --fused: {lines[-1]}; the surviving momentum rows and the params "
+              f"bitwise the saved ones; 2 epochs: head launches {launches_c} (the formula at 2 "
+              f"workers); final validation accuracy {summary.get('final_val_acc')}")
+    finally:
+        shutil.rmtree(ELASTIC_OUT, ignore_errors=True)
+        shutil.rmtree(ELASTIC_CNN, ignore_errors=True)
+    res["seconds"] = part_s
+    print(f"   parts (s): {json.dumps({k: round(v, 1) for k, v in part_s.items()})}")
+    return res
+
+
+def elastic_check() -> int:
+    """`python3 chip_smoke.py --elastic-check`: phase 32 alone (after the
+    kernels' build, with its own launch of the ranks), for iterating on it;
+    exits 1 when a gate fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    from distributed_neural_network_tpu_torch.ops import flash_attention as fa
+    from distributed_neural_network_tpu_torch.ops import fused_head as fh
+
+    print(run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
+    for m in (fh, fa):
+        m.build()
+    memoize_synthetic()
+    kernels = {k: {} for k in ("fused_mlp3_fwd", "fused_mlp3_bwd", "fused_mlp3_bwd_reduce",
+                               "flash_fwd", "flash_dq", "flash_dkv")}
+    t0 = time.perf_counter()
+    try:
+        res = elastic_phase(torch, fa, fh, kernels, torch.device("cuda"))
+    except SmokeFailure as e:
+        print(f"elastic check FAILED: {e}")
+        return 1
+    print(json.dumps({"kernels": kernels, "seconds": res["seconds"],
+                      "total_s": time.perf_counter() - t0}, default=str))
+    print("elastic check passed")
+    return 0
+
+
 def memoize_synthetic() -> None:
     """Make the port's synthetic CIFAR-10 splits once per process: the
     phases' many in-process CLI runs and engines at 50,000 rows then share
@@ -2868,8 +3070,13 @@ def main() -> int:
 
     with phase("2 build"):
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(3) as pool:
+        from distributed_neural_network_tpu_torch import native
+
+        with ThreadPoolExecutor(4) as pool:
+            # the stream's native batcher (g++, phase 18) builds beside them
+            batcher = pool.submit(native.available)
             libs = list(pool.map(lambda m: m.build(), (fh, da, fa)))
+            batcher.result()
         for m in (fh, da, fa):
             m._lib()
         env["build_s"] = time.perf_counter() - t0
@@ -3393,6 +3600,9 @@ def main() -> int:
         prompts = [rng.integers(0, 256, size=PROMPT_LENS[i % 3]).tolist()
                    for i in range(N_REQUESTS)]
         arrivals = np.cumsum(rng.exponential(1.0 / RATE, size=N_REQUESTS)).tolist()
+        # the engine prefills all but a prompt's last token, in whole chunks
+        chunk = int(SERVE_ARGS[SERVE_ARGS.index("--prefill-chunk") + 1])
+        want_pre = sum(ceil(len(p) - 1, chunk) for p in prompts)
         t0 = time.perf_counter()
         with uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
             oracle = Oracle(torch, tfm, prompts, dev)
@@ -3479,6 +3689,8 @@ def main() -> int:
                       f"(up to the kernel route's rounding {same_route['agreement']:.4f}), "
                       f"stream {same_route['stream_agreement']:.4f}")
             check(len(done) == N_REQUESTS, f"{len(done)}/{N_REQUESTS} requests completed")
+            check(pre_calls == want_pre,
+                  f"{pre_calls} prefill calls != {want_pre}, the prompts' chunks of {chunk}")
             check(conserved, f"serving ledger does not conserve: {rec}")
             if not main_run:
                 # the eager twin: measured beside the main path, gated on its
@@ -4137,7 +4349,7 @@ def main() -> int:
         eng = Engine(TrainConfig(lr=0.01, batch_size=16, nb_proc=4, kernels="cuda",
                                  input_mode="stream"), raw, test, device=dev)
         with uncounted(fh.LAUNCHES):
-            eng.run_epoch(0)
+            eng.compile()  # the graphs captured before the profiled epoch, no warm-up epoch
             stream_run["profile"] = profiled_epoch(torch, eng, 1)
         wall, busy = stream_run["profile"]["wall_s"], stream_run["profile"]["device_busy_s"]
         del eng, raw, test
@@ -4261,9 +4473,14 @@ def main() -> int:
         from torch_rank_worker import busy_union, launch
 
         # the one-process runs of the same global batch, then every run of
-        # phases 21-23 in one launch of the ranks (gloo: they share the card)
+        # phases 21-23 in one launch of the ranks (gloo: they share the card);
+        # the one-process runs are port_probes/lm_mesh_world.py's flash-sgd and
+        # flash-adam (the same flags), whose updates phase 24 reads too
+        from port_probes import lm_mesh_world as M
+
         t0 = time.perf_counter()
-        ref = W.reference(LM_ARGS)
+        mesh_ref = M.reference(LM_ARGS, ["flash-sgd", "flash-adam"], updates=MESH_UPDATES)
+        ref = {"sgd": mesh_ref["flash-sgd"], "adam": mesh_ref["flash-adam"]}
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         from port_probes import ckpt_world as CW
@@ -4271,16 +4488,23 @@ def main() -> int:
         # phase 29(e)'s runs (port_probes/ckpt_world.py at depth 2) in the same ranks
         ckpt = CW.make_spec(RESUME_WORLD_OUT, LM_ARGS + ["--n-layers", str(RESUME_WORLD_LAYERS)],
                             CW.RUNS[2])
+        from port_probes import elastic_world as EW
+
+        # and phase 32's (port_probes/elastic_world.py at dp 2), last: its shrink
+        # leaves rank 1 out of the group
+        shutil.rmtree(ELASTIC_OUT, ignore_errors=True)
+        elastic = EW.make_spec(ELASTIC_OUT, LM_ARGS,
+                               EW.world_runs(2, ELASTIC_OUT, whole=False, stopped=False))
         ranks = W.run_world(2, os.path.join(ROOT, "chiprun_out", "lm_dp"), LM_ARGS, timeout=1200,
-                            then=[("ckpt_world", ckpt)])
+                            then=[("ckpt_world", ckpt), ("elastic_world", elastic)])
         dp_run = W.check(2, ranks, ref, LM_ARGS, flash_counts=flash_counts,
                          mma_counts=mma_counts, busy_union=busy_union)
         dp_run["one_process"] = ref
         dp_run["seconds"] = {"one_process": t1 - t0, "ranks": time.perf_counter() - t1}
         runs = dp_run["runs"]
         form = runs["sgd"]["form"]
-        print(f"   one process (dp 1) {t1 - t0:.1f} s; 2 ranks, every run of phases 21-23 and "
-              f"29(e), {time.perf_counter() - t1:.1f} s with start-up; backend "
+        print(f"   one process (dp 1) {t1 - t0:.1f} s; 2 ranks, every run of phases 21-23, "
+              f"29(e) and 32, {time.perf_counter() - t1:.1f} s with start-up; backend "
               f"{runs['sgd']['backend']}, {runs['sgd']['cards']} card")
         print(f"   collective form: {form}")
         for name in ("sgd", "adam"):
@@ -4367,18 +4591,18 @@ def main() -> int:
         from port_probes import moe_world as MW
         from port_probes import pp_world as PW
 
-        updates = os.path.join(ROOT, "runs", "lm_mesh_updates")
+        updates = MESH_UPDATES
         pp_updates = os.path.join(ROOT, "runs", "pp_updates")
         moe_updates = os.path.join(ROOT, "runs", "moe_updates")
         pp_out = os.path.join(ROOT, "chiprun_out", "pp")
         moe_out = os.path.join(ROOT, "chiprun_out", "moe")
         t0 = time.perf_counter()
         try:
-            # the one-process runs again (sgd and adam as phase 21's), for
-            # their updates; and those of phases 26 and 28(c), whose ranks run
-            # in this launch (a fresh rank process costs seconds)
-            ref = M.reference(LM_ARGS, ["flash-sgd", "flash-adam", "flash-int8", "ring-b8"],
-                              updates=updates)
+            # the one-process runs (sgd and adam came with phase 21, their
+            # updates in MESH_UPDATES); and those of phases 26 and 28(c), whose
+            # ranks run in this launch (a fresh rank process costs seconds)
+            ref = {**mesh_ref, **M.reference(LM_ARGS, ["flash-int8", "ring-b8"],
+                                             updates=updates)}
             t_pp = time.perf_counter()
             pp_ref = PW.reference(LM_ARGS, ["plain"], updates=pp_updates)
             t_moe = time.perf_counter()
@@ -4403,8 +4627,8 @@ def main() -> int:
                     "seconds": {"one_process": t1 - t0, "ranks": time.perf_counter() - t1},
                     "cuts": {"sequence runs' global batch": "16 -> 8"}}
         runs24 = mesh_run["runs"]
-        print(f"   one process (sgd, adam, --precision int8, --attn ring at batch 8) "
-              f"{t_pp - t0:.1f} s; 2 ranks, every run of "
+        print(f"   one process (--precision int8, --attn ring at batch 8; sgd and adam with "
+              f"phase 21) {t_pp - t0:.1f} s; 2 ranks, every run of "
               f"phases 24-26 and 28(c), {time.perf_counter() - t1:.1f} s with start-up; collective form: "
               f"{runs24['tp2-sgd']['form']}")
         for name in ("tp2-sgd", "tp2-adam", "tp2-int8"):
@@ -4501,6 +4725,14 @@ def main() -> int:
     with phase("31 monitor"):
         monitor_run = monitor_phase(torch, fa, fh, kernels, dev, guard_run)
 
+    elastic_run = {}
+    with phase("32 elastic resume"):
+        from port_probes import elastic_world as EW
+
+        elastic_run = elastic_phase(torch, fa, fh, kernels, dev,
+                                    EW.read_ranks(2, ELASTIC_OUT),
+                                    dp_run["runs"]["zero-adam"]["losses"])
+
     designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
                                  f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
                "fused_mlp3_bwd": f"one launch for all replicas, a cluster of "
@@ -4546,7 +4778,8 @@ def main() -> int:
                    "stream": stream_run,
                    "bf16": bf16_run, "data_axis": dp_run, "model_seq_axes": mesh_run,
                    "pipeline": pp_run, "remat_policies": remat_run, "moe": moe_run,
-                   "resume": resume_run, "guard": guard_run, "monitor": monitor_run}, f,
+                   "resume": resume_run, "guard": guard_run, "monitor": monitor_run,
+                   "elastic": elastic_run}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": table}))
     print(smi)
@@ -4560,4 +4793,5 @@ if __name__ == "__main__":
     sys.exit(route_check() if sys.argv[1:] == ["--route-check"]
              else resume_check() if sys.argv[1:] == ["--resume-check"]
              else guard_check() if sys.argv[1:] == ["--guard-check"]
-             else monitor_check() if sys.argv[1:] == ["--monitor-check"] else main())
+             else monitor_check() if sys.argv[1:] == ["--monitor-check"]
+             else elastic_check() if sys.argv[1:] == ["--elastic-check"] else main())

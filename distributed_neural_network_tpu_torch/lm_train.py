@@ -103,6 +103,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -119,6 +120,7 @@ from .models import transformer as tfm
 from .ops.schedule import make_ema_update, warmup_cosine
 from .parallel.distributed import distribute_host_data, initialize, joined
 from .parallel import pipeline as ppl
+from .parallel.collectives import COLLECTIVE_FORMS
 from .parallel.ring import zigzag_order
 from .train import lm as lmtrain
 from .train.cli import SLICE5, say
@@ -150,9 +152,6 @@ VOLATILE_ARGS = {
 LATER_FLAGS = {
     "dynamics": ("--dynamics", SLICE4),
     "dynamics_jsonl": ("--dynamics-jsonl", SLICE4),
-    "elastic": ("--elastic", SLICE4),
-    "chaos_shrink_at_step": ("--chaos-shrink-at-step", SLICE4),
-    "chaos_shrink_to": ("--chaos-shrink-to", SLICE4),
 }
 INT8_KV_MESSAGE = (
     "--precision int8-kv quantizes the SERVING KV cache (paged pool + per-block scales); it "
@@ -281,6 +280,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --checkpoint-dir")
+    p.add_argument("--elastic", action="store_true",
+                   help="elastic resume (parallel/reshard.py): accept a checkpoint saved under a "
+                   "DIFFERENT mesh shape or optimizer layout and reshard it onto this run's mesh "
+                   "- dp/sp/tp may all change, ZeRO shards re-pad for the new dp, and "
+                   "sgd<->zero / adam<->zero-adam convert bitwise; the global batch stays fixed "
+                   "(grad accumulation is re-sliced) so the exact-resume data cursor still holds")
     p.add_argument("--on-sigterm", choices=("checkpoint", "ignore"), default="checkpoint",
                    help="checkpoint = on SIGTERM/SIGINT finish the current step, write an "
                    "emergency checkpoint (when --checkpoint-dir is set) and exit cleanly; "
@@ -325,6 +330,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="restrict --chaos-stall-step to process rank R of a multi-process "
                    "group (every rank runs the same argv, so without this the whole group "
                    "stalls in lockstep); single-process runs treat their rank as 0")
+    p.add_argument("--chaos-shrink-at-step", type=int, default=None, metavar="N",
+                   help="fault injection (parallel/fault.py): after step N raise a cooperative "
+                   "SHRINK preemption - the elastic path writes an emergency checkpoint, "
+                   "re-forms the process group over the first --chaos-shrink-to x sp x tp ranks "
+                   "(the others leave with exit 0), reshards params+optimizer state onto their "
+                   "mesh (parallel/reshard.py) and CONTINUES training: the full preempt -> "
+                   "checkpoint -> reshard -> resume path. Requires --checkpoint-dir and "
+                   "--on-sigterm checkpoint; mesh path only (not --pp)")
+    p.add_argument("--chaos-shrink-to", type=int, default=None, metavar="DP",
+                   help="data-parallel size the SHRINK preemption drops to (default dp//2); "
+                   "sp/tp are kept, the global batch is preserved by re-slicing gradient "
+                   "accumulation")
     for dest, (flag, later) in LATER_FLAGS.items():
         p.add_argument(flag, dest=dest, nargs="?", const=True, default=None,
                        help=f"not ported yet: {later}")
@@ -416,6 +433,29 @@ def validate(p: argparse.ArgumentParser, args) -> None:
         p.error("--chaos-stall-rank restricts --chaos-stall-step, which was not given")
     if args.chaos_nan_layer is not None and not args.chaos_nan_step:
         p.error("--chaos-nan-layer restricts --chaos-nan-step, which was not given")
+    if args.elastic and not args.resume and args.chaos_shrink_at_step is None:
+        p.error("--elastic configures how --resume (or a SHRINK preemption) maps a checkpoint "
+                "onto this mesh; add --resume with --checkpoint-dir, or --chaos-shrink-at-step")
+    if args.chaos_shrink_at_step is not None:
+        if args.pp > 1:
+            p.error("--chaos-shrink-at-step shrinks the dp x sp x tp mesh in process; drop --pp")
+        if not args.checkpoint_dir:
+            p.error("--chaos-shrink-at-step drives the preempt -> checkpoint -> reshard -> "
+                    "resume path; it requires --checkpoint-dir")
+        if args.on_sigterm != "checkpoint":
+            p.error("--chaos-shrink-at-step rides the cooperative preemption guard; it requires "
+                    "--on-sigterm checkpoint")
+        if args.eval_every:
+            p.error("--chaos-shrink-at-step cannot rebuild the --eval-every evaluator mid-run; "
+                    "drop one of the two")
+        if args.chaos_shrink_to is None:
+            args.chaos_shrink_to = max(args.dp // 2, 1)
+        if not 1 <= args.chaos_shrink_to < args.dp:
+            p.error(f"--chaos-shrink-to must be in [1, dp) = [1, {args.dp}), got "
+                    f"{args.chaos_shrink_to}")
+        if args.batch_size % args.chaos_shrink_to:
+            p.error(f"--batch-size {args.batch_size} must divide over --chaos-shrink-to "
+                    f"{args.chaos_shrink_to} (the global batch is preserved across the shrink)")
     if args.watchdog_escalate == "preempt" and args.on_sigterm != "checkpoint":
         p.error("--watchdog-escalate preempt rides the cooperative preemption path; it "
                 "requires --on-sigterm checkpoint")
@@ -541,6 +581,65 @@ def main(argv=None, *, log=say, result: dict | None = None) -> int:
     return 0
 
 
+@dataclasses.dataclass(frozen=True)
+class Rebuild:
+    """What an in-process shrink makes again on the survivors' mesh: the
+    run's state tensors (`state(mesh)` -> params, specs, optimizer state),
+    its step (`step(mesh, lr_scale)`), this rank's share of a host batch
+    (`rows(mesh)`) and the first host batch (tokens, targets)."""
+
+    state: object
+    step: object
+    rows: object
+    host_batch: tuple
+
+
+def _zero_params(cfg) -> dict:
+    """The whole parameter tree as zeros (`init_params`' shapes, no draw):
+    the tensors a restore then overwrites."""
+    def zeros(node):
+        if isinstance(node, dict):
+            return {k: zeros(v) for k, v in node.items()}
+        return torch.zeros(node)
+
+    return zeros(tfm.param_shapes(cfg))
+
+
+def _placed_state(args, cfg, mesh, whole, rules):
+    """(this rank's parameters, their specs, its fresh optimizer state) on
+    `mesh` from the whole tree `whole`."""
+    if args.pp > 1:
+        params, specs = ppl.shard_pp_params(whole, cfg, mesh, interleave=args.pp_interleave)
+    else:
+        params, specs = lmtrain.shard_params(whole, cfg, mesh, rules=rules)
+    if args.pp > 1 and args.optimizer.startswith("zero"):
+        mom = ppl.init_pp_zero_state(params, mesh, args.optimizer)
+    else:
+        mom = lmtrain.init_lm_momentum(params, args.optimizer, mesh)
+    return params, specs, mom
+
+
+def _build_step(args, cfg, mesh, rules, lr_scale: float = 1.0):
+    """The train step on `mesh` at ``--lr`` x `lr_scale` (the guard's
+    backoff) with the run's accumulation steps."""
+    lr_schedule = schedule_at(args, lr_scale)
+    if args.pp > 1:
+        return ppl.make_pp_train_step(
+            cfg, mesh, device=mesh.device, n_microbatches=args.microbatches,
+            lr=args.lr * lr_scale, momentum=args.momentum, loss_chunks=args.loss_chunks,
+            interleave=args.pp_interleave, lr_schedule=lr_schedule, clip_norm=args.clip_norm,
+            weight_decay=args.weight_decay, optimizer=args.optimizer,
+            accum_steps=args.accum_steps, grad_sync=args.grad_sync, bucket_mb=args.bucket_mb)
+    return lmtrain.make_lm_train_step(
+        cfg, mesh=mesh, device=mesh.device, lr=args.lr * lr_scale, momentum=args.momentum,
+        attn_impl=args.attn, optimizer=args.optimizer, loss_chunks=args.loss_chunks,
+        lr_schedule=lr_schedule, clip_norm=args.clip_norm, accum_steps=args.accum_steps,
+        weight_decay=args.weight_decay, grad_sync=args.grad_sync, bucket_mb=args.bucket_mb,
+        rules=rules, with_health=args.guard != "off", skip_nonfinite=args.guard == "skip",
+        fault_plan=fault_plan(args),
+    )
+
+
 def _train(args, mesh, log, result) -> None:
     device = mesh.device
     cfg = tfm.TransformerConfig(
@@ -560,33 +659,9 @@ def _train(args, mesh, log, result) -> None:
     pipe = args.pp > 1
     whole = tfm.init_params(args.seed, cfg)
     n_params = tfm.param_count(whole)
-    if pipe:
-        params, specs = ppl.shard_pp_params(whole, cfg, mesh, interleave=args.pp_interleave)
-    else:
-        params, specs = lmtrain.shard_params(whole, cfg, mesh, rules=rules)
+    params, specs, mom = _placed_state(args, cfg, mesh, whole, rules)
     del whole
-    if pipe and args.optimizer.startswith("zero"):
-        mom = ppl.init_pp_zero_state(params, mesh, args.optimizer)
-    else:
-        mom = lmtrain.init_lm_momentum(params, args.optimizer, mesh)
     cards = _cards(mesh)
-    lr_schedule = schedule_at(args, 1.0)
-    if pipe:
-        step = ppl.make_pp_train_step(
-            cfg, mesh, device=device, n_microbatches=args.microbatches, lr=args.lr,
-            momentum=args.momentum, loss_chunks=args.loss_chunks,
-            interleave=args.pp_interleave, lr_schedule=lr_schedule, clip_norm=args.clip_norm,
-            weight_decay=args.weight_decay, optimizer=args.optimizer,
-            accum_steps=args.accum_steps, grad_sync=args.grad_sync, bucket_mb=args.bucket_mb)
-    else:
-        step = lmtrain.make_lm_train_step(
-            cfg, mesh=mesh, device=device, lr=args.lr, momentum=args.momentum,
-            attn_impl=args.attn, optimizer=args.optimizer, loss_chunks=args.loss_chunks,
-            lr_schedule=lr_schedule, clip_norm=args.clip_norm, accum_steps=args.accum_steps,
-            weight_decay=args.weight_decay, grad_sync=args.grad_sync, bucket_mb=args.bucket_mb,
-            rules=rules, with_health=args.guard != "off", skip_nonfinite=args.guard == "skip",
-            fault_plan=fault_plan(args),
-        )
 
     zperm = None
     if args.attn == "zigzag" and args.sp > 1:
@@ -595,16 +670,20 @@ def _train(args, mesh, log, result) -> None:
         # permutation of tokens and targets leaves it unchanged
         zperm = torch.from_numpy(zigzag_order(args.seq_len, args.sp)).long()
 
-    def rows(tok, tgt, whole_batch=False):
-        """This rank's block of the global batch (the batch itself at 1 x 1
-        x 1): its rows and sequence columns, or (`whole_batch`, an eval
-        batch off the pipeline and off expert parallelism) every row and
-        its columns. The pipeline's eval, and the eval under expert
-        parallelism, take their data shard's rows, as their step."""
-        if zperm is not None:
-            tok, tgt = tok[:, zperm], tgt[:, zperm]
-        return tuple(distribute_host_data(x, mesh, device=device, rows=not whole_batch)
-                     for x in (tok, tgt))
+    def rows_on(mesh):
+        def rows(tok, tgt, whole_batch=False):
+            """This rank's block of the global batch (the batch itself at 1
+            x 1 x 1): its rows and sequence columns, or (`whole_batch`, an
+            eval batch off the pipeline and off expert parallelism) every
+            row and its columns. The pipeline's eval, and the eval under
+            expert parallelism, take their data shard's rows, as their
+            step."""
+            if zperm is not None:
+                tok, tgt = tok[:, zperm], tgt[:, zperm]
+            return tuple(distribute_host_data(x, mesh, device=mesh.device, rows=not whole_batch)
+                         for x in (tok, tgt))
+
+        return rows
 
     stream = batch_at = None
     if args.data_path:
@@ -619,11 +698,16 @@ def _train(args, mesh, log, result) -> None:
                                     step=i, seed=args.seed, split=split)
             return torch.from_numpy(tok).long(), torch.from_numpy(tgt).long()
 
-        tokens, targets = rows(*batch_at(0))
+        host_batch = batch_at(0)
     else:
-        tokens, targets = rows(*lmtrain.make_copy_task(
+        host_batch = lmtrain.make_copy_task(
             torch.Generator().manual_seed(args.seed + 1), batch=args.batch_size,
-            seq_len=args.seq_len, vocab=args.vocab))
+            seq_len=args.seq_len, vocab=args.vocab)
+    # what an in-process shrink rebuilds on the survivors' mesh
+    rebuild = Rebuild(
+        state=lambda mesh: _placed_state(args, cfg, mesh, _zero_params(cfg), rules),
+        step=lambda mesh, lr_scale: _build_step(args, cfg, mesh, rules, lr_scale),
+        rows=rows_on, host_batch=host_batch)
     eval_fn = None
     if args.eval_every and pipe:
         eval_fn = ppl.make_pp_eval_fn(cfg, mesh, n_microbatches=args.microbatches,
@@ -635,7 +719,7 @@ def _train(args, mesh, log, result) -> None:
     whole_eval = not pipe and not (eval_fn is not None and eval_fn.sharded_rows)
     sync = ""
     if mesh.joined:
-        sync = f", collectives {step.collective_form}"
+        sync = f", collectives {COLLECTIVE_FORMS[mesh.form]}"
     log(f"(LM {n_params:,} params, mesh {mesh.desc}, "
         f"attn={args.attn if args.sp > 1 or args.attn == 'flash' else 'full'}, "
         + (f"precision={args.precision}, " if args.precision != "bf16" else "")
@@ -673,9 +757,9 @@ def _train(args, mesh, log, result) -> None:
         rank=rank, device=device, log=log)
     try:
         _steps(args, mesh, log, result, cfg=cfg, params=params, mom=mom, specs=specs,
-               step=step, rows=rows, stream=stream, batch_at=batch_at, tokens=tokens,
-               targets=targets, eval_fn=eval_fn, whole_eval=whole_eval, cards=cards,
-               tracer=tracer, trace_out=trace_out, preempt=preempt, monitor=monitor)
+               stream=stream, batch_at=batch_at, eval_fn=eval_fn,
+               whole_eval=whole_eval, cards=cards, tracer=tracer, trace_out=trace_out,
+               preempt=preempt, monitor=monitor, rebuild=rebuild)
         if monitor.server is not None and args.metrics_linger > 0:
             log(f"(metrics server lingering {args.metrics_linger:g}s for final scrapes)")
             time.sleep(args.metrics_linger)
@@ -725,29 +809,86 @@ def _restore(args, ck, mesh, log, *, params, mom, specs, mom_specs) -> int:
     return last + 1
 
 
-def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stream, batch_at,
-           tokens, targets, eval_fn, whole_eval, cards, tracer, trace_out, preempt,
-           monitor) -> None:
+def _elastic_restore(args, ck, mesh, log, *, cfg, params, mom, specs, mom_specs, meta,
+                     tracer, registry):
+    """Restore the newest checkpoint in `ck` onto this run's mesh and
+    optimizer through `train/elastic.py` `elastic_restore` (resharded on
+    the host when the saved layout differs, then copied into the step's own
+    tensors); (last step, the checkpoint's meta, and when it was resharded
+    {"seconds", "bytes"}: the whole restore's wall time and the bytes read,
+    else None), or None without a checkpoint."""
+    from .train import elastic as EL
+
+    t0 = time.perf_counter()
+    restored = EL.elastic_restore(
+        ck, cfg=cfg, mesh=mesh, specs=specs, optimizer=args.optimizer, current_meta=meta,
+        template=lmtrain.checkpoint_template(params, mom, specs, mom_specs, mesh, args.optimizer),
+        load=lambda state: lmtrain.load_checkpoint_state(state, params, mom, specs, mom_specs,
+                                                         mesh, args.optimizer),
+        tracer=tracer, registry=registry, log=log)
+    if restored is None:
+        return None
+    _, meta, last, resharded = restored
+    took = None
+    if resharded:
+        took = {"step": last, "seconds": time.perf_counter() - t0,
+                "bytes": ck.last_restore[1]}
+    return last, meta, took
+
+
+def _leave(args, mesh, at_step: int, *, log, ck, run, result, losses, start_step) -> None:
+    """Close the run on a rank that an elastic shrink left out: one line,
+    the checkpointer, the metrics series and the run record (finalized at
+    its last step); the caller's monitor closes on the way out and the
+    process exits 0. The rank is in no process group any more."""
+    from .utils.obs import flight_event
+
+    survivors = args.chaos_shrink_to * mesh.sp * mesh.tp
+    log(f"(elastic: rank {mesh.rank} of {mesh.world} leaves after step {at_step}; "
+        + (f"ranks 0-{survivors - 1} continue" if survivors > 1 else "rank 0 continues")
+        + " on the shrunk mesh)")
+    ck.close()
+    run.stop()
+    LEDGER.finalize(metrics={"last_step": at_step, "preempted": False, "left_at_shrink": True})
+    flight_event("run_end", step=at_step, preempted=False, left=True)
+    if result is not None:
+        result.update(losses=[float(x) for x in losses], mesh=mesh, start_step=start_step,
+                      left=True, step=None)
+
+
+def _steps(args, mesh, log, result, *, cfg, params, mom, specs, stream, batch_at,
+           eval_fn, whole_eval, cards, tracer, trace_out, preempt, monitor, rebuild) -> None:
     """The training loop with its checkpoints, telemetry and close-out."""
-    from .train.elastic import lm_mesh_meta
+    from .train import elastic as EL
     from .utils.metrics import init_run
     from .utils.obs import flight_event
 
     device, pipe = mesh.device, args.pp > 1
     registry = monitor.registry
     m_loss_gauge = registry.gauge("train_loss", "Training loss at the last logged step")
-    mom_specs = (ppl.pp_optimizer_state_specs(args.optimizer, specs) if pipe
-                 else lmtrain.optimizer_state_specs(args.optimizer, specs))
+    rows = rebuild.rows(mesh)
+    # built here, not by the caller: an in-process shrink must be able to
+    # free it (and, under NCCL, its graphs) before the groups go
+    step = rebuild.step(mesh, 1.0)
+
+    def state_specs():
+        return (ppl.pp_optimizer_state_specs(args.optimizer, specs) if pipe
+                else lmtrain.optimizer_state_specs(args.optimizer, specs))
+
+    mom_specs = state_specs()
+
+    def mesh_meta() -> dict:
+        """The save-time topology of the CURRENT mesh (read again after an
+        in-process shrink: mesh, specs and accum are rebound)."""
+        return EL.lm_mesh_meta(mesh, specs, args.optimizer, batch=args.batch_size,
+                               accum_steps=args.accum_steps, pp_interleave=args.pp_interleave)
 
     def ckpt_meta(i: int, loss_val: float) -> dict:
         """The JAX CLI's checkpoint meta, with the exact-resume cursor (every
         batch is a function of (seed, step)) and the save-time topology."""
         return {"mesh": mesh.desc, "optimizer": args.optimizer, "mom_format": MOM_FORMAT,
                 "loss": loss_val, "pp_interleave": args.pp_interleave,
-                "mesh_meta": lm_mesh_meta(mesh, specs, args.optimizer, batch=args.batch_size,
-                                          accum_steps=args.accum_steps,
-                                          pp_interleave=args.pp_interleave),
-                **resume_cursor(step=i, seed=args.seed)}
+                "mesh_meta": mesh_meta(), **resume_cursor(step=i, seed=args.seed)}
 
     def save(i: int, loss) -> None:
         ck.save(i, lmtrain.checkpoint_state(params, mom, specs, mom_specs, mesh,
@@ -755,6 +896,7 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
 
     ck = None
     step0 = 0
+    reshards = []  # the elastic restores' {"step", "seconds", "bytes"}
     if args.checkpoint_dir:
         from .utils.checkpoint import TreeCheckpointer
 
@@ -765,9 +907,39 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
                 f"(latest step {ck.latest_step()}); pass --resume to continue that run or "
                 "use a fresh directory (saves at existing step numbers would be silently "
                 "skipped)")
-        if args.resume:
+        if args.resume and args.elastic:
+            restored = _elastic_restore(args, ck, mesh, log, cfg=cfg, params=params, mom=mom,
+                                        specs=specs, mom_specs=mom_specs, meta=mesh_meta(),
+                                        tracer=tracer, registry=registry)
+            if restored is None:
+                log(f"(WARNING: --resume found no checkpoint in {args.checkpoint_dir}; "
+                    "starting from scratch)")
+            else:
+                last, meta, took = restored
+                resharded = took is not None
+                if resharded:
+                    reshards.append(took)
+                try:
+                    check_cursor(meta, seed=args.seed)
+                except ValueError as e:
+                    raise SystemExit(str(e))
+                step0 = last + 1
+                if resharded and not pipe:
+                    new_accum = EL.rescaled_accum_steps(
+                        meta.get("mesh_meta") or {}, batch=args.batch_size, new_dp=args.dp,
+                        accum_steps=args.accum_steps)
+                    if new_accum != args.accum_steps:
+                        log(f"(elastic: accum-steps {args.accum_steps} -> {new_accum} keeps the "
+                            f"global batch {args.batch_size} - and with it the data cursor - "
+                            "exact across the dp change)")
+                        args.accum_steps = new_accum
+                        # not yet called, so not yet captured: built again
+                        step = rebuild.step(mesh, 1.0)
+                log(f"(Resumed from step {last}; continuing at {step0})")
+        elif args.resume:
             step0 = _restore(args, ck, mesh, log, params=params, mom=mom, specs=specs,
                              mom_specs=mom_specs)
+    tokens, targets = rows(*rebuild.host_batch)
 
     run = init_run(jsonl_path=args.metrics_jsonl, rank=mesh.rank if mesh.joined else None)
     run["parameters"] = {
@@ -831,13 +1003,15 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
     stall_at = tuple(args.chaos_stall_step or ())
     if stall_at and args.chaos_stall_rank is not None and (rank or 0) != args.chaos_stall_rank:
         stall_at = ()  # this rank is not the designated straggler
-    if args.chaos_spike_step or stall_at or args.chaos_sigterm_after is not None:
+    if (args.chaos_spike_step or stall_at or args.chaos_sigterm_after is not None
+            or args.chaos_shrink_at_step is not None):
         from .parallel.fault import ChaosMonkey
 
         monkey = ChaosMonkey(spike_at=tuple(args.chaos_spike_step or ()),
                              sigterm_after=args.chaos_sigterm_after, stall_at=stall_at,
-                             stall_s=args.chaos_stall_seconds, preempt=preempt, tracer=tracer,
-                             log=log)
+                             stall_s=args.chaos_stall_seconds,
+                             shrink_at=args.chaos_shrink_at_step, preempt=preempt,
+                             tracer=tracer, log=log)
     guard = hpipe = None
     if args.guard != "off":
         guard = G.TrainingGuard(
@@ -913,6 +1087,59 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
         i = snap_step
         return True
 
+    def do_elastic_shrink(new_dp: int, at_step: int) -> bool:
+        """Answer a SHRINK preemption in process (the emergency checkpoint
+        is on disk): free the step's programs, re-form the process group
+        over the first new_dp x sp x tp ranks (`shrink_group`; False on a
+        rank that leaves), build the survivors' mesh, state and step,
+        reshard the checkpoint onto them (the same `elastic_restore` a
+        fresh process takes), re-slice the gradient accumulation so the
+        global batch and the data cursor stay exact, and continue."""
+        nonlocal mesh, params, mom, specs, mom_specs, step, run_step, rows, tokens, targets
+        nonlocal leaves, ema, cards
+        from .parallel.distributed import shrink_group
+        from .parallel.reshard import rescale_accum
+
+        old_dp = mesh.dp
+        whole_ema = None
+        if ema is not None:
+            # the average is not checkpointed: its whole tree crosses on the host
+            whole_ema = tfm.to_numpy(lmtrain.gather_params(
+                lmtrain.tree_unflatten(params, ema), specs, mesh))
+        # the step's programs (under NCCL, graphs over the old groups' collectives)
+        # go before the groups
+        step = run_step = None
+        if monitor.recompiles is not None:
+            monitor.recompiles.swap(None)
+        gc.collect()
+        if not shrink_group(new_dp * mesh.sp * mesh.tp, device=device):
+            return False
+        mesh = lmtrain.create_lm_mesh(new_dp, args.sp, args.tp, device=device)
+        args.accum_steps = rescale_accum(args.batch_size, old_dp, new_dp, args.accum_steps)
+        args.dp = new_dp
+        params, specs, mom = rebuild.state(mesh)
+        mom_specs = state_specs()
+        reshards.append(_elastic_restore(
+            args, ck, mesh, log, cfg=cfg, params=params, mom=mom, specs=specs,
+            mom_specs=mom_specs, meta=mesh_meta(), tracer=tracer, registry=registry)[2])
+        step = rebuild.step(mesh, guard.lr_scale if guard is not None else 1.0)
+        run_step = wrap_step(at_step + 1)
+        leaves = lmtrain.tree_leaves(params)
+        if whole_ema is not None:
+            ema = [x.to(device) for x in lmtrain.tree_leaves(
+                lmtrain.shard_params(tfm.from_jax_params(whole_ema), cfg, mesh)[0])]
+        cards = _cards(mesh)
+        rows = rebuild.rows(mesh)
+        tokens, targets = rows(*rebuild.host_batch)
+        if guard is not None:
+            # the rolling snapshot holds the old layout; the next cadence retakes it
+            guard.drop_snapshot()
+        if hpipe is not None:
+            hpipe.clear()
+        log(f"(elastic: continuing at step {at_step + 1} on mesh {mesh.desc}, "
+            f"accum_steps={args.accum_steps})")
+        return True
+
     i = step0
     while i < end_step:
         if guard is not None and (i - step0) % args.snapshot_every == 0:
@@ -978,12 +1205,29 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
         last_step = i
         if monkey is not None:
             monkey.after_step(i)
+            if monkey.shrink_at == i:
+                # every rank raised it after this step: agreed now, not at the next launch
+                stop = preempt.agreed()
         if stop:
+            if ck is not None and saved_at != i:
+                save(i, loss)
+                saved_at = i
+            if monkey is not None and monkey.shrink_at == i and ck is not None:
+                # elastic path: the emergency checkpoint is the hand-off;
+                # reshard it onto the surviving ranks and keep training
+                log(f"(emergency checkpoint at step {i}; SHRINK preemption -> resharding "
+                    "onto the surviving ranks)")
+                old_mesh = mesh
+                if not do_elastic_shrink(args.chaos_shrink_to, i):
+                    _leave(args, old_mesh, i, log=log, ck=ck, run=run, result=result,
+                           losses=losses, start_step=step0)
+                    return
+                preempt.requested = False
+                preempt.signame = None
+                i += 1
+                continue
             preempted = True
             if ck is not None:
-                if saved_at != i:
-                    save(i, loss)
-                    saved_at = i
                 log(f"(emergency checkpoint at step {i}; resume with --resume to continue "
                     "bit-exactly)")
             else:
@@ -1095,6 +1339,7 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, step, rows, stre
         mom["t"] = lmtrain.adam_count(mom)  # the exact count, for callers
     if result is not None:
         result.update(losses=[float(x) for x in losses], params=params, mom=mom, step=step,
+                      left=False, reshards=reshards,
                       mesh=mesh, cards=cards, specs=specs, start_step=step0,
                       guard=None if guard is None else {**guard.summary(), **guard_io},
                       checkpoint=None if ck is None else {"save": ck.last_save,

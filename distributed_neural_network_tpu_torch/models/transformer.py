@@ -235,6 +235,21 @@ def init_params(seed: int, cfg: TransformerConfig, device="cpu"):
     return to_device(params, device)
 
 
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """`init_params`' tree of leaf shapes (tuples), without drawing a
+    number: what a template of a checkpoint's parameters needs."""
+    d, f, v, n_l, e = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers, cfg.n_experts
+    ex = (e,) if e else ()
+    layers = {"ln1_scale": (n_l, d), "ln1_bias": (n_l, d), "wq": (n_l, d, d),
+              "wk": (n_l, d, d), "wv": (n_l, d, d), "wo": (n_l, d, d), "ln2_scale": (n_l, d),
+              "ln2_bias": (n_l, d), "w1": (n_l, *ex, d, f), "b1": (n_l, *ex, f),
+              "w2": (n_l, *ex, f, d), "b2": (n_l, *ex, d)}
+    if e:
+        layers["wr"] = (n_l, d, e)
+    return {"embed": (v, d), "lnf_scale": (d,), "lnf_bias": (d,), "head": (d, v),
+            "layers": layers}
+
+
 def param_skeleton(cfg: TransformerConfig):
     """The parameter tree's structure (`init_params`' keys, placeholder
     leaves): what the partition-rule matcher walks when no parameters

@@ -25,6 +25,11 @@ NCCL when every local rank has a card of its own (rank r on
 ``cuda:LOCAL_RANK``), gloo when ranks share a card (as on a one-GPU machine:
 NCCL refuses two ranks on one GPU). The CLI prints the choice.
 
+`shrink_group` re-forms the default group over its first ranks, the
+survivors of an elastic shrink (`lm_train.py --chaos-shrink-at-step`): JAX
+drops devices and keeps its process, a torchrun rank is a process, so the
+others leave.
+
 `create_hybrid_mesh` is the JAX package's DCN x ICI mesh as a rank layout
 (`RankMesh`): its outer ("dcn") axes cross hosts, its inner ("ici") axes
 stay within one host, ranks grouped by host as JAX groups devices by
@@ -165,6 +170,52 @@ def initialize(
             "DNN_TPU_COORDINATOR_BACKOFF_S", DEFAULT_COORDINATOR_BACKOFF_S)),
         log=log, sleep=_sleep, clock=_clock,
     )
+    return True
+
+
+def shrink_group(n: int, *, device, timeout_s: float = DEFAULT_COORDINATOR_DEADLINE_S) -> bool:
+    """Re-form the process group over its first `n` ranks (the survivors of
+    an elastic shrink); True on a survivor, False on a rank that left.
+
+    Every rank of the old group calls it at the same point. Rank 0 opens a
+    fresh `TCPStore` on the rendezvous host (``MASTER_ADDR``, as torchrun
+    sets it; else this host) and broadcasts its port over
+    the old group; then every rank destroys the old group (and every group
+    made in it: the mesh's axis groups, the preemption flag's gloo twin),
+    and the survivors join a new default group of `n` ranks through that
+    store, on the old backend, each keeping its rank and card. So every
+    later collective - the mesh's groups (`parallel/mesh.py`
+    `make_axis_groups`), the checkpoint's barrier, the preemption
+    agreement, `collective_form` - runs over the survivors alone, and no
+    rank calls a collective of the old group after this. At `n` 1 the one
+    survivor leaves the group and runs as a single process. Under NCCL the
+    CUDA graphs that captured the old groups' collectives must be freed
+    before the call."""
+    rank, world, backend = dist.get_rank(), dist.get_world_size(), dist.get_backend()
+    if not 1 <= n < world:
+        raise ValueError(f"a shrink keeps 1 to {world - 1} of the {world} ranks, not {n}")
+    addr = os.environ.get("MASTER_ADDR") or "localhost"
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = None
+    if rank == 0 and n > 1:
+        store = dist.TCPStore(addr, 0, n, is_master=True, wait_for_workers=False,
+                              timeout=timeout)
+    port = torch.tensor([store.port if store is not None else 0], dtype=torch.int64,
+                        device=device if backend == "nccl" else "cpu")
+    dist.broadcast(port, src=0)
+    port = int(port.item())
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    dist.destroy_process_group()
+    if rank >= n:
+        return False
+    if n > 1:
+        if store is None:
+            store = dist.TCPStore(addr, port, n, is_master=False, timeout=timeout)
+        kwargs = dict(backend=backend, store=store, rank=rank, world_size=n, timeout=timeout)
+        if backend == "nccl":
+            kwargs["device_id"] = torch.device(device)
+        dist.init_process_group(**kwargs)
     return True
 
 

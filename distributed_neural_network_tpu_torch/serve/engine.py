@@ -20,10 +20,14 @@ kernel's plain version under ``torch``; the kernel reads the gathered
 
 Chunked prefill (``prefill_chunk > 1``) runs up to that many prompt tokens
 of one sequence per call (causal within the chunk plus the cached history),
-bounded per tick by ``prefill_token_budget``. Its attention is the decode
-tick's, with one query row per prompt token at its own position: the kernel
-on the ``cuda`` route. The JAX prefill instead rounds its scores to the
-model dtype and normalises before P.V; the port's choice makes a chunked
+bounded per tick by ``prefill_token_budget``. A call takes a whole chunk or
+the prompt's rest; unlike the JAX engine, a budget's smaller leftover waits
+for the next tick rather than start a second prompt off the chunk grid, so
+a prompt's chunks, and under int8 KV its codes, do not depend on what else
+the engine serves. Its attention is the decode tick's, with one query row
+per prompt token at its own position: the kernel on the ``cuda`` route.
+The JAX prefill instead rounds its scores to the model dtype and
+normalises before P.V; the port's choice makes a chunked
 prompt give the same bits as one fed token by token, as the offline
 `generate()` feeds it, so at bf16 the engine's greedy streams equal
 generate()'s on the card.
@@ -756,6 +760,7 @@ class ServeEngine:
         # ---- chunked prefill phase (prefill_chunk > 1 only)
         if ecfg.prefill_chunk > 1:
             budget = ecfg.prefill_token_budget or ecfg.prefill_chunk
+            chunk = min(ecfg.prefill_chunk, budget)
             for seq in todo:
                 if budget <= 0:
                     break
@@ -766,7 +771,13 @@ class ServeEngine:
                 remaining = seq.prompt_len - 1 - seq.pos
                 if remaining <= 0:
                     continue
-                n = min(remaining, ecfg.prefill_chunk, budget)
+                # a whole chunk or the prompt's rest, never a smaller
+                # leftover of the tick's budget: the chunk boundaries are
+                # then the prompt's alone, and under int8 KV so are its
+                # codes (a block that two chunks write is quantized twice)
+                n = min(remaining, chunk)
+                if n > budget:
+                    continue
                 try:
                     self.kv.ensure_range(seq.seq_id, seq.pos + n - 1)
                 except OutOfBlocks:

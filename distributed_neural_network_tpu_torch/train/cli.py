@@ -81,7 +81,6 @@ SLICE5 = "slice 5, static analysis (ROADMAP.md Queue 1 item 6)"
 
 # dest -> (flag, the slice that brings it); each is parsed with default None
 LATER_FLAGS = {
-    "elastic": ("--elastic", SLICE4),
     "neptune": ("--neptune", SLICE4),
 }
 
@@ -176,6 +175,12 @@ def add_common_flags(p: argparse.ArgumentParser, *, epochs: int, batch_size: int
                    "to the port")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --checkpoint-dir")
+    p.add_argument("--elastic", action="store_true",
+                   help="elastic resume (parallel/reshard.py): accept a checkpoint written "
+                   "under a DIFFERENT --nb-proc and reshard the per-worker momentum stack onto "
+                   "this run's workers (shrink: surviving workers keep their buffers; grow: new "
+                   "workers start with zero momentum). Without it a worker-count mismatch is a "
+                   "hard error")
     p.add_argument(
         "--on-sigterm", choices=("checkpoint", "ignore"), default="checkpoint",
         help="checkpoint = on SIGTERM/SIGINT finish the current epoch, write an emergency "
@@ -470,7 +475,8 @@ def _run_training_body(args, regime, *, log, cfg, device, rank, tracer, trace_ou
                                     keep=args.checkpoint_keep,
                                     backend=args.checkpoint_backend, registry=registry)
         if args.resume:
-            start_epoch = checkpointer.restore_latest(engine, log=log)
+            start_epoch = checkpointer.restore_latest(
+                engine, elastic=bool(getattr(args, "elastic", False)), log=log)
             if start_epoch:
                 secs, nbytes = checkpointer.last_restore
                 log(f"(Resumed from checkpoint: next epoch {start_epoch}; read {nbytes:,} B "

@@ -277,8 +277,8 @@ def _make_backend(backend: str, directory: str, keep: int):
 class _CkptMetrics:
     """Live metrics of both checkpointers (`utils/obs.py`; registry=None is
     a no-op): saves, the last save's time (what a staleness watchdog ages
-    against) and its step; each save is a ``checkpoint_save`` flight
-    event."""
+    against) and its step, and the elastic reshards by kind; each save is a
+    ``checkpoint_save`` flight event, each reshard an ``elastic`` one."""
 
     def __init__(self, registry=None):
         if registry is None:
@@ -295,6 +295,10 @@ class _CkptMetrics:
         self.last_step = registry.gauge(
             "checkpoint_last_step", "Step/epoch of the newest checkpoint"
         )
+        self.elastic_events = registry.counter(
+            "elastic_events_total",
+            "Elastic reshard events, by kind (train/elastic.py)",
+        )
 
     def saved(self, step: int) -> None:
         from .obs import flight_event
@@ -303,6 +307,12 @@ class _CkptMetrics:
         self.last_save.set(time.time())
         self.last_step.set(int(step))
         flight_event("checkpoint_save", step=int(step))
+
+    def elastic(self, kind: str) -> None:
+        from .obs import flight_event
+
+        self.elastic_events.labels(kind=kind).inc()
+        flight_event("elastic", what=kind)
 
 
 class TreeCheckpointer:
@@ -429,12 +439,22 @@ class Checkpointer:
     def latest_epoch(self):
         return self._b.latest_step()
 
-    def restore_latest(self, engine, *, log=print) -> int:
+    def restore_latest(self, engine, *, elastic: bool = False, log=print) -> int:
         """Load the newest valid checkpoint into `engine`; returns the next
         epoch to run (0 if no checkpoint exists). A corrupt newest
-        checkpoint is skipped with a warning. A checkpoint of another worker
-        count (validated against its own stack shape) or another regime
-        raises, naming the fix."""
+        checkpoint is skipped with a warning. A checkpoint of another regime
+        raises, naming the fix.
+
+        ``elastic=True`` accepts a checkpoint written under a DIFFERENT
+        worker count: the restore template is rebuilt for the saved stack
+        shape (so leaf validation still applies) and the per-worker momentum
+        stack is resharded onto this engine's workers
+        (`parallel/reshard.py` `reshard_momentum_stack`: surviving workers
+        keep their buffers on a shrink, new workers start with zero momentum
+        on a grow); across ranks each rank then takes its workers' rows
+        (`Engine.load_state_tree`). The replicated params re-place
+        unchanged. Without it, a worker-count mismatch stays an error naming
+        the fix."""
         steps = self._b.all_steps()
         if not steps:
             return 0
@@ -464,12 +484,26 @@ class Checkpointer:
         if meta is None:
             raise last_err
         if meta["n_workers"] != engine.n_workers:
-            raise ValueError(
-                f"checkpoint was written with "
-                f"n_workers={meta['n_workers']}, engine has "
-                f"{engine.n_workers} - momentum buffers don't map; "
-                "pass elastic=True (CLI: --elastic) to reshard the "
-                "momentum stack onto this worker count"
+            if not elastic:
+                raise ValueError(
+                    f"checkpoint was written with "
+                    f"n_workers={meta['n_workers']}, engine has "
+                    f"{engine.n_workers} - momentum buffers don't map; "
+                    "pass elastic=True (CLI: --elastic) to reshard the "
+                    "momentum stack onto this worker count"
+                )
+            from ..parallel.reshard import reshard_momentum_stack
+
+            n_saved = int(meta["n_workers"])
+            state = {"params": state["params"],
+                     "mom": reshard_momentum_stack(state["mom"], engine.n_workers)}
+            self._metrics.elastic("shrink" if engine.n_workers < n_saved else "grow")
+            log(
+                f"(elastic: momentum stack resharded {n_saved} -> "
+                f"{engine.n_workers} workers; "
+                + ("surviving workers keep their buffers)"
+                   if engine.n_workers < n_saved
+                   else "new workers start with zero momentum)")
             )
         if meta["regime"] != engine.config.regime:
             raise ValueError(

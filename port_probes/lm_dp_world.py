@@ -219,7 +219,8 @@ def rank_main(spec: dict) -> int:
         with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
             json.dump(info, f)
         gc.collect()
-        dist.destroy_process_group()
+        if dist.is_initialized():  # a shrink run among `then` may have left the group
+            dist.destroy_process_group()
     return 0
 
 

@@ -64,11 +64,31 @@ def test_default_device_is_cuda_and_fails_cleanly_without_it(tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("flags", [
-    ["--elastic"], ["--sharding", "auto"], ["--dynamics"], ["--neptune"],
+    ["--sharding", "auto"], ["--dynamics"], ["--neptune"],
 ])
 def test_later_slice_flag_raises(flags):
     with pytest.raises(NotImplementedError, match="slice"):
         cli.main(["--device", "cpu", *TINY, *flags], log=lambda _: None)
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_elastic_flag_resumes_another_worker_count(tmp_path, workers):
+    """--elastic runs since elastic resume was ported: a checkpoint of 2
+    workers resumes at 1 (a shrink) and at 4 (a grow) with the JAX line;
+    without it the worker count's mismatch is the error naming --elastic."""
+    ck = str(tmp_path / "ck")
+    base = ["--device", "cpu", *TINY, "--log-dir", str(tmp_path / "log"), "--checkpoint-dir", ck]
+    assert cli.main([*base[:-2], "--epochs", "1", "--checkpoint-dir", ck],
+                    log=lambda _: None) == 0
+    more = ["--nb-proc", str(workers), "--resume"]
+    with pytest.raises(ValueError, match="--elastic"):
+        cli.main(base + more, log=lambda _: None)
+    lines = []
+    assert cli.main(base + more + ["--elastic"], log=lines.append) == 0
+    kind = ("surviving workers keep their buffers" if workers < 2
+            else "new workers start with zero momentum")
+    assert f"(elastic: momentum stack resharded 2 -> {workers} workers; {kind})" in lines
+    assert "(Resumed from checkpoint: next epoch 1" in "\n".join(lines)
 
 
 @pytest.mark.parametrize("flag", ["--resume", "--checkpoint-dir", "--trace-out",

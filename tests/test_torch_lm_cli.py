@@ -126,10 +126,8 @@ def test_flash_launch_formulas(flags, tmp_path, monkeypatch):
 
 
 LATER = {
-    "--sharding auto": "item 6",
-    "--elastic": "slice 4", "--dynamics-jsonl d.jsonl": "slice 4",
-    "--dynamics": "slice 4", "--chaos-shrink-to 1": "slice 4",
-    "--chaos-shrink-at-step 1": "slice 4",
+    "--sharding auto": "item 6", "--dynamics-jsonl d.jsonl": "slice 4",
+    "--dynamics": "slice 4",
 }
 
 
@@ -432,6 +430,38 @@ def _port_error(capsys, argv):
         lm_train.main(["--device", "cpu"] + argv, log=lambda line: None)
     return e.value.code if isinstance(e.value.code, str) else (
         capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1])
+
+
+# the JAX CLI's checks of --elastic and the in-process shrink (lm_train.py),
+# each with its port
+SHRINK = ["--chaos-shrink-at-step", "1", "--checkpoint-dir", "ck"]
+ELASTIC_ERRORS = {
+    "elastic without a resume": ["--elastic"],
+    "shrink under pp": ["--dp", "2", "--pp", "2", *SHRINK],
+    "shrink without a checkpoint dir": ["--dp", "2", "--chaos-shrink-at-step", "1"],
+    "shrink without the preemption path": ["--dp", "2", *SHRINK, "--on-sigterm", "ignore"],
+    "shrink with eval": ["--dp", "2", *SHRINK, "--eval-every", "2", "--data-path", "c.npy"],
+    "shrink to dp": ["--dp", "2", *SHRINK, "--chaos-shrink-to", "2"],
+    "shrink to 0": ["--dp", "2", *SHRINK, "--chaos-shrink-to", "0"],
+    "shrink at dp 1": SHRINK,
+    "batch over the shrunk dp": ["--dp", "4", *SHRINK, "--chaos-shrink-to", "3"],
+}
+
+
+@pytest.mark.parametrize("name", list(ELASTIC_ERRORS))
+def test_elastic_argument_errors_are_the_jax_cli_texts(monkeypatch, capsys, name):
+    """The flags that raised until elastic resume was ported refuse what the
+    JAX CLI refuses, with its text (before any process group is joined)."""
+    args = [a for a in TINY if a not in ("--device", "cpu")] + ELASTIC_ERRORS[name]
+    want = _jax_cli_error(monkeypatch, capsys, args)
+    assert "--chaos-shrink" in want or "--elastic" in want
+    assert _port_error(capsys, args) == want
+
+
+def test_shrink_to_defaults_to_half_the_data_axis():
+    args = lm_train.build_parser().parse_args(TINY + ["--dp", "4", *SHRINK])
+    lm_train.validate(lm_train.build_parser(), args)
+    assert args.chaos_shrink_to == 2
 
 
 # the JAX CLI's checks of the mesh's axes (lm_train.py), each with its port

@@ -8,7 +8,10 @@ retires, chunked prefill (chunks 4 and 8), preemption replay and cancel;
 every block freed at the end; the int8 KV pool within one code of the JAX
 engine's after the same ticks, and its streams agreeing per token >= 0.99;
 sampling deterministic per seed; the decode-kernel route (its plain version
-on the CPU) giving the same streams as the plain route.
+on the CPU) giving the same streams as the plain route; a prompt's prefill
+chunks on the chunk grid, and its bf16 and int8 K/V the bits it gets alone,
+whatever else the engine serves (a difference from the JAX engine, whose
+budget leftover starts a second prompt off the grid).
 """
 
 import jax
@@ -192,6 +195,50 @@ def test_int8_pool_tracks_jax_engine(n_devices, both_params):
     pairs = [(a, b) for js, ps in zip(*seqs) for a, b in zip(js.out, ps.out)]
     assert len(pairs) == 24
     assert sum(a == b for a, b in pairs) / len(pairs) >= 0.99
+
+
+def _prompt_codes(params, kv_dtype, company):
+    """Prompt B's prefill chunk starts, the K/V codes and scales of the
+    blocks its chunks fill (the next block also holds a token decoded in a
+    batch whose size, and so its rounding, depends on the company), and
+    its stream, served after the requests of `company`."""
+    eng = _engine(peng, params, max_batch=4, num_blocks=32, block_size=4, max_seq_len=64,
+                  prefill_chunk=4, kv_dtype=kv_dtype)
+    starts, run_prefill = {}, eng._run_prefill
+
+    def spy(toks, pos0, table, n_valid):
+        starts.setdefault(int(table[0]), []).append(pos0)
+        return run_prefill(toks, pos0, table, n_valid)
+
+    eng._run_prefill = spy
+    seqs = [peng.Sequence(i, _prompt(70 + i, n), 4) for i, n in enumerate(company)]
+    seqs.append(peng.Sequence(len(company), _prompt(79, 10), 4))
+    for s in seqs:
+        eng.add(s)
+    b = seqs[-1]
+    while b.pos < b.prompt_len:
+        eng.step()
+    blocks = torch.as_tensor(eng.kv.table([b.seq_id], 3)[0][:2], dtype=torch.int64)
+    slots = (blocks[:, None] * 4 + torch.arange(4)).reshape(-1)
+    pools = [p[:, slots].clone() for p in (eng.k_pool, eng.v_pool)]
+    if kv_dtype == "int8":
+        pools += [s[:, blocks].clone() for s in (eng.k_scale, eng.v_scale)]
+    _drain(eng)
+    return starts[int(blocks[0])], pools, list(b.out)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_prefill_chunks_keep_the_grid_whatever_else_is_served(both_params, kv_dtype):
+    """A budget's leftover (prompt A's 1-token rest leaves 3 of 4) waits for
+    the next tick instead of starting prompt B off the chunk grid, so B's
+    chunks, K/V codes and scales, and stream are those of B served alone."""
+    _, tp = both_params
+    alone = _prompt_codes(tp, kv_dtype, ())
+    shared = _prompt_codes(tp, kv_dtype, (6,))
+    assert alone[0] == shared[0] == [0, 4, 8]
+    for a, s in zip(alone[1], shared[1]):
+        assert torch.equal(a, s)
+    assert alone[2] == shared[2]
 
 
 def test_cancel_frees_blocks_mid_flight(both_params):

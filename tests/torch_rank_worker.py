@@ -96,6 +96,16 @@ in-process reference). The spec:
   bucketed mean (`bucketed_psum`), the per-leaf all-reduce mean, and the
   reduce-scatter / all-gather round trip (`make_overlap_grad_reducers`:
   `reduce_scatter_buckets`, `all_gather_buckets`) with this rank's shards;
+- ``reshard`` (optional): {"seed", "cfg", "cases": [[dp, pp], ...]}: for
+  each case, on `create_lm_mesh(dp)` (pp 1) or `create_pp_mesh(dp, pp)`, a
+  seeded whole parameter tree of the cfg's shapes and momentum tree laid
+  out as ZeRO buffers (`parallel/reshard.py` `momentum_to_zero_tree` /
+  `momentum_to_pp_zero_tree`), this rank's shards cut by `place_tree`, and
+  the collective reassembly (`make_zero_gather_fn` /
+  `make_pp_zero_gather_fn`) held to the host transform
+  (`zero_tree_to_momentum` / `pp_zero_tree_to_momentum`) bit for bit;
+  writes ``reshard_rank{r}.json``: per case the leaves compared, whether
+  every one was equal and the collective form;
 - ``zero`` (optional): {"seed"}: one summed gradient (the same on every
   rank) and each rank's own partial gradients; writes ``zero_rank{r}.npz``:
   the parameters and state after `zero_sgd_step_sharded`,
@@ -572,6 +582,59 @@ def _zero_check(spec, rank, out):
     np.savez(os.path.join(out["dir"], f"zero_rank{rank}.npz"), **res)
 
 
+def _reshard_check(spec, rank, out):
+    import numpy as np
+
+    from distributed_neural_network_tpu_torch.models import transformer as tfm
+    from distributed_neural_network_tpu_torch.parallel import reshard as R
+    from distributed_neural_network_tpu_torch.parallel.mesh import NamedSharding
+    from distributed_neural_network_tpu_torch.parallel.partition import PartitionSpec as P
+    from distributed_neural_network_tpu_torch.parallel.pipeline import (
+        create_pp_mesh,
+        pp_param_specs,
+    )
+    from distributed_neural_network_tpu_torch.train.lm import create_lm_mesh
+    from distributed_neural_network_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = tfm.TransformerConfig(**spec["cfg"])
+    shapes = tfm.param_shapes(cfg)
+    rng = np.random.default_rng(spec["seed"])
+
+    def draw(node):
+        if isinstance(node, dict):
+            return {k: draw(v) for k, v in node.items()}
+        return rng.standard_normal(node).astype(np.float32)
+
+    params, mom = draw(shapes), draw(shapes)
+    result = {}
+    for dp, pp in spec["cases"]:
+        if pp > 1:
+            mesh = create_pp_mesh(dp, pp, device=out["device"])
+            specs = pp_param_specs(cfg)
+            flat = R.momentum_to_pp_zero_tree(mom, specs, pp, dp)
+            state_specs = tree_map(lambda s: P(("pipe", "data")) if "pipe" in R.spec_axes(s)
+                                   else P("data"), specs)
+            gather = R.make_pp_zero_gather_fn(params, mesh)
+            host = R.pp_zero_tree_to_momentum(flat, params, specs, pp)
+        else:
+            mesh = create_lm_mesh(dp, device=out["device"])
+            flat = R.momentum_to_zero_tree(mom, dp)
+            state_specs = tree_map(lambda _: P("data"), flat)
+            gather = R.make_zero_gather_fn(params, mesh)
+            host = R.zero_tree_to_momentum(flat, params)
+        shards = R.place_tree(flat, tree_map(lambda s: NamedSharding(mesh, s), state_specs))
+        got = [x.cpu().numpy() for x in tree_leaves(gather(shards))]
+        want = tree_leaves(host)
+        result[f"dp{dp}pp{pp}"] = {
+            "leaves": len(want), "form": mesh.data.form,
+            "bitwise": len(got) == len(want) and all(
+                g.dtype == w.dtype and g.shape == w.shape and g.tobytes() == w.tobytes()
+                for g, w in zip(got, want)),
+            "bitwise_mom": all(np.array_equal(g, m) for g, m in zip(got, tree_leaves(mom)))}
+    with open(os.path.join(out["dir"], f"reshard_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
 def _resume_run(run, cfg, train, test, rank, out):
     import dataclasses
 
@@ -643,6 +706,8 @@ def main(spec_json: str) -> int:
             _bucket_check(spec["buckets"], rank, out)
         if spec.get("zero"):
             _zero_check(spec["zero"], rank, out)
+        if spec.get("reshard"):
+            _reshard_check(spec["reshard"], rank, out)
         for run in spec.get("runs", []):
             cfg = TrainConfig(**run["config"])
             train = load_split(True, source="synthetic", synthetic_size=run["train"]["size"],
