@@ -7,7 +7,11 @@ Phases (any failure exits non-zero and prints no result):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc/triton versions;
 2. build every CUDA source of csrc/ (one nvcc each, started together, the
-   stream's native batcher by g++ beside them) and time the build; print each tensor-core flash instance's (forward, dq,
+   stream's native batcher by g++ beside them) and time each build; the
+   head kernels' build is waited for here, the decode kernel's at the start
+   of phase 8 and the flash kernels' at the start of phase 12 (the first
+   phases that launch them), so the CNN phases run while nvcc compiles the
+   rest; print each tensor-core flash instance's (forward, dq,
    dkv, and the quantized forward's 8-bit ones) registers, spills, dynamic
    shared memory and blocks per SM, the head forward's and backward's
    cluster instances' registers, shared memory, blocks per SM and clusters
@@ -207,9 +211,10 @@ Phases (any failure exits non-zero and prints no result):
 21. the LM on the data axis (`port_probes/lm_dp_world.py`): `lm_train.main`
    at LM_ARGS with --attn flash in one process (--dp 1: sgd, adam, 4 steps;
    `port_probes/lm_mesh_world.py`'s flash-sgd and flash-adam, whose updates
-   phase 24 reads), then one launch of 2 ranks sharing the card over gloo,
-   each running every case of phases 21-23 (and then 29(e)'s and 32's)
-   through `lm_train.main`
+   phase 24 reads; and the one-process runs of phases 24-26 and 28(c)), then
+   one launch of 2 ranks sharing the card over gloo, each running every
+   case of phases 21-23 (and then 29(e)'s, 33's uninterrupted run, 24-26's,
+   28(c)'s and 32's) through `lm_train.main`
    (--dp 2; the counters set to 0 before each run): sgd and adam, 4 steps: every step's loss
    within LOSS_TOL relative of --dp 1's, the ranks' SUMMARY lines and
    parameters equal, each rank's flash launches the formula, all on the
@@ -226,9 +231,9 @@ Phases (any failure exits non-zero and prints no result):
    bitwise phase 21's sgd / adam run's; each rank's zero-adam state
    (`memory_allocated` around `init_lm_momentum`) within 1% of its shards'
    bytes (half the replicated state plus the padding), beside adam's;
-24. the model axis (`port_probes/lm_mesh_world.py`, one launch of 2 ranks
-   sharing the card over gloo for phases 24-26 and 28(c), the counters set
-   to 0 before each run): `lm_train.main` at LM_ARGS with --tp 2 --attn flash,
+24. the model axis (`port_probes/lm_mesh_world.py`, run by phase 21's
+   launch of 2 ranks sharing the card over gloo, the counters set to 0
+   before each run): `lm_train.main` at LM_ARGS with --tp 2 --attn flash,
    sgd and adam, 4 steps: every step's loss within LOSS_TOL relative of
    the one-process run on the same route (phase 21's sgd and adam and
    their updates; and --precision int8 against its own one-process run: the
@@ -250,7 +255,7 @@ Phases (any failure exits non-zero and prints no result):
    mesh code, held the same way to the one-process run and compared with
    phase 21's losses.
 26. the pipeline axis (`port_probes/pp_world.py`, 2 ranks sharing the
-   card over gloo, run by phase 24's launch of the ranks): `lm_train.main` at LM_ARGS with --pp 2
+   card over gloo, run by phase 21's launch of the ranks): `lm_train.main` at LM_ARGS with --pp 2
    --microbatches 4, GPipe and --pp-interleave 2, 4 steps (cut from 20),
    each held to the one-process run on the plain attention (the pipeline's
    blocks attend with it, as in JAX): every step's loss within LOSS_TOL,
@@ -282,7 +287,7 @@ Phases (any failure exits non-zero and prints no result):
    no-drop capacity and at 4: output and aux within 1e-5, gradients within
    2e-4; (c) --dp 2 (the experts over the data axis, ep 2) on 2 ranks
    sharing the card over gloo at depth 2 (`port_probes/moe_world.py`, run
-   by phase 24's launch of the ranks): the
+   by phase 21's launch of the ranks): the
    losses within LOSS_TOL of one process, the update within UPDATE_TOL
    leaf by leaf (the expert leaves printed), the ranks' SUMMARY lines and
    gathered parameters equal, each rank's flash launches the formula, the
@@ -392,7 +397,36 @@ Phases (any failure exits non-zero and prints no result):
    ones), then --resume --elastic --fused at --nb-proc 2 for 2 epochs
    through `train.cli.main`: the head launches the formula at 2 workers.
    `python3 chip_smoke.py --elastic-check` runs the build and this phase
-   alone (with its own launch of the ranks).
+   alone (with its own launch of the ranks);
+33. the elastic supervisor (`supervisor_phase`,
+   `port_probes/supervisor_world.py`'s flow): the user's launcher, `python -m
+   distributed_neural_network_tpu_torch.launch --nprocs 2 --chaos-kill-rank 1
+   --chaos-kill-at-step 3`, over 2 ranks of the LM entry point sharing the
+   card over gloo at the flagship width (LM_ARGS, --attn flash --dp {devices}
+   --steps 6 --stop-at-step 6 --checkpoint-every 2 --resume --elastic), each
+   rank `lm_train.cli()` (the probe's `worker`, which then writes the rank's
+   flash launch counters): (a) --chaos-kill-signal KILL: the launcher exits 0,
+   SUPERVISOR_SUMMARY exit ok, final_size 1, 2 generations and the one
+   failure rank 1's SIGKILL (rank 0 collateral: its collective failed, it
+   exits 0), postmortem.json with rank 1's flight dump and heartbeat,
+   generation 1 resumed from the newest periodic checkpoint with the elastic
+   lines (dp 2 -> 1, accum 1 -> 2), one graph a step, its flash launches the
+   formula (all mma), every loss within 1e-3 of the uninterrupted dp-2 run
+   of the same flags (run in phase 21's launch of the ranks), the fleet
+   run_record.json valid with a restart gap; (b) --chaos-kill-signal TERM:
+   rank 1 exits PREEMPT_RC after the emergency checkpoint, the one failure
+   its `preempt`, final_size 1, generation 1 resumed at the step after the
+   emergency checkpoint (every step run once), the losses as in (a). Both:
+   the launcher (which imports no torch) never maps the CUDA driver nor
+   opens a /dev/nvidia* file (`/proc/PID/maps`, `/proc/PID/fd`; the workers
+   do: the control), never shows among the card's compute processes, and
+   leaves none of its workers there (checked once both have ended). (a) and
+   (b) run at once, each launcher over its own 2 ranks (4 ranks share the
+   card and the host; no gate depends on the timing). Prints the restart
+   seconds (death -> respawn), death -> first step, the grace spent and ms a
+   step in each generation. `python3 chip_smoke.py
+   --supervisor-check` runs the flash build and this phase alone (with its
+   own launch of the ranks for the uninterrupted run).
 
 The phases' in-process runs share one copy of each synthetic CIFAR-10
 split (`memoize_synthetic`).
@@ -484,8 +518,13 @@ RESUME_WORLD_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "run
 # runs' written by the ranks phase 21 starts, the CNN's copied from phase 29(a)
 ELASTIC_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "elastic_world2")
 ELASTIC_CNN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "elastic_cnn")
+# phase 33's supervised runs (checkpoints: gigabytes; removed in phase 33) and
+# its uninterrupted run's record and checkpoints, written by the ranks phase
+# 21 starts
+SV_RUNS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "supervisor")
+SV_WHOLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "supervisor_whole")
 # the one-process LM runs' parameter updates (~236 MB each), written in phase
-# 21 and 24, read by phase 24's ranks, removed in phase 24
+# 21, read by its launch's ranks (phases 24-25's runs), removed in phase 21
 MESH_UPDATES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
                             "lm_mesh_updates")
 CNN_RESUME = ["--regime", "data_parallel", "--nb-proc", "4", "--kernels", "cuda", "--fused",
@@ -1707,7 +1746,7 @@ def moe_phase(torch, fa, da, kernels, dev, ranks_c) -> dict:
     """Phase 28 (module docstring): the MoE path's runs and gates; adds the
     MoE path's launches to `kernels` and returns what it measured. `ranks_c`:
     (c)'s ranks' records, its one-process reference and that reference's
-    seconds (the ranks run in phase 24's launch)."""
+    seconds (the ranks run in phase 21's launch)."""
     from distributed_neural_network_tpu_torch import lm_train
     from distributed_neural_network_tpu_torch.models import transformer as tfm
     from distributed_neural_network_tpu_torch.parallel.moe import expert_capacity, moe_ffn
@@ -1777,7 +1816,7 @@ def moe_phase(torch, fa, da, kernels, dev, ranks_c) -> dict:
     part_s["b"], t_part = time.perf_counter() - t_part, time.perf_counter()
 
     # (c) --dp 2 (ep 2) on 2 ranks sharing the card over gloo, depth 2: the
-    # ranks ran in phase 24's launch
+    # ranks ran in phase 21's launch
     ranks, ref, ref_s = ranks_c
     moe_run["ranks"] = MW.check(2, ranks, ref, LM_ARGS, mma_counts=mma_counts)
     moe_run["seconds"] = {"one_process": ref_s}
@@ -1792,7 +1831,7 @@ def moe_phase(torch, fa, da, kernels, dev, ranks_c) -> dict:
               f"ranks' SUMMARY lines and gathered parameters equal; the collectives alone per "
               f"step (ms, each rank): gradient sync {[fmt(c['sync']) for c in coll]}, "
               f"all-to-alls {[fmt(c['all_to_all']) for c in coll]}; segments: "
-              f"{row['segments']}; one process {ref_s:.1f} s, 2 ranks in phase 24's launch",
+              f"{row['segments']}; one process {ref_s:.1f} s, 2 ranks in phase 21's launch",
               flush=True)
 
     # (d) MoE generate (the dense dispatch at a capacity of the batch) on
@@ -2994,6 +3033,225 @@ def elastic_check() -> int:
     return 0
 
 
+def supervisor_phase(torch, fa, kernels, whole=None) -> dict:
+    """Phase 33 (module docstring): the elastic supervisor over 2 ranks of
+    the LM entry point sharing the card, a crash and a preemption; adds
+    generation 1's launches to `kernels` and returns what it measured.
+    `whole`: the uninterrupted run's rank-0 record (SV_WHOLE's, made by
+    phase 21's launch of the ranks: its losses and per-step ms); without it
+    (``--supervisor-check``) the phase launches its own 2 ranks for it."""
+    from port_probes import supervisor_world as SW
+
+    res, part_s, t_part = {}, {}, time.perf_counter()
+    out = os.path.join(ROOT, "chiprun_out", "supervisor")
+    os.makedirs(out, exist_ok=True)
+    try:
+        if whole is None:
+            whole = SW.run_whole(2, SV_WHOLE, LM_ARGS)
+            part_s["whole"] = time.perf_counter() - t_part
+        # the launcher's workers need the card's memory this process cached
+        torch.cuda.empty_cache()
+        # (a) and (b) run at once, each launcher over its own 2 ranks: no gate
+        # depends on the timing; the times printed are those of 4 ranks
+        # sharing the card and the host (PERF.md has the phase's runs one at
+        # a time)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            futures = {sig: pool.submit(SW.supervise, 2, os.path.join(SV_RUNS, sig.lower()),
+                                        LM_ARGS, sig=sig, kill_rank=1, timeout=400)
+                       for sig in ("KILL", "TERM")}
+            runs = {sig: f.result() for sig, f in futures.items()}
+        part_s["a+b"] = time.perf_counter() - t0
+        # once both are done, none of their workers may be left on the card
+        after = SW.compute_apps()
+        for part, sig in (("a", "KILL"), ("b", "TERM")):
+            run = runs[sig]
+            run["apps_after"] = after
+            with open(os.path.join(out, f"{sig.lower()}_launcher.log"), "w") as f:
+                f.write("\n".join(f"{t:9.3f} {line}" for t, line in run["lines"]))
+            for g, gen in run["gens"].items():
+                for r, rank in gen["ranks"].items():
+                    with open(os.path.join(out, f"{sig.lower()}_gen{g}_rank{r}.log"), "w") as f:
+                        f.write(rank["log"])
+            try:
+                row = SW.check(run, whole["losses"], whole_ms=whole["step_ms"],
+                               flash_counts=flash_counts, mma_counts=mma_counts, concurrent=2)
+            except AssertionError as e:
+                raise SmokeFailure(f"33({part}): {e}") from e
+            res[sig] = row
+            ms = row["ms_per_step"]
+            print(f"   ({part}) --chaos-kill-signal {sig} to rank 1 at heartbeat step "
+                  f"{row['kill_step']} ((a) and (b) at once): launcher exit 0, "
+                  f"{json.dumps(row['summary'])}; exit codes "
+                  f"{row['returncodes']}; generation 1 resumed from step {row['resumed_from']} "
+                  f"at dp 1 (accum 2), one graph a step, flash launches {row['launches_gen1']} "
+                  f"(the formula, all mma); losses gen 0 {row['losses']['gen0']} (bitwise the "
+                  f"uninterrupted run: {row['losses']['gen0_bitwise']}), gen 1 "
+                  f"{row['losses']['gen1']} (within 1e-3 of "
+                  f"{whole['losses'][row['resumed_from'] + 1:]}); "
+                  f"restart {row['restart_s']:.3f} s death -> respawn (backoff "
+                  f"{row['backoff_s']:g} s), {row['death_to_first_step_s']:.3f} s death -> first "
+                  f"step; grace spent {row['grace_spent_s']:.3f} s; ms a step gen 0 {ms[0]}, "
+                  f"gen 1 {ms[1]} (the uninterrupted dp-2 run's trace, steps 1-5: "
+                  f"{row['ms_per_step_whole']}); the launcher held no CUDA driver "
+                  f"({row['launcher_cuda']}; the workers {row['workers_cuda']}); compute "
+                  f"processes before {row['apps_before']}, during {row['apps_during']}, after "
+                  f"both {row['apps_after']}")
+        for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+            kernels[k]["launches_supervisor"] = {sig.lower(): res[sig]["launches_gen1"][k]
+                                                 for sig in res}
+    finally:
+        shutil.rmtree(SV_RUNS, ignore_errors=True)
+        shutil.rmtree(SV_WHOLE, ignore_errors=True)
+    res["seconds"] = part_s
+    print(f"   parts (s): {json.dumps({k: round(v, 1) for k, v in part_s.items()})}")
+    return res
+
+
+def supervisor_check() -> int:
+    """`python3 chip_smoke.py --supervisor-check`: phase 33 alone (after the
+    flash kernels' build, with its own launch of the ranks for the
+    uninterrupted run), for iterating on it; exits 1 when a gate fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    from distributed_neural_network_tpu_torch.ops import flash_attention as fa
+
+    print(run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
+    fa.build()
+    kernels = {k: {} for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    t0 = time.perf_counter()
+    try:
+        res = supervisor_phase(torch, fa, kernels)
+    except SmokeFailure as e:
+        print(f"supervisor check FAILED: {e}")
+        return 1
+    print(json.dumps({"kernels": kernels, "seconds": res["seconds"],
+                      "total_s": time.perf_counter() - t0}, default=str))
+    print("supervisor check passed")
+    return 0
+
+
+def timed_build(m) -> tuple:
+    """Build kernel module `m`'s CUDA source: (library path, seconds)."""
+    t0 = time.perf_counter()
+    return m.build(), time.perf_counter() - t0
+
+
+def join_build(env, name, future) -> str:
+    """Wait for one kernel build started in phase 2 (a build that failed
+    raises here) and print its library, seconds and ptxas lines."""
+    lib, seconds = future.result()
+    env["build_s_each"][name] = seconds
+    print(f"built {os.path.relpath(lib, ROOT)} in {seconds:.2f} s (started in phase 2 with the "
+          "others, in parallel)")
+    env["ptxas"].append(print_ptxas(lib))
+    return lib
+
+
+def head_build(env, fh, lib) -> None:
+    """Phase 2's checks of the head kernels' instances (module docstring)."""
+    # the head forward's cluster instances (<blocks per 16-row tile>)
+    env["head_fwd_instances"] = ptxas_instances(lib, "mlp3_fwd")
+    for name, info in sorted(env["head_fwd_instances"].items()):
+        info.update(fh.fwd_info(int(name.split("<")[1][:-1])))
+        print(f"   {name}: {info['registers']} registers, spill stores "
+              f"{info['spill_stores']} B; {info['static_smem']} B of static shared memory, "
+              f"{info['blocks_per_sm']} blocks per SM, {info['active_clusters']} clusters "
+              f"at once")
+    check(len(env["head_fwd_instances"]) == 2,
+          f"head forward instances {sorted(env['head_fwd_instances'])}")
+    # the head backward's one instance (<blocks per 16-row tile>), the
+    # size the rule gives
+    env["head_bwd_instances"] = ptxas_instances(lib, "mlp3_bwd")
+    for name, info in sorted(env["head_bwd_instances"].items()):
+        info.update(fh.bwd_info())
+        print(f"   {name}: {info['registers']} registers, spill stores "
+              f"{info['spill_stores']} B; {info['smem_bytes']} B of dynamic shared memory, "
+              f"{info['blocks_per_sm']} blocks per SM, {info['active_clusters']} clusters "
+              f"at once")
+        check(info["cluster"] == fh.bwd_cluster(16),
+              f"the backward is built at {info['cluster']} blocks a tile, the rule says "
+              f"{fh.bwd_cluster(16)}")
+    check(sorted(env["head_bwd_instances"]) == [f"mlp3_bwd_kernel<{fh.bwd_cluster(16)}>"],
+          f"head backward instances {sorted(env['head_bwd_instances'])}")
+    # the backward's group rule: BWD_GROUP_MAX beside the clusters the
+    # card runs at once, and the rule at four batches against the CUDA
+    # source's own
+    bwd = fh.bwd_info()
+    env["bwd_groups"] = {"group_max": fh.BWD_GROUP_MAX,
+                         "active_clusters": bwd["active_clusters"],
+                         "rule": {b: fh.bwd_groups(b) for b in (16, 64, 256, 4096)}}
+    print(f"   backward group rule: BWD_GROUP_MAX {fh.BWD_GROUP_MAX}, {bwd['active_clusters']} "
+          f"clusters of {bwd['cluster']} at once; groups at B 16, 64, 256, 4096: "
+          f"{env['bwd_groups']['rule']}")
+    for b in (1, 16, 17, 64, 256, 1024, 1025, 4096, 8192):
+        check(fh.bwd_groups(b) == fh.kernel_bwd_groups(b),
+              f"group rule at B {b}: {fh.bwd_groups(b)} here, {fh.kernel_bwd_groups(b)} "
+              f"in the CUDA source")
+
+
+def decode_build(env, da, lib) -> None:
+    """The decode kernel's split instances, checked when its build is
+    joined (before phase 8)."""
+    import torch
+
+    # the decode kernel's split instances (<q's dtype, lanes per row,
+    # vectors a lane>; decode_split_q8_kernel: int8 K/V on q's dtype's
+    # lanes), each at its largest head dim and a cache of 256 rows
+    env["decode_split_instances"] = ptxas_instances(lib, "decode_split")
+    for name, info in sorted(env["decode_split_instances"].items()):
+        dt, lanes, vecs = name.split("<")[1][:-1].split(",")
+        f32, q8 = dt == "f32", "_q8_" in name
+        info["head_dim"] = int(lanes) * int(vecs) * (4 if f32 else 8)
+        info.update(da.split_info(torch.float32 if f32 else torch.bfloat16,
+                                  info["head_dim"], 256, q8=q8))
+        print(f"   {name} (Dh {info['head_dim']}): {info['registers']} registers, spill "
+              f"stores {info['spill_stores']} B; {info['static_smem']} B of static shared "
+              f"memory, {info['blocks_per_sm']} blocks per SM, clusters of "
+              f"{info['cluster']}, {info['active_clusters']} at once")
+    n_q8 = sum("_q8_" in n for n in env["decode_split_instances"])
+    check(len(env["decode_split_instances"]) == 26 and n_q8 == 13,
+          f"decode split instances {sorted(env['decode_split_instances'])}")
+
+
+def flash_build(env, fa, lib) -> None:
+    """The flash kernels' tensor-core instances, checked when their build is
+    joined (before phase 12)."""
+    import torch
+
+    # the tensor-core instances: dq and dkv per padded head dim, the
+    # forward's mma.sync ones (16, 32, 128) and its wgmma one (64)
+    env["mma_instances"] = {n: i for n, i in ptxas_instances(lib, "_mma_").items()
+                            if "quant" not in n}
+    env["mma_instances"].update(ptxas_instances(lib, "_wgmma_"))
+    for name, info in sorted(env["mma_instances"].items()):
+        dp = int(name.split("<")[1][:-1])
+        info.update(fa.mma_info(name.split("_mma")[0].split("_wgmma")[0], dp))
+        print(f"   {name}: {info['registers']} registers, spill stores "
+              f"{info['spill_stores']} B, spill loads {info['spill_loads']} B; "
+              f"{info['smem_bytes']} B of dynamic shared memory, {info['blocks_per_sm']} "
+              f"blocks per SM")
+    check(len(env["mma_instances"]) == 12, f"mma instances {sorted(env['mma_instances'])}")
+    # the quantized forward's 8-bit tensor-core instances <o's dtype,
+    # int8 (1) or e4m3 (0), padded head dim>
+    env["quant_mma_instances"] = ptxas_instances(lib, "quant_mma")
+    for name, info in sorted(env["quant_mma_instances"].items()):
+        out, int8, dp = name.split("<")[1][:-1].split(",")
+        info.update(fa.mma_info("flash_fwd_quant", int(dp),
+                                out_dtype=torch.float32 if out == "f32" else torch.bfloat16,
+                                fmt="int8" if int8 == "1" else "fp8"))
+        print(f"   {name}: {info['registers']} registers, spill stores "
+              f"{info['spill_stores']} B, spill loads {info['spill_loads']} B; "
+              f"{info['smem_bytes']} B of dynamic shared memory, {info['blocks_per_sm']} "
+              f"blocks per SM")
+    check(len(env["quant_mma_instances"]) == 12,
+          f"quantized mma instances {sorted(env['quant_mma_instances'])}")
+
+
 def memoize_synthetic() -> None:
     """Make the port's synthetic CIFAR-10 splits once per process: the
     phases' many in-process CLI runs and engines at 50,000 rows then share
@@ -3069,102 +3327,21 @@ def main() -> int:
         print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     with phase("2 build"):
+        # every CUDA source's nvcc and the stream's native batcher (g++, phase
+        # 18) start together; the phases wait for a kernel's build only where
+        # they first launch it: the head kernels here, the decode kernel
+        # before phase 8, the flash kernels before phase 12
         t0 = time.perf_counter()
         from distributed_neural_network_tpu_torch import native
 
-        with ThreadPoolExecutor(4) as pool:
-            # the stream's native batcher (g++, phase 18) builds beside them
-            batcher = pool.submit(native.available)
-            libs = list(pool.map(lambda m: m.build(), (fh, da, fa)))
-            batcher.result()
-        for m in (fh, da, fa):
-            m._lib()
+        build_pool = ThreadPoolExecutor(4)
+        batcher = build_pool.submit(native.available)
+        builds = {m: build_pool.submit(timed_build, mod)
+                  for m, mod in (("head", fh), ("decode", da), ("flash", fa))}
+        env.update(build_s_each={}, ptxas=[])
+        head_build(env, fh, join_build(env, "head", builds["head"]))
+        fh._lib()
         env["build_s"] = time.perf_counter() - t0
-        print(f"built {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
-              f"{env['build_s']:.2f} s (in parallel)")
-        env["ptxas"] = [print_ptxas(lib) for lib in libs]
-        # the tensor-core instances: dq and dkv per padded head dim, the
-        # forward's mma.sync ones (16, 32, 128) and its wgmma one (64)
-        env["mma_instances"] = {n: i for n, i in ptxas_instances(libs[2], "_mma_").items()
-                                if "quant" not in n}
-        env["mma_instances"].update(ptxas_instances(libs[2], "_wgmma_"))
-        for name, info in sorted(env["mma_instances"].items()):
-            dp = int(name.split("<")[1][:-1])
-            info.update(fa.mma_info(name.split("_mma")[0].split("_wgmma")[0], dp))
-            print(f"   {name}: {info['registers']} registers, spill stores "
-                  f"{info['spill_stores']} B, spill loads {info['spill_loads']} B; "
-                  f"{info['smem_bytes']} B of dynamic shared memory, {info['blocks_per_sm']} "
-                  f"blocks per SM")
-        check(len(env["mma_instances"]) == 12, f"mma instances {sorted(env['mma_instances'])}")
-        # the quantized forward's 8-bit tensor-core instances <o's dtype,
-        # int8 (1) or e4m3 (0), padded head dim>
-        env["quant_mma_instances"] = ptxas_instances(libs[2], "quant_mma")
-        for name, info in sorted(env["quant_mma_instances"].items()):
-            out, int8, dp = name.split("<")[1][:-1].split(",")
-            info.update(fa.mma_info("flash_fwd_quant", int(dp),
-                                    out_dtype=torch.float32 if out == "f32" else torch.bfloat16,
-                                    fmt="int8" if int8 == "1" else "fp8"))
-            print(f"   {name}: {info['registers']} registers, spill stores "
-                  f"{info['spill_stores']} B, spill loads {info['spill_loads']} B; "
-                  f"{info['smem_bytes']} B of dynamic shared memory, {info['blocks_per_sm']} "
-                  f"blocks per SM")
-        check(len(env["quant_mma_instances"]) == 12,
-              f"quantized mma instances {sorted(env['quant_mma_instances'])}")
-        # the head forward's cluster instances (<blocks per 16-row tile>)
-        env["head_fwd_instances"] = ptxas_instances(libs[0], "mlp3_fwd")
-        for name, info in sorted(env["head_fwd_instances"].items()):
-            info.update(fh.fwd_info(int(name.split("<")[1][:-1])))
-            print(f"   {name}: {info['registers']} registers, spill stores "
-                  f"{info['spill_stores']} B; {info['static_smem']} B of static shared memory, "
-                  f"{info['blocks_per_sm']} blocks per SM, {info['active_clusters']} clusters "
-                  f"at once")
-        check(len(env["head_fwd_instances"]) == 2,
-              f"head forward instances {sorted(env['head_fwd_instances'])}")
-        # the head backward's one instance (<blocks per 16-row tile>), the
-        # size the rule gives
-        env["head_bwd_instances"] = ptxas_instances(libs[0], "mlp3_bwd")
-        for name, info in sorted(env["head_bwd_instances"].items()):
-            info.update(fh.bwd_info())
-            print(f"   {name}: {info['registers']} registers, spill stores "
-                  f"{info['spill_stores']} B; {info['smem_bytes']} B of dynamic shared memory, "
-                  f"{info['blocks_per_sm']} blocks per SM, {info['active_clusters']} clusters "
-                  f"at once")
-            check(info["cluster"] == fh.bwd_cluster(16),
-                  f"the backward is built at {info['cluster']} blocks a tile, the rule says "
-                  f"{fh.bwd_cluster(16)}")
-        check(sorted(env["head_bwd_instances"]) == [f"mlp3_bwd_kernel<{fh.bwd_cluster(16)}>"],
-              f"head backward instances {sorted(env['head_bwd_instances'])}")
-        # the backward's group rule: BWD_GROUP_MAX beside the clusters the
-        # card runs at once, and the rule at four batches against the CUDA
-        # source's own
-        bwd = fh.bwd_info()
-        env["bwd_groups"] = {"group_max": fh.BWD_GROUP_MAX,
-                             "active_clusters": bwd["active_clusters"],
-                             "rule": {b: fh.bwd_groups(b) for b in (16, 64, 256, 4096)}}
-        print(f"   backward group rule: BWD_GROUP_MAX {fh.BWD_GROUP_MAX}, {bwd['active_clusters']} "
-              f"clusters of {bwd['cluster']} at once; groups at B 16, 64, 256, 4096: "
-              f"{env['bwd_groups']['rule']}")
-        for b in (1, 16, 17, 64, 256, 1024, 1025, 4096, 8192):
-            check(fh.bwd_groups(b) == fh.kernel_bwd_groups(b),
-                  f"group rule at B {b}: {fh.bwd_groups(b)} here, {fh.kernel_bwd_groups(b)} "
-                  f"in the CUDA source")
-        # the decode kernel's split instances (<q's dtype, lanes per row,
-        # vectors a lane>; decode_split_q8_kernel: int8 K/V on q's dtype's
-        # lanes), each at its largest head dim and a cache of 256 rows
-        env["decode_split_instances"] = ptxas_instances(libs[1], "decode_split")
-        for name, info in sorted(env["decode_split_instances"].items()):
-            dt, lanes, vecs = name.split("<")[1][:-1].split(",")
-            f32, q8 = dt == "f32", "_q8_" in name
-            info["head_dim"] = int(lanes) * int(vecs) * (4 if f32 else 8)
-            info.update(da.split_info(torch.float32 if f32 else torch.bfloat16,
-                                      info["head_dim"], 256, q8=q8))
-            print(f"   {name} (Dh {info['head_dim']}): {info['registers']} registers, spill "
-                  f"stores {info['spill_stores']} B; {info['static_smem']} B of static shared "
-                  f"memory, {info['blocks_per_sm']} blocks per SM, clusters of "
-                  f"{info['cluster']}, {info['active_clusters']} at once")
-        n_q8 = sum("_q8_" in n for n in env["decode_split_instances"])
-        check(len(env["decode_split_instances"]) == 26 and n_q8 == 13,
-              f"decode split instances {sorted(env['decode_split_instances'])}")
 
     with phase("3 kernels vs plain"), uncounted(fh.LAUNCHES):
         # comparison launches are not main-path launches; each (N, B) on its
@@ -3505,6 +3682,8 @@ def main() -> int:
         del eng, split, test
 
     with phase("8 decode kernels vs plain"), uncounted(da.LAUNCHES, da.ROUTE_LAUNCHES):
+        decode_build(env, da, join_build(env, "decode", builds["decode"]))
+        da._lib()
         # comparison launches are not main-path launches
         g = torch.Generator(dev).manual_seed(0)
         n_checks = 0
@@ -3853,6 +4032,11 @@ def main() -> int:
                 del eng
 
     with phase("12 flash kernels vs plain"):
+        flash_build(env, fa, join_build(env, "flash", builds["flash"]))
+        fa._lib()
+        batcher.result()
+        build_pool.shutdown()
+        env["build_s"] = max(env["build_s"], max(env["build_s_each"].values()))
         with uncounted(fa.LAUNCHES, fa.ROUTE_LAUNCHES):  # comparison launches
             n, worst, main_err = flash_vs_plain(torch, fa, dev)
         flash_checks = {"cases": n, "worst": worst, "main": main_err}
@@ -4473,14 +4657,28 @@ def main() -> int:
         from torch_rank_worker import busy_union, launch
 
         # the one-process runs of the same global batch, then every run of
-        # phases 21-23 in one launch of the ranks (gloo: they share the card);
-        # the one-process runs are port_probes/lm_mesh_world.py's flash-sgd and
-        # flash-adam (the same flags), whose updates phase 24 reads too
+        # phases 21-26, 28(c), 29(e), 32 and 33's uninterrupted run in one
+        # launch of the ranks (gloo: they share the card; a fresh rank process
+        # costs seconds). The one-process runs are port_probes/lm_mesh_world.py's
+        # (flash-sgd and flash-adam the same flags as phases 21-23's sgd and
+        # adam), pp_world.py's and moe_world.py's; the ranks read their updates
         from port_probes import lm_mesh_world as M
+        from port_probes import moe_world as MW
+        from port_probes import pp_world as PW
 
+        pp_updates = os.path.join(ROOT, "runs", "pp_updates")
+        moe_updates = os.path.join(ROOT, "runs", "moe_updates")
+        mesh_out = os.path.join(ROOT, "chiprun_out", "lm_mesh")
+        pp_out = os.path.join(ROOT, "chiprun_out", "pp")
+        moe_out = os.path.join(ROOT, "chiprun_out", "moe")
         t0 = time.perf_counter()
-        mesh_ref = M.reference(LM_ARGS, ["flash-sgd", "flash-adam"], updates=MESH_UPDATES)
+        mesh_ref = M.reference(LM_ARGS, ["flash-sgd", "flash-adam", "flash-int8", "ring-b8"],
+                               updates=MESH_UPDATES)
         ref = {"sgd": mesh_ref["flash-sgd"], "adam": mesh_ref["flash-adam"]}
+        t_pp = time.perf_counter()
+        pp_ref = PW.reference(LM_ARGS, ["plain"], updates=pp_updates)
+        t_moe = time.perf_counter()
+        moe_ref = MW.reference(LM_ARGS, ["moe-L2"], updates=moe_updates)
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         from port_probes import ckpt_world as CW
@@ -4489,23 +4687,44 @@ def main() -> int:
         ckpt = CW.make_spec(RESUME_WORLD_OUT, LM_ARGS + ["--n-layers", str(RESUME_WORLD_LAYERS)],
                             CW.RUNS[2])
         from port_probes import elastic_world as EW
+        from port_probes import supervisor_world as SW
 
-        # and phase 32's (port_probes/elastic_world.py at dp 2), last: its shrink
-        # leaves rank 1 out of the group
+        # phase 33's uninterrupted run (port_probes/supervisor_world.py's flags
+        # at dp 2); and phase 32's (port_probes/elastic_world.py at dp 2), last:
+        # its shrink leaves rank 1 out of the group
+        shutil.rmtree(SV_WHOLE, ignore_errors=True)
         shutil.rmtree(ELASTIC_OUT, ignore_errors=True)
         elastic = EW.make_spec(ELASTIC_OUT, LM_ARGS,
                                EW.world_runs(2, ELASTIC_OUT, whole=False, stopped=False))
-        ranks = W.run_world(2, os.path.join(ROOT, "chiprun_out", "lm_dp"), LM_ARGS, timeout=1200,
-                            then=[("ckpt_world", ckpt), ("elastic_world", elastic)])
+        try:
+            ranks = W.run_world(2, os.path.join(ROOT, "chiprun_out", "lm_dp"), LM_ARGS,
+                                timeout=1500, then=[
+                                    ("ckpt_world", ckpt),
+                                    ("supervisor_world", SW.make_spec(SV_WHOLE, LM_ARGS, 2)),
+                                    ("lm_mesh_world", M.make_spec(2, mesh_out, LM_ARGS,
+                                                                  MESH_UPDATES)),
+                                    ("pp_world", PW.make_spec(2, pp_out, LM_ARGS, pp_updates)),
+                                    ("moe_world", MW.make_spec(2, moe_out, LM_ARGS,
+                                                               moe_updates)),
+                                    ("elastic_world", elastic)])
+        finally:
+            for d in (MESH_UPDATES, pp_updates, moe_updates):
+                shutil.rmtree(d, ignore_errors=True)
+        ranks_s = time.perf_counter() - t1
+        # phases 24-26 and 28(c) read their records from this launch
+        later_ranks = {"mesh": M.read_ranks(2, mesh_out),
+                       "pp": (PW.read_ranks(2, pp_out), pp_ref, t_moe - t_pp),
+                       "moe": (MW.read_ranks(2, moe_out), moe_ref, t1 - t_moe)}
         dp_run = W.check(2, ranks, ref, LM_ARGS, flash_counts=flash_counts,
                          mma_counts=mma_counts, busy_union=busy_union)
         dp_run["one_process"] = ref
-        dp_run["seconds"] = {"one_process": t1 - t0, "ranks": time.perf_counter() - t1}
+        dp_run["seconds"] = {"one_process": t1 - t0, "ranks": ranks_s}
         runs = dp_run["runs"]
         form = runs["sgd"]["form"]
-        print(f"   one process (dp 1) {t1 - t0:.1f} s; 2 ranks, every run of phases 21-23, "
-              f"29(e) and 32, {time.perf_counter() - t1:.1f} s with start-up; backend "
-              f"{runs['sgd']['backend']}, {runs['sgd']['cards']} card")
+        print(f"   one process (dp 1; the mesh, pipeline and MoE references) {t1 - t0:.1f} s; "
+              f"2 ranks, every run of phases 21-26, 28(c), 29(e), 32 and 33's uninterrupted "
+              f"run, {ranks_s:.1f} s with start-up; backend {runs['sgd']['backend']}, "
+              f"{runs['sgd']['cards']} card")
         print(f"   collective form: {form}")
         for name in ("sgd", "adam"):
             row = runs[name]
@@ -4588,48 +4807,19 @@ def main() -> int:
     with phase("24 LM tensor parallel, 2 ranks on the one card"):
         from port_probes import lm_mesh_world as M
 
-        from port_probes import moe_world as MW
-        from port_probes import pp_world as PW
-
-        updates = MESH_UPDATES
-        pp_updates = os.path.join(ROOT, "runs", "pp_updates")
-        moe_updates = os.path.join(ROOT, "runs", "moe_updates")
-        pp_out = os.path.join(ROOT, "chiprun_out", "pp")
-        moe_out = os.path.join(ROOT, "chiprun_out", "moe")
-        t0 = time.perf_counter()
-        try:
-            # the one-process runs (sgd and adam came with phase 21, their
-            # updates in MESH_UPDATES); and those of phases 26 and 28(c), whose
-            # ranks run in this launch (a fresh rank process costs seconds)
-            ref = {**mesh_ref, **M.reference(LM_ARGS, ["flash-int8", "ring-b8"],
-                                             updates=updates)}
-            t_pp = time.perf_counter()
-            pp_ref = PW.reference(LM_ARGS, ["plain"], updates=pp_updates)
-            t_moe = time.perf_counter()
-            moe_ref = MW.reference(LM_ARGS, ["moe-L2"], updates=moe_updates)
-            torch.cuda.empty_cache()
-            t1 = time.perf_counter()
-            ranks = M.run_world(2, os.path.join(ROOT, "chiprun_out", "lm_mesh"), LM_ARGS,
-                                updates, timeout=1200, then=[
-                                    ("pp_world", PW.make_spec(2, pp_out, LM_ARGS, pp_updates)),
-                                    ("moe_world", MW.make_spec(2, moe_out, LM_ARGS,
-                                                               moe_updates))])
-        finally:
-            for d in (updates, pp_updates, moe_updates):
-                shutil.rmtree(d, ignore_errors=True)
-        # phases 26 and 28(c) read their records from this launch
-        later_ranks = {"pp": (PW.read_ranks(2, pp_out), pp_ref, t_moe - t_pp),
-                       "moe": (MW.read_ranks(2, moe_out), moe_ref, t1 - t_moe)}
-        mesh_run = {"runs": M.check(2, ranks, ref, LM_ARGS, flash_counts=flash_counts,
-                                    mma_counts=mma_counts,
+        # the ranks ran in phase 21's launch, against the one-process runs made
+        # before it
+        mesh_run = {"runs": M.check(2, later_ranks["mesh"], mesh_ref, LM_ARGS,
+                                    flash_counts=flash_counts, mma_counts=mma_counts,
                                     flash_checked=(FLASH_MAIN,) + FLASH_MESH),
-                    "one_process": ref,
-                    "seconds": {"one_process": t1 - t0, "ranks": time.perf_counter() - t1},
+                    "one_process": mesh_ref,
+                    "seconds": {"runs": sum(r["seconds"] for r in
+                                            later_ranks["mesh"][0]["runs"].values())},
                     "cuts": {"sequence runs' global batch": "16 -> 8"}}
         runs24 = mesh_run["runs"]
-        print(f"   one process (--precision int8, --attn ring at batch 8; sgd and adam with "
-              f"phase 21) {t_pp - t0:.1f} s; 2 ranks, every run of "
-              f"phases 24-26 and 28(c), {time.perf_counter() - t1:.1f} s with start-up; collective form: "
+        print(f"   one process (--precision int8, --attn ring at batch 8, sgd and adam) with "
+              f"phase 21; 2 ranks in phase 21's launch, the runs of phases 24-25 "
+              f"{mesh_run['seconds']['runs']:.1f} s of lm_train.main; collective form: "
               f"{runs24['tp2-sgd']['form']}")
         for name in ("tp2-sgd", "tp2-adam", "tp2-int8"):
             row = runs24[name]
@@ -4673,13 +4863,13 @@ def main() -> int:
         from port_probes import pp_world as PW
         from torch_rank_worker import busy_union
 
-        # the ranks ran in phase 24's launch
+        # the ranks ran in phase 21's launch
         ranks, ref, ref_s = later_ranks["pp"]
         pp_run = {"runs": PW.check(2, ranks, ref, LM_ARGS, busy_union=busy_union),
                   "one_process": ref, "seconds": {"one_process": ref_s},
                   "cuts": {"steps": f"{PW.STEPS}"}}
         print(f"   one process (--attn ring, the plain attention the pipeline's blocks run) "
-              f"{ref_s:.1f} s; 2 ranks, both runs, in phase 24's launch")
+              f"{ref_s:.1f} s; 2 ranks, both runs, in phase 21's launch")
         for name, row in pp_run["runs"].items():
             prof = row.get("profile") or {}
             print(f"   {name}: {row['ms_per_step']:.2f} ms per step, {row['tokens_per_s']} "
@@ -4733,6 +4923,12 @@ def main() -> int:
                                     EW.read_ranks(2, ELASTIC_OUT),
                                     dp_run["runs"]["zero-adam"]["losses"])
 
+    supervisor_run = {}
+    with phase("33 supervisor"):
+        from port_probes import supervisor_world as SW
+
+        supervisor_run = supervisor_phase(torch, fa, kernels, SW.read_ranks(2, SV_WHOLE)[0])
+
     designs = {"fused_mlp3_fwd": f"one launch for all replicas, a cluster of "
                                  f"{fh.fwd_cluster(16)} blocks per (replica, 16-row tile)",
                "fused_mlp3_bwd": f"one launch for all replicas, a cluster of "
@@ -4779,7 +4975,7 @@ def main() -> int:
                    "bf16": bf16_run, "data_axis": dp_run, "model_seq_axes": mesh_run,
                    "pipeline": pp_run, "remat_policies": remat_run, "moe": moe_run,
                    "resume": resume_run, "guard": guard_run, "monitor": monitor_run,
-                   "elastic": elastic_run}, f,
+                   "elastic": elastic_run, "supervisor": supervisor_run}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": table}))
     print(smi)
@@ -4794,4 +4990,5 @@ if __name__ == "__main__":
              else resume_check() if sys.argv[1:] == ["--resume-check"]
              else guard_check() if sys.argv[1:] == ["--guard-check"]
              else monitor_check() if sys.argv[1:] == ["--monitor-check"]
-             else elastic_check() if sys.argv[1:] == ["--elastic-check"] else main())
+             else elastic_check() if sys.argv[1:] == ["--elastic-check"]
+             else supervisor_check() if sys.argv[1:] == ["--supervisor-check"] else main())

@@ -68,7 +68,19 @@ flags, the same mesh; a non-empty directory without ``--resume`` is
 refused); ``--stop-at-step N`` ends the run before step N; ``--on-sigterm
 checkpoint`` (the default) turns SIGTERM / SIGINT into an emergency
 checkpoint at the next step boundary that every rank agrees on, and a clean
-exit. Telemetry: ``--trace-out`` (one fenced ``train_step`` span a step,
+exit. Under the elastic supervisor (``python -m
+distributed_neural_network_tpu_torch.launch``, `train/supervisor.py`, which
+sets ``DNN_TPU_SUPERVISOR``) the exit code tells the supervisor what
+happened, as the JAX CLI's does: a rank preempted by its own signal or
+watchdog exits ``PREEMPT_RC`` (75) once its emergency checkpoint, run
+record and flight dump are written; a rank that stopped only because a peer
+asked (the agreed flag's ``PEER``) exits 0, and so does a rank whose
+collective failed because a peer process died (`parallel/distributed.py`
+`peer_lost`: one ``(peer lost ...)`` line, a ``peer_lost`` flight event, the
+run record finalized): both are collateral, so the group shrinks by the one
+rank that failed. Both skip the group's teardown (``os._exit``).
+
+Telemetry: ``--trace-out`` (one fenced ``train_step`` span a step,
 per-rank shards under torchrun), ``--step-stats``, ``--run-record`` (the
 goodput record; the GOODPUT line is printed either way) and
 ``--metrics-jsonl`` (the ``train/loss`` series, and ``step/*`` with
@@ -118,7 +130,7 @@ import torch.distributed as dist
 from .device import resolve_device
 from .models import transformer as tfm
 from .ops.schedule import make_ema_update, warmup_cosine
-from .parallel.distributed import distribute_host_data, initialize, joined
+from .parallel.distributed import distribute_host_data, initialize, joined, peer_lost
 from .parallel import pipeline as ppl
 from .parallel.collectives import COLLECTIVE_FORMS
 from .parallel.ring import zigzag_order
@@ -128,9 +140,12 @@ from .train.engine import SLICE4
 from .train import guard as G
 from .train.guard import PreemptionGuard, check_cursor, resume_cursor
 from .train.measure import model_flops_per_token, peak_flops
+from .train.supervisor import PREEMPT_RC
 from .utils import tracing as TR
 from .utils.goodput import LEDGER, RUN_RECORD_ENV
 
+# set by the supervisor (`train/supervisor.py`) in every worker's environment
+SUPERVISOR_ENV = "DNN_TPU_SUPERVISOR"
 # the keys of the JAX CLI's SUMMARY line, in its order
 SUMMARY_KEYS = (
     "mesh", "steps", "start_step", "last_step", "preempted", "guard", "guard_summary",
@@ -523,7 +538,10 @@ def main(argv=None, *, log=say, result: dict | None = None) -> int:
     at the end, unless the caller had joined it). `result`, when given, is
     filled with the run's per-step losses (the group's mean), its
     parameter and optimizer-state tensors, the step and the mesh, for
-    callers that drive the entry point in-process."""
+    callers that drive the entry point in-process. Under a supervisor
+    (``DNN_TPU_SUPERVISOR`` set) a preempted or peer-lost rank ends the
+    process itself, with the exit code the supervisor reads (module
+    docs)."""
     p = build_parser()
     args = p.parse_args(argv)
     validate(p, args)
@@ -565,7 +583,7 @@ def main(argv=None, *, log=say, result: dict | None = None) -> int:
                 f"{mesh.device})")
         abort = None
         try:
-            _train(args, mesh, log, result)
+            ending = _train(args, mesh, log, result)
         except G.GuardAbort as e:
             # every rank judged the same health and raises at the same step;
             # the exception's frames (and with them the step's graphs) are
@@ -573,6 +591,18 @@ def main(argv=None, *, log=say, result: dict | None = None) -> int:
             abort = str(e)
         if abort is not None:
             raise G.GuardAbort(abort)
+        if ending is not None and os.environ.get(SUPERVISOR_ENV):
+            # the supervisor reads the exit code: PREEMPT_RC for this rank's
+            # own preemption (checkpoint on disk, restart the group from it),
+            # 0 for a rank that stopped for a peer or lost one (collateral:
+            # its peer's exit names the failure). os._exit skips the group's
+            # teardown, which a preempted or lost peer would hold (and an
+            # NCCL group must not be destroyed under its step's live graphs)
+            import sys
+
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(PREEMPT_RC if ending == "preempted" else 0)
     finally:
         if owned and joined():
             # the step's graphs (and their NCCL collectives) go first
@@ -640,7 +670,11 @@ def _build_step(args, cfg, mesh, rules, lr_scale: float = 1.0):
     )
 
 
-def _train(args, mesh, log, result) -> None:
+def _train(args, mesh, log, result) -> str | None:
+    """Build the run on `mesh` and train; how it ended, for a supervisor:
+    None (done), "preempted" (this rank's own request), "peer" (stopped
+    for a peer's request) or "peer_lost" (a supervised rank whose
+    collective failed because a peer process died)."""
     device = mesh.device
     cfg = tfm.TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
@@ -755,11 +789,21 @@ def _train(args, mesh, log, result) -> None:
         profile_dir=args.profile_dir or (os.path.dirname(os.path.abspath(trace_out))
                                          if trace_out else None),
         rank=rank, device=device, log=log)
+    ending = None
     try:
-        _steps(args, mesh, log, result, cfg=cfg, params=params, mom=mom, specs=specs,
-               stream=stream, batch_at=batch_at, eval_fn=eval_fn,
-               whole_eval=whole_eval, cards=cards, tracer=tracer, trace_out=trace_out,
-               preempt=preempt, monitor=monitor, rebuild=rebuild)
+        try:
+            preempted = _steps(args, mesh, log, result, cfg=cfg, params=params, mom=mom,
+                               specs=specs, stream=stream, batch_at=batch_at, eval_fn=eval_fn,
+                               whole_eval=whole_eval, cards=cards, tracer=tracer,
+                               trace_out=trace_out, preempt=preempt, monitor=monitor,
+                               rebuild=rebuild)
+        except RuntimeError as e:
+            if not (os.environ.get(SUPERVISOR_ENV) and joined() and peer_lost(e)):
+                raise
+            _end_peer_lost(e, monitor.registry, log)
+            return "peer_lost"
+        if preempted:
+            ending = "peer" if preempt.signame == "PEER" else "preempted"
         if monitor.server is not None and args.metrics_linger > 0:
             log(f"(metrics server lingering {args.metrics_linger:g}s for final scrapes)")
             time.sleep(args.metrics_linger)
@@ -767,6 +811,22 @@ def _train(args, mesh, log, result) -> None:
         monitor.close()
         if preempt is not None:
             preempt.uninstall()
+    return ending
+
+
+def _end_peer_lost(exc: RuntimeError, registry, log) -> None:
+    """Close a supervised rank whose collective failed because a peer
+    process is gone (`peer_lost`): one line, a ``peer_lost`` flight event
+    with the last finished step, the run record finalized. No checkpoint:
+    its gather would need the lost peer; the newest periodic one stands."""
+    from .utils.obs import flight_event
+
+    step = registry.last_step()
+    what = (str(exc).strip().splitlines() or [type(exc).__name__])[0][:240]
+    log(f"(peer lost after step {step}: {what}; ending as collateral - the supervisor "
+        "restarts the group from the newest checkpoint)")
+    flight_event("peer_lost", step=step, error=what)
+    LEDGER.finalize(metrics={"last_step": step, "preempted": False, "peer_lost": True})
 
 
 def _restore(args, ck, mesh, log, *, params, mom, specs, mom_specs) -> int:
@@ -857,8 +917,9 @@ def _leave(args, mesh, at_step: int, *, log, ck, run, result, losses, start_step
 
 
 def _steps(args, mesh, log, result, *, cfg, params, mom, specs, stream, batch_at,
-           eval_fn, whole_eval, cards, tracer, trace_out, preempt, monitor, rebuild) -> None:
-    """The training loop with its checkpoints, telemetry and close-out."""
+           eval_fn, whole_eval, cards, tracer, trace_out, preempt, monitor, rebuild) -> bool:
+    """The training loop with its checkpoints, telemetry and close-out;
+    whether a preemption stopped it."""
     from .train import elastic as EL
     from .utils.metrics import init_run
     from .utils.obs import flight_event
@@ -1221,7 +1282,7 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, stream, batch_at
                 if not do_elastic_shrink(args.chaos_shrink_to, i):
                     _leave(args, old_mesh, i, log=log, ck=ck, run=run, result=result,
                            losses=losses, start_step=step0)
-                    return
+                    return False
                 preempt.requested = False
                 preempt.signame = None
                 i += 1
@@ -1248,7 +1309,7 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, stream, batch_at
             ck.close()
         run.stop()
         LEDGER.finalize(metrics={"last_step": step0 - 1, "nothing_to_do": True})
-        return
+        return False
     final_loss = float(loss)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -1344,6 +1405,7 @@ def _steps(args, mesh, log, result, *, cfg, params, mom, specs, stream, batch_at
                       guard=None if guard is None else {**guard.summary(), **guard_io},
                       checkpoint=None if ck is None else {"save": ck.last_save,
                                                           "restore": ck.last_restore})
+    return preempted
 
 
 def cli() -> int:

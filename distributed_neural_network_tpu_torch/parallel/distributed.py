@@ -25,6 +25,9 @@ NCCL when every local rank has a card of its own (rank r on
 ``cuda:LOCAL_RANK``), gloo when ranks share a card (as on a one-GPU machine:
 NCCL refuses two ranks on one GPU). The CLI prints the choice.
 
+`peer_lost` tells a collective's failure because a peer process died (what
+a supervised worker ends on as collateral, `lm_train.py`) from any other.
+
 `shrink_group` re-forms the default group over its first ranks, the
 survivors of an elastic shrink (`lm_train.py --chaos-shrink-at-step`): JAX
 drops devices and keeps its process, a torchrun rank is a process, so the
@@ -171,6 +174,24 @@ def initialize(
         log=log, sleep=_sleep, clock=_clock,
     )
     return True
+
+
+# what gloo's TCP pairs and c10d's store say when the process at the other
+# end is gone (its sockets closed by the kernel when it died)
+PEER_LOST_MARKS = ("Connection reset by peer", "Connection closed by peer", "Broken pipe")
+
+
+def peer_lost(exc: BaseException) -> bool:
+    """Whether `exc`, raised by a collective or the store, says that a peer
+    process of the group is gone: a `torch.distributed.DistNetworkError`, or
+    a RuntimeError carrying one of PEER_LOST_MARKS. A gloo rank's collective
+    raises so within a fraction of a second of the peer's death (the peer's
+    sockets close); an NCCL rank waits on the card instead and raises
+    nothing."""
+    network_error = getattr(dist, "DistNetworkError", None)
+    if network_error is not None and isinstance(exc, network_error):
+        return True
+    return isinstance(exc, RuntimeError) and any(m in str(exc) for m in PEER_LOST_MARKS)
 
 
 def shrink_group(n: int, *, device, timeout_s: float = DEFAULT_COORDINATOR_DEADLINE_S) -> bool:

@@ -1,7 +1,8 @@
 """Fault injection: seeded per-epoch worker failures and the step-level
 chaos injectors of the guard layer (counterpart of the JAX package's
 `parallel/fault.py` `live_mask`, `epoch_key`, `straggler_sleep`,
-`StepFaultPlan`, `inject_step_faults` and `ChaosMonkey`).
+`StepFaultPlan`, `inject_step_faults`, `ChaosMonkey`, `KillEvent` and
+`ProcessChaos`).
 
 Each epoch each worker fails independently with probability p; a failed
 worker is left out of the epoch's parameter average and rejoins at the next
@@ -19,6 +20,12 @@ the guard's in-step skip is exercised in the graph, not simulated;
 delivers a real SIGTERM at a step boundary. Each host fault fires once, so
 a rollback that replays the step does not trip it again (the transient
 model; a recurring fault is what the retry budget is for).
+
+Process-level injectors (for `train/supervisor.py`): `ProcessChaos` is a
+plan of `KillEvent`s, each a SIGKILL or SIGTERM the supervisor sends one
+worker once its heartbeat reaches a step. numpy and torch are imported by
+the functions that use them, so the supervisor's launcher, which imports
+this module, imports no torch.
 """
 
 from __future__ import annotations
@@ -28,9 +35,6 @@ import re
 import signal as _signal
 import time
 from dataclasses import dataclass, field
-
-import numpy as np
-import torch
 
 _FAULT_SALT = 0x5EEDFA17
 
@@ -47,6 +51,9 @@ def live_mask(seed: int, epoch: int, n_workers: int, failure_probability: float,
     `mask` (any array of n_workers {0,1} values) is returned as given. p == 0
     is all-live without drawing.
     """
+    import numpy as np
+    import torch
+
     if mask is not None:
         out = np.asarray(mask, np.float32).reshape(-1)
         if out.shape != (n_workers,) or not np.isin(out, (0.0, 1.0)).all():
@@ -133,7 +140,6 @@ def fault_leaves(grads, plan: StepFaultPlan) -> list:
     return hit
 
 
-@torch.no_grad()
 def inject_step_faults(step_i, loss, grads, plan: StepFaultPlan, *, at=None):
     """Apply `plan` to one step's (loss, grads): the chosen gradient leaves
     (a tree of tensors, `fault_leaves`) filled with NaN in place at the
@@ -142,21 +148,26 @@ def inject_step_faults(step_i, loss, grads, plan: StepFaultPlan, *, at=None):
     passes the same index, so the same fault fires on every rank. `at`
     (`fault_masks(plan, device)`) holds the plan's steps on the device,
     made outside a graph capture; without it they are made here."""
-    if at is None:
-        at = fault_masks(plan, torch.as_tensor(step_i).device)
-    if plan.nan_grads_at:
-        bad = (at["nan"] == step_i).any()
-        for g in fault_leaves(grads, plan):
-            g.masked_fill_(bad, float("nan"))
-    if plan.spike_loss_at:
-        spike = (at["spike"] == step_i).any()
-        loss = torch.where(spike, loss * plan.spike_scale, loss)
+    import torch
+
+    with torch.no_grad():
+        if at is None:
+            at = fault_masks(plan, torch.as_tensor(step_i).device)
+        if plan.nan_grads_at:
+            bad = (at["nan"] == step_i).any()
+            for g in fault_leaves(grads, plan):
+                g.masked_fill_(bad, float("nan"))
+        if plan.spike_loss_at:
+            spike = (at["spike"] == step_i).any()
+            loss = torch.where(spike, loss * plan.spike_scale, loss)
     return loss, grads
 
 
 def fault_masks(plan: StepFaultPlan, device) -> dict:
     """The plan's step lists as int64 tensors on `device` (made once, before
     a graph capture, which cannot copy from the host)."""
+    import torch
+
     return {"nan": torch.tensor(plan.nan_grads_at or (-1,), dtype=torch.int64, device=device),
             "spike": torch.tensor(plan.spike_loss_at or (-1,), dtype=torch.int64,
                                   device=device)}
@@ -231,3 +242,73 @@ class ChaosMonkey:
             self._flight("sigterm", step)
             self.log(f"(chaos: delivering SIGTERM after step {step})")
             os.kill(os.getpid(), _signal.SIGTERM)
+
+
+# ------------------------------------------------ process-level injectors
+
+
+@dataclass(frozen=True)
+class KillEvent:
+    """One process-level fault: deliver `sig` ('KILL' or 'TERM') to worker
+    `rank` once its heartbeat reports step >= `at_step`. Rank 0 hosts the
+    process group's TCPStore (at ``MASTER_PORT``), so killing it is the
+    coordinator-death scenario. Fires exactly once (the ChaosMonkey
+    convention: the induced death is then handled - or not - by the
+    supervisor's ordinary failure path)."""
+
+    rank: int
+    at_step: int = 0
+    sig: str = "KILL"
+
+    def __post_init__(self):
+        if self.sig not in ("KILL", "TERM"):
+            raise ValueError(f"KillEvent signal must be 'KILL' or 'TERM', got {self.sig!r}")
+        if self.rank < 0:
+            raise ValueError(f"rank must be >= 0, got {self.rank}")
+
+    @property
+    def signum(self) -> int:
+        return _signal.SIGKILL if self.sig == "KILL" else _signal.SIGTERM
+
+
+@dataclass
+class ProcessChaos:
+    """Process-level fault plan driven by the SUPERVISOR
+    (`train/supervisor.py`, ``python -m distributed_neural_network_tpu_torch.launch
+    --chaos-kill-*``), the real-OS sibling of the in-process ChaosMonkey:
+    instead of perturbing an observation stream it kills group members -
+    SIGKILL for a crash (no emergency checkpoint, the group restarts from the
+    last periodic save), SIGTERM for a preemption notice (the worker's
+    cooperative path writes its checkpoint first), rank 0 for the death of
+    the TCPStore's host. The supervisor polls worker heartbeats and calls
+    `due(steps)` each tick; every event fires once.
+    """
+
+    events: tuple = ()
+    _fired: set = field(default_factory=set)
+
+    def __post_init__(self):
+        self.events = tuple(self.events)
+        for e in self.events:
+            if not isinstance(e, KillEvent):
+                raise TypeError(f"ProcessChaos events must be KillEvent, got {e!r}")
+
+    def __bool__(self):
+        return bool(self.events)
+
+    def due(self, steps: dict) -> list:
+        """[(rank, signum)] for events whose rank has reached its step.
+
+        `steps` maps rank -> last heartbeat step (None before the first
+        beat). at_step=0 fires as soon as the rank heartbeats at all, so
+        rendezvous itself can be chaos-tested.
+        """
+        out = []
+        for i, e in enumerate(self.events):
+            if i in self._fired or e.rank not in steps:
+                continue
+            step = steps[e.rank]
+            if e.at_step <= 0 or (step is not None and step >= e.at_step):
+                self._fired.add(i)
+                out.append((e.rank, e.signum))
+        return out

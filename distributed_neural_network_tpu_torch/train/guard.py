@@ -419,7 +419,11 @@ class PreemptionGuard:
     `install()` replaces the handlers with a flag-setter; the training loop
     checks `requested` at each step boundary, writes an emergency
     checkpoint and exits cleanly. A second signal restores the previous
-    handler and delivers it again (the way out when the loop is wedged).
+    handler and delivers it again (the way out when the loop is wedged); a
+    first signal that finds the flag already up (a `request()`, or a peer's
+    flag taken by `agreed()`) asks for the same stop and forces nothing, so
+    a supervisor's SIGTERM to a rank already stopping for a peer does not
+    cut its emergency checkpoint short.
     As a context manager the handlers are restored on exit. Handlers can
     only be installed on the main thread: elsewhere `install()` is a no-op
     (`requested` stays False unless `request()` is called)."""
@@ -429,13 +433,19 @@ class PreemptionGuard:
         self.log = log
         self.requested = False
         self.signame: str | None = None
+        self.signalled = False
         self._prev = {}
 
     def _handler(self, signum, frame):
-        if self.requested:
+        if self.signalled:
             # second delivery: restore + re-raise via the original handler
             self.uninstall()
             signal.raise_signal(signum)
+            return
+        self.signalled = True
+        if self.requested:
+            self.log(f"({signal.Signals(signum).name} received: already stopping "
+                     f"[{self.signame}]; send again to force)")
             return
         self.requested = True
         self.signame = signal.Signals(signum).name

@@ -33,7 +33,8 @@ d512/L8/H8, d_ff 2048, vocab 32,768, seq 2,048, bf16) the runs of RUNS:
   alone at its shape on the mesh's group and multiplied by its count.
 
 Prints the cards' names and power limits first; exits 1 if a check fails.
-The rank side is this file run with a JSON spec (`rank_main`).
+The rank side is this file run with a JSON spec (`rank_main`, the runs in
+`rank_runs`; another probe's launch runs them with `make_spec`).
 """
 
 import gc
@@ -198,19 +199,37 @@ def _mesh_collectives(torch, dist, step, mesh, args, sync) -> dict:
 
 
 def rank_main(spec: dict) -> int:
+    import torch.distributed as dist
+
+    from distributed_neural_network_tpu_torch.parallel.distributed import initialize
+    from torch_rank_worker import run_then
+
+    initialize(device=spec["device"], log=lambda line: None)
+    try:
+        rank_runs(spec, dist.get_rank())
+        # other probes' runs in this launch of the ranks (`run_world(then=)`)
+        run_then(spec, dist.get_rank())
+    finally:
+        gc.collect()
+        if dist.is_initialized():  # a shrink run among `then` may have left the group
+            dist.destroy_process_group()
+    return 0
+
+
+def rank_runs(spec: dict, rank: int) -> dict:
+    """This rank's RUNS[world] in the process group it has joined; writes
+    its record as ``rank{r}.json`` under the spec's ``out`` (also when a run
+    fails) and returns it (also in another probe's ranks:
+    `torch_rank_worker.run_then`, with `make_spec`)."""
     import torch
     import torch.distributed as dist
 
     from distributed_neural_network_tpu_torch import lm_train
     from distributed_neural_network_tpu_torch.ops import flash
     from distributed_neural_network_tpu_torch.ops import flash_attention as fa
-    from distributed_neural_network_tpu_torch.parallel.distributed import initialize
     from distributed_neural_network_tpu_torch.train import lm as lmtrain
-    from torch_rank_worker import run_then
 
     device, world, lm_args = spec["device"], spec["world"], spec["lm_args"]
-    initialize(device=device, log=lambda line: None)
-    rank = dist.get_rank()
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     # the (B, S, H, D) of every flash call: the shapes the kernels see
@@ -255,16 +274,28 @@ def rank_main(spec: dict) -> int:
             gc.collect()
             if cuda:
                 torch.cuda.empty_cache()
-        flash.flash_mha = inner
-        # other probes' runs in this launch of the ranks (`run_world(then=)`)
-        run_then(spec, rank)
     finally:
         flash.flash_mha = inner
         with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
             json.dump(info, f)
-        gc.collect()
-        dist.destroy_process_group()
-    return 0
+    return info
+
+
+def make_spec(world: int, out: str, lm_args, updates, *, device="cuda") -> dict:
+    """The ranks' spec of RUNS[world] against the one-process updates in
+    `updates` (`reference`), records under `out`."""
+    os.makedirs(out, exist_ok=True)
+    return {"device": device, "world": world, "lm_args": list(lm_args), "out": out,
+            "updates": updates}
+
+
+def read_ranks(world: int, out: str) -> list:
+    """Every rank's record (`rank_runs`) from `out`."""
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
 
 
 def run_world(world: int, out: str, lm_args, updates, *, device="cuda", timeout=900, env=None,
@@ -277,20 +308,15 @@ def run_world(world: int, out: str, lm_args, updates, *, device="cuda", timeout=
     module's `read_ranks`."""
     from torch_rank_worker import launch
 
-    os.makedirs(out, exist_ok=True)
-    spec = {"device": device, "world": world, "lm_args": list(lm_args), "out": out,
-            "updates": updates, "then": [list(t) for t in then]}
+    spec = {**make_spec(world, out, lm_args, updates, device=device),
+            "then": [list(t) for t in then]}
     procs = launch(world, spec, timeout=timeout, env=env, script=os.path.abspath(__file__))
     for r, p in enumerate(procs):
         with open(os.path.join(out, f"rank{r}.log"), "w") as f:
             f.write(p.stdout + "\n" + p.stderr)
         if p.returncode:
             raise RuntimeError(f"rank {r} exited {p.returncode}:\n{p.stderr[-3000:]}")
-    ranks = []
-    for r in range(world):
-        with open(os.path.join(out, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    return ranks
+    return read_ranks(world, out)
 
 
 def check(world, ranks, ref, lm_args, *, flash_counts, mma_counts, flash_checked):

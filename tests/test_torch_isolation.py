@@ -32,7 +32,9 @@ def test_every_module_imports_with_jax_blocked():
               "utils.checkpoint", "utils.tracing", "utils.goodput", "train.guard",
               "parallel.reshard", "train.elastic",
               # the monitor
-              "train.monitor", "utils.obs"):
+              "train.monitor", "utils.obs",
+              # the elastic supervisor and its launcher
+              "train.supervisor", "launch"):
         assert f"distributed_neural_network_tpu_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -79,6 +81,7 @@ def test_probes_import_with_jax_blocked_and_name_no_jax():
     the JAX package blocked, and no line of theirs imports it."""
     probes = sorted(f[:-3] for f in os.listdir(PROBES) if f.endswith(".py"))
     assert "pp_world" in probes and "remat_policies" in probes and "ckpt_world" in probes
+    assert "supervisor_world" in probes
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'distributed_neural_network_tpu'):\n"
